@@ -11,6 +11,11 @@ numpy arrays with depth-stacked blocks, into the reference-layout
   * LayerNorm ``{scale, bias}`` -> ``weight`` / ``bias``;
   * depth-stacked block arrays -> per-layer ``blocks.{i}.*`` entries.
 
+:func:`serving_state_dict_from_jax` does the same for the JAX package's
+int8 serving tree (quantized linears ``{w_q (in, out) int8, w_scale (out,),
+b}``, blocks as a list of per-layer trees), so both packages can hold
+bit-identical int8 weights.
+
 A JAX-trained checkpoint can also reach the port as a ``.pth`` written by
 ``python -m tae_tpu.cli.export_torch``; :func:`load_pth` reads either form
 of such a file.
@@ -31,7 +36,12 @@ def _t(x) -> torch.Tensor:
 
 
 def _linear(out: dict, prefix: str, p: Params) -> None:
-    out[f"{prefix}.weight"] = _t(p["w"]).T.contiguous()
+    if "w_q" in p:
+        wq = np.ascontiguousarray(np.asarray(p["w_q"], dtype=np.int8).T)
+        out[f"{prefix}.w_q"] = torch.from_numpy(wq)
+        out[f"{prefix}.w_scale"] = _t(p["w_scale"])
+    else:
+        out[f"{prefix}.weight"] = _t(p["w"]).T.contiguous()
     if "b" in p:
         out[f"{prefix}.bias"] = _t(p["b"])
 
@@ -41,13 +51,17 @@ def _layer_norm(out: dict, prefix: str, p: Params) -> None:
     out[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _stacked_blocks(out: dict, prefix: str, blocks: Params) -> None:
-    if "q_norm" in blocks["attn"]:
-        raise NotImplementedError("qk_norm blocks are not ported yet "
-                                  "(ROADMAP B16)")
-    depth = int(np.asarray(blocks["norm1"]["scale"]).shape[0])
-    for i in range(depth):
-        layer = _tree_index(blocks, i)
+def _blocks(out: dict, prefix: str, blocks) -> None:
+    """Depth-stacked block arrays, or a list of per-layer trees."""
+    if isinstance(blocks, (list, tuple)):
+        layers = list(blocks)
+    else:
+        depth = int(np.asarray(blocks["norm1"]["scale"]).shape[0])
+        layers = [_tree_index(blocks, i) for i in range(depth)]
+    for i, layer in enumerate(layers):
+        if "q_norm" in layer["attn"]:
+            raise NotImplementedError("qk_norm blocks are not ported yet "
+                                      "(ROADMAP B16)")
         b = f"{prefix}.{i}"
         _layer_norm(out, f"{b}.norm1", layer["norm1"])
         _linear(out, f"{b}.attn.qkv", layer["attn"]["qkv"])
@@ -64,6 +78,8 @@ def _tree_index(tree: Params, i: int) -> dict:
 
 def _patch_embed(out: dict, prefix: str, p: Params, patch: int,
                  in_chans: int) -> None:
+    if "w_q" in p:      # quantized: applied as the plain matrix (E, C·p²)
+        return _linear(out, prefix, p)
     w = np.asarray(p["w"], dtype=np.float32)          # (C·p², E)
     e = w.shape[1]
     out[f"{prefix}.weight"] = _t(w.T.reshape(e, in_chans, patch, patch))
@@ -71,22 +87,33 @@ def _patch_embed(out: dict, prefix: str, p: Params, patch: int,
 
 
 def state_dict_from_jax(params_np: Params, cfg) -> dict[str, torch.Tensor]:
-    """``tae_tpu`` TAE parameter tree (numpy leaves) -> the port's
-    state_dict, fp32 tensors on the CPU."""
+    """``tae_tpu`` TAE parameter tree (numpy leaves; either half may be
+    absent) -> the port's state_dict, fp32 tensors on the CPU."""
     sd: dict[str, torch.Tensor] = {}
-    enc, dec = params_np["encoder"], params_np["decoder"]
-    _patch_embed(sd, "patch_embed.proj", enc["patch_embed"], cfg.patch_size,
-                 cfg.in_chans)
-    sd["pos_embed"] = _t(enc["pos_embed"])
-    _stacked_blocks(sd, "blocks", enc["blocks"])
-    _layer_norm(sd, "norm", enc["norm"])
-    _linear(sd, "dict_proj", enc["dict_proj"])
-    _linear(sd, "decoder_embed", dec["embed"])
-    sd["decoder_pos_embed"] = _t(dec["pos_embed"])
-    _stacked_blocks(sd, "decoder_blocks", dec["blocks"])
-    _layer_norm(sd, "decoder_norm", dec["norm"])
-    _linear(sd, "decoder_pred", dec["pred"])
+    enc, dec = params_np.get("encoder"), params_np.get("decoder")
+    if enc is not None:
+        _patch_embed(sd, "patch_embed.proj", enc["patch_embed"],
+                     cfg.patch_size, cfg.in_chans)
+        sd["pos_embed"] = _t(enc["pos_embed"])
+        _blocks(sd, "blocks", enc["blocks"])
+        _layer_norm(sd, "norm", enc["norm"])
+        _linear(sd, "dict_proj", enc["dict_proj"])
+    if dec is not None:
+        _linear(sd, "decoder_embed", dec["embed"])
+        sd["decoder_pos_embed"] = _t(dec["pos_embed"])
+        _blocks(sd, "decoder_blocks", dec["blocks"])
+        _layer_norm(sd, "decoder_norm", dec["norm"])
+        _linear(sd, "decoder_pred", dec["pred"])
     return sd
+
+
+def serving_state_dict_from_jax(params_np: Params, cfg
+                                ) -> dict[str, torch.Tensor]:
+    """The JAX package's quantized, unstacked serving tree (numpy leaves;
+    the output of its ``prepare_serving_params``) -> the state_dict of the
+    port's model after ``quantize_params_``: int8 codes transposed to
+    (out, in) bit for bit, fp32 scales, float leaves as fp32."""
+    return state_dict_from_jax(params_np, cfg)
 
 
 def load_pth(path) -> dict[str, torch.Tensor]:

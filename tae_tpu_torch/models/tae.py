@@ -137,21 +137,39 @@ class TAE(nn.Module):
                 f"input image size {tuple(imgs.shape[-2:])} doesn't match "
                 f"model img_size {c.img_size} (reference tae.py:48-49 "
                 "semantics)")
-        x = self.patch_embed(imgs.to(policy.compute_dtype))
+        x = self.patch_embed(imgs.to(policy.compute_dtype), backend)
         x = x + self.pos_embed.to(x.dtype)
-        x = vit.blocks_apply(self.blocks, x, backend, serving)
-        x = self.dict_proj(self.norm(x, backend))
+        x = self._blocks_then_head(self.blocks, self.norm, self.dict_proj, x,
+                                   policy, backend, serving)
         return policy.cast_to_output(x)
 
     def forward_decoder(self, z: torch.Tensor, *, policy: Policy = DEFAULT,
                         backend: str | None = None,
                         serving: bool = False) -> torch.Tensor:
         """latents (B, N, vocab) -> per-patch pixel predictions (B, N, p²·C)."""
-        x = self.decoder_embed(z.to(policy.compute_dtype))
+        x = self.decoder_embed(z.to(policy.compute_dtype), backend)
         x = x + self.decoder_pos_embed.to(x.dtype)
-        x = vit.blocks_apply(self.decoder_blocks, x, backend, serving)
-        x = self.decoder_pred(self.decoder_norm(x, backend))
+        x = self._blocks_then_head(self.decoder_blocks, self.decoder_norm,
+                                   self.decoder_pred, x, policy, backend,
+                                   serving)
         return policy.cast_to_output(x)
+
+    @staticmethod
+    def _blocks_then_head(stack, norm, head, x: torch.Tensor, policy: Policy,
+                          backend: str | None, serving: bool) -> torch.Tensor:
+        """Block stack -> final LayerNorm -> head linear. With a quantized
+        head the final LayerNorm + quantize chain into the last int8
+        block's MLP epilogue and the head reads the ``(xq, sx)`` directly."""
+        if not isinstance(head, vit.QLinear):
+            x = vit.blocks_apply(stack, x, backend, serving)
+            return head(norm(x, backend), backend)
+        x, ln = vit.blocks_apply(stack, x, backend, serving, final_norm=norm)
+        if ln is None:
+            return head(norm(x, backend), backend)
+        xq, sx = ln
+        b, n, _ = x.shape
+        y = head(xq, backend, x_scale=sx, out_dtype=policy.compute_dtype)
+        return y.reshape(b, n, -1)
 
     def forward_loss(self, imgs: torch.Tensor,
                      pred: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """ViT building blocks as ``nn.Module``s (counterpart of ``tae_tpu/nn/vit.py``,
-float path).
+float path and the fused int8 serving block).
 
 Conventions:
   * Linear weights are stored torch-style (out, in); the fused qkv
@@ -13,8 +13,13 @@ Conventions:
     ``"reference"``; ``serving=True`` (the Tokenizer's inference path only)
     selects the clamped softmax.
 
+  * A model quantized by :func:`tae_tpu_torch.ops.int8.quantize_params_`
+    holds :class:`QLinear` layers; a block whose linears are all quantized
+    takes the fused int8 forward (:meth:`Block.forward_int8`), any other
+    block the float forward.
+
 The JAX package's ``unroll``, ``scan`` and ``remat`` have no meaning for an
-eager forward and are dropped. ``qk_norm`` and the int8/int4 layouts are not
+eager forward and are dropped. ``qk_norm`` and the int4 layout are not
 ported yet.
 """
 
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tae_tpu_torch.nn import init as tinit
+from tae_tpu_torch.ops import int8
 from tae_tpu_torch.ops.attention import resolve_backend
 from tae_tpu_torch.ops.cuda.flash_attention import (
     fused_qkv_attention, fused_qkv_attention_reference)
@@ -86,9 +92,47 @@ class Linear(nn.Module):
         if self.bias is not None:
             self.bias.copy_(tinit.zeros(self.bias.shape, device=generator.device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, backend: str | None = None
+                ) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class QLinear(nn.Module):
+    """A ``Linear`` in its int8 serving form: weight codes ``w_q`` (out, in)
+    int8 and per-output-channel scales ``w_scale`` (out,) fp32 as buffers,
+    the bias as before. A float input is quantized per row on the fly."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.register_buffer("w_q", torch.empty((out_dim, in_dim),
+                                                device=device, dtype=torch.int8))
+        self.register_buffer("w_scale", torch.empty((out_dim,), device=device,
+                                                    dtype=torch.float32))
+        self.bias = empty_param((out_dim,), device, dtype) if bias else None
+
+    @classmethod
+    @torch.no_grad()
+    def from_float(cls, lin: nn.Module, fill: bool = True) -> "QLinear":
+        """From a ``Linear`` or a ``PatchProj`` (whose conv-shaped weight is
+        applied as the matrix (E, C*p*p))."""
+        w = lin.weight.reshape(lin.weight.shape[0], -1)
+        q = cls(w.shape[1], w.shape[0], lin.bias is not None, w.device,
+                w.dtype)
+        if fill:
+            wq, scale = int8.quantize_weight(w)
+            q.w_q.copy_(wq)
+            q.w_scale.copy_(scale)
+            if lin.bias is not None:
+                q.bias.copy_(lin.bias)
+        return q
+
+    def forward(self, x: torch.Tensor, backend: str | None = None, **kw):
+        """``kw``: ``x_scale``, ``residual``, ``out_dtype``, ``ln_out`` of
+        :func:`tae_tpu_torch.ops.int8.int8_linear`."""
+        return int8.int8_linear(x, self.w_q, self.w_scale, self.bias,
+                                backend=backend, **kw)
 
 
 class LayerNorm(nn.Module):
@@ -109,6 +153,15 @@ class LayerNorm(nn.Module):
                 ) -> torch.Tensor:
         return layer_norm(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                           self.eps, backend=backend)
+
+    @property
+    def affine(self) -> tuple[torch.Tensor, torch.Tensor, float]:
+        """``(gamma, beta, eps)``, the form the chained LN epilogues take."""
+        return self.weight, self.bias, self.eps
+
+    def quantize(self, x2: torch.Tensor, backend: str | None = None):
+        """LayerNorm + per-row int8 of rows x2 (M, D): ``(xq, sx)``."""
+        return int8.ln_quant(x2, self.weight, self.bias, self.eps, backend)
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +189,8 @@ class PatchProj(nn.Module):
         self.weight.copy_(w.view(self.weight.shape))
         self.bias.copy_(tinit.zeros(self.bias.shape, device=generator.device))
 
-    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+    def forward(self, patches: torch.Tensor, backend: str | None = None
+                ) -> torch.Tensor:
         w = self.weight.reshape(self.weight.shape[0], -1).to(patches.dtype)
         return F.linear(patches, w, self.bias.to(patches.dtype))
 
@@ -151,10 +205,11 @@ class PatchEmbed(nn.Module):
         self.patch_size = patch_size
         self.proj = PatchProj(patch_size, in_chans, embed_dim, device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, backend: str | None = None
+                ) -> torch.Tensor:
         if x.ndim == 4:
             x = extract_patches(x, self.patch_size)
-        return self.proj(x)
+        return self.proj(x, backend)
 
 
 # ---------------------------------------------------------------------------
@@ -173,15 +228,18 @@ class Attention(nn.Module):
                           device=device, dtype=dtype)
         self.proj = Linear(cfg.dim, cfg.dim, device=device, dtype=dtype)
 
+    def attend(self, qkv: torch.Tensor, backend: str | None = None,
+               serving: bool = False) -> torch.Tensor:
+        """Packed (B, N, 3C) qkv -> (B, N, C)."""
+        if resolve_backend(backend, qkv) == "kernel":
+            return fused_qkv_attention(qkv, self.num_heads, serving=serving)
+        return fused_qkv_attention_reference(qkv, self.num_heads,
+                                             serving=serving)
+
     def forward(self, x: torch.Tensor, backend: str | None = None,
                 serving: bool = False) -> torch.Tensor:
-        qkv = self.qkv(x)                                   # (B, N, 3C)
-        if resolve_backend(backend, x) == "kernel":
-            y = fused_qkv_attention(qkv, self.num_heads, serving=serving)
-        else:
-            y = fused_qkv_attention_reference(qkv, self.num_heads,
-                                              serving=serving)
-        return self.proj(y)
+        qkv = self.qkv(x, backend)                          # (B, N, 3C)
+        return self.proj(self.attend(qkv, backend, serving), backend)
 
 
 class Mlp(nn.Module):
@@ -190,11 +248,14 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(in_dim, hidden_dim, device=device, dtype=dtype)
         self.fc2 = Linear(hidden_dim, in_dim, device=device, dtype=dtype)
+        #: hidden columns per activation scale of the fused int8 MLP
+        self.block_h = int8.DEFAULT_BLOCK_H
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(x)
+    def forward(self, x: torch.Tensor, backend: str | None = None
+                ) -> torch.Tensor:
+        x = self.fc1(x, backend)
         approx = "tanh" if x.dtype == torch.bfloat16 else "none"
-        return self.fc2(F.gelu(x, approximate=approx))
+        return self.fc2(F.gelu(x, approximate=approx), backend)
 
 
 class Block(nn.Module):
@@ -209,8 +270,47 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, backend: str | None = None,
                 serving: bool = False) -> torch.Tensor:
+        if self.is_int8:
+            return self.forward_int8(x, backend, serving)[0]
         x = x + self.attn(self.norm1(x, backend), backend, serving)
-        return x + self.mlp(self.norm2(x, backend))
+        return x + self.mlp(self.norm2(x, backend), backend)
+
+    @property
+    def is_int8(self) -> bool:
+        """All four linears are quantized: the block takes the fused path."""
+        return all(isinstance(m, QLinear) for m in (
+            self.attn.qkv, self.attn.proj, self.mlp.fc1, self.mlp.fc2))
+
+    def forward_int8(self, x: torch.Tensor, backend: str | None = None,
+                     serving: bool = False, ln_in=None,
+                     norm1_next: LayerNorm | None = None):
+        """The fused int8 serving path of one pre-LN block (counterpart of
+        ``int8_block_apply`` at N >= 128): LN + quantize (``ln_quant``, or
+        the ``(xq, sx)`` chained in from the previous layer as ``ln_in``) ->
+        qkv matmul with dequantize epilogue -> attention in the compute
+        dtype -> per-row quantize -> proj matmul with the residual add and
+        norm2 + quantize in its epilogue -> the whole MLP and its residual
+        in one kernel, with ``norm1_next`` (the next layer's norm1, or the
+        final norm) + quantize in its epilogue. Returns ``(x, ln_next)``;
+        ``ln_next`` is the chained ``(xq, sx)`` or None."""
+        b, n, c = x.shape
+        x2 = x.reshape(b * n, c)
+        xq, sx = ln_in if ln_in is not None else self.norm1.quantize(x2, backend)
+        a = self.attn
+        qkv = a.qkv(xq, backend, x_scale=sx, out_dtype=x.dtype)
+        y = a.attend(qkv.reshape(b, n, 3 * c), backend, serving)
+        x2, xq2, sx2 = a.proj(y.reshape(b * n, c), backend, residual=x2,
+                              out_dtype=x.dtype, ln_out=self.norm2.affine)
+        if xq2 is None:
+            xq2, sx2 = self.norm2.quantize(x2, backend)
+        out = int8.int8_mlp(
+            xq2, sx2, self.mlp.fc1, self.mlp.fc2, x2, self.mlp.block_h,
+            x.dtype, None if norm1_next is None else norm1_next.affine,
+            backend)
+        if norm1_next is None:
+            return out.reshape(b, n, c), None
+        out, nq, ns = out
+        return out.reshape(b, n, c), (nq, ns)
 
 
 def blocks(cfg: BlockConfig, depth: int, device=None,
@@ -219,11 +319,26 @@ def blocks(cfg: BlockConfig, depth: int, device=None,
 
 
 def blocks_apply(stack: nn.ModuleList, x: torch.Tensor,
-                 backend: str | None = None,
-                 serving: bool = False) -> torch.Tensor:
-    for blk in stack:
-        x = blk(x, backend, serving)
-    return x
+                 backend: str | None = None, serving: bool = False,
+                 final_norm: LayerNorm | None = None):
+    """Apply the blocks in order. Consecutive int8 blocks are chained: each
+    MLP epilogue emits the next block's LN'd int8 input. With
+    ``final_norm`` (the caller has a quantized head behind that norm) the
+    last int8 block chains the final LayerNorm the same way and the result
+    is ``(x, ln)``, ``ln`` being the head's ``(xq, sx)`` or None."""
+    ln = None
+    for i, blk in enumerate(stack):
+        if not blk.is_int8:
+            x, ln = blk(x, backend, serving), None
+            continue
+        nxt = stack[i + 1] if i + 1 < len(stack) else None
+        if nxt is not None:
+            norm1_next = nxt.norm1 if nxt.is_int8 else None
+        else:
+            norm1_next = final_norm
+        x, ln = blk.forward_int8(x, backend, serving, ln_in=ln,
+                                 norm1_next=norm1_next)
+    return (x, ln) if final_norm is not None else x
 
 
 @torch.no_grad()

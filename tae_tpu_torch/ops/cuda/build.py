@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
 All sources in ``tae_tpu_torch/csrc/`` compile with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The build runs at first use and is cached under ``tae_tpu_torch/_build/``,
-keyed by a hash of the sources and the flags, so a fresh checkout builds
-everything on its first kernel launch and a changed source rebuilds.
+(one ``nvcc -c`` per ``.cu``, all started together) and link into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use and is cached under ``tae_tpu_torch/_build/``, keyed by a hash of
+the sources and the flags, so a fresh checkout builds everything on its
+first kernel launch and a changed source rebuilds.
 
 A missing ``nvcc`` or a failed compile raises; nothing falls back to the
 plain PyTorch versions.
@@ -31,7 +32,7 @@ LIB_NAME = "libtae_kernels.so"
 DEFAULT_CUDA_HOME = pathlib.Path("/usr/local/cuda")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _build_lock = threading.Lock()
 
@@ -44,6 +45,19 @@ SIGNATURES = {
     # qkv, out, batch, tokens, heads, head dim, scale, serving, dtype, stream
     "tae_packed_attention_fwd": ((_VP, _VP, _I, _I, _I, _I, _F, _I, _I, _VP),
                                  _I),
+    # x, gamma, beta, q, s, rows, cols, eps, x dtype, gamma dtype, stream
+    "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
+    # x, sx, w, sw, bias, residual, out, m, n, k, out dtype, bias dtype,
+    # ln rows per block (0: no ln_out), gamma, beta, ln dtype, eps, nq, ns,
+    # stream
+    "tae_int8_matmul_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                             _I, _I, _VP, _VP, _I, _F, _VP, _VP, _VP), _I),
+    # xq, sx, w1, sw1, b1, w2, sw2, b2, residual, out, m, d, hdim, block_h,
+    # rows per block, out dtype, bias dtype, gamma, beta, ln dtype, eps, nq,
+    # ns, workspace of the hidden groups, hidden groups, stream
+    "tae_int8_mlp_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                          _I, _I, _I, _I, _I, _I, _VP, _VP, _I, _F, _VP, _VP,
+                          _VP, _I, _VP), _I),
     "tae_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -90,19 +104,39 @@ def build_library(build_root: pathlib.Path = BUILD_ROOT) -> pathlib.Path:
     if lib.is_file():
         return lib
     nvcc = find_nvcc()
-    units = [str(p) for p in sources() if p.suffix == ".cu"]
+    units = [p for p in sources() if p.suffix == ".cu"]
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = pathlib.Path(tmp) / LIB_NAME
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp_lib),
-               *units]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        (out_dir / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        tmp_dir = pathlib.Path(tmp)
+        objects = [tmp_dir / (p.stem + ".o") for p in units]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o",
+                 str(obj)] for src, obj in zip(units, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        log, failed = [], []
+        for cmd, proc in zip(cmds, procs):
+            try:
+                out, _ = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+                out += "\n(killed after 900 s)"
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-3]} ({proc.returncode}):\n{out[-4000:]}")
+        tmp_lib = tmp_dir / LIB_NAME
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objects)]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=900)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise KernelBuildError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp_lib, lib)
     return lib
 
@@ -134,3 +168,23 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise TypeError(f"kernel takes float32 or bfloat16, not {dtype}")
     return codes[dtype]
+
+
+def check_operand(name: str, t, device, dtypes, shape=None) -> None:
+    """Raise unless tensor ``t`` is what a kernel can read through a raw
+    pointer: on ``device``, of one of ``dtypes``, of ``shape`` (if given),
+    contiguous and 16-byte aligned."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} is {t.dtype}, expected one of {dtypes}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def ptr(t) -> int | None:
+    """The device address of an optional tensor (None: a null pointer)."""
+    return None if t is None else t.data_ptr()

@@ -206,6 +206,8 @@ def test_import_leaves_jax_and_triton_out():
         "import tae_tpu_torch, tae_tpu_torch.tokenizer, tae_tpu_torch.models\n"
         "import tae_tpu_torch.ckpt.bridge, tae_tpu_torch.data.transforms\n"
         "import tae_tpu_torch.ops.cuda.layernorm, tae_tpu_torch.ops.cuda.flash_attention\n"
+        "import tae_tpu_torch.ops.int8, tae_tpu_torch.ops.cuda.int8_block\n"
+        "import tae_tpu_torch.ops.cuda.int8_matmul, tae_tpu_torch.profile_serving\n"
         "bad = [m for m in ('jax', 'triton', 'tae_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,6 +1,6 @@
 """Port Tokenizer vs the JAX Tokenizer: bf16 serving on uint8 and float
 batches, a reference ``.pth`` from the JAX exporter, pruning, and the parts
-that are not ported yet.
+that are not ported yet (int8 serving: tests/test_torch_int8_model.py).
 
 JAX runs its Tokenizer on the CPU (XLA attention, exact softmax); the port
 runs its plain versions with the serving softmax, which equals the exact
@@ -19,6 +19,8 @@ from tae_tpu.tokenizer import Tokenizer as JTokenizer
 from tae_tpu.utils.dtypes import Policy as JPolicy
 from tae_tpu_torch import models
 from tae_tpu_torch.ops.cuda.flash_attention import fused_qkv_attention
+from tae_tpu_torch.ops.cuda.int8_block import int8_mlp, ln_quant
+from tae_tpu_torch.ops.cuda.int8_matmul import int8_matmul_fused
 from tae_tpu_torch.ops.cuda.layernorm import fused_layer_norm
 from tae_tpu_torch.tokenizer import Tokenizer, prune_component
 from tae_tpu_torch.utils.dtypes import Policy
@@ -145,10 +147,11 @@ def test_prune_component(images, component):
 
 
 def test_unported_parts_raise():
+    with pytest.raises(NotImplementedError, match="A10"):
+        Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int4", **TINY)
     with pytest.raises(NotImplementedError, match="A8"):
-        Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8", **TINY)
-    with pytest.raises(NotImplementedError, match="A8"):
-        Tokenizer.from_checkpoint(NAME, device="cpu", equalize=True, **TINY)
+        Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
+                                  equalize=True, act_amax={}, **TINY)
     tok = Tokenizer.from_checkpoint(NAME, device="cpu", **TINY)
     with pytest.raises(NotImplementedError, match="A11"):
         tok.encode_discrete(np.zeros((1, 3, 64, 64), np.uint8))
@@ -159,5 +162,9 @@ def test_unported_parts_raise():
 def test_cpu_serving_leaves_launch_counters_at_zero(bf16_pair, images):
     _, tok = bf16_pair
     tok.reconstruct(images["uint8"])
-    assert fused_layer_norm.launches == 0
-    assert fused_qkv_attention.launches == 0
+    tok8 = Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
+                                     **dict(TINY, decoder_embed_dim=64))
+    tok8.reconstruct(images["uint8"])
+    for fn in (fused_layer_norm, fused_qkv_attention, ln_quant,
+               int8_matmul_fused, int8_mlp):
+        assert fn.launches == 0, fn.__name__
