@@ -33,9 +33,7 @@ from torch import nn
 
 from tae_tpu_torch.nn import init as tinit
 from tae_tpu_torch.ops import int8
-from tae_tpu_torch.ops.attention import resolve_backend
-from tae_tpu_torch.ops.cuda.flash_attention import (
-    fused_qkv_attention, fused_qkv_attention_reference)
+from tae_tpu_torch.ops.attention import attention_route, packed_attention
 from tae_tpu_torch.ops.layernorm import layer_norm
 from tae_tpu_torch.ops.patchify import extract_patches
 
@@ -224,22 +222,29 @@ class Attention(nn.Module):
                 "qk_norm attention is not ported yet (ROADMAP B16: its "
                 "unpacked flash_attention kernel)")
         self.num_heads = cfg.num_heads
+        #: run-time choice for a serving int8 block: int8-output attention
+        #: on (True), off (False) or by the rule (None); see
+        #: :func:`tae_tpu_torch.ops.attention.attention_route`
+        self.attn_q8: bool | None = None
         self.qkv = Linear(cfg.dim, cfg.dim * 3, bias=cfg.qkv_bias,
                           device=device, dtype=dtype)
         self.proj = Linear(cfg.dim, cfg.dim, device=device, dtype=dtype)
 
     def attend(self, qkv: torch.Tensor, backend: str | None = None,
-               serving: bool = False) -> torch.Tensor:
-        """Packed (B, N, 3C) qkv -> (B, N, C)."""
-        if resolve_backend(backend, qkv) == "kernel":
-            return fused_qkv_attention(qkv, self.num_heads, serving=serving)
-        return fused_qkv_attention_reference(qkv, self.num_heads,
-                                             serving=serving)
+               serving: bool = False, int8_block: bool = False):
+        """Packed (B, N, 3C) qkv through the attention entry the shape
+        selects. A float route gives ``(y (B, N, C), None)``; an int8-output
+        route (a serving int8 block) gives flat rows ``(yq (B*N, C) int8,
+        y_scale (B*N, 1))``."""
+        route, q8 = attention_route(qkv.shape[1], int8_block, serving,
+                                    self.attn_q8)
+        y = packed_attention(qkv, self.num_heads, route, serving, backend)
+        return y if q8 else (y, None)
 
     def forward(self, x: torch.Tensor, backend: str | None = None,
                 serving: bool = False) -> torch.Tensor:
         qkv = self.qkv(x, backend)                          # (B, N, 3C)
-        return self.proj(self.attend(qkv, backend, serving), backend)
+        return self.proj(self.attend(qkv, backend, serving)[0], backend)
 
 
 class Mlp(nn.Module):
@@ -285,22 +290,26 @@ class Block(nn.Module):
                      serving: bool = False, ln_in=None,
                      norm1_next: LayerNorm | None = None):
         """The fused int8 serving path of one pre-LN block (counterpart of
-        ``int8_block_apply`` at N >= 128): LN + quantize (``ln_quant``, or
-        the ``(xq, sx)`` chained in from the previous layer as ``ln_in``) ->
-        qkv matmul with dequantize epilogue -> attention in the compute
-        dtype -> per-row quantize -> proj matmul with the residual add and
-        norm2 + quantize in its epilogue -> the whole MLP and its residual
-        in one kernel, with ``norm1_next`` (the next layer's norm1, or the
-        final norm) + quantize in its epilogue. Returns ``(x, ln_next)``;
+        ``int8_block_apply``): LN + quantize (``ln_quant``, or the
+        ``(xq, sx)`` chained in from the previous layer as ``ln_in``) -> qkv
+        matmul with dequantize epilogue -> attention, with ``serving`` an
+        entry whose output is already int8 with per-row scales, otherwise
+        one in the compute dtype with the exact softmax, followed by a plain
+        per-row quantize -> proj matmul with the residual add and norm2 +
+        quantize in its epilogue -> the whole MLP and its residual in one
+        kernel, with ``norm1_next`` (the next layer's norm1, or the final
+        norm) + quantize in its epilogue. Returns ``(x, ln_next)``;
         ``ln_next`` is the chained ``(xq, sx)`` or None."""
         b, n, c = x.shape
         x2 = x.reshape(b * n, c)
         xq, sx = ln_in if ln_in is not None else self.norm1.quantize(x2, backend)
         a = self.attn
         qkv = a.qkv(xq, backend, x_scale=sx, out_dtype=x.dtype)
-        y = a.attend(qkv.reshape(b, n, 3 * c), backend, serving)
-        x2, xq2, sx2 = a.proj(y.reshape(b * n, c), backend, residual=x2,
-                              out_dtype=x.dtype, ln_out=self.norm2.affine)
+        y, y_scale = a.attend(qkv.reshape(b, n, 3 * c), backend, serving,
+                              int8_block=True)
+        x2, xq2, sx2 = a.proj(y.reshape(b * n, c), backend, x_scale=y_scale,
+                              residual=x2, out_dtype=x.dtype,
+                              ln_out=self.norm2.affine)
         if xq2 is None:
             xq2, sx2 = self.norm2.quantize(x2, backend)
         out = int8.int8_mlp(

@@ -45,6 +45,16 @@ SIGNATURES = {
     # qkv, out, batch, tokens, heads, head dim, scale, serving, dtype, stream
     "tae_packed_attention_fwd": ((_VP, _VP, _I, _I, _I, _I, _F, _I, _I, _VP),
                                  _I),
+    # qkv, out, batch, tokens, heads, head dim, scale, serving, dtype, stream
+    "tae_wide_attention_fwd": ((_VP, _VP, _I, _I, _I, _I, _F, _I, _I, _VP), _I),
+    # qkv, int8 out, scales, batch (2d: rows), tokens, heads, head dim, scale,
+    # dtype, stream
+    "tae_packed_attention_q8_fwd": ((_VP, _VP, _VP, _I, _I, _I, _I, _F, _I,
+                                     _VP), _I),
+    "tae_wide_attention_q8_fwd": ((_VP, _VP, _VP, _I, _I, _I, _I, _F, _I,
+                                   _VP), _I),
+    "tae_wide_attention_q8_2d_fwd": ((_VP, _VP, _VP, _I, _I, _I, _I, _F, _I,
+                                      _VP), _I),
     # x, gamma, beta, q, s, rows, cols, eps, x dtype, gamma dtype, stream
     "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
     # x, sx, w, sw, bias, residual, out, m, n, k, out dtype, bias dtype,

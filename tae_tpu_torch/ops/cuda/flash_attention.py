@@ -25,16 +25,18 @@ def _split(qkv: torch.Tensor, num_heads: int):
     return b, n, c, c // num_heads
 
 
-def fused_qkv_attention_reference(qkv: torch.Tensor, num_heads: int,
-                                  scale: float | None = None,
-                                  serving: bool = True) -> torch.Tensor:
-    """Plain version of the kernel: (B, N, 3C) -> (B, N, C).
+def packed_attention_f32(qkv: torch.Tensor, num_heads: int,
+                         scale: float | None = None,
+                         serving: bool = True) -> torch.Tensor:
+    """The arithmetic every packed-qkv attention entry shares, in plain
+    PyTorch: (B, N, 3C) -> the fp32 output (B, N, C) before its last
+    rounding.
 
     fp32 scores (operands upcast, so bf16 products are exact); ``serving``
     takes p = exp(clip(s, -60, 45)) with no row max (tae_tpu
     ``_serving_softmax``), otherwise p = exp(s - rowmax). The row sum uses
     the fp32 p, the P·V product p rounded to the input dtype, and the
-    output is (P·V) * (1 / l) in fp32, cast once."""
+    output is (P·V) * (1 / l)."""
     b, n, c, dh = _split(qkv, num_heads)
     if scale is None:
         scale = dh ** -0.5
@@ -47,7 +49,15 @@ def fused_qkv_attention_reference(qkv: torch.Tensor, num_heads: int,
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l_inv = 1.0 / p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(qkv.dtype).float(), v.float()) * l_inv
-    return o.to(qkv.dtype).transpose(1, 2).reshape(b, n, c)
+    return o.transpose(1, 2).reshape(b, n, c)
+
+
+def fused_qkv_attention_reference(qkv: torch.Tensor, num_heads: int,
+                                  scale: float | None = None,
+                                  serving: bool = True) -> torch.Tensor:
+    """Plain version of the kernel: (B, N, 3C) -> (B, N, C), the fp32
+    output of :func:`packed_attention_f32` cast once to the input dtype."""
+    return packed_attention_f32(qkv, num_heads, scale, serving).to(qkv.dtype)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,

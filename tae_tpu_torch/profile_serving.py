@@ -3,8 +3,11 @@
 Run on a machine with a CUDA card, from the repository root::
 
     python -m tae_tpu_torch.profile_serving --quantization int8 --batches 64 8 1
+    python -m tae_tpu_torch.profile_serving --model tae_patch128_vocab4096_px256 \
+        --quantization int8 --attn-q8 off
 
-Builds the named model at full size with seeded random weights, serves
+Builds the named model (``--model``, any registered config) at full size
+with seeded random weights, serves
 ``--requests`` encode (or decode) requests per batch size under
 ``torch.profiler`` after ``--warmup`` unprofiled ones, and prints per batch
 size: the device time of each kernel name per request with its launches per
@@ -61,6 +64,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="tae_patch16_vocab256_px256")
     ap.add_argument("--quantization", default=None, choices=[None, "int8"])
+    ap.add_argument("--attn-q8", default="rule", choices=["rule", "on", "off"],
+                    help="int8 path: the attention entry's output")
     ap.add_argument("--direction", default="encode",
                     choices=["encode", "decode"])
     ap.add_argument("--batches", type=int, nargs="+", default=[64, 8, 1])
@@ -76,10 +81,14 @@ def main(argv=None) -> int:
 
     print(card_line())
     tok = Tokenizer.from_checkpoint(args.model, device="cuda", seed=args.seed,
-                                    quantization=args.quantization)
+                                    quantization=args.quantization,
+                                    attn_q8={"rule": None, "on": True,
+                                             "off": False}[args.attn_q8])
     cfg = tok.model.cfg
     gen = torch.Generator(device="cuda").manual_seed(1)
     mode = args.quantization or "bf16"
+    if args.quantization and args.attn_q8 != "rule":
+        mode += f" attn_q8={args.attn_q8}"
     for b in args.batches:
         x = torch.randint(0, 256, (b, 3, cfg.img_size, cfg.img_size),
                           dtype=torch.uint8, device="cuda", generator=gen)

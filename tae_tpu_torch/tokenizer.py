@@ -18,6 +18,11 @@ with per-channel scales, dynamic per-row activation scales; see
     tok = Tokenizer.from_checkpoint(name, ckpt, quantization="int8")
     tok.save_serving("tok.int8.pt")           # quantize once, ship the file
     tok = Tokenizer.from_serving(name, "tok.int8.pt")
+
+In int8 serving the attention kernel itself emits the proj matmul's int8
+input (:func:`tae_tpu_torch.ops.attention.attention_route`); ``attn_q8=False``
+asks for the attention output in the compute dtype and a plain per-row
+quantize instead, ``attn_q8=True`` forces the int8 output.
 """
 
 from __future__ import annotations
@@ -34,6 +39,15 @@ _NOT_YET = {
                  "are not ported yet (ROADMAP A8: calibrate.py)",
     "discrete": "the VQ bottleneck is not ported yet (ROADMAP A11)",
 }
+
+
+def set_attn_q8(model, attn_q8: bool | None) -> None:
+    """Record the run-time int8-output choice on every attention layer."""
+    from tae_tpu_torch.nn import vit
+
+    for mod in model.modules():
+        if isinstance(mod, vit.Attention):
+            mod.attn_q8 = attn_q8
 
 
 def prune_component(model, component: str):
@@ -67,6 +81,7 @@ class Tokenizer:
                         act_amax=None, calib_images=None,
                         patch_input: bool = False,
                         seed: int = 0,
+                        attn_q8: bool | None = None,
                         **model_overrides) -> "Tokenizer":
         """Build ``model_name`` on ``device``, initialise it from
         ``torch.Generator(device).manual_seed(seed)``, load ``ckpt`` (a
@@ -79,7 +94,10 @@ class Tokenizer:
         0.5, or the alpha), an exact float rewrite that folds per-channel
         factors into the LN affines. ``patch_input=True`` declares that
         encode requests are pre-patchified (B, N, C*p*p) rows; int8 then
-        quantizes the patch embedding too (image requests still work)."""
+        quantizes the patch embedding too (image requests still work).
+        ``attn_q8``: whether an int8 block's attention emits int8 directly
+        (None: the rule of ``attention_route``); a run-time choice that the
+        serving artifact does not record."""
         from tae_tpu_torch import models
         from tae_tpu_torch.ckpt.bridge import load_pth
         from tae_tpu_torch.ops.int8 import prepare_serving_
@@ -104,6 +122,7 @@ class Tokenizer:
         if quantization is not None:
             prepare_serving_(model, quantization, equalize or 0.0,
                              patch_input=patch_input)
+        set_attn_q8(model, attn_q8)
         return cls(model=model,
                    policy=Policy(param_dtype=dtype, compute_dtype=dtype))
 
@@ -141,6 +160,7 @@ class Tokenizer:
                      dtype: torch.dtype | None = None,
                      device: torch.device | str = "cuda",
                      component: str = "both",
+                     attn_q8: bool | None = None,
                      **model_overrides) -> "Tokenizer":
         """Load a :meth:`save_serving` artifact (no re-quantization).
         ``dtype=None`` restores the compute dtype the artifact recorded.
@@ -172,6 +192,7 @@ class Tokenizer:
         model.load_state_dict(blob["model"], strict=True)
         if saved == "both":
             model = prune_component(model, component)
+        set_attn_q8(model, attn_q8)
         return cls(model=model,
                    policy=Policy(param_dtype=dtype, compute_dtype=dtype))
 

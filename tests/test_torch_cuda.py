@@ -11,7 +11,9 @@ kernels at the slice's shapes; these cover the edges: token counts that are
 not a multiple of the kernels' 16-row tiles, both head dims, both dtypes,
 both softmax forms, and the shapes the wrappers must refuse; for the int8
 kernels, row counts off the 16/32/128-row blocks, the three model widths,
-N and K off the 128 x 64 tiles, ``block_h`` values and both dtypes.
+N and K off the 128 x 64 tiles, ``block_h`` values and both dtypes; for
+the tiny-N and int8-output attention entries, token counts that do and do
+not divide the 16-row tiles, batches that end inside a tile, both head dims.
 """
 
 import pytest
@@ -26,6 +28,11 @@ from tae_tpu_torch.ops.cuda.int8_block import (
 from tae_tpu_torch.ops.cuda.int8_matmul import (
     int8_matmul_fused, int8_matmul_reference, ln_chain_rows)
 from tae_tpu_torch.ops.cuda.layernorm import fused_layer_norm
+from tae_tpu_torch.ops.cuda.wide_attention import (
+    fused_qkv_attention_q8, fused_qkv_attention_q8_reference,
+    fused_qkv_attention_wide, fused_qkv_attention_wide_q8,
+    fused_qkv_attention_wide_q8_2d, fused_qkv_attention_wide_q8_2d_reference,
+    fused_qkv_attention_wide_q8_reference, fused_qkv_attention_wide_reference)
 from tae_tpu_torch.ops.layernorm import layer_norm_reference
 from tae_tpu_torch.utils.dtypes import Policy
 
@@ -314,9 +321,10 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 @pytest.mark.parametrize("d,heads,ratio", [(128, 2, 4.0), (160, 2, 3.2)])
 def test_tiny_int8_tae_kernels_match_reference_backend(gen, d, heads, ratio):
-    """A small int8 TAE through the kernels: per half one K3 launch (the
-    chains are on), 2 K2, 2 K5 and 5 (encoder) / 6 (decoder) K4 launches
-    and no K1; outputs within the slice's bound of chip_smoke.py."""
+    """A small int8 TAE (16 tokens) through the kernels: per half one K3
+    launch (the chains are on), 2 int8-output attention launches (K8), 2 K5
+    and 5 (encoder) / 6 (decoder) K4 launches and no K1; outputs within the
+    slice's bound of chip_smoke.py."""
     cfg = TAEConfig(img_size=64, patch_size=16, embed_dim=d, vocab_size=16,
                     depth=2, num_heads=heads, decoder_embed_dim=d,
                     decoder_depth=2, decoder_num_heads=heads, mlp_ratio=ratio)
@@ -324,7 +332,7 @@ def test_tiny_int8_tae_kernels_match_reference_backend(gen, d, heads, ratio):
     int8.prepare_serving_(model, "int8")
     pol = Policy(torch.bfloat16, torch.bfloat16)
     imgs = torch.randn((4, 3, 64, 64), generator=gen, device="cuda")
-    fns = (ln_quant, int8_matmul_fused, int8_mlp, fused_qkv_attention,
+    fns = (ln_quant, int8_matmul_fused, int8_mlp, fused_qkv_attention_wide_q8,
            fused_layer_norm)
     before = [f.launches for f in fns]
     z = model.forward_encoder(imgs, policy=pol, serving=True)
@@ -341,3 +349,175 @@ def test_tiny_int8_tae_kernels_match_reference_backend(gen, d, heads, ratio):
         assert torch.isfinite(got).all()
         rel = float((got.float() - want.float()).norm() / want.float().norm())
         assert rel <= 2e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# tiny-N and int8-output attention (K6 wide, K7 q8, K8 wide_q8, K9 wide_q8_2d)
+# ---------------------------------------------------------------------------
+
+# (batch, tokens, heads, head dim): tokens that divide a 16-row tile (1, 2,
+# 4, 8, 16), that a tile divides (32, 64) and neither (3, 5, 12, 24, 63);
+# batches whose last tile is ragged; the registry's widths
+WIDE_SHAPES = [(1, 1, 2, 64), (7, 4, 32, 80), (64, 4, 4, 80), (5, 2, 3, 64),
+               (3, 8, 2, 64), (9, 3, 2, 80), (7, 5, 3, 64), (3, 12, 2, 80),
+               (7, 16, 32, 80), (3, 24, 2, 64), (5, 32, 4, 64),
+               (2, 63, 2, 80), (3, 64, 32, 64)]
+
+
+def _attn_scales_close(got, want, dtype):
+    """fp32: rtol 1e-5. bf16: the P.V product takes p rounded to bf16, and a
+    p whose fp32 value differs in its last bits between kernel and plain
+    version can round to the neighbouring bf16 value; one such flip moves
+    that head's outputs of that row by up to 2^-7 * (p / l) * |v| and the
+    row's scale with them. So rtol 1e-5 on all but 1% of the rows (at least
+    one row) and 2e-2 (2^-7 times |v| / max|o| up to 2.5) on every row, as
+    chip_smoke.py holds them."""
+    if dtype == torch.float32:
+        return _scales_close(got, want)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    rel = ((got - want).abs() / want.abs()).flatten()
+    assert float(rel.max()) <= 2e-2, float(rel.max())
+    assert int((rel > 1e-5).sum()) <= max(1, rel.numel() // 100)
+
+
+@pytest.mark.parametrize("serving", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,dh", WIDE_SHAPES)
+def test_wide_attention_kernel_matches_plain(gen, b, n, h, dh, dtype, serving):
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen,
+                      device="cuda").to(dtype)
+    before = fused_qkv_attention_wide.launches
+    got = fused_qkv_attention_wide(qkv, h, serving=serving)
+    assert fused_qkv_attention_wide.launches == before + 1
+    _close(got, fused_qkv_attention_wide_reference(qkv, h, serving=serving),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,dh", WIDE_SHAPES)
+def test_wide_q8_attention_kernels_match_plain_and_each_other(gen, b, n, h, dh,
+                                                              dtype):
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen,
+                      device="cuda").to(dtype)
+    k8, k9 = (fused_qkv_attention_wide_q8.launches,
+              fused_qkv_attention_wide_q8_2d.launches)
+    q3, s3 = fused_qkv_attention_wide_q8(qkv, h)
+    q2, s2 = fused_qkv_attention_wide_q8_2d(qkv.reshape(b * n, -1), n, h)
+    assert fused_qkv_attention_wide_q8.launches == k8 + 1
+    assert fused_qkv_attention_wide_q8_2d.launches == k9 + 1
+    assert q2.shape == (b * n, h * dh) and s2.shape == (b * n, 1)
+    assert torch.equal(q2, q3.reshape(b * n, -1))        # bit-identical
+    assert torch.equal(s2, s3.reshape(b * n, 1))
+    q_ref, s_ref = fused_qkv_attention_wide_q8_reference(qkv, h)
+    _attn_scales_close(s3, s_ref, dtype)
+    _codes_close(q3, q_ref)
+    q2_ref, s2_ref = fused_qkv_attention_wide_q8_2d_reference(
+        qkv.reshape(b * n, -1), n, h)
+    assert torch.equal(q2_ref, q_ref.reshape(b * n, -1))
+    assert torch.equal(s2_ref, s_ref.reshape(b * n, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,dh", [(1, 1, 2, 64), (3, 17, 2, 80),
+                                      (2, 100, 3, 64), (2, 128, 4, 64),
+                                      (1, 255, 2, 80), (3, 256, 16, 64)])
+def test_q8_attention_kernel_matches_plain(gen, b, n, h, dh, dtype):
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen,
+                      device="cuda").to(dtype)
+    before = fused_qkv_attention_q8.launches
+    q, s = fused_qkv_attention_q8(qkv, h)
+    assert fused_qkv_attention_q8.launches == before + 1
+    assert q.shape == (b, n, h * dh) and s.shape == (b, n, 1)
+    q_ref, s_ref = fused_qkv_attention_q8_reference(qkv, h)
+    _attn_scales_close(s, s_ref, dtype)
+    _codes_close(q, q_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_attention_kernels_follow_the_serving_clamp(gen, dtype):
+    """Every score far below -60 (aligned q rows against anti-aligned k
+    rows): the serving forms stay finite and equal their plain versions,
+    the exact form equals its own."""
+    b, n, h, dh = 6, 4, 2, 64
+    c = h * dh
+    qkv = torch.zeros((b, n, 3 * c), device="cuda")
+    qkv[:, :, :c] = 40.0
+    qkv[:, :, c:2 * c] = -40.0
+    qkv[:, :, 2 * c:] = torch.randn((b, n, c), generator=gen, device="cuda")
+    qkv = qkv.to(dtype)
+    for serving in (True, False):
+        got = fused_qkv_attention_wide(qkv, h, serving=serving)
+        assert torch.isfinite(got).all()
+        _close(got, fused_qkv_attention_wide_reference(qkv, h, serving=serving),
+               dtype)
+    q, s = fused_qkv_attention_wide_q8(qkv, h)
+    q_ref, s_ref = fused_qkv_attention_wide_q8_reference(qkv, h)
+    assert torch.isfinite(s).all()
+    _attn_scales_close(s, s_ref, dtype)
+    _codes_close(q, q_ref)
+
+
+def test_wide_attention_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x = torch.randn(2, 65, 3 * 128, device="cuda")
+    for fn in (fused_qkv_attention_wide, fused_qkv_attention_wide_q8):
+        with pytest.raises(ValueError, match="1..64 tokens"):
+            fn(x, 2)
+    with pytest.raises(ValueError, match="1..64 tokens"):
+        fused_qkv_attention_wide_q8_2d(x.reshape(130, -1), 65, 2)
+    with pytest.raises(ValueError, match="rows"):
+        fused_qkv_attention_wide_q8_2d(torch.randn(10, 3 * 128, device="cuda"),
+                                       4, 2)
+    with pytest.raises(ValueError, match="tokens"):
+        fused_qkv_attention_q8(torch.randn(1, 257, 3 * 128, device="cuda"), 2)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_qkv_attention_q8(torch.randn(1, 4, 3 * 64, device="cuda"), 2)
+    with pytest.raises(TypeError):
+        fused_qkv_attention_wide(torch.randn(1, 4, 3 * 128,
+                                             device="cuda").half(), 2)
+    with pytest.raises(ValueError, match="output width"):
+        fused_qkv_attention_q8(torch.randn(1, 4, 3 * 3200, device="cuda"), 50)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_qkv_attention_wide(
+            torch.randn(2, 3 * 128, 4, device="cuda").transpose(1, 2), 2)
+
+
+@pytest.mark.parametrize("attn_q8", [None, False])
+@pytest.mark.parametrize("patch,tokens,d,ratio", [(32, 4, 160, 3.2),
+                                                  (16, 16, 128, 4.0),
+                                                  (8, 64, 160, 3.2)])
+def test_tiny_n_int8_tae_kernels_match_reference_backend(gen, patch, tokens, d,
+                                                         ratio, attn_q8):
+    """A small int8 TAE at 4, 16 and 64 tokens, serving: with the rule the
+    attention launches are K9 (4 tokens) or K8 and no K2, K6 or plain
+    quantize; with attn_q8=False they are K6 (4 tokens) or K2. Outputs
+    within the int8 slice's bound of chip_smoke.py."""
+    from tae_tpu_torch.tokenizer import set_attn_q8
+
+    cfg = TAEConfig(img_size=64, patch_size=patch, embed_dim=d, vocab_size=16,
+                    depth=2, num_heads=2, decoder_embed_dim=d, decoder_depth=2,
+                    decoder_num_heads=2, mlp_ratio=ratio)
+    assert cfg.num_patches == tokens
+    model = TAE(cfg, device="cuda").init_weights_(gen).to(torch.bfloat16)
+    int8.prepare_serving_(model, "int8")
+    set_attn_q8(model, attn_q8)
+    pol = Policy(torch.bfloat16, torch.bfloat16)
+    imgs = torch.randn((5, 3, 64, 64), generator=gen, device="cuda")
+    fns = (fused_qkv_attention, fused_qkv_attention_wide,
+           fused_qkv_attention_q8, fused_qkv_attention_wide_q8,
+           fused_qkv_attention_wide_q8_2d)
+    before = [f.launches for f in fns]
+    z = model.forward_encoder(imgs, policy=pol, serving=True)
+    rec = model.forward_decoder(z, policy=pol, serving=True)
+    got = [f.launches - a for f, a in zip(fns, before)]
+    if attn_q8 is False:
+        assert got == ([0, 4, 0, 0, 0] if tokens < 8 else [4, 0, 0, 0, 0])
+    else:
+        assert got == ([0, 0, 0, 0, 4] if tokens < 8 else [0, 0, 0, 4, 0])
+    z_ref = model.forward_encoder(imgs, policy=pol, backend="reference",
+                                  serving=True)
+    rec_ref = model.forward_decoder(z, policy=pol, backend="reference",
+                                    serving=True)
+    for out, want in ((z, z_ref), (rec, rec_ref)):
+        assert torch.isfinite(out).all()
+        rel = float((out.float() - want.float()).norm() / want.float().norm())
+        assert rel <= 4e-2, rel

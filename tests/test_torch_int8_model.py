@@ -8,7 +8,8 @@ own accelerator; the port runs its plain versions. The JAX package's
 quantized, unstacked serving tree is carried over with
 ``serving_state_dict_from_jax``, so both sides hold bit-identical int8
 weights. In interpret mode the JAX block takes the exact-softmax attention,
-so the port runs ``serving=False`` there.
+so the port runs ``serving=False`` there (the serving block with its
+int8-output attention is held in tests/test_torch_tiny_n_model.py).
 """
 
 import os
@@ -41,6 +42,9 @@ from tae_tpu_torch.ops.cuda.flash_attention import fused_qkv_attention
 from tae_tpu_torch.ops.cuda.int8_block import int8_mlp, ln_quant
 from tae_tpu_torch.ops.cuda.int8_matmul import int8_matmul_fused
 from tae_tpu_torch.ops.cuda.layernorm import fused_layer_norm
+from tae_tpu_torch.ops.cuda.wide_attention import (
+    fused_qkv_attention_q8, fused_qkv_attention_wide,
+    fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d)
 from tae_tpu_torch.tokenizer import Tokenizer
 from tae_tpu_torch.utils.dtypes import Policy
 
@@ -448,7 +452,9 @@ def test_cpu_int8_serving_leaves_launch_counters_at_zero(int8_tokenizers):
                                            dtype=np.uint8)
     tok.reconstruct(x)
     for fn in (ln_quant, int8_matmul_fused, int8_mlp, fused_qkv_attention,
-               fused_layer_norm):
+               fused_layer_norm, fused_qkv_attention_wide,
+               fused_qkv_attention_q8, fused_qkv_attention_wide_q8,
+               fused_qkv_attention_wide_q8_2d):
         assert fn.launches == 0, fn.__name__
 
 
@@ -496,7 +502,8 @@ def test_every_kernel_source_is_packaged():
     globs = data["tool"]["setuptools"]["package-data"]["tae_tpu_torch"]
     csrc = REPO / "tae_tpu_torch" / "csrc"
     names = sorted(p.name for p in csrc.iterdir())
-    assert {"int8_block.cu", "int8_matmul.cu", "int8_common.cuh"} <= set(names)
+    assert {"int8_block.cu", "int8_matmul.cu", "int8_common.cuh",
+            "wide_attention.cu"} <= set(names)
     for name in names:
         assert any(fnmatch.fnmatch(f"csrc/{name}", g) for g in globs), name
     assert "tae_tpu_torch*" in \
