@@ -11,7 +11,7 @@ Phases (each prints its lines; any failure exits non-zero):
    limit (nvidia-smi) and turns TF32 off for fp32 matmuls and convolutions;
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
    sm_90a and prints the seconds;
-3. kernels: holds each of the nine kernels against its plain PyTorch version
+3. kernels: holds each of the eleven kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
    take for the same work (the larger of bytes / 3.35 TB/s and operations /
@@ -29,12 +29,25 @@ Phases (each prints its lines; any failure exits non-zero):
    the int8 outputs against the bf16 tokenizer's on the same weights. The
    int8 tokenizers are also timed with the int8-output attention forced on
    and off (``attn_q8``);
-5. prints a JSON line with every kernel's numbers, then, as the last line,
+5. training (``train_bf16``): ``tae_patch16_vocab256_px256`` at full width
+   and depth, fp32 parameters, bf16 compute, AdamW, through
+   ``make_train_step``: one step at B = 8 against a second copy of the model
+   with ``backend="reference"`` (loss and every gradient tensor); eight steps
+   at B = 64 on one batch with the launch counts of the four training
+   entries checked on every step, finite and decreasing losses; a checkpoint
+   after step 4 loaded into a fresh model and optimizer, whose step 5 equals
+   the running state's bit for bit; ``accum_iter = 2`` against 1; steps with
+   ``remat=True``; step time, images per second and peak memory for both.
+   ``p128_train``: one step of ``tae_patch128_vocab4096_px256`` at depth
+   2 + 2 through the tiny-N attention entry, gradients against
+   ``backend="reference"``;
+6. prints a JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import pathlib
 import statistics
@@ -108,6 +121,39 @@ INT8_VS_BF16_TOL = 0.1
 # which also moves int8 codes in the layers after it (measured 0.018-0.021).
 INT8_SLICE_REL_TOL = 4e-2
 
+# The training kernels. K11's dw / db sum all rows in fp32 in chunk order and
+# round once to the weight's dtype; the plain version sums in another order.
+# A sum of M terms of size ~1 carries an fp32 error of about sqrt(M) * 6e-8
+# and, in bf16, one rounding of a value of size ~sqrt(M): atol is TOL's times
+# sqrt(M) / 8 in bf16 (2^-8 of |sum| ~ 128 at M = 16384 is 0.5: a flipped
+# rounding, seen on a few columns) and times sqrt(M) in fp32.
+# K10 in bf16 rounds P and dS to bf16 ahead of its last three products, the
+# plain version at the same points; a last-bit difference of the fp32 values
+# (summation order, expf) flips one such rounding and moves one term of a sum
+# of N by 2^-9 of itself, so the outputs follow TOL. LSE, mean and rstd are
+# fp32 on both sides: summation order only.
+STATS_TOL = dict(atol=1e-5, rtol=1e-5)
+# One train step, kernels vs backend="reference" on the same weights and
+# batch, per parameter tensor, relative Frobenius error of the fp32
+# gradients. The forward differs by the slice's rounding flips (SLICE_REL_TOL
+# through 15 + 15 blocks); the backward adds its own in every block, and the
+# reference backward (autograd of the plain forward) rounds P once and dS
+# never, where the kernel rounds both to bf16. Measured at B = 8 on an H100:
+# 0.0089 at the worst tensor (the patch embedding's weight, the deepest
+# gradient) through 15 + 15 blocks, 0.0089 through p128's 2 + 2; losses
+# 3.5e-5 apart. The bounds leave about 3x; a backward off by 5% in one
+# kernel's output exceeds them (PERF.md).
+TRAIN_GRAD_REL_TOL = 2.5e-2
+TRAIN_LOSS_RTOL = 1e-3
+# accum_iter = 2 vs 1 on the same 64 images from the same weights: the same
+# per-image arithmetic, but each microbatch's weight gradients are rounded to
+# bf16 before they are summed in fp32 (2^-9 per element, independent), and
+# cuBLAS may pick another tile order at half the rows (measured: 1e-5).
+ACCUM_NORM_RTOL = 1e-3
+TRAIN_BATCH = 64
+TRAIN_STEPS = 8
+REMAT_STEPS = 5
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
@@ -139,6 +185,16 @@ K8 = dict(name="fused_qkv_attention_wide_q8", route="cuda",
 K9 = dict(name="fused_qkv_attention_wide_q8_2d", route="cuda",
           source="tae_tpu_torch/csrc/wide_attention.cu",
           replaces="tae_tpu/ops/pallas/flash_attention.py:543")
+K10 = dict(name="fused_qkv_attention_bwd", route="cuda",
+           source="tae_tpu_torch/csrc/flash_attention_bwd.cu",
+           replaces="tae_tpu/ops/pallas/flash_attention.py:689")
+K11 = dict(name="fused_layer_norm_bwd", route="cuda",
+           source="tae_tpu_torch/csrc/layernorm.cu",
+           replaces="tae_tpu/ops/pallas/layernorm.py:38")
+# the training forwards are K1 and K2 with one more output; they count their
+# launches apart from the inference forwards
+TRAIN_FORMS = {"fused_layer_norm": "fused_layer_norm_fwd_stats",
+               "fused_qkv_attention": "fused_qkv_attention_fwd_lse"}
 
 
 class SmokeFailure(Exception):
@@ -209,6 +265,30 @@ def time_ms(fn) -> float:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / TIMED_REPS)
+    return statistics.median(times)
+
+
+def time_ms_events(fn) -> float:
+    """Device time of one call of ``fn`` in ms between CUDA events around
+    TIMED_REPS calls, median of GRAPH_REPLAYS rounds, no graph: for a
+    library's backward through ``torch.autograd.grad``, whose engine runs
+    its nodes on a thread of its own, outside a stream capture. Good for
+    calls whose device time exceeds their host time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMED_REPS):
+            fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / TIMED_REPS)
@@ -437,9 +517,9 @@ def phase_int8_kernels() -> dict:
 
     k4_case("qkv", m_full, d, 3 * d, True, False, False, lib=True)
     k4_case("proj", m_full, d, d, True, True, True, lib=True)
-    k4_case("dict_proj", m_full, d, 256, False, False, False)
-    k4_case("embed", m_full, 256, d, True, False, False)
-    k4_case("pred", m_full, d, 768, True, False, False)
+    k4_case("dict_proj", m_full, d, 256, False, False, False, lib=True)
+    k4_case("embed", m_full, 256, d, True, False, False, lib=True)
+    k4_case("pred", m_full, d, 768, True, False, False, lib=True)
     k4_case("proj", m_full, d, d, True, False, False)
     k4_case("proj", m_full, d, d, True, True, False)
     k4_case("odd M", 1001, d, d, True, True, True, timed=False)
@@ -638,6 +718,151 @@ def phase_attention_kernels() -> dict:
     return res
 
 
+def phase_train_kernels() -> dict:
+    """The training kernels against their plain versions: K1's stats form
+    (y, mean, rstd), K11 (dx, dw, db), K2's LSE form (o, lse) and K10 (dqkv),
+    in bf16 at the train path's shapes (B = 64) and in fp32 at B = 8, plus
+    head dim 80, 64 and 16 tokens and a token count off the 16-row tiles.
+    Returns case records per kernel name; the first is the main-path shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from tae_tpu_torch.ops.cuda.flash_attention import (
+        fused_qkv_attention_backward_reference, fused_qkv_attention_bwd,
+        fused_qkv_attention_fwd_lse, fused_qkv_attention_lse_reference)
+    from tae_tpu_torch.ops.cuda.layernorm import (fused_layer_norm_bwd,
+                                                  fused_layer_norm_fwd_stats)
+    from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
+                                             layer_norm_stats_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    res = {name: [] for name in ("fused_layer_norm_fwd_stats",
+                                 "fused_layer_norm_bwd",
+                                 "fused_qkv_attention_fwd_lse",
+                                 "fused_qkv_attention_bwd")}
+
+    def randn(shape, dtype, scale=1.0, shift=0.0):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x * scale + shift).to(dtype)
+
+    def record(kernel, label, err, ms, plain, bnd, lib, lib_name):
+        res[kernel].append(dict(case=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain, bound_ms=bnd[0],
+                                bound_by=bnd[1], library_ms=lib))
+        timing = "" if ms is None else (
+            f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
+        lib_s = "" if lib is None else f", {lib_name} {lib:.4f} ms"
+        print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{lib_s}")
+
+    # ---- K1 with stats, K11
+    for rows, d, dtype in ((KERNEL_BATCH * 256, 1024, torch.bfloat16),
+                           (8 * 256, 1024, torch.float32),
+                           (1001, 2560, torch.bfloat16),
+                           (8 * 64, 2048, torch.bfloat16)):
+        name = str(dtype).split(".")[1]
+        tol = TOL[name]
+        timed = rows == KERNEL_BATCH * 256
+        x = randn((rows, d), dtype, 3.0, 1.0)
+        w, b = randn((d,), dtype, 1.0, 1.0), randn((d,), dtype)
+        dy = randn((rows, d), dtype)
+        y, mean, rstd = fused_layer_norm_fwd_stats(x, w, b, 1e-6)
+        y_ref, mean_ref, rstd_ref = layer_norm_stats_reference(x, w, b, 1e-6)
+        label = f"K1 layer_norm with stats ({rows}, {d}) {name}"
+        err = compare(label, y, y_ref, **tol)
+        compare(label + " mean", mean, mean_ref, **STATS_TOL)
+        compare(label + " rstd", rstd, rstd_ref, **STATS_TOL)
+        record("fused_layer_norm_fwd_stats", label, err,
+               time_ms(lambda: fused_layer_norm_fwd_stats(x, w, b, 1e-6))
+               if timed else None,
+               time_ms(lambda: layer_norm_stats_reference(x, w, b, 1e-6))
+               if timed else None,
+               bound(nbytes(x, w, b, y, mean, rstd), 0.0, "bf16"),
+               time_ms(lambda: torch.ops.aten.native_layer_norm(
+                   x, [d], w, b, 1e-6)) if timed else None,
+               "aten.native_layer_norm (y, mean, rstd)")
+
+        dx, dw, db = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+        dx_ref, dw_ref, db_ref = layer_norm_backward_reference(
+            x, w, mean, rstd, dy)
+        label = f"K11 layer_norm backward ({rows}, {d}) {name}"
+        err = compare(label + " dx", dx, dx_ref, **tol)
+        grow = rows ** 0.5 / 8 if dtype == torch.bfloat16 else rows ** 0.5
+        sum_tol = dict(atol=tol["atol"] * max(1.0, grow), rtol=tol["rtol"])
+        err = max(err, compare(label + " dw", dw, dw_ref, **sum_tol),
+                  compare(label + " db", db, db_ref, **sum_tol))
+        again = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+        check(all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dw, db))),
+              f"{label}: two runs differ in their bits")
+        lib = None
+        if timed:
+            # F.layer_norm's backward as one library call on its own saved
+            # statistics
+            _, lm, lr_ = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-6)
+            lib = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [d], lm, lr_, w, b, [True, True, True]))
+        record("fused_layer_norm_bwd", label, err,
+               time_ms(lambda: fused_layer_norm_bwd(x, w, mean, rstd, dy))
+               if timed else None,
+               time_ms(lambda: layer_norm_backward_reference(
+                   x, w, mean, rstd, dy)) if timed else None,
+               bound(nbytes(x, w, mean, rstd, dy, dx, dw, db), 0.0, "bf16"),
+               lib, "F.layer_norm's backward")
+
+    # ---- K2 with LSE, K10
+    for batch, n, h, dh, dtype in ((KERNEL_BATCH, 256, 16, 64, torch.bfloat16),
+                                   (8, 256, 16, 64, torch.float32),
+                                   (KERNEL_BATCH, 64, 32, 64, torch.bfloat16),
+                                   (KERNEL_BATCH, 16, 32, 80, torch.bfloat16),
+                                   (7, 100, 4, 80, torch.bfloat16),
+                                   (3, 100, 4, 80, torch.float32)):
+        name = str(dtype).split(".")[1]
+        tol = TOL[name]
+        timed = batch == KERNEL_BATCH
+        c = h * dh
+        qkv = randn((batch, n, 3 * c), dtype)
+        do = randn((batch, n, c), dtype)
+        o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+        o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+        shape = f"{tuple(qkv.shape)} h={h} dh={dh} {name}"
+        label = f"K2 attention with LSE {shape}"
+        err = compare(label, o, o_ref, **tol)
+        compare(label + " lse", lse, lse_ref, **STATS_TOL)
+        r = qkv.view(batch, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+        record("fused_qkv_attention_fwd_lse", label, err,
+               time_ms(lambda: fused_qkv_attention_fwd_lse(qkv, h))
+               if timed else None,
+               time_ms(lambda: fused_qkv_attention_lse_reference(qkv, h))
+               if timed else None,
+               bound(nbytes(qkv, o, lse), 4.0 * batch * h * n * n * dh,
+                     "bf16"),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   r[0], r[1], r[2])) if timed else None, "SDPA")
+
+        dqkv = fused_qkv_attention_bwd(qkv, o, lse, do, h)
+        want = fused_qkv_attention_backward_reference(qkv, o, lse, do, h)
+        label = f"K10 attention backward {shape}"
+        err = compare(label, dqkv, want, **tol)
+        check(torch.equal(dqkv, fused_qkv_attention_bwd(qkv, o, lse, do, h)),
+              f"{label}: two runs differ in their bits")
+        lib = None
+        if timed:
+            q, k, v = (t.detach().requires_grad_() for t in r)
+            so = F.scaled_dot_product_attention(q, k, v)
+            sdo = do.view(batch, n, h, dh).transpose(1, 2)
+            lib = time_ms_events(lambda: torch.autograd.grad(
+                so, (q, k, v), sdo, retain_graph=True))
+        record("fused_qkv_attention_bwd", label, err,
+               time_ms(lambda: fused_qkv_attention_bwd(qkv, o, lse, do, h))
+               if timed else None,
+               time_ms(lambda: fused_qkv_attention_backward_reference(
+                   qkv, o, lse, do, h)) if timed else None,
+               bound(nbytes(qkv, o, lse, do, dqkv),
+                     10.0 * batch * h * n * n * dh, "bf16"),
+               lib, "SDPA's backward")
+    return res
+
+
 def slice_tol(base: float, cfg) -> float:
     """The whole-slice bound for a model of cfg.depth blocks per half."""
     return base * max(1.0, cfg.depth / SLICE_TOL_DEPTH)
@@ -650,10 +875,13 @@ def rel_err(got, want) -> float:
 
 def wrappers() -> dict:
     """The kernel wrappers by name; each counts its launches."""
-    from tae_tpu_torch.ops.cuda.flash_attention import fused_qkv_attention
+    from tae_tpu_torch.ops.cuda.flash_attention import (
+        fused_qkv_attention, fused_qkv_attention_bwd,
+        fused_qkv_attention_fwd_lse)
     from tae_tpu_torch.ops.cuda.int8_block import int8_mlp, ln_quant
     from tae_tpu_torch.ops.cuda.int8_matmul import int8_matmul_fused
-    from tae_tpu_torch.ops.cuda.layernorm import fused_layer_norm
+    from tae_tpu_torch.ops.cuda.layernorm import (
+        fused_layer_norm, fused_layer_norm_bwd, fused_layer_norm_fwd_stats)
     from tae_tpu_torch.ops.cuda.wide_attention import (
         fused_qkv_attention_q8, fused_qkv_attention_wide,
         fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d)
@@ -661,7 +889,9 @@ def wrappers() -> dict:
     return {f.__name__: f for f in (
         fused_layer_norm, fused_qkv_attention, ln_quant, int8_matmul_fused,
         int8_mlp, fused_qkv_attention_wide, fused_qkv_attention_q8,
-        fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d)}
+        fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d,
+        fused_layer_norm_fwd_stats, fused_layer_norm_bwd,
+        fused_qkv_attention_fwd_lse, fused_qkv_attention_bwd)}
 
 
 def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
@@ -824,6 +1054,251 @@ def time_attn_q8(tag: str, tok) -> dict:
     return {"attn_q8_ms": on, "bf16_attn_plain_quantize_ms": off}
 
 
+def train_launches(cfg, remat: bool = False) -> dict:
+    """Each kernel's launches in one train step (forward and backward of the
+    whole model), as the code implies them: a training LayerNorm forward and
+    a LayerNorm backward per norm (two a block and one a half), a training
+    attention forward per block and, above 8 tokens, an attention backward
+    (the tiny-N entry's backward is plain PyTorch by design); ``remat`` runs
+    every block's forward once more. Every forward-only and int8 entry: 0."""
+    from tae_tpu_torch.ops.attention import attention_route
+
+    blocks = cfg.depth + cfg.decoder_depth
+    again = blocks if remat else 0
+    want = {"fused_layer_norm_fwd_stats": 2 * blocks + 2 + 2 * again,
+            "fused_layer_norm_bwd": 2 * blocks + 2}
+    if attention_route(cfg.num_patches, False, False)[0] == "wide":
+        want["fused_qkv_attention_wide"] = blocks + again
+    else:
+        want["fused_qkv_attention_fwd_lse"] = blocks + again
+        want["fused_qkv_attention_bwd"] = blocks
+    return want
+
+
+def counted_step(tag: str, step, state, batch, it: int, want: dict, totals: dict):
+    """One train step, timed on the host clock to a synchronize, with every
+    kernel's launch count held to ``want`` and added into ``totals``."""
+    import torch
+
+    fns = wrappers()
+    before = {name: f.launches for name, f in fns.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, metrics = step(state, batch, it)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = {name: f.launches - before[name] for name, f in fns.items()}
+    check(got == {name: want.get(name, 0) for name in fns},
+          f"{tag} step {it}: launches {got}, expected {want}")
+    for name, n in got.items():
+        totals[name] = totals.get(name, 0) + n
+    return metrics, dt
+
+
+def compare_gradients(tag: str, model, ref_model, tol: float) -> float:
+    """Relative Frobenius error of every gradient tensor of ``model`` against
+    ``ref_model``'s, the worst returned; fails above ``tol``."""
+    import torch
+
+    worst, worst_name = 0.0, ""
+    for (name, p), q in zip(model.named_parameters(), ref_model.parameters()):
+        check(p.grad is not None and q.grad is not None
+              and p.grad.dtype == torch.float32
+              and bool(torch.isfinite(p.grad).all()),
+              f"{tag}: gradient of {name} is missing, not fp32 or not finite")
+        err = rel_err(p.grad, q.grad)
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"[{tag}] gradients vs backend='reference': worst relative error "
+          f"{worst:.3g} ({worst_name}; tolerance {tol})")
+    check(worst <= tol, f"{tag}: gradient of {worst_name} is {worst:.3g} from "
+                        "the plain versions'")
+    return worst
+
+
+def phase_train(kres: dict) -> dict:
+    """Path ``train_bf16``. Returns the launch counts of its steps."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from tae_tpu_torch.ckpt.io import (checkpoint_step, load_train_state,
+                                       save_checkpoint)
+    from tae_tpu_torch.profile_training import build_state, make_step
+
+    tag, name = "train_bf16", PATHS[0][0]
+    fns = wrappers()
+    state, step = build_state(name), make_step()
+    cfg = state.model.cfg
+    n_params = sum(p.numel() for p in state.model.parameters())
+    check(all(p.requires_grad and p.dtype == torch.float32
+              for p in state.model.parameters()), "parameters are not fp32 "
+                                                  "with a gradient")
+    print(f"[{tag}] {name}: {n_params} fp32 parameters, {cfg.depth}+"
+          f"{cfg.decoder_depth} blocks, bf16 compute, AdamW (weight decay "
+          f"0.05), fused={state.opt.param_groups[0]['fused']}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    size = (cfg.in_chans, cfg.img_size, cfg.img_size)
+    small = torch.randn((8, *size), generator=gen, device="cuda")
+    batch = torch.randn((TRAIN_BATCH, *size), generator=gen, device="cuda")
+    want, totals = train_launches(cfg), {}
+
+    # ---- 1. one step at B = 8, kernels vs the plain versions (a warm-up too)
+    ref_state, ref_step = build_state(name), make_step(backend="reference")
+    ref_state.model.load_state_dict(state.model.state_dict())
+    m, _ = counted_step(tag, step, state, small, 0, want, {})
+    m_ref, _ = counted_step(tag, ref_step, ref_state, small, 0, {}, {})
+    loss, loss_ref = float(m["loss"]), float(m_ref["loss"])
+    print(f"[{tag}] B=8 step: loss {loss:.6f} vs {loss_ref:.6f} with "
+          f"backend='reference' (rtol {TRAIN_LOSS_RTOL}); grad_norm "
+          f"{float(m['grad_norm']):.4f} vs {float(m_ref['grad_norm']):.4f}")
+    check(abs(loss - loss_ref) <= TRAIN_LOSS_RTOL * abs(loss_ref),
+          f"{tag}: losses differ")
+    compare_gradients(tag, state.model, ref_state.model, TRAIN_GRAD_REL_TOL)
+    del ref_state, ref_step, m_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2-4. the main path: eight steps at B = 64 on one batch; every
+    #      count is 0 here and read right after each step
+    for f in fns.values():
+        f.launches = 0
+    losses, times, resumed, norm5 = [], [], None, None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "latest.pt"
+        for it in range(1, TRAIN_STEPS + 1):
+            if it == 5:
+                # 3. the checkpoint of step 4 in a fresh model and optimizer
+                save_checkpoint(path, state, step=4, args={"batch": TRAIN_BATCH})
+                check(checkpoint_step(path) == 4, "checkpoint_step")
+                resumed = build_state(name, seed=99)
+                _, restored, meta = load_train_state(path, resumed.model,
+                                                     resumed.opt)
+                check(restored and meta["step"] == 4,
+                      f"{tag}: optimizer state not restored ({meta})")
+            m, dt = counted_step(tag, step, state, batch, it, want, totals)
+            losses.append(float(m["loss"]))
+            times.append(dt)
+            if it == 5:
+                norm5 = float(m["grad_norm"])
+                m2, _ = counted_step(tag, step, resumed, batch, it, want, {})
+                same = (float(m2["loss"]) == losses[-1] and all(
+                    torch.equal(a, b) for a, b in zip(
+                        state.model.parameters(), resumed.model.parameters())))
+                check(same, f"{tag}: step 5 from the loaded checkpoint differs "
+                            f"from the running state's (loss {float(m2['loss'])}"
+                            f" vs {losses[-1]})")
+                print(f"[{tag}] resume: step 5 from the checkpoint of step 4 "
+                      f"equals the running state bit for bit (loss "
+                      f"{losses[-1]:.6f}, {n_params} parameters)")
+                # 4. accum_iter = 2 from the same weights, on the same images
+                acc_step = make_step(accum_iter=2)
+                load_train_state(path, resumed.model, resumed.opt)
+                acc_want = {k: 2 * v for k, v in want.items()}
+                m3, _ = counted_step(tag, acc_step, resumed, batch, it,
+                                     acc_want, {})
+                norm2 = float(m3["grad_norm"])
+                print(f"[{tag}] accum_iter=2: grad_norm {norm2:.6f} vs "
+                      f"{norm5:.6f} with accum_iter=1 (rtol {ACCUM_NORM_RTOL}); "
+                      f"loss {float(m3['loss']):.6f} vs {losses[-1]:.6f}")
+                check(abs(norm2 - norm5) <= ACCUM_NORM_RTOL * norm5,
+                      f"{tag}: accum_iter=2 changes the gradient norm")
+                del resumed, acc_step, m2, m3
+                gc.collect()
+                torch.cuda.empty_cache()
+                # the peak of the steps that follow is one trainer's own
+                torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(x == x and abs(x) != float("inf") for x in losses)
+          and losses[-1] < losses[0],
+          f"{tag}: losses {losses} are not finite and decreasing")
+    print(f"[{tag}] {TRAIN_STEPS} steps at B={TRAIN_BATCH}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}")
+    on_path = [k for k, v in want.items() if v]
+    check(all(totals.get(k, 0) > 0 for k in on_path),
+          f"{tag}: a kernel of the path never launched: {totals}")
+    ran = {k: v for k, v in totals.items() if v}
+    print(f"[{tag}] main path launches: {json.dumps(ran)} (per step: "
+          f"{json.dumps(want)})")
+
+    def report(label, times, peak, per_step):
+        ms = statistics.median(times) * 1e3
+        inside = sum(kres[k][0]["ms"] * n for k, n in per_step.items()
+                     if k in kres)
+        print(f"[{tag}] {label}: {ms:.2f} ms/step (runs "
+              f"{min(times) * 1e3:.2f}-{max(times) * 1e3:.2f}), "
+              f"{TRAIN_BATCH / ms * 1e3:.1f} img/s at B={TRAIN_BATCH}, peak "
+              f"memory {peak:.2f} GiB; K10 + K11 + K1 + K2 (kernel-phase "
+              f"times x launches) {inside:.2f} ms = {inside / ms:.3f} of the "
+              "step")
+        return ms
+
+    report("no remat", times[1:], peak, want)
+
+    # ---- 5. remat=True: the same state, each block's forward once more
+    remat_step = make_step(remat=True)
+    remat_want, remat_totals, times = train_launches(cfg, remat=True), {}, []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for it in range(TRAIN_STEPS + 1, TRAIN_STEPS + 1 + REMAT_STEPS):
+        m, dt = counted_step(tag, remat_step, state, batch, it, remat_want,
+                             remat_totals)
+        losses.append(float(m["loss"]))
+        times.append(dt)
+    check(all(x == x for x in losses) and losses[-1] < losses[0],
+          f"{tag}: losses with remat {losses[TRAIN_STEPS:]}")
+    report("remat=True", times, torch.cuda.max_memory_allocated() / 2 ** 30,
+           remat_want)
+    print(f"[{tag}] remat launches per step: {json.dumps(remat_want)}")
+    del state, step, remat_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_p128_train() -> dict:
+    """Path ``p128_train``: one step of the 4-token model at depth 2 + 2,
+    B = 8, through the tiny-N attention entry (forward kernel, backward by
+    the plain reference), gradients against ``backend="reference"``."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.profile_training import build_state, make_step
+
+    tag, name = "p128_train", PATHS[1][0]
+    cut = dict(depth=2, decoder_depth=2)
+    state, step = build_state(name, **cut), make_step()
+    ref_state, ref_step = build_state(name, **cut), make_step(backend="reference")
+    ref_state.model.load_state_dict(state.model.state_dict())
+    cfg = state.model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = torch.randn((8, cfg.in_chans, cfg.img_size, cfg.img_size),
+                        generator=gen, device="cuda")
+    want, totals = train_launches(cfg), {}
+    for f in wrappers().values():
+        f.launches = 0
+    m, dt = counted_step(tag, step, state, batch, 0, want, totals)
+    m_ref, _ = counted_step(tag, ref_step, ref_state, batch, 0, {}, {})
+    loss, loss_ref = float(m["loss"]), float(m_ref["loss"])
+    print(f"[{tag}] {name} at depth 2+2, width {cfg.embed_dim}, "
+          f"{cfg.num_patches} tokens, B=8: loss {loss:.6f} vs {loss_ref:.6f} "
+          f"with backend='reference'; launches "
+          f"{json.dumps({k: v for k, v in totals.items() if v})}; first "
+          f"step {dt * 1e3:.1f} ms")
+    check(loss == loss and abs(loss - loss_ref) <= TRAIN_LOSS_RTOL * loss_ref,
+          f"{tag}: losses differ")
+    check(totals.get("fused_qkv_attention_wide", 0) > 0,
+          f"{tag}: the tiny-N entry never launched")
+    compare_gradients(tag, state.model, ref_state.model, TRAIN_GRAD_REL_TOL)
+    del state, ref_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def phase_paths() -> dict:
     """Every model of PATHS: its bf16 tokenizer (driven where PATHS names a
     bf16 path, and the yardstick of the int8 outputs), then its int8
@@ -890,7 +1365,10 @@ def main() -> int:
         kres = phase_kernels()
         kres.update(phase_int8_kernels())
         kres.update(phase_attention_kernels())
+        kres.update(phase_train_kernels())
         launches = phase_paths()
+        launches["train_bf16"] = phase_train(kres)
+        launches["p128_train"] = phase_p128_train()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -916,7 +1394,7 @@ def main() -> int:
             kres["fused_qkv_attention"], lambda c: slice_shape(c) and c[5],
             lambda c: slice_shape(c) and not c[5]),
     }
-    for name in [k["name"] for k in (K3, K4, K5, K6, K7, K8, K9)]:
+    for name in [k["name"] for k in (K3, K4, K5, K6, K7, K8, K9, K10, K11)]:
         cases = kres[name]
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         records[name] = dict({k: cases[0][k] for k in keys},
@@ -926,12 +1404,20 @@ def main() -> int:
     k6 = kres[K6["name"]]
     records[K6["name"]]["library_ms"] = next(
         c["library_ms"] for c in k6 if c["library_ms"] is not None)
+    # the training forwards: K1's and K2's numbers with one more output
+    for name, form in TRAIN_FORMS.items():
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        records[name]["training_form"] = dict(
+            {k: kres[form][0][k] for k in keys}, name=form, cases=kres[form])
     kernels = []
-    for meta in (K1, K2, K3, K4, K5, K6, K7, K8, K9):
-        by_path = {path: counts[meta["name"]]
-                   for path, counts in launches.items()}
+    for meta in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11):
+        name = meta["name"]
+        # a train path launches K1 and K2 in their training forms
+        by_path = {path: counts.get(name, 0) + counts.get(
+            TRAIN_FORMS.get(name), 0) for path, counts in launches.items()}
         kernels.append(dict(meta, launches=sum(by_path.values()),
-                            launches_by_path=by_path, **records[meta["name"]]))
+                            launches_by_path=by_path, **records[name]))
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         print(f"FAIL: no path launched {idle}", file=sys.stderr)

@@ -3,13 +3,15 @@
 The package mirrors ``tae_tpu``'s module layout so every port module sits at
 the same relative path as its JAX counterpart:
 
-- ``nn/vit.py``, ``models/tae.py``, ``tokenizer.py``: the bf16 tokenization
-  serving path as ``nn.Module``s;
+- ``nn/vit.py``, ``models/tae.py``, ``tokenizer.py``: the tokenizer as
+  ``nn.Module``s, served in bf16 and int8 and trained in bf16;
 - ``ops/``: plain PyTorch versions of every op, plus ``ops/cuda/``, the
   wrappers of the hand-written sm_90a kernels in ``csrc/`` (the counterparts
   of ``tae_tpu/ops/pallas/``);
-- ``ckpt/bridge.py``: JAX parameter trees and reference ``.pth`` files into
-  the port's ``state_dict``.
+- ``train/``: AdamW, the schedules and the train / eval step factories;
+- ``ckpt/``: ``bridge.py`` (JAX parameter, gradient and optimizer-state trees
+  and reference ``.pth`` files into the port's layout), ``io.py``
+  (checkpoints), ``interpolate.py`` (positional-embedding resize).
 
 A wrapper in ``ops/cuda`` runs its plain version only for a tensor on the
 CPU; for a CUDA tensor it launches its kernel or raises. The kernels are

@@ -16,9 +16,15 @@ int8 serving tree (quantized linears ``{w_q (in, out) int8, w_scale (out,),
 b}``, blocks as a list of per-layer trees), so both packages can hold
 bit-identical int8 weights.
 
+The mapping is elementwise per parameter, so the same function turns any
+tree shaped like the parameters into the port's layout: a gradient tree, or
+the moments of the JAX package's ``AdamWState``
+(:func:`load_adamw_state_from_jax`). That is how training state crosses: as
+numpy arrays through this module; the port reads no orbax directory.
+
 A JAX-trained checkpoint can also reach the port as a ``.pth`` written by
 ``python -m tae_tpu.cli.export_torch``; :func:`load_pth` reads either form
-of such a file.
+of such a file, and a checkpoint of the port's own.
 """
 
 from __future__ import annotations
@@ -116,8 +122,27 @@ def serving_state_dict_from_jax(params_np: Params, cfg
     return state_dict_from_jax(params_np, cfg)
 
 
-def load_pth(path) -> dict[str, torch.Tensor]:
-    """A reference-layout ``.pth``: ``{"model": state_dict, ...}`` (the
-    reference's and ``export_torch``'s on-disk form) or a bare state_dict."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+def load_adamw_state_from_jax(opt: torch.optim.Optimizer, model, step: int,
+                              mu_np: Params, nu_np: Params) -> None:
+    """Fill the port's AdamW state (``opt``, made by
+    ``tae_tpu_torch.train.adamw(...).init(model)``) from the JAX package's
+    ``AdamWState``: its ``step`` and its ``mu`` / ``nu`` trees as numpy
+    arrays, laid out like the parameters."""
+    from tae_tpu_torch.train.optim import set_adamw_state
+
+    set_adamw_state(opt, model, int(step),
+                    state_dict_from_jax(mu_np, model.cfg),
+                    state_dict_from_jax(nu_np, model.cfg))
+
+
+def state_dict_of(blob) -> dict[str, torch.Tensor]:
+    """The state_dict in a loaded file: under ``"model"`` (the reference's
+    and ``export_torch``'s on-disk form, and the port's own checkpoints) or
+    the file itself (a bare state_dict)."""
     return blob["model"] if "model" in blob else blob
+
+
+def load_pth(path) -> dict[str, torch.Tensor]:
+    """The state_dict of a reference-layout ``.pth`` or a port checkpoint."""
+    return state_dict_of(torch.load(path, map_location="cpu",
+                                    weights_only=True))

@@ -1,7 +1,10 @@
 // K2 — packed-qkv attention forward.
 //
 // Replaces: tae_tpu/ops/pallas/flash_attention.py::fused_qkv_attention
-//   (forward: _packed_fwd_call -> _packed_fwd_kernel_stacked). qkv (B, N, 3C)
+//   (forward: _packed_fwd_call -> _packed_fwd_kernel_stacked, and its
+//   LSE-saving form, _packed_vjp_fwd: the exact softmax that also writes
+//   lse = rowmax + log(rowsum), fp32 (B, H, N), which the backward in
+//   flash_attention_bwd.cu reads). qkv (B, N, 3C)
 //   holds [q | k | v] along the last axis with heads as contiguous dh-column
 //   slices; the output (B, N, C) is written with the heads merged, so no
 //   (B, H, N, dh) transpose ever reaches device memory.
@@ -101,8 +104,8 @@ __device__ __forceinline__ void score_chunk(const QFrag (&qa)[DH / 16], const bf
 
 template <int DH, bool SERVING>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, 2)
-packed_attention_fwd_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n,
-                          int heads, float scale) {
+packed_attention_fwd_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                          float* __restrict__ lse, int n, int heads, float scale) {
   constexpr int LDK = tc_kv_ld<DH>();
   constexpr int RW = tc_region_ld<DH>();
   constexpr int LDB = 2 * RW;  // the region's row stride in bf16 elements
@@ -209,6 +212,8 @@ packed_attention_fwd_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ out, 
   }
   lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
   if (sc == 0) linv[sr] = 1.f / lsum;
+  if (!SERVING && lse != nullptr && sc == 0 && q0 + sr < n)
+    lse[(static_cast<long>(b) * heads + h) * n + q0 + sr] = mx + logf(lsum);
 #pragma unroll
   for (int dt = 0; dt < DH / 16; ++dt)
     wm::store_matrix_sync(region + dt * 16, oacc[dt], RW, wm::mem_row_major);
@@ -238,8 +243,8 @@ size_t f32_smem_bytes(int n) {
 
 template <int DH, bool SERVING>
 __global__ void __launch_bounds__(kF32Warps * 32)
-packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int n,
-                         int heads, float scale) {
+packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
+                         float* __restrict__ lse, int n, int heads, float scale) {
   constexpr int LD = f32_ld<DH>();
   constexpr int C2 = DH / 2;  // float2 output columns
   constexpr int C2_PER_LANE = (C2 + 31) / 32;
@@ -306,7 +311,10 @@ packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
         pw[j] = p;  // fp32 input: rounding p to the input dtype is exact
       }
     }
-    const float inv = 1.f / tae::warp_sum(l);
+    l = tae::warp_sum(l);
+    const float inv = 1.f / l;
+    if (!SERVING && lse != nullptr && lane == 0)
+      lse[(static_cast<long>(b) * heads + h) * n + q0 + r] = mx + logf(l);
     __syncwarp();
 
     float2 acc[C2_PER_LANE];
@@ -340,9 +348,10 @@ packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
 // cudaFuncSetAttribute costs microseconds of host time, so it runs only when
 // a launch needs more than that.
 template <typename T>
-int launch(void (*kernel)(const T*, T*, int, int, float), size_t smem,
+int launch(void (*kernel)(const T*, T*, float*, int, int, float), size_t smem,
            size_t& smem_allowed, int threads, int rows_per_block, const void* qkv,
-           void* out, int batch, int n, int heads, float scale, cudaStream_t stream) {
+           void* out, void* lse, int batch, int n, int heads, float scale,
+           cudaStream_t stream) {
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -351,24 +360,25 @@ int launch(void (*kernel)(const T*, T*, int, int, float), size_t smem,
   }
   const dim3 grid((n + rows_per_block - 1) / rows_per_block, heads, batch);
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(qkv),
-                                           static_cast<T*>(out), n, heads, scale);
+                                           static_cast<T*>(out),
+                                           static_cast<float*>(lse), n, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH, bool SERVING>
-int launch_dtype(const void* qkv, void* out, int batch, int n, int heads, float scale,
-                 int dtype, cudaStream_t stream) {
+int launch_dtype(const void* qkv, void* out, void* lse, int batch, int n, int heads,
+                 float scale, int dtype, cudaStream_t stream) {
   if (dtype == tae::kBFloat16) {
     static size_t smem_allowed = 0;  // one per kernel instantiation
     return launch(packed_attention_fwd_bf16<DH, SERVING>, tc_smem_bytes<DH>(n),
-                  smem_allowed, tc_warps(n) * 32, tc_warps(n) * 16, qkv, out, batch, n,
-                  heads, scale, stream);
+                  smem_allowed, tc_warps(n) * 32, tc_warps(n) * 16, qkv, out, lse, batch,
+                  n, heads, scale, stream);
   }
   if (dtype == tae::kFloat32) {
     static size_t smem_allowed = 0;
     return launch(packed_attention_fwd_f32<DH, SERVING>, f32_smem_bytes<DH>(n),
-                  smem_allowed, kF32Warps * 32, kBQ, qkv, out, batch, n, heads, scale,
-                  stream);
+                  smem_allowed, kF32Warps * 32, kBQ, qkv, out, lse, batch, n, heads,
+                  scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -376,8 +386,10 @@ int launch_dtype(const void* qkv, void* out, int batch, int n, int heads, float 
 template <int DH>
 int launch_mode(const void* qkv, void* out, int batch, int n, int heads, float scale,
                 int serving, int dtype, cudaStream_t stream) {
-  return serving ? launch_dtype<DH, true>(qkv, out, batch, n, heads, scale, dtype, stream)
-                 : launch_dtype<DH, false>(qkv, out, batch, n, heads, scale, dtype, stream);
+  return serving
+             ? launch_dtype<DH, true>(qkv, out, nullptr, batch, n, heads, scale, dtype, stream)
+             : launch_dtype<DH, false>(qkv, out, nullptr, batch, n, heads, scale, dtype,
+                                       stream);
 }
 
 }  // namespace
@@ -391,5 +403,20 @@ extern "C" int tae_packed_attention_fwd(const void* qkv, void* out, int batch, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh == 64) return launch_mode<64>(qkv, out, batch, n, heads, scale, serving, dtype, s);
   if (dh == 80) return launch_mode<80>(qkv, out, batch, n, heads, scale, serving, dtype, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The exact-softmax forward that also writes lse: (batch, heads, n) fp32.
+extern "C" int tae_packed_attention_fwd_lse(const void* qkv, void* out, void* lse,
+                                            int batch, int n, int heads, int dh,
+                                            float scale, int dtype, void* stream) {
+  if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || n < 1 || n > kMaxN ||
+      lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64)
+    return launch_dtype<64, false>(qkv, out, lse, batch, n, heads, scale, dtype, s);
+  if (dh == 80)
+    return launch_dtype<80, false>(qkv, out, lse, batch, n, heads, scale, dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -74,9 +74,12 @@ class TAEConfig:
 class TAE(nn.Module):
     """Parameters are allocated uninitialised on ``device`` (``"meta"``
     allocates nothing); :meth:`init_weights_` fills them from a generator,
-    or ``load_state_dict`` from a checkpoint."""
+    or ``load_state_dict`` from a checkpoint. ``trainable=True`` builds the
+    model for training: every parameter requires a gradient (the default
+    builds it frozen, for serving)."""
 
-    def __init__(self, cfg: TAEConfig, device=None, dtype=torch.float32):
+    def __init__(self, cfg: TAEConfig, device=None, dtype=torch.float32,
+                 trainable: bool = False):
         super().__init__()
         if cfg.quantize:
             raise NotImplementedError(
@@ -100,6 +103,7 @@ class TAE(nn.Module):
         self.decoder_norm = vit.LayerNorm(c.decoder_embed_dim, c.ln_eps, **kw)
         self.decoder_pred = vit.Linear(c.decoder_embed_dim,
                                        c.patch_size ** 2 * c.in_chans, **kw)
+        self.requires_grad_(trainable)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> "TAE":
@@ -122,8 +126,8 @@ class TAE(nn.Module):
 
     # --------------------------------------------------------------- forward
     def forward_encoder(self, imgs: torch.Tensor, *, policy: Policy = DEFAULT,
-                        backend: str | None = None,
-                        serving: bool = False) -> torch.Tensor:
+                        backend: str | None = None, serving: bool = False,
+                        remat: bool | str = False) -> torch.Tensor:
         """(B, C, H, W) images, or (B, N, C·p²) rows in ``extract_patches``
         layout -> latents (B, N, vocab_size)."""
         c = self.cfg
@@ -140,30 +144,32 @@ class TAE(nn.Module):
         x = self.patch_embed(imgs.to(policy.compute_dtype), backend)
         x = x + self.pos_embed.to(x.dtype)
         x = self._blocks_then_head(self.blocks, self.norm, self.dict_proj, x,
-                                   policy, backend, serving)
+                                   policy, backend, serving, remat)
         return policy.cast_to_output(x)
 
     def forward_decoder(self, z: torch.Tensor, *, policy: Policy = DEFAULT,
-                        backend: str | None = None,
-                        serving: bool = False) -> torch.Tensor:
+                        backend: str | None = None, serving: bool = False,
+                        remat: bool | str = False) -> torch.Tensor:
         """latents (B, N, vocab) -> per-patch pixel predictions (B, N, p²·C)."""
         x = self.decoder_embed(z.to(policy.compute_dtype), backend)
         x = x + self.decoder_pos_embed.to(x.dtype)
         x = self._blocks_then_head(self.decoder_blocks, self.decoder_norm,
                                    self.decoder_pred, x, policy, backend,
-                                   serving)
+                                   serving, remat)
         return policy.cast_to_output(x)
 
     @staticmethod
     def _blocks_then_head(stack, norm, head, x: torch.Tensor, policy: Policy,
-                          backend: str | None, serving: bool) -> torch.Tensor:
+                          backend: str | None, serving: bool,
+                          remat: bool | str = False) -> torch.Tensor:
         """Block stack -> final LayerNorm -> head linear. With a quantized
         head the final LayerNorm + quantize chain into the last int8
         block's MLP epilogue and the head reads the ``(xq, sx)`` directly."""
         if not isinstance(head, vit.QLinear):
-            x = vit.blocks_apply(stack, x, backend, serving)
+            x = vit.blocks_apply(stack, x, backend, serving, remat=remat)
             return head(norm(x, backend), backend)
-        x, ln = vit.blocks_apply(stack, x, backend, serving, final_norm=norm)
+        x, ln = vit.blocks_apply(stack, x, backend, serving, final_norm=norm,
+                                 remat=remat)
         if ln is None:
             return head(norm(x, backend), backend)
         xq, sx = ln
@@ -178,11 +184,15 @@ class TAE(nn.Module):
         return (pred.float() - target).square().mean()
 
     def forward(self, imgs: torch.Tensor, *, policy: Policy = DEFAULT,
-                backend: str | None = None
+                backend: str | None = None, remat: bool | str = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full autoencode: returns (loss, pred)."""
-        z = self.forward_encoder(imgs, policy=policy, backend=backend)
-        pred = self.forward_decoder(z, policy=policy, backend=backend)
+        """Full autoencode: returns (loss, pred), the training objective.
+        ``remat=True`` recomputes each block in the backward pass
+        (:func:`tae_tpu_torch.nn.vit.blocks_apply`)."""
+        z = self.forward_encoder(imgs, policy=policy, backend=backend,
+                                 remat=remat)
+        pred = self.forward_decoder(z, policy=policy, backend=backend,
+                                    remat=remat)
         return self.forward_loss(imgs, pred), pred
 
     # ----------------------------------------------------------------- utils
@@ -215,7 +225,8 @@ _VOCABS: dict[int, tuple[int, ...]] = {
 def _make_factory(patch: int, vocab: int):
     trunk = _TRUNKS[patch]
 
-    def factory(*, device=None, dtype=torch.float32, **overrides) -> TAE:
+    def factory(*, device=None, dtype=torch.float32, trainable: bool = False,
+                **overrides) -> TAE:
         cfg = TAEConfig(
             img_size=256,
             patch_size=patch,
@@ -231,7 +242,7 @@ def _make_factory(patch: int, vocab: int):
         )
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        return TAE(cfg, device=device, dtype=dtype)
+        return TAE(cfg, device=device, dtype=dtype, trainable=trainable)
 
     return factory
 

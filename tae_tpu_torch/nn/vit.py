@@ -18,7 +18,14 @@ Conventions:
     takes the fused int8 forward (:meth:`Block.forward_int8`), any other
     block the float forward.
 
-The JAX package's ``unroll``, ``scan`` and ``remat`` have no meaning for an
+Parameters are allocated frozen (the serving face builds most models); a
+model built with ``trainable=True`` (:class:`tae_tpu_torch.models.tae.TAE`)
+requires a gradient on every parameter.
+:func:`tae_tpu_torch.ops.int8.quantize_params_` freezes the model it rewrites,
+and the int8 kernels refuse tensors that require a gradient. ``remat=True`` on
+:func:`blocks_apply` recomputes each float block in the backward pass
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` around the
+block body). The JAX package's ``unroll`` and ``scan`` have no meaning for an
 eager forward and are dropped. ``qk_norm`` and the int4 layout are not
 ported yet.
 """
@@ -30,6 +37,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tae_tpu_torch.nn import init as tinit
 from tae_tpu_torch.ops import int8
@@ -67,6 +75,8 @@ class BlockConfig:
 
 
 def empty_param(shape, device, dtype) -> nn.Parameter:
+    """Frozen as allocated; a model built with ``trainable=True`` turns the
+    gradient on for all its parameters."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -329,16 +339,39 @@ def blocks(cfg: BlockConfig, depth: int, device=None,
 
 def blocks_apply(stack: nn.ModuleList, x: torch.Tensor,
                  backend: str | None = None, serving: bool = False,
-                 final_norm: LayerNorm | None = None):
+                 final_norm: LayerNorm | None = None,
+                 remat: bool | str = False):
     """Apply the blocks in order. Consecutive int8 blocks are chained: each
     MLP epilogue emits the next block's LN'd int8 input. With
     ``final_norm`` (the caller has a quantized head behind that norm) the
     last int8 block chains the final LayerNorm the same way and the result
-    is ``(x, ln)``, ``ln`` being the head's ``(xq, sx)`` or None."""
+    is ``(x, ln)``, ``ln`` being the head's ``(xq, sx)`` or None.
+
+    ``remat=True`` keeps only each float block's input for the backward
+    pass and recomputes the block there (``torch.utils.checkpoint``,
+    non-reentrant): one more forward per block, about a block's worth of
+    activations in memory instead of every block's. The JAX package's
+    string policies (``"dots"``, ``"dots_no_batch"``) name what XLA saves
+    and have no counterpart; an int8 block is forward-only and has nothing
+    to rematerialize."""
+    if isinstance(remat, str):
+        raise NotImplementedError(
+            f"remat={remat!r} is a jax.checkpoint policy of XLA (which "
+            "matmul outputs it keeps); the port has remat=True (recompute "
+            "the whole block) or False")
     ln = None
     for i, blk in enumerate(stack):
+        if remat and blk.is_int8:
+            raise ValueError("remat applies to float blocks; an int8 block "
+                             "is forward-only (serving)")
         if not blk.is_int8:
-            x, ln = blk(x, backend, serving), None
+            if remat and torch.is_grad_enabled():
+                # a block draws no random numbers: nothing to save or restore
+                x = checkpoint(blk, x, backend, serving, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk(x, backend, serving)
+            ln = None
             continue
         nxt = stack[i + 1] if i + 1 < len(stack) else None
         if nxt is not None:

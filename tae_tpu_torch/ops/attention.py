@@ -103,7 +103,13 @@ def packed_attention(qkv: torch.Tensor, num_heads: int, route: str,
                      serving: bool = False, backend: str | None = None):
     """Run ``route`` on packed qkv (B, N, 3C). Float routes return y
     (B, N, C); int8-output routes return flat rows ``(yq (B*N, C) int8,
-    y_scale (B*N, 1) fp32)``, the form the proj matmul reads."""
+    y_scale (B*N, 1) fp32)``, the form the proj matmul reads.
+
+    Where autograd records through qkv, the float routes carry the gradient
+    with ``serving=False`` (``"packed"``: forward and backward kernels;
+    ``"wide"``: forward kernel, backward through the plain reference;
+    ``backend="reference"``: plain autograd). The kernels' serving forms and
+    the int8-output routes are forward-only and raise."""
     kernel, plain = ROUTES[route]
     fn = plain if resolve_backend(backend, qkv) == "reference" else kernel
     b, n, c3 = qkv.shape
@@ -111,6 +117,7 @@ def packed_attention(qkv: torch.Tensor, num_heads: int, route: str,
         return fn(qkv, num_heads, serving=serving)
     if not serving:
         raise ValueError(f"route {route!r} has the serving softmax only")
+    _wa.build.refuse_grad(f"packed_attention(route={route!r})", qkv)
     if route == "wide_q8_2d":
         return fn(qkv.reshape(b * n, c3), n, num_heads)
     yq, ys = fn(qkv, num_heads)

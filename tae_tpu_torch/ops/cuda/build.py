@@ -42,9 +42,24 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, weight, bias, y, rows, cols, eps, x dtype, weight dtype, stream
     "tae_layer_norm_fwd": ((_VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
+    # x, weight, bias, y, mean, rstd, rows, cols, eps, x dtype, weight dtype,
+    # stream
+    "tae_layer_norm_fwd_stats": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I,
+                                  _I, _VP), _I),
+    # x, weight, mean, rstd, dy, dx, dw, db, partial sums, rows, cols, row
+    # chunks, rows per chunk, x dtype, weight dtype, stream
+    "tae_layer_norm_bwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                            _I, _I, _I, _I, _VP), _I),
     # qkv, out, batch, tokens, heads, head dim, scale, serving, dtype, stream
     "tae_packed_attention_fwd": ((_VP, _VP, _I, _I, _I, _I, _F, _I, _I, _VP),
                                  _I),
+    # qkv, out, lse, batch, tokens, heads, head dim, scale, dtype, stream
+    "tae_packed_attention_fwd_lse": ((_VP, _VP, _VP, _I, _I, _I, _I, _F, _I,
+                                      _VP), _I),
+    # qkv, o, lse, do, dqkv, batch, tokens, heads, head dim, scale, dtype,
+    # stream
+    "tae_packed_attention_bwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
+                                  _I, _VP), _I),
     # qkv, out, batch, tokens, heads, head dim, scale, serving, dtype, stream
     "tae_wide_attention_fwd": ((_VP, _VP, _I, _I, _I, _I, _F, _I, _I, _VP), _I),
     # qkv, int8 out, scales, batch (2d: rows), tokens, heads, head dim, scale,
@@ -193,6 +208,26 @@ def check_operand(name: str, t, device, dtypes, shape=None) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd is recording and one of ``tensors`` takes part."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(entry: str, *tensors) -> None:
+    """Raise if autograd would record through a forward-only kernel entry:
+    its output carries no ``grad_fn``, so a backward pass would leave every
+    parameter ahead of it without a gradient, silently."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{entry} is forward-only (a serving entry: no backward kernel "
+            "exists for it) and was given a tensor that requires a gradient; "
+            "call it under torch.no_grad() / inference_mode(), or train "
+            "through the float path with serving=False")
 
 
 def ptr(t) -> int | None:

@@ -1,6 +1,16 @@
-"""K2: packed-qkv attention forward (counterpart of
-``tae_tpu/ops/pallas/flash_attention.py::fused_qkv_attention``; source
-``tae_tpu_torch/csrc/flash_attention.cu``) and its plain version."""
+"""K2 and K10: packed-qkv attention forward and backward (counterparts of
+``tae_tpu/ops/pallas/flash_attention.py``::``fused_qkv_attention`` and its
+VJP, ``_packed_vjp_fwd`` / ``_packed_vjp_bwd``; sources
+``tae_tpu_torch/csrc/flash_attention.cu`` and ``flash_attention_bwd.cu``) and
+their plain versions.
+
+:func:`fused_qkv_attention` is the entry. Where autograd records through
+qkv it runs as :class:`FusedQKVAttentionFn`: the exact-softmax forward that
+also saves the log-sum-exp of every score row
+(:func:`fused_qkv_attention_fwd_lse`) and the backward kernel
+(:func:`fused_qkv_attention_bwd`). The serving form (clamped softmax) is
+forward-only and raises there. The launch counts are kept apart.
+"""
 
 from __future__ import annotations
 
@@ -60,42 +70,195 @@ def fused_qkv_attention_reference(qkv: torch.Tensor, num_heads: int,
     return packed_attention_f32(qkv, num_heads, scale, serving).to(qkv.dtype)
 
 
+def _heads(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, 3C) -> (3, B, H, N, dh) views of q, k, v."""
+    b, n, c, dh = _split(qkv, num_heads)
+    return qkv.reshape(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+
+
+def fused_qkv_attention_lse_reference(qkv: torch.Tensor, num_heads: int,
+                                      scale: float | None = None):
+    """Plain version of the training forward: ``(o (B, N, C), lse (B, H, N)
+    fp32)``. The exact softmax of :func:`packed_attention_f32` (p rounded to
+    the input dtype ahead of P·V, the row sum from the fp32 p) with
+    ``lse = rowmax + log(rowsum)`` of the scaled scores."""
+    b, n, c, dh = _split(qkv, num_heads)
+    if scale is None:
+        scale = dh ** -0.5
+    q, k, v = _heads(qkv, num_heads)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(qkv.dtype).float(), v.float()) * (1.0 / l)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return o.transpose(1, 2).reshape(b, n, c).to(qkv.dtype), lse
+
+
+def fused_qkv_attention_backward_reference(qkv: torch.Tensor, o: torch.Tensor,
+                                           lse: torch.Tensor, do: torch.Tensor,
+                                           num_heads: int,
+                                           scale: float | None = None
+                                           ) -> torch.Tensor:
+    """Plain version of the backward kernel: dqkv (B, N, 3C) from the packed
+    qkv, the saved output o (B, N, C), the saved lse (B, H, N) and the
+    output's gradient do (B, N, C). Per (image, head), in fp32::
+
+        S = Q Kᵀ · scale        P = exp(S − lse)       dP = dO Vᵀ
+        delta = rowsum(dO ∘ o)  dS = P ∘ (dP − delta) · scale
+        dV = Pᵀ dO              dQ = dS K              dK = dSᵀ Q
+
+    ``delta`` takes the saved o, which is rounded to the input dtype. Ahead
+    of the last three products P and dS are rounded to the input dtype (dS
+    is formed from the fp32 P first), as the tensor cores take them and as
+    the forward rounds p ahead of P·V; the operands q, k, v, do are exact
+    in fp32. In float32 nothing is rounded. Each output is rounded once."""
+    b, n, c, dh = _split(qkv, num_heads)
+    if scale is None:
+        scale = dh ** -0.5
+    dt = qkv.dtype
+    q, k, v = (t.float() for t in _heads(qkv, num_heads))
+
+    def heads(t):                                   # (B, N, C) -> (B, H, N, dh)
+        return t.reshape(b, n, num_heads, dh).transpose(1, 2).float()
+
+    o4, do4 = heads(o), heads(do)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do4, v.transpose(-1, -2))
+    delta = (do4 * o4).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    p_r, ds_r = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.matmul(p_r.transpose(-1, -2), do4)
+    dq = torch.matmul(ds_r, k)
+    dk = torch.matmul(ds_r.transpose(-1, -2), q)
+    dqkv = torch.stack([dq, dk, dv])                # (3, B, H, N, dh)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, n, 3 * c).to(dt)
+
+
+def _check_cuda(name: str, qkv: torch.Tensor, b: int, n: int, num_heads: int,
+                dh: int) -> None:
+    """Raise on what the kernels do not take."""
+    if not qkv.is_cuda:
+        raise ValueError(f"{name} takes CPU or CUDA tensors, not "
+                         f"{qkv.device}")
+    if qkv.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32/bfloat16, got {qkv.dtype}")
+    if not 1 <= n <= MAX_TOKENS:
+        raise ValueError(f"{name} takes 1..{MAX_TOKENS} tokens, got {n}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head dim in {HEAD_DIMS}, got {dh}")
+    if not 1 <= b <= 65535 or num_heads > 65535:
+        raise ValueError(f"batch {b} / heads {num_heads} exceed the grid")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous, 16-byte aligned qkv")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
                         scale: float | None = None,
                         serving: bool = True) -> torch.Tensor:
     """(B, N, 3C) packed qkv -> (B, N, C), head split and merge inside the
     kernel. On CUDA: float32 or bfloat16, contiguous, N <= 256, head dim 64
-    or 80; anything else raises."""
+    or 80; anything else raises. The exact form (``serving=False``) is
+    differentiable: where autograd records through qkv, the training forward
+    and the backward kernel run. The serving form is forward-only and raises
+    there."""
     b, n, c, dh = _split(qkv, num_heads)
     if scale is None:
         scale = dh ** -0.5
+    if serving:
+        build.refuse_grad("fused_qkv_attention(serving=True)", qkv)
+    elif build.needs_grad(qkv):
+        return FusedQKVAttentionFn.apply(qkv, num_heads, float(scale))
     if qkv.device.type == "cpu":
         return fused_qkv_attention_reference(qkv, num_heads, scale, serving)
-    if not qkv.is_cuda:
-        raise ValueError(f"fused_qkv_attention takes CPU or CUDA tensors, not "
-                         f"{qkv.device}")
-    if qkv.dtype not in _DTYPES:
-        raise TypeError(f"fused_qkv_attention takes float32/bfloat16, got "
-                        f"{qkv.dtype}")
-    if not 1 <= n <= MAX_TOKENS:
-        raise ValueError(f"fused_qkv_attention takes 1..{MAX_TOKENS} tokens, "
-                         f"got {n}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"fused_qkv_attention takes head dim in {HEAD_DIMS}, "
-                         f"got {dh}")
-    if not 1 <= b <= 65535 or num_heads > 65535:
-        raise ValueError(f"batch {b} / heads {num_heads} exceed the grid")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("fused_qkv_attention needs a contiguous, 16-byte "
-                         "aligned qkv")
+    _check_cuda("fused_qkv_attention", qkv, b, n, num_heads, dh)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     rc = build.library().tae_packed_attention_fwd(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, dh, float(scale),
-        int(bool(serving)), build.dtype_code(qkv.dtype),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        int(bool(serving)), build.dtype_code(qkv.dtype), _stream(qkv))
     build.check(rc, "tae_packed_attention_fwd")
     fused_qkv_attention.launches += 1
     return out
 
 
 fused_qkv_attention.launches = 0
+
+
+def fused_qkv_attention_fwd_lse(qkv: torch.Tensor, num_heads: int,
+                                scale: float | None = None):
+    """The training forward: ``(o (B, N, C), lse (B, H, N) fp32)``, always
+    the exact softmax. No gradient of its own: :class:`FusedQKVAttentionFn`
+    calls it."""
+    b, n, c, dh = _split(qkv, num_heads)
+    if scale is None:
+        scale = dh ** -0.5
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_lse_reference(qkv, num_heads, scale)
+    _check_cuda("fused_qkv_attention_fwd_lse", qkv, b, n, num_heads, dh)
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32,
+                      device=qkv.device)
+    rc = build.library().tae_packed_attention_fwd_lse(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, num_heads, dh,
+        float(scale), build.dtype_code(qkv.dtype), _stream(qkv))
+    build.check(rc, "tae_packed_attention_fwd_lse")
+    fused_qkv_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+fused_qkv_attention_fwd_lse.launches = 0
+
+
+def fused_qkv_attention_bwd(qkv: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            num_heads: int, scale: float | None = None
+                            ) -> torch.Tensor:
+    """K10: dqkv (B, N, 3C) from qkv, the saved o and lse, and do (B, N, C)
+    in any layout. Every element of dqkv is written once; the same inputs
+    give the same bits (no atomics)."""
+    b, n, c, dh = _split(qkv, num_heads)
+    if scale is None:
+        scale = dh ** -0.5
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_backward_reference(qkv, o, lse, do,
+                                                      num_heads, scale)
+    _check_cuda("fused_qkv_attention_bwd", qkv, b, n, num_heads, dh)
+    do = do.contiguous()
+    dev, dt = qkv.device, (qkv.dtype,)
+    build.check_operand("o", o, dev, dt, (b, n, c))
+    build.check_operand("do", do, dev, dt, (b, n, c))
+    build.check_operand("lse", lse, dev, (torch.float32,), (b, num_heads, n))
+    dqkv = torch.empty_like(qkv)
+    rc = build.library().tae_packed_attention_bwd(
+        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        dqkv.data_ptr(), b, n, num_heads, dh, float(scale),
+        build.dtype_code(qkv.dtype), _stream(qkv))
+    build.check(rc, "tae_packed_attention_bwd")
+    fused_qkv_attention_bwd.launches += 1
+    return dqkv
+
+
+fused_qkv_attention_bwd.launches = 0
+
+
+class FusedQKVAttentionFn(torch.autograd.Function):
+    """Packed-qkv attention with the kernels in both directions; saves qkv,
+    o and lse. On a CPU tensor both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        o, lse = fused_qkv_attention_fwd_lse(qkv, num_heads, scale)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse = ctx.saved_tensors
+        return (fused_qkv_attention_bwd(qkv, o, lse, do, ctx.num_heads,
+                                        ctx.scale), None, None)

@@ -50,6 +50,7 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     weight and bias (D,) of one float dtype; anything else raises."""
     if x.ndim != 2:
         raise ValueError(f"ln_quant takes (M, D) rows, got {tuple(x.shape)}")
+    build.refuse_grad("ln_quant", x, weight, bias)
     if x.device.type == "cpu":
         return ln_quant_reference(x, weight, bias, eps)
     if not x.is_cuda:
@@ -180,6 +181,8 @@ def int8_mlp(xq: torch.Tensor, sx: torch.Tensor, w1_q: torch.Tensor,
     if xq.dtype != torch.int8 or w1_q.dtype != torch.int8 \
             or w2_q.dtype != torch.int8:
         raise TypeError("int8_mlp takes int8 activations and weights")
+    build.refuse_grad("int8_mlp", sx, b1, b2, residual,
+                      *(ln_next[:2] if ln_next is not None else ()))
     if xq.device.type == "cpu":
         return int8_mlp_reference(xq, sx, w1_q, w1_scale, b1, w2_q, w2_scale,
                                   b2, residual, block_h, out_dtype, ln_next)

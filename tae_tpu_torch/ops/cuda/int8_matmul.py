@@ -123,6 +123,8 @@ def int8_matmul_fused(xq: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"x {tuple(xq.shape)} and w {tuple(w_q.shape)} are "
                          "not (M, K) and (N, K)")
     (m, k), n = xq.shape, w_q.shape[0]
+    build.refuse_grad("int8_matmul_fused", sx, bias, residual,
+                      *(ln_out[:2] if ln_out is not None else ()))
     if xq.device.type == "cpu":
         return int8_matmul_reference(xq, sx, w_q, w_scale, bias, residual,
                                      out_dtype, ln_out)

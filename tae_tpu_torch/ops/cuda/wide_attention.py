@@ -13,7 +13,14 @@ The int8 output is the proj matmul's prequantized input: per token one
 scale over all heads' fp32 output, ``s = max(max|o| / 127, 1e-12)``, codes
 ``clip(round_half_even(o * (1 / s)), -127, 127)``. The codes come from the
 fp32 output, not from its rounding to the input dtype. These entries exist
-in the serving form (clamped softmax) only.
+in the serving form (clamped softmax) only, and they are forward-only:
+given a tensor that requires a gradient they raise.
+
+K6 in the exact form carries a gradient (:class:`WideAttentionFn`): the
+forward is the kernel, the backward differentiates the plain attention
+reference at the saved qkv. That is the JAX package's own design
+(``_wide_vjp_bwd``: the TPU has no backward kernel for tiny token counts
+either), not a fallback: no kernel exists to fall back from.
 """
 
 from __future__ import annotations
@@ -89,11 +96,17 @@ def fused_qkv_attention_wide(qkv: torch.Tensor, num_heads: int,
     """(B, N, 3C) packed qkv -> (B, N, C) for N <= 64: 16-row tiles of the
     flat token axis, several images per tile at N < 16. ``serving`` selects
     the clamped softmax, otherwise the exact one. On CUDA: float32 or
-    bfloat16, contiguous, head dim 64 or 80; anything else raises."""
+    bfloat16, contiguous, head dim 64 or 80; anything else raises. The exact
+    form is differentiable (:class:`WideAttentionFn`); the serving form is
+    forward-only and raises where autograd records through qkv."""
     b, n, c, dh = _split(qkv, num_heads)
     _check_wide("fused_qkv_attention_wide", n)
     if scale is None:
         scale = dh ** -0.5
+    if serving:
+        build.refuse_grad("fused_qkv_attention_wide(serving=True)", qkv)
+    elif build.needs_grad(qkv):
+        return WideAttentionFn.apply(qkv, num_heads, float(scale))
     if qkv.device.type == "cpu":
         return fused_qkv_attention_wide_reference(qkv, num_heads, scale, serving)
     _check_cuda("fused_qkv_attention_wide", qkv, n, num_heads, dh, q8=False)
@@ -107,6 +120,43 @@ def fused_qkv_attention_wide(qkv: torch.Tensor, num_heads: int,
 
 
 fused_qkv_attention_wide.launches = 0
+
+
+def wide_attention_backward_reference(qkv: torch.Tensor, do: torch.Tensor,
+                                      num_heads: int, scale: float
+                                      ) -> torch.Tensor:
+    """dqkv of the wide entry: autograd of the plain attention reference
+    (:func:`tae_tpu_torch.ops.attention.attention_reference`) at qkv, the
+    counterpart of the JAX package's ``_wide_vjp_bwd``."""
+    from tae_tpu_torch.ops.attention import attention_reference
+
+    b, n, c, dh = _split(qkv, num_heads)
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        r = x.reshape(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+        y = attention_reference(r[0], r[1], r[2], scale)
+        y = y.transpose(1, 2).reshape(b, n, c)
+        (dqkv,) = torch.autograd.grad(y, x, do.to(y.dtype))
+    return dqkv
+
+
+class WideAttentionFn(torch.autograd.Function):
+    """K6 with a gradient: the forward is the kernel in its exact form (the
+    plain version on a CPU tensor), the backward plain PyTorch on whatever
+    device qkv lies on, by design (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return fused_qkv_attention_wide(qkv.detach(), num_heads, scale,
+                                        serving=False)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        return (wide_attention_backward_reference(qkv, do, ctx.num_heads,
+                                                  ctx.scale), None, None)
 
 
 # --------------------------------------------------------------------- K7
@@ -139,6 +189,7 @@ def fused_qkv_attention_q8(qkv: torch.Tensor, num_heads: int,
     """(B, N, 3C) packed qkv -> (int8 (B, N, C) attention output, fp32
     (B, N, 1) per-row scales), serving softmax, N <= 256."""
     b, n, c, dh = _split(qkv, num_heads)
+    build.refuse_grad("fused_qkv_attention_q8", qkv)
     if scale is None:
         scale = dh ** -0.5
     if qkv.device.type == "cpu":
@@ -164,6 +215,7 @@ def fused_qkv_attention_wide_q8(qkv: torch.Tensor, num_heads: int,
     """Wide (N <= 64) counterpart of :func:`fused_qkv_attention_q8`."""
     b, n, c, dh = _split(qkv, num_heads)
     _check_wide("fused_qkv_attention_wide_q8", n)
+    build.refuse_grad("fused_qkv_attention_wide_q8", qkv)
     if scale is None:
         scale = dh ** -0.5
     if qkv.device.type == "cpu":
@@ -201,6 +253,7 @@ def fused_qkv_attention_wide_q8_2d(qkv2: torch.Tensor, n: int, num_heads: int,
     int8 and (B*N, 1) scales as the proj matmul reads them."""
     rows, dh = _split_2d(qkv2, n, num_heads)
     _check_wide("fused_qkv_attention_wide_q8_2d", n)
+    build.refuse_grad("fused_qkv_attention_wide_q8_2d", qkv2)
     if scale is None:
         scale = dh ** -0.5
     if qkv2.device.type == "cpu":

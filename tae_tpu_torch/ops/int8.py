@@ -14,6 +14,11 @@ here pick the hand-written CUDA kernels for CUDA tensors and the plain
 versions for CPU tensors or an explicit ``backend="reference"``, as
 :mod:`tae_tpu_torch.ops.layernorm` does.
 
+The int8 path is forward-only (serving). Rounding to codes has no useful
+derivative, so the dispatchers raise on a tensor that requires a gradient,
+whichever backend would run, instead of handing back outputs that autograd
+cannot see through.
+
 The tile planners of the JAX package (``vmem_limit``, ``_plan_blocks``,
 ``_ln_chain_plan``, ``unstack_blocks``) answer questions only its target
 asks and have no counterpart here; the one shape rule the kernels need is
@@ -26,7 +31,7 @@ import torch
 from torch import nn
 
 from tae_tpu_torch.ops.attention import resolve_backend
-from tae_tpu_torch.ops.cuda import int8_block, int8_matmul
+from tae_tpu_torch.ops.cuda import build, int8_block, int8_matmul
 from tae_tpu_torch.ops.cuda.int8_block import DEFAULT_BLOCK_H
 
 QUANTIZATIONS = ("int8",)
@@ -54,6 +59,7 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              eps: float = 1e-6, backend: str | None = None):
     """LayerNorm + per-row int8 of x (M, D): (int8 (M, D), fp32 (M, 1))."""
+    build.refuse_grad("ln_quant", x, weight, bias)
     if resolve_backend(backend, x) == "kernel":
         return int8_block.ln_quant(x, weight, bias, eps)
     return int8_block.ln_quant_reference(x, weight, bias, eps)
@@ -76,6 +82,8 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     output row is too wide to chain; the caller then runs :func:`ln_quant`.
     The output dtype defaults to x's for a float x and to bfloat16 for an
     int8 x."""
+    build.refuse_grad("int8_linear", x, x_scale, bias, residual,
+                      *(ln_out[:2] if ln_out is not None else ()))
     if q8_out:
         raise NotImplementedError(
             "the q8_out output mode of int8_matmul_fused is not ported yet: "
@@ -115,6 +123,8 @@ def int8_mlp(xq: torch.Tensor, sx: torch.Tensor, fc1, fc2,
     """``residual + fc2(gelu(fc1(xq)))`` for two quantized linears (modules
     with ``w_q``, ``w_scale`` and ``bias``), fused; see
     :func:`tae_tpu_torch.ops.cuda.int8_block.int8_mlp`."""
+    build.refuse_grad("int8_mlp", sx, fc1.bias, fc2.bias, residual,
+                      *(ln_next[:2] if ln_next is not None else ()))
     fn = (int8_block.int8_mlp if resolve_backend(backend, xq) == "kernel"
           else int8_block.int8_mlp_reference)
     return fn(xq, sx, fc1.w_q, fc1.w_scale, fc1.bias, fc2.w_q, fc2.w_scale,
@@ -176,7 +186,11 @@ def quantize_params_(model: nn.Module, skip: tuple[str, ...] = ("patch_embed",),
     path; ``skip=()`` quantizes it too, for deployments that feed
     pre-patchified rows. ``block_h`` is recorded on every MLP (see
     :mod:`tae_tpu_torch.ops.cuda.int8_block`). ``fill=False`` only builds
-    the quantized layout, for a ``load_state_dict`` to fill."""
+    the quantized layout, for a ``load_state_dict`` to fill.
+
+    The rewrite is for serving: it freezes every parameter of ``model``
+    (``requires_grad=False``). The int8 kernels are forward-only and raise
+    on a tensor that requires a gradient."""
     from tae_tpu_torch.nn import vit
 
     def walk(module: nn.Module) -> None:
@@ -195,7 +209,7 @@ def quantize_params_(model: nn.Module, skip: tuple[str, ...] = ("patch_embed",),
             module.block_h = block_h
 
     walk(model)
-    return model
+    return model.requires_grad_(False)
 
 
 def prepare_serving_(model: nn.Module, quantization: str,

@@ -1,0 +1,115 @@
+"""Where the time of a train step goes, by CUDA kernel.
+
+Run on a machine with a CUDA card, from the repository root::
+
+    python -m tae_tpu_torch.profile_training --batch 64
+    python -m tae_tpu_torch.profile_training --batch 64 --remat
+
+Builds the named model (``--model``, any registered config) at full size for
+training (fp32 parameters from a seeded generator, bf16 compute), takes
+``--steps`` train steps (``make_train_step``: forward, backward, AdamW) on
+one seeded batch under ``torch.profiler`` after ``--warmup`` unprofiled
+ones, and prints: the device time of each kernel name per step with its
+launches per step, the sum over all kernels, the wall time per step (host
+clock to a synchronize), the busy share (kernel time / wall time), images
+per second and the peak device memory. The card's name and power limit head
+the output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from tae_tpu_torch.profile_serving import card_line, profile, short
+
+
+#: the recipe of the train path: AdamW with this decay, bf16 compute
+WEIGHT_DECAY = 0.05
+
+
+def build_state(model_name: str, seed: int = 0, device="cuda", **overrides):
+    """The model built for training on ``device`` (fp32 parameters from a
+    seeded generator, every one requiring a gradient) with a fresh AdamW
+    state."""
+    from tae_tpu_torch import models
+    from tae_tpu_torch.train import TrainState, adamw
+
+    model = models.create(model_name, device=device, trainable=True,
+                          **overrides)
+    model.init_weights_(torch.Generator(device=device).manual_seed(seed))
+    return TrainState.create(model, adamw(weight_decay=WEIGHT_DECAY))
+
+
+def make_step(remat: bool = False, backend: str | None = None,
+              accum_iter: int = 1):
+    """The step function of the bench recipe: bf16 compute, AdamW,
+    ``step_lr(1e-4, 1e-5, 450_000)``. It works on any state of
+    :func:`build_state`."""
+    from tae_tpu_torch.train import adamw, make_train_step, step_lr
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    policy = Policy()
+
+    def loss_fn(m, batch):
+        return m(batch, policy=policy, backend=backend, remat=remat)[0], {}
+
+    return make_train_step(loss_fn, adamw(weight_decay=WEIGHT_DECAY),
+                           step_lr(1e-4, 1e-5, 450_000), accum_iter=accum_iter)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="tae_patch16_vocab256_px256")
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--backend", default=None, choices=[None, "reference"],
+                    help="reference: the plain PyTorch versions, to compare")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+
+    print(card_line())
+    state = build_state(args.model, args.seed)
+    step = make_step(args.remat, args.backend)
+    cfg = state.model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = torch.randn((args.batch, cfg.in_chans, cfg.img_size, cfg.img_size),
+                        generator=gen, device="cuda")
+    it = 0
+
+    def one_step(x):
+        nonlocal it
+        step(state, x, it)
+        it += 1
+
+    for _ in range(args.warmup):
+        one_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, wall = profile(one_step, batch, args.steps)
+    # the optimizer's profiler range spans its own kernels on the device
+    # timeline; counting it would count them twice
+    rows = {k: v for k, v in rows.items() if not k.startswith("Optimizer.")}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = sum(ms for ms, _ in rows.values())
+    mode = ("remat" if args.remat else "no remat") + (
+        f" backend={args.backend}" if args.backend else "")
+    print(f"== {args.model} train step B={args.batch} {mode}: kernels "
+          f"{total:.3f} ms, wall {wall:.3f} ms per step, busy share "
+          f"{total / wall:.3f}, {args.batch / wall * 1e3:.1f} img/s, peak "
+          f"memory {peak:.2f} GiB")
+    for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:9.4f} ms  {100 * ms / total:5.1f}%  x{n:<6g} "
+              f"{short(name)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

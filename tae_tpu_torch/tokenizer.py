@@ -119,6 +119,7 @@ class Tokenizer:
             model.load_state_dict(load_pth(ckpt), strict=True)
         # prune before quantizing, so the dropped half is never quantized
         model = prune_component(model.to(dtype).eval(), component)
+        model.requires_grad_(False)     # a serving surface: nothing trains
         if quantization is not None:
             prepare_serving_(model, quantization, equalize or 0.0,
                              patch_input=patch_input)
@@ -181,6 +182,7 @@ class Tokenizer:
         device = torch.device(device)
         model = models.create(model_name, device=device, **model_overrides)
         model = prune_component(model.to(dtype).eval(), saved)
+        model.requires_grad_(False)
         for name in blob["quantized"]:
             parent, _, leaf = name.rpartition(".")
             owner = model.get_submodule(parent) if parent else model

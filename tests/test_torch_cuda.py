@@ -13,7 +13,11 @@ both softmax forms, and the shapes the wrappers must refuse; for the int8
 kernels, row counts off the 16/32/128-row blocks, the three model widths,
 N and K off the 128 x 64 tiles, ``block_h`` values and both dtypes; for
 the tiny-N and int8-output attention entries, token counts that do and do
-not divide the 16-row tiles, batches that end inside a tile, both head dims.
+not divide the 16-row tiles, batches that end inside a tile, both head dims;
+for the training kernels (the stats and LSE forwards, the LayerNorm and
+attention backwards), row counts off the 128-row chunks, every model width,
+token counts off the 16-row tiles, gradients in a non-contiguous layout, and
+bit-equal results of two runs.
 """
 
 import pytest
@@ -22,18 +26,23 @@ import torch
 from tae_tpu_torch.models.tae import TAE, TAEConfig
 from tae_tpu_torch.ops import int8
 from tae_tpu_torch.ops.cuda.flash_attention import (
-    fused_qkv_attention, fused_qkv_attention_reference)
+    fused_qkv_attention, fused_qkv_attention_backward_reference,
+    fused_qkv_attention_bwd, fused_qkv_attention_fwd_lse,
+    fused_qkv_attention_lse_reference, fused_qkv_attention_reference)
 from tae_tpu_torch.ops.cuda.int8_block import (
     int8_mlp, int8_mlp_reference, ln_quant, ln_quant_reference)
 from tae_tpu_torch.ops.cuda.int8_matmul import (
     int8_matmul_fused, int8_matmul_reference, ln_chain_rows)
-from tae_tpu_torch.ops.cuda.layernorm import fused_layer_norm
+from tae_tpu_torch.ops.cuda.layernorm import (
+    fused_layer_norm, fused_layer_norm_bwd, fused_layer_norm_fwd_stats)
 from tae_tpu_torch.ops.cuda.wide_attention import (
     fused_qkv_attention_q8, fused_qkv_attention_q8_reference,
     fused_qkv_attention_wide, fused_qkv_attention_wide_q8,
     fused_qkv_attention_wide_q8_2d, fused_qkv_attention_wide_q8_2d_reference,
     fused_qkv_attention_wide_q8_reference, fused_qkv_attention_wide_reference)
-from tae_tpu_torch.ops.layernorm import layer_norm_reference
+from tae_tpu_torch.ops.layernorm import (
+    layer_norm_backward_reference, layer_norm_reference,
+    layer_norm_stats_reference)
 from tae_tpu_torch.utils.dtypes import Policy
 
 pytestmark = pytest.mark.cuda
@@ -521,3 +530,165 @@ def test_tiny_n_int8_tae_kernels_match_reference_backend(gen, patch, tokens, d,
         assert torch.isfinite(out).all()
         rel = float((out.float() - want.float()).norm() / want.float().norm())
         assert rel <= 4e-2, rel
+
+
+# ------------------------------------------------- training kernels (K1 with
+# stats, K11, K2 with LSE, K10)
+
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 8), (129, 64), (1000, 2048),
+                                   (7, 5, 2560), (16384, 1024)])
+def test_layer_norm_training_kernels_match_plain(gen, shape, dtype, wdtype):
+    d = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
+    w = (torch.randn(d, generator=gen, device="cuda") + 1).to(wdtype)
+    b = torch.randn(d, generator=gen, device="cuda").to(wdtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    counts = (fused_layer_norm_fwd_stats.launches, fused_layer_norm_bwd.launches,
+              fused_layer_norm.launches)
+    y, mean, rstd = fused_layer_norm_fwd_stats(x, w, b, 1e-6)
+    y_ref, mean_ref, rstd_ref = layer_norm_stats_reference(x, w, b, 1e-6)
+    _close(y, y_ref, dtype)
+    # fp32 statistics: summation order only
+    torch.testing.assert_close(mean, mean_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_ref, atol=1e-6, rtol=1e-5)
+    dx, dw, db = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+    dx_ref, dw_ref, db_ref = layer_norm_backward_reference(x, w, mean, rstd, dy)
+    _close(dx, dx_ref, dtype)
+    # dw and db sum `rows` terms in fp32 in another order than the plain
+    # version, then round once to the weight's dtype: the fp32 bound grows
+    # with the square root of the rows (terms of size ~1)
+    rows = x.numel() // d
+    tol = (dict(atol=1e-2 * max(1.0, rows ** 0.5 / 8), rtol=1e-2)
+           if wdtype == torch.bfloat16
+           else dict(atol=2e-5 * max(1.0, rows ** 0.5), rtol=1e-4))
+    assert dw.dtype == db.dtype == wdtype
+    torch.testing.assert_close(dw.float(), dw_ref.float(), **tol)
+    torch.testing.assert_close(db.float(), db_ref.float(), **tol)
+    assert (fused_layer_norm_fwd_stats.launches, fused_layer_norm_bwd.launches,
+            fused_layer_norm.launches) == (counts[0] + 1, counts[1] + 1,
+                                           counts[2])
+    # no atomics: a second run gives the same bits
+    again = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dw, db)))
+
+
+def test_layer_norm_autograd_takes_any_gradient_layout(gen):
+    x = torch.randn((6, 40, 256), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    w = torch.ones(256, device="cuda", requires_grad=True)
+    b = torch.zeros(256, device="cuda", requires_grad=True)
+    y = fused_layer_norm(x, w.to(x.dtype), b.to(x.dtype))
+    assert y.grad_fn is not None
+    dy = torch.randn((40, 6, 256), generator=gen, device="cuda",
+                     dtype=torch.bfloat16).transpose(0, 1)   # not contiguous
+    gx, gw, gb = torch.autograd.grad(y, (x, w, b), dy)
+    x2 = x.detach().clone().requires_grad_()
+    w2, b2 = (t.detach().clone().requires_grad_() for t in (w, b))
+    y2 = layer_norm_reference(x2, w2.to(x.dtype), b2.to(x.dtype))
+    rx, rw, rb = torch.autograd.grad(y2, (x2, w2, b2), dy)
+    assert gw.dtype == gb.dtype == torch.float32
+    _close(gx, rx, torch.bfloat16)
+    # the kernel's dw / db are bf16 (the weight it was handed); autograd of
+    # the plain forward sums in fp32 and never rounds: one bf16 rounding
+    torch.testing.assert_close(gw, rw, atol=5e-2, rtol=1e-2)
+    torch.testing.assert_close(gb, rb, atol=5e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,dh", [(9, 2, 64), (16, 32, 80), (17, 2, 64),
+                                    (64, 4, 64), (100, 2, 80), (255, 2, 64),
+                                    (256, 16, 64), (256, 2, 80)])
+def test_attention_training_kernels_match_plain(gen, n, h, dh, dtype):
+    b, c = 3, h * dh
+    qkv = torch.randn((b, n, 3 * c), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, n, c), generator=gen, device="cuda").to(dtype)
+    counts = (fused_qkv_attention_fwd_lse.launches,
+              fused_qkv_attention_bwd.launches, fused_qkv_attention.launches)
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+    _close(o, o_ref, dtype)
+    assert lse.shape == (b, h, n) and lse.dtype == torch.float32
+    # fp32 on both sides from exact bf16 products: summation order and expf
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    dqkv = fused_qkv_attention_bwd(qkv, o, lse, do, h)
+    want = fused_qkv_attention_backward_reference(qkv, o, lse, do, h)
+    _close(dqkv, want, dtype)
+    assert (fused_qkv_attention_fwd_lse.launches,
+            fused_qkv_attention_bwd.launches,
+            fused_qkv_attention.launches) == (counts[0] + 1, counts[1] + 1,
+                                              counts[2])
+    assert torch.equal(dqkv, fused_qkv_attention_bwd(qkv, o, lse, do, h))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_autograd_matches_plain_autograd(gen, dtype):
+    """The whole Function against autograd of the plain forward, with the
+    gradient handed over in a non-contiguous layout; every element of dqkv
+    is written (the output buffer starts as NaN-free garbage either way, so
+    compare all of it)."""
+    b, n, h, dh = 2, 50, 3, 64
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen,
+                      device="cuda").to(dtype).requires_grad_()
+    do = torch.randn((n, b, h * dh), generator=gen,
+                     device="cuda").to(dtype).transpose(0, 1)
+    y = fused_qkv_attention(qkv, h, serving=False)
+    assert y.grad_fn is not None
+    (g,) = torch.autograd.grad(y, qkv, do)
+    q2 = qkv.detach().clone().requires_grad_()
+    (g2,) = torch.autograd.grad(
+        fused_qkv_attention_reference(q2, h, serving=False), q2, do)
+    assert bool(torch.isfinite(g).all())
+    # autograd of the plain forward rounds elsewhere (p to bf16 ahead of
+    # P.V, its gradient through that cast, no rounding of dS): bf16 gets two
+    # roundings of room, fp32 the kernel bound
+    tol = (dict(atol=3e-2, rtol=3e-2) if dtype == torch.bfloat16
+           else TOL[torch.float32])
+    torch.testing.assert_close(g.float(), g2.float(), **tol)
+
+
+def test_training_wrappers_refuse_and_carry_gradients(gen):
+    qkv = torch.randn((2, 16, 3 * 128), generator=gen, device="cuda",
+                      dtype=torch.bfloat16).requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_qkv_attention(qkv, 2, serving=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_qkv_attention_wide(qkv[:, :4].contiguous(), 2, serving=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_qkv_attention_q8(qkv, 2)
+    assert fused_qkv_attention(qkv, 2, serving=False).grad_fn is not None
+    y = fused_qkv_attention_wide(qkv[:, :4].contiguous(), 2, serving=False)
+    assert y.grad_fn is not None
+    with torch.no_grad():
+        assert fused_qkv_attention(qkv, 2, serving=True).grad_fn is None
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_tiny_tae_train_step_kernels_match_reference_backend(gen, remat):
+    """One forward and backward of a small trainable TAE (dh 64 encoder, dh
+    80 decoder) through the kernels against backend="reference": launch
+    counts of the four training entries, loss and gradients."""
+    cfg = TAEConfig(img_size=64, patch_size=16, embed_dim=128, vocab_size=16,
+                    depth=2, num_heads=2, decoder_embed_dim=160,
+                    decoder_depth=2, decoder_num_heads=2)
+    model = TAE(cfg, device="cuda", trainable=True).init_weights_(gen)
+    imgs = torch.randn((4, 3, 64, 64), generator=gen, device="cuda")
+    fns = (fused_layer_norm_fwd_stats, fused_layer_norm_bwd,
+           fused_qkv_attention_fwd_lse, fused_qkv_attention_bwd,
+           fused_layer_norm, fused_qkv_attention)
+    before = [f.launches for f in fns]
+    loss, _ = model(imgs, policy=Policy(), remat=remat)
+    loss.backward()
+    got = [f.launches - b for f, b in zip(fns, before)]
+    extra = (8, 4) if remat else (0, 0)     # the blocks' forwards, once more
+    assert got == [10 + extra[0], 10, 4 + extra[1], 4, 0, 0]
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    loss_ref, _ = model(imgs, policy=Policy(), backend="reference")
+    loss_ref.backward()
+    assert abs(float(loss) - float(loss_ref)) <= 2e-2 * float(loss_ref)
+    for k, p in model.named_parameters():
+        rel = float((grads[k] - p.grad).norm() / p.grad.norm().clamp_min(1e-12))
+        # bf16 through 2 + 2 blocks; the two sides round P and dS differently
+        assert rel <= 5e-2, (k, rel)

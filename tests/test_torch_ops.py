@@ -208,6 +208,9 @@ def test_import_leaves_jax_and_triton_out():
         "import tae_tpu_torch.ops.cuda.layernorm, tae_tpu_torch.ops.cuda.flash_attention\n"
         "import tae_tpu_torch.ops.int8, tae_tpu_torch.ops.cuda.int8_block\n"
         "import tae_tpu_torch.ops.cuda.int8_matmul, tae_tpu_torch.profile_serving\n"
+        "import tae_tpu_torch.train, tae_tpu_torch.ckpt.io\n"
+        "import tae_tpu_torch.ckpt.interpolate, tae_tpu_torch.profile_training\n"
+        "import tae_tpu_torch.ops.cuda.wide_attention\n"
         "bad = [m for m in ('jax', 'triton', 'tae_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
