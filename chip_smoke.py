@@ -11,7 +11,7 @@ Phases (each prints its lines; any failure exits non-zero):
    limit (nvidia-smi) and turns TF32 off for fp32 matmuls and convolutions;
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
    sm_90a and prints the seconds;
-3. kernels: holds each of the eleven kernels against its plain PyTorch version
+3. kernels: holds each of the fourteen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
    take for the same work (the larger of bytes / 3.35 TB/s and operations /
@@ -20,7 +20,12 @@ Phases (each prints its lines; any failure exits non-zero):
    four tiny-N / int8-output attention entries are also timed beside the
    per-image attention kernel (plus the plain per-row quantize) at the same
    shape: the measurements the dispatch rule of
-   ``tae_tpu_torch.ops.attention.attention_route`` rests on;
+   ``tae_tpu_torch.ops.attention.attention_route`` rests on. The int4
+   kernels (K12 ``int4_matmul_fused``, K13 ``int4_mlp``) run at the few-row
+   shapes int4 serving is for (width 2560, 4 to 256 rows) and at the p16
+   shape, beside the int8 kernels and a dequantize + bf16 product at the
+   same shapes; the codebook search (K14 ``nearest_code``) at 16384 x 256
+   latents against 8192 codes beside ``torch.cdist(...).argmin``;
 4. paths (``PATHS``): for each model, built at full width with weights from
    ``torch.Generator("cuda").manual_seed(0)``, the bf16 and / or the int8
    (w8a8) ``Tokenizer`` answers encode, decode and reconstruct requests;
@@ -28,7 +33,15 @@ Phases (each prints its lines; any failure exits non-zero):
    each output against the same model run with ``backend="reference"``, and
    the int8 outputs against the bf16 tokenizer's on the same weights. The
    int8 tokenizers are also timed with the int8-output attention forced on
-   and off (``attn_q8``);
+   and off (``attn_q8``). ``p128_int4`` serves
+   ``tae_patch128_vocab4096_px256`` in int4 (w4a8) at full width and depth
+   on the same weights, ``p16_int4`` ``tae_patch16_vocab256_px256`` at depth
+   2 + 2. ``vq_p16``: the same p16 model at depth 2 + 2 with the VQ
+   bottleneck (``quantize=True``, 8192 codes): ``encode_discrete`` at every
+   batch size with the codebook search's launch counted, its ids against
+   ``backend="reference"`` on the same latents, ``decode_discrete`` against
+   ``decode`` of the codebook rows bit for bit, and one train step through
+   ``make_train_step``;
 5. training (``train_bf16``): ``tae_patch16_vocab256_px256`` at full width
    and depth, fp32 parameters, bf16 compute, AdamW, through
    ``make_train_step``: one step at B = 8 against a second copy of the model
@@ -62,11 +75,19 @@ import time
 PATHS = (
     ("tae_patch16_vocab256_px256", {}, {"bf16": None, "int8": "int8"}),
     ("tae_patch128_vocab4096_px256", {},
-     {"p128_bf16": None, "p128_int8": "int8"}),
+     {"p128_bf16": None, "p128_int8": "int8", "p128_int4": "int4"}),
     ("tae_patch32_vocab1024_px256", {}, {"p32_int8": "int8"}),
     ("tae_patch64_vocab4096_px256", dict(depth=2, decoder_depth=2),
      {"p64_int8": "int8"}),
+    # the int4 kernels at 256 tokens (M = 16384 rows) behind the per-image
+    # int8-output attention; depth cut to keep the run's time
+    ("tae_patch16_vocab256_px256", dict(depth=2, decoder_depth=2),
+     {"p16_int4": "int4"}),
 )
+# the VQ path: the p16 model with the bottleneck, depth cut (the codebook
+# search does not depend on depth)
+VQ_MODEL = ("tae_patch16_vocab256_px256",
+            dict(depth=2, decoder_depth=2, quantize=True, codebook_size=8192))
 BATCHES = (1, 8, 64)         # encode / decode request sizes
 KERNEL_BATCH = 64            # batch of the kernel-vs-plain shapes
 TIMED_REPS = 20              # kernel timings: launches per replayed graph
@@ -120,6 +141,36 @@ INT8_VS_BF16_TOL = 0.1
 # rounding flips (attention and the bf16 casts are the same code), each of
 # which also moves int8 codes in the layers after it (measured 0.018-0.021).
 INT8_SLICE_REL_TOL = 4e-2
+# The int4 kernels. K12: kernel and plain version add the same exact terms
+# (int32 group sums times fp32 group scales) in the same order with every
+# product and sum rounded separately, so fp32 outputs agree to the last bits
+# (W4_FP32_TOL allows a couple of ulps); bf16 outputs round the same fp32
+# value once (TOL). K13 adds tanhf, whose last bit differs between the
+# kernel and torch.tanh (1e-5 in fp32), and requantizes its hidden
+# activation: a hidden code on a rounding tie flips against the plain
+# version and moves its whole output row by one hidden step times an fc2
+# weight. Rows beyond the fp32 bound are counted: at most
+# MLP4_FLIP_ROW_SHARE of them (at least one), none off by more than
+# MLP4_FLIP_REL of the largest output.
+W4_FP32_TOL = dict(atol=1e-6, rtol=1e-6)
+MLP4_FP32_TOL = dict(atol=1e-5, rtol=1e-5)
+MLP4_FLIP_ROW_SHARE = 1 / 256
+MLP4_FLIP_REL = 1e-2
+# K14: ids equal to the plain version's on all but this share of the rows
+# (both add the same fp32 products in another order, so only a near-tie
+# falls the other way), and where they differ the chosen code's squared
+# distance (fp64) within VQ_NEAR_TIE_RTOL of the plain version's.
+VQ_ID_SHARE = {"bfloat16": 1e-3, "float32": 0.0}
+VQ_NEAR_TIE_RTOL = 1e-4
+# int4 tokenizer vs the bf16 tokenizer on the same weights: a coarser code
+# than int8 (the JAX package expects 3-5x the int8 error). Measured on
+# seeded random weights: 0.134-0.175 through p128's 22 + 22 blocks (int8:
+# 0.025-0.026, so 5-7x), 0.058-0.083 through 2 + 2 blocks of p16.
+INT4_VS_BF16_TOL = 0.25
+# The int4 slice, kernels vs plain versions on the card: the int8 slice's
+# causes (the same attention, LN and rounding code; measured 0.018-0.025 at
+# p128 against 0.022-0.025 in int8).
+INT4_SLICE_REL_TOL = 4e-2
 
 # The training kernels. K11's dw / db sum all rows in fp32 in chunk order and
 # round once to the weight's dtype; the plain version sums in another order.
@@ -191,6 +242,15 @@ K10 = dict(name="fused_qkv_attention_bwd", route="cuda",
 K11 = dict(name="fused_layer_norm_bwd", route="cuda",
            source="tae_tpu_torch/csrc/layernorm.cu",
            replaces="tae_tpu/ops/pallas/layernorm.py:38")
+K12 = dict(name="int4_matmul_fused", route="cuda",
+           source="tae_tpu_torch/csrc/int4_matmul.cu",
+           replaces="tae_tpu/ops/pallas/int4_matmul.py:40")
+K13 = dict(name="int4_mlp", route="cuda",
+           source="tae_tpu_torch/csrc/int4_block.cu",
+           replaces="tae_tpu/ops/pallas/int4_block.py:56")
+K14 = dict(name="nearest_code", route="cuda",
+           source="tae_tpu_torch/csrc/quantizer.cu",
+           replaces="tae_tpu/ops/pallas/quantizer.py:29")
 # the training forwards are K1 and K2 with one more output; they count their
 # launches apart from the inference forwards
 TRAIN_FORMS = {"fused_layer_norm": "fused_layer_norm_fwd_stats",
@@ -863,6 +923,231 @@ def phase_train_kernels() -> dict:
     return res
 
 
+def phase_int4_kernels() -> dict:
+    """K12 and K13 against their plain versions at the int4 paths' shapes:
+    width 2560 at 4, 32 and 256 rows (p128 at B = 1, 8, 64), width 1024 at
+    16384 rows (p16 at B = 64), and at odd row counts; bf16 and fp32
+    outputs. Beside each timed shape: the int8 kernel (K4 / K5) on an int8
+    weight of the same shape, and for K12 ``dequantize_int4`` + a bf16
+    ``torch.matmul``. Returns case records per kernel; the first is the
+    p128 shape at B = 64."""
+    import torch
+
+    from tae_tpu_torch.ops.cuda.int4_block import (BLOCK_ROWS, int4_mlp,
+                                                   int4_mlp_reference)
+    from tae_tpu_torch.ops.cuda.int4_matmul import (int4_matmul_fused,
+                                                    int4_matmul_reference,
+                                                    pack_int4)
+    from tae_tpu_torch.ops.cuda.int8_block import (DEFAULT_BLOCK_H, int8_mlp,
+                                                   mlp_hidden_groups)
+    from tae_tpu_torch.ops.cuda.int8_matmul import int8_matmul_fused
+    from tae_tpu_torch.ops.int4 import dequantize_int4, group_size, int4_ok
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {K12["name"]: [], K13["name"]: []}
+    check(not int4_ok(128) and int4_ok(256) and int4_ok(2560),
+          "int4_ok: width 128 must stay int8, 256 and 2560 go int4")
+
+    def randn(shape, scale=1.0, dtype=bf16):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x * scale).to(dtype)
+
+    def rand_i8(shape, lim=127):
+        return torch.randint(-lim, lim + 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int8)
+
+    def scales(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    def w4(n, k):
+        group = group_size(k // 2)
+        return pack_int4(rand_i8((n, k), 7)), scales((k // group, n), 2e-3,
+                                                     9e-3)
+
+    def record(kernel, label, err, ms, plain, bnd, extra="", **more):
+        res[kernel].append(dict(case=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain, bound_ms=bnd[0],
+                                bound_by=bnd[1], library_ms=None, **more))
+        timing = "" if ms is None else (
+            f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
+        print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{extra}")
+
+    # ---- K12: qkv (+ bias) and proj (+ bias + residual) of both widths
+    def k12_case(name, m, k, n, residual, timed=True):
+        xq, sx = rand_i8((m, k)), scales((m, 1), 0.01, 0.06)
+        wq, ws = w4(n, k)
+        b = randn((n,))
+        err = 0.0
+        for dtype, tol in ((f32, W4_FP32_TOL), (bf16, TOL["bfloat16"])):
+            r = randn((m, n), dtype=dtype) if residual else None
+            got = int4_matmul_fused(xq, sx, wq, ws, b, r, dtype)
+            want = int4_matmul_reference(xq, sx, wq, ws, b, r, dtype)
+            label = (f"K12 int4_matmul {name} ({m}, {k}) x ({n}, {k}) group "
+                     f"{k // ws.shape[0]} +bias"
+                     f"{' +residual' if residual else ''}")
+            err = max(err, compare(f"{label} {dtype}", got, want, **tol))
+        bnd = bound(nbytes(xq, sx, wq, ws, b, r, got), 2.0 * m * k * n, "int8")
+        if not timed:
+            return record(K12["name"], label, err, None, None, bnd,
+                          "; fp32 and bf16 outputs")
+        w8, s8 = rand_i8((n, k)), scales((n,), 1e-4, 5e-4)
+        k4 = time_ms(lambda: int8_matmul_fused(xq, sx, w8, s8, b, r, bf16))
+        xb = randn((m, k))
+        deq = time_ms(lambda: torch.matmul(
+            xb, dequantize_int4(wq, ws).to(bf16).t()))
+        record(K12["name"], label, err,
+               time_ms(lambda: int4_matmul_fused(xq, sx, wq, ws, b, r, bf16)),
+               time_ms(lambda: int4_matmul_reference(xq, sx, wq, ws, b, r,
+                                                     bf16)), bnd,
+               f"; K4 on an int8 weight of this shape {k4:.4f} ms, "
+               f"dequantize_int4 + bf16 matmul {deq:.4f} ms",
+               k4_ms=k4, dequant_matmul_ms=deq)
+
+    for m in (256, 32, 4):
+        k12_case("p128 qkv", m, 2560, 7680, False)
+        k12_case("p128 proj", m, 2560, 2560, True)
+    k12_case("p16 qkv", KERNEL_BATCH * 256, 1024, 3072, False)
+    k12_case("p16 proj", KERNEL_BATCH * 256, 1024, 1024, True)
+    for m in (1, 100, 1001):
+        k12_case("odd M", m, 512, 1000, True, timed=False)
+
+    # ---- K13
+    def k13_case(m, d, timed=True):
+        hdim, bh = 4 * d, DEFAULT_BLOCK_H
+        xq, sx = rand_i8((m, d)), scales((m, 1), 0.005, 0.025)
+        w1, s1 = w4(hdim, d)
+        w2, s2 = w4(d, hdim)
+        s1, s2 = s1 * 0.03, s2 * 0.03
+        b1, b2 = randn((hdim,), 0.1), randn((d,), 0.1)
+        groups = mlp_hidden_groups(-(-m // BLOCK_ROWS), hdim // bh, sms)
+        label = (f"K13 int4_mlp ({m}, {d}) hidden {hdim} block_h {bh} "
+                 f"hidden groups {groups}")
+        # fp32 output: rows that a flipped hidden code moved, counted
+        r = randn((m, d), dtype=f32)
+        args = (xq, sx, w1, s1, b1, w2, s2, b2, r, bh, f32, groups)
+        got, want = int4_mlp(*args).float(), int4_mlp_reference(*args).float()
+        diff = (got - want).abs()
+        off = (diff > MLP4_FP32_TOL["atol"]
+               + MLP4_FP32_TOL["rtol"] * want.abs()).any(dim=1)
+        n_off, worst = int(off.sum()), float(diff.max())
+        check(bool(torch.isfinite(got).all())
+              and n_off <= max(1, int(m * MLP4_FLIP_ROW_SHARE))
+              and worst <= MLP4_FLIP_REL * float(want.abs().max()),
+              f"{label} fp32: {n_off} rows beyond {MLP4_FP32_TOL}, worst "
+              f"|kernel - plain| {worst:.3g} of max |y| "
+              f"{float(want.abs().max()):.3g}")
+        r = randn((m, d))
+        args = (xq, sx, w1, s1, b1, w2, s2, b2, r, bh, bf16, groups)
+        got = int4_mlp(*args)
+        err = compare(f"{label} bf16", got, int4_mlp_reference(*args),
+                      **TOL["bfloat16"])
+        extra = (f"; fp32 output: {n_off} of {m} rows moved by a flipped "
+                 f"hidden code, worst {worst:.3g}")
+        bnd = bound(nbytes(xq, sx, w1, s1, b1, w2, s2, b2, r, got),
+                    4.0 * m * d * hdim, "int8")
+        if not timed:
+            return record(K13["name"], label, err, None, None, bnd, extra)
+        w1_8, w2_8 = rand_i8((hdim, d)), rand_i8((d, hdim))
+        s1_8, s2_8 = scales((hdim,), 1e-4, 5e-4), scales((d,), 1e-4, 5e-4)
+        k5 = time_ms(lambda: int8_mlp(xq, sx, w1_8, s1_8, b1, w2_8, s2_8, b2,
+                                      r, bh, bf16))
+        record(K13["name"], label, err, time_ms(lambda: int4_mlp(*args)),
+               time_ms(lambda: int4_mlp_reference(*args)), bnd,
+               extra + f"; K5 on int8 weights of this shape {k5:.4f} ms",
+               k5_ms=k5, flipped_rows=n_off)
+
+    for m in (256, 32, 4):
+        k13_case(m, 2560)
+    k13_case(KERNEL_BATCH * 256, 1024)
+    for m in (1, 100):
+        k13_case(m, 512, timed=False)
+    return res
+
+
+def compare_ids(label: str, z, codebook, got, want, share: float) -> float:
+    """Ids of the codebook search against the plain version's: equal on all
+    but ``share`` of the rows, and where they differ the chosen code's
+    squared distance (fp64) within VQ_NEAR_TIE_RTOL of the plain version's.
+    Returns the share of rows that differ."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.int64,
+          f"{label}: ids {tuple(got.shape)} {got.dtype}")
+    k = codebook.shape[0]
+    check(int(got.min()) >= 0 and int(got.max()) < k,
+          f"{label}: ids outside [0, {k})")
+    off = (got != want).reshape(-1)
+    differ = float(off.float().mean())
+    if off.any():
+        zz = z.reshape(-1, z.shape[-1])[off].double()
+        c = codebook.detach().to(z.dtype).double()
+        d_got = (zz - c[got.reshape(-1)[off]]).square().sum(-1)
+        d_want = (zz - c[want.reshape(-1)[off]]).square().sum(-1)
+        check(bool((d_got <= d_want * (1 + VQ_NEAR_TIE_RTOL) + 1e-12).all()),
+              f"{label}: a differing id is not a near-tie (worst "
+              f"{float((d_got / d_want).max()):.6g} x the least distance)")
+    check(differ <= share, f"{label}: ids differ on a share {differ:.3g} of "
+                           f"the rows (allowed {share})")
+    return differ
+
+
+def phase_vq_kernel() -> dict:
+    """K14 against its plain version: the VQ path's shape (256 tokens x
+    B = 64, 8, 1 rows of 256-wide latents against 8192 codes) in bf16, B = 8
+    in fp32, ragged row and code counts, and an exact tie. Returns the case
+    records; the first is the B = 64 shape."""
+    import torch
+
+    from tae_tpu_torch.ops.cuda.quantizer import (nearest_code,
+                                                  nearest_code_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(9753)
+    cases = []
+
+    def case(m, k, v, dtype, timed):
+        name = str(dtype).split(".")[1]
+        z = torch.randn((m, v), generator=gen, device="cuda").to(dtype)
+        cb = torch.randn((k, v), generator=gen, device="cuda").to(dtype)
+        got, want = nearest_code(z, cb), nearest_code_reference(z, cb)
+        label = f"K14 nearest_code ({m}, {v}) x ({k}, {v}) {name}"
+        differ = compare_ids(label, z, cb, got, want, VQ_ID_SHARE[name])
+        ms = plain = lib = None
+        if timed:
+            ms = time_ms(lambda: nearest_code(z, cb))
+            plain = time_ms(lambda: nearest_code_reference(z, cb))
+            zf, cf = z.float(), cb.float()
+            lib = time_ms(lambda: torch.cdist(zf, cf).argmin(dim=-1))
+        bnd = bound(nbytes(z, cb, got), 2.0 * m * k * v, "bf16")
+        cases.append(dict(case=label, max_abs_err=differ, ms=ms, plain_ms=plain,
+                          bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib))
+        timing = "" if ms is None else (
+            f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} "
+            f"ms ({bnd[1]}), torch.cdist + argmin (fp32) {lib:.4f} ms")
+        print(f"[kernels] {label}: ids differ on a share {differ:.3g} of the "
+              f"rows (allowed {VQ_ID_SHARE[name]}, near-ties only){timing}")
+
+    for b in (KERNEL_BATCH, 8, 1):
+        case(b * 256, 8192, 256, torch.bfloat16, True)
+    case(8 * 256, 8192, 256, torch.float32, True)
+    for dtype in (torch.bfloat16, torch.float32):
+        case(100, 130, 32, dtype, False)
+        case(1000, 777, 1024, dtype, False)
+    # one code four times, and all distances equal: the lowest index
+    for dtype in (torch.bfloat16, torch.float32):
+        cb = torch.randn((700, 64), generator=gen, device="cuda").to(dtype)
+        cb[77], cb[300], cb[699] = cb[5], cb[5], cb[5]
+        z = cb[5].repeat(40, 1)
+        check(bool((nearest_code(z, cb) == 5).all()),
+              f"K14 {dtype}: a tie did not go to the lowest index")
+        check(int(nearest_code(z, torch.zeros_like(cb)).abs().max()) == 0,
+              f"K14 {dtype}: equal distances did not give index 0")
+    print("[kernels] K14 ties: the lowest index wins, bf16 and fp32")
+    return {K14["name"]: cases}
+
+
 def slice_tol(base: float, cfg) -> float:
     """The whole-slice bound for a model of cfg.depth blocks per half."""
     return base * max(1.0, cfg.depth / SLICE_TOL_DEPTH)
@@ -878,10 +1163,13 @@ def wrappers() -> dict:
     from tae_tpu_torch.ops.cuda.flash_attention import (
         fused_qkv_attention, fused_qkv_attention_bwd,
         fused_qkv_attention_fwd_lse)
+    from tae_tpu_torch.ops.cuda.int4_block import int4_mlp
+    from tae_tpu_torch.ops.cuda.int4_matmul import int4_matmul_fused
     from tae_tpu_torch.ops.cuda.int8_block import int8_mlp, ln_quant
     from tae_tpu_torch.ops.cuda.int8_matmul import int8_matmul_fused
     from tae_tpu_torch.ops.cuda.layernorm import (
         fused_layer_norm, fused_layer_norm_bwd, fused_layer_norm_fwd_stats)
+    from tae_tpu_torch.ops.cuda.quantizer import nearest_code
     from tae_tpu_torch.ops.cuda.wide_attention import (
         fused_qkv_attention_q8, fused_qkv_attention_wide,
         fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d)
@@ -891,7 +1179,8 @@ def wrappers() -> dict:
         int8_mlp, fused_qkv_attention_wide, fused_qkv_attention_q8,
         fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d,
         fused_layer_norm_fwd_stats, fused_layer_norm_bwd,
-        fused_qkv_attention_fwd_lse, fused_qkv_attention_bwd)}
+        fused_qkv_attention_fwd_lse, fused_qkv_attention_bwd,
+        int4_matmul_fused, int4_mlp, nearest_code)}
 
 
 def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
@@ -986,7 +1275,7 @@ def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
                   f"{ex:.3g} vs the bf16 tokenizer on the same weights "
                   f"(tolerance {bound_other})")
             check(ez <= bound_other and ex <= bound_other,
-                  f"{tag} B={b}: int8 outputs too far from bf16")
+                  f"{tag} B={b}: quantized outputs too far from bf16")
     er = rel_err(rec, ref.reconstruct(images[rec_b]))
     check(tuple(rec.shape) == (rec_b, 3, cfg.img_size, cfg.img_size)
           and er <= rel_tol, f"{tag} reconstruct rel_err {er:.3g}")
@@ -1000,7 +1289,9 @@ def expected_launches(cfg, quantization, attn_q8=None) -> dict:
     LayerNorm kernel per norm; in int8 every LayerNorm rides a quantizing
     kernel (the MLP epilogue always chains the next LN; the proj epilogue
     chains norm2 where the shape rule allows, else ln_quant runs once more
-    per block)."""
+    per block); in int4 nothing chains: two ln_quant, two int4 matmuls and
+    one int4 MLP per block, then the final LayerNorm kernel and the int8
+    head (the decoder's embedding is int8 too)."""
     from tae_tpu_torch.ops.attention import ROUTES, attention_route
     from tae_tpu_torch.ops.cuda.int8_matmul import ln_chain_rows
 
@@ -1011,6 +1302,11 @@ def expected_launches(cfg, quantization, attn_q8=None) -> dict:
     if quantization is None:
         half = {attention: depth, "fused_layer_norm": 2 * depth + 1}
         return {"encode": half, "decode": half}
+    if quantization == "int4":
+        enc = {"ln_quant": 2 * depth, "int4_matmul_fused": 2 * depth,
+               "int4_mlp": depth, attention: depth, "int8_matmul_fused": 1,
+               "fused_layer_norm": 1}
+        return {"encode": enc, "decode": dict(enc, int8_matmul_fused=2)}
     chained = ln_chain_rows(cfg.embed_dim) is not None
     enc = {"ln_quant": 1 if chained else 1 + depth,
            "int8_matmul_fused": 2 * depth + 1, "int8_mlp": depth,
@@ -1301,13 +1597,14 @@ def phase_p128_train() -> dict:
 
 def phase_paths() -> dict:
     """Every model of PATHS: its bf16 tokenizer (driven where PATHS names a
-    bf16 path, and the yardstick of the int8 outputs), then its int8
-    tokenizer on the same weights. Returns each path's launch counts."""
+    bf16 path, and the yardstick of the quantized outputs), then its int8
+    and / or int4 tokenizer on the same weights. Returns each path's launch
+    counts."""
     import gc
 
     import torch
 
-    from tae_tpu_torch.nn.vit import QLinear
+    from tae_tpu_torch.nn.vit import Q4Linear, QLinear
     from tae_tpu_torch.tokenizer import Tokenizer
 
     launches = {}
@@ -1334,11 +1631,21 @@ def phase_paths() -> dict:
                     tag, tok, expected_launches(cfg, None),
                     slice_tol(SLICE_REL_TOL, cfg))
                 continue
+            tok8 = None                # one quantized model at a time
             tok8, secs = build(quantization=quantization)
-            n_q = sum(isinstance(m, QLinear) for m in tok8.model.modules())
-            print(f"[{tag}] {n_q} int8 linears (w8a8), MLP block_h "
-                  f"{tok8.model.blocks[0].mlp.block_h}, built and quantized in "
-                  f"{secs:.1f} s")
+            n_q, n_q4 = (sum(isinstance(m, form) for m in tok8.model.modules())
+                         for form in (QLinear, Q4Linear))
+            print(f"[{tag}] {n_q} int8 linears (w8a8), {n_q4} int4 linears "
+                  f"(w4a8), MLP block_h {tok8.model.blocks[0].mlp.block_h}, "
+                  f"built and quantized in {secs:.1f} s")
+            if quantization == "int4":
+                check(n_q4 == 4 * (cfg.depth + cfg.decoder_depth) and n_q == 3,
+                      f"{tag}: {n_q4} int4 and {n_q} int8 linears")
+                launches[tag], _ = phase_slice(
+                    tag, tok8, expected_launches(cfg, quantization),
+                    slice_tol(INT4_SLICE_REL_TOL, cfg),
+                    against=(tok, INT4_VS_BF16_TOL))
+                continue
             launches[tag], _ = phase_slice(
                 tag, tok8, expected_launches(cfg, quantization),
                 slice_tol(INT8_SLICE_REL_TOL, cfg),
@@ -1349,6 +1656,142 @@ def phase_paths() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_vq() -> dict:
+    """Path ``vq_p16``: discrete tokens through the VQ bottleneck, then one
+    train step with it. Returns the launch counts of the path's own requests
+    and step (the comparisons' launches are not counted)."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.profile_training import build_state, make_step
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    tag = "vq_p16"
+    name, overrides = VQ_MODEL
+    fns = wrappers()
+    tok = Tokenizer.from_checkpoint(name, dtype=torch.bfloat16, device="cuda",
+                                    seed=0, **overrides)
+    cfg, codebook = tok.model.cfg, tok.model.codebook
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    images = {b: torch.randint(0, 256, (b, 3, cfg.img_size, cfg.img_size),
+                               dtype=torch.uint8, device="cuda", generator=gen)
+              for b in BATCHES}
+    check(tuple(codebook.shape) == (cfg.codebook_size, cfg.vocab_size)
+          and float(codebook.float().abs().max()) <= 1.0 / cfg.codebook_size,
+          f"{tag}: codebook {tuple(codebook.shape)} is not the seeded init")
+    # A codebook on the latents' own scale: the init above (+-1/8192) makes
+    # every distance ~0 and, in bf16, every row a near-tie, which would
+    # compare nothing. Rows of a seeded batch's latents plus seeded noise.
+    z0 = tok.encode(images[BATCHES[-1]]).reshape(-1, cfg.vocab_size).float()
+    pick = torch.randperm(z0.shape[0], generator=gen,
+                          device="cuda")[:cfg.codebook_size]
+    noise = torch.randn(codebook.shape, generator=gen, device="cuda")
+    with torch.no_grad():
+        codebook.copy_((z0[pick] + 0.1 * z0.std() * noise).to(codebook.dtype))
+    print(f"[{tag}] {name} at depth {cfg.depth}+{cfg.decoder_depth}, "
+          f"quantize=True, codebook {tuple(codebook.shape)} {codebook.dtype} "
+          f"from seeded latents + noise (std {float(z0.std()):.3g})")
+
+    totals = {}
+
+    def request(fn, arg, want):
+        before = {n: f.launches for n, f in fns.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(arg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = {n: f.launches - before[n] for n, f in fns.items()}
+        check(got == {n: want.get(n, 0) for n in fns},
+              f"{tag} {fn.__name__}: launches {got}, expected {want}")
+        for n, c in got.items():
+            totals[n] = totals.get(n, 0) + c
+        return out, dt
+
+    per_call = expected_launches(cfg, None)
+    enc_want = dict(per_call["encode"], nearest_code=1)
+    tok.encode_discrete(images[1])                       # warm-up request
+    for f in fns.values():
+        f.launches = 0
+    ref = Tokenizer(model=tok.model, policy=tok.policy, backend="reference")
+    for b in BATCHES:
+        runs = [request(tok.encode_discrete, images[b], enc_want)
+                for _ in range(REQUEST_REPS)]
+        ids = runs[-1][0]
+        enc_ms = statistics.median(dt for _, dt in runs) * 1e3
+        check(tuple(ids.shape) == (b, cfg.num_patches)
+              and ids.dtype == torch.int64 and int(ids.min()) >= 0
+              and int(ids.max()) < cfg.codebook_size,
+              f"{tag} B={b}: ids {tuple(ids.shape)} {ids.dtype}")
+        rec, dt = request(tok.decode_discrete, ids, per_call["decode"])
+        check(tuple(rec.shape) == (b, 3, cfg.img_size, cfg.img_size)
+              and bool(torch.isfinite(rec).all()),
+              f"{tag} B={b}: reconstruction {tuple(rec.shape)}")
+        # the comparisons: their launches stay out of the path's totals
+        z = tok.encode(images[b])
+        check(torch.equal(tok.encode_discrete(z), ids),
+              f"{tag} B={b}: ids of latents differ from ids of their images")
+        differ = compare_ids(f"{tag} B={b}", z, codebook, ids,
+                             ref.encode_discrete(z), VQ_ID_SHARE["bfloat16"])
+        check(torch.equal(rec, tok.decode(codebook[ids])),
+              f"{tag} B={b}: decode_discrete(ids) != decode(codebook[ids])")
+        print(f"[{tag}] B={b}: encode_discrete {enc_ms:.2f} ms/request, "
+              f"decode_discrete {dt * 1e3:.2f} ms; ids {tuple(ids.shape)} "
+              f"differ from backend='reference' on a share {differ:.3g} of "
+              f"the rows (near-ties); {int(ids.unique().numel())} codes used; "
+              "decode_discrete equals decode(codebook[ids]) bit for bit")
+    del tok, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one train step through the bottleneck (straight-through estimator)
+    state, step = build_state(name, **overrides), make_step()
+    batch = torch.randn((8, cfg.in_chans, cfg.img_size, cfg.img_size),
+                        generator=gen, device="cuda")
+    # The step's own search: bf16 latents against the fp32 codebook parameter.
+    # Kernel and plain version both round the codebook to the latents' dtype,
+    # so the ids are held as in serving, on a codebook of the latents' scale
+    # (the comparison's launches stay out of the path's totals).
+    from tae_tpu_torch.ops.quantizer import nearest_code
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    model = state.model
+    with torch.no_grad():
+        z = model.forward_encoder(batch, policy=Policy())
+        zf = z.reshape(-1, cfg.vocab_size).float()
+        pick = torch.randint(0, zf.shape[0], (cfg.codebook_size,),
+                             generator=gen, device="cuda")
+        noise = torch.randn(model.codebook.shape, generator=gen, device="cuda")
+        model.codebook.copy_(zf[pick] + 0.1 * zf.std() * noise)
+    check(z.dtype == torch.bfloat16 and model.codebook.dtype == torch.float32,
+          f"{tag}: train step searches {z.dtype} latents in a "
+          f"{model.codebook.dtype} codebook")
+    differ = compare_ids(f"{tag} train step", z, model.codebook,
+                         nearest_code(z, model.codebook),
+                         nearest_code(z, model.codebook, backend="reference"),
+                         VQ_ID_SHARE["bfloat16"])
+    print(f"[{tag}] train step's search ({tuple(z.shape)} bf16 latents, fp32 "
+          f"codebook rounded to bf16 in both versions): ids differ from "
+          f"backend='reference' on a share {differ:.3g} of the rows")
+    want = dict(train_launches(state.model.cfg), nearest_code=1)
+    m, dt = counted_step(tag, step, state, batch, 0, want, totals)
+    loss, grad = float(m["loss"]), state.model.codebook.grad
+    check(loss == loss and abs(loss) != float("inf") and grad is not None
+          and bool(torch.isfinite(grad).all()) and float(grad.abs().sum()) > 0,
+          f"{tag}: train step loss {loss}, codebook gradient {grad}")
+    print(f"[{tag}] train step B=8 with quantize=True: loss {loss:.6f}, "
+          f"codebook gradient norm {float(grad.norm()):.3g} on "
+          f"{int((grad.abs().sum(dim=1) > 0).sum())} codes, {dt * 1e3:.1f} ms")
+    ran = {k: v for k, v in totals.items() if v}
+    check(totals.get("nearest_code", 0) > 0, f"{tag}: K14 never launched")
+    print(f"[{tag}] main path launches: {json.dumps(ran)}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def main() -> int:
@@ -1366,7 +1809,10 @@ def main() -> int:
         kres.update(phase_int8_kernels())
         kres.update(phase_attention_kernels())
         kres.update(phase_train_kernels())
+        kres.update(phase_int4_kernels())
+        kres.update(phase_vq_kernel())
         launches = phase_paths()
+        launches["vq_p16"] = phase_vq()
         launches["train_bf16"] = phase_train(kres)
         launches["p128_train"] = phase_p128_train()
     except SmokeFailure as e:
@@ -1394,7 +1840,8 @@ def main() -> int:
             kres["fused_qkv_attention"], lambda c: slice_shape(c) and c[5],
             lambda c: slice_shape(c) and not c[5]),
     }
-    for name in [k["name"] for k in (K3, K4, K5, K6, K7, K8, K9, K10, K11)]:
+    for name in [k["name"] for k in (K3, K4, K5, K6, K7, K8, K9, K10, K11, K12,
+                                     K13, K14)]:
         cases = kres[name]
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         records[name] = dict({k: cases[0][k] for k in keys},
@@ -1410,8 +1857,11 @@ def main() -> int:
                 "library_ms")
         records[name]["training_form"] = dict(
             {k: kres[form][0][k] for k in keys}, name=form, cases=kres[form])
+    # ids have no absolute error: K14's figure is the share of rows whose id
+    # differs from the plain version's (near-ties, bounded in compare_ids)
+    records[K14["name"]]["max_abs_err_is"] = "share of rows with another id"
     kernels = []
-    for meta in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11):
+    for meta in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14):
         name = meta["name"]
         # a train path launches K1 and K2 in their training forms
         by_path = {path: counts.get(name, 0) + counts.get(

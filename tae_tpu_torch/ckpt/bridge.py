@@ -12,9 +12,13 @@ numpy arrays with depth-stacked blocks, into the reference-layout
   * depth-stacked block arrays -> per-layer ``blocks.{i}.*`` entries.
 
 :func:`serving_state_dict_from_jax` does the same for the JAX package's
-int8 serving tree (quantized linears ``{w_q (in, out) int8, w_scale (out,),
+int8 and int4 serving trees (quantized linears ``{w_q (in, out) int8,
+w_scale (out,), b}`` or ``{w4 (in/2, out) packed bytes, w4_scale (in/G, out),
 b}``, blocks as a list of per-layer trees), so both packages can hold
-bit-identical int8 weights.
+bit-identical codes and scales. The int4 bytes are unpacked by the JAX
+package's rule (nibble planes, offset-8 low nibble) and packed again in the
+port's layout (:func:`tae_tpu_torch.ops.cuda.int4_matmul.pack_int4`). A
+top-level ``codebook`` leaf (the VQ bottleneck) is carried as it is.
 
 The mapping is elementwise per parameter, so the same function turns any
 tree shaped like the parameters into the port's layout: a gradient tree, or
@@ -41,8 +45,21 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
 
 
+def _repack_int4(w4) -> torch.Tensor:
+    """JAX packed bytes (K/2, N) int8, byte row r = 16 * w[r + K/2] +
+    (w[r] + 8) -> the port's (N, K/2) uint8."""
+    from tae_tpu_torch.ops.cuda.int4_matmul import pack_int4
+
+    b = np.asarray(w4).astype(np.int32)             # sign-extended
+    q = np.concatenate([(b & 15) - 8, b >> 4], axis=0)            # (K, N)
+    return pack_int4(torch.from_numpy(np.ascontiguousarray(q.T).astype(np.int8)))
+
+
 def _linear(out: dict, prefix: str, p: Params) -> None:
-    if "w_q" in p:
+    if "w4" in p:
+        out[f"{prefix}.w4"] = _repack_int4(p["w4"])
+        out[f"{prefix}.w4_scale"] = _t(p["w4_scale"])
+    elif "w_q" in p:
         wq = np.ascontiguousarray(np.asarray(p["w_q"], dtype=np.int8).T)
         out[f"{prefix}.w_q"] = torch.from_numpy(wq)
         out[f"{prefix}.w_scale"] = _t(p["w_scale"])
@@ -110,6 +127,8 @@ def state_dict_from_jax(params_np: Params, cfg) -> dict[str, torch.Tensor]:
         _blocks(sd, "decoder_blocks", dec["blocks"])
         _layer_norm(sd, "decoder_norm", dec["norm"])
         _linear(sd, "decoder_pred", dec["pred"])
+    if "codebook" in params_np:
+        sd["codebook"] = _t(params_np["codebook"])
     return sd
 
 
@@ -117,8 +136,9 @@ def serving_state_dict_from_jax(params_np: Params, cfg
                                 ) -> dict[str, torch.Tensor]:
     """The JAX package's quantized, unstacked serving tree (numpy leaves;
     the output of its ``prepare_serving_params``) -> the state_dict of the
-    port's model after ``quantize_params_``: int8 codes transposed to
-    (out, in) bit for bit, fp32 scales, float leaves as fp32."""
+    port's model after ``quantize_params_`` / ``quantize_params_int4_``:
+    int8 codes transposed to (out, in) bit for bit, int4 codes repacked,
+    fp32 scales, float leaves as fp32."""
     return state_dict_from_jax(params_np, cfg)
 
 

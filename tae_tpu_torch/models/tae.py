@@ -11,6 +11,12 @@ in patch space. Submodule names follow the reference's ``state_dict`` keys
 ``load_state_dict(strict=True)`` takes both a reference ``.pth`` and the
 output of :func:`tae_tpu_torch.ckpt.bridge.state_dict_from_jax`.
 
+``quantize=True`` adds the VQ bottleneck (off by default): a ``codebook``
+parameter (codebook_size, vocab_size) shared by both halves, through which
+:meth:`TAE.forward` passes the latents with a straight-through gradient
+(:func:`tae_tpu_torch.ops.quantizer.vq_ste`), adding the codebook and
+commitment losses to the objective.
+
 All 12 reference configs are registered under their original names.
 """
 
@@ -81,10 +87,6 @@ class TAE(nn.Module):
     def __init__(self, cfg: TAEConfig, device=None, dtype=torch.float32,
                  trainable: bool = False):
         super().__init__()
-        if cfg.quantize:
-            raise NotImplementedError(
-                "the VQ bottleneck (quantize=True) is not ported yet "
-                "(ROADMAP A11)")
         self.cfg = c = cfg
         kw = dict(device=device, dtype=dtype)
         n = c.num_patches
@@ -103,17 +105,26 @@ class TAE(nn.Module):
         self.decoder_norm = vit.LayerNorm(c.decoder_embed_dim, c.ln_eps, **kw)
         self.decoder_pred = vit.Linear(c.decoder_embed_dim,
                                        c.patch_size ** 2 * c.in_chans, **kw)
+        if c.quantize:
+            self.codebook = vit.empty_param((c.codebook_size, c.vocab_size),
+                                            **kw)
         self.requires_grad_(trainable)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> "TAE":
         """Reference init: xavier-uniform linears, zero biases, LayerNorm
-        ones/zeros, trunc-normal(0.02) positional embeddings."""
+        ones/zeros, trunc-normal(0.02) positional embeddings; the codebook
+        uniform in +-1 / codebook_size."""
         vit.init_weights_(self, generator)
         for name in ("pos_embed", "decoder_pos_embed"):
             p = getattr(self, name, None)
             if p is not None:
                 p.copy_(tinit.trunc_normal(generator, p.shape, std=0.02))
+        if self.cfg.quantize:
+            bound = 1.0 / self.cfg.codebook_size
+            u = torch.rand(self.codebook.shape, generator=generator,
+                           device=generator.device, dtype=torch.float32)
+            self.codebook.copy_((2.0 * u - 1.0) * bound)
         return self
 
     @property
@@ -188,12 +199,20 @@ class TAE(nn.Module):
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full autoencode: returns (loss, pred), the training objective.
         ``remat=True`` recomputes each block in the backward pass
-        (:func:`tae_tpu_torch.nn.vit.blocks_apply`)."""
+        (:func:`tae_tpu_torch.nn.vit.blocks_apply`). With ``quantize=True``
+        the latents pass through the VQ bottleneck and the loss gains the
+        codebook and commitment terms."""
         z = self.forward_encoder(imgs, policy=policy, backend=backend,
                                  remat=remat)
+        aux = 0.0
+        if self.cfg.quantize:
+            from tae_tpu_torch.ops.quantizer import vq_ste
+
+            z, aux = vq_ste(z, self.codebook, self.cfg.commitment_beta,
+                            backend)
         pred = self.forward_decoder(z, policy=policy, backend=backend,
                                     remat=remat)
-        return self.forward_loss(imgs, pred), pred
+        return self.forward_loss(imgs, pred) + aux, pred
 
     # ----------------------------------------------------------------- utils
     def patchify(self, imgs: torch.Tensor) -> torch.Tensor:

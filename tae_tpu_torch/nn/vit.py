@@ -14,9 +14,12 @@ Conventions:
     selects the clamped softmax.
 
   * A model quantized by :func:`tae_tpu_torch.ops.int8.quantize_params_`
-    holds :class:`QLinear` layers; a block whose linears are all quantized
-    takes the fused int8 forward (:meth:`Block.forward_int8`), any other
-    block the float forward.
+    holds :class:`QLinear` layers, one quantized by
+    :func:`tae_tpu_torch.ops.int4.quantize_params_int4_` :class:`Q4Linear`
+    layers in its blocks (and ``QLinear`` wherever the shape rules out
+    int4); a block whose linears are all quantized, in either form, takes
+    the fused serving forward (:meth:`Block.forward_int8`), any other block
+    the float forward.
 
 Parameters are allocated frozen (the serving face builds most models); a
 model built with ``trainable=True`` (:class:`tae_tpu_torch.models.tae.TAE`)
@@ -26,8 +29,7 @@ and the int8 kernels refuse tensors that require a gradient. ``remat=True`` on
 :func:`blocks_apply` recomputes each float block in the backward pass
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` around the
 block body). The JAX package's ``unroll`` and ``scan`` have no meaning for an
-eager forward and are dropped. ``qk_norm`` and the int4 layout are not
-ported yet.
+eager forward and are dropped. ``qk_norm`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tae_tpu_torch.nn import init as tinit
-from tae_tpu_torch.ops import int8
+from tae_tpu_torch.ops import int4, int8
 from tae_tpu_torch.ops.attention import attention_route, packed_attention
 from tae_tpu_torch.ops.layernorm import layer_norm
 from tae_tpu_torch.ops.patchify import extract_patches
@@ -140,6 +142,44 @@ class QLinear(nn.Module):
         """``kw``: ``x_scale``, ``residual``, ``out_dtype``, ``ln_out`` of
         :func:`tae_tpu_torch.ops.int8.int8_linear`."""
         return int8.int8_linear(x, self.w_q, self.w_scale, self.bias,
+                                backend=backend, **kw)
+
+
+class Q4Linear(nn.Module):
+    """A ``Linear`` in its int4 (w4a8) serving form: packed codes ``w4``
+    (out, in / 2) uint8 in the layout of
+    :mod:`tae_tpu_torch.ops.cuda.int4_matmul` and group scales ``w4_scale``
+    (in / G, out) fp32 as buffers, the bias as before. A float input is
+    quantized per row on the fly."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        groups = in_dim // int4.group_size(in_dim // 2)
+        self.register_buffer("w4", torch.empty((out_dim, in_dim // 2),
+                                               device=device, dtype=torch.uint8))
+        self.register_buffer("w4_scale", torch.empty(
+            (groups, out_dim), device=device, dtype=torch.float32))
+        self.bias = empty_param((out_dim,), device, dtype) if bias else None
+
+    @classmethod
+    @torch.no_grad()
+    def from_float(cls, lin: "Linear", fill: bool = True) -> "Q4Linear":
+        w = lin.weight
+        q = cls(w.shape[1], w.shape[0], lin.bias is not None, w.device,
+                w.dtype)
+        if fill:
+            w4, scale = int4.quantize_weight_int4(w)
+            q.w4.copy_(w4)
+            q.w4_scale.copy_(scale)
+            if lin.bias is not None:
+                q.bias.copy_(lin.bias)
+        return q
+
+    def forward(self, x: torch.Tensor, backend: str | None = None, **kw):
+        """``kw``: ``x_scale``, ``residual``, ``out_dtype`` of
+        :func:`tae_tpu_torch.ops.int4.int4_linear`."""
+        return int4.int4_linear(x, self.w4, self.w4_scale, self.bias,
                                 backend=backend, **kw)
 
 
@@ -263,7 +303,8 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(in_dim, hidden_dim, device=device, dtype=dtype)
         self.fc2 = Linear(hidden_dim, in_dim, device=device, dtype=dtype)
-        #: hidden columns per activation scale of the fused int8 MLP
+        #: hidden columns per activation scale of the fused MLP kernel
+        #: (int8 or int4: the port uses one value for both)
         self.block_h = int8.DEFAULT_BLOCK_H
 
     def forward(self, x: torch.Tensor, backend: str | None = None
@@ -292,9 +333,19 @@ class Block(nn.Module):
 
     @property
     def is_int8(self) -> bool:
-        """All four linears are quantized: the block takes the fused path."""
-        return all(isinstance(m, QLinear) for m in (
+        """All four linears are quantized (int8 or int4, mixed leaves
+        allowed): the block takes the fused serving path."""
+        return all(isinstance(m, (QLinear, Q4Linear)) for m in (
             self.attn.qkv, self.attn.proj, self.mlp.fc1, self.mlp.fc2))
+
+    @property
+    def chains_ln(self) -> bool:
+        """The block's MLP is the int8 kernel, whose epilogue can emit the
+        next LayerNorm's int8 output, and whose norm1 input can come chained
+        from such an epilogue. An int4 block neither chains nor is chained
+        into (the JAX package runs it without ``ln_in`` / ``norm1_next``)."""
+        return self.is_int8 and isinstance(self.mlp.fc1, QLinear) \
+            and isinstance(self.mlp.fc2, QLinear)
 
     def forward_int8(self, x: torch.Tensor, backend: str | None = None,
                      serving: bool = False, ln_in=None,
@@ -309,7 +360,14 @@ class Block(nn.Module):
         quantize in its epilogue -> the whole MLP and its residual in one
         kernel, with ``norm1_next`` (the next layer's norm1, or the final
         norm) + quantize in its epilogue. Returns ``(x, ln_next)``;
-        ``ln_next`` is the chained ``(xq, sx)`` or None."""
+        ``ln_next`` is the chained ``(xq, sx)`` or None.
+
+        Each linear dispatches on its own form. An int4 (``Q4Linear``) proj
+        has no LN epilogue, so norm2 + quantize run as ``ln_quant``; an int4
+        MLP is the fused ``int4_mlp`` and chains nothing (``norm1_next``
+        must be None). An MLP with one int8 and one int4 linear, which only
+        a width no config registers produces, runs unfused through its
+        quantized linears."""
         b, n, c = x.shape
         x2 = x.reshape(b * n, c)
         xq, sx = ln_in if ln_in is not None else self.norm1.quantize(x2, backend)
@@ -317,9 +375,27 @@ class Block(nn.Module):
         qkv = a.qkv(xq, backend, x_scale=sx, out_dtype=x.dtype)
         y, y_scale = a.attend(qkv.reshape(b, n, 3 * c), backend, serving,
                               int8_block=True)
-        x2, xq2, sx2 = a.proj(y.reshape(b * n, c), backend, x_scale=y_scale,
-                              residual=x2, out_dtype=x.dtype,
-                              ln_out=self.norm2.affine)
+        xq2 = None
+        if isinstance(a.proj, QLinear):
+            x2, xq2, sx2 = a.proj(y.reshape(b * n, c), backend,
+                                  x_scale=y_scale, residual=x2,
+                                  out_dtype=x.dtype, ln_out=self.norm2.affine)
+        else:
+            x2 = a.proj(y.reshape(b * n, c), backend, x_scale=y_scale,
+                        residual=x2, out_dtype=x.dtype)
+        if not self.chains_ln:
+            if norm1_next is not None:
+                raise ValueError("only the int8 MLP kernel chains a next "
+                                 "LayerNorm")
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+            if not (isinstance(fc1, Q4Linear) and isinstance(fc2, Q4Linear)):
+                out = x2 + self.mlp(self.norm2(x2, backend), backend)
+                return out.reshape(b, n, c), None
+            if xq2 is None:
+                xq2, sx2 = self.norm2.quantize(x2, backend)
+            out = int4.int4_mlp(xq2, sx2, fc1, fc2, x2, self.mlp.block_h,
+                                x.dtype, backend)
+            return out.reshape(b, n, c), None
         if xq2 is None:
             xq2, sx2 = self.norm2.quantize(x2, backend)
         out = int8.int8_mlp(
@@ -345,7 +421,8 @@ def blocks_apply(stack: nn.ModuleList, x: torch.Tensor,
     MLP epilogue emits the next block's LN'd int8 input. With
     ``final_norm`` (the caller has a quantized head behind that norm) the
     last int8 block chains the final LayerNorm the same way and the result
-    is ``(x, ln)``, ``ln`` being the head's ``(xq, sx)`` or None.
+    is ``(x, ln)``, ``ln`` being the head's ``(xq, sx)`` or None. Int4
+    blocks run one by one, unchained (:attr:`Block.chains_ln`).
 
     ``remat=True`` keeps only each float block's input for the backward
     pass and recomputes the block there (``torch.utils.checkpoint``,
@@ -374,8 +451,10 @@ def blocks_apply(stack: nn.ModuleList, x: torch.Tensor,
             ln = None
             continue
         nxt = stack[i + 1] if i + 1 < len(stack) else None
-        if nxt is not None:
-            norm1_next = nxt.norm1 if nxt.is_int8 else None
+        if not blk.chains_ln:
+            norm1_next = None
+        elif nxt is not None:
+            norm1_next = nxt.norm1 if nxt.chains_ln else None
         else:
             norm1_next = final_norm
         x, ln = blk.forward_int8(x, backend, serving, ln_in=ln,

@@ -83,6 +83,18 @@ SIGNATURES = {
     "tae_int8_mlp_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                           _I, _I, _I, _I, _I, _I, _VP, _VP, _I, _F, _VP, _VP,
                           _VP, _I, _VP), _I),
+    # x, sx, packed w, group scales, bias, residual, out, m, n, k, group,
+    # out dtype, bias dtype, small tiles, stream
+    "tae_int4_matmul_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                             _I, _I, _I, _VP), _I),
+    # xq, sx, packed w1, s1, b1, packed w2, s2, b2, residual, out, m, d, hdim,
+    # fc1 group, fc2 group, out dtype, bias dtype, workspace of the hidden
+    # groups, hidden groups, stream
+    "tae_int4_mlp_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                          _I, _I, _I, _I, _I, _I, _VP, _I, _VP), _I),
+    # z, codebook, norms workspace, ids, m, v, k, dtype, rows per block,
+    # stream
+    "tae_nearest_code_fwd": ((_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP), _I),
     "tae_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -34,7 +34,7 @@ from tae_tpu_torch.ops.attention import resolve_backend
 from tae_tpu_torch.ops.cuda import build, int8_block, int8_matmul
 from tae_tpu_torch.ops.cuda.int8_block import DEFAULT_BLOCK_H
 
-QUANTIZATIONS = ("int8",)
+QUANTIZATIONS = ("int8", "int4")
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -201,8 +201,9 @@ def quantize_params_(model: nn.Module, skip: tuple[str, ...] = ("patch_embed",),
                 setattr(module, name, vit.QLinear.from_float(child, fill))
             else:
                 walk(child)
-        if isinstance(module, vit.Mlp) and isinstance(module.fc1, vit.QLinear):
-            hdim = module.fc1.w_q.shape[0]
+        if isinstance(module, vit.Mlp) and isinstance(
+                module.fc1, (vit.QLinear, vit.Q4Linear)):
+            hdim = module.fc1.bias.shape[0]
             if hdim % block_h:
                 raise ValueError(f"MLP hidden dim {hdim} is not a multiple of "
                                  f"block_h {block_h}")
@@ -215,14 +216,19 @@ def quantize_params_(model: nn.Module, skip: tuple[str, ...] = ("patch_embed",),
 def prepare_serving_(model: nn.Module, quantization: str,
                      equalize: float | bool = 0.0, patch_input: bool = False,
                      block_h: int = DEFAULT_BLOCK_H) -> nn.Module:
-    """The serving rewrite, in order: (optional) equalization -> int8
-    quantization. ``equalize``: falsy = off, True = alpha 0.5, a number =
-    alpha. ``patch_input=True`` declares pre-patchified (B, N, C*p*p)
-    requests, where the patch embedding is a plain matmul, and quantizes it
-    too."""
+    """The serving rewrite, in order: (optional) equalization -> int8 or
+    int4 quantization. ``equalize``: falsy = off, True = alpha 0.5, a number
+    = alpha. ``patch_input=True`` declares pre-patchified (B, N, C*p*p)
+    requests, where the patch embedding is a plain matmul, and int8
+    quantizes it too; int4 ignores it (its patch embedding stays float, as
+    in the JAX package)."""
     if quantization not in QUANTIZATIONS:
         raise ValueError(f"unknown quantization mode {quantization!r}")
     if equalize:
         equalize_params_(model, 0.5 if equalize is True else float(equalize))
+    if quantization == "int4":
+        from tae_tpu_torch.ops.int4 import quantize_params_int4_
+
+        return quantize_params_int4_(model, block_h=block_h)
     skip = () if patch_input else ("patch_embed",)
     return quantize_params_(model, skip=skip, block_h=block_h)

@@ -4,6 +4,8 @@ Run on a machine with a CUDA card, from the repository root::
 
     python -m tae_tpu_torch.profile_serving --quantization int8 --batches 64 8 1
     python -m tae_tpu_torch.profile_serving --model tae_patch128_vocab4096_px256 \
+        --quantization int4
+    python -m tae_tpu_torch.profile_serving --model tae_patch128_vocab4096_px256 \
         --quantization int8 --attn-q8 off
 
 Builds the named model (``--model``, any registered config) at full size
@@ -63,7 +65,7 @@ def profile(fn, arg, requests: int) -> tuple[dict, float]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="tae_patch16_vocab256_px256")
-    ap.add_argument("--quantization", default=None, choices=[None, "int8"])
+    ap.add_argument("--quantization", default=None, choices=[None, "int8", "int4"])
     ap.add_argument("--attn-q8", default="rule", choices=["rule", "on", "off"],
                     help="int8 path: the attention entry's output")
     ap.add_argument("--direction", default="encode",

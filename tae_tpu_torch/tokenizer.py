@@ -23,6 +23,18 @@ In int8 serving the attention kernel itself emits the proj matmul's int8
 input (:func:`tae_tpu_torch.ops.attention.attention_route`); ``attn_q8=False``
 asks for the attention output in the compute dtype and a plain per-row
 quantize instead, ``attn_q8=True`` forces the int8 output.
+
+``quantization="int4"`` stores the four linears of every block as packed
+int4 with group-wise scales (w4a8; half the weight bytes of int8, for
+small-batch serving of the widest configs, where a request streams every
+weight once; a coarser code, see :mod:`tae_tpu_torch.ops.int4`); the heads
+stay int8 and the patch embedding float.
+
+A model built with ``quantize=True`` has the VQ bottleneck's codebook::
+
+    tok = Tokenizer.from_checkpoint(name, ckpt, quantize=True)
+    ids = tok.encode_discrete(images)          # (B, N) int64 token ids
+    rec = tok.decode_discrete(ids)             # (B, 3, H, W)
 """
 
 from __future__ import annotations
@@ -34,10 +46,8 @@ import torch
 from tae_tpu_torch.utils.dtypes import Policy
 
 _NOT_YET = {
-    "int4": "int4 (w4a8) serving is not ported yet (ROADMAP A10)",
     "calibrate": "measured activation statistics (act_amax / calib_images) "
                  "are not ported yet (ROADMAP A8: calibrate.py)",
-    "discrete": "the VQ bottleneck is not ported yet (ROADMAP A11)",
 }
 
 
@@ -53,7 +63,8 @@ def set_attn_q8(model, attn_q8: bool | None) -> None:
 def prune_component(model, component: str):
     """Drop the unused half of a TAE in place: ``"encoder"`` removes the
     decoder's layers (encode-only serving halves resident weights),
-    ``"decoder"`` the encoder's, ``"both"`` keeps everything."""
+    ``"decoder"`` the encoder's, ``"both"`` keeps everything. The VQ
+    codebook, which both halves share, always stays."""
     from tae_tpu_torch.models.tae import DECODER_PARTS, ENCODER_PARTS
 
     if component == "both":
@@ -89,24 +100,24 @@ class Tokenizer:
         ``component`` prunes the unused half.
 
         ``quantization="int8"`` rewrites the linear weights to int8 with
-        per-channel scales (the w8a8 serving path). ``equalize``:
+        per-channel scales (the w8a8 serving path), ``"int4"`` the blocks'
+        linears to packed int4 with group scales (w4a8). ``equalize``:
         SmoothQuant-style equalization before quantizing (``True`` -> alpha
         0.5, or the alpha), an exact float rewrite that folds per-channel
         factors into the LN affines. ``patch_input=True`` declares that
         encode requests are pre-patchified (B, N, C*p*p) rows; int8 then
-        quantizes the patch embedding too (image requests still work).
+        quantizes the patch embedding too (image requests still work; int4
+        keeps it float either way).
         ``attn_q8``: whether an int8 block's attention emits int8 directly
         (None: the rule of ``attention_route``); a run-time choice that the
         serving artifact does not record."""
         from tae_tpu_torch import models
         from tae_tpu_torch.ckpt.bridge import load_pth
-        from tae_tpu_torch.ops.int8 import prepare_serving_
+        from tae_tpu_torch.ops.int8 import QUANTIZATIONS, prepare_serving_
 
-        if quantization == "int4":
-            raise NotImplementedError(_NOT_YET["int4"])
         if act_amax is not None or calib_images is not None:
             raise NotImplementedError(_NOT_YET["calibrate"])
-        if quantization not in (None, "int8"):
+        if quantization is not None and quantization not in QUANTIZATIONS:
             raise ValueError(f"unknown quantization mode {quantization!r}")
         if equalize and quantization is None:
             raise ValueError("equalize= only applies to the quantized "
@@ -133,15 +144,22 @@ class Tokenizer:
 
     # ------------------------------------------------------- serving artifact
     def save_serving(self, path) -> None:
-        """Persist the serving parameters (int8 if quantized) so a
+        """Persist the serving parameters (int8 / int4 if quantized) so a
         deployment skips checkpoint load and quantization at start-up:
         a ``torch.save`` of the state dict plus what is needed to rebuild
-        its layout."""
+        its layout: which linears are int8 and which int4, the int4 byte
+        layout's name, and the hidden block of the fused MLP kernels. (An
+        int4 leaf's scale group is not recorded: it follows from the shapes
+        of ``w4`` and ``w4_scale``, which ``load_state_dict`` holds to this
+        build's rule.)"""
         from tae_tpu_torch.nn import vit
+        from tae_tpu_torch.ops import int4
 
         m = self.model
         quantized = sorted(name for name, mod in m.named_modules()
                            if isinstance(mod, vit.QLinear))
+        packed = sorted(name for name, mod in m.named_modules()
+                        if isinstance(mod, vit.Q4Linear))
         block_h = {mod.block_h for mod in m.modules()
                    if isinstance(mod, vit.Mlp)}
         if len(block_h) > 1:
@@ -153,6 +171,8 @@ class Tokenizer:
                                   else "encoder" if m.has_encoder
                                   else "decoder"),
                     "quantized": quantized,
+                    "int4": packed,
+                    "int4_layout": int4.LAYOUT if packed else None,
                     "mlp_block_h": block_h.pop() if block_h else None},
                    path)
 
@@ -166,9 +186,11 @@ class Tokenizer:
         """Load a :meth:`save_serving` artifact (no re-quantization).
         ``dtype=None`` restores the compute dtype the artifact recorded.
         ``component`` prunes further; a half the artifact does not hold
-        cannot be asked for."""
+        cannot be asked for. An artifact without the int4 fields (written
+        before the int4 mode existed) holds no int4 linear."""
         from tae_tpu_torch import models
         from tae_tpu_torch.nn import vit
+        from tae_tpu_torch.ops import int4
 
         blob = torch.load(path, map_location="cpu", weights_only=True)
         if not (isinstance(blob, dict) and blob.get("serving")):
@@ -183,11 +205,19 @@ class Tokenizer:
         model = models.create(model_name, device=device, **model_overrides)
         model = prune_component(model.to(dtype).eval(), saved)
         model.requires_grad_(False)
-        for name in blob["quantized"]:
-            parent, _, leaf = name.rpartition(".")
-            owner = model.get_submodule(parent) if parent else model
-            setattr(owner, leaf, vit.QLinear.from_float(getattr(owner, leaf),
-                                                        fill=False))
+        packed = blob.get("int4") or []
+        if packed and blob.get("int4_layout") != int4.LAYOUT:
+            raise ValueError(
+                f"the artifact's int4 weights are packed as "
+                f"{blob.get('int4_layout')!r}; this build reads "
+                f"{int4.LAYOUT!r}")
+        for names, form in ((blob["quantized"], vit.QLinear),
+                            (packed, vit.Q4Linear)):
+            for name in names:
+                parent, _, leaf = name.rpartition(".")
+                owner = model.get_submodule(parent) if parent else model
+                setattr(owner, leaf, form.from_float(getattr(owner, leaf),
+                                                     fill=False))
         for mod in model.modules():
             if isinstance(mod, vit.Mlp) and blob["mlp_block_h"]:
                 mod.block_h = blob["mlp_block_h"]
@@ -230,8 +260,27 @@ class Tokenizer:
     def reconstruct(self, images) -> torch.Tensor:
         return self.decode(self.encode(images))
 
+    def _codebook(self) -> torch.Tensor:
+        codebook = getattr(self.model, "codebook", None)
+        if codebook is None:
+            raise ValueError("model has no codebook; build with quantize=True")
+        return codebook
+
+    @torch.inference_mode()
     def encode_discrete(self, images_or_latents) -> torch.Tensor:
-        raise NotImplementedError(_NOT_YET["discrete"])
+        """Nearest-codebook token ids (B, N) int64 of an image batch
+        (B, 3, H, W), or of latents (B, N, vocab) already encoded. Needs a
+        model built with ``quantize=True``."""
+        from tae_tpu_torch.ops.quantizer import encode_indices
+
+        codebook = self._codebook()
+        x = torch.as_tensor(images_or_latents)
+        z = self.encode(x) if x.ndim == 4 else x.to(self.device)
+        return encode_indices(z, codebook, self.backend)
 
     def decode_discrete(self, ids) -> torch.Tensor:
-        raise NotImplementedError(_NOT_YET["discrete"])
+        """Token ids (B, N) -> (B, 3, H, W): the codebook rows, decoded."""
+        from tae_tpu_torch.ops.quantizer import decode_indices
+
+        ids = torch.as_tensor(ids).to(self.device)
+        return self.decode(decode_indices(ids, self._codebook()))

@@ -17,14 +17,23 @@ not divide the 16-row tiles, batches that end inside a tile, both head dims;
 for the training kernels (the stats and LSE forwards, the LayerNorm and
 attention backwards), row counts off the 128-row chunks, every model width,
 token counts off the 16-row tiles, gradients in a non-contiguous layout, and
-bit-equal results of two runs.
+bit-equal results of two runs; for the int4 kernels (K12, K13), row counts
+off the 16 / 32 / 128-row tiles, both scale groups, every model width, both
+tile forms and every hidden split; for the codebook search (K14), row and
+code counts off the tiles, every latent width class, exact ties and the
+shapes the wrapper must refuse.
 """
 
 import pytest
 import torch
 
 from tae_tpu_torch.models.tae import TAE, TAEConfig
-from tae_tpu_torch.ops import int8
+from tae_tpu_torch.ops import int4, int8, quantizer
+from tae_tpu_torch.ops.cuda import quantizer as cuda_quantizer
+from tae_tpu_torch.ops.cuda.int4_block import int4_mlp, int4_mlp_reference
+from tae_tpu_torch.ops.cuda.int4_matmul import (int4_matmul_fused,
+                                                int4_matmul_reference,
+                                                pack_int4)
 from tae_tpu_torch.ops.cuda.flash_attention import (
     fused_qkv_attention, fused_qkv_attention_backward_reference,
     fused_qkv_attention_bwd, fused_qkv_attention_fwd_lse,
@@ -692,3 +701,280 @@ def test_tiny_tae_train_step_kernels_match_reference_backend(gen, remat):
         rel = float((grads[k] - p.grad).norm() / p.grad.norm().clamp_min(1e-12))
         # bf16 through 2 + 2 blocks; the two sides round P and dS differently
         assert rel <= 5e-2, (k, rel)
+
+
+# ---------------------------------------------------------------------------
+# int4 (w4a8): K12 int4_matmul_fused, K13 int4_mlp
+# ---------------------------------------------------------------------------
+
+# fp32 outputs of K12: kernel and plain version add the same exact terms in
+# the same order with every product and sum rounded separately, so they
+# agree to the last bits; bf16 outputs round the same fp32 value once.
+W4_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-6),
+          torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+def _w4(gen, n, k, group):
+    q = torch.randint(-7, 8, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.rand((k // group, n), generator=gen, device="cuda") * 4e-3 \
+        + 1e-3
+    return pack_int4(q), scale
+
+
+def _w4_matmul_case(gen, m, k, n, group, dtype, bias, residual):
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((m, 1), generator=gen, device="cuda") * 0.05 + 0.01
+    w4, scale = _w4(gen, n, k, group)
+    b = torch.randn(n, generator=gen, device="cuda").to(dtype) if bias else None
+    r = (torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+         if residual else None)
+    return xq, sx, w4, scale, b, r, dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias,residual", [(True, True), (False, False),
+                                           (True, False)])
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 256, 8, 128), (4, 2560, 7680, 256), (32, 2560, 2560, 256),
+    (100, 512, 1000, 256), (256, 2560, 7680, 256), (33, 256, 72, 64),
+    (1001, 1024, 3072, 256), (4100, 1024, 1024, 128), (129, 2048, 136, 256)])
+def test_int4_matmul_kernel_matches_plain(gen, m, k, n, group, dtype, bias,
+                                          residual):
+    args = _w4_matmul_case(gen, m, k, n, group, dtype, bias, residual)
+    before = int4_matmul_fused.launches
+    got = int4_matmul_fused(*args)
+    assert int4_matmul_fused.launches == before + 1
+    want = int4_matmul_reference(*args)
+    assert got.dtype == want.dtype == dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), **W4_TOL[dtype])
+
+
+def test_int4_matmul_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    xq, sx, w4, scale, b, r, _ = _w4_matmul_case(gen, 4, 256, 16, 128,
+                                                 torch.bfloat16, True, True)
+    with pytest.raises(TypeError):
+        int4_matmul_fused(xq, sx, w4.to(torch.int8), scale)
+    with pytest.raises(TypeError):
+        int4_matmul_fused(xq, sx, w4, scale, b, r.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul_fused(xq, sx, w4.t().contiguous().t(), scale)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        int4_matmul_fused(xq, sx, w4, scale.repeat(4, 1)[:8].contiguous())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        int4_matmul_fused(xq, sx, w4[:12].contiguous(),
+                          scale[:, :12].contiguous())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        int4_matmul_fused(xq, sx, w4, scale, b.requires_grad_())
+    # a width where int4_ok is false never reaches K12: its linears are int8
+    assert not int4.int4_ok(128) and int4.int4_ok(256)
+
+
+def _w4_mlp_case(gen, m, d, hdim, g1, g2, dtype):
+    xq = torch.randint(-127, 128, (m, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((m, 1), generator=gen, device="cuda") * 0.02 + 0.005
+    w1, s1 = _w4(gen, hdim, d, g1)
+    w2, s2 = _w4(gen, d, hdim, g2)
+    s1, s2 = s1 * 0.05, s2 * 0.05
+    b1 = (torch.randn(hdim, generator=gen, device="cuda") * 0.1).to(dtype)
+    b2 = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
+    r = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+    return xq, sx, w1, s1, b1, w2, s2, b2, r
+
+
+def _mlp4_close(got, want, dtype):
+    """Kernel and plain version add the same terms in one order, so fp32
+    outputs agree to rounding (tanhf aside: 1e-5), except on rows where a
+    hidden code sat on a rounding tie and flipped: such a row moves by one
+    hidden quantization step times an fc2 weight, below 1e-2 of the largest
+    output; at most one row in 256 (at least one) may."""
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    if dtype == torch.bfloat16:
+        return torch.testing.assert_close(g, w, atol=1e-2, rtol=1e-2)
+    err = (g - w).abs()
+    rows_off = (err > 1e-5 + 1e-5 * w.abs()).any(dim=1)
+    assert int(rows_off.sum()) <= max(1, got.shape[0] // 256), int(rows_off.sum())
+    assert float(err.max()) <= 1e-2 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d,hdim,g1,g2,groups", [
+    (1, 256, 1024, 128, 256, 1), (4, 2560, 10240, 256, 256, None),
+    (4, 2560, 10240, 256, 256, 40), (100, 1024, 4096, 256, 256, None),
+    (40, 256, 1024, 128, 256, 2), (33, 512, 2048, 256, 128, 1),
+    (256, 2560, 10240, 256, 256, None), (1001, 1024, 4096, 256, 256, 1),
+    (17, 2048, 8192, 256, 64, 4)])
+def test_int4_mlp_kernel_matches_plain(gen, m, d, hdim, g1, g2, groups, dtype):
+    from tae_tpu_torch.ops.cuda.int4_block import BLOCK_ROWS
+    from tae_tpu_torch.ops.cuda.int8_block import mlp_hidden_groups
+
+    args = _w4_mlp_case(gen, m, d, hdim, g1, g2, dtype)
+    if groups is None:
+        groups = mlp_hidden_groups(
+            -(-m // BLOCK_ROWS), hdim // 256,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+    before = int4_mlp.launches
+    got = int4_mlp(*args, 256, dtype, groups)
+    assert int4_mlp.launches == before + 1
+    _mlp4_close(got, int4_mlp_reference(*args, 256, dtype, groups), dtype)
+
+
+def test_int4_mlp_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    args = _w4_mlp_case(gen, 4, 256, 1024, 128, 256, torch.bfloat16)
+    with pytest.raises(ValueError, match="block_h"):
+        int4_mlp(*args, block_h=512)
+    with pytest.raises(ValueError, match="split"):
+        int4_mlp(*args, groups=3)
+    with pytest.raises(TypeError):
+        int4_mlp(*args[:8], args[8].float())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        int4_mlp(*args[:8], args[8].requires_grad_())
+    wide = _w4_mlp_case(gen, 4, 4096, 1024, 256, 256, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        int4_mlp(*wide)
+
+
+def test_tiny_int4_tae_kernels_match_reference_backend(gen):
+    """A small int4 TAE (16 tokens, width 256) through the kernels: per half
+    two K3 launches a block (no LN chain), 2 K12 a block, one K13 and one
+    int8-output attention launch (K8) a block, the head through K1 and K4;
+    outputs within the slice's bound of chip_smoke.py."""
+    cfg = TAEConfig(img_size=64, patch_size=16, embed_dim=256, vocab_size=16,
+                    depth=2, num_heads=4, decoder_embed_dim=256,
+                    decoder_depth=2, decoder_num_heads=4)
+    model = TAE(cfg, device="cuda").init_weights_(gen).to(torch.bfloat16)
+    int8.prepare_serving_(model, "int4")
+    pol = Policy(torch.bfloat16, torch.bfloat16)
+    imgs = torch.randn((4, 3, 64, 64), generator=gen, device="cuda")
+    fns = (ln_quant, int4_matmul_fused, int4_mlp, fused_qkv_attention_wide_q8,
+           int8_matmul_fused, fused_layer_norm, int8_mlp)
+    before = [f.launches for f in fns]
+    z = model.forward_encoder(imgs, policy=pol, serving=True)
+    mid = [f.launches for f in fns]
+    rec = model.forward_decoder(z, policy=pol, serving=True)
+    after = [f.launches for f in fns]
+    assert [b - a for a, b in zip(before, mid)] == [4, 4, 2, 2, 1, 1, 0]
+    assert [b - a for a, b in zip(mid, after)] == [4, 4, 2, 2, 2, 1, 0]
+    z_ref = model.forward_encoder(imgs, policy=pol, backend="reference",
+                                  serving=True)
+    rec_ref = model.forward_decoder(z, policy=pol, backend="reference",
+                                    serving=True)
+    for got, want in ((z, z_ref), (rec, rec_ref)):
+        assert torch.isfinite(got).all()
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        assert rel <= 2e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# VQ bottleneck: K14 nearest_code
+# ---------------------------------------------------------------------------
+
+def _ids_close(z, cb, got, want, share):
+    """Ids equal on all but ``share`` of the rows; where they differ the
+    chosen code is as near as the plain version's to 1e-4 relative (squared
+    distances in fp64): the two add the same fp32 products in another
+    order, so only a near-tie can fall the other way."""
+    assert got.dtype == want.dtype == torch.int64 and got.shape == want.shape
+    off = got != want
+    assert float(off.float().mean()) <= share, float(off.float().mean())
+    if off.any():
+        zz, c = z[off].double(), cb.to(z.dtype).double()
+        d_got = (zz - c[got[off]]).square().sum(-1)
+        d_want = (zz - c[want[off]]).square().sum(-1)
+        assert bool((d_got <= d_want * (1 + 1e-4) + 1e-9).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,v", [
+    (32, 64, 16), (100, 130, 32), (16, 8192, 256), (1, 1, 8), (1000, 777, 64),
+    (300, 100, 24), (70, 200, 1024), (40, 90, 2048), (4096, 8192, 256),
+    (257, 65, 136)])
+def test_nearest_code_kernel_matches_plain(gen, m, k, v, dtype):
+    z = torch.randn((m, v), generator=gen, device="cuda").to(dtype)
+    cb = torch.randn((k, v), generator=gen, device="cuda").to(dtype)
+    before = cuda_quantizer.nearest_code.launches
+    got = cuda_quantizer.nearest_code(z, cb)
+    assert cuda_quantizer.nearest_code.launches == before + 1
+    want = cuda_quantizer.nearest_code_reference(z, cb)
+    assert int(got.min()) >= 0 and int(got.max()) < k
+    _ids_close(z, cb, got, want, 1e-3 if dtype == torch.bfloat16 else 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nearest_code_kernel_breaks_ties_to_the_lowest_index(gen, dtype):
+    cb = torch.randn((700, 64), generator=gen, device="cuda").to(dtype)
+    cb[77], cb[300], cb[699] = cb[5], cb[5], cb[5]        # one code four times
+    cb[650] = cb[64]                                      # across tiles
+    z = torch.randn((50, 64), generator=gen, device="cuda").to(dtype)
+    z[::2], z[1] = cb[5], cb[64]
+    got = cuda_quantizer.nearest_code(z, cb)
+    assert bool((got[::2] == 5).all()) and int(got[1]) == 64
+    assert torch.equal(got, cuda_quantizer.nearest_code_reference(z, cb))
+    # every distance equal: index 0
+    zero = torch.zeros((40, 32), device="cuda", dtype=dtype)
+    assert int(cuda_quantizer.nearest_code(z[:, :32].contiguous(),
+                                           zero).abs().max()) == 0
+
+
+def test_nearest_code_dispatch_and_gradients(gen):
+    z = torch.randn((3, 5, 64), generator=gen, device="cuda",
+                    requires_grad=True)
+    cb = torch.randn((90, 64), generator=gen, device="cuda",
+                     requires_grad=True)
+    before = cuda_quantizer.nearest_code.launches
+    ids = quantizer.nearest_code(z, cb)                  # does not trip on grad
+    assert cuda_quantizer.nearest_code.launches == before + 1
+    assert ids.shape == (3, 5) and not ids.requires_grad
+    assert torch.equal(ids, quantizer.nearest_code(z, cb, backend="reference"))
+    assert cuda_quantizer.nearest_code.launches == before + 1
+    zq, aux = quantizer.vq_ste(z, cb)
+    (zq.sum() * 2.0 + aux).backward()
+    assert z.grad is not None and cb.grad is not None
+    assert float(cb.grad.abs().sum()) > 0
+    # wider than the kernel takes: raises unless the plain version is asked
+    wide = torch.randn((4, 2056), generator=gen, device="cuda")
+    wide_cb = torch.randn((9, 2056), generator=gen, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        quantizer.nearest_code(wide, wide_cb)
+    assert tuple(quantizer.nearest_code(wide, wide_cb,
+                                        backend="reference").shape) == (4,)
+    assert cuda_quantizer.nearest_code.launches == before + 2
+    with pytest.raises(ValueError, match="multiple of"):
+        cuda_quantizer.nearest_code(wide[:, :6].contiguous(),
+                                    wide[:3, :6].contiguous())
+
+
+@pytest.mark.parametrize("v", [4096, 2056])
+def test_nearest_code_wide_latents_raise_on_the_card(gen, v):
+    """V = 4096 is a registered latent width (p64 / p128, vocab 4096): on the
+    card it raises until K14 tiles z over V, and only backend="reference"
+    runs the plain version."""
+    z = torch.randn((6, v), generator=gen, device="cuda").bfloat16()
+    cb = torch.randn((20, v), generator=gen, device="cuda").bfloat16()
+    before = cuda_quantizer.nearest_code.launches
+    for fn in (quantizer.nearest_code, quantizer.encode_indices):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            fn(z, cb)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        quantizer.vq_ste(z, cb)
+    with pytest.raises(ValueError, match="V <= 2048"):
+        cuda_quantizer.nearest_code(z, cb)
+    ids = quantizer.nearest_code(z, cb, backend="reference")
+    assert torch.equal(ids, cuda_quantizer.nearest_code_reference(z, cb))
+    assert cuda_quantizer.nearest_code.launches == before
+
+
+@pytest.mark.parametrize("m,k,v", [(2048, 8192, 256), (100, 130, 32)])
+def test_nearest_code_bf16_latents_fp32_codebook(gen, m, k, v):
+    """A train step's operands: kernel and plain version both search the
+    codebook rounded to the latents' dtype, so they compute one function."""
+    z = torch.randn((m, v), generator=gen, device="cuda").bfloat16()
+    cb = torch.randn((k, v), generator=gen, device="cuda")
+    got = quantizer.nearest_code(z, cb)
+    want = quantizer.nearest_code(z, cb, backend="reference")
+    assert torch.equal(want, cuda_quantizer.nearest_code_reference(
+        z, cb.bfloat16()))
+    _ids_close(z, cb, got, want, 1e-3)

@@ -429,9 +429,13 @@ def test_bf16_artifact_is_a_serving_artifact_too(tmp_path):
 
 
 def test_unported_quantization_modes_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int4",
-                                  **TINY)
+    # int4 is ported: at this width (128) K / 2 = 64 rules int4 out for qkv,
+    # proj and fc1, which fall to int8; fc2 (K = 512) goes int4
+    tok4 = Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int4",
+                                     **TINY)
+    blk = tok4.model.blocks[0]
+    assert isinstance(blk.attn.qkv, vit.QLinear)
+    assert isinstance(blk.mlp.fc2, vit.Q4Linear) and blk.is_int8
     with pytest.raises(NotImplementedError, match="calibrate"):
         Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
                                   equalize=True, act_amax={}, **TINY)
@@ -468,6 +472,11 @@ def test_importing_every_port_module_leaves_jax_out():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    tae_tpu_torch.__path__, 'tae_tpu_torch.')]\n"
         "assert len(names) > 20, names\n"
+        "new = {'tae_tpu_torch.ops.int4', 'tae_tpu_torch.ops.quantizer',\n"
+        "       'tae_tpu_torch.ops.cuda.int4_matmul',\n"
+        "       'tae_tpu_torch.ops.cuda.int4_block',\n"
+        "       'tae_tpu_torch.ops.cuda.quantizer'}\n"
+        "assert new <= set(names), new - set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in ('jax', 'jaxlib', 'tae_tpu', 'triton')\n"
@@ -503,7 +512,8 @@ def test_every_kernel_source_is_packaged():
     csrc = REPO / "tae_tpu_torch" / "csrc"
     names = sorted(p.name for p in csrc.iterdir())
     assert {"int8_block.cu", "int8_matmul.cu", "int8_common.cuh",
-            "wide_attention.cu"} <= set(names)
+            "wide_attention.cu", "int4_matmul.cu", "int4_block.cu",
+            "int4_common.cuh", "quantizer.cu"} <= set(names)
     for name in names:
         assert any(fnmatch.fnmatch(f"csrc/{name}", g) for g in globs), name
     assert "tae_tpu_torch*" in \

@@ -135,8 +135,10 @@ def test_shape_errors_and_unported_options():
         tm.forward_encoder(torch.zeros(1, 3, 32, 32), policy=FP32)
     with pytest.raises(ValueError, match="pre-patchified"):
         tm.forward_encoder(torch.zeros(1, 16, 10), policy=FP32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TAE(TAEConfig(**TINY, quantize=True), device="meta")
+    # the VQ bottleneck is ported: quantize=True adds the codebook parameter
+    vq = TAE(TAEConfig(**TINY, quantize=True, codebook_size=24), device="meta")
+    assert tuple(vq.codebook.shape) == (24, TINY.get("vocab_size", 16))
+    assert not hasattr(tm, "codebook")
     from tae_tpu_torch.nn.vit import Attention, AttentionConfig
 
     with pytest.raises(NotImplementedError, match="B16"):

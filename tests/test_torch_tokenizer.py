@@ -147,16 +147,25 @@ def test_prune_component(images, component):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int4", **TINY)
     with pytest.raises(NotImplementedError, match="A8"):
         Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
                                   equalize=True, act_amax={}, **TINY)
+    # int4 serving and discrete tokens are ported: they build and run (a
+    # model without a codebook says how to get one)
+    tok4 = Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int4",
+                                     component="encoder", **TINY)
+    x = np.zeros((1, 3, 64, 64), np.uint8)
+    assert tuple(tok4.encode(x).shape) == (1, 16, 16)
     tok = Tokenizer.from_checkpoint(NAME, device="cpu", **TINY)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tok.encode_discrete(np.zeros((1, 3, 64, 64), np.uint8))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="quantize=True"):
+        tok.encode_discrete(x)
+    with pytest.raises(ValueError, match="quantize=True"):
         tok.decode_discrete(np.zeros((1, 16), np.int64))
+    vq = Tokenizer.from_checkpoint(NAME, device="cpu", quantize=True,
+                                   codebook_size=32, **TINY)
+    ids = vq.encode_discrete(x)
+    assert tuple(ids.shape) == (1, 16) and int(ids.max()) < 32
+    assert tuple(vq.decode_discrete(ids).shape) == (1, 3, 64, 64)
 
 
 def test_cpu_serving_leaves_launch_counters_at_zero(bf16_pair, images):
