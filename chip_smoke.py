@@ -11,7 +11,7 @@ Phases (each prints its lines; any failure exits non-zero):
    limit (nvidia-smi) and turns TF32 off for fp32 matmuls and convolutions;
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
    sm_90a and prints the seconds;
-3. kernels: holds each of the fourteen kernels against its plain PyTorch version
+3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
    take for the same work (the larger of bytes / 3.35 TB/s and operations /
@@ -25,7 +25,12 @@ Phases (each prints its lines; any failure exits non-zero):
    shapes int4 serving is for (width 2560, 4 to 256 rows) and at the p16
    shape, beside the int8 kernels and a dequantize + bf16 product at the
    same shapes; the codebook search (K14 ``nearest_code``) at 16384 x 256
-   latents against 8192 codes beside ``torch.cdist(...).argmin``;
+   latents against 8192 codes beside ``torch.cdist(...).argmin``, and at the
+   4096- and 16384-wide latents of the vocab-4096 / -16384 configs; the
+   unpacked attention of a qk_norm block (K16, both forms; K17) beside SDPA's
+   forward and backward; K4's ``q8_out`` and in-kernel-quantize forms, and the
+   int8-input attention K15 on K4's ``q8_out`` output, beside the default
+   int8 route (K4, then K7);
 4. paths (``PATHS``): for each model, built at full width with weights from
    ``torch.Generator("cuda").manual_seed(0)``, the bf16 and / or the int8
    (w8a8) ``Tokenizer`` answers encode, decode and reconstruct requests;
@@ -33,7 +38,10 @@ Phases (each prints its lines; any failure exits non-zero):
    each output against the same model run with ``backend="reference"``, and
    the int8 outputs against the bf16 tokenizer's on the same weights. The
    int8 tokenizers are also timed with the int8-output attention forced on
-   and off (``attn_q8``). ``p128_int4`` serves
+   and off (``attn_q8``). ``p16_int8_qkvq8`` serves the p16 model in int8
+   with ``qkv_q8=True`` (K4's q8_out form and K15 in every block), against
+   the default int8 tokenizer too, timed with the switch on and off.
+   ``p128_int4`` serves
    ``tae_patch128_vocab4096_px256`` in int4 (w4a8) at full width and depth
    on the same weights, ``p16_int4`` ``tae_patch16_vocab256_px256`` at depth
    2 + 2. ``vq_p16``: the same p16 model at depth 2 + 2 with the VQ
@@ -41,7 +49,11 @@ Phases (each prints its lines; any failure exits non-zero):
    batch size with the codebook search's launch counted, its ids against
    ``backend="reference"`` on the same latents, ``decode_discrete`` against
    ``decode`` of the codebook rows bit for bit, and one train step through
-   ``make_train_step``;
+   ``make_train_step``; ``vq_p64`` the same on the p64 model's 4096-wide
+   latents. ``qknorm_blocks``: qk_norm block stacks (no registered model has
+   one) driven through ``nn.vit.blocks_apply``, a serving forward and one
+   AdamW train step each, launch counts and outputs and gradients against
+   ``backend="reference"``;
 5. training (``train_bf16``): ``tae_patch16_vocab256_px256`` at full width
    and depth, fp32 parameters, bf16 compute, AdamW, through
    ``make_train_step``: one step at B = 8 against a second copy of the model
@@ -73,7 +85,8 @@ import time
 # p64 holds the wide int8 attention at 16 tokens and head dim 80 at a reduced
 # depth (its blocks are p128's width).
 PATHS = (
-    ("tae_patch16_vocab256_px256", {}, {"bf16": None, "int8": "int8"}),
+    ("tae_patch16_vocab256_px256", {},
+     {"bf16": None, "int8": "int8", "p16_int8_qkvq8": "int8_qkv_q8"}),
     ("tae_patch128_vocab4096_px256", {},
      {"p128_bf16": None, "p128_int8": "int8", "p128_int4": "int4"}),
     ("tae_patch32_vocab1024_px256", {}, {"p32_int8": "int8"}),
@@ -84,10 +97,26 @@ PATHS = (
     ("tae_patch16_vocab256_px256", dict(depth=2, decoder_depth=2),
      {"p16_int4": "int4"}),
 )
-# the VQ path: the p16 model with the bottleneck, depth cut (the codebook
-# search does not depend on depth)
-VQ_MODEL = ("tae_patch16_vocab256_px256",
-            dict(depth=2, decoder_depth=2, quantize=True, codebook_size=8192))
+# the VQ paths: the p16 model with the bottleneck, and p64's 4096-wide
+# latents (K14 tiled over V), depth cut (the codebook search does not depend
+# on depth)
+VQ_PATHS = {
+    "vq_p16": ("tae_patch16_vocab256_px256",
+               dict(depth=2, decoder_depth=2, quantize=True,
+                    codebook_size=8192)),
+    "vq_p64": ("tae_patch64_vocab4096_px256",
+               dict(depth=2, decoder_depth=2, quantize=True,
+                    codebook_size=8192)),
+}
+# The VQ paths whose train step draws its codebook from the step's latent
+# rows with replacement. At vq_p16 (2048 rows 256 wide, 8192 codes) about
+# four noisy copies of each row compete for it: rivals close enough that a
+# plain version which skips rounding the fp32 codebook to the latents' dtype
+# picks other ids than the kernel, and the check must see that. vq_p64 has
+# 8192 codes for 1024 serving rows and draws distinct rows, the other codes
+# far from every row: noisy copies of its 4096-wide rows made near-ties that
+# two correct searches broke apart on more rows than VQ_ID_SHARE allows.
+VQ_STEP_RIVALS = {"vq_p16"}
 BATCHES = (1, 8, 64)         # encode / decode request sizes
 KERNEL_BATCH = 64            # batch of the kernel-vs-plain shapes
 TIMED_REPS = 20              # kernel timings: launches per replayed graph
@@ -171,6 +200,26 @@ INT4_VS_BF16_TOL = 0.25
 # causes (the same attention, LN and rounding code; measured 0.018-0.025 at
 # p128 against 0.022-0.025 in int8).
 INT4_SLICE_REL_TOL = 4e-2
+# K15's P.V product takes p rounded to bf16, as its plain version does; the
+# fp32 p of the two differ in their last bits (summation order of the
+# scores), so a p within that of a bf16 rounding boundary rounds one ulp
+# (2^-7 of p at most) the other way, and the row's output moves by up to
+# 2^-7 * (p / l) * |v|: at most P_FLIP_REL * max|v| however many flip. With
+# the q8_out output of a product as input the scores span tens, one p carries
+# most of a row, and such a flip exceeds TOL (measured 0.0625 on outputs of
+# size ~8 at B = 64).
+P_FLIP_REL = 2.0 ** -7
+# K17 in bf16 rounds P and dS to bf16 ahead of its last three products (2^-9
+# relative each), where its plain version keeps the JAX body's fp32
+# throughout: each output is a sum of N such terms of both signs, held as a
+# relative Frobenius error per output tensor.
+K17_BF16_REL = 1e-2
+# The int8 tokenizer with qkv_q8 on against the default int8 tokenizer on the
+# same weights, relative Frobenius error: the qkv activation is quantized to
+# int8 (one scale per row and 512 columns) on one side and kept in bf16 on
+# the other, one more w8a8-sized rounding per block through 15 blocks per
+# half; each side is within INT8_VS_BF16_TOL of bf16.
+QKV_Q8_VS_INT8_TOL = 0.1
 
 # The training kernels. K11's dw / db sum all rows in fp32 in chunk order and
 # round once to the weight's dtype; the plain version sums in another order.
@@ -196,6 +245,9 @@ STATS_TOL = dict(atol=1e-5, rtol=1e-5)
 # kernel's output exceeds them (PERF.md).
 TRAIN_GRAD_REL_TOL = 2.5e-2
 TRAIN_LOSS_RTOL = 1e-3
+# A qk_norm block's k_norm bias has an exact gradient of zero; measured on an
+# H100 both sides' rounding noise is 1e-3 of k_norm's weight gradient or less.
+ZERO_GRAD_REL = 1e-2
 # accum_iter = 2 vs 1 on the same 64 images from the same weights: the same
 # per-image arithmetic, but each microbatch's weight gradients are rounded to
 # bf16 before they are summed in fp32 (2^-9 per element, independent), and
@@ -204,6 +256,9 @@ ACCUM_NORM_RTOL = 1e-3
 TRAIN_BATCH = 64
 TRAIN_STEPS = 8
 REMAT_STEPS = 5
+# qknorm_blocks: (width, heads, depth, tokens) of each stack, timed steps
+QKNORM_STACKS = ((1024, 16, 15, 256), (2560, 32, 2, 16))
+QKNORM_STEPS = 3
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -251,10 +306,25 @@ K13 = dict(name="int4_mlp", route="cuda",
 K14 = dict(name="nearest_code", route="cuda",
            source="tae_tpu_torch/csrc/quantizer.cu",
            replaces="tae_tpu/ops/pallas/quantizer.py:29")
-# the training forwards are K1 and K2 with one more output; they count their
-# launches apart from the inference forwards
+K15 = dict(name="fused_qkv_attention_i8", route="cuda",
+           source="tae_tpu_torch/csrc/flash_attention.cu",
+           replaces="tae_tpu/ops/pallas/flash_attention.py:352")
+K16 = dict(name="flash_attention", route="cuda",
+           source="tae_tpu_torch/csrc/flash_attention.cu",
+           replaces="tae_tpu/ops/pallas/flash_attention.py:37")
+K17 = dict(name="flash_attention_bwd", route="cuda",
+           source="tae_tpu_torch/csrc/flash_attention_bwd.cu",
+           replaces="tae_tpu/ops/pallas/flash_attention.py:55")
+KERNELS = (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14, K15,
+           K16, K17)
+# the training forwards are K1, K2 and K16 with one more output; they count
+# their launches apart from the inference forwards
 TRAIN_FORMS = {"fused_layer_norm": "fused_layer_norm_fwd_stats",
-               "fused_qkv_attention": "fused_qkv_attention_fwd_lse"}
+               "fused_qkv_attention": "fused_qkv_attention_fwd_lse",
+               "flash_attention": "flash_attention_fwd_lse"}
+# K4's row-block form (the q8_out output mode and the in-kernel quantize of a
+# float x) counts its launches apart too
+ROW_FORMS = {"int8_matmul_fused": "int8_matmul_rows"}
 
 
 class SmokeFailure(Exception):
@@ -1148,6 +1218,246 @@ def phase_vq_kernel() -> dict:
     return {K14["name"]: cases}
 
 
+def phase_last_kernels() -> dict:
+    """K15, K16 (both forms), K17, K4's row-block form (``q8_out`` and the
+    in-kernel quantize) and K14 at the vocab-4096 and -16384 latent widths,
+    against their plain versions at the shapes of the paths that run them,
+    timed beside their bounds and yardsticks: SDPA's exact form, forward and
+    backward, for K16 and K17; the default int8 route (K4 with a bf16 output,
+    then K7) for K4's q8_out + K15. Returns case records per wrapper name;
+    the first of each is the main-path shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from tae_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_backward_reference,
+        flash_attention_bwd, flash_attention_fwd_lse,
+        flash_attention_reference, fused_qkv_attention_i8,
+        fused_qkv_attention_i8_reference)
+    from tae_tpu_torch.ops.cuda.int8_matmul import (
+        int8_matmul_fused, int8_matmul_rows, int8_matmul_rows_reference)
+    from tae_tpu_torch.ops.cuda.quantizer import (nearest_code,
+                                                  nearest_code_reference)
+    from tae_tpu_torch.ops.cuda.wide_attention import fused_qkv_attention_q8
+    from tae_tpu_torch.ops.int8 import q8_block, row_scales
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("flash_attention", "flash_attention_fwd_lse", "flash_attention_bwd",
+             "fused_qkv_attention_i8", "int8_matmul_rows", "nearest_code")
+    res = {name: [] for name in names}
+
+    def randn(shape, dtype=bf16, scale=1.0):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x * scale).to(dtype)
+
+    def rand_i8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    def record(name, label, err, ms, plain, bnd, lib=None, extra="", **more):
+        res[name].append(dict(case=label, max_abs_err=err, ms=ms,
+                              plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                              library_ms=lib, **more))
+        timing = "" if ms is None else (
+            f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} "
+            f"ms ({bnd[1]})")
+        print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{extra}")
+
+    # ---- K16 (both forms) and K17: the qknorm_blocks shapes (B = 64 at 256
+    #      tokens, 16 x 64; 16 tokens, 32 x 80), the 4-token p128 shape, an
+    #      odd token count, fp32; q and k contiguous, v a view of the packed
+    #      projection output, as the qk_norm block hands them over
+    for b, n, h, dh, dtype in ((KERNEL_BATCH, 256, 16, 64, bf16),
+                               (KERNEL_BATCH, 16, 32, 80, bf16),
+                               (KERNEL_BATCH, 4, 32, 80, bf16),
+                               (7, 100, 4, 80, bf16), (8, 256, 16, 64, f32),
+                               (3, 17, 2, 64, f32)):
+        name = str(dtype).split(".")[1]
+        tol = TOL[name]
+        timed = b == KERNEL_BATCH
+        qkv = randn((b, n, 3 * h * dh), dtype)
+        r = qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+        q, k, v = r[0].contiguous(), r[1].contiguous(), r[2]
+        do = randn((b, h, n, dh), dtype)
+        shape = f"(B {b}, H {h}, N {n}, dh {dh}) {name}"
+        o_ref, lse_ref = flash_attention_reference(q, k, v)
+        ops = 4.0 * b * h * n * n * dh
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v)) \
+            if timed else None
+        sdpa_s = "" if sdpa is None else f"; SDPA (exact form) {sdpa:.4f} ms"
+        o = flash_attention(q, k, v)
+        label = f"K16 attention {shape}"
+        err = compare(label, o, o_ref, **tol)
+        record("flash_attention", label, err,
+               time_ms(lambda: flash_attention(q, k, v)) if timed else None,
+               time_ms(lambda: flash_attention_reference(q, k, v))
+               if timed else None,
+               bound(nbytes(q, k, v, o), ops, "bf16"), sdpa, sdpa_s)
+        o, lse = flash_attention_fwd_lse(q, k, v)
+        label = f"K16 attention with LSE {shape}"
+        err = compare(label, o, o_ref, **tol)
+        compare(label + " lse", lse, lse_ref, **STATS_TOL)
+        record("flash_attention_fwd_lse", label, err,
+               time_ms(lambda: flash_attention_fwd_lse(q, k, v))
+               if timed else None,
+               time_ms(lambda: flash_attention_reference(q, k, v))
+               if timed else None,
+               bound(nbytes(q, k, v, o, lse), ops, "bf16"), sdpa, sdpa_s)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        want = flash_attention_backward_reference(q, k, v, o, lse, do)
+        label = f"K17 attention backward {shape}"
+        err = 0.0
+        for g, w, which in zip(got, want, ("dq", "dk", "dv")):
+            if dtype == f32:
+                err = max(err, compare(f"{label} {which}", g, w, **tol))
+                continue
+            # bf16: P and dS rounded to bf16 ahead of the last three products
+            check(g.shape == w.shape and g.dtype == w.dtype
+                  and bool(torch.isfinite(g).all()), f"{label} {which}")
+            rel = rel_err(g, w)
+            check(rel <= K17_BF16_REL, f"{label} {which}: relative error "
+                                       f"{rel:.3g} against the fp32 plain "
+                                       f"version (bound {K17_BF16_REL})")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        again = flash_attention_bwd(q, k, v, o, lse, do)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"{label}: two runs differ in their bits")
+        lib = None
+        if timed:
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            so = F.scaled_dot_product_attention(qg, kg, vg)
+            lib = time_ms_events(lambda: torch.autograd.grad(
+                so, (qg, kg, vg), do, retain_graph=True))
+        record("flash_attention_bwd", label, err,
+               time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
+               if timed else None,
+               time_ms(lambda: flash_attention_backward_reference(
+                   q, k, v, o, lse, do)) if timed else None,
+               bound(nbytes(q, k, v, o, lse, do, *got), 2.5 * ops, "bf16"),
+               lib, "" if lib is None else f"; SDPA's backward {lib:.4f} ms")
+
+    # ---- K4's q8_out form at the p16 qkv shape (and odd rows), the
+    #      in-kernel quantize of a float x; K15 on that q8_out output
+    m_full, d = KERNEL_BATCH * 256, 1024
+    xq, sx = rand_i8((m_full, d)), scales((m_full, 1), 0.01, 0.06)
+    wq, sw = rand_i8((3 * d, d)), scales((3 * d,), 1e-4, 5e-4)
+    bias = randn((3 * d,))
+    bn = q8_block(3 * d)
+    for m in (m_full, 1001):
+        a = (xq[:m], sx[:m], wq, sw, bias)
+        yq, ys = int8_matmul_rows(*a, q8_block=bn)
+        yq_ref, ys_ref = int8_matmul_rows_reference(*a, q8_block=bn)
+        label = f"K4 int8_matmul q8_out ({m}, {d}) x ({3 * d}, {d}) +bias block {bn}"
+        compare_scales(label, ys, ys_ref)
+        share = compare_codes(label, yq, yq_ref)
+        err = float((yq.float().view(m, -1, bn) * ys.permute(1, 0, 2)
+                     - yq_ref.float().view(m, -1, bn)
+                     * ys_ref.permute(1, 0, 2)).abs().max())
+        timed = m == m_full
+        lib = time_ms(lambda: torch._int_mm(xq, wq.t())) if timed else None
+        record("int8_matmul_rows", label, err,
+               time_ms(lambda: int8_matmul_rows(*a, q8_block=bn))
+               if timed else None,
+               time_ms(lambda: int8_matmul_rows_reference(*a, q8_block=bn))
+               if timed else None,
+               bound(nbytes(*a, yq, ys), 2.0 * m * d * 3 * d, "int8"), lib,
+               f"; codes off by one on a share {share:.2g}"
+               + ("" if lib is None else
+                  f"; torch._int_mm (product only) {lib:.4f} ms"))
+        if timed:
+            qkv_q, qkv_s = yq, ys
+    for m, dtype in ((m_full, bf16), (1001, f32)):
+        x = randn((m, d), dtype, 3.0)
+        xs = row_scales(x)
+        w1, s1 = rand_i8((d, d)), scales((d,), 1e-4, 5e-4)
+        b1, r1 = randn((d,)), randn((m, d), dtype)
+        a = (x, xs, w1, s1, b1, r1, dtype)
+        got, want = int8_matmul_rows(*a), int8_matmul_rows_reference(*a)
+        label = (f"K4 int8_matmul in-kernel quantize ({m}, {d}) "
+                 f"{str(dtype).split('.')[1]} x ({d}, {d}) +bias +residual")
+        err = compare(label, got, want, **TOL[str(dtype).split(".")[1]])
+        timed = m == m_full
+        record("int8_matmul_rows", label, err,
+               time_ms(lambda: int8_matmul_rows(*a)) if timed else None,
+               time_ms(lambda: int8_matmul_rows_reference(*a))
+               if timed else None,
+               bound(nbytes(x, xs, w1, s1, b1, r1, got), 2.0 * m * d * d,
+                     "int8"))
+
+    h, dh = 16, 64
+    qkv3 = qkv_q.view(KERNEL_BATCH, 256, 3 * d)
+    got = fused_qkv_attention_i8(qkv3, qkv_s, h)
+    want = fused_qkv_attention_i8_reference(qkv3, qkv_s, h)
+    label = f"K15 int8-input attention {tuple(qkv3.shape)} h={h} dh={dh} block {bn}"
+    err = compare(label, got, want, **k15_tol(qkv3, qkv_s))
+    # the default int8 route it replaces: K4 with a bf16 qkv, then K7
+    k15 = time_ms(lambda: fused_qkv_attention_i8(qkv3, qkv_s, h))
+    q8_route = time_ms(lambda: fused_qkv_attention_i8(
+        int8_matmul_rows(xq, sx, wq, sw, bias, q8_block=bn)[0].view(
+            KERNEL_BATCH, 256, 3 * d), qkv_s, h))
+    default_route = time_ms(lambda: fused_qkv_attention_q8(
+        int8_matmul_fused(xq, sx, wq, sw, bias, None, bf16).view(
+            KERNEL_BATCH, 256, 3 * d), h))
+    record("fused_qkv_attention_i8", label, err, k15,
+           time_ms(lambda: fused_qkv_attention_i8_reference(qkv3, qkv_s, h)),
+           bound(nbytes(qkv3, qkv_s, got),
+                 4.0 * KERNEL_BATCH * h * 256 * 256 * dh, "bf16"), None,
+           f"; yardstick: K4 q8_out + K15 {q8_route:.4f} ms against the "
+           f"default route K4 (bf16 qkv) + K7 {default_route:.4f} ms",
+           q8_route_ms=q8_route, default_route_ms=default_route)
+    for b, n, hh, ddh, blk in ((7, 129, 32, 64, 512), (3, 17, 32, 80, 640)):
+        c3 = 3 * hh * ddh
+        qkv_o = rand_i8((b, n, c3))
+        s_o = scales((c3 // blk, b * n, 1), 0.002, 0.03)
+        compare(f"K15 int8-input attention ({b}, {n}, {c3}) h={hh} dh={ddh} "
+                f"block {blk}", fused_qkv_attention_i8(qkv_o, s_o, hh),
+                fused_qkv_attention_i8_reference(qkv_o, s_o, hh),
+                **k15_tol(qkv_o, s_o))
+
+    # ---- K14 over V: p64's 4096-wide latents (16 tokens) and p128 vocab
+    #      16384's (4 tokens) at B = 64, against 8192 codes; the ties
+    for m, v, dtype, timed in ((KERNEL_BATCH * 16, 4096, bf16, True),
+                               (KERNEL_BATCH * 4, 16384, bf16, True),
+                               (300, 4096, f32, False),
+                               (33, 16384, f32, False)):
+        k = 8192 if timed else 777
+        name = str(dtype).split(".")[1]
+        z, cb = randn((m, v), dtype), randn((k, v), dtype)
+        got, want = nearest_code(z, cb), nearest_code_reference(z, cb)
+        label = f"K14 nearest_code ({m}, {v}) x ({k}, {v}) {name}, z tiled over V"
+        differ = compare_ids(label, z, cb, got, want, VQ_ID_SHARE[name])
+        lib = None
+        if timed:
+            zf, cf = z.float(), cb.float()
+            lib = time_ms(lambda: torch.cdist(zf, cf).argmin(dim=-1))
+        record("nearest_code", label, differ,
+               time_ms(lambda: nearest_code(z, cb)) if timed else None,
+               time_ms(lambda: nearest_code_reference(z, cb)) if timed else None,
+               bound(nbytes(z, cb, got), 2.0 * m * k * v, "bf16"), lib,
+               f"; ids differ on a share {differ:.3g}" + (
+                   "" if lib is None else
+                   f"; torch.cdist + argmin (fp32) {lib:.4f} ms"))
+        cb[k - 1], z[0] = cb[3], cb[3]
+        check(int(nearest_code(z, cb)[0]) == 3,
+              f"{label}: a tie did not go to the lowest index")
+    return res
+
+
+def k15_tol(qkv_q, scales) -> dict:
+    """K15 against its plain version: TOL's bf16 bound plus P_FLIP_REL times
+    the largest dequantized v (see P_FLIP_REL)."""
+    from tae_tpu_torch.ops.cuda.flash_attention import dequantize_qkv
+
+    c = qkv_q.shape[-1] // 3
+    vmax = float(dequantize_qkv(qkv_q, scales)[..., 2 * c:].float().abs().max())
+    tol = TOL["bfloat16"]
+    return dict(atol=tol["atol"] + P_FLIP_REL * vmax, rtol=tol["rtol"])
+
+
 def slice_tol(base: float, cfg) -> float:
     """The whole-slice bound for a model of cfg.depth blocks per half."""
     return base * max(1.0, cfg.depth / SLICE_TOL_DEPTH)
@@ -1161,12 +1471,14 @@ def rel_err(got, want) -> float:
 def wrappers() -> dict:
     """The kernel wrappers by name; each counts its launches."""
     from tae_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd_lse,
         fused_qkv_attention, fused_qkv_attention_bwd,
-        fused_qkv_attention_fwd_lse)
+        fused_qkv_attention_fwd_lse, fused_qkv_attention_i8)
     from tae_tpu_torch.ops.cuda.int4_block import int4_mlp
     from tae_tpu_torch.ops.cuda.int4_matmul import int4_matmul_fused
     from tae_tpu_torch.ops.cuda.int8_block import int8_mlp, ln_quant
-    from tae_tpu_torch.ops.cuda.int8_matmul import int8_matmul_fused
+    from tae_tpu_torch.ops.cuda.int8_matmul import (int8_matmul_fused,
+                                                    int8_matmul_rows)
     from tae_tpu_torch.ops.cuda.layernorm import (
         fused_layer_norm, fused_layer_norm_bwd, fused_layer_norm_fwd_stats)
     from tae_tpu_torch.ops.cuda.quantizer import nearest_code
@@ -1180,7 +1492,9 @@ def wrappers() -> dict:
         fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d,
         fused_layer_norm_fwd_stats, fused_layer_norm_bwd,
         fused_qkv_attention_fwd_lse, fused_qkv_attention_bwd,
-        int4_matmul_fused, int4_mlp, nearest_code)}
+        int4_matmul_fused, int4_mlp, nearest_code, fused_qkv_attention_i8,
+        flash_attention, flash_attention_fwd_lse, flash_attention_bwd,
+        int8_matmul_rows)}
 
 
 def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
@@ -1189,8 +1503,9 @@ def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
     size, one reconstruct. ``per_call`` gives each kernel's launches per
     encode and per decode call, checked on every request. Outputs are held
     against the same tokenizer with ``backend="reference"`` (bound
-    ``rel_tol``) and, with ``against = (other tokenizer, bound)``, against
-    that one. Returns (launch counts of the run, latents by batch)."""
+    ``rel_tol``) and, with ``against = (other tokenizer, bound, what it
+    is)``, against that one. Returns (launch counts of the run, latents by
+    batch)."""
     import torch
 
     from tae_tpu_torch.tokenizer import Tokenizer
@@ -1268,14 +1583,14 @@ def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
         check(ez <= rel_tol and ex <= rel_tol,
               f"{tag} B={b}: kernels disagree with the plain versions")
         if against is not None:
-            other, bound_other = against
+            other, bound_other, what = against
             ez = rel_err(z, other.encode(images[b]))
             ex = rel_err(x, other.decode(z))
             print(f"[{tag}] B={b}: latents rel_err {ez:.3g}, decode rel_err "
-                  f"{ex:.3g} vs the bf16 tokenizer on the same weights "
+                  f"{ex:.3g} vs {what} on the same weights "
                   f"(tolerance {bound_other})")
             check(ez <= bound_other and ex <= bound_other,
-                  f"{tag} B={b}: quantized outputs too far from bf16")
+                  f"{tag} B={b}: outputs too far from {what}")
     er = rel_err(rec, ref.reconstruct(images[rec_b]))
     check(tuple(rec.shape) == (rec_b, 3, cfg.img_size, cfg.img_size)
           and er <= rel_tol, f"{tag} reconstruct rel_err {er:.3g}")
@@ -1283,7 +1598,7 @@ def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
     return launches, latents
 
 
-def expected_launches(cfg, quantization, attn_q8=None) -> dict:
+def expected_launches(cfg, quantization, attn_q8=None, qkv_q8=False) -> dict:
     """Each kernel's launches per encode and per decode call, as the code
     implies them: the attention entry from the dispatch rule; in bf16 a
     LayerNorm kernel per norm; in int8 every LayerNorm rides a quantizing
@@ -1291,11 +1606,20 @@ def expected_launches(cfg, quantization, attn_q8=None) -> dict:
     chains norm2 where the shape rule allows, else ln_quant runs once more
     per block); in int4 nothing chains: two ln_quant, two int4 matmuls and
     one int4 MLP per block, then the final LayerNorm kernel and the int8
-    head (the decoder's embedding is int8 too)."""
+    head (the decoder's embedding is int8 too). ``qkv_q8`` (int8, from 128
+    tokens): per block K4's q8_out form for qkv, the int8-input attention,
+    K4 for proj on its per-row quantized bf16 input, ln_quant for norm2,
+    the MLP (still chaining the next norm1)."""
     from tae_tpu_torch.ops.attention import ROUTES, attention_route
     from tae_tpu_torch.ops.cuda.int8_matmul import ln_chain_rows
 
     depth = cfg.depth  # decoder depth is equal for every registered config
+    if qkv_q8:
+        enc = {"ln_quant": 1 + depth, "int8_matmul_rows": depth,
+               "fused_qkv_attention_i8": depth, "int8_matmul_fused": depth + 1,
+               "int8_mlp": depth}
+        return {"encode": enc,
+                "decode": dict(enc, int8_matmul_fused=depth + 2)}
     route, _ = attention_route(cfg.num_patches, quantization is not None,
                                True, attn_q8)
     attention = ROUTES[route][0].__name__
@@ -1397,11 +1721,22 @@ def compare_gradients(tag: str, model, ref_model, tol: float) -> float:
     import torch
 
     worst, worst_name = 0.0, ""
+    grads = dict(model.named_parameters())
     for (name, p), q in zip(model.named_parameters(), ref_model.parameters()):
         check(p.grad is not None and q.grad is not None
               and p.grad.dtype == torch.float32
               and bool(torch.isfinite(p.grad).all()),
               f"{tag}: gradient of {name} is missing, not fp32 or not finite")
+        if name.endswith("attn.k_norm.bias"):
+            # its exact gradient is zero (a shift of every key of a head
+            # moves a query's scores by one constant): rounding noise on
+            # both sides, held small against k_norm's weight's gradient
+            scale = float(grads[name[:-4] + "weight"].grad.norm())
+            noise = max(float(p.grad.norm()), float(q.grad.norm()))
+            check(noise <= ZERO_GRAD_REL * scale,
+                  f"{tag}: gradient of {name} is {noise:.3g}, not ~0 against "
+                  f"{scale:.3g}")
+            continue
         err = rel_err(p.grad, q.grad)
         if err > worst:
             worst, worst_name = err, name
@@ -1595,6 +1930,168 @@ def phase_p128_train() -> dict:
     return totals
 
 
+def phase_qknorm(kres: dict) -> dict:
+    """Path ``qknorm_blocks``: qk_norm block stacks driven through
+    ``nn.vit.blocks_apply`` (no registered model has qk_norm), fp32
+    parameters from a seeded generator (every LayerNorm affine then moved
+    off the identity, seeded), bf16 activations. The flagship encoder's
+    blocks (width 1024, 16 heads, 15 deep) at 256 tokens, B = 64, and a
+    2-block stack of p64's blocks (width 2560, 32 x 80) at 16 tokens: a
+    serving forward and one train step (forward, backward, AdamW) each, with
+    every kernel's launches checked, outputs and gradients held against
+    ``backend="reference"``, then QKNORM_STEPS timed steps. Returns the
+    launch counts of the path's own forwards and steps."""
+    import copy
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.nn import vit
+    from tae_tpu_torch.train import adamw
+
+    tag, fns, totals = "qknorm_blocks", wrappers(), {}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def counted(fn, want):
+        before = {k: f.launches for k, f in fns.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = {k: f.launches - before[k] for k, f in fns.items()}
+        check(got == {k: want.get(k, 0) for k in fns},
+              f"{tag}: launches {got}, expected {want}")
+        for k, c in got.items():
+            totals[k] = totals.get(k, 0) + c
+        return out, dt
+
+    for dim, heads, depth, n in QKNORM_STACKS:
+        cfg = vit.BlockConfig(dim, heads, 4.0, qkv_bias=True, qk_norm=True)
+        stack = vit.blocks(cfg, depth, device="cuda")
+        vit.init_weights_(stack, gen)
+        with torch.no_grad():
+            for m in stack.modules():
+                if isinstance(m, vit.LayerNorm):
+                    m.weight.mul_(torch.rand(m.weight.shape, generator=gen,
+                                             device="cuda") * 0.7 + 0.7)
+                    m.bias.normal_(0.0, 0.1, generator=gen)
+        x = torch.randn((KERNEL_BATCH, n, dim), generator=gen,
+                        device="cuda").bfloat16()
+        label = (f"{depth} blocks, width {dim}, {heads} x {dim // heads}, "
+                 f"{n} tokens, B={KERNEL_BATCH}")
+        tol = SLICE_REL_TOL * max(1.0, depth / SLICE_TOL_DEPTH)
+
+        # ---- serving forward: K16 per block, K1 per norm (four per block)
+        serve = {"flash_attention": depth, "fused_layer_norm": 4 * depth}
+        with torch.no_grad():
+            counted(lambda: vit.blocks_apply(stack, x, serving=True), serve)
+            y, dt = counted(lambda: vit.blocks_apply(stack, x, serving=True),
+                            serve)
+            err = rel_err(y, vit.blocks_apply(stack, x, backend="reference"))
+        check(bool(torch.isfinite(y).all()) and err <= tol,
+              f"{tag} {label}: serving forward rel_err {err:.3g}")
+        print(f"[{tag}] {label}: serving forward {dt * 1e3:.2f} ms, rel_err "
+              f"{err:.3g} vs backend='reference' (tolerance {tol:.3g}); "
+              f"launches {json.dumps(serve)}")
+
+        # ---- one train step against a copy on the plain versions
+        stack.requires_grad_(True)
+        ref = copy.deepcopy(stack)
+        opt = adamw(weight_decay=0.05)
+        state = opt.init(stack)
+        train = {"flash_attention_fwd_lse": depth, "flash_attention_bwd": depth,
+                 "fused_layer_norm_fwd_stats": 4 * depth,
+                 "fused_layer_norm_bwd": 4 * depth}
+
+        def step(s, backend=None):
+            loss = vit.blocks_apply(s, x, backend=backend).float().square().mean()
+            loss.backward()
+            return loss.detach()
+
+        loss, _ = counted(lambda: step(stack), train)
+        loss_ref = step(ref, "reference")
+        check(abs(float(loss) - float(loss_ref))
+              <= TRAIN_LOSS_RTOL * abs(float(loss_ref)),
+              f"{tag} {label}: losses {float(loss)} vs {float(loss_ref)}")
+        compare_gradients(f"{tag} {label}", stack, ref, TRAIN_GRAD_REL_TOL)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = {k: p.detach().clone() for k, p in stack.named_parameters()}
+        opt.update(state, 1e-4)
+        # every parameter moves but k_norm's bias (whose gradient is noise)
+        check(all(bool(torch.isfinite(p).all()) and (
+            k.endswith("k_norm.bias") or not torch.equal(p, before[k]))
+            for k, p in stack.named_parameters()),
+              f"{tag} {label}: AdamW left a parameter unchanged or non-finite")
+        del before
+        times = []
+        for _ in range(QKNORM_STEPS):
+            state.zero_grad(set_to_none=True)
+
+            def full_step():
+                step(stack)
+                opt.update(state, 1e-4)
+
+            _, dt = counted(full_step, train)
+            times.append(dt)
+        ms = statistics.median(times) * 1e3
+        inside = sum(kres[k][0]["ms"] * c for k, c in train.items()
+                     if k in kres and kres[k][0]["ms"] is not None) \
+            if n == 256 else None
+        share = "" if inside is None else (
+            f"; K16 + K17 + K1 + K11 (kernel-phase times x launches) "
+            f"{inside:.2f} ms = {inside / ms:.3f} of the step")
+        print(f"[{tag}] {label}: loss {float(loss):.6f} vs {float(loss_ref):.6f} "
+              f"with backend='reference'; train step (forward, backward, "
+              f"AdamW) {ms:.2f} ms (runs {min(times) * 1e3:.2f}-"
+              f"{max(times) * 1e3:.2f}), launches per step "
+              f"{json.dumps(train)}{share}")
+        del stack, state, opt, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    ran = {k: v for k, v in totals.items() if v}
+    print(f"[{tag}] main path launches: {json.dumps(ran)}")
+    return totals
+
+
+def time_qkv_q8(tag: str, tok) -> dict:
+    """Encode requests at the largest batch with ``qkv_q8`` on, off, off, on
+    (one card, in turns): median ms per request of each setting, launch
+    counts checked. The tokenizer is left with the switch on."""
+    import torch
+
+    from tae_tpu_torch.tokenizer import set_qkv_q8
+
+    fns, cfg, b = wrappers(), tok.model.cfg, BATCHES[-1]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    images = torch.randint(0, 256, (b, 3, cfg.img_size, cfg.img_size),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    times = {True: [], False: []}
+    for on in (True, False, False, True):
+        set_qkv_q8(tok.model, on)
+        want = expected_launches(cfg, "int8", qkv_q8=on)["encode"]
+        tok.encode(images)
+        for _ in range(REQUEST_REPS):
+            before = {name: f.launches for name, f in fns.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tok.encode(images)
+            torch.cuda.synchronize()
+            times[on].append((time.perf_counter() - t) * 1e3)
+            got = {name: f.launches - before[name] for name, f in fns.items()}
+            check(got == {name: want.get(name, 0) for name in fns},
+                  f"{tag} qkv_q8={on}: launches {got}, expected {want}")
+    set_qkv_q8(tok.model, True)
+    on, off = (statistics.median(times[q]) for q in (True, False))
+    print(f"[{tag}] encode B={b}: qkv_q8 on (K4 q8_out + K15) {on:.2f} "
+          f"ms/request (runs {min(times[True]):.2f}-{max(times[True]):.2f}); "
+          f"off (the default int8 route) {off:.2f} ms/request (runs "
+          f"{min(times[False]):.2f}-{max(times[False]):.2f})")
+    return {"qkv_q8_ms": on, "default_int8_ms": off}
+
+
 def phase_paths() -> dict:
     """Every model of PATHS: its bf16 tokenizer (driven where PATHS names a
     bf16 path, and the yardstick of the quantized outputs), then its int8
@@ -1631,6 +2128,19 @@ def phase_paths() -> dict:
                     tag, tok, expected_launches(cfg, None),
                     slice_tol(SLICE_REL_TOL, cfg))
                 continue
+            if quantization == "int8_qkv_q8":
+                # beside the default int8 tokenizer built just before
+                tokq, secs = build(quantization="int8", qkv_q8=True)
+                print(f"[{tag}] int8 with qkv_q8=True, built and quantized in "
+                      f"{secs:.1f} s")
+                launches[tag], _ = phase_slice(
+                    tag, tokq, expected_launches(cfg, "int8", qkv_q8=True),
+                    slice_tol(INT8_SLICE_REL_TOL, cfg),
+                    against=(tok8, QKV_Q8_VS_INT8_TOL,
+                             "the default int8 tokenizer"))
+                time_qkv_q8(tag, tokq)
+                del tokq
+                continue
             tok8 = None                # one quantized model at a time
             tok8, secs = build(quantization=quantization)
             n_q, n_q4 = (sum(isinstance(m, form) for m in tok8.model.modules())
@@ -1644,12 +2154,12 @@ def phase_paths() -> dict:
                 launches[tag], _ = phase_slice(
                     tag, tok8, expected_launches(cfg, quantization),
                     slice_tol(INT4_SLICE_REL_TOL, cfg),
-                    against=(tok, INT4_VS_BF16_TOL))
+                    against=(tok, INT4_VS_BF16_TOL, "the bf16 tokenizer"))
                 continue
             launches[tag], _ = phase_slice(
                 tag, tok8, expected_launches(cfg, quantization),
                 slice_tol(INT8_SLICE_REL_TOL, cfg),
-                against=(tok, INT8_VS_BF16_TOL))
+                against=(tok, INT8_VS_BF16_TOL, "the bf16 tokenizer"))
             time_attn_q8(tag, tok8)
         # the next model needs the memory: p128 is initialised in fp32
         del tok, tok8
@@ -1658,10 +2168,31 @@ def phase_paths() -> dict:
     return launches
 
 
-def phase_vq() -> dict:
-    """Path ``vq_p16``: discrete tokens through the VQ bottleneck, then one
-    train step with it. Returns the launch counts of the path's own requests
-    and step (the comparisons' launches are not counted)."""
+def codebook_from(z, k: int, gen, replace: bool = False):
+    """k codes on the scale of latent rows z (M, V), each a row of z plus
+    seeded noise of a tenth of z's spread. ``replace``: the rows drawn with
+    replacement, so several noisy copies of a row compete for it. Else
+    distinct rows, and where k > M the rest drawn at z's spread around zero,
+    far from every row."""
+    import torch
+
+    m, v = z.shape
+    std = z.std()
+    if replace:
+        rows = z[torch.randint(0, m, (k,), generator=gen, device=z.device)]
+    else:
+        rows = z[torch.randperm(m, generator=gen, device=z.device)[:k]]
+    if k > m and not replace:
+        far = torch.randn((k - m, v), generator=gen, device=z.device) * std
+        rows = torch.cat([rows, far])
+    noise = torch.randn((k, v), generator=gen, device=z.device)
+    return rows + 0.1 * std * noise
+
+
+def phase_vq(tag: str) -> dict:
+    """Path ``tag`` of VQ_PATHS: discrete tokens through the VQ bottleneck,
+    then one train step with it. Returns the launch counts of the path's own
+    requests and step (the comparisons' launches are not counted)."""
     import gc
 
     import torch
@@ -1669,8 +2200,7 @@ def phase_vq() -> dict:
     from tae_tpu_torch.profile_training import build_state, make_step
     from tae_tpu_torch.tokenizer import Tokenizer
 
-    tag = "vq_p16"
-    name, overrides = VQ_MODEL
+    name, overrides = VQ_PATHS[tag]
     fns = wrappers()
     tok = Tokenizer.from_checkpoint(name, dtype=torch.bfloat16, device="cuda",
                                     seed=0, **overrides)
@@ -1686,11 +2216,8 @@ def phase_vq() -> dict:
     # every distance ~0 and, in bf16, every row a near-tie, which would
     # compare nothing. Rows of a seeded batch's latents plus seeded noise.
     z0 = tok.encode(images[BATCHES[-1]]).reshape(-1, cfg.vocab_size).float()
-    pick = torch.randperm(z0.shape[0], generator=gen,
-                          device="cuda")[:cfg.codebook_size]
-    noise = torch.randn(codebook.shape, generator=gen, device="cuda")
     with torch.no_grad():
-        codebook.copy_((z0[pick] + 0.1 * z0.std() * noise).to(codebook.dtype))
+        codebook.copy_(codebook_from(z0, cfg.codebook_size, gen))
     print(f"[{tag}] {name} at depth {cfg.depth}+{cfg.decoder_depth}, "
           f"quantize=True, codebook {tuple(codebook.shape)} {codebook.dtype} "
           f"from seeded latents + noise (std {float(z0.std()):.3g})")
@@ -1762,10 +2289,8 @@ def phase_vq() -> dict:
     with torch.no_grad():
         z = model.forward_encoder(batch, policy=Policy())
         zf = z.reshape(-1, cfg.vocab_size).float()
-        pick = torch.randint(0, zf.shape[0], (cfg.codebook_size,),
-                             generator=gen, device="cuda")
-        noise = torch.randn(model.codebook.shape, generator=gen, device="cuda")
-        model.codebook.copy_(zf[pick] + 0.1 * zf.std() * noise)
+        model.codebook.copy_(codebook_from(zf, cfg.codebook_size, gen,
+                                           replace=tag in VQ_STEP_RIVALS))
     check(z.dtype == torch.bfloat16 and model.codebook.dtype == torch.float32,
           f"{tag}: train step searches {z.dtype} latents in a "
           f"{model.codebook.dtype} codebook")
@@ -1811,8 +2336,13 @@ def main() -> int:
         kres.update(phase_train_kernels())
         kres.update(phase_int4_kernels())
         kres.update(phase_vq_kernel())
+        last = phase_last_kernels()
+        kres["nearest_code"] += last.pop("nearest_code")
+        kres.update(last)
         launches = phase_paths()
-        launches["vq_p16"] = phase_vq()
+        for tag in VQ_PATHS:
+            launches[tag] = phase_vq(tag)
+        launches["qknorm_blocks"] = phase_qknorm(kres)
         launches["train_bf16"] = phase_train(kres)
         launches["p128_train"] = phase_p128_train()
     except SmokeFailure as e:
@@ -1840,8 +2370,7 @@ def main() -> int:
             kres["fused_qkv_attention"], lambda c: slice_shape(c) and c[5],
             lambda c: slice_shape(c) and not c[5]),
     }
-    for name in [k["name"] for k in (K3, K4, K5, K6, K7, K8, K9, K10, K11, K12,
-                                     K13, K14)]:
+    for name in [k["name"] for k in KERNELS[2:]]:
         cases = kres[name]
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         records[name] = dict({k: cases[0][k] for k in keys},
@@ -1851,21 +2380,27 @@ def main() -> int:
     k6 = kres[K6["name"]]
     records[K6["name"]]["library_ms"] = next(
         c["library_ms"] for c in k6 if c["library_ms"] is not None)
-    # the training forwards: K1's and K2's numbers with one more output
-    for name, form in TRAIN_FORMS.items():
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
-        records[name]["training_form"] = dict(
-            {k: kres[form][0][k] for k in keys}, name=form, cases=kres[form])
+    # the training forwards: K1's, K2's and K16's numbers with one more
+    # output; K4's row-block form (q8_out, in-kernel quantize)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for forms, key in ((TRAIN_FORMS, "training_form"), (ROW_FORMS, "rows_form")):
+        for name, form in forms.items():
+            records[name][key] = dict(
+                {k: kres[form][0][k] for k in keys}, name=form,
+                cases=kres[form])
     # ids have no absolute error: K14's figure is the share of rows whose id
     # differs from the plain version's (near-ties, bounded in compare_ids)
     records[K14["name"]]["max_abs_err_is"] = "share of rows with another id"
     kernels = []
-    for meta in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14):
+    for meta in KERNELS:
         name = meta["name"]
-        # a train path launches K1 and K2 in their training forms
-        by_path = {path: counts.get(name, 0) + counts.get(
-            TRAIN_FORMS.get(name), 0) for path, counts in launches.items()}
+        # a train path launches K1, K2 and K16 in their training forms, the
+        # qkv_q8 path K4 in its row-block form
+        by_path = {path: counts.get(name, 0)
+                   + counts.get(TRAIN_FORMS.get(name), 0)
+                   + counts.get(ROW_FORMS.get(name), 0)
+                   for path, counts in launches.items()}
         kernels.append(dict(meta, launches=sum(by_path.values()),
                             launches_by_path=by_path, **records[name]))
     idle = [k["name"] for k in kernels if k["launches"] == 0]

@@ -9,7 +9,11 @@ numpy arrays with depth-stacked blocks, into the reference-layout
   * Linear ``{w: (in, out), b}`` -> ``weight (out, in)`` / ``bias``;
   * patch-embed matmul weight ``(C·p², E)`` -> Conv2d-shaped ``(E, C, p, p)``;
   * LayerNorm ``{scale, bias}`` -> ``weight`` / ``bias``;
-  * depth-stacked block arrays -> per-layer ``blocks.{i}.*`` entries.
+  * depth-stacked block arrays -> per-layer ``blocks.{i}.*`` entries, with
+    ``attn.q_norm`` / ``attn.k_norm`` where the blocks have qk_norm.
+
+:func:`blocks_state_dict_from_jax` does the same for a bare block stack
+(``tae_tpu.nn.vit.blocks_init``), keyed as ``nn.vit.blocks`` holds it.
 
 :func:`serving_state_dict_from_jax` does the same for the JAX package's
 int8 and int4 serving trees (quantized linears ``{w_q (in, out) int8,
@@ -27,8 +31,9 @@ the moments of the JAX package's ``AdamWState``
 numpy arrays through this module; the port reads no orbax directory.
 
 A JAX-trained checkpoint can also reach the port as a ``.pth`` written by
-``python -m tae_tpu.cli.export_torch``; :func:`load_pth` reads either form
-of such a file, and a checkpoint of the port's own.
+``python -m tae_tpu.cli.export_torch``; :func:`state_dict_of` finds the
+state_dict in either form of such a file, and in a checkpoint of the port's
+own (:func:`tae_tpu_torch.ckpt.io.load_params` loads them).
 """
 
 from __future__ import annotations
@@ -82,16 +87,25 @@ def _blocks(out: dict, prefix: str, blocks) -> None:
         depth = int(np.asarray(blocks["norm1"]["scale"]).shape[0])
         layers = [_tree_index(blocks, i) for i in range(depth)]
     for i, layer in enumerate(layers):
-        if "q_norm" in layer["attn"]:
-            raise NotImplementedError("qk_norm blocks are not ported yet "
-                                      "(ROADMAP B16)")
         b = f"{prefix}.{i}"
         _layer_norm(out, f"{b}.norm1", layer["norm1"])
         _linear(out, f"{b}.attn.qkv", layer["attn"]["qkv"])
+        if "q_norm" in layer["attn"]:       # qk_norm (reference tae.py:68-69)
+            _layer_norm(out, f"{b}.attn.q_norm", layer["attn"]["q_norm"])
+            _layer_norm(out, f"{b}.attn.k_norm", layer["attn"]["k_norm"])
         _linear(out, f"{b}.attn.proj", layer["attn"]["proj"])
         _layer_norm(out, f"{b}.norm2", layer["norm2"])
         _linear(out, f"{b}.mlp.fc1", layer["mlp"]["fc1"])
         _linear(out, f"{b}.mlp.fc2", layer["mlp"]["fc2"])
+
+
+def blocks_state_dict_from_jax(blocks_np) -> dict[str, torch.Tensor]:
+    """A ``tae_tpu`` block stack (depth-stacked numpy leaves, or a list of
+    per-layer trees) -> the state_dict of ``tae_tpu_torch.nn.vit.blocks``
+    (keys ``{i}.*``), fp32 tensors on the CPU."""
+    sd: dict[str, torch.Tensor] = {}
+    _blocks(sd, "", blocks_np)
+    return {k[1:]: v for k, v in sd.items()}
 
 
 def _tree_index(tree: Params, i: int) -> dict:
@@ -160,9 +174,3 @@ def state_dict_of(blob) -> dict[str, torch.Tensor]:
     and ``export_torch``'s on-disk form, and the port's own checkpoints) or
     the file itself (a bare state_dict)."""
     return blob["model"] if "model" in blob else blob
-
-
-def load_pth(path) -> dict[str, torch.Tensor]:
-    """The state_dict of a reference-layout ``.pth`` or a port checkpoint."""
-    return state_dict_of(torch.load(path, map_location="cpu",
-                                    weights_only=True))

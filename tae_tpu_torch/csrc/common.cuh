@@ -62,6 +62,17 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// Where the token rows of one (image, head) of an attention operand lie:
+// element offsets between images, between heads and between rows; a row's
+// dh columns are contiguous. Packed qkv (B, N, 3C) is {N * 3C, dh, 3C} from
+// its q, k or v column block; an unpacked (B, H, N, dh) tensor its strides.
+struct HeadLayout {
+  long long image, head, row;
+  __host__ __device__ long long at(int b, int h) const {
+    return b * image + h * head;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -1,10 +1,17 @@
-// K10 — packed-qkv attention backward.
+// K10, K17 — attention backward, one device body for two layouts.
 //
-// Replaces: tae_tpu/ops/pallas/flash_attention.py::_packed_vjp_bwd
-//   (_packed_bwd_kernel_stacked, _packed_bwd_kernel). From the packed qkv
-//   (B, N, 3C), the saved output o (B, N, C), the saved lse (B, H, N) fp32 and
-//   the output's gradient do (B, N, C) it writes dqkv (B, N, 3C), every
-//   element exactly once, heads as contiguous dh-column slices as in qkv.
+// Replaces:
+//   K10 tae_tpu/ops/pallas/flash_attention.py::_packed_vjp_bwd
+//       (_packed_bwd_kernel_stacked, _packed_bwd_kernel). From the packed qkv
+//       (B, N, 3C), the saved output o (B, N, C), the saved lse (B, H, N) fp32
+//       and the output's gradient do (B, N, C) it writes dqkv (B, N, 3C),
+//       every element exactly once, heads as contiguous dh-column slices as
+//       in qkv.
+//   K17 flash_attention.py::_flash_bwd (_bwd_kernel): the same from
+//       unpacked q, k, v, o, do (B, H, N, dh), each with its own (image,
+//       head, row) strides, to dq, dk, dv (B, H, N, dh). The JAX body runs
+//       every product in fp32; in bfloat16 this one rounds P and dS as below
+//       (the plain version and chip_smoke.py hold it to the fp32 form).
 // Numerics, per (image, head): S = Q.K^T * scale and dP = dO.V^T with fp32
 //   accumulation; P = exp(S - lse); delta = rowsum(dO * o) from the saved,
 //   rounded o; dS = P * (dP - delta) * scale; dV = P^T.dO, dQ = dS.K,
@@ -42,6 +49,7 @@ namespace {
 
 namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
+using tae::HeadLayout;
 
 constexpr int kMaxN = 256;  // tokens supported (one block holds a whole head)
 constexpr int kWarps = 8;
@@ -140,11 +148,29 @@ __device__ __forceinline__ void write_tile(const Acc (&acc)[DH / 16], bf16* dst,
   }
 }
 
+// The operands of one launch: pointers to the first element of each tensor
+// and each one's layout (tae::HeadLayout).
+template <typename T>
+struct BwdArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* o;
+  const T* dout;
+  T* dq;
+  T* dk;
+  T* dv;
+  const float* lse;  // (batch, heads, n), contiguous
+  HeadLayout lq, lk, lv, lo, ldo, ldq, ldk, ldv;
+  int n, heads;
+  float scale;
+};
+
 template <int DH>
 __global__ void __launch_bounds__(kWarps * 32, 1)
-packed_attention_bwd_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
-                          const float* __restrict__ lse_g, const bf16* __restrict__ dout,
-                          bf16* __restrict__ dqkv, int n, int heads, float scale) {
+attention_bwd_bf16(const BwdArgs<bf16> a) {
+  const int n = a.n;
+  const float scale = a.scale;
   constexpr int LD = tc_ld<DH>();
   constexpr int CH = DH / 8;  // 16-byte chunks per head row
   const int np = pad16(n), tiles = np / 16;
@@ -158,23 +184,21 @@ packed_attention_bwd_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__
   float* delta = lse + np;                                    // (np)
 
   const int b = blockIdx.y, h = blockIdx.x;
-  const int c = heads * DH;
-  const long row_stride = 3L * c;
-  const bf16* base = qkv + static_cast<long>(b) * n * row_stride + h * DH;
-  const bf16* obase = o + static_cast<long>(b) * n * c + h * DH;
-  const bf16* dobase = dout + static_cast<long>(b) * n * c + h * DH;
-  bf16* dbase = dqkv + static_cast<long>(b) * n * row_stride + h * DH;
+  const bf16* qb = a.q + a.lq.at(b, h);
+  const bf16* kb = a.k + a.lk.at(b, h);
+  const bf16* vb = a.v + a.lv.at(b, h);
+  const bf16* obase = a.o + a.lo.at(b, h);
+  const bf16* dobase = a.dout + a.ldo.at(b, h);
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   for (int idx = threadIdx.x; idx < np * CH; idx += blockDim.x) {
     const int r = idx / CH, ch = idx - r * CH;
     uint4 qq = zero, kq = zero, vq = zero, dq = zero;
     if (r < n) {
-      const bf16* src = base + r * row_stride + ch * 8;
-      qq = *reinterpret_cast<const uint4*>(src);
-      kq = *reinterpret_cast<const uint4*>(src + c);
-      vq = *reinterpret_cast<const uint4*>(src + 2 * c);
-      dq = *reinterpret_cast<const uint4*>(dobase + static_cast<long>(r) * c + ch * 8);
+      qq = *reinterpret_cast<const uint4*>(qb + r * a.lq.row + ch * 8);
+      kq = *reinterpret_cast<const uint4*>(kb + r * a.lk.row + ch * 8);
+      vq = *reinterpret_cast<const uint4*>(vb + r * a.lv.row + ch * 8);
+      dq = *reinterpret_cast<const uint4*>(dobase + r * a.ldo.row + ch * 8);
     }
     *reinterpret_cast<uint4*>(qs + r * LD + ch * 8) = qq;
     *reinterpret_cast<uint4*>(ks + r * LD + ch * 8) = kq;
@@ -187,13 +211,13 @@ packed_attention_bwd_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__
     float sum = 0.f;
     if (r < n) {
       for (int d = lane; d < DH; d += 32)
-        sum += __bfloat162float(dobase[static_cast<long>(r) * c + d]) *
-               __bfloat162float(obase[static_cast<long>(r) * c + d]);
+        sum += __bfloat162float(dobase[r * a.ldo.row + d]) *
+               __bfloat162float(obase[r * a.lo.row + d]);
     }
     sum = tae::warp_sum(sum);
     if (lane == 0) {
       delta[r] = sum;
-      lse[r] = r < n ? lse_g[(static_cast<long>(b) * heads + h) * n + r] : 0.f;
+      lse[r] = r < n ? a.lse[(static_cast<long>(b) * a.heads + h) * n + r] : 0.f;
     }
   }
   __syncthreads();  // the only block-wide barrier
@@ -226,8 +250,8 @@ packed_attention_bwd_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__
       __syncwarp();  // the tiles are consumed before the next ones land
     }
     const int rows = min(16, n - j0);
-    write_tile<DH>(dk, dbase + j0 * row_stride + c, row_stride, rows, w, lane);
-    write_tile<DH>(dv, dbase + j0 * row_stride + 2 * c, row_stride, rows, w, lane);
+    write_tile<DH>(dk, a.dk + a.ldk.at(b, h) + j0 * a.ldk.row, a.ldk.row, rows, w, lane);
+    write_tile<DH>(dv, a.dv + a.ldv.at(b, h) + j0 * a.ldv.row, a.ldv.row, rows, w, lane);
   }
 
   // pass 2: dQ of 16 query rows, summed over the key tiles
@@ -249,7 +273,8 @@ packed_attention_bwd_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__
       }
       __syncwarp();
     }
-    write_tile<DH>(dq, dbase + i0 * row_stride, row_stride, min(16, n - i0), w, lane);
+    write_tile<DH>(dq, a.dq + a.ldq.at(b, h) + i0 * a.ldq.row, a.ldq.row, min(16, n - i0), w,
+                   lane);
   }
 }
 
@@ -284,8 +309,9 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 
 // Stage the head's columns of `rows` rows of two row-major sources.
 template <int DH>
-__device__ __forceinline__ void stage2(float* as, float* bs, const float* a, long a_stride,
-                                       const float* b, long b_stride, int rows) {
+__device__ __forceinline__ void stage2(float* as, float* bs, const float* a,
+                                       long long a_stride, const float* b,
+                                       long long b_stride, int rows) {
   constexpr int LD = f32_ld<DH>();
   for (int idx = threadIdx.x; idx < rows * DH; idx += blockDim.x) {
     const int r = idx / DH, col = idx - r * DH;
@@ -296,9 +322,9 @@ __device__ __forceinline__ void stage2(float* as, float* bs, const float* a, lon
 
 template <int DH>
 __global__ void __launch_bounds__(kWarps * 32)
-packed_attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ o,
-                         const float* __restrict__ lse_g, const float* __restrict__ dout,
-                         float* __restrict__ dqkv, int n, int heads, float scale) {
+attention_bwd_f32(const BwdArgs<float> a) {
+  const int n = a.n;
+  const float scale = a.scale;
   constexpr int LD = f32_ld<DH>();
   constexpr int C2 = DH / 2;  // float2 output columns
   constexpr int C2_PER_LANE = (C2 + 31) / 32;
@@ -311,12 +337,14 @@ packed_attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict_
   float* rowbuf = own + kWarps * 2 * LD;  // warps x 2 x n: p and dS of one row
 
   const int b = blockIdx.y, h = blockIdx.x;
-  const int c = heads * DH;
-  const long row_stride = 3L * c;
-  const float* base = qkv + static_cast<long>(b) * n * row_stride + h * DH;
-  const float* obase = o + static_cast<long>(b) * n * c + h * DH;
-  const float* dobase = dout + static_cast<long>(b) * n * c + h * DH;
-  float* dbase = dqkv + static_cast<long>(b) * n * row_stride + h * DH;
+  const float* qb = a.q + a.lq.at(b, h);
+  const float* kb = a.k + a.lk.at(b, h);
+  const float* vb = a.v + a.lv.at(b, h);
+  const float* obase = a.o + a.lo.at(b, h);
+  const float* dobase = a.dout + a.ldo.at(b, h);
+  float* dqb = a.dq + a.ldq.at(b, h);
+  float* dkb = a.dk + a.ldk.at(b, h);
+  float* dvb = a.dv + a.ldv.at(b, h);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* own_a = own + warp * 2 * LD;
   float* own_b = own_a + LD;
@@ -326,21 +354,21 @@ packed_attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict_
   for (int r = warp; r < n; r += kWarps) {
     float sum = 0.f;
     for (int d = lane; d < DH; d += 32)
-      sum += dobase[static_cast<long>(r) * c + d] * obase[static_cast<long>(r) * c + d];
+      sum += dobase[r * a.ldo.row + d] * obase[r * a.lo.row + d];
     sum = tae::warp_sum(sum);
     if (lane == 0) {
       delta[r] = sum;
-      lse[r] = lse_g[(static_cast<long>(b) * heads + h) * n + r];
+      lse[r] = a.lse[(static_cast<long>(b) * a.heads + h) * n + r];
     }
   }
-  stage2<DH>(as, bs, base + c, row_stride, base + 2 * c, row_stride, n);  // K, V
+  stage2<DH>(as, bs, kb, a.lk.row, vb, a.lv.row, n);  // K, V
   __syncthreads();
 
   // dQ: a warp per query row i, a lane per key
   for (int i = warp; i < n; i += kWarps) {
     for (int d = lane; d < DH; d += 32) {
-      own_a[d] = base[i * row_stride + d];                  // q_i
-      own_b[d] = dobase[static_cast<long>(i) * c + d];      // dO_i
+      own_a[d] = qb[i * a.lq.row + d];                      // q_i
+      own_b[d] = dobase[i * a.ldo.row + d];                 // dO_i
     }
     __syncwarp();
     const float li = lse[i], di = delta[i];
@@ -373,19 +401,19 @@ packed_attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict_
 #pragma unroll
     for (int k = 0; k < C2_PER_LANE; ++k) {
       const int cc = lane + 32 * k;
-      if (cc < C2) tae::store2(dbase + i * row_stride + 2 * cc, acc[k].x, acc[k].y);
+      if (cc < C2) tae::store2(dqb + i * a.ldq.row + 2 * cc, acc[k].x, acc[k].y);
     }
     __syncwarp();  // every lane is done with the row buffers
   }
   __syncthreads();  // K and V are consumed
-  stage2<DH>(as, bs, base, row_stride, dobase, c, n);  // Q, dO
+  stage2<DH>(as, bs, qb, a.lq.row, dobase, a.ldo.row, n);  // Q, dO
   __syncthreads();
 
   // dK, dV: a warp per key j, a lane per query row
   for (int j = warp; j < n; j += kWarps) {
     for (int d = lane; d < DH; d += 32) {
-      own_a[d] = base[j * row_stride + c + d];      // k_j
-      own_b[d] = base[j * row_stride + 2 * c + d];  // v_j
+      own_a[d] = kb[j * a.lk.row + d];  // k_j
+      own_b[d] = vb[j * a.lv.row + d];  // v_j
     }
     __syncwarp();
 #pragma unroll
@@ -423,8 +451,8 @@ packed_attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict_
     for (int k = 0; k < C2_PER_LANE; ++k) {
       const int cc = lane + 32 * k;
       if (cc < C2) {
-        tae::store2(dbase + j * row_stride + c + 2 * cc, dk[k].x, dk[k].y);
-        tae::store2(dbase + j * row_stride + 2 * c + 2 * cc, dv[k].x, dv[k].y);
+        tae::store2(dkb + j * a.ldk.row + 2 * cc, dk[k].x, dk[k].y);
+        tae::store2(dvb + j * a.ldv.row + 2 * cc, dv[k].x, dv[k].y);
       }
     }
     __syncwarp();
@@ -436,54 +464,97 @@ packed_attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict_
 // smem_allowed: the kernel's dynamic shared-memory limit as last raised (one
 // per instantiation); cudaFuncSetAttribute runs only when a launch needs more.
 template <typename T>
-int launch(void (*kernel)(const T*, const T*, const float*, const T*, T*, int, int, float),
-           size_t smem, size_t& smem_allowed, const void* qkv, const void* o,
-           const void* lse, const void* dout, void* dqkv, int batch, int n, int heads,
-           float scale, cudaStream_t stream) {
+int launch(void (*kernel)(const BwdArgs<T>), size_t smem, size_t& smem_allowed,
+           const BwdArgs<T>& args, int batch, cudaStream_t stream) {
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  const dim3 grid(heads, batch);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(o), static_cast<const float*>(lse),
-      static_cast<const T*>(dout), static_cast<T*>(dqkv), n, heads, scale);
+  const dim3 grid(args.heads, batch);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ptrs: q, k, v, o, do, dq, dk, dv; layouts in the same order.
+template <typename T>
+BwdArgs<T> make_args(const void* const (&ptrs)[8], const HeadLayout (&l)[8], const void* lse,
+                     int n, int heads, float scale) {
+  BwdArgs<T> a;
+  a.q = static_cast<const T*>(ptrs[0]);
+  a.k = static_cast<const T*>(ptrs[1]);
+  a.v = static_cast<const T*>(ptrs[2]);
+  a.o = static_cast<const T*>(ptrs[3]);
+  a.dout = static_cast<const T*>(ptrs[4]);
+  a.dq = static_cast<T*>(const_cast<void*>(ptrs[5]));
+  a.dk = static_cast<T*>(const_cast<void*>(ptrs[6]));
+  a.dv = static_cast<T*>(const_cast<void*>(ptrs[7]));
+  a.lse = static_cast<const float*>(lse);
+  a.lq = l[0]; a.lk = l[1]; a.lv = l[2]; a.lo = l[3];
+  a.ldo = l[4]; a.ldq = l[5]; a.ldk = l[6]; a.ldv = l[7];
+  a.n = n;
+  a.heads = heads;
+  a.scale = scale;
+  return a;
+}
+
 template <int DH>
-int launch_dtype(const void* qkv, const void* o, const void* lse, const void* dout,
-                 void* dqkv, int batch, int n, int heads, float scale, int dtype,
-                 cudaStream_t stream) {
+int launch_dtype(const void* const (&ptrs)[8], const HeadLayout (&l)[8], const void* lse,
+                 int batch, int n, int heads, float scale, int dtype, cudaStream_t stream) {
   if (dtype == tae::kBFloat16) {
     static size_t smem_allowed = 0;
-    return launch(packed_attention_bwd_bf16<DH>, tc_smem_bytes<DH>(n), smem_allowed, qkv,
-                  o, lse, dout, dqkv, batch, n, heads, scale, stream);
+    return launch(attention_bwd_bf16<DH>, tc_smem_bytes<DH>(n), smem_allowed,
+                  make_args<bf16>(ptrs, l, lse, n, heads, scale), batch, stream);
   }
   if (dtype == tae::kFloat32) {
     static size_t smem_allowed = 0;
-    return launch(packed_attention_bwd_f32<DH>, f32_smem_bytes<DH>(n), smem_allowed, qkv,
-                  o, lse, dout, dqkv, batch, n, heads, scale, stream);
+    return launch(attention_bwd_f32<DH>, f32_smem_bytes<DH>(n), smem_allowed,
+                  make_args<float>(ptrs, l, lse, n, heads, scale), batch, stream);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_dh(const void* const (&ptrs)[8], const HeadLayout (&l)[8], const void* lse,
+              int batch, int n, int heads, int dh, float scale, int dtype, void* stream) {
+  if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || n < 1 || n > kMaxN ||
+      lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64) return launch_dtype<64>(ptrs, l, lse, batch, n, heads, scale, dtype, s);
+  if (dh == 80) return launch_dtype<80>(ptrs, l, lse, batch, n, heads, scale, dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// qkv, dqkv: (batch, n, 3 * heads * dh) contiguous; o, dout: (batch, n,
+// K10. qkv, dqkv: (batch, n, 3 * heads * dh) contiguous; o, dout: (batch, n,
 // heads * dh); lse: (batch, heads, n) fp32.
 extern "C" int tae_packed_attention_bwd(const void* qkv, const void* o, const void* lse,
                                         const void* dout, void* dqkv, int batch, int n,
                                         int heads, int dh, float scale, int dtype,
                                         void* stream) {
-  if (batch < 1 || batch > 65535 || heads < 1 || n < 1 || n > kMaxN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 64)
-    return launch_dtype<64>(qkv, o, lse, dout, dqkv, batch, n, heads, scale, dtype, s);
-  if (dh == 80)
-    return launch_dtype<80>(qkv, o, lse, dout, dqkv, batch, n, heads, scale, dtype, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const long long c = static_cast<long long>(heads) * dh;
+  const size_t el = dtype == tae::kBFloat16 ? 2 : 4;
+  const char* in = static_cast<const char*>(qkv);
+  const char* d = static_cast<const char*>(dqkv);
+  const void* const ptrs[8] = {in, in + c * el, in + 2 * c * el, o, dout,
+                               d, d + c * el, d + 2 * c * el};
+  const HeadLayout packed = {n * 3 * c, dh, 3 * c}, merged = {n * c, dh, c};
+  const HeadLayout l[8] = {packed, packed, packed, merged, merged, packed, packed, packed};
+  return launch_dh(ptrs, l, lse, batch, n, heads, dh, scale, dtype, stream);
+}
+
+// K17. q, k, v, o, dout, dq, dk, dv: (batch, heads, n, dh), operand i with
+// the element strides strides[3 * i .. 3 * i + 2] = (image, head, row); the
+// last axis contiguous, rows 16-byte aligned. lse: (batch, heads, n) fp32.
+extern "C" int tae_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                       const void* o, const void* lse, const void* dout,
+                                       void* dq, void* dk, void* dv,
+                                       const long long* strides, int batch, int n, int heads,
+                                       int dh, float scale, int dtype, void* stream) {
+  const void* const ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  HeadLayout l[8];
+  for (int i = 0; i < 8; ++i) l[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  return launch_dh(ptrs, l, lse, batch, n, heads, dh, scale, dtype, stream);
 }

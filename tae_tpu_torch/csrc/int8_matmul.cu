@@ -7,8 +7,14 @@
 //   y = (float)acc * sx * sw (+ bias) (+ residual) in fp32 and casts once.
 //   With ln_out it also emits LayerNorm(y) of that fp32 y as int8 codes plus
 //   one scale per row (int8_block.py::_ln_quant_epilogue), the next
-//   operation's quantized input. The q8_out output mode and the in-kernel
-//   quantization of a float x are not implemented here.
+//   operation's quantized input. With q8_out (the output mode only the
+//   int8-input attention, K15, consumes) y itself leaves as int8: one scale
+//   per (row, block of bn columns), s = max(max|y| / 127, 1e-12), codes
+//   clip(round_half_even(y * (1 / s)), +-127), the scales laid out
+//   (N / bn, M). A float x with its precomputed row scales (the Pallas
+//   body's quantize_in_kernel, prequantize=False) is quantized in the
+//   kernel, clip(round_half_even(x * (1 / sx)), +-127), on its way into
+//   shared memory.
 // What bounds it on the H100: tensor-core operations at the wide shapes
 //   (M x 1024 x 3072), device-memory bytes at the narrow ones (the
 //   residual, y and the int8 LN output outweigh the product at N = 1024).
@@ -19,8 +25,14 @@
 //   a full output row in one block: a block owns 32 rows (16 for wide N),
 //   walks the N columns in chunks of 256 (128), keeps the fp32 y rows in
 //   shared memory ((rows x N) floats) and normalises and quantizes them at
-//   the end, one warp per row. Ragged M, N and K edges are zero-filled on
-//   load and masked on store; N must be a multiple of 8 and K of 16.
+//   the end, one warp per row. The q8_out form and the in-kernel quantize
+//   take the same shape of block: 32 rows and a block of output columns
+//   (bn for q8_out, 512 otherwise) in chunks of 128; q8_out keeps the fp32
+//   y of the block in shared memory for its per-row amax, and a float x is
+//   quantized once per block into a (32 x K) int8 tile that every chunk's
+//   product reads from shared memory. Ragged M, N and K edges are
+//   zero-filled on load and masked on store; N must be a multiple of 8 and
+//   K of 16.
 #include "int8_common.cuh"
 
 namespace {
@@ -45,6 +57,10 @@ struct MatmulArgs {
   float eps;
   int8_t* nq;             // (m, n)
   float* ns;              // (m,)
+  // the row-block kernel only
+  const void* xf;         // (m, k) float x of x_dtype, quantized in the kernel
+  int x_dtype;
+  float* so;              // q8_out: (n / bn, m) scales of the int8 y in out
 };
 
 // y for 8 consecutive columns of one row from the staged int32 tile.
@@ -156,6 +172,114 @@ int launch_ln(const MatmulArgs& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row-block kernel: BM rows x `cols` output columns (a block of the
+// q8_out scales, or of the in-kernel quantize), walked in BN-column chunks.
+// Shared memory: (q8_out) the block's fp32 y, (in-kernel quantize) the
+// block's int8 x, then the operand ring with the result tile over it.
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
+constexpr int kRowsBM = 32, kRowsBN = 128;
+
+template <bool QIK, bool Q8OUT>
+__host__ __device__ constexpr int rows_smem(int cols, int k) {
+  return (Q8OUT ? kRowsBM * (cols + 4) * 4 : 0) + (QIK ? kRowsBM * (round_up(k, kBK) + 16) : 0) +
+         max_int(ring_bytes(kRowsBM, kRowsBN), tile_bytes(kRowsBM, kRowsBN));
+}
+
+template <bool QIK, bool Q8OUT>
+__global__ void __launch_bounds__(kThreads) int8_matmul_rows_kernel(const MatmulArgs p, int cols) {
+  constexpr int BM = kRowsBM, BN = kRowsBN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = round_up(p.k, kBK) + 16, ldy = cols + 4;
+  float* ybuf = reinterpret_cast<float*>(smem);
+  int8_t* xs = reinterpret_cast<int8_t*>(ybuf + (Q8OUT ? BM * ldy : 0));
+  int8_t* ring = xs + (QIK ? BM * lda : 0);
+  int* tile = reinterpret_cast<int*>(ring);          // over the ring
+  constexpr int ldt = tile_ld(BN);
+
+  const int row0 = blockIdx.x * BM, c0 = blockIdx.y * cols;
+  const int c_end = min(c0 + cols, p.n);
+  if (QIK) {
+    // x * (1 / sx) rounded to codes, zero beyond m and k; the first barrier
+    // of gemm_tile orders these stores before any read
+    const int chunks = (lda - 16) / 8;
+    for (int idx = threadIdx.x; idx < BM * chunks; idx += kThreads) {
+      const int r = idx / chunks, col = (idx - r * chunks) * 8;
+      const long row = row0 + r;
+      uint2 q = make_uint2(0u, 0u);
+      if (row < p.m && col < p.k) {
+        float v[8];
+        load8(p.xf, row * p.k + col, p.x_dtype, v);
+        q = quantize8(v, 1.0f / p.sx[row]);
+      }
+      *reinterpret_cast<uint2*>(xs + r * lda + col) = q;
+    }
+  }
+
+  const int tc = tile_col<BN>();
+  for (int col0 = c0; col0 < c_end; col0 += BN) {
+    gemm_tile<kThreads, BM, BN, 2, QIK>(
+        QIK ? xs : p.x + static_cast<long>(row0) * p.k, QIK ? lda : p.k, p.m - row0,
+        p.w + static_cast<long>(col0) * p.k, p.k, c_end - col0, p.k, ring, tile, ldt);
+    __syncthreads();
+    const int col = col0 + tc;
+    if (col < c_end) {
+      for (int r = tile_row0<BN>(); r < BM; r += tile_rows<kThreads, BN>()) {
+        const long row = row0 + r;
+        if (row >= p.m) break;
+        float y[8];
+        dequant8(p, tile + r * ldt + tc, row, col, y);
+        if (Q8OUT) {
+          store_vec(ybuf + r * ldy + (col - c0), y);
+          store_vec(ybuf + r * ldy + (col - c0) + 4, y + 4);
+        } else {
+          store8(p.out, row * p.n + col, p.out_dtype, y);
+        }
+      }
+    }
+    __syncthreads();   // the tile lies over the ring the next chunk refills
+  }
+  if (!Q8OUT) return;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int width = c_end - c0;
+  int8_t* out = static_cast<int8_t*>(p.out);
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    const long row = row0 + r;
+    if (row >= p.m) break;
+    const float* yr = ybuf + r * ldy;
+    float v[8], amax = 0.f;
+    for (int i = lane * 8; i < width; i += 256) {
+      load_vec(yr + i, v);
+      load_vec(yr + i + 4, v + 4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+    }
+    const float s = quant_scale(warp_max(amax));
+    const float inv = 1.0f / s;
+    for (int i = lane * 8; i < width; i += 256) {
+      load_vec(yr + i, v);
+      load_vec(yr + i + 4, v + 4);
+      *reinterpret_cast<uint2*>(out + row * p.n + c0 + i) = quantize8(v, inv);
+    }
+    if (lane == 0) p.so[static_cast<long>(blockIdx.y) * p.m + row] = s;
+  }
+}
+
+template <bool QIK, bool Q8OUT>
+int launch_rows(const MatmulArgs& p, int cols, cudaStream_t stream) {
+  const int smem = rows_smem<QIK, Q8OUT>(cols, p.k);
+  const long tiles_m = (static_cast<long>(p.m) + kRowsBM - 1) / kRowsBM;
+  const int blocks_n = (p.n + cols - 1) / cols;
+  if (smem > kSmemLimit || tiles_m > 0x7fffffffL || blocks_n > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaFuncSetAttribute(int8_matmul_rows_kernel<QIK, Q8OUT>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(static_cast<unsigned>(tiles_m), blocks_n);
+  int8_matmul_rows_kernel<QIK, Q8OUT><<<grid, kThreads, smem, stream>>>(p, cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_dtype(int d) { return d != kFloat32 && d != kBFloat16; }
 
 }  // namespace
@@ -212,4 +336,42 @@ extern "C" int tae_int8_matmul_fwd(const void* x, const void* sx, const void* w,
   if (ln_rows == 32) return launch_ln<512, 32, 256>(p, s);
   if (ln_rows == 16) return launch_ln<256, 16, 128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The row-block forms. x: (m, k) int8 codes (x_dtype = 2) with their row
+// scales sx (m,), or a float x (x_dtype a float code) that the kernel
+// quantizes with the precomputed sx. bn > 0: q8_out, out (m, n) int8 and
+// so (n / bn, m) fp32, n a multiple of bn and bn of 8; residual, if any, of
+// out_dtype. bn = 0: out (m, n) of out_dtype (for a float x only; int8 codes
+// take tae_int8_matmul_fwd).
+extern "C" int tae_int8_matmul_rows_fwd(const void* x, int x_dtype, const void* sx,
+                                        const void* w, const void* sw, const void* bias,
+                                        int bias_dtype, const void* residual, void* out,
+                                        int out_dtype, void* so, int bn, int m, int n, int k,
+                                        void* stream) {
+  constexpr int kCodes = 2;
+  const bool qik = x_dtype != kCodes;
+  if (m < 1 || n < 8 || n % 8 != 0 || k < 16 || k % 16 != 0 || bad_dtype(out_dtype) ||
+      (qik && bad_dtype(x_dtype)) || (bias != nullptr && bad_dtype(bias_dtype)) ||
+      (bn > 0 && (bn % 8 != 0 || n % bn != 0 || so == nullptr)) || (bn == 0 && !qik) ||
+      bn < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MatmulArgs p = {};
+  p.x = static_cast<const int8_t*>(x);
+  p.xf = x;
+  p.x_dtype = x_dtype;
+  p.sx = static_cast<const float*>(sx);
+  p.w = static_cast<const int8_t*>(w);
+  p.sw = static_cast<const float*>(sw);
+  p.bias = bias;
+  p.bias_dtype = bias_dtype;
+  p.residual = residual;
+  p.out = out;
+  p.out_dtype = out_dtype;
+  p.so = static_cast<float*>(so);
+  p.m = m; p.n = n; p.k = k;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 0) return launch_rows<true, false>(p, 512, s);
+  return qik ? launch_rows<true, true>(p, bn, s) : launch_rows<false, true>(p, bn, s);
 }

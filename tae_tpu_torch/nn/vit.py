@@ -19,7 +19,13 @@ Conventions:
     layers in its blocks (and ``QLinear`` wherever the shape rules out
     int4); a block whose linears are all quantized, in either form, takes
     the fused serving forward (:meth:`Block.forward_int8`), any other block
-    the float forward.
+    the float forward. A qk_norm block always takes the float forward, as
+    in the JAX package: its quantized linears dispatch one by one and its
+    attention stays float.
+  * ``qk_norm=True`` (reference tae.py:68-69) adds a LayerNorm over each
+    head's dh columns of q and of k (``attn.q_norm`` / ``attn.k_norm``);
+    the heads are split and attention runs on unpacked (B, H, N, dh)
+    operands (:func:`tae_tpu_torch.ops.attention.attention`, K16 / K17).
 
 Parameters are allocated frozen (the serving face builds most models); a
 model built with ``trainable=True`` (:class:`tae_tpu_torch.models.tae.TAE`)
@@ -29,7 +35,7 @@ and the int8 kernels refuse tensors that require a gradient. ``remat=True`` on
 :func:`blocks_apply` recomputes each float block in the backward pass
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` around the
 block body). The JAX package's ``unroll`` and ``scan`` have no meaning for an
-eager forward and are dropped. ``qk_norm`` is not ported yet.
+eager forward and are dropped.
 """
 
 from __future__ import annotations
@@ -43,7 +49,9 @@ from torch.utils.checkpoint import checkpoint
 
 from tae_tpu_torch.nn import init as tinit
 from tae_tpu_torch.ops import int4, int8
-from tae_tpu_torch.ops.attention import attention_route, packed_attention
+from tae_tpu_torch.ops.attention import (QKV_Q8_MIN_TOKENS, attention,
+                                         attention_route, packed_attention,
+                                         qkv_i8_attention)
 from tae_tpu_torch.ops.layernorm import layer_norm
 from tae_tpu_torch.ops.patchify import extract_patches
 
@@ -267,18 +275,29 @@ class PatchEmbed(nn.Module):
 class Attention(nn.Module):
     def __init__(self, cfg: AttentionConfig, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.qk_norm:
-            raise NotImplementedError(
-                "qk_norm attention is not ported yet (ROADMAP B16: its "
-                "unpacked flash_attention kernel)")
         self.num_heads = cfg.num_heads
         #: run-time choice for a serving int8 block: int8-output attention
         #: on (True), off (False) or by the rule (None); see
         #: :func:`tae_tpu_torch.ops.attention.attention_route`
         self.attn_q8: bool | None = None
+        #: run-time choice for a serving int8 block: the qkv product emits
+        #: int8 with per-(row, column block) scales and the int8-input
+        #: attention reads it (K4 ``q8_out`` + K15), from
+        #: QKV_Q8_MIN_TOKENS tokens; off unless asked, as in the JAX package
+        self.qkv_q8 = False
         self.qkv = Linear(cfg.dim, cfg.dim * 3, bias=cfg.qkv_bias,
                           device=device, dtype=dtype)
+        if cfg.qk_norm:
+            dh = cfg.dim // cfg.num_heads
+            self.q_norm = LayerNorm(dh, cfg.ln_eps, device, dtype)
+            self.k_norm = LayerNorm(dh, cfg.ln_eps, device, dtype)
+        else:
+            self.q_norm = self.k_norm = None
         self.proj = Linear(cfg.dim, cfg.dim, device=device, dtype=dtype)
+
+    @property
+    def qk_norm(self) -> bool:
+        return self.q_norm is not None
 
     def attend(self, qkv: torch.Tensor, backend: str | None = None,
                serving: bool = False, int8_block: bool = False):
@@ -291,9 +310,25 @@ class Attention(nn.Module):
         y = packed_attention(qkv, self.num_heads, route, serving, backend)
         return y if q8 else (y, None)
 
+    def attend_qk_norm(self, qkv: torch.Tensor, backend: str | None = None
+                       ) -> torch.Tensor:
+        """The qk_norm attention of packed (B, N, 3C) qkv -> (B, N, C): the
+        heads split, LayerNorm over dh of q and of k (on contiguous rows,
+        as the LayerNorm kernel reads them), attention on the unpacked
+        operands (v read where it lies in qkv), the heads merged. Always the
+        exact softmax: the JAX kernel of this branch has no serving form."""
+        b, n, c3 = qkv.shape
+        r = qkv.reshape(b, n, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
+        q = self.q_norm(r[0].contiguous(), backend)
+        k = self.k_norm(r[1].contiguous(), backend)
+        y = attention(q, k, r[2], backend=backend)
+        return y.transpose(1, 2).reshape(b, n, c3 // 3)
+
     def forward(self, x: torch.Tensor, backend: str | None = None,
                 serving: bool = False) -> torch.Tensor:
         qkv = self.qkv(x, backend)                          # (B, N, 3C)
+        if self.qk_norm:
+            return self.proj(self.attend_qk_norm(qkv, backend), backend)
         return self.proj(self.attend(qkv, backend, serving)[0], backend)
 
 
@@ -334,9 +369,24 @@ class Block(nn.Module):
     @property
     def is_int8(self) -> bool:
         """All four linears are quantized (int8 or int4, mixed leaves
-        allowed): the block takes the fused serving path."""
-        return all(isinstance(m, (QLinear, Q4Linear)) for m in (
-            self.attn.qkv, self.attn.proj, self.mlp.fc1, self.mlp.fc2))
+        allowed) and the block has no qk_norm: the block takes the fused
+        serving path."""
+        return not self.attn.qk_norm and all(
+            isinstance(m, (QLinear, Q4Linear)) for m in (
+                self.attn.qkv, self.attn.proj, self.mlp.fc1, self.mlp.fc2))
+
+    def takes_qkv_q8(self, n: int, serving: bool) -> bool:
+        """Whether the fused forward runs the qkv product with its int8
+        output into the int8-input attention (``attn.qkv_q8``, as the JAX
+        package's ``use_i8_qkv``): serving, an int8 qkv leaf, no qk_norm, at
+        least QKV_Q8_MIN_TOKENS tokens, and a head dim that divides the
+        output's scale block (p128's dh 80 does not divide 512)."""
+        a = self.attn
+        if not (a.qkv_q8 and serving and isinstance(a.qkv, QLinear)
+                and not a.qk_norm and n >= QKV_Q8_MIN_TOKENS):
+            return False
+        c3 = a.qkv.w_q.shape[0]
+        return int8.q8_block(c3) % (c3 // 3 // a.num_heads) == 0
 
     @property
     def chains_ln(self) -> bool:
@@ -362,6 +412,12 @@ class Block(nn.Module):
         norm) + quantize in its epilogue. Returns ``(x, ln_next)``;
         ``ln_next`` is the chained ``(xq, sx)`` or None.
 
+        Where :meth:`takes_qkv_q8`, the qkv product emits int8 with
+        per-(row, column block) scales, the int8-input attention reads it
+        and returns bf16, proj quantizes that per row and adds the residual
+        (no LN epilogue), and norm2 + quantize run as ``ln_quant``
+        (``int8_block_apply``'s ``use_i8_qkv`` branch).
+
         Each linear dispatches on its own form. An int4 (``Q4Linear``) proj
         has no LN epilogue, so norm2 + quantize run as ``ln_quant``; an int4
         MLP is the fused ``int4_mlp`` and chains nothing (``norm1_next``
@@ -372,10 +428,17 @@ class Block(nn.Module):
         x2 = x.reshape(b * n, c)
         xq, sx = ln_in if ln_in is not None else self.norm1.quantize(x2, backend)
         a = self.attn
+        if self.takes_qkv_q8(n, serving):
+            qkv_q, qkv_s = a.qkv(xq, backend, x_scale=sx, q8_out=True)
+            y = qkv_i8_attention(qkv_q.reshape(b, n, 3 * c), qkv_s,
+                                 a.num_heads, backend)
+            x2 = a.proj(y.reshape(b * n, c), backend, residual=x2,
+                        out_dtype=x.dtype)
+            return self._mlp_half(x, x2, None, None, backend, norm1_next)
         qkv = a.qkv(xq, backend, x_scale=sx, out_dtype=x.dtype)
         y, y_scale = a.attend(qkv.reshape(b, n, 3 * c), backend, serving,
                               int8_block=True)
-        xq2 = None
+        xq2 = sx2 = None
         if isinstance(a.proj, QLinear):
             x2, xq2, sx2 = a.proj(y.reshape(b * n, c), backend,
                                   x_scale=y_scale, residual=x2,
@@ -383,6 +446,12 @@ class Block(nn.Module):
         else:
             x2 = a.proj(y.reshape(b * n, c), backend, x_scale=y_scale,
                         residual=x2, out_dtype=x.dtype)
+        return self._mlp_half(x, x2, xq2, sx2, backend, norm1_next)
+
+    def _mlp_half(self, x, x2, xq2, sx2, backend, norm1_next):
+        """x2 + MLP(norm2(x2)) of :meth:`forward_int8`; ``(xq2, sx2)``: the
+        proj epilogue's norm2 + quantize, or None."""
+        b, n, c = x.shape
         if not self.chains_ln:
             if norm1_next is not None:
                 raise ValueError("only the int8 MLP kernel chains a next "

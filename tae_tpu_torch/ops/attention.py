@@ -13,6 +13,10 @@ a CUDA tensor only when a caller passes ``backend="reference"`` itself.
 from the shape alone; :func:`packed_attention` runs it. The rule is the
 H100's own (measured by ``chip_smoke.py``, recorded in ``PERF.md``); the JAX
 package's thresholds and environment switches have no counterpart.
+
+:func:`attention` is the unpacked (B, H, N, dh) entry of a qk_norm block;
+:func:`qkv_i8_attention` the int8-input entry of an int8 block with
+``qkv_q8`` on (:data:`QKV_Q8_MIN_TOKENS` and up).
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ FLOAT_WIDE_MAX_TOKENS = 8
 Q8_WIDE_MAX_TOKENS = _wa.WIDE_MAX_TOKENS
 #: below this many tokens the int8 block calls the flat-row (2D) entry
 FLAT_BELOW_TOKENS = 8
+#: Fewest tokens per image at which an int8 block with ``qkv_q8`` on feeds
+#: the qkv product's int8 output to the int8-input attention (K15): the JAX
+#: package's gate (its per-image kernels' crossover), kept as it is. Below,
+#: such a block takes the default int8 route.
+QKV_Q8_MIN_TOKENS = 128
 
 
 def default_backend(x: torch.Tensor) -> str:
@@ -73,6 +82,32 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float | None = None,
+              backend: str | None = None) -> torch.Tensor:
+    """q, k, v (B, H, N, dh) -> (B, H, N, dh), the exact softmax
+    (counterpart of ``tae_tpu.ops.attention.attention``). The kernel K16 (and
+    K17 for its gradient, :class:`~tae_tpu_torch.ops.cuda.flash_attention.
+    FlashAttentionFn`) at every token count: the JAX package runs XLA below
+    128 tokens, but on the H100 one K16 launch beats the plain version's
+    matmul / softmax / matmul chain at 4 and 16 tokens as at 256 (PERF.md).
+    ``backend="reference"``: :func:`attention_reference`."""
+    if resolve_backend(backend, q) == "reference":
+        return attention_reference(q, k, v, scale)
+    return _fa.flash_attention(q, k, v, scale)
+
+
+def qkv_i8_attention(qkv_q: torch.Tensor, scales: torch.Tensor,
+                     num_heads: int, backend: str | None = None
+                     ) -> torch.Tensor:
+    """int8 packed qkv (B, N, 3C) with its ``q8_out`` scales -> (B, N, C)
+    bfloat16, the serving softmax (K15, or its plain version)."""
+    fn = (_fa.fused_qkv_attention_i8_reference
+          if resolve_backend(backend, qkv_q) == "reference"
+          else _fa.fused_qkv_attention_i8)
+    return fn(qkv_q, scales, num_heads)
 
 
 def attention_route(n: int, int8_block: bool, serving: bool,

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _build_lock = threading.Lock()
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # C entry points: (argument types, return type). The launchers return a
 # cudaError_t, 0 on success.
 SIGNATURES = {
@@ -60,6 +61,18 @@ SIGNATURES = {
     # stream
     "tae_packed_attention_bwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
                                   _I, _VP), _I),
+    # q, k, v, out, lse (or null), (image, head, row) strides of q, k, v and
+    # out, batch, tokens, heads, head dim, scale, dtype, stream
+    "tae_flash_attention_fwd": ((_VP, _VP, _VP, _VP, _VP, _LLP, _I, _I, _I, _I,
+                                 _F, _I, _VP), _I),
+    # q, k, v, o, lse, do, dq, dk, dv, strides of those eight but lse, batch,
+    # tokens, heads, head dim, scale, dtype, stream
+    "tae_flash_attention_bwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                 _LLP, _I, _I, _I, _I, _F, _I, _VP), _I),
+    # int8 qkv, scales, out, batch, tokens, heads, head dim, scale block,
+    # scale, stream
+    "tae_qkv_i8_attention_fwd": ((_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP),
+                                 _I),
     # qkv, out, batch, tokens, heads, head dim, scale, serving, dtype, stream
     "tae_wide_attention_fwd": ((_VP, _VP, _I, _I, _I, _I, _F, _I, _I, _VP), _I),
     # qkv, int8 out, scales, batch (2d: rows), tokens, heads, head dim, scale,
@@ -77,6 +90,11 @@ SIGNATURES = {
     # stream
     "tae_int8_matmul_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                              _I, _I, _VP, _VP, _I, _F, _VP, _VP, _VP), _I),
+    # x, x dtype (2: int8 codes), sx, w, sw, bias, bias dtype, residual, out,
+    # out dtype, q8_out scales (or null), q8_out block (0: none), m, n, k,
+    # stream
+    "tae_int8_matmul_rows_fwd": ((_VP, _I, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I,
+                                  _VP, _I, _I, _I, _I, _VP), _I),
     # xq, sx, w1, sw1, b1, w2, sw2, b2, residual, out, m, d, hdim, block_h,
     # rows per block, out dtype, bias dtype, gamma, beta, ln dtype, eps, nq,
     # ns, workspace of the hidden groups, hidden groups, stream
@@ -92,9 +110,10 @@ SIGNATURES = {
     # groups, hidden groups, stream
     "tae_int4_mlp_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                           _I, _I, _I, _I, _I, _I, _VP, _I, _VP), _I),
-    # z, codebook, norms workspace, ids, m, v, k, dtype, rows per block,
-    # stream
-    "tae_nearest_code_fwd": ((_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP), _I),
+    # z, codebook, norms workspace, ids, workspace of the codebook ranges (or
+    # null), m, v, k, dtype, rows per block, codebook ranges, stream
+    "tae_nearest_code_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                              _VP), _I),
     "tae_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -245,3 +264,8 @@ def refuse_grad(entry: str, *tensors) -> None:
 def ptr(t) -> int | None:
     """The device address of an optional tensor (None: a null pointer)."""
     return None if t is None else t.data_ptr()
+
+
+def int64_array(values):
+    """A host array of int64 for an entry point that takes one by pointer."""
+    return (ctypes.c_longlong * len(values))(*values)

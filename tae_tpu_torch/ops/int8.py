@@ -46,14 +46,33 @@ def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return wq, scale
 
 
+def row_scales(x: torch.Tensor) -> torch.Tensor:
+    """Per-row symmetric int8 scales of a float x (..., K): max(amax / 127,
+    1e-12), the amax taken in x's dtype (exact); fp32 (..., 1)."""
+    return (x.abs().amax(dim=-1, keepdim=True).float() / 127.0).clamp_min(1e-12)
+
+
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 of a float activation x (..., K): the pass the
-    JAX package runs ahead of its matmul kernel for a float input. The amax
-    is taken in x's dtype (exact), the division in fp32. Returns
-    (int8 (..., K), fp32 scales (..., 1))."""
-    sx = (x.abs().amax(dim=-1, keepdim=True).float() / 127.0).clamp_min(1e-12)
+    JAX package runs ahead of its matmul kernel for a float input
+    (``prequantize=True``): :func:`row_scales`, the division in fp32.
+    Returns (int8 (..., K), fp32 scales (..., 1))."""
+    sx = row_scales(x)
     xq = torch.round(x.float() / sx).clamp(-127.0, 127.0).to(torch.int8)
     return xq, sx
+
+
+def q8_block(n: int, cap: int = 512) -> int:
+    """Columns per scale of the ``q8_out`` output of an N-wide product: the
+    largest multiple of 128 up to ``cap`` that divides N, else N (the JAX
+    package's ``_block(n, 512)``, part of the contract with the int8-input
+    attention, whose head dim must divide it)."""
+    b = max(128, (cap // 128) * 128)
+    while b >= 128:
+        if n % b == 0:
+            return b
+        b -= 128
+    return n
 
 
 def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -70,25 +89,32 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 x_scale: torch.Tensor | None = None,
                 residual: torch.Tensor | None = None,
                 out_dtype: torch.dtype | None = None, q8_out: bool = False,
-                ln_out=None):
+                ln_out=None, prequantize: bool = True,
+                block_n: int | None = None):
     """x (..., in) against an int8 weight (out, in).
 
     ``x_scale``: (..., 1) per-row scales of an already-int8 x (pair with
-    :func:`ln_quant`); a float x is quantized per row first.
-    ``residual``: (..., out), added in the epilogue. ``ln_out = (gamma,
-    beta, eps)`` asks for the chained LayerNorm + int8 of the output as
-    well: the result is ``(y, yq, ys)``, and ``(y, None, None)`` where
+    :func:`ln_quant`); a float x is quantized per row first, by a separate
+    pass (:func:`quantize_rows`) or, with ``prequantize=False``, inside the
+    kernel from its row scales (x * (1 / s), the JAX package's in-kernel
+    form). ``residual``: (..., out), added in the epilogue. ``ln_out =
+    (gamma, beta, eps)`` asks for the chained LayerNorm + int8 of the output
+    as well: the result is ``(y, yq, ys)``, and ``(y, None, None)`` where
     :func:`~tae_tpu_torch.ops.cuda.int8_matmul.ln_chain_rows` says the
     output row is too wide to chain; the caller then runs :func:`ln_quant`.
-    The output dtype defaults to x's for a float x and to bfloat16 for an
-    int8 x."""
+    ``q8_out``: the output leaves as int8, ``(yq (..., out), ys (out /
+    block_n, M, 1))`` with one scale per row and block of ``block_n``
+    columns (default :func:`q8_block`), the input of the int8-input
+    attention. The output dtype defaults to x's for a float x and to
+    bfloat16 for an int8 x."""
     build.refuse_grad("int8_linear", x, x_scale, bias, residual,
                       *(ln_out[:2] if ln_out is not None else ()))
-    if q8_out:
-        raise NotImplementedError(
-            "the q8_out output mode of int8_matmul_fused is not ported yet: "
-            "it comes with its consumer, the int8-input attention kernel "
-            "(ROADMAP B15)")
+    if q8_out and ln_out is not None:
+        raise ValueError("ln_out and q8_out exclude each other")
+    if q8_out or (not prequantize and x_scale is None):
+        return _int8_linear_rows(x, w_q, w_scale, bias, backend, x_scale,
+                                 residual, out_dtype, q8_out, block_n,
+                                 prequantize)
     if x_scale is None:
         if not x.is_floating_point():
             raise TypeError("an int8 x needs its x_scale")
@@ -114,6 +140,36 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 ys.reshape(*lead, 1))
     y = y.reshape(*lead, n)
     return (y, None, None) if ln_out is not None else y
+
+
+def _int8_linear_rows(x, w_q, w_scale, bias, backend, x_scale, residual,
+                      out_dtype, q8_out: bool, block_n: int | None,
+                      prequantize: bool):
+    """int8_linear through K4's row-block form (q8_out, or a float x
+    quantized in the kernel)."""
+    if x_scale is None:
+        if not x.is_floating_point():
+            raise TypeError("an int8 x needs its x_scale")
+        out_dtype = out_dtype or x.dtype
+        if prequantize:
+            x, x_scale = quantize_rows(x)
+        else:
+            x_scale = row_scales(x)
+    elif x.dtype != torch.int8:
+        raise TypeError("x_scale requires an already-quantized int8 x")
+    lead, k = x.shape[:-1], x.shape[-1]
+    n = w_q.shape[0]
+    block = (block_n or q8_block(n)) if q8_out else None
+    fn = (int8_matmul.int8_matmul_rows
+          if resolve_backend(backend, x) == "kernel"
+          else int8_matmul.int8_matmul_rows_reference)
+    y = fn(x.reshape(-1, k), x_scale.reshape(-1, 1), w_q, w_scale, bias,
+           None if residual is None else residual.reshape(-1, n),
+           out_dtype or torch.bfloat16, block)
+    if q8_out:
+        yq, ys = y
+        return yq.reshape(*lead, n), ys
+    return y.reshape(*lead, n)
 
 
 def int8_mlp(xq: torch.Tensor, sx: torch.Tensor, fc1, fc2,

@@ -6,10 +6,9 @@ matrix product: ``argmin_k |z - c_k|^2 = argmin_k (|c_k|^2 - 2 z.c_k)``. On a
 CUDA tensor :func:`nearest_code` launches the hand-written kernel
 (:mod:`tae_tpu_torch.ops.cuda.quantizer`), which streams the codebook and
 never writes the distances; the plain version runs for CPU tensors and on
-an explicit ``backend="reference"``. Latents wider than the kernel takes
-(V > 2048) raise on a CUDA tensor unless ``backend="reference"`` is asked:
-the JAX dispatch falls to its plain version there, the port hides no kernel
-behind one (ROADMAP A11). The estimator and the losses around it are plain
+an explicit ``backend="reference"``, at every latent width (the kernel
+tiles wide latents over V; the JAX dispatch falls to its plain version
+above 2048). The estimator and the losses around it are plain
 PyTorch, where autograd gives the codebook and commitment gradients; the
 argmin itself has none.
 
@@ -25,7 +24,7 @@ import torch
 
 from tae_tpu_torch.ops.attention import resolve_backend
 from tae_tpu_torch.ops.cuda import quantizer as _q
-from tae_tpu_torch.ops.cuda.quantizer import nearest_code_reference, supported
+from tae_tpu_torch.ops.cuda.quantizer import nearest_code_reference
 
 
 def nearest_code(z: torch.Tensor, codebook: torch.Tensor,
@@ -33,11 +32,6 @@ def nearest_code(z: torch.Tensor, codebook: torch.Tensor,
     """int64 ids of the nearest codebook rows. z (..., V), codebook (K, V)
     -> (...,); the lowest index wins a tie."""
     if resolve_backend(backend, z) == "kernel":
-        if z.is_cuda and not supported(z.shape[-1]):
-            raise NotImplementedError(
-                f"the nearest_code kernel takes latents up to V = {_q.MAX_V}, "
-                f"got V = {z.shape[-1]}: tiling z over V is ROADMAP A11; "
-                "backend=\"reference\" runs the plain version")
         lead = z.shape[:-1]
         z2 = z.detach().reshape(-1, z.shape[-1]).contiguous()
         return _q.nearest_code(z2, codebook).reshape(lead)

@@ -22,7 +22,10 @@ with per-channel scales, dynamic per-row activation scales; see
 In int8 serving the attention kernel itself emits the proj matmul's int8
 input (:func:`tae_tpu_torch.ops.attention.attention_route`); ``attn_q8=False``
 asks for the attention output in the compute dtype and a plain per-row
-quantize instead, ``attn_q8=True`` forces the int8 output.
+quantize instead, ``attn_q8=True`` forces the int8 output. ``qkv_q8=True``
+turns on the other direction, off by default as in the JAX package
+(``TAE_TPU_QKV_Q8``): from 128 tokens the qkv product emits int8 with one
+scale per row and 512-column block, and the int8-input attention reads it.
 
 ``quantization="int4"`` stores the four linears of every block as packed
 int4 with group-wise scales (w4a8; half the weight bytes of int8, for
@@ -60,6 +63,16 @@ def set_attn_q8(model, attn_q8: bool | None) -> None:
             mod.attn_q8 = attn_q8
 
 
+def set_qkv_q8(model, qkv_q8: bool) -> None:
+    """Record the run-time int8-input attention choice on every attention
+    layer (see :meth:`tae_tpu_torch.nn.vit.Block.takes_qkv_q8`)."""
+    from tae_tpu_torch.nn import vit
+
+    for mod in model.modules():
+        if isinstance(mod, vit.Attention):
+            mod.qkv_q8 = bool(qkv_q8)
+
+
 def prune_component(model, component: str):
     """Drop the unused half of a TAE in place: ``"encoder"`` removes the
     decoder's layers (encode-only serving halves resident weights),
@@ -93,10 +106,16 @@ class Tokenizer:
                         patch_input: bool = False,
                         seed: int = 0,
                         attn_q8: bool | None = None,
+                        qkv_q8: bool = False,
                         **model_overrides) -> "Tokenizer":
         """Build ``model_name`` on ``device``, initialise it from
         ``torch.Generator(device).manual_seed(seed)``, load ``ckpt`` (a
-        reference-layout ``.pth``) if given, and cast it to ``dtype``.
+        reference-layout ``.pth`` or a port checkpoint) if given, and cast
+        it to ``dtype``. The load is the JAX package's: positional
+        embeddings on another token grid (an ``img_size=`` override) are
+        interpolated, keys the file lacks (a codebook asked for with
+        ``quantize=True``) keep their initial values, and keys the model
+        lacks are dropped (:func:`tae_tpu_torch.ckpt.io.load_params`).
         ``component`` prunes the unused half.
 
         ``quantization="int8"`` rewrites the linear weights to int8 with
@@ -109,10 +128,12 @@ class Tokenizer:
         quantizes the patch embedding too (image requests still work; int4
         keeps it float either way).
         ``attn_q8``: whether an int8 block's attention emits int8 directly
-        (None: the rule of ``attention_route``); a run-time choice that the
-        serving artifact does not record."""
+        (None: the rule of ``attention_route``); ``qkv_q8``: whether an int8
+        block from 128 tokens feeds the qkv product's int8 output to the
+        int8-input attention; run-time choices that the serving artifact
+        does not record."""
         from tae_tpu_torch import models
-        from tae_tpu_torch.ckpt.bridge import load_pth
+        from tae_tpu_torch.ckpt.io import load_params
         from tae_tpu_torch.ops.int8 import QUANTIZATIONS, prepare_serving_
 
         if act_amax is not None or calib_images is not None:
@@ -127,7 +148,7 @@ class Tokenizer:
         model = models.create(model_name, device=device, **model_overrides)
         model.init_weights_(torch.Generator(device=device).manual_seed(seed))
         if ckpt:
-            model.load_state_dict(load_pth(ckpt), strict=True)
+            load_params(ckpt, model)
         # prune before quantizing, so the dropped half is never quantized
         model = prune_component(model.to(dtype).eval(), component)
         model.requires_grad_(False)     # a serving surface: nothing trains
@@ -135,6 +156,7 @@ class Tokenizer:
             prepare_serving_(model, quantization, equalize or 0.0,
                              patch_input=patch_input)
         set_attn_q8(model, attn_q8)
+        set_qkv_q8(model, qkv_q8)
         return cls(model=model,
                    policy=Policy(param_dtype=dtype, compute_dtype=dtype))
 
@@ -182,6 +204,7 @@ class Tokenizer:
                      device: torch.device | str = "cuda",
                      component: str = "both",
                      attn_q8: bool | None = None,
+                     qkv_q8: bool = False,
                      **model_overrides) -> "Tokenizer":
         """Load a :meth:`save_serving` artifact (no re-quantization).
         ``dtype=None`` restores the compute dtype the artifact recorded.
@@ -225,6 +248,7 @@ class Tokenizer:
         if saved == "both":
             model = prune_component(model, component)
         set_attn_q8(model, attn_q8)
+        set_qkv_q8(model, qkv_q8)
         return cls(model=model,
                    policy=Policy(param_dtype=dtype, compute_dtype=dtype))
 

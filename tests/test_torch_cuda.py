@@ -20,8 +20,12 @@ token counts off the 16-row tiles, gradients in a non-contiguous layout, and
 bit-equal results of two runs; for the int4 kernels (K12, K13), row counts
 off the 16 / 32 / 128-row tiles, both scale groups, every model width, both
 tile forms and every hidden split; for the codebook search (K14), row and
-code counts off the tiles, every latent width class, exact ties and the
-shapes the wrapper must refuse.
+code counts off the tiles, every latent width class (z resident and z tiled
+over V), exact ties and the shapes the wrapper must refuse; for the unpacked
+attention (K16, K17), both forms, every token count class, strided operands
+and the qk_norm block; for K4's row-block form (``q8_out``, in-kernel
+quantize) and the int8-input attention (K15), ragged rows and every scale
+block a model gives them.
 """
 
 import pytest
@@ -35,13 +39,17 @@ from tae_tpu_torch.ops.cuda.int4_matmul import (int4_matmul_fused,
                                                 int4_matmul_reference,
                                                 pack_int4)
 from tae_tpu_torch.ops.cuda.flash_attention import (
-    fused_qkv_attention, fused_qkv_attention_backward_reference,
-    fused_qkv_attention_bwd, fused_qkv_attention_fwd_lse,
-    fused_qkv_attention_lse_reference, fused_qkv_attention_reference)
+    flash_attention, flash_attention_backward_reference, flash_attention_bwd,
+    flash_attention_fwd_lse, flash_attention_reference, fused_qkv_attention,
+    fused_qkv_attention_backward_reference, fused_qkv_attention_bwd,
+    fused_qkv_attention_fwd_lse, fused_qkv_attention_i8,
+    fused_qkv_attention_i8_reference, fused_qkv_attention_lse_reference,
+    fused_qkv_attention_reference)
 from tae_tpu_torch.ops.cuda.int8_block import (
     int8_mlp, int8_mlp_reference, ln_quant, ln_quant_reference)
 from tae_tpu_torch.ops.cuda.int8_matmul import (
-    int8_matmul_fused, int8_matmul_reference, ln_chain_rows)
+    int8_matmul_fused, int8_matmul_reference, int8_matmul_rows,
+    int8_matmul_rows_reference, ln_chain_rows)
 from tae_tpu_torch.ops.cuda.layernorm import (
     fused_layer_norm, fused_layer_norm_bwd, fused_layer_norm_fwd_stats)
 from tae_tpu_torch.ops.cuda.wide_attention import (
@@ -934,14 +942,13 @@ def test_nearest_code_dispatch_and_gradients(gen):
     (zq.sum() * 2.0 + aux).backward()
     assert z.grad is not None and cb.grad is not None
     assert float(cb.grad.abs().sum()) > 0
-    # wider than the kernel takes: raises unless the plain version is asked
+    # wide latents take the kernel too (z tiled over V)
     wide = torch.randn((4, 2056), generator=gen, device="cuda")
     wide_cb = torch.randn((9, 2056), generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        quantizer.nearest_code(wide, wide_cb)
-    assert tuple(quantizer.nearest_code(wide, wide_cb,
-                                        backend="reference").shape) == (4,)
-    assert cuda_quantizer.nearest_code.launches == before + 2
+    assert torch.equal(quantizer.nearest_code(wide, wide_cb),
+                       quantizer.nearest_code(wide, wide_cb,
+                                              backend="reference"))
+    assert cuda_quantizer.nearest_code.launches == before + 3
     with pytest.raises(ValueError, match="multiple of"):
         cuda_quantizer.nearest_code(wide[:, :6].contiguous(),
                                     wide[:3, :6].contiguous())
@@ -950,21 +957,18 @@ def test_nearest_code_dispatch_and_gradients(gen):
 @pytest.mark.parametrize("v", [4096, 2056])
 def test_nearest_code_wide_latents_raise_on_the_card(gen, v):
     """V = 4096 is a registered latent width (p64 / p128, vocab 4096): on the
-    card it raises until K14 tiles z over V, and only backend="reference"
-    runs the plain version."""
+    card it no longer raises; every dispatcher launches the kernel, which
+    tiles z over V, and agrees with the plain version."""
     z = torch.randn((6, v), generator=gen, device="cuda").bfloat16()
     cb = torch.randn((20, v), generator=gen, device="cuda").bfloat16()
     before = cuda_quantizer.nearest_code.launches
+    want = quantizer.nearest_code(z, cb, backend="reference")
+    assert torch.equal(want, cuda_quantizer.nearest_code_reference(z, cb))
     for fn in (quantizer.nearest_code, quantizer.encode_indices):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            fn(z, cb)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        quantizer.vq_ste(z, cb)
-    with pytest.raises(ValueError, match="V <= 2048"):
-        cuda_quantizer.nearest_code(z, cb)
-    ids = quantizer.nearest_code(z, cb, backend="reference")
-    assert torch.equal(ids, cuda_quantizer.nearest_code_reference(z, cb))
-    assert cuda_quantizer.nearest_code.launches == before
+        _ids_close(z, cb, fn(z, cb), want, 0.0)
+    zq, _ = quantizer.vq_ste(z, cb)
+    assert zq.shape == z.shape
+    assert cuda_quantizer.nearest_code.launches == before + 3
 
 
 @pytest.mark.parametrize("m,k,v", [(2048, 8192, 256), (100, 130, 32)])
@@ -978,3 +982,217 @@ def test_nearest_code_bf16_latents_fp32_codebook(gen, m, k, v):
     assert torch.equal(want, cuda_quantizer.nearest_code_reference(
         z, cb.bfloat16()))
     _ids_close(z, cb, got, want, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,v", [(100, 64, 4096), (1000, 513, 4096),
+                                   (300, 130, 16384), (4096, 257, 3000 // 8 * 8),
+                                   (33, 70, 16384)])
+def test_nearest_code_kernel_tiles_wide_latents(gen, m, k, v, dtype):
+    """z tiled over V (K14 at the vocab-4096 and -16384 widths): ids equal
+    to the plain version's but for near-ties, and exact ties still go to
+    the lowest index across the V tiles."""
+    z = torch.randn((m, v), generator=gen, device="cuda").to(dtype)
+    cb = torch.randn((k, v), generator=gen, device="cuda").to(dtype)
+    before = cuda_quantizer.nearest_code.launches
+    got = cuda_quantizer.nearest_code(z, cb)
+    assert cuda_quantizer.nearest_code.launches == before + 1
+    _ids_close(z, cb, got, cuda_quantizer.nearest_code_reference(z, cb),
+               1e-3 if dtype == torch.bfloat16 else 0.0)
+    cb[k - 1], z[0] = cb[3], cb[3]
+    assert int(cuda_quantizer.nearest_code(z, cb)[0]) == 3
+
+
+# ---------------------------------------------------------------------------
+# K16 / K17: unpacked attention (the qk_norm block's)
+# ---------------------------------------------------------------------------
+
+def _qkv_views(gen, b, n, h, dh, dtype):
+    """q, k, v as the qk_norm block hands them over: q and k contiguous,
+    v a strided view of the packed projection output."""
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda")
+    r = qkv.to(dtype).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    return r[0].contiguous(), r[1].contiguous(), r[2]
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,dh", [(2, 4, 32, 80), (3, 16, 16, 64),
+                                      (2, 17, 2, 80), (2, 64, 32, 64),
+                                      (2, 256, 16, 64), (1, 256, 32, 80),
+                                      (3, 100, 2, 64)])
+def test_flash_attention_kernels_match_plain(gen, b, n, h, dh, dtype):
+    q, k, v = _qkv_views(gen, b, n, h, dh, dtype)
+    do = torch.randn((b, h, n, dh), generator=gen, device="cuda").to(dtype)
+    counts = (flash_attention.launches, flash_attention_fwd_lse.launches,
+              flash_attention_bwd.launches)
+    o_ref, lse_ref = flash_attention_reference(q, k, v)
+    _close(flash_attention(q, k, v), o_ref, dtype)
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    _close(o, o_ref, dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, **TOL[dtype])
+        else:
+            # P and dS rounded to bf16 ahead of the last three products
+            # (2^-9 relative each) against the plain version's fp32: the
+            # sums of n such terms stay within 1e-2 in norm
+            assert _rel(g, w) <= 1e-2
+    assert (flash_attention.launches, flash_attention_fwd_lse.launches,
+            flash_attention_bwd.launches) == (counts[0] + 1, counts[1] + 1,
+                                              counts[2] + 1)
+    assert all(torch.equal(a, c) for a, c in
+               zip(got, flash_attention_bwd(q, k, v, o, lse, do)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_and_refusals(gen, dtype):
+    q, k, v = (t.requires_grad_() for t in (
+        torch.randn((2, 4, 33, 64), generator=gen, device="cuda").to(dtype)
+        for _ in range(3)))
+    y = flash_attention(q, k, v)
+    assert y.grad_fn is not None
+    do = torch.randn((2, 33, 4, 64), generator=gen,
+                     device="cuda").to(dtype).transpose(1, 2)
+    grads = torch.autograd.grad(y, (q, k, v), do)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    yr, _ = flash_attention_reference(*ref)
+    want = torch.autograd.grad(yr, ref, do)
+    for g, w in zip(grads, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+    bad = torch.randn((2, 4, 33, 48), device="cuda", dtype=dtype)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(bad, bad, bad)
+    with pytest.raises(ValueError, match="tokens"):
+        big = torch.randn((1, 2, 257, 64), device="cuda", dtype=dtype)
+        flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("n,dim,heads", [(16, 2560, 32), (64, 1024, 16)])
+def test_qk_norm_blocks_kernels_match_reference_backend(gen, n, dim, heads):
+    """A qk_norm block stack in bf16 compute from fp32 parameters: forward
+    and gradients through K1 / K11 (norms and q / k norms), K16 / K17,
+    against backend="reference". k_norm's bias adds one vector to every key
+    of a head, which moves each query's scores by a constant and leaves the
+    softmax as it was: its exact gradient is zero, and both sides give
+    rounding noise there, held to be small against k_norm's weight's."""
+    from tae_tpu_torch.nn import vit
+
+    cfg = vit.BlockConfig(dim, heads, qk_norm=True)
+    stack = vit.blocks(cfg, 2, device="cuda")
+    vit.init_weights_(stack, torch.Generator(device="cuda").manual_seed(1))
+    stack.requires_grad_(True)
+    x = torch.randn((4, n, dim), generator=gen, device="cuda").bfloat16()
+    before = (flash_attention_fwd_lse.launches, flash_attention_bwd.launches,
+              fused_layer_norm_fwd_stats.launches, fused_layer_norm_bwd.launches)
+    y = vit.blocks_apply(stack, x)
+    y.float().square().mean().backward()
+    grads = {k: p.grad.clone() for k, p in stack.named_parameters()}
+    assert (flash_attention_fwd_lse.launches - before[0],
+            flash_attention_bwd.launches - before[1],
+            fused_layer_norm_fwd_stats.launches - before[2],
+            fused_layer_norm_bwd.launches - before[3]) == (2, 2, 8, 8)
+    stack.zero_grad()
+    y_ref = vit.blocks_apply(stack, x, backend="reference")
+    y_ref.float().square().mean().backward()
+    assert _rel(y, y_ref) <= 2e-2
+    for k, p in stack.named_parameters():
+        g = grads[k]
+        assert bool(torch.isfinite(g).all())
+        if k.endswith("attn.k_norm.bias"):
+            scale = float(grads[k.replace("bias", "weight")].norm())
+            assert float(g.norm()) <= 1e-2 * scale
+            assert float(p.grad.norm()) <= 1e-2 * scale
+        else:
+            assert _rel(g, p.grad) <= 5e-2, k
+
+
+# ---------------------------------------------------------------------------
+# K4's row-block form (q8_out, in-kernel quantize) and K15
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("xdtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,block", [(1, 1024, 3072, 512), (33, 256, 768, 384),
+                                         (1000, 1024, 3072, 512),
+                                         (129, 2048, 6144, 512),
+                                         (40, 2560, 7680, 512), (17, 48, 24, 8)])
+def test_int8_matmul_q8_out_matches_plain(gen, m, k, n, block, xdtype):
+    xq, sx, wq, sw, b, _ = _matmul_case(gen, m, k, n, torch.bfloat16, True,
+                                        False)
+    x = xq if xdtype == torch.int8 else (
+        torch.randn((m, k), generator=gen, device="cuda") * 2).to(xdtype)
+    if xdtype != torch.int8:
+        sx = int8.row_scales(x)
+    before = (int8_matmul_rows.launches, int8_matmul_fused.launches)
+    yq, ys = int8_matmul_rows(x, sx, wq, sw, b, q8_block=block)
+    assert (int8_matmul_rows.launches, int8_matmul_fused.launches) == (
+        before[0] + 1, before[1])
+    wq_, ws_ = int8_matmul_rows_reference(x, sx, wq, sw, b, q8_block=block)
+    assert ys.shape == (n // block, m, 1)
+    _codes_close(yq, wq_)
+    _scales_close(ys, ws_)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (33, 1024, 3072), (1000, 1024, 1024),
+                                   (77, 2560, 2560)])
+def test_int8_matmul_in_kernel_quantize_matches_plain(gen, m, k, n, dtype):
+    _, _, wq, sw, b, r = _matmul_case(gen, m, k, n, dtype, True, True)
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 3).to(dtype)
+    sx = int8.row_scales(x)
+    got = int8_matmul_rows(x, sx, wq, sw, b, r, out_dtype=dtype)
+    _close(got, int8_matmul_rows_reference(x, sx, wq, sw, b, r, dtype), dtype)
+    y = int8.int8_linear(x, wq, sw, b, residual=r, prequantize=False)
+    assert torch.equal(y, got)
+    with pytest.raises(ValueError, match="int8_matmul_fused"):
+        int8_matmul_rows(_rand_i8(gen, (m, k)), sx, wq, sw, b, r,
+                         out_dtype=dtype)
+
+
+@pytest.mark.parametrize("b,n,h,dh,bn", [(2, 256, 16, 64, 512), (3, 129, 32, 64, 512),
+                                         (2, 17, 16, 80, 640), (1, 1, 2, 64, 384),
+                                         (64, 256, 16, 64, 512)])
+def test_qkv_i8_attention_kernel_matches_plain(gen, b, n, h, dh, bn):
+    c3 = 3 * h * dh
+    qkv = _rand_i8(gen, (b, n, c3))
+    scales = torch.rand((c3 // bn, b * n, 1), generator=gen,
+                        device="cuda") * 0.02 + 0.001
+    before = fused_qkv_attention_i8.launches
+    got = fused_qkv_attention_i8(qkv, scales, h)
+    assert fused_qkv_attention_i8.launches == before + 1
+    _close(got, fused_qkv_attention_i8_reference(qkv, scales, h),
+           torch.bfloat16)
+    narrow = torch.rand((c3 // 48, b * n, 1), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="must divide"):
+        fused_qkv_attention_i8(qkv, narrow, h)
+
+
+@pytest.mark.parametrize("n", [256, 64])
+def test_qkv_q8_tae_kernels_match_reference_backend(gen, n):
+    """A tiny int8 TAE with qkv_q8 on: from 128 tokens the blocks run K4's
+    q8_out and K15 (and no int8-output attention), below it the default
+    int8 route; outputs against backend="reference"."""
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    side = 16 * int(n ** 0.5)
+    tok = Tokenizer.from_checkpoint(
+        "tae_patch16_vocab16_px256", device="cuda", quantization="int8",
+        qkv_q8=True, img_size=side, embed_dim=128, depth=2, num_heads=2,
+        decoder_embed_dim=128, decoder_depth=2, decoder_num_heads=2)
+    imgs = torch.randint(0, 256, (2, 3, side, side), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    before = (fused_qkv_attention_i8.launches, int8_matmul_rows.launches)
+    z = tok.encode(imgs)
+    ran = (fused_qkv_attention_i8.launches - before[0],
+           int8_matmul_rows.launches - before[1])
+    assert ran == ((2, 2) if n >= 128 else (0, 0))
+    ref = Tokenizer(model=tok.model, policy=tok.policy, backend="reference")
+    assert _rel(z, ref.encode(imgs)) <= 4e-2

@@ -217,8 +217,15 @@ def test_ln_chain_rule_and_q8_out():
     y, yq, ys = int8.int8_linear(xq, wq, sw, x_scale=sx, ln_out=ln)
     assert yq is None and ys is None
     assert torch.equal(y, int8.int8_linear(xq, wq, sw, x_scale=sx))
-    with pytest.raises(NotImplementedError, match="B15"):
-        int8.int8_linear(xq, wq, sw, x_scale=sx, q8_out=True)
+    # q8_out: int8 y with one scale per row and block of q8_block(N) columns
+    # (N = 3096 has no multiple of 128 dividing it: one block of the row)
+    yq, ys = int8.int8_linear(xq, wq, sw, x_scale=sx, q8_out=True)
+    assert yq.dtype == torch.int8 and tuple(ys.shape) == (1, m, 1)
+    # dequantized: half a code step from the fp32 y, y itself in bf16
+    assert float((yq.float() * ys[0] - y.float()).abs().max()) \
+        <= 0.5 * float(ys.max()) + 2.0 ** -8 * float(y.float().abs().max())
+    with pytest.raises(ValueError, match="exclude"):
+        int8.int8_linear(xq, wq, sw, x_scale=sx, q8_out=True, ln_out=ln)
     with pytest.raises(TypeError, match="x_scale"):
         int8.int8_linear(xq, wq, sw)
 

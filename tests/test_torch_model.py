@@ -139,10 +139,14 @@ def test_shape_errors_and_unported_options():
     vq = TAE(TAEConfig(**TINY, quantize=True, codebook_size=24), device="meta")
     assert tuple(vq.codebook.shape) == (24, TINY.get("vocab_size", 16))
     assert not hasattr(tm, "codebook")
+    # qk_norm attention is ported: a LayerNorm over each head's dh columns
+    # of q and of k (tests/test_torch_qk_norm.py holds it to the JAX block)
     from tae_tpu_torch.nn.vit import Attention, AttentionConfig
 
-    with pytest.raises(NotImplementedError, match="B16"):
-        Attention(AttentionConfig(64, 4, qk_norm=True), device="meta")
+    attn = Attention(AttentionConfig(64, 4, qk_norm=True), device="meta")
+    assert attn.qk_norm and tuple(attn.q_norm.weight.shape) == (16,)
+    assert tuple(attn.k_norm.bias.shape) == (16,)
+    assert not Attention(AttentionConfig(64, 4), device="meta").qk_norm
 
 
 def test_registry_names_match_jax():

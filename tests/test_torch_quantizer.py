@@ -102,7 +102,12 @@ def test_nearest_code_dispatch_on_the_cpu():
         assert torch.equal(quantizer.nearest_code(z, cb, backend), want)
     assert torch.equal(cuda_quantizer.nearest_code(z, cb), want)
     assert cuda_quantizer.nearest_code.launches == 0
-    assert cuda_quantizer.supported(2048) and not cuda_quantizer.supported(2056)
+    # which bf16 blocks keep z resident, and which tile it over V
+    assert cuda_quantizer.resident(64, 1472) and not cuda_quantizer.resident(
+        64, 1536) and not cuda_quantizer.resident(32, 4096)
+    assert cuda_quantizer.block_rows(65536, 4096, 132) == 128
+    assert cuda_quantizer.block_rows(16384, 4096, 132) == 64
+    assert cuda_quantizer.block_rows(256, 4096, 132) == 32
     wide = torch.from_numpy(rng.standard_normal((3, 2056)).astype(np.float32))
     assert tuple(quantizer.nearest_code(wide, wide).shape) == (3,)
     with pytest.raises(ValueError, match="unknown backend"):
@@ -112,16 +117,16 @@ def test_nearest_code_dispatch_on_the_cpu():
 
 
 def test_wide_latents_raise_on_a_cuda_tensor():
-    """V > 2048 on the card raises, naming its ROADMAP item, unless the plain
-    version is asked for: no kernel gives way to it unasked. The rule reads
-    the device and the width alone, so a stand-in carries them here (the
-    card test holds a real CUDA tensor to it)."""
-    import types
-
-    for v in (4096, 2056):
-        on_card = types.SimpleNamespace(is_cuda=True, shape=(3, v))
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            quantizer.nearest_code(on_card, None, backend="kernel")
+    """V > 2048 raises nothing for its width: the kernel tiles z over V, so
+    the dispatcher hands a wide latent of any device but the CPU to the
+    kernel's wrapper, which raises only for what no kernel takes (here a
+    tensor on the meta device; the card tests hold real CUDA tensors to the
+    kernel at V = 4096 and 16384)."""
+    for v in (4096, 2056, 16384):
+        z = torch.empty((3, v), device="meta")
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            quantizer.nearest_code(z, torch.empty((5, v), device="meta"),
+                                   backend="kernel")
     # the registered V = 4096 configs search on the CPU as before
     rng = np.random.default_rng(8)
     z = torch.from_numpy(rng.standard_normal((5, 4096)).astype(np.float32))
