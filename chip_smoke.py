@@ -10,7 +10,9 @@ Phases (each prints its lines; any failure exits non-zero):
 1. device: refuses to run without CUDA; prints the card's name and power
    limit (nvidia-smi) and turns TF32 off for fp32 matmuls and convolutions;
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
-   sm_90a and prints the seconds;
+   sm_90a and prints the seconds and ptxas's registers and spills of every
+   kernel; fails if an instantiation of the register-resident attention
+   forward (K2, K15, K16) spills;
 3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
@@ -75,6 +77,7 @@ from __future__ import annotations
 import copy
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -364,12 +367,30 @@ def phase_build():
     build.library()
     print(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(build.PACKAGE_DIR.parent)}")
-    entry = ""
+    entry, body = "", {}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "spill" in line or "registers" in line:
             print(f"[build] {entry}: {line.strip()}")
+            if "attention_fwd_bf16" in entry:
+                body.setdefault(entry, []).append(line.strip())
+    # the register-resident attention forward (K2, K15, K16): dh 64 and 80,
+    # serving and exact, bf16 and (serving only) int8 sources
+    check(len(body) == 6, f"ptxas reported {len(body)} instantiations of "
+                          "attention_fwd_bf16, expected 6")
+    for entry, lines in body.items():
+        spills = [int(x) for line in lines for x in
+                  re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+        regs = [int(x) for line in lines for x in
+                re.findall(r"Used (\d+) registers", line)]
+        m = re.search(r"attention_fwd_bf16ILi(\d+)ELb(\d)", entry)
+        print(f"[build] attention_fwd_bf16 dh {m.group(1)} "
+              f"{'serving' if m.group(2) == '1' else 'exact'} "
+              f"{'int8' if 'I8Src' in entry else 'bf16'}: registers {regs}, "
+              f"spill bytes {sum(spills)}")
+        check(len(spills) == 2 and sum(spills) == 0,
+              f"ptxas spills in {entry}: {lines}")
 
 
 def time_ms(fn) -> float:
@@ -552,6 +573,22 @@ def phase_kernels() -> dict:
                       f"(atol {tol['atol']}, rtol {tol['rtol']}); kernel "
                       f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
                       f"{bnd[0]:.4f} ms ({bnd[1]}){lib_s}")
+
+    # the exact form on scores in the hundreds, far past the serving clip,
+    # across three 64-key chunks: exp(s) alone overflows fp32, so only the
+    # row max of every chunk keeps the output finite and right
+    n, h, dh = 129, 4, 64
+    qkv = randn((8, n, 3 * h * dh), torch.float32)
+    qkv[:, :, :h * dh] *= 60.0
+    qkv = qkv.to(torch.bfloat16)
+    want = fused_qkv_attention_reference(qkv, h, serving=False)
+    check(bool(torch.isfinite(want).all()), "K2 far past the clip: plain "
+                                           "version not finite")
+    label = (f"K2 attention {tuple(qkv.shape)} h={h} dh={dh} exact, q x 60 "
+             "(scores far past the serving clip)")
+    err = compare(label, fused_qkv_attention(qkv, h, serving=False), want,
+                  **TOL["bfloat16"])
+    print(f"[kernels] {label}: max_abs_err {err:.3g}")
     return res
 
 

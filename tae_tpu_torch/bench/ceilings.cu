@@ -1,5 +1,6 @@
-// Ceilings of one Hopper card for the int8 kernels' two building blocks:
-//   * mma.sync int8 issue rate, m16n8k16 and m16n8k32, register operands only;
+// Ceilings of one Hopper card for the kernels' building blocks:
+//   * mma.sync int8 issue rate, m16n8k16 and m16n8k32, and bf16 m16n8k16
+//     with fp32 accumulators (the attention bodies'), register operands only;
 //   * a three-stage cp.async ring streaming L2-resident tiles into shared
 //     memory with one barrier per step and no compute, as gemm_tile runs it.
 // Build and run: python -m tae_tpu_torch.bench.ceilings  (needs nvcc and a card)
@@ -32,6 +33,22 @@ __global__ void __launch_bounds__(256) mma_rate(int iters, int* out) {
   int s = 0;
   for (int i = 0; i < 8; ++i) for (int j = 0; j < 4; ++j) s += c[i][j];
   if (s == 0x7fffffff) out[0] = s;
+}
+
+__global__ void __launch_bounds__(256) mma_rate_bf16(int iters, float* out) {
+  float c[8][4];
+  for (int i = 0; i < 8; ++i) for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+  unsigned a0 = threadIdx.x, a1 = a0 * 3, a2 = a0 * 5, a3 = a0 * 7, b0 = a0 * 11, b1 = a0 * 13;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                   : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+                   : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
+  float s = 0.f;
+  for (int i = 0; i < 8; ++i) for (int j = 0; j < 4; ++j) s += c[i][j];
+  if (s == 1.2345f) out[0] = s;
 }
 
 // each block streams `steps` tiles of `tile_bytes` from a small (L2-resident) buffer through a 3-stage ring
@@ -78,6 +95,19 @@ int main(int argc, char** argv) {
     double ops = mmas * 2.0 * 16 * 8 * (k32 ? 32 : 16);
     printf("mma m16n8k%d, %d blocks of 8 warps per SM: %.3f ms, %.1f TOP/s, %.3f mma/clk/SM (at %.3f GHz)\n",
            k32 ? 32 : 16, bps, ms, ops / ms / 1e9, mmas / sms / (ms * 1e-3 * ghz * 1e9), ghz);
+  }
+  for (int bps = 1; bps <= 2; ++bps) {
+    const int iters = 20000, blocks = sms * bps;
+    for (int rep = 0; rep < 2; ++rep) {
+      cudaEventRecord(e0);
+      mma_rate_bf16<<<blocks, 256>>>(iters, reinterpret_cast<float*>(out));
+      cudaEventRecord(e1); cudaEventSynchronize(e1);
+    }
+    cudaEventElapsedTime(&ms, e0, e1);
+    double mmas = (double)blocks * 8 * iters * 8;
+    double ops = mmas * 2.0 * 16 * 8 * 16;
+    printf("mma m16n8k16 bf16 -> f32, %d blocks of 8 warps per SM: %.3f ms, %.1f TFLOP/s, %.3f mma/clk/SM (at %.3f GHz)\n",
+           bps, ms, ops / ms / 1e9, mmas / sms / (ms * 1e-3 * ghz * 1e9), ghz);
   }
   int8_t* src; size_t src_bytes = 8u << 20; cudaMalloc(&src, src_bytes); cudaMemset(src, 1, src_bytes);
   for (int tile = 8192; tile <= 32768; tile *= 2) for (int bps = 1; bps <= 2; ++bps) {

@@ -1,5 +1,6 @@
 // Shared device helpers for the tae_tpu_torch kernels: dtype conversion,
-// 16-byte vector loads and stores, warp reductions.
+// 16-byte vector loads and stores, warp reductions, the bf16 tensor-core
+// product and its shared-memory fragment loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,6 +84,48 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// c += a * b on the tensor cores for one warp (mma.sync.m16n8k16, bf16 in,
+// fp32 accumulate). Lane (g, t) = (lane / 4, lane % 4) holds, in the PTX
+// ISA's fragment layouts: a, the 16 x 16 A tile, as (row g, columns 2t,
+// 2t + 1), (row g + 8, the same), (row g, columns 2t + 8, 2t + 9), (row
+// g + 8, the same), two bf16 to a register, the lower column in the low
+// half; b0, b1, the 16 x 8 B tile, as (rows 2t, 2t + 1 | 2t + 8, 2t + 9,
+// column g); c, the 16 x 8 fp32 tile, as (row g, columns 2t, 2t + 1), (row
+// g + 8, the same).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory, one warp:
+// lanes 8m .. 8m + 7 give the addresses of matrix m's eight rows (16 bytes
+// each, 16-byte aligned); r[m] of lane (g, t) receives matrix m's (row g,
+// columns 2t, 2t + 1). The .trans form receives (rows 2t, 2t + 1, column
+// g): a row-major tile read as the column-major B fragment of mma_bf16.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Two floats as one register of two bf16 (round to nearest even), a in the
+// low half: the A-fragment element order of mma_bf16.
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 }  // namespace tae

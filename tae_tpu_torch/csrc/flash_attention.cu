@@ -22,32 +22,48 @@
 //       rounded to bfloat16, then the serving softmax; output (B, N, C) bf16.
 // Numerics, as the Pallas bodies: fp32 scores s = (q . k) * scale; serving
 //   form p = exp(clip(s, -60, 45)) with no row max, exact form p = exp(s -
-//   rowmax); the row sum l takes the fp32 p, the P.V product takes p rounded
-//   to the input dtype, fp32 accumulation, o = (P.V) * (1 / l), one rounding
-//   at the end (flash_attention's o / l differs from it by an ulp of fp32).
-// What bounds it on the H100: at TAE shapes (N <= 256, dh 64 or 80) one
-//   head's K and V are at most 90 KB in bf16 and the scores never need device
-//   memory, so the kernel reads its operands once and writes the output once;
-//   the 4*N*N*dh flops per (image, head) are the work, and with tensor cores
-//   the bound is how many warps a block's shared memory lets an SM run, and
-//   how much of their time goes to shared-memory round trips of the scores.
-//   K15 reads half of K2's bytes (int8 qkv) and pays a multiply and a
-//   rounding per element on the way in.
+//   rowmax) with the row's global max; the row sum l takes the fp32 p, the
+//   P.V product takes p rounded to the input dtype, fp32 accumulation, o =
+//   (P.V) * (1 / l), one rounding at the end (flash_attention's o / l
+//   differs from it by an ulp of fp32). No online rescaling: it would change
+//   which bf16 p enters P.V.
+// What bounds it on the H100: bytes. At the main path's shape (B 64, N 256,
+//   16 heads of 64) the kernel must read qkv (100.7 MB in bf16) and write
+//   the output (33.6 MB): 0.040 ms at 3.35 TB/s, where the 17.2 GFLOP of the
+//   two products take 0.017 ms at the dense bf16 rate (the exact form scores
+//   twice: 25.8 GFLOP, 0.026 ms). K15 reads half of K2's bytes (int8 qkv),
+//   0.025 ms, and pays a multiply and a rounding per element on the way in.
+//   The scores never need device memory: one head's K and V are at most
+//   90 KB in bf16.
 // What the design does about it:
-//   * bfloat16 (and K15): the two products run on the tensor cores (WMMA
-//     16x16x16, bf16 in, fp32 accumulate). A block takes one (image, head)
-//     and up to 8 warps of 16 query rows; it stages the head's K and V once
-//     in shared memory (16-byte stores, rows padded by 8 elements against
-//     bank conflicts, zero rows up to a multiple of 16 tokens). Scores go
-//     through a 16 x 64 fp32 region per warp, one 64-key chunk at a time, so
-//     a block needs 109 KB at N = 256 and two blocks share an SM. The serving
-//     form needs no row max, so one pass per chunk turns scores into p (a
-//     lane pair per row: fp32 into the row sum, bf16 written over the scores
-//     in place) and accumulates P.V in registers; the exact form first finds
-//     each row's max in a pass over the chunks. The region also holds the
-//     warp's Q tile before and its output tile after. The source (packed or
-//     unpacked bf16, int8 with scales) is a template parameter that yields
-//     16 bytes of bf16 per load; nothing else differs.
+//   * bfloat16 (and K15): a block takes one (image, head) and up to kWarps
+//     (8) warps of 16 query rows. It keeps all of the head's K and V resident
+//     in shared memory (rows padded by 8 elements, so that ldmatrix of 8
+//     rows hits 8 distinct 16-byte bank groups; zero rows up to a multiple
+//     of 16 tokens). bf16 sources arrive by 16-byte cp.async, one commit
+//     group per 64-key chunk, so chunk 0's scores start while later chunks
+//     land; K15's int8 source dequantizes through registers into the same
+//     layout (the overload of stage16 chooses). Each warp's Q rows are read
+//     once, straight from device memory, into the A fragments of
+//     mma.sync.m16n8k16 and stay in registers. S = Q.K^T of 64 keys at a
+//     time (32 at dh 80, where O takes 40 registers a lane) is a row of
+//     fp32 m16n8 tiles in registers (K's B fragments by ldmatrix; a tile
+//     whose keys all lie below n takes a path with no mask or guard); the
+//     C fragments of two such tiles are, once p is packed to bf16, the A
+//     fragment of the P.V product, whose B fragments come by ldmatrix.trans
+//     of V, and O accumulates in registers (dh / 8 m16n8 tiles). A row's
+//     max and sum are reduced across the 4 lanes of its quad. The serving
+//     form takes one pass over the chunks; the exact and LSE forms take a
+//     first pass that only keeps each row's running max (recomputing S is
+//     cheaper than keeping 256 scores a row) and a second as the serving
+//     form with exp(s - max). The output is scaled by 1 / l, rounded, and
+//     transposed inside each quad so that each lane stores 16 bytes. At
+//     128 registers a thread (no spills) two blocks of 8 warps share an SM.
+//     What holds it back from its byte bound, measured (PERF.md section 6):
+//     each warp reads all of K and V from shared memory for its 16 rows, so
+//     the ldmatrix traffic (256 bytes per mma) outruns both the SM's 128
+//     bytes a clock of shared memory and the mma.sync rate, and the
+//     accurate expf costs about 12 instructions a score.
 //   * float32: tensor cores would round to TF32, so the products run on the
 //     CUDA cores in fp32: one block per (64 query rows, head, image), K, V
 //     and its Q rows staged as fp32 (rows padded to dh+4 so 16-byte loads of
@@ -55,16 +71,17 @@
 //     each lane scoring N/32 keys against the broadcast q row, then the P.V
 //     loop with float2 output columns per lane. Shared-memory bandwidth
 //     bounds this path.
-//   wgmma, TMA, register-resident scores and a deeper pipeline are later
-//   work; so is folding qk_norm's LayerNorm into K16's load.
-#include <mma.h>
+//   The bf16 body stops short of half its bound. What would move it: more
+//   query rows per warp, so that each K and V fragment feeds two row tiles,
+//   or wgmma, whose 64-row tiles read K and V from shared memory once per 64
+//   rows; later work, as is folding qk_norm's LayerNorm into K16's load.
+#include <cuda_pipeline.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 using tae::HeadLayout;
 
@@ -156,168 +173,306 @@ __device__ __forceinline__ uint4 load16(const I8Rows& rw, int which, int r, int 
 
 // ---------------------------------------------------------------- bfloat16
 
-constexpr int kTcMaxWarps = 8;  // a block takes up to 8 query tiles of 16 rows
-constexpr int kKC = 64;         // keys per chunk of scores
-
-using QFrag = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using Acc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+// Warps, each a query tile of 16 rows, per block: 8 ran 10-41% faster than
+// 4 at the main path's shape (bench/attention_body.py, PERF.md section 6);
+// the launcher takes fewer where N needs fewer.
+constexpr int kWarps = 8;
+constexpr int kKC = 64;  // keys per chunk: one cp.async group
+// keys per S tile in registers: 64 (32 fp32 a lane) at dh 64; 32 at dh 80,
+// where O takes 40 registers a lane and 64 keys would spill
+template <int DH> __host__ __device__ constexpr int tc_tile_keys() { return DH > 64 ? 32 : 64; }
 
 __host__ __device__ constexpr int tc_pad16(int n) { return (n + 15) / 16 * 16; }
 template <int DH> __host__ __device__ constexpr int tc_kv_ld() { return DH + 8; }
-// floats per row of a warp's region: a chunk of scores or a row of outputs
-template <int DH> __host__ __device__ constexpr int tc_region_ld() {
-  return (kKC > DH ? kKC : DH) + 4;
-}
 
-int tc_warps(int n) { return tc_pad16(n) / 16 < kTcMaxWarps ? tc_pad16(n) / 16 : kTcMaxWarps; }
+int tc_warps(int n) { return tc_pad16(n) / 16 < kWarps ? tc_pad16(n) / 16 : kWarps; }
 
 template <int DH>
 size_t tc_smem_bytes(int n) {
-  return sizeof(bf16) * 2 * static_cast<size_t>(tc_pad16(n)) * tc_kv_ld<DH>() +
-         sizeof(float) * tc_warps(n) * 16 * static_cast<size_t>(tc_region_ld<DH>() + 1);
+  return sizeof(bf16) * 2 * static_cast<size_t>(tc_pad16(n)) * tc_kv_ld<DH>();
 }
 
-// Scores of the warp's 16 query rows against keys [c0, c0 + kc), fp32, into
-// the warp's region (row stride RW floats).
-template <int DH>
-__device__ __forceinline__ void score_chunk(const QFrag (&qa)[DH / 16], const bf16* ks,
-                                            int c0, int kc, float* region) {
-  constexpr int LDK = tc_kv_ld<DH>();
-  for (int jt = 0; jt < kc / 16; ++jt) {
-    Acc sacc;
-    wm::fill_fragment(sacc, 0.f);
-#pragma unroll
-    for (int kt = 0; kt < DH / 16; ++kt) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> kb;
-      wm::load_matrix_sync(kb, ks + (c0 + jt * 16) * LDK + kt * 16, LDK);
-      wm::mma_sync(sacc, qa[kt], kb, sacc);
-    }
-    wm::store_matrix_sync(region + jt * 16, sacc, tc_region_ld<DH>(), wm::mem_row_major);
+// 16 bytes of row r of operand `which` into shared memory: bf16 sources by
+// cp.async (waited for per chunk), int8 sources dequantized through
+// registers.
+__device__ __forceinline__ void stage16(const Rows<bf16>& rw, int which, int r, int ch,
+                                        bf16* dst) {
+  __pipeline_memcpy_async(dst, rw.at(which, r) + ch * 8, 16);
+}
+__device__ __forceinline__ void stage16(const I8Rows& rw, int which, int r, int ch,
+                                        bf16* dst) {
+  *reinterpret_cast<uint4*>(dst) = load16(rw, which, r, ch);
+}
+
+// Wait until at most `pending` of this thread's newest cp.async groups are
+// still in flight (the instruction takes an immediate).
+__device__ __forceinline__ void wait_pending(int pending) {
+  switch (pending) {
+    case 0: __pipeline_wait_prior(0); break;
+    case 1: __pipeline_wait_prior(1); break;
+    case 2: __pipeline_wait_prior(2); break;
+    default: __pipeline_wait_prior(3); break;
   }
-  __syncwarp();
+}
+
+__device__ __forceinline__ unsigned pick4(const unsigned (&w)[4], int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+// A 4 x 4 transpose of 32-bit words inside each quad of lanes: lane t's
+// w[i] becomes lane i's w[t]. Between one 16-byte load or store per lane
+// and the fragment layout, where lane t holds columns 2t, 2t + 1 of each
+// 8-column group.
+__device__ __forceinline__ void quad_transpose(unsigned (&w)[4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  unsigned o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int src = (t - k) & 3;  // lane src sends its word t
+    const unsigned send = pick4(w, (t + k) & 3);
+    const unsigned got = k == 0 ? send : __shfl_sync(0xffffffffu, send, (lane & ~3) | src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = src == i ? got : o[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = o[i];
+}
+
+// S = Q K^T for the warp's 16 rows and the KT keys [c0, c0 + KT): n-tile
+// j holds keys c0 + 8j + 2t, +1 of rows g (s[j][0], s[j][1]) and g + 8
+// (s[j][2], s[j][3]). Unless FULL (every key of the tile below n), only the
+// kc keys that exist in shared memory are scored (kc a multiple of 16), the
+// rest stay 0. Each k-step feeds all KT / 8 accumulators, which are
+// independent.
+template <int DH, bool FULL, int KT = tc_tile_keys<DH>()>
+__device__ __forceinline__ void score_tile(float (&s)[KT / 8][4], const unsigned (&qa)[DH / 16][4],
+                                          const bf16* ks, int c0, int kc) {
+  constexpr int LDK = tc_kv_ld<DH>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  // lane l addresses row l % 8 of matrix m = l / 8: keys + 8 (m / 2),
+  // columns + 8 (m % 2): b[0..1] for n-tile 2jp, b[2..3] for 2jp + 1
+  const bf16* kl = ks + (c0 + (lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < KT / 16; ++jp) {
+      if (FULL || jp * 16 < kc) {
+        unsigned b[4];
+        tae::ldmatrix_x4(b, kl + jp * 16 * LDK + kk * 16);
+        tae::mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
+        tae::mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The scores of one tile used: PASS 0 folds them into the rows' running
+// max; PASS 1 turns them into p (fp32 into the row sum, bf16 into P's A
+// fragments) and accumulates O += P V. Keys at or beyond n (zero rows,
+// n-tiles past kc) enter neither the max nor the sum, and their p is 0.
+// FULL: nothing is masked or skipped, and the compiler sees straight-line
+// code.
+template <int DH, bool SERVING, int PASS, bool FULL, int KT = tc_tile_keys<DH>()>
+__device__ __forceinline__ void use_tile(float (&s)[KT / 8][4], float (&o)[DH / 8][4],
+                                         float (&mx)[2], float (&lsum)[2], const bf16* vl, int c0,
+                                         int kc, int n, float scale) {
+  constexpr int LDK = tc_kv_ld<DH>();
+  const int key0 = c0 + 2 * (threadIdx.x & 3);  // the key of s[0][0]
+  if (PASS == 0) {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (FULL || key0 + 8 * j + (e & 1) < n) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e] * scale);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = softmax_p(s[j][e] * scale, mx[e >> 1], SERVING);
+      if (!FULL) p = key0 + 8 * j + (e & 1) < n ? p : 0.f;
+      lsum[e >> 1] += p;
+      s[j][e] = p;
+    }
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    if (FULL || kk * 16 < kc) {
+      const unsigned pa[4] = {tae::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              tae::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              tae::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              tae::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        unsigned bv[4];
+        tae::ldmatrix_x4_trans(bv, vl + (c0 + kk * 16) * LDK + dp * 16);
+        tae::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        tae::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+}
+
+// The warp's sweep over its key tiles in pass PASS. WAIT: the block's first
+// pass, which waits for each 64-key chunk before its first product; the
+// block's only barriers are there, so warps whose rows all lie beyond n
+// (inactive) take part in them and skip the work.
+template <int DH, bool SERVING, int PASS, bool WAIT>
+__device__ __forceinline__ void sweep(const unsigned (&qa)[DH / 16][4], float (&o)[DH / 8][4],
+                                      float (&mx)[2], float (&lsum)[2], const bf16* ks,
+                                      const bf16* vl, int n, int np, float scale, bool active) {
+  constexpr int KT = tc_tile_keys<DH>();
+  const int chunks = (np + kKC - 1) / kKC, tiles = (np + KT - 1) / KT;
+  for (int i = 0; i < tiles; ++i) {
+    if (WAIT && i * KT % kKC == 0) {
+      wait_pending(chunks - 1 - i * KT / kKC);
+      __syncthreads();
+    }
+    if (!active) continue;
+    const int c0 = i * KT;  // the tile's first key
+    float s[KT / 8][4];
+    if (c0 + KT <= n) {
+      score_tile<DH, true>(s, qa, ks, c0, KT);
+      use_tile<DH, SERVING, PASS, true>(s, o, mx, lsum, vl, c0, KT, n, scale);
+    } else {
+      const int kc = min(KT, np - c0);
+      score_tile<DH, false>(s, qa, ks, c0, kc);
+      use_tile<DH, SERVING, PASS, false>(s, o, mx, lsum, vl, c0, kc, n, scale);
+    }
+  }
 }
 
 template <int DH, bool SERVING, typename Src>
-__global__ void __launch_bounds__(kTcMaxWarps * 32, 2)
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
 attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
                    float* __restrict__ lse, int n, int heads, float scale) {
   constexpr int LDK = tc_kv_ld<DH>();
-  constexpr int RW = tc_region_ld<DH>();
-  constexpr int LDB = 2 * RW;  // the region's row stride in bf16 elements
-  constexpr int CH = DH / 8;   // 16-byte chunks per head row
+  constexpr int CH = DH / 8;  // 16-byte chunks per head row
+  constexpr int QG = (CH + 3) / 4;  // quad transposes per row
   const int np = tc_pad16(n);
-  const int warps = blockDim.x / 32;
+  const int chunks = (np + kKC - 1) / kKC;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);               // (np, LDK)
-  bf16* vs = ks + np * LDK;                                    // (np, LDK)
-  float* regions = reinterpret_cast<float*>(vs + np * LDK);   // warps x (16, RW)
-  float* linv_all = regions + warps * 16 * RW;                 // warps x 16
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // (np, LDK)
+  bf16* vs = ks + np * LDK;                       // (np, LDK)
 
   const int b = blockIdx.z, h = blockIdx.y;
   const auto rows = src.rows(b, h);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  for (int idx = threadIdx.x; idx < np * CH; idx += blockDim.x) {
-    const int r = idx / CH, ch = idx - r * CH;
-    uint4 kq = zero, vq = zero;
-    if (r < n) {
-      kq = load16(rows, 1, r, ch);
-      vq = load16(rows, 2, r, ch);
+  // every chunk's K and V rows, one commit group per chunk; zero rows pad
+  // the last chunk to a multiple of 16 keys
+  for (int c = 0; c < chunks; ++c) {
+    const int r0 = c * kKC, nr = min(kKC, np - r0);
+    for (int idx = threadIdx.x; idx < nr * CH; idx += blockDim.x) {
+      const int r = r0 + idx / CH, ch = idx % CH;
+      bf16* kd = ks + r * LDK + ch * 8;
+      bf16* vd = vs + r * LDK + ch * 8;
+      if (r < n) {
+        stage16(rows, 1, r, ch, kd);
+        stage16(rows, 2, r, ch, vd);
+      } else {
+        *reinterpret_cast<uint4*>(kd) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
-    *reinterpret_cast<uint4*>(ks + r * LDK + ch * 8) = kq;
-    *reinterpret_cast<uint4*>(vs + r * LDK + ch * 8) = vq;
+    __pipeline_commit();
   }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = (blockIdx.x * warps + warp) * 16;  // this warp's first query row
-  float* region = regions + warp * 16 * RW;
-  float* linv = linv_all + warp * 16;
-  bf16* rb = reinterpret_cast<bf16*>(region);
-  for (int idx = lane; idx < 16 * CH; idx += 32) {
-    const int r = idx / CH, ch = idx - r * CH;
-    uint4 qq = zero;
-    if (q0 + r < n) qq = load16(rows, 0, q0 + r, ch);
-    *reinterpret_cast<uint4*>(rb + r * LDB + ch * 8) = qq;
-  }
-  __syncthreads();  // the only block-wide barrier: K, V and every Q tile staged
-  if (q0 >= n) return;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;  // the warp's first row
+  const bool active = q0 < n;
 
-  QFrag qa[DH / 16];
+  // Q's A fragments, read once: lane t loads 16-byte chunks t, t + 4, ... of
+  // rows g and g + 8, and the quad transposes them into word t of each
+  unsigned qa[DH / 16][4];
+  {
+    unsigned qw[2][CH];
 #pragma unroll
-  for (int kt = 0; kt < DH / 16; ++kt) wm::load_matrix_sync(qa[kt], rb + kt * 16, LDB);
-  __syncwarp();  // Q now lives in registers; the region takes the scores
-
-  // Softmax layout over a 16 x kKC chunk: lane -> row sr, the 32 columns
-  // from sc, so a row's max and sum need one shuffle with the lane's pair.
-  const int sr = lane >> 1, sc = (lane & 1) * 32;
-  float* srow = region + sr * RW + sc;
-  float s[32];
-
-  // exact form: a first pass over the key chunks finds each row's max
-  float mx = -INFINITY;
-  if (!SERVING) {
-    for (int c0 = 0; c0 < np; c0 += kKC) {
-      const int kc = min(kKC, np - c0);
-      score_chunk<DH>(qa, ks, c0, kc, region);
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + g + 8 * half;
 #pragma unroll
-      for (int k = 0; k < 32; k += 4) tae::load_vec(srow + k, s + k);
+      for (int q = 0; q < QG; ++q) {
+        const int ch = 4 * q + t;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (active && r < n && ch < CH) v = load16(rows, 0, r, ch);
+        unsigned w[4] = {v.x, v.y, v.z, v.w};
+        quad_transpose(w);
 #pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (sc + k < kc && c0 + sc + k < n) mx = fmaxf(mx, s[k] * scale);
-      __syncwarp();
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  }
-
-  // scores -> p (fp32 into the row sum, bf16 over the scores) -> O += P V
-  float lsum = 0.f;
-  Acc oacc[DH / 16];
-#pragma unroll
-  for (int dt = 0; dt < DH / 16; ++dt) wm::fill_fragment(oacc[dt], 0.f);
-  for (int c0 = 0; c0 < np; c0 += kKC) {
-    const int kc = min(kKC, np - c0);
-    score_chunk<DH>(qa, ks, c0, kc, region);
-#pragma unroll
-    for (int k = 0; k < 32; k += 4) tae::load_vec(srow + k, s + k);
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      s[k] = sc + k < kc && c0 + sc + k < n ? softmax_p(s[k] * scale, mx, SERVING) : 0.f;
-      lsum += s[k];
-    }
-    __syncwarp();  // every score of the chunk is read before p overwrites them
-    if (sc < kc) {
-#pragma unroll
-      for (int k = 0; k < 32; k += 8) tae::store_vec(rb + sr * LDB + sc + k, s + k);
-    }
-    __syncwarp();
-    for (int kt = 0; kt < kc / 16; ++kt) {
-      QFrag pa;
-      wm::load_matrix_sync(pa, rb + kt * 16, LDB);
-#pragma unroll
-      for (int dt = 0; dt < DH / 16; ++dt) {
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> vb;
-        wm::load_matrix_sync(vb, vs + (c0 + kt * 16) * LDK + dt * 16, LDK);
-        wm::mma_sync(oacc[dt], pa, vb, oacc[dt]);
+        for (int i = 0; i < 4; ++i)
+          if (4 * q + i < CH) qw[half][4 * q + i] = w[i];
       }
     }
-    __syncwarp();  // P is consumed before the next chunk's scores land
-  }
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-  if (sc == 0) linv[sr] = 1.f / lsum;
-  if (!SERVING && lse != nullptr && sc == 0 && q0 + sr < n)
-    lse[(static_cast<long>(b) * heads + h) * n + q0 + sr] = mx + logf(lsum);
 #pragma unroll
-  for (int dt = 0; dt < DH / 16; ++dt)
-    wm::store_matrix_sync(region + dt * 16, oacc[dt], RW, wm::mem_row_major);
-  __syncwarp();
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      qa[kk][0] = qw[0][2 * kk];
+      qa[kk][1] = qw[1][2 * kk];
+      qa[kk][2] = qw[0][2 * kk + 1];
+      qa[kk][3] = qw[1][2 * kk + 1];
+    }
+  }
 
+  float mx[2] = {-INFINITY, -INFINITY};  // rows g, g + 8
+  float lsum[2] = {0.f, 0.f};
+  float o[DH / 8][4];
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  // lane l addresses row l % 8 of matrix m = l / 8: keys + 8 (m % 2),
+  // columns + 8 (m / 2): b[0..1] for d-tile 2dp, b[2..3] for 2dp + 1
+  const bf16* vl = vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDK + (lane >> 4) * 8;
+
+  // the serving form takes one pass; the exact and LSE forms first find
+  // each row's max in a pass of their own (reduced across the row's quad)
+  if (SERVING) {
+    sweep<DH, SERVING, 1, true>(qa, o, mx, lsum, ks, vl, n, np, scale, active);
+    if (!active) return;
+  } else {
+    sweep<DH, SERVING, 0, true>(qa, o, mx, lsum, ks, vl, n, np, scale, active);
+    if (!active) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+    sweep<DH, SERVING, 1, false>(qa, o, mx, lsum, ks, vl, n, np, scale, active);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 1);
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
+    inv[i] = 1.f / lsum[i];
+    const int r = q0 + g + 8 * i;
+    if (!SERVING && lse != nullptr && t == 0 && r < n)
+      lse[(static_cast<long>(b) * heads + h) * n + r] = mx[i] + logf(lsum[i]);
+  }
+
+  // o * (1 / l) rounded to bf16; the quad transposes each row's words so
+  // that lane t stores 16-byte chunks t, t + 4, ...
   bf16* obase = out + ol.at(b, h);
-  const int nrows = min(16, n - q0);
-  for (int idx = lane; idx < nrows * (DH / 2); idx += 32) {
-    const int r = idx / (DH / 2), c2 = idx - r * (DH / 2);
-    const float* o = region + r * RW + 2 * c2;
-    const float inv = linv[r];
-    tae::store2(obase + (q0 + r) * ol.row + 2 * c2, o[0] * inv, o[1] * inv);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + g + 8 * half;
+#pragma unroll
+    for (int q = 0; q < QG; ++q) {
+      unsigned w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * q + i;
+        w[i] = d < CH ? tae::pack_bf16(o[d][2 * half] * inv[half], o[d][2 * half + 1] * inv[half])
+                      : 0u;
+      }
+      quad_transpose(w);
+      const int ch = 4 * q + t;
+      if (r < n && ch < CH)
+        *reinterpret_cast<uint4*>(obase + r * ol.row + ch * 8) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
   }
 }
 
@@ -456,10 +611,19 @@ int launch(void (*kernel)(const Src, T*, const HeadLayout, float*, int, int, flo
 template <int DH, bool SERVING, typename Src>
 int launch_bf16(const Src& src, void* out, const HeadLayout& ol, void* lse, int batch, int n,
                 int heads, float scale, cudaStream_t stream) {
+  auto* kernel = attention_fwd_bf16<DH, SERVING, Src>;
   static size_t smem_allowed = 0;  // one per kernel instantiation
-  return launch(attention_fwd_bf16<DH, SERVING, Src>, tc_smem_bytes<DH>(n), smem_allowed,
-                tc_warps(n) * 32, tc_warps(n) * 16, src, out, ol, lse, batch, n, heads, scale,
-                stream);
+  static bool carved = false;
+  if (!carved) {
+    // all of the SM's unified memory as shared memory, so that as many
+    // blocks fit as the registers allow
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    carved = true;
+  }
+  return launch(kernel, tc_smem_bytes<DH>(n), smem_allowed, tc_warps(n) * 32, tc_warps(n) * 16,
+                src, out, ol, lse, batch, n, heads, scale, stream);
 }
 
 template <int DH, bool SERVING>

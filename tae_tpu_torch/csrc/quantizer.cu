@@ -74,15 +74,6 @@ __global__ void __launch_bounds__(kNT) nearest_code_norms_kernel(const T* __rest
   if (lane == 0) cn[code] = s;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 __host__ __device__ constexpr int bf16_smem(int bm, int v) {
   return bm * (round_up(v, kTile) + 8) * 2 + kStages * kTile * kLdC * 2;

@@ -139,33 +139,34 @@ def find_nvcc() -> str:
         "cannot be built, and CUDA tensors have no other path")
 
 
-def sources() -> list[pathlib.Path]:
-    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+def sources(csrc_dir: pathlib.Path = CSRC_DIR) -> list[pathlib.Path]:
+    return sorted(p for p in csrc_dir.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc_dir: pathlib.Path = CSRC_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources(csrc_dir):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build_library(build_root: pathlib.Path = BUILD_ROOT) -> pathlib.Path:
-    """Compile the kernels unless a build of the same sources exists;
-    returns the library's path. ``build.log`` beside it keeps ptxas's
-    register and shared-memory report."""
-    out_dir = build_root / source_hash()
+def build_library(build_root: pathlib.Path = BUILD_ROOT,
+                  csrc_dir: pathlib.Path = CSRC_DIR) -> pathlib.Path:
+    """Compile the kernels of ``csrc_dir`` unless a build of the same
+    sources exists; returns the library's path. ``build.log`` beside it
+    keeps ptxas's register and shared-memory report."""
+    out_dir = build_root / source_hash(csrc_dir)
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
     nvcc = find_nvcc()
-    units = [p for p in sources() if p.suffix == ".cu"]
+    units = [p for p in sources(csrc_dir) if p.suffix == ".cu"]
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         tmp_dir = pathlib.Path(tmp)
         objects = [tmp_dir / (p.stem + ".o") for p in units]
-        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o",
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(csrc_dir), "-c", str(src), "-o",
                  str(obj)] for src, obj in zip(units, objects)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -197,16 +198,22 @@ def build_library(build_root: pathlib.Path = BUILD_ROOT) -> pathlib.Path:
     return lib
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    with _build_lock:
-        lib = ctypes.CDLL(str(build_library()))
+def load(path: pathlib.Path) -> ctypes.CDLL:
+    """A built kernel library, its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    with _build_lock:
+        path = build_library()
+    return load(path)
 
 
 def check(rc: int, what: str) -> None:

@@ -25,7 +25,9 @@ over V), exact ties and the shapes the wrapper must refuse; for the unpacked
 attention (K16, K17), both forms, every token count class, strided operands
 and the qk_norm block; for K4's row-block form (``q8_out``, in-kernel
 quantize) and the int8-input attention (K15), ragged rows and every scale
-block a model gives them.
+block a model gives them; for the bf16 forward body that K2, K16 and K15
+share, token counts on both sides of its 64-key chunks and exact forms on
+scores far past the serving clip.
 """
 
 import pytest
@@ -1174,6 +1176,76 @@ def test_qkv_i8_attention_kernel_matches_plain(gen, b, n, h, dh, bn):
     with pytest.raises(ValueError, match="must divide"):
         fused_qkv_attention_i8(qkv, narrow, h)
 
+
+
+# ---- the bf16 forward body (K2, K15, K16) across its 64-key chunk edges
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("n", [63, 65, 129, 192])
+def test_attention_forwards_cross_the_key_chunks(gen, n, dh):
+    """Token counts just below and above the 64-key chunks (and a partial
+    last chunk): K2 in its serving, exact and LSE forms, K16 in both forms
+    with v a strided view, and K15, each against its plain version, one
+    launch counted each."""
+    h, b = 4, 3
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    before = (fused_qkv_attention.launches, fused_qkv_attention_fwd_lse.launches,
+              flash_attention.launches, flash_attention_fwd_lse.launches,
+              fused_qkv_attention_i8.launches)
+    for serving in (True, False):
+        _close(fused_qkv_attention(qkv, h, serving=serving),
+               fused_qkv_attention_reference(qkv, h, serving=serving),
+               torch.bfloat16)
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+    _close(o, o_ref, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    q, k, v = _qkv_views(gen, b, n, h, dh, torch.bfloat16)
+    o_ref, lse_ref = flash_attention_reference(q, k, v)
+    _close(flash_attention(q, k, v), o_ref, torch.bfloat16)
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    _close(o, o_ref, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    # K15: one scale block per q, k and v column block (bn = h * dh)
+    qkv_q = _rand_i8(gen, (b, n, 3 * h * dh))
+    scales = torch.rand((3, b * n, 1), generator=gen, device="cuda") * 0.02 + 0.001
+    _close(fused_qkv_attention_i8(qkv_q, scales, h),
+           fused_qkv_attention_i8_reference(qkv_q, scales, h), torch.bfloat16)
+    assert (fused_qkv_attention.launches, fused_qkv_attention_fwd_lse.launches,
+            flash_attention.launches, flash_attention_fwd_lse.launches,
+            fused_qkv_attention_i8.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1,
+        before[4] + 1)
+
+
+@pytest.mark.parametrize("n", [65, 129, 256])
+def test_attention_exact_forms_hold_scores_far_beyond_the_clip(gen, n):
+    """Scores in the hundreds, far outside the serving clip [-60, 45]:
+    exp(s) alone overflows, so only the max pass keeps the exact forms
+    finite. The largest score of a row lies in its last chunk for half of
+    the rows, so the max must cover every chunk."""
+    h, dh, b = 2, 64, 2
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda")
+    qkv[:, :, :h * dh] *= 60.0
+    qkv[:, n - 1, h * dh:2 * h * dh] *= 4.0      # a large key in the last chunk
+    qkv = qkv.to(torch.bfloat16)
+    exact = fused_qkv_attention(qkv, h, serving=False)
+    assert torch.isfinite(exact.float()).all()
+    _close(exact, fused_qkv_attention_reference(qkv, h, serving=False),
+           torch.bfloat16)
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert float(lse_ref.max()) > 200.0          # exp(s) overflows fp32 past 88.7
+    _close(o, o_ref, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    r = qkv.reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    q, k, v = r[0].contiguous(), r[1].contiguous(), r[2]
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    o_ref, lse_ref = flash_attention_reference(q, k, v)
+    _close(o, o_ref, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
 
 @pytest.mark.parametrize("n", [256, 64])
 def test_qkv_q8_tae_kernels_match_reference_backend(gen, n):
