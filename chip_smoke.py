@@ -12,7 +12,7 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
    sm_90a and prints the seconds and ptxas's registers and spills of every
    kernel; fails if an instantiation of the register-resident attention
-   forward (K2, K15, K16) spills;
+   bodies, forward (K2, K15, K16) or backward (K10, K17), spills;
 3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
@@ -32,7 +32,10 @@ Phases (each prints its lines; any failure exits non-zero):
    unpacked attention of a qk_norm block (K16, both forms; K17) beside SDPA's
    forward and backward; K4's ``q8_out`` and in-kernel-quantize forms, and the
    int8-input attention K15 on K4's ``q8_out`` output, beside the default
-   int8 route (K4, then K7);
+   int8 route (K4, then K7); the attention backward (K10, K17) also at the
+   token counts where its bf16 body's tiles and row ranges end
+   (``BWD_EDGES``), two runs bit-equal at every shape, and timed between
+   CUDA events as SDPA's backward is;
 4. paths (``PATHS``): for each model, built at full width with weights from
    ``torch.Generator("cuda").manual_seed(0)``, the bf16 and / or the int8
    (w8a8) ``Tokenizer`` answers encode, decode and reconstruct requests;
@@ -262,6 +265,10 @@ REMAT_STEPS = 5
 # qknorm_blocks: (width, heads, depth, tokens) of each stack, timed steps
 QKNORM_STACKS = ((1024, 16, 15, 256), (2560, 32, 2, 16))
 QKNORM_STEPS = 3
+# (batch, tokens, heads, head dim) of the attention backward's bf16 checks
+# at the edges of its body's 16-row tiles and 128-row ranges (K10, K17;
+# untimed, two runs bit-equal)
+BWD_EDGES = tuple((2, n, 2, dh) for dh in (64, 80) for n in (1, 17, 129, 255))
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -367,30 +374,36 @@ def phase_build():
     build.library()
     print(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(build.PACKAGE_DIR.parent)}")
-    entry, body = "", {}
+    entry = ""
+    body = {"attention_fwd_bf16": {}, "attention_bwd_bf16": {}}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "spill" in line or "registers" in line:
             print(f"[build] {entry}: {line.strip()}")
-            if "attention_fwd_bf16" in entry:
-                body.setdefault(entry, []).append(line.strip())
-    # the register-resident attention forward (K2, K15, K16): dh 64 and 80,
-    # serving and exact, bf16 and (serving only) int8 sources
-    check(len(body) == 6, f"ptxas reported {len(body)} instantiations of "
-                          "attention_fwd_bf16, expected 6")
-    for entry, lines in body.items():
-        spills = [int(x) for line in lines for x in
-                  re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
-        regs = [int(x) for line in lines for x in
-                re.findall(r"Used (\d+) registers", line)]
-        m = re.search(r"attention_fwd_bf16ILi(\d+)ELb(\d)", entry)
-        print(f"[build] attention_fwd_bf16 dh {m.group(1)} "
-              f"{'serving' if m.group(2) == '1' else 'exact'} "
-              f"{'int8' if 'I8Src' in entry else 'bf16'}: registers {regs}, "
-              f"spill bytes {sum(spills)}")
-        check(len(spills) == 2 and sum(spills) == 0,
-              f"ptxas spills in {entry}: {lines}")
+            for kernel in body:
+                if kernel in entry:
+                    body[kernel].setdefault(entry, []).append(line.strip())
+    # the register-resident attention bodies: the forward (K2, K15, K16) at
+    # dh 64 and 80, serving and exact, bf16 and (serving only) int8 sources;
+    # the backward (K10, K17) at dh 64 and 80
+    for kernel, want in (("attention_fwd_bf16", 6), ("attention_bwd_bf16", 2)):
+        found = body[kernel]
+        check(len(found) == want, f"ptxas reported {len(found)} "
+                                  f"instantiations of {kernel}, expected {want}")
+        for entry, lines in found.items():
+            spills = [int(x) for line in lines for x in
+                      re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+            regs = [int(x) for line in lines for x in
+                    re.findall(r"Used (\d+) registers", line)]
+            m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d))?", entry)
+            form = "" if m.group(2) is None else (
+                f" {'serving' if m.group(2) == '1' else 'exact'} "
+                f"{'int8' if 'I8Src' in entry else 'bf16'}")
+            print(f"[build] {kernel} dh {m.group(1)}{form}: registers {regs}, "
+                  f"spill bytes {sum(spills)}")
+            check(len(spills) == 2 and sum(spills) == 0,
+                  f"ptxas spills in {entry}: {lines}")
 
 
 def time_ms(fn) -> float:
@@ -912,7 +925,8 @@ def phase_train_kernels() -> dict:
         x = torch.randn(shape, generator=gen, device="cuda")
         return (x * scale + shift).to(dtype)
 
-    def record(kernel, label, err, ms, plain, bnd, lib, lib_name):
+    def record(kernel, label, err, ms, plain, bnd, lib, lib_name,
+               events=None):
         res[kernel].append(dict(case=label, max_abs_err=err, ms=ms,
                                 plain_ms=plain, bound_ms=bnd[0],
                                 bound_by=bnd[1], library_ms=lib))
@@ -920,6 +934,9 @@ def phase_train_kernels() -> dict:
             f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
             f"{bnd[0]:.4f} ms ({bnd[1]})")
         lib_s = "" if lib is None else f", {lib_name} {lib:.4f} ms"
+        if events is not None:
+            res[kernel][-1]["events_ms"] = events
+            lib_s += f"; kernel between events as {lib_name} {events:.4f} ms"
         print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{lib_s}")
 
     # ---- K1 with stats, K11
@@ -976,13 +993,15 @@ def phase_train_kernels() -> dict:
                bound(nbytes(x, w, mean, rstd, dy, dx, dw, db), 0.0, "bf16"),
                lib, "F.layer_norm's backward")
 
-    # ---- K2 with LSE, K10
+    # ---- K2 with LSE, K10; then, untimed, the token counts at the edges of
+    #      the bf16 backward body's 16-row tiles and 128-row ranges
     for batch, n, h, dh, dtype in ((KERNEL_BATCH, 256, 16, 64, torch.bfloat16),
                                    (8, 256, 16, 64, torch.float32),
                                    (KERNEL_BATCH, 64, 32, 64, torch.bfloat16),
                                    (KERNEL_BATCH, 16, 32, 80, torch.bfloat16),
                                    (7, 100, 4, 80, torch.bfloat16),
-                                   (3, 100, 4, 80, torch.float32)):
+                                   (3, 100, 4, 80, torch.float32),
+                                   *(e + (torch.bfloat16,) for e in BWD_EDGES)):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
         timed = batch == KERNEL_BATCH
@@ -1012,13 +1031,16 @@ def phase_train_kernels() -> dict:
         err = compare(label, dqkv, want, **tol)
         check(torch.equal(dqkv, fused_qkv_attention_bwd(qkv, o, lse, do, h)),
               f"{label}: two runs differ in their bits")
-        lib = None
+        lib = events = None
         if timed:
             q, k, v = (t.detach().requires_grad_() for t in r)
             so = F.scaled_dot_product_attention(q, k, v)
             sdo = do.view(batch, n, h, dh).transpose(1, 2)
             lib = time_ms_events(lambda: torch.autograd.grad(
                 so, (q, k, v), sdo, retain_graph=True))
+            # the kernel timed as SDPA's backward is, for a like ratio
+            events = time_ms_events(
+                lambda: fused_qkv_attention_bwd(qkv, o, lse, do, h))
         record("fused_qkv_attention_bwd", label, err,
                time_ms(lambda: fused_qkv_attention_bwd(qkv, o, lse, do, h))
                if timed else None,
@@ -1026,7 +1048,28 @@ def phase_train_kernels() -> dict:
                    qkv, o, lse, do, h)) if timed else None,
                bound(nbytes(qkv, o, lse, do, dqkv),
                      10.0 * batch * h * n * n * dh, "bf16"),
-               lib, "SDPA's backward")
+               lib, "SDPA's backward", events)
+
+    # scores far below zero at a ragged token count: every key of a head is
+    # one +-1 vector u and every query -25 u, so lse is about -200 and a key
+    # beyond n (zero in shared memory, score 0) would have exp(0 - lse) =
+    # inf unless the last tile masks it to p = 0
+    b, n, h, dh = 2, 17, 2, 64
+    c = h * dh
+    u = (torch.randint(0, 2, (1, 1, h, dh), generator=gen, device="cuda") * 2
+         - 1).float().expand(b, n, h, dh)
+    qkv = torch.cat([(-25.0 * u).reshape(b, n, c), u.reshape(b, n, c),
+                     randn((b, n, c), torch.float32)], dim=-1).bfloat16()
+    do = randn((b, n, c), torch.bfloat16)
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    label = f"K10 attention backward {tuple(qkv.shape)} h={h}, lse " \
+            f"{float(lse.max()):.1f} or less"
+    dqkv = fused_qkv_attention_bwd(qkv, o, lse, do, h)
+    err = compare(label, dqkv, fused_qkv_attention_backward_reference(
+        qkv, o, lse, do, h), **TOL["bfloat16"])
+    record("fused_qkv_attention_bwd", label, err, None, None,
+           bound(nbytes(qkv, o, lse, do, dqkv), 10.0 * b * h * n * n * dh,
+                 "bf16"), None, "")
     return res
 
 
@@ -1312,7 +1355,8 @@ def phase_last_kernels() -> dict:
                                (KERNEL_BATCH, 16, 32, 80, bf16),
                                (KERNEL_BATCH, 4, 32, 80, bf16),
                                (7, 100, 4, 80, bf16), (8, 256, 16, 64, f32),
-                               (3, 17, 2, 64, f32)):
+                               (3, 17, 2, 64, f32),
+                               *(e + (bf16,) for e in BWD_EDGES)):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
         timed = b == KERNEL_BATCH
@@ -1355,6 +1399,15 @@ def phase_last_kernels() -> dict:
             # bf16: P and dS rounded to bf16 ahead of the last three products
             check(g.shape == w.shape and g.dtype == w.dtype
                   and bool(torch.isfinite(g).all()), f"{label} {which}")
+            if n == 1 and which != "dv":
+                # one key: P = 1 and dS = dP - delta, exactly 0 (so are dq
+                # and dk) but for the order of the two fp32 sums
+                worst = float(g.float().abs().max())
+                check(worst <= 1e-3 * float(got[2].float().abs().max()),
+                      f"{label} {which}: {worst:.3g} where the exact value "
+                      f"is 0")
+                err = max(err, worst)
+                continue
             rel = rel_err(g, w)
             check(rel <= K17_BF16_REL, f"{label} {which}: relative error "
                                        f"{rel:.3g} against the fp32 plain "
@@ -1363,19 +1416,25 @@ def phase_last_kernels() -> dict:
         again = flash_attention_bwd(q, k, v, o, lse, do)
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"{label}: two runs differ in their bits")
-        lib = None
+        lib = events = None
+        more = {}
         if timed:
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
             so = F.scaled_dot_product_attention(qg, kg, vg)
             lib = time_ms_events(lambda: torch.autograd.grad(
                 so, (qg, kg, vg), do, retain_graph=True))
+            # the kernel timed as SDPA's backward is, for a like ratio
+            more["events_ms"] = events = time_ms_events(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do))
         record("flash_attention_bwd", label, err,
                time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
                if timed else None,
                time_ms(lambda: flash_attention_backward_reference(
                    q, k, v, o, lse, do)) if timed else None,
                bound(nbytes(q, k, v, o, lse, do, *got), 2.5 * ops, "bf16"),
-               lib, "" if lib is None else f"; SDPA's backward {lib:.4f} ms")
+               lib, "" if lib is None else (
+                   f"; SDPA's backward {lib:.4f} ms; kernel between events "
+                   f"as SDPA's backward {events:.4f} ms"), **more)
 
     # ---- K4's q8_out form at the p16 qkv shape (and odd rows), the
     #      in-kernel quantize of a float x; K15 on that q8_out output

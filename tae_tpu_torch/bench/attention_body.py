@@ -25,19 +25,25 @@ the source:
   instructions of Q.K^T and those of P.V, so that the differences in time
   say what each part costs inside the whole.
 
+* ``--parent DIR``: the body of another checkout, built from its kernel
+  sources (``DIR`` a ``csrc`` directory, for example of a ``git archive`` of
+  the parent commit); its outputs must equal the tree's bit for bit where
+  the forward body did not change.
+
 Each variant is built from a copy of the sources under
 ``tae_tpu_torch/_build/`` and loaded beside the tree's library; the two
 run in turns (tree, variant, variant, tree) in one process on one card.
 Prints the card's name and power limit, ptxas's report for the body's
 instantiations, and the median device time of each entry.
 
-    python -m tae_tpu_torch.bench.attention_body [variant ...]
+    python -m tae_tpu_torch.bench.attention_body [--parent DIR] [variant ...]
 
 Needs ``nvcc`` and a CUDA card.
 """
 
 from __future__ import annotations
 
+import pathlib
 import re
 import shutil
 import statistics
@@ -52,8 +58,8 @@ REPS, REPLAYS = 20, 7           # launches per CUDA graph, replays (median)
 B, N, H, DH, BN = 64, 256, 16, 64, 512
 # variant -> ([(text of flash_attention.cu, its replacement), ...], outputs
 # compared with the tree's)
-ONE_WAIT = ("    if (WAIT && i * KT % kKC == 0) {\n      wait_pending(chunks - 1 - i * KT / kKC);",
-            "    if (WAIT && i == 0) {\n      wait_pending(0);")
+ONE_WAIT = ("    if (WAIT && i * KT % kKC == 0) {\n      tae::wait_pending(chunks - 1 - i * KT / kKC);",
+            "    if (WAIT && i == 0) {\n      tae::wait_pending(0);")
 STAGGER = ("const int c0 = i * KT;", "const int c0 = (i + (threadIdx.x >> 5)) % tiles * KT;")
 VARIANTS = {
     "warps4": ([("constexpr int kWarps = 8;", "constexpr int kWarps = 4;")], True),
@@ -78,36 +84,43 @@ VARIANTS = {
 }
 
 
+def build_variant(tag: str, source: str, edits):
+    """(library, its build directory) of the kernel sources with ``edits``
+    ((text, replacement) pairs, each text found exactly once) made to
+    ``source`` (a file of ``csrc/``), built from a copy under ``_build/``."""
+    text = (build.CSRC_DIR / source).read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{tag}: {old!r} is not in {source} exactly once")
+        text = text.replace(old, new)
+    src = build.BUILD_ROOT / f"csrc_{tag}"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(build.CSRC_DIR, src)
+    (src / source).write_text(text)
+    path = build.build_library(build.BUILD_ROOT, src)
+    return build.load(path), path.parent
+
+
 def variant(name: str):
     """(library, its build directory) for the tree (``name`` None) or a
     variant."""
     if name is None:
         return build.library(), build.BUILD_ROOT / build.source_hash()
-    text = (build.CSRC_DIR / "flash_attention.cu").read_text()
-    for old, new in VARIANTS[name][0]:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} is not in flash_attention.cu "
-                               "exactly once")
-        text = text.replace(old, new)
-    src = build.BUILD_ROOT / f"csrc_{name}"
-    shutil.rmtree(src, ignore_errors=True)
-    shutil.copytree(build.CSRC_DIR, src)
-    (src / "flash_attention.cu").write_text(text)
-    path = build.build_library(build.BUILD_ROOT, src)
-    return build.load(path), path.parent
+    return build_variant(name, "flash_attention.cu", VARIANTS[name][0])
 
 
-def ptxas_report(build_dir) -> list[str]:
-    """ptxas's registers and spills of attention_fwd_bf16's instantiations."""
+def ptxas_report(build_dir, kernel: str = "attention_fwd_bf16") -> list[str]:
+    """ptxas's registers and spills of ``kernel``'s instantiations."""
     out, entry = [], ""
     for line in (build_dir / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif "attention_fwd_bf16" in entry and ("spill" in line
-                                                or "registers" in line):
-            m = re.search(r"attention_fwd_bf16ILi(\d+)ELb(\d)", entry)
-            name = (f"dh {m.group(1)} {'serving' if m.group(2) == '1' else 'exact'}"
-                    f" {'int8' if 'I8Src' in entry else 'bf16'}")
+        elif kernel in entry and ("spill" in line or "registers" in line):
+            m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d))?", entry)
+            name = f"dh {m.group(1)}"
+            if m.group(2) is not None:
+                name += (f" {'serving' if m.group(2) == '1' else 'exact'}"
+                         f" {'int8' if 'I8Src' in entry else 'bf16'}")
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
 
@@ -183,7 +196,11 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    names = argv or list(VARIANTS)
+    parent = None
+    if "--parent" in argv:
+        i = argv.index("--parent")
+        parent, argv = pathlib.Path(argv[i + 1]), argv[:i] + argv[i + 2:]
+    names = (["parent"] if parent else []) + (argv or ([] if parent else list(VARIANTS)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -194,11 +211,16 @@ def main(argv: list[str]) -> int:
     base = entries(tree)
     ok = True
     for name in names:
-        lib, build_dir = variant(name)
+        if name == "parent":
+            lib = build.load(build.build_library(build.BUILD_ROOT / "parent", parent))
+            compared = True
+        else:
+            lib, build_dir = variant(name)
+            compared = VARIANTS[name][1]
         if name == "warps4":
             for line in ptxas_report(build_dir):
                 print(f"[{name}] {line}")
-        runs, compared = entries(lib), VARIANTS[name][1]
+        runs = entries(lib)
         for (entry, call0, res0), (_, call1, res1) in zip(base, runs):
             if compared:
                 outs = []

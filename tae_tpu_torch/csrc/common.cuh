@@ -1,9 +1,11 @@
 // Shared device helpers for the tae_tpu_torch kernels: dtype conversion,
 // 16-byte vector loads and stores, warp reductions, the bf16 tensor-core
-// product and its shared-memory fragment loads.
+// product, its shared-memory fragment loads, and the cp.async staging and
+// quad transposes around it that the attention bodies share.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace tae {
@@ -108,17 +110,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 // each, 16-byte aligned); r[m] of lane (g, t) receives matrix m's (row g,
 // columns 2t, 2t + 1). The .trans form receives (rows 2t, 2t + 1, column
 // g): a row-major tile read as the column-major B fragment of mma_bf16.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+// The _at forms take the row's 32-bit shared-memory address (smem_addr),
+// one register where a generic pointer takes two.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldmatrix_x4_at(unsigned (&r)[4], unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+__device__ __forceinline__ void ldmatrix_x4_trans_at(unsigned (&r)[4], unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
+  ldmatrix_x4_at(r, smem_addr(row));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
+  ldmatrix_x4_trans_at(r, smem_addr(row));
 }
 
 // Two floats as one register of two bf16 (round to nearest even), a in the
@@ -126,6 +137,102 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
 __device__ __forceinline__ unsigned pack_bf16(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// 16 bytes from device memory (16-byte aligned) to shared memory by
+// cp.async, in this thread's current commit group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  __pipeline_memcpy_async(dst, src, 16);
+}
+__device__ __forceinline__ void cp_async_commit() { __pipeline_commit(); }
+
+// Wait until at most `pending` of this thread's newest cp.async groups are
+// still in flight (the instruction takes an immediate).
+__device__ __forceinline__ void wait_pending(int pending) {
+  switch (pending) {
+    case 0: __pipeline_wait_prior(0); break;
+    case 1: __pipeline_wait_prior(1); break;
+    case 2: __pipeline_wait_prior(2); break;
+    default: __pipeline_wait_prior(3); break;
+  }
+}
+
+__device__ __forceinline__ unsigned pick4(const unsigned (&w)[4], int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+// A 4 x 4 transpose of 32-bit words inside each quad of lanes: lane t's
+// w[i] becomes lane i's w[t]. Between one 16-byte load or store per lane
+// and the fragment layout, where lane t holds columns 2t, 2t + 1 of each
+// 8-column group.
+__device__ __forceinline__ void quad_transpose(unsigned (&w)[4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  unsigned o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int src = (t - k) & 3;  // lane src sends its word t
+    const unsigned send = pick4(w, (t + k) & 3);
+    const unsigned got = k == 0 ? send : __shfl_sync(0xffffffffu, send, (lane & ~3) | src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = src == i ? got : o[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = o[i];
+}
+
+// The A fragments of mma_bf16 for a 16 x DH bf16 tile of rows, read once
+// from device memory: load(half, ch) returns the 16-byte chunk ch of row
+// g + 8 * half (lane (g, t) asks for chunks t, t + 4, ...; ch < DH / 8), and
+// the quad transposes them into word t of each fragment.
+template <int DH, typename Load>
+__device__ __forceinline__ void a_fragments(unsigned (&a)[DH / 16][4], Load load) {
+  constexpr int CH = DH / 8, QG = (CH + 3) / 4;
+  const int t = threadIdx.x & 3;
+  unsigned rw[2][CH];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int q = 0; q < QG; ++q) {
+      const int ch = 4 * q + t;
+      const uint4 v = ch < CH ? load(half, ch) : make_uint4(0u, 0u, 0u, 0u);
+      unsigned w[4] = {v.x, v.y, v.z, v.w};
+      quad_transpose(w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * q + i < CH) rw[half][4 * q + i] = w[i];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    a[kk][0] = rw[0][2 * kk];
+    a[kk][1] = rw[1][2 * kk];
+    a[kk][2] = rw[0][2 * kk + 1];
+    a[kk][3] = rw[1][2 * kk + 1];
+  }
+}
+
+// The inverse for an fp32 accumulator tile: c[d] is the m16n8 C fragment of
+// columns 8d .. 8d + 7. Rounds rows g and g + 8 to bf16 and hands lane t the
+// 16-byte chunks t, t + 4, ... of each: store(half, ch, chunk) for ch < DH / 8.
+template <int DH, typename Store>
+__device__ __forceinline__ void store_c_rows(const float (&c)[DH / 8][4], Store store) {
+  constexpr int CH = DH / 8, QG = (CH + 3) / 4;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int q = 0; q < QG; ++q) {
+      unsigned w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * q + i;
+        w[i] = d < CH ? pack_bf16(c[d][2 * half], c[d][2 * half + 1]) : 0u;
+      }
+      quad_transpose(w);
+      const int ch = 4 * q + t;
+      if (ch < CH) store(half, ch, make_uint4(w[0], w[1], w[2], w[3]));
+    }
+  }
 }
 
 }  // namespace tae

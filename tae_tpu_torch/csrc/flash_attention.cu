@@ -75,7 +75,6 @@
 //   query rows per warp, so that each K and V fragment feeds two row tiles,
 //   or wgmma, whose 64-row tiles read K and V from shared memory once per 64
 //   rows; later work, as is folding qk_norm's LayerNorm into K16's load.
-#include <cuda_pipeline.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -197,45 +196,11 @@ size_t tc_smem_bytes(int n) {
 // registers.
 __device__ __forceinline__ void stage16(const Rows<bf16>& rw, int which, int r, int ch,
                                         bf16* dst) {
-  __pipeline_memcpy_async(dst, rw.at(which, r) + ch * 8, 16);
+  tae::cp_async16(dst, rw.at(which, r) + ch * 8);
 }
 __device__ __forceinline__ void stage16(const I8Rows& rw, int which, int r, int ch,
                                         bf16* dst) {
   *reinterpret_cast<uint4*>(dst) = load16(rw, which, r, ch);
-}
-
-// Wait until at most `pending` of this thread's newest cp.async groups are
-// still in flight (the instruction takes an immediate).
-__device__ __forceinline__ void wait_pending(int pending) {
-  switch (pending) {
-    case 0: __pipeline_wait_prior(0); break;
-    case 1: __pipeline_wait_prior(1); break;
-    case 2: __pipeline_wait_prior(2); break;
-    default: __pipeline_wait_prior(3); break;
-  }
-}
-
-__device__ __forceinline__ unsigned pick4(const unsigned (&w)[4], int i) {
-  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
-}
-
-// A 4 x 4 transpose of 32-bit words inside each quad of lanes: lane t's
-// w[i] becomes lane i's w[t]. Between one 16-byte load or store per lane
-// and the fragment layout, where lane t holds columns 2t, 2t + 1 of each
-// 8-column group.
-__device__ __forceinline__ void quad_transpose(unsigned (&w)[4]) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  unsigned o[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int src = (t - k) & 3;  // lane src sends its word t
-    const unsigned send = pick4(w, (t + k) & 3);
-    const unsigned got = k == 0 ? send : __shfl_sync(0xffffffffu, send, (lane & ~3) | src);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = src == i ? got : o[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) w[i] = o[i];
 }
 
 // S = Q K^T for the warp's 16 rows and the KT keys [c0, c0 + KT): n-tile
@@ -329,7 +294,7 @@ __device__ __forceinline__ void sweep(const unsigned (&qa)[DH / 16][4], float (&
   const int chunks = (np + kKC - 1) / kKC, tiles = (np + KT - 1) / KT;
   for (int i = 0; i < tiles; ++i) {
     if (WAIT && i * KT % kKC == 0) {
-      wait_pending(chunks - 1 - i * KT / kKC);
+      tae::wait_pending(chunks - 1 - i * KT / kKC);
       __syncthreads();
     }
     if (!active) continue;
@@ -352,7 +317,6 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
                    float* __restrict__ lse, int n, int heads, float scale) {
   constexpr int LDK = tc_kv_ld<DH>();
   constexpr int CH = DH / 8;  // 16-byte chunks per head row
-  constexpr int QG = (CH + 3) / 4;  // quad transposes per row
   const int np = tc_pad16(n);
   const int chunks = (np + kKC - 1) / kKC;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -378,7 +342,7 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
         *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    __pipeline_commit();
+    tae::cp_async_commit();
   }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -386,34 +350,12 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
   const int q0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;  // the warp's first row
   const bool active = q0 < n;
 
-  // Q's A fragments, read once: lane t loads 16-byte chunks t, t + 4, ... of
-  // rows g and g + 8, and the quad transposes them into word t of each
+  // Q's A fragments, read once (tae::a_fragments)
   unsigned qa[DH / 16][4];
-  {
-    unsigned qw[2][CH];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = q0 + g + 8 * half;
-#pragma unroll
-      for (int q = 0; q < QG; ++q) {
-        const int ch = 4 * q + t;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (active && r < n && ch < CH) v = load16(rows, 0, r, ch);
-        unsigned w[4] = {v.x, v.y, v.z, v.w};
-        quad_transpose(w);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (4 * q + i < CH) qw[half][4 * q + i] = w[i];
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      qa[kk][0] = qw[0][2 * kk];
-      qa[kk][1] = qw[1][2 * kk];
-      qa[kk][2] = qw[0][2 * kk + 1];
-      qa[kk][3] = qw[1][2 * kk + 1];
-    }
-  }
+  tae::a_fragments<DH>(qa, [&](int half, int ch) {
+    const int r = q0 + g + 8 * half;
+    return active && r < n ? load16(rows, 0, r, ch) : make_uint4(0u, 0u, 0u, 0u);
+  });
 
   float mx[2] = {-INFINITY, -INFINITY};  // rows g, g + 8
   float lsum[2] = {0.f, 0.f};
@@ -453,27 +395,16 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
       lse[(static_cast<long>(b) * heads + h) * n + r] = mx[i] + logf(lsum[i]);
   }
 
-  // o * (1 / l) rounded to bf16; the quad transposes each row's words so
-  // that lane t stores 16-byte chunks t, t + 4, ...
+  // o * (1 / l) rounded to bf16, 16 bytes a lane (tae::store_c_rows)
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] *= inv[e >> 1];
   bf16* obase = out + ol.at(b, h);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
+  tae::store_c_rows<DH>(o, [&](int half, int ch, uint4 w) {
     const int r = q0 + g + 8 * half;
-#pragma unroll
-    for (int q = 0; q < QG; ++q) {
-      unsigned w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int d = 4 * q + i;
-        w[i] = d < CH ? tae::pack_bf16(o[d][2 * half] * inv[half], o[d][2 * half + 1] * inv[half])
-                      : 0u;
-      }
-      quad_transpose(w);
-      const int ch = 4 * q + t;
-      if (r < n && ch < CH)
-        *reinterpret_cast<uint4*>(obase + r * ol.row + ch * 8) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
+    if (r < n) *reinterpret_cast<uint4*>(obase + r * ol.row + ch * 8) = w;
+  });
 }
 
 // ----------------------------------------------------------------- float32

@@ -13,140 +13,69 @@
 //       every product in fp32; in bfloat16 this one rounds P and dS as below
 //       (the plain version and chip_smoke.py hold it to the fp32 form).
 // Numerics, per (image, head): S = Q.K^T * scale and dP = dO.V^T with fp32
-//   accumulation; P = exp(S - lse); delta = rowsum(dO * o) from the saved,
-//   rounded o; dS = P * (dP - delta) * scale; dV = P^T.dO, dQ = dS.K,
-//   dK = dS^T.Q, each rounded once to the input dtype. In bfloat16 the tensor
-//   cores take P and dS rounded to bfloat16 ahead of those three products (as
-//   the forward rounds p ahead of P.V); dS itself is formed from the fp32 P.
-//   In float32 nothing is rounded.
+//   accumulation; P = exp(S - lse) (the accurate expf); delta = rowsum(dO *
+//   o) from the saved, rounded o; dS = P * (dP - delta) * scale, from the
+//   fp32 P; dV = P^T.dO, dQ = dS.K, dK = dS^T.Q, each rounded once to the
+//   input dtype. In bfloat16 the tensor cores take P and dS rounded to
+//   bfloat16 ahead of those three products (as the forward rounds p ahead of
+//   P.V). In float32 nothing is rounded.
 // What bounds it on the H100: the seven N x N x dh products per head (five of
 //   the formula, S and dP formed twice, see below) against tensor-core and
-//   shared-memory throughput; its bytes (qkv, o, do in, dqkv out) are a tenth
-//   of that time.
+//   shared-memory throughput, and the accurate expf of 2 N^2 scores; its
+//   bytes (qkv, o, do in, dqkv out) take 0.080 ms at the main path's shape
+//   (B 64, N 256, 16 heads of 64), its 60 GFLOP 0.061 ms at the dense rate.
 // What the design does about it: dK and dV sum over query rows, dQ over keys.
 //   A CUDA grid has no sequential axis to carry such sums and float atomics
-//   would change bits from run to run, so one block owns one (image, head)
-//   whole (N <= 256) and no sum crosses a block.
-//   * bfloat16: Q, K, V and dO of the head are staged once in shared memory
-//     (147 KB at dh 64, 180 KB at dh 80: one block per SM). Pass 1: a warp
-//     owns 16 keys, walks the query tiles, rebuilds the 16 x 16 tile of P and
-//     dS (WMMA 16x16x16, fp32 accumulate, the elementwise step through a 4 KB
-//     scratch per warp) and accumulates dV and dK of its keys in registers.
-//     Pass 2: a warp owns 16 query rows, walks the key tiles and accumulates
-//     dQ. Forming S and dP twice costs two products more and saves a
-//     cross-warp reduction of dQ (64 to 80 KB of fp32 that shared memory has
-//     no room for). Rows and keys beyond N in a padded tile: p = 0 exactly,
-//     nothing written.
+//   would change bits from run to run, so every output row has one writer,
+//   a warp, and every sum runs in a fixed order: two runs are bit-equal.
+//   * bfloat16: a head is split over blocks by role and by row range. The
+//     grid is (role x range, head, image), role and range fastest, so that a
+//     head's blocks run together and share its operands in L2. A block takes
+//     up to kTcWarps (8) warps of 16 rows; a head of N tokens has
+//     ceil(N / 128) ranges per role, the tiles dealt evenly (`partition`).
+//     At N <= 16 a block is one warp.
+//     - dK/dV blocks own a range of keys. They stage all of the head's Q and
+//       dO in shared memory (rows padded by 8 elements, so that ldmatrix of 8
+//       rows hits 8 distinct 16-byte bank groups) by 16-byte cp.async, one
+//       commit group per 64 rows, so that the first rows' products start
+//       while later ones land, and lse and delta per query beside them
+//       (delta from 16-byte loads of o and dO, a quad of lanes a row). A
+//       warp owns 16 keys: its K and V rows, staged beside them, are A
+//       fragments of mma.sync.m16n8k16 read by ldmatrix on every query tile
+//       (held in registers instead they spilled at dh 80, where dK and dV
+//       take 80 registers a lane, and ran slower at dh 64). Per 16-query
+//       tile, S^T = K.Q^T and dP^T = V.dO^T
+//       (B fragments by ldmatrix of Q and dO) land in C fragments, P^T and
+//       dS^T are formed there (lse and delta indexed by column), packed to
+//       bf16 and become the A fragments of dV += P^T.dO and dK += dS^T.Q (B
+//       by ldmatrix.trans of dO and Q). dK and dV accumulate in registers.
+//     - dQ blocks own a range of query rows and stage all of K and V the
+//       same way. A warp owns 16 query rows: Q and dO are A fragments read
+//       once from device memory (one 16-byte load a lane and a quad
+//       transpose; delta of its rows from the same loads of dO), lse and
+//       delta of its rows stay in registers. Per 16-key tile, S and dP
+//       against K and V by ldmatrix, dS packed to bf16 becomes the A
+//       fragment of dQ += dS.K (K by ldmatrix.trans).
+//     Forming S and dP in both roles costs 7 N^2 dh products in place of 5:
+//     the price of one writer per row without a reduction across blocks.
+//     Only the last, ragged tile masks (p = 0 for queries, or keys, at or
+//     beyond n); nothing is written beyond n. Outputs leave as one 16-byte
+//     store a lane after a quad transpose. No WMMA, no per-warp scratch.
 //   * float32: CUDA cores, fp32 throughout. K and V are staged for the dQ
 //     phase (a warp per query row, a lane per key), then Q and dO take their
 //     place for the dK / dV phase (a warp per key, a lane per query row).
-//   Register-resident tiles, wgmma and TMA are later work.
-#include <mma.h>
-
+//   wgmma and TMA are later work.
 #include "common.cuh"
 
 namespace {
 
-namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 using tae::HeadLayout;
 
-constexpr int kMaxN = 256;  // tokens supported (one block holds a whole head)
-constexpr int kWarps = 8;
+constexpr int kMaxN = 256;  // tokens supported (a block stages a whole head)
+constexpr int kWarps = 8;   // warps of the float32 body
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
-
-// ---------------------------------------------------------------- bfloat16
-
-constexpr int kSLd = 20;  // row stride of an fp32 16 x 16 tile in the scratch
-constexpr int kBLd = 24;  // row stride of a bfloat16 16 x 16 tile
-
-template <int DH> __host__ __device__ constexpr int tc_ld() { return DH + 8; }
-
-struct WarpScratch {
-  float s[16 * kSLd];   // S tile, then an output tile on its way out
-  float dp[16 * kSLd];  // dP tile
-  bf16 p[16 * kBLd];    // P rounded to bfloat16
-  bf16 ds[16 * kBLd];   // dS rounded to bfloat16
-};
-
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragAT = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
-using FragB = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragBT = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using Acc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-template <int DH>
-size_t tc_smem_bytes(int n) {
-  return sizeof(bf16) * 4 * static_cast<size_t>(pad16(n)) * tc_ld<DH>() +
-         sizeof(WarpScratch) * kWarps + sizeof(float) * 2 * pad16(n);
-}
-
-// The 16 x 16 tile of P and dS for query rows [i0, i0 + 16) and keys
-// [j0, j0 + 16), rounded to bfloat16, into the warp's scratch.
-template <int DH>
-__device__ __forceinline__ void tile_p_ds(const bf16* qs, const bf16* ks, const bf16* vs,
-                                          const bf16* dos, const float* lse,
-                                          const float* delta, int i0, int j0, int n,
-                                          float scale, WarpScratch& w, int lane) {
-  constexpr int LD = tc_ld<DH>();
-  Acc sacc, pacc;
-  wm::fill_fragment(sacc, 0.f);
-  wm::fill_fragment(pacc, 0.f);
-#pragma unroll
-  for (int kt = 0; kt < DH / 16; ++kt) {
-    FragA a;
-    FragBT b;
-    wm::load_matrix_sync(a, qs + i0 * LD + kt * 16, LD);
-    wm::load_matrix_sync(b, ks + j0 * LD + kt * 16, LD);
-    wm::mma_sync(sacc, a, b, sacc);
-    wm::load_matrix_sync(a, dos + i0 * LD + kt * 16, LD);
-    wm::load_matrix_sync(b, vs + j0 * LD + kt * 16, LD);
-    wm::mma_sync(pacc, a, b, pacc);
-  }
-  wm::store_matrix_sync(w.s, sacc, kSLd, wm::mem_row_major);
-  wm::store_matrix_sync(w.dp, pacc, kSLd, wm::mem_row_major);
-  __syncwarp();
-  // a lane pair per row, 8 columns each
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const bool row_ok = i0 + r < n;
-  const float l = lse[i0 + r], dl = delta[i0 + r];
-  float sv[8], dv[8], pv[8], dsv[8];
-  tae::load_vec(w.s + r * kSLd + c0, sv);
-  tae::load_vec(w.s + r * kSLd + c0 + 4, sv + 4);
-  tae::load_vec(w.dp + r * kSLd + c0, dv);
-  tae::load_vec(w.dp + r * kSLd + c0 + 4, dv + 4);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const bool ok = row_ok && j0 + c0 + k < n;
-    pv[k] = ok ? expf(sv[k] * scale - l) : 0.f;
-    dsv[k] = pv[k] * (dv[k] - dl) * scale;
-  }
-  tae::store_vec(w.p + r * kBLd + c0, pv);
-  tae::store_vec(w.ds + r * kBLd + c0, dsv);
-  __syncwarp();
-}
-
-// Round an accumulated (16, DH) tile to bfloat16 and write its first `rows`
-// rows to dst (row stride `stride` elements), through the warp's scratch.
-template <int DH>
-__device__ __forceinline__ void write_tile(const Acc (&acc)[DH / 16], bf16* dst,
-                                           long stride, int rows, WarpScratch& w,
-                                           int lane) {
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int dt = 0; dt < DH / 16; ++dt) {
-    wm::store_matrix_sync(w.s, acc[dt], kSLd, wm::mem_row_major);
-    __syncwarp();
-    if (r < rows) {
-      float v[8];
-      tae::load_vec(w.s + r * kSLd + c0, v);
-      tae::load_vec(w.s + r * kSLd + c0 + 4, v + 4);
-      tae::store_vec(dst + r * stride + dt * 16 + c0, v);
-    }
-    __syncwarp();
-  }
-}
 
 // The operands of one launch: pointers to the first element of each tensor
 // and each one's layout (tae::HeadLayout).
@@ -166,116 +95,378 @@ struct BwdArgs {
   float scale;
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32, 1)
-attention_bwd_bf16(const BwdArgs<bf16> a) {
-  const int n = a.n;
-  const float scale = a.scale;
-  constexpr int LD = tc_ld<DH>();
-  constexpr int CH = DH / 8;  // 16-byte chunks per head row
-  const int np = pad16(n), tiles = np / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (np, LD) each
-  bf16* ks = qs + np * LD;
-  bf16* vs = ks + np * LD;
-  bf16* dos = vs + np * LD;
-  WarpScratch* scratch = reinterpret_cast<WarpScratch*>(dos + np * LD);
-  float* lse = reinterpret_cast<float*>(scratch + kWarps);  // (np)
-  float* delta = lse + np;                                    // (np)
+// ---------------------------------------------------------------- bfloat16
 
-  const int b = blockIdx.y, h = blockIdx.x;
+constexpr int kTcWarps = 8;  // most warps (16-row tiles) in a block
+constexpr int kRC = 64;      // rows per cp.async commit group
+
+template <int DH> __host__ __device__ constexpr int tc_ld() { return DH + 8; }
+
+// Row ranges per role and warps (16-row tiles) per block for n tokens: at
+// most kTcWarps tiles a range, the tiles dealt evenly over the ranges.
+struct Partition {
+  int ranges, warps;
+};
+__host__ __device__ inline Partition partition(int n) {
+  const int tiles = pad16(n) / 16;
+  const int ranges = (tiles + kTcWarps - 1) / kTcWarps;
+  return {ranges, (tiles + ranges - 1) / ranges};
+}
+
+// Dynamic shared memory of a block: two staged (np, LD) operands (dQ: K and
+// V; dK/dV: Q and dO), and for dK/dV lse and delta per query and the K and
+// V rows of the block's keys.
+template <int DH>
+size_t tc_smem_bytes(int n) {
+  const size_t np = pad16(n), ld = tc_ld<DH>();
+  const size_t own = 2 * static_cast<size_t>(partition(n).warps) * 16 * ld;
+  return sizeof(bf16) * (2 * np * ld + own) + sizeof(float) * 2 * np;
+}
+
+// Rows [r0, r1) of two operands (src0, src1 with row strides st0, st1) into
+// shared memory (row stride LD) by 16-byte cp.async; rows at or beyond
+// `valid` are zeroed. The caller commits the group.
+template <int DH>
+__device__ __forceinline__ void stage_rows(bf16* dst0, const bf16* src0, long long st0,
+                                           bf16* dst1, const bf16* src1, long long st1,
+                                           int r0, int r1, int valid) {
+  constexpr int LD = tc_ld<DH>(), CH = DH / 8;
+  for (int idx = threadIdx.x; idx < (r1 - r0) * CH; idx += blockDim.x) {
+    const int r = r0 + idx / CH, ch = idx % CH;
+    bf16* d0 = dst0 + r * LD + ch * 8;
+    bf16* d1 = dst1 + r * LD + ch * 8;
+    if (r < valid) {
+      tae::cp_async16(d0, src0 + r * st0 + ch * 8);
+      tae::cp_async16(d1, src1 + r * st1 + ch * 8);
+    } else {
+      *reinterpret_cast<uint4*>(d0) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(d1) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// acc + the dot product of two 16-byte chunks of bf16, in element order.
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 fa = __bfloat1622float2(a[k]), fb = __bfloat1622float2(b[k]);
+    acc = fmaf(fa.x, fb.x, acc);
+    acc = fmaf(fa.y, fb.y, acc);
+  }
+  return acc;
+}
+
+// The sum of a row's partial sums over the four lanes of its quad.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// The S (or S^T) and dP (or dP^T) tiles of 16 rows against 16 staged rows:
+// c[j] holds columns 8j + 2t, +1 of rows g (c[j][0], c[j][1]) and g + 8
+// (c[j][2], c[j][3]). afrag(kk, which, a) gives the A fragment of k-step kk
+// of the warp's first (which 0) or second operand; bl0, bl1: this lane's
+// ldmatrix shared-memory address in the two staged operands at the tile's
+// first row (b_addr). One
+// product at a time, so that one A and one B fragment are live.
+template <int DH, typename AFrag>
+__device__ __forceinline__ void two_scores(float (&s)[2][4], float (&dp)[2][4], AFrag afrag,
+                                           unsigned bl0, unsigned bl1) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    unsigned a[4], b[4];
+    afrag(kk, 0, a);
+    tae::ldmatrix_x4_at(b, bl0 + kk * 32);
+    tae::mma_bf16(s[0], a, b[0], b[1]);
+    tae::mma_bf16(s[1], a, b[2], b[3]);
+    afrag(kk, 1, a);
+    tae::ldmatrix_x4_at(b, bl1 + kk * 32);
+    tae::mma_bf16(dp[0], a, b[0], b[1]);
+    tae::mma_bf16(dp[1], a, b[2], b[3]);
+  }
+}
+
+// acc[d] += a . B for the 16 staged rows at bt (this lane's ldmatrix.trans
+// shared-memory address at the tile's first row, a_addr): the (16, DH)
+// product of an m16n8k16 A fragment and 16 rows of an operand.
+template <int DH>
+__device__ __forceinline__ void accumulate(float (&acc)[DH / 8][4], const unsigned (&a)[4],
+                                           unsigned bt) {
+#pragma unroll
+  for (int dp = 0; dp < DH / 16; ++dp) {
+    unsigned b[4];
+    tae::ldmatrix_x4_trans_at(b, bt + dp * 32);
+    tae::mma_bf16(acc[2 * dp], a, b[0], b[1]);
+    tae::mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+  }
+}
+
+// p and dS of one C fragment element: s and dp the raw products, l and dl
+// the lse and delta of its query.
+__device__ __forceinline__ void p_ds(float s, float dp, float l, float dl, float scale, float& p,
+                                     float& ds) {
+  p = expf(s * scale - l);
+  ds = p * (dp - dl) * scale;
+}
+
+// The A fragment of two C fragments packed to bf16 (m16n8k16: columns
+// 0..7 in c[0], 8..15 in c[1]).
+__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&c)[2][4]) {
+  a[0] = tae::pack_bf16(c[0][0], c[0][1]);
+  a[1] = tae::pack_bf16(c[0][2], c[0][3]);
+  a[2] = tae::pack_bf16(c[1][0], c[1][1]);
+  a[3] = tae::pack_bf16(c[1][2], c[1][3]);
+}
+
+template <int DH>
+__device__ __forceinline__ void zero(float (&acc)[DH / 8][4]) {
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+}
+
+// Lane l's ldmatrix_x4 shared-memory address in 16 staged rows from `base`
+// (lane l gives row l % 8 of matrix l / 8). b_addr: rows + 8 (l / 16), columns + 8
+// ((l / 8) % 2), the B fragments of two n-tiles (rows 0..7 in b[0..1], 8..15
+// in b[2..3]) of a product over the columns. a_addr: rows + 8 ((l / 8) % 2),
+// columns + 8 (l / 16), the A fragment of those rows, and with .trans the B
+// fragments of two 8-column n-tiles of a product over the rows.
+template <int DH>
+__device__ __forceinline__ unsigned b_addr(const bf16* base, int lane) {
+  return tae::smem_addr(base + ((lane & 7) + ((lane >> 4) << 3)) * tc_ld<DH>() +
+                        ((lane >> 3) & 1) * 8);
+}
+template <int DH>
+__device__ __forceinline__ unsigned a_addr(const bf16* base, int lane) {
+  return tae::smem_addr(base + ((lane & 7) + ((lane >> 3) & 1) * 8) * tc_ld<DH>() +
+                        (lane >> 4) * 8);
+}
+
+// dK/dV block: keys of tiles [range * warps, (range + 1) * warps).
+template <int DH>
+__device__ __forceinline__ void dkdv_block(const BwdArgs<bf16>& a, int b, int h, int range,
+                                           unsigned char* smem) {
+  constexpr int LD = tc_ld<DH>(), RB = 2 * LD, CH = DH / 8, QG = (CH + 3) / 4;
+  const int n = a.n, np = pad16(n), chunks = (np + kRC - 1) / kRC;
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kbase = range * warps * 16;  // the block's first key
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // (np, LD) each
+  bf16* dos = qs + np * LD;
+  bf16* kown = dos + np * LD;  // (warps * 16, LD) each: the block's keys
+  bf16* vown = kown + warps * 16 * LD;
+  float* lse_s = reinterpret_cast<float*>(vown + warps * 16 * LD);
+  float* delta_s = lse_s + np;
+
   const bf16* qb = a.q + a.lq.at(b, h);
   const bf16* kb = a.k + a.lk.at(b, h);
   const bf16* vb = a.v + a.lv.at(b, h);
-  const bf16* obase = a.o + a.lo.at(b, h);
-  const bf16* dobase = a.dout + a.ldo.at(b, h);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int idx = threadIdx.x; idx < np * CH; idx += blockDim.x) {
-    const int r = idx / CH, ch = idx - r * CH;
-    uint4 qq = zero, kq = zero, vq = zero, dq = zero;
-    if (r < n) {
-      qq = *reinterpret_cast<const uint4*>(qb + r * a.lq.row + ch * 8);
-      kq = *reinterpret_cast<const uint4*>(kb + r * a.lk.row + ch * 8);
-      vq = *reinterpret_cast<const uint4*>(vb + r * a.lv.row + ch * 8);
-      dq = *reinterpret_cast<const uint4*>(dobase + r * a.ldo.row + ch * 8);
-    }
-    *reinterpret_cast<uint4*>(qs + r * LD + ch * 8) = qq;
-    *reinterpret_cast<uint4*>(ks + r * LD + ch * 8) = kq;
-    *reinterpret_cast<uint4*>(vs + r * LD + ch * 8) = vq;
-    *reinterpret_cast<uint4*>(dos + r * LD + ch * 8) = dq;
+  const bf16* ob = a.o + a.lo.at(b, h);
+  const bf16* dob = a.dout + a.ldo.at(b, h);
+  for (int c = 0; c < chunks; ++c) {
+    if (c == 0)
+      stage_rows<DH>(kown, kb + kbase * a.lk.row, a.lk.row, vown, vb + kbase * a.lv.row,
+                     a.lv.row, 0, warps * 16, n - kbase);
+    stage_rows<DH>(qs, qb, a.lq.row, dos, dob, a.ldo.row, c * kRC, min(np, (c + 1) * kRC), n);
+    tae::cp_async_commit();
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // delta = rowsum(dO * o) from global memory (o is read for nothing else)
-  for (int r = warp; r < np; r += kWarps) {
+  // lse and delta of every query, a quad of lanes a row
+  for (int r = warp * 8 + g; r < np; r += warps * 8) {
     float sum = 0.f;
     if (r < n) {
-      for (int d = lane; d < DH; d += 32)
-        sum += __bfloat162float(dobase[r * a.ldo.row + d]) *
-               __bfloat162float(obase[r * a.lo.row + d]);
-    }
-    sum = tae::warp_sum(sum);
-    if (lane == 0) {
-      delta[r] = sum;
-      lse[r] = r < n ? a.lse[(static_cast<long>(b) * a.heads + h) * n + r] : 0.f;
-    }
-  }
-  __syncthreads();  // the only block-wide barrier
-
-  WarpScratch& w = scratch[warp];
-
-  // pass 1: dV and dK of 16 keys, summed over the query tiles
-  for (int jt = warp; jt < tiles; jt += kWarps) {
-    const int j0 = jt * 16;
-    Acc dv[DH / 16], dk[DH / 16];
 #pragma unroll
-    for (int dt = 0; dt < DH / 16; ++dt) {
-      wm::fill_fragment(dv[dt], 0.f);
-      wm::fill_fragment(dk[dt], 0.f);
-    }
-    for (int it = 0; it < tiles; ++it) {
-      const int i0 = it * 16;
-      tile_p_ds<DH>(qs, ks, vs, dos, lse, delta, i0, j0, n, scale, w, lane);
-      FragAT pt, dst;  // P^T and dS^T: the tiles read column-major
-      wm::load_matrix_sync(pt, w.p, kBLd);
-      wm::load_matrix_sync(dst, w.ds, kBLd);
-#pragma unroll
-      for (int dt = 0; dt < DH / 16; ++dt) {
-        FragB bm;
-        wm::load_matrix_sync(bm, dos + i0 * LD + dt * 16, LD);
-        wm::mma_sync(dv[dt], pt, bm, dv[dt]);
-        wm::load_matrix_sync(bm, qs + i0 * LD + dt * 16, LD);
-        wm::mma_sync(dk[dt], dst, bm, dk[dt]);
+      for (int q = 0; q < QG; ++q) {
+        const int ch = 4 * q + t;
+        if (ch < CH)
+          sum = dot8(*reinterpret_cast<const uint4*>(dob + r * a.ldo.row + ch * 8),
+                     *reinterpret_cast<const uint4*>(ob + r * a.lo.row + ch * 8), sum);
       }
-      __syncwarp();  // the tiles are consumed before the next ones land
     }
-    const int rows = min(16, n - j0);
-    write_tile<DH>(dk, a.dk + a.ldk.at(b, h) + j0 * a.ldk.row, a.ldk.row, rows, w, lane);
-    write_tile<DH>(dv, a.dv + a.ldv.at(b, h) + j0 * a.ldv.row, a.ldv.row, rows, w, lane);
+    sum = quad_sum(sum);
+    if (t == 0) {
+      delta_s[r] = sum;
+      lse_s[r] = r < n ? a.lse[(static_cast<long>(b) * a.heads + h) * n + r] : 0.f;
+    }
   }
 
-  // pass 2: dQ of 16 query rows, summed over the key tiles
-  for (int it = warp; it < tiles; it += kWarps) {
-    const int i0 = it * 16;
-    Acc dq[DH / 16];
-#pragma unroll
-    for (int dt = 0; dt < DH / 16; ++dt) wm::fill_fragment(dq[dt], 0.f);
-    for (int jt = 0; jt < tiles; ++jt) {
-      const int j0 = jt * 16;
-      tile_p_ds<DH>(qs, ks, vs, dos, lse, delta, i0, j0, n, scale, w, lane);
-      FragA dsa;
-      wm::load_matrix_sync(dsa, w.ds, kBLd);
-#pragma unroll
-      for (int dt = 0; dt < DH / 16; ++dt) {
-        FragB bm;
-        wm::load_matrix_sync(bm, ks + j0 * LD + dt * 16, LD);
-        wm::mma_sync(dq[dt], dsa, bm, dq[dt]);
-      }
-      __syncwarp();
+  const int j0 = kbase + warp * 16;  // the warp's first key
+  const bool active = j0 < n;
+  // K and V rows as A fragments, by ldmatrix from the staged rows
+  const unsigned kl = a_addr<DH>(kown + warp * 16 * LD, lane);
+  const unsigned vl = a_addr<DH>(vown + warp * 16 * LD, lane);
+  auto afrag = [&](int kk, int which, unsigned (&x)[4]) {
+    tae::ldmatrix_x4_at(x, (which ? vl : kl) + kk * 32);
+  };
+
+  float dk[DH / 8][4], dv[DH / 8][4];
+  zero<DH>(dk);
+  zero<DH>(dv);
+  const unsigned qbl = b_addr<DH>(qs, lane), dobl = b_addr<DH>(dos, lane);
+  const unsigned qtl = a_addr<DH>(qs, lane), dotl = a_addr<DH>(dos, lane);
+  const float scale = a.scale;
+  for (int it = 0; it < np / 16; ++it) {
+    if (it * 16 % kRC == 0) {
+      tae::wait_pending(chunks - 1 - it * 16 / kRC);
+      __syncthreads();
     }
-    write_tile<DH>(dq, a.dq + a.ldq.at(b, h) + i0 * a.ldq.row, a.ldq.row, min(16, n - i0), w,
-                   lane);
+    if (!active) continue;
+    const int i0 = it * 16;  // the tile's first query
+    float st[2][4], dpt[2][4];
+    two_scores<DH>(st, dpt, afrag, qbl + i0 * RB, dobl + i0 * RB);
+    // column j's queries: i0 + 8j + 2t, +1
+    if (i0 + 16 <= n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + i0 + 8 * j + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + i0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p_ds(st[j][e], dpt[j][e], e & 1 ? l.y : l.x, e & 1 ? dl.y : dl.x, scale, st[j][e],
+               dpt[j][e]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + i0 + 8 * j + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + i0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p_ds(st[j][e], dpt[j][e], e & 1 ? l.y : l.x, e & 1 ? dl.y : dl.x, scale, st[j][e],
+               dpt[j][e]);
+          if (i0 + 8 * j + 2 * t + (e & 1) >= n) st[j][e] = dpt[j][e] = 0.f;
+        }
+      }
+    }
+    unsigned pa[4], dsa[4];
+    pack_a(pa, st);
+    pack_a(dsa, dpt);
+    accumulate<DH>(dv, pa, dotl + i0 * RB);
+    accumulate<DH>(dk, dsa, qtl + i0 * RB);
   }
+  if (!active) return;
+  bf16* dkb = a.dk + a.ldk.at(b, h);
+  bf16* dvb = a.dv + a.ldv.at(b, h);
+  tae::store_c_rows<DH>(dk, [&](int half, int ch, uint4 w) {
+    const int r = j0 + g + 8 * half;
+    if (r < n) *reinterpret_cast<uint4*>(dkb + r * a.ldk.row + ch * 8) = w;
+  });
+  tae::store_c_rows<DH>(dv, [&](int half, int ch, uint4 w) {
+    const int r = j0 + g + 8 * half;
+    if (r < n) *reinterpret_cast<uint4*>(dvb + r * a.ldv.row + ch * 8) = w;
+  });
+}
+
+// dQ block: query rows of tiles [range * warps, (range + 1) * warps).
+template <int DH>
+__device__ __forceinline__ void dq_block(const BwdArgs<bf16>& a, int b, int h, int range,
+                                         unsigned char* smem) {
+  constexpr int LD = tc_ld<DH>(), RB = 2 * LD;  // RB: bytes per staged row
+  const int n = a.n, np = pad16(n), chunks = (np + kRC - 1) / kRC;
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // (np, LD) each
+  bf16* vs = ks + np * LD;
+  const bf16* kb = a.k + a.lk.at(b, h);
+  const bf16* vb = a.v + a.lv.at(b, h);
+  for (int c = 0; c < chunks; ++c) {
+    stage_rows<DH>(ks, kb, a.lk.row, vs, vb, a.lv.row, c * kRC, min(np, (c + 1) * kRC), n);
+    tae::cp_async_commit();
+  }
+
+  const int q0 = (range * warps + warp) * 16;  // the warp's first query row
+  const bool active = q0 < n;
+  const bf16* qb = a.q + a.lq.at(b, h);
+  const bf16* ob = a.o + a.lo.at(b, h);
+  const bf16* dob = a.dout + a.ldo.at(b, h);
+  // Q and dO as A fragments; delta of rows g, g + 8 from the same loads of
+  // dO, summed in the dK/dV blocks' order
+  unsigned qa[DH / 16][4], da[DH / 16][4];
+  float delta[2] = {0.f, 0.f}, lse[2];
+  tae::a_fragments<DH>(qa, [&](int half, int ch) {
+    const int r = q0 + g + 8 * half;
+    return active && r < n ? *reinterpret_cast<const uint4*>(qb + r * a.lq.row + ch * 8)
+                           : make_uint4(0u, 0u, 0u, 0u);
+  });
+  tae::a_fragments<DH>(da, [&](int half, int ch) {
+    const int r = q0 + g + 8 * half;
+    if (!active || r >= n) return make_uint4(0u, 0u, 0u, 0u);
+    const uint4 d = *reinterpret_cast<const uint4*>(dob + r * a.ldo.row + ch * 8);
+    delta[half] = dot8(d, *reinterpret_cast<const uint4*>(ob + r * a.lo.row + ch * 8),
+                       delta[half]);
+    return d;
+  });
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    delta[half] = quad_sum(delta[half]);
+    const int r = q0 + g + 8 * half;
+    lse[half] = active && r < n ? a.lse[(static_cast<long>(b) * a.heads + h) * n + r] : 0.f;
+  }
+  auto afrag = [&](int kk, int which, unsigned (&x)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = which ? da[kk][i] : qa[kk][i];
+  };
+
+  float dq[DH / 8][4];
+  zero<DH>(dq);
+  const unsigned kbl = b_addr<DH>(ks, lane), vbl = b_addr<DH>(vs, lane);
+  const unsigned ktl = a_addr<DH>(ks, lane);
+  const int t2 = 2 * (lane & 3);
+  const float scale = a.scale;
+  for (int jt = 0; jt < np / 16; ++jt) {
+    if (jt * 16 % kRC == 0) {
+      tae::wait_pending(chunks - 1 - jt * 16 / kRC);
+      __syncthreads();
+    }
+    if (!active) continue;
+    const int k0 = jt * 16;  // the tile's first key
+    float s[2][4], dp[2][4];
+    two_scores<DH>(s, dp, afrag, kbl + k0 * RB, vbl + k0 * RB);
+    // column j's keys: k0 + 8j + 2t, +1
+    if (k0 + 16 <= n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p_ds(s[j][e], dp[j][e], lse[e >> 1], delta[e >> 1], scale, s[j][e], dp[j][e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p_ds(s[j][e], dp[j][e], lse[e >> 1], delta[e >> 1], scale, s[j][e], dp[j][e]);
+          if (k0 + 8 * j + t2 + (e & 1) >= n) dp[j][e] = 0.f;
+        }
+    }
+    unsigned dsa[4];
+    pack_a(dsa, dp);
+    accumulate<DH>(dq, dsa, ktl + k0 * RB);
+  }
+  if (!active) return;
+  bf16* dqb = a.dq + a.ldq.at(b, h);
+  tae::store_c_rows<DH>(dq, [&](int half, int ch, uint4 w) {
+    const int r = q0 + g + 8 * half;
+    if (r < n) *reinterpret_cast<uint4*>(dqb + r * a.ldq.row + ch * 8) = w;
+  });
+}
+
+// blockIdx = (role x range, head, image): x < ranges are dK/dV blocks.
+template <int DH>
+__global__ void __launch_bounds__(kTcWarps * 32, 2)
+attention_bwd_bf16(const BwdArgs<bf16> a, int ranges) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int x = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  if (x < ranges)
+    dkdv_block<DH>(a, b, h, x, smem_raw);
+  else
+    dq_block<DH>(a, b, h, x - ranges, smem_raw);
 }
 
 // ----------------------------------------------------------------- float32
@@ -461,22 +652,6 @@ attention_bwd_f32(const BwdArgs<float> a) {
 
 // ---------------------------------------------------------------- launchers
 
-// smem_allowed: the kernel's dynamic shared-memory limit as last raised (one
-// per instantiation); cudaFuncSetAttribute runs only when a launch needs more.
-template <typename T>
-int launch(void (*kernel)(const BwdArgs<T>), size_t smem, size_t& smem_allowed,
-           const BwdArgs<T>& args, int batch, cudaStream_t stream) {
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
-  const dim3 grid(args.heads, batch);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ptrs: q, k, v, o, do, dq, dk, dv; layouts in the same order.
 template <typename T>
 BwdArgs<T> make_args(const void* const (&ptrs)[8], const HeadLayout (&l)[8], const void* lse,
@@ -499,19 +674,57 @@ BwdArgs<T> make_args(const void* const (&ptrs)[8], const HeadLayout (&l)[8], con
   return a;
 }
 
+// Raise the kernel's dynamic shared-memory limit to smem where smem_allowed
+// (its limit as last raised, one per instantiation) is below it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& smem_allowed) {
+  if (smem <= smem_allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) smem_allowed = smem;
+  return err;
+}
+
+template <int DH>
+int launch_bf16(const BwdArgs<bf16>& args, int batch, cudaStream_t stream) {
+  auto* kernel = attention_bwd_bf16<DH>;
+  static size_t smem_allowed = 0;  // one per instantiation
+  static bool carved = false;
+  if (!carved) {
+    // all of the SM's unified memory as shared memory, so that as many
+    // blocks fit as the registers allow
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    carved = true;
+  }
+  const size_t smem = tc_smem_bytes<DH>(args.n);
+  const cudaError_t err = allow_smem(kernel, smem, smem_allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Partition p = partition(args.n);
+  const dim3 grid(2 * p.ranges, args.heads, batch);
+  kernel<<<grid, p.warps * 32, smem, stream>>>(args, p.ranges);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_f32(const BwdArgs<float>& args, int batch, cudaStream_t stream) {
+  static size_t smem_allowed = 0;
+  const size_t smem = f32_smem_bytes<DH>(args.n);
+  const cudaError_t err = allow_smem(attention_bwd_f32<DH>, smem, smem_allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(args.heads, batch);
+  attention_bwd_f32<DH><<<grid, kWarps * 32, smem, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DH>
 int launch_dtype(const void* const (&ptrs)[8], const HeadLayout (&l)[8], const void* lse,
                  int batch, int n, int heads, float scale, int dtype, cudaStream_t stream) {
-  if (dtype == tae::kBFloat16) {
-    static size_t smem_allowed = 0;
-    return launch(attention_bwd_bf16<DH>, tc_smem_bytes<DH>(n), smem_allowed,
-                  make_args<bf16>(ptrs, l, lse, n, heads, scale), batch, stream);
-  }
-  if (dtype == tae::kFloat32) {
-    static size_t smem_allowed = 0;
-    return launch(attention_bwd_f32<DH>, f32_smem_bytes<DH>(n), smem_allowed,
-                  make_args<float>(ptrs, l, lse, n, heads, scale), batch, stream);
-  }
+  if (dtype == tae::kBFloat16)
+    return launch_bf16<DH>(make_args<bf16>(ptrs, l, lse, n, heads, scale), batch, stream);
+  if (dtype == tae::kFloat32)
+    return launch_f32<DH>(make_args<float>(ptrs, l, lse, n, heads, scale), batch, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
