@@ -12,7 +12,8 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
    sm_90a and prints the seconds and ptxas's registers and spills of every
    kernel; fails if an instantiation of the register-resident attention
-   bodies, forward (K2, K15, K16) or backward (K10, K17), spills;
+   bodies, forward (K2, K15, K16) or backward (K10, K17), or of the int8
+   GEMM body's products (K4, K5's fc1 and fc2), spills;
 3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
@@ -35,7 +36,10 @@ Phases (each prints its lines; any failure exits non-zero):
    int8 route (K4, then K7); the attention backward (K10, K17) also at the
    token counts where its bf16 body's tiles and row ranges end
    (``BWD_EDGES``), two runs bit-equal at every shape, and timed between
-   CUDA events as SDPA's backward is;
+   CUDA events as SDPA's backward is; K4 (plain, ``ln_out``, ``q8_out``)
+   and K5 also at p128's width at 256, 32 and 4 rows and at p32's shapes,
+   and at the edges of the int8 GEMM body's tiles (1, 17 and 129 rows, N 8
+   past a tile, K 16 past a ring step);
 4. paths (``PATHS``): for each model, built at full width with weights from
    ``torch.Generator("cuda").manual_seed(0)``, the bf16 and / or the int8
    (w8a8) ``Tokenizer`` answers encode, decode and reconstruct requests;
@@ -332,8 +336,8 @@ KERNELS = (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14, K15,
 TRAIN_FORMS = {"fused_layer_norm": "fused_layer_norm_fwd_stats",
                "fused_qkv_attention": "fused_qkv_attention_fwd_lse",
                "flash_attention": "flash_attention_fwd_lse"}
-# K4's row-block form (the q8_out output mode and the in-kernel quantize of a
-# float x) counts its launches apart too
+# K4's int8_matmul_rows entry (the q8_out output mode and the in-kernel
+# quantize of a float x) counts its launches apart too
 ROW_FORMS = {"int8_matmul_fused": "int8_matmul_rows"}
 
 
@@ -375,7 +379,9 @@ def phase_build():
     print(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(build.PACKAGE_DIR.parent)}")
     entry = ""
-    body = {"attention_fwd_bf16": {}, "attention_bwd_bf16": {}}
+    body = {"attention_fwd_bf16": {}, "attention_bwd_bf16": {},
+            "int8_matmul_kernel": {}, "int8_mlp_fc1_kernel": {},
+            "int8_mlp_fc2_kernel": {}}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -384,10 +390,14 @@ def phase_build():
             for kernel in body:
                 if kernel in entry:
                     body[kernel].setdefault(entry, []).append(line.strip())
-    # the register-resident attention bodies: the forward (K2, K15, K16) at
+    # the register-resident bodies: the attention forward (K2, K15, K16) at
     # dh 64 and 80, serving and exact, bf16 and (serving only) int8 sources;
-    # the backward (K10, K17) at dh 64 and 80
-    for kernel, want in (("attention_fwd_bf16", 6), ("attention_bwd_bf16", 2)):
+    # the backward (K10, K17) at dh 64 and 80; the int8 GEMM body's products
+    # (K4: three tile shapes, each with its epilogue or its int32 partials;
+    # K5: fc1 at five tile shapes, fc2 at three)
+    for kernel, want in (("attention_fwd_bf16", 6), ("attention_bwd_bf16", 2),
+                         ("int8_matmul_kernel", 6), ("int8_mlp_fc1_kernel", 5),
+                         ("int8_mlp_fc2_kernel", 3)):
         found = body[kernel]
         check(len(found) == want, f"ptxas reported {len(found)} "
                                   f"instantiations of {kernel}, expected {want}")
@@ -397,11 +407,17 @@ def phase_build():
             regs = [int(x) for line in lines for x in
                     re.findall(r"Used (\d+) registers", line)]
             m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d))?", entry)
-            form = "" if m.group(2) is None else (
-                f" {'serving' if m.group(2) == '1' else 'exact'} "
-                f"{'int8' if 'I8Src' in entry else 'bf16'}")
-            print(f"[build] {kernel} dh {m.group(1)}{form}: registers {regs}, "
-                  f"spill bytes {sum(spills)}")
+            if m is not None:
+                form = "" if m.group(2) is None else (
+                    f" {'serving' if m.group(2) == '1' else 'exact'} "
+                    f"{'int8' if 'I8Src' in entry else 'bf16'}")
+                name = f"{kernel} dh {m.group(1)}{form}"
+            else:   # Tiles<BM, BN, WARPS_M, WARPS_N, STAGES>[, partial]
+                tiles = re.findall(r"ILi(\d+)E", entry)[:5]
+                name = f"{kernel} <{', '.join(tiles)}>" + (
+                    " partial" if "Lb1E" in entry else "")
+            print(f"[build] {name}: registers {regs}, spill bytes "
+                  f"{sum(spills)}")
             check(len(spills) == 2 and sum(spills) == 0,
                   f"ptxas spills in {entry}: {lines}")
 
@@ -682,7 +698,7 @@ def phase_int8_kernels() -> dict:
             outs, got, want = list(got), got[0], want[0]
         err = compare(label, got, want, **tol)
         lib_ms = None
-        if lib:
+        if lib and m > 16:   # torch._int_mm takes more than 16 rows
             lib_ms = time_ms(lambda: torch._int_mm(xq, wq.t()))
             extra += f"; torch._int_mm (product only) {lib_ms:.4f} ms"
         record("int8_matmul_fused", label, err,
@@ -704,6 +720,18 @@ def phase_int8_kernels() -> dict:
     k4_case("proj", m_full, d, d, True, True, False)
     k4_case("odd M", 1001, d, d, True, True, True, timed=False)
     k4_case("odd M", 1001, d, 3 * d, True, False, False, timed=False)
+    # the p128 and p32 products (every tile shape and K split of the GEMM
+    # body: 16-row tiles split four ways at M = 4, 64-row tiles at 256)
+    for m in (256, 32, 4):
+        k4_case("p128 qkv", m, 2560, 7680, True, False, False, lib=True)
+        k4_case("p128 proj", m, 2560, 2560, True, True, True, lib=True)
+    k4_case("p32 qkv", 4096, 2048, 6144, True, False, False, lib=True)
+    k4_case("p32 proj", 4096, 2048, 2048, True, True, True, lib=True)
+    # ragged edges of the tiles: one row, a 16-row tile and one, a 128-row
+    # tile and one; N 8 past a tile; K 16 past a 128-byte ring step
+    for m, n in ((1, 136), (17, 1032), (129, 264)):
+        k4_case("tile edge", m, 1040, n, True, True, True, timed=False)
+        k4_case("tile edge", m, 1040, n, False, False, False, timed=False)
 
     # ---- K5
     w1, s1 = rand_i8((hdim, d)), scales((hdim,), 1e-4, 5e-4)
@@ -711,12 +739,32 @@ def phase_int8_kernels() -> dict:
     b1, b2 = randn((hdim,), 0.1), randn((d,), 0.1)
     ln_next = (g, be, 1e-6)
     bh = DEFAULT_BLOCK_H
-    for m, ln in ((m_full, ln_next), (m_full, None), (1001, ln_next)):
-        xq, sx = rand_i8((m, d)), scales((m, 1), 0.005, 0.025)
-        r = randn((m, d))
-        args = (xq, sx, w1, s1, b1, w2, s2, b2, r, bh, bf16, ln)
+    wide = {}
+    for dd, hh in ((2560, 10240), (2048, 8192), (1040, 768)):
+        gg, bb = randn((dd,), 0.5, 1.0), randn((dd,), 0.2)
+        wide[dd] = (rand_i8((hh, dd)), scales((hh,), 1e-4, 5e-4),
+                    rand_i8((dd, hh)), scales((dd,), 1e-4, 5e-4),
+                    randn((hh,), 0.1), randn((dd,), 0.1), (gg, bb, 1e-6))
+    # the p16 shape, then p128's (256, 32 and 4 rows: fc1 and fc2 tiles of
+    # 64 and 16 rows, two hidden groups at 4 rows) and p32's, then ragged
+    # rows and D 16 past a tile with three hidden blocks (untimed)
+    mlp_cases = [(m_full, d, ln_next, True), (m_full, d, None, True),
+                 (1001, d, ln_next, False), (256, 2560, True, True),
+                 (32, 2560, True, True), (4, 2560, True, True),
+                 (4096, 2048, True, True), (1, 1040, True, False),
+                 (17, 1040, True, False), (129, 1040, True, False)]
+    for m, dm, ln, timed in mlp_cases:
+        if dm == d:
+            mw = (w1, s1, b1, w2, s2, b2)
+            hd = hdim
+        else:
+            ww1, ss1, ww2, ss2, bb1, bb2, ln = wide[dm]
+            mw, hd = (ww1, ss1, bb1, ww2, ss2, bb2), ww1.shape[0]
+        xq, sx = rand_i8((m, dm)), scales((m, 1), 0.005, 0.025)
+        r = randn((m, dm))
+        args = (xq, sx, *mw[:3], *mw[3:], r, bh, bf16, ln)
         got, want = int8_mlp(*args), int8_mlp_reference(*args)
-        label = (f"K5 int8_mlp ({m}, {d}) hidden {hdim} block_h {bh}"
+        label = (f"K5 int8_mlp ({m}, {dm}) hidden {hd} block_h {bh}"
                  f"{' +ln_next' if ln else ''}")
         extra, outs = "", [got]
         if ln:
@@ -725,13 +773,12 @@ def phase_int8_kernels() -> dict:
             extra = f"; ln_next codes off by one on a share {share:.2g}"
             outs, got, want = list(got), got[0], want[0]
         err = compare(label, got, want, **tol)
-        timed = m == m_full
         record("int8_mlp", label, err,
                time_ms(lambda: int8_mlp(*args)) if timed else None,
                time_ms(lambda: int8_mlp_reference(*args)) if timed else None,
-               bound(nbytes(xq, sx, w1, s1, b1, w2, s2, b2, r, *outs)
-                     + (nbytes(g, be) if ln else 0),
-                     4.0 * m * d * hdim, "int8"), None, extra)
+               bound(nbytes(xq, sx, *mw, r, *outs)
+                     + (nbytes(*ln[:2]) if ln else 0),
+                     4.0 * m * dm * hd, "int8"), None, extra)
 
     # the same MLP unfused, as a yardstick for K5: K4, GELU and a whole-row
     # quantize in plain PyTorch, K4 with the residual (other numerics: one
@@ -1299,13 +1346,13 @@ def phase_vq_kernel() -> dict:
 
 
 def phase_last_kernels() -> dict:
-    """K15, K16 (both forms), K17, K4's row-block form (``q8_out`` and the
-    in-kernel quantize) and K14 at the vocab-4096 and -16384 latent widths,
-    against their plain versions at the shapes of the paths that run them,
-    timed beside their bounds and yardsticks: SDPA's exact form, forward and
-    backward, for K16 and K17; the default int8 route (K4 with a bf16 output,
-    then K7) for K4's q8_out + K15. Returns case records per wrapper name;
-    the first of each is the main-path shape."""
+    """K15, K16 (both forms), K17, K4's int8_matmul_rows entry (``q8_out``
+    and the in-kernel quantize) and K14 at the vocab-4096 and -16384 latent
+    widths, against their plain versions at the shapes of the paths that run
+    them, timed beside their bounds and yardsticks: SDPA's exact form,
+    forward and backward, for K16 and K17; the default int8 route (K4 with a
+    bf16 output, then K7) for K4's q8_out + K15. Returns case records per
+    wrapper name; the first of each is the main-path shape."""
     import torch
     import torch.nn.functional as F
 
@@ -1466,6 +1513,35 @@ def phase_last_kernels() -> dict:
                   f"; torch._int_mm (product only) {lib:.4f} ms"))
         if timed:
             qkv_q, qkv_s = yq, ys
+    # q8_out at p128's and p32's qkv widths (every tile shape and split of
+    # the GEMM body) and at ragged rows with N 8 past a tile
+    for m, kk, nn, timed in ((256, 2560, 7680, True), (32, 2560, 7680, True),
+                             (4, 2560, 7680, True), (4096, 2048, 6144, True),
+                             (1, 1040, 1032, False), (17, 1040, 1032, False),
+                             (129, 1040, 1032, False)):
+        a = (rand_i8((m, kk)), scales((m, 1), 0.01, 0.06), rand_i8((nn, kk)),
+             scales((nn,), 1e-4, 5e-4), randn((nn,)))
+        blk = q8_block(nn)
+        yq, ys = int8_matmul_rows(*a, q8_block=blk)
+        yq_ref, ys_ref = int8_matmul_rows_reference(*a, q8_block=blk)
+        label = (f"K4 int8_matmul q8_out ({m}, {kk}) x ({nn}, {kk}) +bias "
+                 f"block {blk}")
+        compare_scales(label, ys, ys_ref)
+        share = compare_codes(label, yq, yq_ref)
+        err = float((yq.float().view(m, -1, blk) * ys.permute(1, 0, 2)
+                     - yq_ref.float().view(m, -1, blk)
+                     * ys_ref.permute(1, 0, 2)).abs().max())
+        lib = (time_ms(lambda: torch._int_mm(a[0], a[2].t()))
+               if timed and m > 16 else None)
+        record("int8_matmul_rows", label, err,
+               time_ms(lambda: int8_matmul_rows(*a, q8_block=blk))
+               if timed else None,
+               time_ms(lambda: int8_matmul_rows_reference(*a, q8_block=blk))
+               if timed else None,
+               bound(nbytes(*a, yq, ys), 2.0 * m * kk * nn, "int8"), lib,
+               f"; codes off by one on a share {share:.2g}"
+               + ("" if lib is None else
+                  f"; torch._int_mm (product only) {lib:.4f} ms"))
     for m, dtype in ((m_full, bf16), (1001, f32)):
         x = randn((m, d), dtype, 3.0)
         xs = row_scales(x)
@@ -2477,7 +2553,7 @@ def main() -> int:
     records[K6["name"]]["library_ms"] = next(
         c["library_ms"] for c in k6 if c["library_ms"] is not None)
     # the training forwards: K1's, K2's and K16's numbers with one more
-    # output; K4's row-block form (q8_out, in-kernel quantize)
+    # output; K4's int8_matmul_rows entry (q8_out, in-kernel quantize)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for forms, key in ((TRAIN_FORMS, "training_form"), (ROW_FORMS, "rows_form")):
@@ -2492,7 +2568,7 @@ def main() -> int:
     for meta in KERNELS:
         name = meta["name"]
         # a train path launches K1, K2 and K16 in their training forms, the
-        # qkv_q8 path K4 in its row-block form
+        # qkv_q8 path K4 through int8_matmul_rows
         by_path = {path: counts.get(name, 0)
                    + counts.get(TRAIN_FORMS.get(name), 0)
                    + counts.get(ROW_FORMS.get(name), 0)

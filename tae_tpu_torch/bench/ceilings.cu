@@ -2,7 +2,8 @@
 //   * mma.sync int8 issue rate, m16n8k16 and m16n8k32, and bf16 m16n8k16
 //     with fp32 accumulators (the attention bodies'), register operands only;
 //   * a three-stage cp.async ring streaming L2-resident tiles into shared
-//     memory with one barrier per step and no compute, as gemm_tile runs it.
+//     memory with one barrier per step and no compute, as the int8 GEMM
+//     body's ring (int8_common.cuh) runs it.
 // Build and run: python -m tae_tpu_torch.bench.ceilings  (needs nvcc and a card)
 // Rates per clock assume the SM clock printed last (nvidia-smi).
 #include <cstdio>

@@ -105,6 +105,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a * b for one warp on mma.sync.m16n8k32 (int8 in, int32 accumulate;
+// every sum exact). Lane (g, t) holds, in the PTX ISA's layouts: a, the
+// 16 x 32 A tile, as (row g, bytes 4t .. 4t + 3), (row g + 8, the same),
+// (row g, bytes 16 + 4t ..), (row g + 8, the same); b0, b1, the 32 x 8 B
+// tile, as (bytes 4t .. 4t + 3 | 16 + 4t .., column g); c as mma_bf16's. In
+// the b16 view of 16-byte rows these are mma_bf16's A and B fragments, so
+// ldmatrix_x4 reads both operands from K-contiguous rows.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Four 8 x 8 matrices of 16-bit elements from shared memory, one warp:
 // lanes 8m .. 8m + 7 give the addresses of matrix m's eight rows (16 bytes
 // each, 16-byte aligned); r[m] of lane (g, t) receives matrix m's (row g,

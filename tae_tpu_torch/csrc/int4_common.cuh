@@ -39,15 +39,6 @@ __host__ __device__ constexpr int w4_ring_bytes(int bm, int bn, bool a_shared) {
   return kStages * ((a_shared ? 0 : bm * kLdA) + bn * kLdW);
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Copy step kt of an operand into its ring slot: `rows` rows of BYTES bytes
 // (64 for A, 32 for packed W) from src (row stride ld), rows at or beyond
 // valid_rows zero-filled so a ragged edge adds nothing to the product.

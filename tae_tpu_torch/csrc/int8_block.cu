@@ -10,30 +10,38 @@
 //   max|y|, quantize) re-read it from L1, so device memory sees one read.
 //
 // K5 replaces: tae_tpu/ops/pallas/int8_block.py::int8_mlp (_mlp_kernel).
-//   out = residual + fc2(gelu_tanh(fc1(xq))) in one kernel; the hidden
-//   activation is requantized per (row, hidden block of block_h columns)
-//   and the fc2 partial products are summed in fp32 with that block's
-//   scale, so block_h is part of the numerics. Optional ln_next epilogue:
-//   LayerNorm + int8 quantize of the fp32 output row.
-//   Bound on the H100 by tensor-core operations (4 * M * D * H of them);
-//   the (M, H) hidden activation never reaches device memory.
-//   Design: a block owns 32 rows (16 when those do not fit) and the full
-//   D-wide fp32 accumulator in shared memory. It walks the hidden dim in
-//   blocks of block_h: fc1 tiles (gemm_tile over K = D, 256 or 128
-//   columns wide) land in a (rows x block_h) buffer, are dequantized,
-//   biased and GELU'd in place, then each row's amax over the block gives
-//   the scale and the int8 codes; fc2 tiles (A from those codes in shared
-//   memory, K = block_h) are added into the accumulator as float(int32) *
-//   scale. The epilogue is acc * sw2 + b2 + residual, the cast, and
-//   optionally ln_quant_row on the fp32 rows. When block_h is no wider
-//   than a tile the hidden buffer and the fc2 result tiles lie over the
-//   operand ring. Every block re-streams both weight matrices from L2;
-//   larger row tiles and weight sharing across a cluster are later work.
-//   Few rows make few blocks (M = 256 is 8 of them on 132 SMs), so the
-//   launcher can split the hidden dim into groups (grid.y): each block then
-//   walks only its group's hidden blocks and writes its raw fp32
-//   accumulator to a (groups, M, D) workspace, and int8_mlp_finish_kernel
-//   sums the groups in order and runs the epilogue, one warp per row.
+//   out = residual + fc2(gelu_tanh(fc1(xq))); the hidden activation is
+//   requantized per (row, hidden block of block_h columns) and the fc2
+//   partial products are summed in fp32 with that block's scale, so
+//   block_h is part of the numerics. Optional ln_next epilogue: LayerNorm +
+//   int8 quantize of the fp32 output row.
+//   Bound on the H100 by tensor-core operations (4 * M * D * H of them) at
+//   many rows and by the weights' bytes (2 * D * H) at few.
+//   Design: three device launches a call, the two products on
+//   int8_common.cuh's gemm_mainloop (mma.sync.m16n8k32, accumulators in
+//   registers), their output tiles spread over the grid so that no block
+//   streams a whole weight.
+//   * int8_mlp_fc1_kernel: a block owns BM rows x one hidden block (its
+//     N tile is block_h wide: 128, 256 or 512). Its epilogue dequantizes,
+//     adds b1 and applies gelu_tanh to the fp32 values in registers, takes
+//     each row's amax over the hidden block (quad shuffles, then across the
+//     block's warps through shared memory), and writes the int8 codes hq
+//     (M, H) and the scales sh (H / block_h, M) to workspaces the wrapper
+//     allocates (64 MB + 1 MB at M = 16384, H = 4096).
+//   * int8_mlp_fc2_kernel: a block owns a (BM x BN) tile of the (M, D)
+//     output and walks K = H (or its group's share) in order; after each
+//     hidden block b the int32 sums are folded into an fp32 register
+//     accumulator, acc = acc + float(ig_b) * sh[b, row], each product and
+//     sum rounded separately, in ascending b, as int8_mlp_reference. The
+//     raw fp32 accumulator goes to a (groups, M, D) workspace.
+//   * int8_mlp_finish_kernel, one block per row: the groups' accumulators
+//     added in group order, then acc * sw2 + b2 + residual, the cast, and
+//     ln_next on the fp32 row (in shared memory, one warp's reductions).
+//   Few output tiles (few rows) split the hidden blocks into groups over
+//   grid.z (mlp_hidden_groups); with one group the fp32 sum is the plain
+//   version's order exactly, with more each group sums its blocks in order
+//   and the finish adds the groups in order (the last bit of a sum then
+//   follows the group count).
 #include "int8_common.cuh"
 
 namespace {
@@ -79,191 +87,178 @@ struct MlpArgs {
   float eps;
   int8_t* nq;             // (m, d)
   float* ns;              // (m,)
-  // hidden groups; part == null with groups == 1
-  float* part;            // (groups, m, d) fp32 partial accumulators
+  // workspaces
+  int8_t* hq;             // (m, hdim) hidden codes
+  float* sh;              // (hdim / block_h, m) hidden scales
+  float* part;            // (groups, m, d) fp32 accumulators of the hidden groups
   int groups;
 };
 
-// Shared memory of a block of BM rows working in BN-column tiles: the fp32
-// accumulator, the hidden codes, the per-row hidden scales, then the
-// operand ring. The fp32 hidden buffer (also the fc2 result tile) lies over
-// the ring when block_h <= BN and after it otherwise.
-__host__ __device__ constexpr int mlp_ld_acc(int d) { return d + 4; }
-__host__ __device__ constexpr int mlp_ld_h(int bn, int bh) {
-  return (bh + bn - 1) / bn * bn + 4;   // whole tiles
+// fc1 tiles: the N tile is one hidden block. Order of
+// ops/cuda/int8_block.py's FC1_TILES.
+using kFc1Bh128 = Tiles<128, 128, 2, 2, 3>;
+using kFc1Bh128Few = Tiles<16, 128, 1, 2, 4>;
+using kFc1Bh256 = Tiles<64, 256, 2, 4, 2, 2>;   // two blocks an SM: one's epilogue
+                                                 // overlaps the other's products
+using kFc1Bh256Few = Tiles<16, 256, 1, 4, 4>;
+using kFc1Bh512Few = Tiles<16, 512, 1, 8, 3>;
+// fc2 tiles (an int32 and an fp32 accumulator a lane): FC2_TILES' order.
+using kFc2Large = Tiles<64, 128, 2, 4, 3, 2>;
+using kFc2Mid = Tiles<64, 64, 2, 2, 4>;
+using kFc2Few = Tiles<16, 64, 1, 2, 4>;
+
+template <class S>
+__host__ __device__ constexpr int fc1_smem() {
+  return S::kSmem + S::BM * S::WARPS_N * 4;
 }
-__host__ __device__ constexpr int mlp_ld_hq(int bh) { return bh + 16; }
-__host__ __device__ constexpr int mlp_smem(int bm, int bn, int d, int bh) {
-  const int fixed = bm * mlp_ld_acc(d) * 4 + bm * mlp_ld_hq(bh) + bm * 4;
-  const int hbytes = bm * mlp_ld_h(bn, bh) * 4;
-  return fixed + (bh <= bn ? max_int(ring_bytes(bm, bn), hbytes)
-                           : ring_bytes(bm, bn) + hbytes);
-}
 
-template <int NT, int BM, int BN>
-__global__ void __launch_bounds__(NT) int8_mlp_kernel(const MlpArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int bh = p.block_h;
-  const int lda = mlp_ld_acc(p.d), ldh = mlp_ld_h(BN, bh), ldq = mlp_ld_hq(bh);
-  float* acc = reinterpret_cast<float*>(smem);
-  int8_t* hq = reinterpret_cast<int8_t*>(acc + BM * lda);
-  float* sh = reinterpret_cast<float*>(hq + BM * ldq);
-  int8_t* ring = reinterpret_cast<int8_t*>(sh + BM);
-  // fc1 tile, then the fc2 result tiles
-  float* hbuf = reinterpret_cast<float*>(bh <= BN ? ring : ring + ring_bytes(BM, BN));
+// h = gelu(float(xq . w1^T) * sx * sw1 + b1) for BM rows x one hidden block,
+// then one scale per row over the block and the int8 codes.
+template <class S>
+__global__ void __launch_bounds__(S::NT, S::MINB) int8_mlp_fc1_kernel(const MlpArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw + S::kSmem);   // [BM][WARPS_N]
+  const int row0 = blockIdx.y * S::BM, blk = blockIdx.x, h0 = blk * S::BN;
+  const int lane = threadIdx.x % 32, wn = (threadIdx.x / 32) % S::WARPS_N;
 
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tc = tile_col<BN>();
+  int acc[S::MI][S::NI][4];
+  gemm_mainloop<S>(acc, p.xq + static_cast<long>(row0) * p.d, p.d, p.m - row0,
+                   p.w1 + static_cast<long>(h0) * p.d, p.d, S::BN, 0, p.d, 0x7fffffff, smem,
+                   NoFold{});
+  transpose_rows8<S>(acc);
 
-  for (int i = threadIdx.x; i < BM * lda; i += NT) acc[i] = 0.f;
-
-  const int hgroup = p.hdim / p.groups;
-  const int h_begin = blockIdx.y * hgroup;
-  for (int h0 = h_begin; h0 < h_begin + hgroup; h0 += bh) {
-    // fc1: h = gelu(float(xq . w1^T) * sx * sw1 + b1) for this hidden block
-    for (int c0 = 0; c0 < bh; c0 += BN) {
-      gemm_tile<NT, BM, BN, BM / 16, false>(p.xq + static_cast<long>(row0) * p.d, p.d, p.m - row0,
-                                  p.w1 + static_cast<long>(h0 + c0) * p.d, p.d, bh - c0,
-                                  p.d, ring, reinterpret_cast<int*>(hbuf) + c0, ldh);
-      __syncthreads();
-      if (c0 + tc < bh) {
-        float sw[8], b[8];
-        load_vec(p.sw1 + h0 + c0 + tc, sw);
-        load_vec(p.sw1 + h0 + c0 + tc + 4, sw + 4);
-        load8(p.b1, h0 + c0 + tc, p.p_dtype, b);
-        for (int r = tile_row0<BN>(); r < BM; r += tile_rows<NT, BN>()) {
-          // rows past m hold zero codes; scale 1 keeps them finite
-          const float sxr = row0 + r < p.m ? p.sx[row0 + r] : 1.0f;
-          float* hp = hbuf + r * ldh + c0 + tc;   // holds the int32 product's bits
-          float h[8];
-          load_vec(hp, h);
-          load_vec(hp + 4, h + 4);
+  // column groups outer, so one group's scales and biases are live at a time
+  float amax[S::MI][2], sxr[S::MI][2];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float ig = __int2float_rn(__float_as_int(h[j]));
-            h[j] = gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(ig, sxr), sw[j]), b[j]));
-          }
-          store_vec(hp, h);
-          store_vec(hp + 4, h + 4);
+  for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = row0 + acc_row<S>(mi, hf);
+      // rows past m hold zero codes; scale 1 keeps them finite
+      sxr[mi][hf] = row < p.m ? p.sx[row] : 1.0f;
+      amax[mi][hf] = 0.f;
+    }
+#pragma unroll
+  for (int q = 0; q < S::NI / 4; ++q) {
+    const int col = h0 + rows8_col<S>(q);
+    float sw[8], b[8];
+    load_vec(p.sw1 + col, sw);
+    load_vec(p.sw1 + col + 4, sw + 4);
+    load8(p.b1, col, p.p_dtype, b);
+#pragma unroll
+    for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          int& v = acc[mi][4 * q + j / 2][2 * hf + j % 2];
+          const float h = gelu_tanh(
+              __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), sxr[mi][hf]), sw[j]), b[j]));
+          v = __float_as_int(h);
+          amax[mi][hf] = fmaxf(amax[mi][hf], fabsf(h));
         }
-      }
-      // with more chunks to come the hidden buffer is not over the ring
-    }
-    __syncthreads();
-
-    // one scale per (row, hidden block), then the int8 codes
-    for (int r = warp; r < BM; r += NT / 32) {
-      const float* hr = hbuf + r * ldh;
-      float v[8];
-      float amax = 0.f;
-      for (int i = lane * 8; i < bh; i += 256) {
-        load_vec(hr + i, v);
-        load_vec(hr + i + 4, v + 4);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
-      }
-      const float s = quant_scale(warp_max(amax));
-      const float inv = 1.0f / s;
-      for (int i = lane * 8; i < bh; i += 256) {
-        load_vec(hr + i, v);
-        load_vec(hr + i + 4, v + 4);
-        *reinterpret_cast<uint2*>(hq + r * ldq + i) = quantize8(v, inv);
-      }
-      if (lane == 0) sh[r] = s;
-    }
-    __syncthreads();
-
-    // fc2 partial: acc += float(hq . w2[:, h0:h0+bh]^T) * sh
-    int* tile = reinterpret_cast<int*>(hbuf);
-    constexpr int ldt = tile_ld(BN);
-    for (int n0 = 0; n0 < p.d; n0 += BN) {
-      gemm_tile<NT, BM, BN, BM / 16, true>(hq, ldq, BM, p.w2 + static_cast<long>(n0) * p.hdim + h0,
-                                 p.hdim, p.d - n0, bh, ring, tile, ldt);
-      __syncthreads();
-      if (n0 + tc < p.d) {
-        for (int r = tile_row0<BN>(); r < BM; r += tile_rows<NT, BN>()) {
-          const float s = sh[r];
-          float* ap = acc + r * lda + n0 + tc;
-          float ig[8], a[8];
-          load8_i32(tile + r * ldt + tc, ig);
-          load_vec(ap, a);
-          load_vec(ap + 4, a + 4);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) a[j] = __fadd_rn(a[j], __fmul_rn(ig[j], s));
-          store_vec(ap, a);
-          store_vec(ap + 4, a + 4);
-        }
-      }
-      __syncthreads();   // the tile may lie over the ring the next call refills
-    }
   }
-
-  if (p.groups > 1) {
-    // this group's share of the sum; the finish kernel does the rest
-    float* part = p.part + static_cast<long>(blockIdx.y) * p.m * p.d;
-    for (int n0 = 0; n0 < p.d; n0 += BN) {
-      const int col = n0 + tc;
-      if (col >= p.d) break;
-      for (int r = tile_row0<BN>(); r < BM; r += tile_rows<NT, BN>()) {
-        const long row = row0 + r;
-        if (row >= p.m) break;
-        float a[8];
-        load_vec(acc + r * lda + col, a);
-        load_vec(acc + r * lda + col + 4, a + 4);
-        store_vec(part + row * p.d + col, a);
-        store_vec(part + row * p.d + col + 4, a + 4);
-      }
-    }
-    return;
-  }
-
-  // y = acc * sw2 + b2 + residual; kept in acc for ln_next
-  for (int n0 = 0; n0 < p.d; n0 += BN) {
-    const int col = n0 + tc;
-    if (col >= p.d) break;
-    float sw[8], b[8], res[8];
-    load_vec(p.sw2 + col, sw);
-    load_vec(p.sw2 + col + 4, sw + 4);
-    load8(p.b2, col, p.p_dtype, b);
-    for (int r = tile_row0<BN>(); r < BM; r += tile_rows<NT, BN>()) {
-      const long row = row0 + r;
-      if (row >= p.m) break;
-      float* ap = acc + r * lda + col;
-      load8(p.residual, row * p.d + col, p.out_dtype, res);
-      float y[8];
-      load_vec(ap, y);
-      load_vec(ap + 4, y + 4);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        y[j] = __fadd_rn(__fadd_rn(__fmul_rn(y[j], sw[j]), b[j]), res[j]);
-      }
-      store_vec(ap, y);
-      store_vec(ap + 4, y + 4);
-      store8(p.out, row * p.d + col, p.out_dtype, y);
+  for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float a = amax[mi][hf];
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+      amax[mi][hf] = a;
+      if (lane % 4 == 0) red[acc_row<S>(mi, hf) * S::WARPS_N + wn] = a;
     }
-  }
-  if (p.gamma == nullptr) return;
   __syncthreads();
-  for (int r = warp; r < BM; r += NT / 32) {
-    const long row = row0 + r;
-    if (row >= p.m) break;
-    ln_quant_row(RowF32{acc + r * lda}, p.d, p.gamma, p.beta, p.ln_dtype, p.eps,
-                 p.nq + row * p.d, p.ns + row, lane);
-  }
+
+#pragma unroll
+  for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = acc_row<S>(mi, hf), row = row0 + r;
+      float a = amax[mi][hf];
+#pragma unroll
+      for (int w = 0; w < S::WARPS_N; ++w) a = fmaxf(a, red[r * S::WARPS_N + w]);
+      const float s = quant_scale(a);
+      const float inv = 1.0f / s;
+      if (row >= p.m) continue;
+#pragma unroll
+      for (int q = 0; q < S::NI / 4; ++q) {
+        float h[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) h[j] = __int_as_float(acc[mi][4 * q + j / 2][2 * hf + j % 2]);
+        *reinterpret_cast<uint2*>(p.hq + static_cast<long>(row) * p.hdim + h0 +
+                                  rows8_col<S>(q)) = quantize8(h, inv);
+      }
+      if (wn == 0 && lane % 4 == 0) p.sh[static_cast<long>(blk) * p.m + row] = s;
+    }
 }
 
-// The epilogue of a launch split into hidden groups, one warp per row: the
-// groups' partial sums added in group order, then acc * sw2 + b2 + residual,
-// the cast, and ln_next on the fp32 row (kept in group 0's workspace row,
-// each lane re-reading only what it wrote).
-__global__ void __launch_bounds__(kLnWarps * 32) int8_mlp_finish_kernel(const MlpArgs p) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long row = static_cast<long>(blockIdx.x) * kLnWarps + warp;
-  if (row >= p.m) return;
-  float* y0 = p.part + row * p.d;
+// This group's share of fc2 for a (BM x BN) tile of the (m, d) output: per
+// hidden block b in ascending order, acc = acc + float(hq_b . w2_b^T) *
+// sh[b, row]; the raw fp32 accumulator to part[group].
+template <class S>
+__global__ void __launch_bounds__(S::NT, S::MINB) int8_mlp_fc2_kernel(const MlpArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
+  const int row0 = blockIdx.y * S::BM, col0 = blockIdx.x * S::BN, grp = blockIdx.z;
+  const int hgroup = p.hdim / p.groups, k0 = grp * hgroup;
+  const int blk0 = k0 / p.block_h;
+
+  float facc[S::MI][S::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < S::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) facc[mi][ni][e] = 0.f;
+
+  auto fold = [&](int (&acc)[S::MI][S::NI][4], int i) {
+    const float* sb = p.sh + static_cast<long>(blk0 + i) * p.m;
+#pragma unroll
+    for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + acc_row<S>(mi, hf);
+        const float s = row < p.m ? sb[row] : 0.f;
+#pragma unroll
+        for (int ni = 0; ni < S::NI; ++ni)
+#pragma unroll
+          for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+            facc[mi][ni][e] =
+                __fadd_rn(facc[mi][ni][e], __fmul_rn(__int2float_rn(acc[mi][ni][e]), s));
+            acc[mi][ni][e] = 0;
+          }
+      }
+  };
+  int acc[S::MI][S::NI][4];
+  gemm_mainloop<S>(acc, p.hq + static_cast<long>(row0) * p.hdim, p.hdim, p.m - row0,
+                   p.w2 + static_cast<long>(col0) * p.hdim, p.hdim, p.d - col0, k0, k0 + hgroup,
+                   p.block_h / kBK, smem, fold);
+
+  float* part = p.part + static_cast<long>(grp) * p.m * p.d;
+  for_rows8<S>(facc, [&](int r, int c, const float* v) {
+    const long row = row0 + r;
+    const int col = col0 + c;
+    if (row >= p.m || col >= p.d) return;
+    store_vec(part + row * p.d + col, v);
+    store_vec(part + row * p.d + col + 4, v + 4);
+  });
+}
+
+// The epilogue of both products, one block per row: its threads add the
+// hidden groups' fp32 accumulators in group order (nothing to add with one
+// group) and compute acc * sw2 + b2 + residual and the cast, 8 columns
+// each; with ln_next the fp32 row goes to shared memory and warp 0 runs
+// ln_quant_row on it (one warp's reduction order).
+constexpr int kFinishThreads = 128;
+
+__global__ void __launch_bounds__(kFinishThreads) int8_mlp_finish_kernel(const MlpArgs p) {
+  extern __shared__ __align__(16) float yrow[];   // d floats with ln_next
+  const long row = blockIdx.x;
+  const float* y0 = p.part + row * p.d;
   const long gstride = static_cast<long>(p.m) * p.d;
-  for (int i = lane * 8; i < p.d; i += 256) {
+  for (int i = threadIdx.x * 8; i < p.d; i += kFinishThreads * 8) {
     float y[8], t[8], sw[8], b[8], res[8];
     load_vec(y0 + i, y);
     load_vec(y0 + i + 4, y + 4);
@@ -283,28 +278,68 @@ __global__ void __launch_bounds__(kLnWarps * 32) int8_mlp_finish_kernel(const Ml
     }
     store8(p.out, row * p.d + i, p.out_dtype, y);
     if (p.gamma != nullptr) {
-      store_vec(y0 + i, y);
-      store_vec(y0 + i + 4, y + 4);
+      store_vec(yrow + i, y);
+      store_vec(yrow + i + 4, y + 4);
     }
   }
   if (p.gamma == nullptr) return;
-  __syncwarp();
-  ln_quant_row(RowF32{y0}, p.d, p.gamma, p.beta, p.ln_dtype, p.eps, p.nq + row * p.d,
-               p.ns + row, lane);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    ln_quant_row(RowF32{yrow}, p.d, p.gamma, p.beta, p.ln_dtype, p.eps, p.nq + row * p.d,
+                 p.ns + row, threadIdx.x);
+  }
 }
 
-template <int NT, int BM, int BN>
-int launch_mlp(const MlpArgs& p, cudaStream_t stream) {
-  const int smem = mlp_smem(BM, BN, p.d, p.block_h);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = cudaFuncSetAttribute(int8_mlp_kernel<NT, BM, BN>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <class S>
+int launch_fc1(const MlpArgs& p, cudaStream_t stream) {
+  if (S::BN != p.block_h) return static_cast<int>(cudaErrorInvalidValue);
+  const long tiles_m = (static_cast<long>(p.m) + S::BM - 1) / S::BM;
+  if (tiles_m > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = fc1_smem<S>();
+  static_assert(smem <= kSmemLimit, "fc1 tile exceeds a block's shared memory");
+  const cudaError_t rc = allow_smem(int8_mlp_fc1_kernel<S>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((p.m + BM - 1) / BM, p.groups);
-  int8_mlp_kernel<NT, BM, BN><<<grid, NT, smem, stream>>>(p);
-  if (p.groups > 1) {
-    int8_mlp_finish_kernel<<<(p.m + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(p);
+  const dim3 grid(p.hdim / p.block_h, static_cast<unsigned>(tiles_m));
+  int8_mlp_fc1_kernel<S><<<grid, S::NT, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class S>
+int launch_fc2(const MlpArgs& p, cudaStream_t stream) {
+  const long tiles_m = (static_cast<long>(p.m) + S::BM - 1) / S::BM;
+  if (tiles_m > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = allow_smem(int8_mlp_fc2_kernel<S>, S::kSmem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((p.d + S::BN - 1) / S::BN, static_cast<unsigned>(tiles_m), p.groups);
+  int8_mlp_fc2_kernel<S><<<grid, S::NT, S::kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mlp(const MlpArgs& p, int fc1_tiles, int fc2_tiles, cudaStream_t stream) {
+  int rc;
+  switch (fc1_tiles) {
+    case 0: rc = launch_fc1<kFc1Bh128>(p, stream); break;
+    case 1: rc = launch_fc1<kFc1Bh128Few>(p, stream); break;
+    case 2: rc = launch_fc1<kFc1Bh256>(p, stream); break;
+    case 3: rc = launch_fc1<kFc1Bh256Few>(p, stream); break;
+    case 4: rc = launch_fc1<kFc1Bh512Few>(p, stream); break;
+    default: rc = static_cast<int>(cudaErrorInvalidValue);
   }
+  if (rc != 0) return rc;
+  switch (fc2_tiles) {
+    case 0: rc = launch_fc2<kFc2Large>(p, stream); break;
+    case 1: rc = launch_fc2<kFc2Mid>(p, stream); break;
+    case 2: rc = launch_fc2<kFc2Few>(p, stream); break;
+    default: rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  const int smem = p.gamma == nullptr ? 0 : p.d * 4;
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc2 = allow_smem(int8_mlp_finish_kernel, smem);
+    if (rc2 != cudaSuccess) return static_cast<int>(rc2);
+  }
+  int8_mlp_finish_kernel<<<static_cast<unsigned>(p.m), kFinishThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,24 +364,24 @@ extern "C" int tae_ln_quant_fwd(const void* x, const void* gamma, const void* be
 
 // xq (m, d) int8, sx (m,) f32, w1 (hdim, d) int8, sw1 (hdim,) f32, b1 (hdim,),
 // w2 (d, hdim) int8, sw2 (d,) f32, b2 (d,), residual and out (m, d) of
-// out_dtype; b1, b2 of p_dtype. block_rows is 32 (256-column tiles) or 16
-// (128-column tiles); block_h a multiple
-// of 128 that divides hdim; d a multiple of 16. gamma = null: no ln_next;
-// otherwise gamma, beta (d,) of ln_dtype and outputs nq (m, d) int8,
-// ns (m,) f32. groups splits the hidden blocks evenly over grid.y; with
-// groups > 1, part is a (groups, m, d) f32 workspace. All contiguous and
-// 16-byte aligned.
+// out_dtype; b1, b2 of p_dtype. block_h 128, 256 or 512, dividing hdim; d a
+// multiple of 16. gamma = null: no ln_next; otherwise gamma, beta (d,) of
+// ln_dtype and outputs nq (m, d) int8, ns (m,) f32. Workspaces: hq (m, hdim)
+// int8, sh (hdim / block_h, m) f32, part (groups, m, d) f32. fc1_tiles and
+// fc2_tiles pick the products' tile shapes (ops/cuda/int8_block.py's
+// mlp_tiles: fc1's N tile must be block_h wide); groups splits the hidden
+// blocks evenly over fc2's grid.z. All contiguous and 16-byte aligned.
 extern "C" int tae_int8_mlp_fwd(const void* xq, const void* sx, const void* w1,
                                 const void* sw1, const void* b1, const void* w2,
                                 const void* sw2, const void* b2, const void* residual,
                                 void* out, int m, int d, int hdim, int block_h,
-                                int block_rows, int out_dtype, int p_dtype,
-                                const void* gamma, const void* beta, int ln_dtype, float eps,
-                                void* nq, void* ns, void* part, int groups,
-                                void* stream) {
+                                int out_dtype, int p_dtype, const void* gamma,
+                                const void* beta, int ln_dtype, float eps, void* nq, void* ns,
+                                void* hq, void* sh, void* part, int groups, int fc1_tiles,
+                                int fc2_tiles, void* stream) {
   if (m < 1 || d < 16 || d % 16 != 0 || block_h < 128 || block_h % 128 != 0 ||
       hdim % block_h != 0 || hdim < block_h || groups < 1 || groups > 65535 ||
-      (hdim / block_h) % groups != 0 || (groups > 1 && part == nullptr) ||
+      (hdim / block_h) % groups != 0 || hq == nullptr || sh == nullptr || part == nullptr ||
       bad_dtype(out_dtype) || bad_dtype(p_dtype) ||
       (gamma != nullptr &&
        (beta == nullptr || nq == nullptr || ns == nullptr || bad_dtype(ln_dtype)))) {
@@ -372,10 +407,9 @@ extern "C" int tae_int8_mlp_fwd(const void* xq, const void* sx, const void* w1,
   p.eps = eps;
   p.nq = static_cast<int8_t*>(nq);
   p.ns = static_cast<float*>(ns);
+  p.hq = static_cast<int8_t*>(hq);
+  p.sh = static_cast<float*>(sh);
   p.part = static_cast<float*>(part);
   p.groups = groups;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_rows == 32) return launch_mlp<512, 32, 256>(p, s);
-  if (block_rows == 16) return launch_mlp<256, 16, 128>(p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mlp(p, fc1_tiles, fc2_tiles, static_cast<cudaStream_t>(stream));
 }

@@ -3,26 +3,32 @@
 //
 //   * ln_quant_row: LayerNorm of one row with fp32 statistics followed by
 //     per-row symmetric int8 quantization, one warp per row. It is the body
-//     of K3 and the chained epilogue of K4 (ln_out) and K5 (ln_next); the
-//     row comes from device memory (K3) or from an fp32 row in shared
-//     memory (the epilogues), through a loader functor.
-//   * gemm_tile: one (BM x BN) int32 tile of an int8 x int8 product on the
-//     tensor cores (nvcuda::wmma, signed char 16x16x16 -> int), both
-//     operands K-contiguous, operand tiles staged through shared memory by
-//     a three-stage cp.async ring with one block barrier per step, the
-//     result stored to shared memory (it may overlay the ring) where the
-//     caller's epilogue reads it with a known layout.
+//     of K3 and of the finish passes of K4 (ln_out) and K5 (ln_next); the
+//     row comes from device memory through a loader functor.
+//   * gemm_mainloop: one block's (BM x BN) int32 tile of an int8 x int8
+//     product, both operands K-contiguous ((M, K) and (N, K)), over a range
+//     of K. mma.sync.m16n8k32 (tae::mma_s8) with the accumulators in
+//     registers; both operands read from shared memory by ldmatrix on the
+//     b16 view of 16-byte rows; a cp.async ring of STAGES slots of 128
+//     bytes of K each (one block barrier per 128 bytes), rows padded to 144
+//     bytes so that the eight rows an ldmatrix reads fall in eight
+//     different bank groups. A fold functor runs after every group of K
+//     steps (K5's fc2 folds each hidden block's int32 sums into fp32).
+//   * transpose_rows8 / for_rows8: the accumulator tile handed to an
+//     epilogue as 8 consecutive columns of one row per lane, turned from the
+//     C fragments by quad transposes (tae::quad_transpose), so epilogues
+//     read and write 16 bytes a lane without passing through shared memory.
 //
-// Numerics shared with the plain PyTorch versions: rounding is half-even
-// (rintf), the quantize step multiplies by an exact reciprocal 1.0f / s,
-// the scale is max(amax / 127, 1e-12), LayerNorm statistics are two-pass
-// fp32 with rsqrtf, and every epilogue product and sum is rounded
-// separately (__fmul_rn / __fadd_rn keep the compiler from contracting
-// them into fused multiply-adds the plain versions do not use).
+// Numerics shared with the plain PyTorch versions: int32 sums are exact in
+// any order; rounding is half-even (rintf), the quantize step multiplies by
+// an exact reciprocal 1.0f / s, the scale is max(amax / 127, 1e-12),
+// LayerNorm statistics are two-pass fp32 with rsqrtf, and every epilogue
+// product and sum is rounded separately (__fmul_rn / __fadd_rn keep the
+// compiler from contracting them into fused multiply-adds the plain
+// versions do not use).
 #pragma once
 
 #include <cuda_pipeline.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -30,19 +36,9 @@
 namespace tae {
 namespace i8 {
 
-constexpr int kBK = 64;                // bytes of K per pipeline stage
-constexpr int kStages = 3;             // stages of the operand ring
-constexpr int kLdT = kBK + 16;         // shared row stride of an operand tile
+constexpr int kBK = 128;               // bytes of K per pipeline stage
+constexpr int kLd = kBK + 16;          // shared row stride of an operand tile
 constexpr int kSmemLimit = 232448;     // dynamic shared memory of one block
-
-// Row stride (ints) of a BN-wide result tile, and the bytes of the operand
-// ring and of a result tile; a result tile may overlay the ring.
-__host__ __device__ constexpr int tile_ld(int bn) { return bn + 4; }
-__host__ __device__ constexpr int ring_bytes(int bm, int bn) {
-  return kStages * (bm + bn) * kLdT;
-}
-__host__ __device__ constexpr int tile_bytes(int bm, int bn) { return bm * tile_ld(bn) * 4; }
-__host__ __device__ constexpr int max_int(int a, int b) { return a > b ? a : b; }
 
 // 8 consecutive elements of a float32 / bfloat16 array (dtype codes of
 // common.cuh) as fp32; idx must be a multiple of 8 and p 16-byte aligned.
@@ -62,16 +58,6 @@ __device__ __forceinline__ void store8(void* p, long idx, int dtype, const float
     store_vec(static_cast<float*>(p) + idx, v);
     store_vec(static_cast<float*>(p) + idx + 4, v + 4);
   }
-}
-
-// 8 consecutive int32 of a result tile in shared memory, as fp32.
-__device__ __forceinline__ void load8_i32(const int* p, float* v) {
-  const int4 a = *reinterpret_cast<const int4*>(p);
-  const int4 b = *reinterpret_cast<const int4*>(p + 4);
-  v[0] = __int2float_rn(a.x); v[1] = __int2float_rn(a.y);
-  v[2] = __int2float_rn(a.z); v[3] = __int2float_rn(a.w);
-  v[4] = __int2float_rn(b.x); v[5] = __int2float_rn(b.y);
-  v[6] = __int2float_rn(b.z); v[7] = __int2float_rn(b.w);
 }
 
 __device__ __forceinline__ float quant_scale(float amax) {
@@ -166,130 +152,219 @@ struct RowF32 {
   }
 };
 
-// Copy one operand tile (rows x kBK bytes) of pipeline step kt into shared
-// memory. src points at the tile's first row and the product's first K
-// byte; rows at or beyond valid_rows and K bytes at or beyond klen are
-// zero-filled, so ragged edges add nothing to the product.
-template <int NT>
-__device__ __forceinline__ void stage_tile(int8_t* dst, const int8_t* __restrict__ src,
-                                           long ld, int rows, int valid_rows, int klen,
-                                           int kt) {
-  const int kbase = kt * kBK;
-  for (int c = threadIdx.x; c < rows * 4; c += NT) {
-    const int r = c >> 2, kc = kbase + (c & 3) * 16;
-    int8_t* d = dst + r * kLdT + (c & 3) * 16;
-    if (r < valid_rows && kc < klen) {
-      __pipeline_memcpy_async(d, src + r * ld + kc, 16);
-    } else {
-      *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
-    }
+// 8 int32 as fp32 (round to nearest even; exact below 2^24).
+__device__ __forceinline__ void to_float8(const int* v, float* y) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) y[j] = __int2float_rn(v[j]);
+}
+
+// A block's tiling: BM x BN outputs, WARPS_M x WARPS_N warps of WM x WN
+// each, STAGES ring slots, MINB blocks an SM (__launch_bounds__' second
+// argument). A warp holds MI x NI m16n8 accumulator tiles.
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int STAGES_, int MINB_ = 1>
+struct Tiles {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int STAGES = STAGES_, MINB = MINB_;
+  static constexpr int NT = 32 * WARPS_M * WARPS_N;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int MI = WM / 16, NI = WN / 8;
+  static constexpr int kStage = (BM + BN) * kLd;   // bytes of one ring slot
+  static constexpr int kSmem = STAGES * kStage;    // bytes of the ring
+  static_assert(WM % 16 == 0 && WN % 32 == 0, "warp tile: 16-row, 32-column multiples");
+  static_assert(STAGES >= 2, "the ring needs two slots");
+};
+
+template <class S> using Acc = int[S::MI][S::NI][4];
+
+// Let a kernel take `bytes` of dynamic shared memory and ask for the
+// largest shared-memory carveout, so that MINB blocks fit an SM.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return rc;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// 16 bytes from device memory to shared memory (a 32-bit shared address)
+// by cp.async.cg, in this thread's current commit group; with valid false
+// the 16 bytes are zero-filled and src is not read.
+__device__ __forceinline__ void cp_async16_zfill(unsigned dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Copy K bytes [k, k + kBK) of ROWS operand rows (row stride ld bytes, from
+// src) into a ring slot (32-bit shared address dst), 16 bytes a cp.async:
+// thread t copies chunk t % 8 of rows t / 8, t / 8 + NT / 8, ... Rows at or
+// beyond valid_rows and bytes at or beyond k_end are zero-filled, so ragged
+// edges add nothing to the product.
+template <int NT, int ROWS>
+__device__ __forceinline__ void stage_k_tile(unsigned dst, const int8_t* __restrict__ src, long ld,
+                                             int valid_rows, int k, int k_end) {
+  constexpr int kChunks = kBK / 16, kStep = NT / kChunks;
+  static_assert(NT % kChunks == 0, "whole rows per pass");
+  const int ch = (threadIdx.x % kChunks) * 16, r0 = threadIdx.x / kChunks;
+  const bool in_k = k + ch < k_end;
+  const int8_t* s = src + r0 * ld + k + ch;
+  const unsigned d = dst + r0 * kLd + ch;
+#pragma unroll
+  for (int i = 0; i < (ROWS + kStep - 1) / kStep; ++i) {
+    const int r = r0 + i * kStep;
+    if (ROWS % kStep != 0 && r >= ROWS) break;
+    const bool valid = in_k && r < valid_rows;
+    cp_async16_zfill(d + i * kStep * kLd, valid ? s + i * kStep * ld : src, valid);
   }
 }
 
-// out[BM][BN] (int32, row stride ldo, shared memory) = A[BM][klen] x
-// B[BN][klen]^T for the block's NT threads.
-//   a: first row of the A tile. A_SHARED = false: device memory, row stride
-//      lda bytes, a_rows valid rows from there. A_SHARED = true: shared
-//      memory holding all BM rows and klen bytes (klen a multiple of kBK).
-//   b: first row of the B tile in device memory ((N, K) layout, row stride
-//      ldb bytes), b_rows valid rows from there.
-//   klen: K bytes, a multiple of 16; a, b and the strides 16-byte aligned.
-//   ring: ring_bytes(BM, BN) bytes of staging, kStages A tiles (unused
-//      when A_SHARED) then kStages B tiles.
-//   out may overlay the ring: every warp has left the ring when it is
-//      written.
-// WARPS_M x (NT / 32 / WARPS_M) warps tile the output. Ends with the stores to
-// out unsynchronised: the caller syncs before reading them, and again
-// before the next gemm_tile if out overlays the ring.
-template <int NT, int BM, int BN, int WARPS_M, bool A_SHARED>
-__device__ __forceinline__ void gemm_tile(const int8_t* a, long lda, int a_rows,
-                                          const int8_t* __restrict__ b, long ldb,
-                                          int b_rows, int klen, int8_t* ring, int* out,
-                                          int ldo) {
-  using namespace nvcuda;
-  constexpr int WARPS_N = NT / 32 / WARPS_M;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int FM = WM / 16, FN = WN / 16;
-  static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile must hold 16x16 fragments");
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  int8_t* as = ring;
-  int8_t* bs = ring + kStages * BM * kLdT;
+struct NoFold {
+  template <class A> __device__ __forceinline__ void operator()(A&, int) const {}
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[FM][FN];
+// acc = A[a_rows][k0:k1] x B[b_rows][k0:k1]^T for one block tile.
+//   a, b: the tile's first row in device memory (row stride lda / ldb
+//     bytes); rows beyond a_rows / b_rows read as zero.
+//   k0, k1: the K range in bytes, multiples of 16; k0 a multiple of kBK.
+//   fold(acc, i) runs after the i-th group of group_steps K steps (and
+//     may use and clear acc); the last group may be partial only when
+//     fold does nothing.
+//   smem: S::kSmem bytes, 16-byte aligned.
+// No barrier at the end: the caller syncs before reusing smem.
+template <class S, class Fold>
+__device__ __forceinline__ void gemm_mainloop(Acc<S>& acc, const int8_t* __restrict__ a, long lda,
+                                              int a_rows, const int8_t* __restrict__ b, long ldb,
+                                              int b_rows, int k0, int k1, int group_steps,
+                                              int8_t* smem, Fold fold) {
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+  for (int mi = 0; mi < S::MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
+    for (int ni = 0; ni < S::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
 
-  const int nk = (klen + kBK - 1) / kBK;
+  const int nk = k1 > k0 ? (k1 - k0 + kBK - 1) / kBK : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
+  // ldmatrix row addresses. A (x4): matrices (rows 0-7 | 8-15) x (bytes
+  // 0-15 | 16-31) give a0..a3. B (x4): two n8 tiles, matrices (n 0-7,
+  // bytes 0-15), (n 0-7, 16-31), (n 8-15, 0-15), (n 8-15, 16-31) give
+  // b0, b1 of the first and of the second.
+  const unsigned base = smem_addr(smem);
+  const unsigned a_off = (wm * S::WM + (lane & 15)) * kLd + (lane >> 4) * 16;
+  const unsigned b_off = S::BM * kLd +
+                         (wn * S::WN + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+                         ((lane >> 3) & 1) * 16;
+
+  auto stage = [&](int kt) {
+    const unsigned slot = base + (kt % S::STAGES) * S::kStage;
+    const int k = k0 + kt * kBK;
+    stage_k_tile<S::NT, S::BM>(slot, a, lda, a_rows, k, k1);
+    stage_k_tile<S::NT, S::BN>(slot + S::BM * kLd, b, ldb, b_rows, k, k1);
+  };
+
   // one commit per slot whether or not it loads, so group kt is step kt
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) {
-      if (!A_SHARED) stage_tile<NT>(as + s * BM * kLdT, a, lda, BM, a_rows, klen, s);
-      stage_tile<NT>(bs + s * BN * kLdT, b, ldb, BN, b_rows, klen, s);
-    }
-    __pipeline_commit();
+  for (int s = 0; s < S::STAGES - 1; ++s) {
+    if (s < nk) stage(s);
+    cp_async_commit();
   }
-
   for (int kt = 0; kt < nk; ++kt) {
-    __pipeline_wait_prior(kStages - 2);   // this thread's copies of step kt landed
-    __syncthreads();                      // everyone's did; step kt - 1 is computed
-    const int nxt = kt + kStages - 1;     // refill the slot step kt - 1 used
-    if (nxt < nk) {
-      const int slot = nxt % kStages;
-      if (!A_SHARED) stage_tile<NT>(as + slot * BM * kLdT, a, lda, BM, a_rows, klen, nxt);
-      stage_tile<NT>(bs + slot * BN * kLdT, b, ldb, BN, b_rows, klen, nxt);
-    }
-    __pipeline_commit();
+    __pipeline_wait_prior(S::STAGES - 2);   // this thread's copies of step kt landed
+    __syncthreads();                         // everyone's did; step kt - 1 is computed
+    if (kt + S::STAGES - 1 < nk) stage(kt + S::STAGES - 1);
+    cp_async_commit();
 
-    const int cur = kt % kStages;
-    const int8_t* at = A_SHARED ? a + kt * kBK : as + cur * BM * kLdT;
-    const unsigned a_ld = A_SHARED ? static_cast<unsigned>(lda) : kLdT;
-    const int8_t* bt = bs + cur * BN * kLdT;
+    const unsigned slot = base + (kt % S::STAGES) * S::kStage;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[FN];
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      unsigned af[S::MI][4], bf[S::NI][2];
 #pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        wmma::load_matrix_sync(
-            fa[i], reinterpret_cast<const signed char*>(at + (wm * WM + i * 16) * a_ld + kk),
-            a_ld);
+      for (int mi = 0; mi < S::MI; ++mi)
+        ldmatrix_x4_at(af[mi], slot + a_off + mi * 16 * kLd + kk * 32);
+#pragma unroll
+      for (int nj = 0; nj < S::NI / 2; ++nj) {
+        unsigned r[4];
+        ldmatrix_x4_at(r, slot + b_off + nj * 16 * kLd + kk * 32);
+        bf[2 * nj][0] = r[0];
+        bf[2 * nj][1] = r[1];
+        bf[2 * nj + 1][0] = r[2];
+        bf[2 * nj + 1][1] = r[3];
       }
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::load_matrix_sync(
-            fb[j], reinterpret_cast<const signed char*>(bt + (wn * WN + j * 16) * kLdT + kk),
-            kLdT);
-      }
+      for (int mi = 0; mi < S::MI; ++mi)
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int ni = 0; ni < S::NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
     }
+    if ((kt + 1) % group_steps == 0) fold(acc, kt / group_steps);
   }
-  __syncthreads();   // the ring is free: out may overlay it, the next call may refill it
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(out + (wm * WM + i * 16) * ldo + wn * WN + j * 16, acc[i][j],
-                              ldo, wmma::mem_row_major);
-    }
 }
 
-// The part of a (BM x BN) tile one of NT threads handles in an epilogue:
-// BN / 8 threads per row, 8 consecutive columns each, rows tile_row0(),
-// tile_row0() + tile_rows(), ...
-template <int BN> __device__ __forceinline__ int tile_col() {
-  return (threadIdx.x % (BN / 8)) * 8;
+// The row of the block tile that accumulator element [mi][.][e] of this
+// lane belongs to (e / 2 is the row half).
+template <class S> __device__ __forceinline__ int acc_row(int mi, int half) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp / S::WARPS_N) * S::WM + mi * 16 + lane / 4 + 8 * half;
 }
-template <int BN> __device__ __forceinline__ int tile_row0() { return threadIdx.x / (BN / 8); }
-template <int NT, int BN> __host__ __device__ constexpr int tile_rows() {
-  return NT / (BN / 8);
+
+// Turn the accumulator tile, in place, from the m16n8 C layout (lane t
+// holds columns 2t, 2t + 1 of every 8) into rows of 8: for each (mi, row
+// half h, group q of four n8 tiles), lane t then holds the 8 consecutive
+// columns 32q + 8t .. 32q + 8t + 7 of the warp tile's row acc_row(mi, h), as
+// element j at acc[mi][4q + j / 2][2h + j % 2]. Two quad transposes per
+// (mi, h, q), on the 32-bit patterns: int32 or fp32 alike.
+__device__ __forceinline__ unsigned to_bits(int v) { return static_cast<unsigned>(v); }
+__device__ __forceinline__ unsigned to_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ void from_bits(unsigned u, int& v) { v = static_cast<int>(u); }
+__device__ __forceinline__ void from_bits(unsigned u, float& v) { v = __uint_as_float(u); }
+
+template <class S, class T>
+__device__ __forceinline__ void transpose_rows8(T (&acc)[S::MI][S::NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < S::NI / 4; ++q) {
+        unsigned ev[4], od[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ev[i] = to_bits(acc[mi][4 * q + i][2 * h]);
+          od[i] = to_bits(acc[mi][4 * q + i][2 * h + 1]);
+        }
+        quad_transpose(ev);
+        quad_transpose(od);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          from_bits(ev[i], acc[mi][4 * q + i][2 * h]);
+          from_bits(od[i], acc[mi][4 * q + i][2 * h + 1]);
+        }
+      }
+}
+
+// The column (within the block tile) of lane t's 8 after transpose_rows8.
+template <class S> __device__ __forceinline__ int rows8_col(int q) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp % S::WARPS_N) * S::WN + 32 * q + 8 * (lane % 4);
+}
+
+// transpose_rows8, then fn(r, c, v) for each of this lane's rows of 8: r,
+// c the row and first column within the block tile, v[8] the values.
+template <class S, class T, class Fn>
+__device__ __forceinline__ void for_rows8(T (&acc)[S::MI][S::NI][4], Fn fn) {
+  transpose_rows8<S>(acc);
+#pragma unroll
+  for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < S::NI / 4; ++q) {
+        T v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = acc[mi][4 * q + j / 2][2 * h + j % 2];
+        fn(acc_row<S>(mi, h), rows8_col<S>(q), v);
+      }
 }
 
 }  // namespace i8

@@ -12,27 +12,33 @@
 //   per (row, block of bn columns), s = max(max|y| / 127, 1e-12), codes
 //   clip(round_half_even(y * (1 / s)), +-127), the scales laid out
 //   (N / bn, M). A float x with its precomputed row scales (the Pallas
-//   body's quantize_in_kernel, prequantize=False) is quantized in the
-//   kernel, clip(round_half_even(x * (1 / sx)), +-127), on its way into
-//   shared memory.
+//   body's quantize_in_kernel, prequantize=False) is quantized first,
+//   clip(round_half_even(x * (1 / sx)), +-127).
 // What bounds it on the H100: tensor-core operations at the wide shapes
 //   (M x 1024 x 3072), device-memory bytes at the narrow ones (the
-//   residual, y and the int8 LN output outweigh the product at N = 1024).
-// What the design does about it: 128 x 128 output tiles, 8 warps of wmma
-//   int8 fragments, operand tiles brought in by a three-stage cp.async
-//   ring; the int32 tile goes through shared memory (over the ring) so the
-//   epilogue reads whole rows with 16-byte accesses. The ln_out form needs
-//   a full output row in one block: a block owns 32 rows (16 for wide N),
-//   walks the N columns in chunks of 256 (128), keeps the fp32 y rows in
-//   shared memory ((rows x N) floats) and normalises and quantizes them at
-//   the end, one warp per row. The q8_out form and the in-kernel quantize
-//   take the same shape of block: 32 rows and a block of output columns
-//   (bn for q8_out, 512 otherwise) in chunks of 128; q8_out keeps the fp32
-//   y of the block in shared memory for its per-row amax, and a float x is
-//   quantized once per block into a (32 x K) int8 tile that every chunk's
-//   product reads from shared memory. Ragged M, N and K edges are
-//   zero-filled on load and masked on store; N must be a multiple of 8 and
-//   K of 16.
+//   residual, y and the int8 LN output outweigh the product at N = 1024)
+//   and at few rows (the weight: 6.6 MB at p128's 2560 x 2560, 4 rows).
+// What the design does about it: the output is tiled over (M, N) across
+//   the grid in one of three tile shapes (kLarge, kMedium, kSmall below;
+//   the wrapper's matmul_tiles picks one from M and N), each block runs
+//   int8_common.cuh's gemm_mainloop (mma.sync.m16n8k32, ldmatrix, a
+//   cp.async ring of 128 bytes of K a stage) with the accumulators in
+//   registers, and no block streams more of the weight than its columns.
+//   Where the tiles are fewer than the SMs, K is split over grid.z as well:
+//   int32 sums are exact, so the split partials add up to the same product
+//   bit for bit. The epilogue reads the C fragments through quad transposes
+//   (8 consecutive columns a lane, 16-byte loads and stores).
+//   A row epilogue (ln_out, q8_out) needs a whole fp32 row: the product
+//   writes its int32 tile (per K split) to a workspace the wrapper
+//   allocates, and int8_matmul_finish_kernel, one block per row, adds the
+//   splits, runs the dequantize epilogue and then ln_quant_row or the
+//   per-block amax and quantize on the fp32 row held in shared memory
+//   (two-pass statistics over the fp32 y, as _ln_quant_epilogue, in one
+//   warp's order). So do split plain launches.
+//   Device launches per call: 1 (plain, unsplit), 2 (split or a row
+//   epilogue), one more for a float x (its quantize pass). Ragged M, N and
+//   K edges are zero-filled on load and masked on store; N must be a
+//   multiple of 8 and K of 16.
 #include "int8_common.cuh"
 
 namespace {
@@ -47,30 +53,31 @@ struct MatmulArgs {
   const float* sw;        // (n,)
   const void* bias;       // (n,) of bias_dtype, or null
   const void* residual;   // (m, n) of out_dtype, or null
-  void* out;              // (m, n) of out_dtype
+  void* out;              // (m, n) of out_dtype (q8_out: int8)
   int m, n, k;
   int out_dtype, bias_dtype;
-  // ln_out only
-  const void* gamma;      // (n,) of ln_dtype
+  int* ws;                // (splits, m, n) int32 partial products, or null
+  int splits;
+  // ln_out
+  const void* gamma;      // (n,) of ln_dtype, or null
   const void* beta;
   int ln_dtype;
   float eps;
   int8_t* nq;             // (m, n)
   float* ns;              // (m,)
-  // the row-block kernel only
-  const void* xf;         // (m, k) float x of x_dtype, quantized in the kernel
-  int x_dtype;
-  float* so;              // q8_out: (n / bn, m) scales of the int8 y in out
+  // q8_out
+  float* so;              // (n / bn, m) scales of the int8 y in out, or null
+  int bn;
 };
 
-// y for 8 consecutive columns of one row from the staged int32 tile.
+// y for 8 consecutive columns of one row from their int32 sums.
 __device__ __forceinline__ void dequant8(const MatmulArgs& p, const int* acc, long row,
                                          int col, float* y) {
   const float sxr = p.sx[row];
   float sw[8], t[8];
   load_vec(p.sw + col, sw);
   load_vec(p.sw + col + 4, sw + 4);
-  load8_i32(acc, y);
+  to_float8(acc, y);
 #pragma unroll
   for (int j = 0; j < 8; ++j) y[j] = __fmul_rn(__fmul_rn(y[j], sxr), sw[j]);
   if (p.bias != nullptr) {
@@ -85,222 +92,226 @@ __device__ __forceinline__ void dequant8(const MatmulArgs& p, const int* acc, lo
   }
 }
 
-constexpr int kThreads = 256;   // of the 128 x 128 kernel; two blocks fit an SM
-constexpr int kGemmBM = 128, kGemmBN = 128;
-constexpr int kGemmSmem =
-    max_int(ring_bytes(kGemmBM, kGemmBN), tile_bytes(kGemmBM, kGemmBN));
+// The tile shapes, in the order of ops/cuda/int8_matmul.py's MATMUL_TILES:
+// many rows; a few hundred rows; up to 64 rows (few rows leave the
+// tensor cores idle anyway: the weight's bytes bound those launches).
+using kLarge = Tiles<128, 128, 2, 4, 3, 2>;
+using kMedium = Tiles<64, 128, 2, 4, 4, 2>;
+using kSmall = Tiles<16, 64, 1, 2, 4>;
 
-__global__ void __launch_bounds__(kThreads) int8_matmul_kernel(const MatmulArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* ring = reinterpret_cast<int8_t*>(smem);
-  int* tile = reinterpret_cast<int*>(smem);          // over the ring
-  constexpr int ldt = tile_ld(kGemmBN);
+// One block tile of the product over this block's K split. PARTIAL: the
+// int32 tile goes to ws[split]; otherwise the dequantize epilogue writes y.
+template <class S, bool PARTIAL>
+__global__ void __launch_bounds__(S::NT, S::MINB) int8_matmul_kernel(const MatmulArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
+  const int row0 = blockIdx.y * S::BM, col0 = blockIdx.x * S::BN, split = blockIdx.z;
+  const int steps = (p.k + kBK - 1) / kBK;
+  const int per = (steps + p.splits - 1) / p.splits;
+  const int k0 = min(split * per * kBK, p.k), k1 = min(k0 + per * kBK, p.k);
 
-  const int row0 = blockIdx.y * kGemmBM, col0 = blockIdx.x * kGemmBN;
-  gemm_tile<kThreads, kGemmBM, kGemmBN, 4, false>(
-      p.x + static_cast<long>(row0) * p.k, p.k, p.m - row0,
-      p.w + static_cast<long>(col0) * p.k, p.k, p.n - col0, p.k, ring, tile, ldt);
-  __syncthreads();
-
-  const int tc = tile_col<kGemmBN>();
-  const int col = col0 + tc;
-  if (col >= p.n) return;
-  for (int r = tile_row0<kGemmBN>(); r < kGemmBM; r += tile_rows<kThreads, kGemmBN>()) {
-    const long row = row0 + r;
-    if (row >= p.m) break;
-    float y[8];
-    dequant8(p, tile + r * ldt + tc, row, col, y);
-    store8(p.out, row * p.n + col, p.out_dtype, y);
-  }
-}
-
-// The ln_out kernel: BM rows per block, BN-column chunks. Shared memory:
-// the fp32 y rows, then the operand ring with the result tile over it.
-__host__ __device__ constexpr int ln_ld(int n) { return n + 4; }
-__host__ __device__ constexpr int ln_smem(int bm, int bn, int n) {
-  return bm * ln_ld(n) * 4 + max_int(ring_bytes(bm, bn), tile_bytes(bm, bn));
-}
-
-template <int NT, int BM, int BN>
-__global__ void __launch_bounds__(NT) int8_matmul_ln_kernel(const MatmulArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ybuf = reinterpret_cast<float*>(smem);
-  const int ldy = ln_ld(p.n);
-  int8_t* ring = reinterpret_cast<int8_t*>(ybuf + BM * ldy);
-  int* tile = reinterpret_cast<int*>(ring);          // over the ring
-  constexpr int ldt = tile_ld(BN);
-
-  const int row0 = blockIdx.x * BM;
-  const int tc = tile_col<BN>();
-  for (int col0 = 0; col0 < p.n; col0 += BN) {
-    gemm_tile<NT, BM, BN, BM / 16, false>(
-        p.x + static_cast<long>(row0) * p.k, p.k, p.m - row0,
-        p.w + static_cast<long>(col0) * p.k, p.k, p.n - col0, p.k, ring, tile, ldt);
-    __syncthreads();
-    const int col = col0 + tc;
-    if (col < p.n) {
-      for (int r = tile_row0<BN>(); r < BM; r += tile_rows<NT, BN>()) {
-        const long row = row0 + r;
-        if (row >= p.m) break;
-        float y[8];
-        dequant8(p, tile + r * ldt + tc, row, col, y);
-        store8(p.out, row * p.n + col, p.out_dtype, y);
-        store_vec(ybuf + r * ldy + col, y);
-        store_vec(ybuf + r * ldy + col + 4, y + 4);
-      }
-    }
-    __syncthreads();   // the tile lies over the ring the next chunk refills
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += NT / 32) {
-    const long row = row0 + r;
-    if (row >= p.m) break;
-    ln_quant_row(RowF32{ybuf + r * ldy}, p.n, p.gamma, p.beta, p.ln_dtype, p.eps,
-                 p.nq + row * p.n, p.ns + row, lane);
-  }
-}
-
-template <int NT, int BM, int BN>
-int launch_ln(const MatmulArgs& p, cudaStream_t stream) {
-  const int smem = ln_smem(BM, BN, p.n);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = cudaFuncSetAttribute(int8_matmul_ln_kernel<NT, BM, BN>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  int8_matmul_ln_kernel<NT, BM, BN><<<(p.m + BM - 1) / BM, NT, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The row-block kernel: BM rows x `cols` output columns (a block of the
-// q8_out scales, or of the in-kernel quantize), walked in BN-column chunks.
-// Shared memory: (q8_out) the block's fp32 y, (in-kernel quantize) the
-// block's int8 x, then the operand ring with the result tile over it.
-__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
-constexpr int kRowsBM = 32, kRowsBN = 128;
-
-template <bool QIK, bool Q8OUT>
-__host__ __device__ constexpr int rows_smem(int cols, int k) {
-  return (Q8OUT ? kRowsBM * (cols + 4) * 4 : 0) + (QIK ? kRowsBM * (round_up(k, kBK) + 16) : 0) +
-         max_int(ring_bytes(kRowsBM, kRowsBN), tile_bytes(kRowsBM, kRowsBN));
-}
-
-template <bool QIK, bool Q8OUT>
-__global__ void __launch_bounds__(kThreads) int8_matmul_rows_kernel(const MatmulArgs p, int cols) {
-  constexpr int BM = kRowsBM, BN = kRowsBN;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = round_up(p.k, kBK) + 16, ldy = cols + 4;
-  float* ybuf = reinterpret_cast<float*>(smem);
-  int8_t* xs = reinterpret_cast<int8_t*>(ybuf + (Q8OUT ? BM * ldy : 0));
-  int8_t* ring = xs + (QIK ? BM * lda : 0);
-  int* tile = reinterpret_cast<int*>(ring);          // over the ring
-  constexpr int ldt = tile_ld(BN);
-
-  const int row0 = blockIdx.x * BM, c0 = blockIdx.y * cols;
-  const int c_end = min(c0 + cols, p.n);
-  if (QIK) {
-    // x * (1 / sx) rounded to codes, zero beyond m and k; the first barrier
-    // of gemm_tile orders these stores before any read
-    const int chunks = (lda - 16) / 8;
-    for (int idx = threadIdx.x; idx < BM * chunks; idx += kThreads) {
-      const int r = idx / chunks, col = (idx - r * chunks) * 8;
+  int acc[S::MI][S::NI][4];
+  gemm_mainloop<S>(acc, p.x + static_cast<long>(row0) * p.k, p.k, p.m - row0,
+                   p.w + static_cast<long>(col0) * p.k, p.k, p.n - col0, k0, k1, 0x7fffffff,
+                   smem, NoFold{});
+  if (PARTIAL) {
+    for_rows8<S>(acc, [&](int r, int c, const int* v) {
       const long row = row0 + r;
-      uint2 q = make_uint2(0u, 0u);
-      if (row < p.m && col < p.k) {
-        float v[8];
-        load8(p.xf, row * p.k + col, p.x_dtype, v);
-        q = quantize8(v, 1.0f / p.sx[row]);
-      }
-      *reinterpret_cast<uint2*>(xs + r * lda + col) = q;
-    }
+      const int col = col0 + c;
+      if (row >= p.m || col >= p.n) return;
+      int* o = p.ws + (static_cast<long>(split) * p.m + row) * p.n + col;
+      *reinterpret_cast<int4*>(o) = make_int4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<int4*>(o + 4) = make_int4(v[4], v[5], v[6], v[7]);
+    });
+    return;
   }
-
-  const int tc = tile_col<BN>();
-  for (int col0 = c0; col0 < c_end; col0 += BN) {
-    gemm_tile<kThreads, BM, BN, 2, QIK>(
-        QIK ? xs : p.x + static_cast<long>(row0) * p.k, QIK ? lda : p.k, p.m - row0,
-        p.w + static_cast<long>(col0) * p.k, p.k, c_end - col0, p.k, ring, tile, ldt);
-    __syncthreads();
-    const int col = col0 + tc;
-    if (col < c_end) {
-      for (int r = tile_row0<BN>(); r < BM; r += tile_rows<kThreads, BN>()) {
-        const long row = row0 + r;
-        if (row >= p.m) break;
-        float y[8];
-        dequant8(p, tile + r * ldt + tc, row, col, y);
-        if (Q8OUT) {
-          store_vec(ybuf + r * ldy + (col - c0), y);
-          store_vec(ybuf + r * ldy + (col - c0) + 4, y + 4);
-        } else {
-          store8(p.out, row * p.n + col, p.out_dtype, y);
+  // the dequantize epilogue, a column group's scales and bias read once
+  transpose_rows8<S>(acc);
+#pragma unroll
+  for (int q = 0; q < S::NI / 4; ++q) {
+    const int col = col0 + rows8_col<S>(q);
+    if (col >= p.n) continue;
+    float sw[8], bias[8];
+    load_vec(p.sw + col, sw);
+    load_vec(p.sw + col + 4, sw + 4);
+    if (p.bias != nullptr) load8(p.bias, col, p.bias_dtype, bias);
+#pragma unroll
+    for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long row = row0 + acc_row<S>(mi, h);
+        if (row >= p.m) continue;
+        const float sxr = p.sx[row];
+        float y[8], t[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          y[j] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][4 * q + j / 2][2 * h + j % 2]), sxr),
+                           sw[j]);
+          if (p.bias != nullptr) y[j] = __fadd_rn(y[j], bias[j]);
         }
+        if (p.residual != nullptr) {
+          load8(p.residual, row * p.n + col, p.out_dtype, t);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) y[j] = __fadd_rn(y[j], t[j]);
+        }
+        store8(p.out, row * p.n + col, p.out_dtype, y);
       }
-    }
-    __syncthreads();   // the tile lies over the ring the next chunk refills
   }
-  if (!Q8OUT) return;
+}
 
+constexpr int kFinishThreads = 128;
+enum FinishMode { kPlain = 0, kLnOut = 1, kQ8Out = 2 };
+
+// The epilogue of a split or row-epilogue launch, one block per row: its
+// threads add the splits' int32 partials and run the dequantize epilogue, 8
+// columns each, storing y (not for q8_out) and, for a row epilogue, the
+// fp32 y in shared memory; then warp 0 runs ln_quant_row on that row, or
+// warp w the amax and quantize of the q8_out column blocks w, w + 4, ...:
+// the warp-per-row arithmetic of the reductions, with the row's loads
+// spread over the block (few rows no longer leave a few warps walking
+// whole rows from device memory).
+__global__ void __launch_bounds__(kFinishThreads)
+int8_matmul_finish_kernel(const MatmulArgs p, int mode) {
+  extern __shared__ __align__(16) float yrow[];   // n floats for a row epilogue
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int width = c_end - c0;
+  const long row = blockIdx.x;
+  const long plane = static_cast<long>(p.m) * p.n;
+  const int* w0 = p.ws + row * p.n;
+  for (int i = threadIdx.x * 8; i < p.n; i += kFinishThreads * 8) {
+    int v[8];
+    {
+      const int4 a = *reinterpret_cast<const int4*>(w0 + i);
+      const int4 b = *reinterpret_cast<const int4*>(w0 + i + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+    for (int s = 1; s < p.splits; ++s) {
+      const int4 a = *reinterpret_cast<const int4*>(w0 + s * plane + i);
+      const int4 b = *reinterpret_cast<const int4*>(w0 + s * plane + i + 4);
+      v[0] += a.x; v[1] += a.y; v[2] += a.z; v[3] += a.w;
+      v[4] += b.x; v[5] += b.y; v[6] += b.z; v[7] += b.w;
+    }
+    float y[8];
+    dequant8(p, v, row, i, y);
+    if (mode != kQ8Out) store8(p.out, row * p.n + i, p.out_dtype, y);
+    if (mode != kPlain) {
+      store_vec(yrow + i, y);
+      store_vec(yrow + i + 4, y + 4);
+    }
+  }
+  if (mode == kPlain) return;
+  __syncthreads();
+  if (mode == kLnOut) {
+    if (warp == 0) {
+      ln_quant_row(RowF32{yrow}, p.n, p.gamma, p.beta, p.ln_dtype, p.eps, p.nq + row * p.n,
+                   p.ns + row, lane);
+    }
+    return;
+  }
   int8_t* out = static_cast<int8_t*>(p.out);
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    const long row = row0 + r;
-    if (row >= p.m) break;
-    const float* yr = ybuf + r * ldy;
+  for (int blk = warp; blk * p.bn < p.n; blk += kFinishThreads / 32) {
+    const int c0 = blk * p.bn;
     float v[8], amax = 0.f;
-    for (int i = lane * 8; i < width; i += 256) {
-      load_vec(yr + i, v);
-      load_vec(yr + i + 4, v + 4);
+    for (int i = lane * 8; i < p.bn; i += 256) {
+      load_vec(yrow + c0 + i, v);
+      load_vec(yrow + c0 + i + 4, v + 4);
 #pragma unroll
       for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
     }
     const float s = quant_scale(warp_max(amax));
     const float inv = 1.0f / s;
-    for (int i = lane * 8; i < width; i += 256) {
-      load_vec(yr + i, v);
-      load_vec(yr + i + 4, v + 4);
+    for (int i = lane * 8; i < p.bn; i += 256) {
+      load_vec(yrow + c0 + i, v);
+      load_vec(yrow + c0 + i + 4, v + 4);
       *reinterpret_cast<uint2*>(out + row * p.n + c0 + i) = quantize8(v, inv);
     }
-    if (lane == 0) p.so[static_cast<long>(blockIdx.y) * p.m + row] = s;
+    if (lane == 0) p.so[static_cast<long>(blk) * p.m + row] = s;
   }
 }
 
-template <bool QIK, bool Q8OUT>
-int launch_rows(const MatmulArgs& p, int cols, cudaStream_t stream) {
-  const int smem = rows_smem<QIK, Q8OUT>(cols, p.k);
-  const long tiles_m = (static_cast<long>(p.m) + kRowsBM - 1) / kRowsBM;
-  const int blocks_n = (p.n + cols - 1) / cols;
-  if (smem > kSmemLimit || tiles_m > 0x7fffffffL || blocks_n > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = cudaFuncSetAttribute(int8_matmul_rows_kernel<QIK, Q8OUT>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// x * (1 / sx) rounded to int8 codes, 8 elements a thread.
+__global__ void __launch_bounds__(256)
+quantize_x_kernel(const void* __restrict__ x, int x_dtype, const float* __restrict__ sx,
+                  int8_t* __restrict__ xq, int m, int k) {
+  const long chunks = static_cast<long>(m) * (k / 8);
+  for (long c = blockIdx.x * 256L + threadIdx.x; c < chunks; c += gridDim.x * 256L) {
+    const long row = c / (k / 8);
+    float v[8];
+    load8(x, c * 8, x_dtype, v);
+    *reinterpret_cast<uint2*>(xq + c * 8) = quantize8(v, 1.0f / sx[row]);
+  }
+}
+
+template <class S, bool PARTIAL>
+int launch_tiles(const MatmulArgs& p, cudaStream_t stream) {
+  const long tiles_m = (static_cast<long>(p.m) + S::BM - 1) / S::BM;
+  const long tiles_n = (static_cast<long>(p.n) + S::BN - 1) / S::BN;
+  if (tiles_m > 65535 || tiles_n > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = allow_smem(int8_matmul_kernel<S, PARTIAL>, S::kSmem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid(static_cast<unsigned>(tiles_m), blocks_n);
-  int8_matmul_rows_kernel<QIK, Q8OUT><<<grid, kThreads, smem, stream>>>(p, cols);
+  const dim3 grid(static_cast<unsigned>(tiles_n), static_cast<unsigned>(tiles_m), p.splits);
+  int8_matmul_kernel<S, PARTIAL><<<grid, S::NT, S::kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PARTIAL>
+int launch_product(const MatmulArgs& p, int tiles, cudaStream_t stream) {
+  switch (tiles) {
+    case 0: return launch_tiles<kLarge, PARTIAL>(p, stream);
+    case 1: return launch_tiles<kMedium, PARTIAL>(p, stream);
+    case 2: return launch_tiles<kSmall, PARTIAL>(p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The product and, where needed, the finish pass.
+int launch(const MatmulArgs& p, int tiles, int mode, cudaStream_t stream) {
+  if (mode == kPlain && p.splits == 1) return launch_product<false>(p, tiles, stream);
+  if (p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = launch_product<true>(p, tiles, stream);
+  if (rc != 0) return rc;
+  const int smem = mode == kPlain ? 0 : p.n * 4;
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc2 = allow_smem(int8_matmul_finish_kernel, smem);
+    if (rc2 != cudaSuccess) return static_cast<int>(rc2);
+  }
+  int8_matmul_finish_kernel<<<static_cast<unsigned>(p.m), kFinishThreads, smem, stream>>>(p,
+                                                                                       mode);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_dtype(int d) { return d != kFloat32 && d != kBFloat16; }
 
+bool bad_tiling(int tiles, int splits, int k) {
+  return tiles < 0 || tiles > 2 || splits < 1 || splits > 64 || splits > (k + kBK - 1) / kBK;
+}
+
 }  // namespace
 
 // x (m, k) int8, sx (m,) f32, w (n, k) int8, sw (n,) f32, bias (n,) or null,
 // residual (m, n) or null, out (m, n); all contiguous and 16-byte aligned.
-// ln_rows = 0: plain epilogue. ln_rows = 32 or 16: rows per block of the
-// chained LayerNorm + quantize epilogue (column chunks of 256 or 128),
-// which also writes nq (m, n) int8 and ns (m,) f32 from gamma, beta (n,)
-// of ln_dtype.
+// tiles: the tile shape (ops/cuda/int8_matmul.py's matmul_tiles), splits:
+// the K splits. ln = 0: plain epilogue. ln = 1: the chained LayerNorm +
+// quantize epilogue, which also writes nq (m, n) int8 and ns (m,) f32 from
+// gamma, beta (n,) of ln_dtype. ws: a (splits, m, n) int32 workspace, used
+// (and then needed) with splits > 1 or ln = 1.
 extern "C" int tae_int8_matmul_fwd(const void* x, const void* sx, const void* w,
                                    const void* sw, const void* bias, const void* residual,
                                    void* out, int m, int n, int k, int out_dtype,
-                                   int bias_dtype, int ln_rows, const void* gamma,
+                                   int bias_dtype, int ln, const void* gamma,
                                    const void* beta, int ln_dtype, float eps, void* nq,
-                                   void* ns, void* stream) {
+                                   void* ns, int tiles, int splits, void* ws, void* stream) {
   if (m < 1 || n < 8 || n % 8 != 0 || k < 16 || k % 16 != 0 || bad_dtype(out_dtype) ||
-      (bias != nullptr && bad_dtype(bias_dtype))) {
+      (bias != nullptr && bad_dtype(bias_dtype)) || bad_tiling(tiles, splits, k) ||
+      (ln != 0 && ln != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  MatmulArgs p;
+  if (ln == 1 && (gamma == nullptr || beta == nullptr || nq == nullptr || ns == nullptr ||
+                  bad_dtype(ln_dtype))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MatmulArgs p = {};
   p.x = static_cast<const int8_t*>(x);
   p.sx = static_cast<const float*>(sx);
   p.w = static_cast<const int8_t*>(w);
@@ -311,56 +322,52 @@ extern "C" int tae_int8_matmul_fwd(const void* x, const void* sx, const void* w,
   p.m = m; p.n = n; p.k = k;
   p.out_dtype = out_dtype;
   p.bias_dtype = bias_dtype;
+  p.ws = static_cast<int*>(ws);
+  p.splits = splits;
   p.gamma = gamma;
   p.beta = beta;
   p.ln_dtype = ln_dtype;
   p.eps = eps;
   p.nq = static_cast<int8_t*>(nq);
   p.ns = static_cast<float*>(ns);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  if (ln_rows == 0) {
-    const long tiles_m = (static_cast<long>(m) + kGemmBM - 1) / kGemmBM;
-    if (tiles_m > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t rc = cudaFuncSetAttribute(
-        int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    const dim3 grid((n + kGemmBN - 1) / kGemmBN, static_cast<unsigned>(tiles_m));
-    int8_matmul_kernel<<<grid, kThreads, kGemmSmem, s>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (gamma == nullptr || beta == nullptr || nq == nullptr || ns == nullptr ||
-      bad_dtype(ln_dtype)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (ln_rows == 32) return launch_ln<512, 32, 256>(p, s);
-  if (ln_rows == 16) return launch_ln<256, 16, 128>(p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(p, tiles, ln ? kLnOut : kPlain, static_cast<cudaStream_t>(stream));
 }
 
-// The row-block forms. x: (m, k) int8 codes (x_dtype = 2) with their row
-// scales sx (m,), or a float x (x_dtype a float code) that the kernel
-// quantizes with the precomputed sx. bn > 0: q8_out, out (m, n) int8 and
-// so (n / bn, m) fp32, n a multiple of bn and bn of 8; residual, if any, of
-// out_dtype. bn = 0: out (m, n) of out_dtype (for a float x only; int8 codes
-// take tae_int8_matmul_fwd).
+// The q8_out and float-x forms. x: (m, k) int8 codes (x_dtype = 2) with
+// their row scales sx (m,), or a float x (x_dtype a float code) that is
+// quantized with the precomputed sx into xq_ws (m, k) int8 first. bn > 0:
+// q8_out, out (m, n) int8 and so (n / bn, m) fp32, n a multiple of bn and
+// bn of 8; residual, if any, of out_dtype. bn = 0: out (m, n) of out_dtype
+// (for a float x only; int8 codes take tae_int8_matmul_fwd). tiles, splits,
+// ws as tae_int8_matmul_fwd's; ws needed with bn > 0 or splits > 1.
 extern "C" int tae_int8_matmul_rows_fwd(const void* x, int x_dtype, const void* sx,
                                         const void* w, const void* sw, const void* bias,
                                         int bias_dtype, const void* residual, void* out,
                                         int out_dtype, void* so, int bn, int m, int n, int k,
+                                        int tiles, int splits, void* ws, void* xq_ws,
                                         void* stream) {
   constexpr int kCodes = 2;
   const bool qik = x_dtype != kCodes;
   if (m < 1 || n < 8 || n % 8 != 0 || k < 16 || k % 16 != 0 || bad_dtype(out_dtype) ||
-      (qik && bad_dtype(x_dtype)) || (bias != nullptr && bad_dtype(bias_dtype)) ||
+      (qik && (bad_dtype(x_dtype) || xq_ws == nullptr)) ||
+      (bias != nullptr && bad_dtype(bias_dtype)) ||
       (bn > 0 && (bn % 8 != 0 || n % bn != 0 || so == nullptr)) || (bn == 0 && !qik) ||
-      bn < 0) {
+      bn < 0 || bad_tiling(tiles, splits, k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   MatmulArgs p = {};
   p.x = static_cast<const int8_t*>(x);
-  p.xf = x;
-  p.x_dtype = x_dtype;
+  if (qik) {
+    const long chunks = static_cast<long>(m) * (k / 8);
+    const long want = (chunks + 255) / 256;
+    const unsigned blocks = static_cast<unsigned>(want < 4096 ? want : 4096);
+    quantize_x_kernel<<<blocks, 256, 0, s>>>(x, x_dtype, static_cast<const float*>(sx),
+                                             static_cast<int8_t*>(xq_ws), m, k);
+    const cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    p.x = static_cast<const int8_t*>(xq_ws);
+  }
   p.sx = static_cast<const float*>(sx);
   p.w = static_cast<const int8_t*>(w);
   p.sw = static_cast<const float*>(sw);
@@ -370,8 +377,9 @@ extern "C" int tae_int8_matmul_rows_fwd(const void* x, int x_dtype, const void* 
   p.out = out;
   p.out_dtype = out_dtype;
   p.so = static_cast<float*>(so);
+  p.bn = bn;
   p.m = m; p.n = n; p.k = k;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 0) return launch_rows<true, false>(p, 512, s);
-  return qik ? launch_rows<true, true>(p, bn, s) : launch_rows<false, true>(p, bn, s);
+  p.ws = static_cast<int*>(ws);
+  p.splits = splits;
+  return launch(p, tiles, bn > 0 ? kQ8Out : kPlain, s);
 }

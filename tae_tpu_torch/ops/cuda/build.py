@@ -86,21 +86,25 @@ SIGNATURES = {
     # x, gamma, beta, q, s, rows, cols, eps, x dtype, gamma dtype, stream
     "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
     # x, sx, w, sw, bias, residual, out, m, n, k, out dtype, bias dtype,
-    # ln rows per block (0: no ln_out), gamma, beta, ln dtype, eps, nq, ns,
-    # stream
+    # ln_out (0 / 1), gamma, beta, ln dtype, eps, nq, ns, tile shape, K
+    # splits, int32 workspace (or null), stream
     "tae_int8_matmul_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                             _I, _I, _VP, _VP, _I, _F, _VP, _VP, _VP), _I),
+                             _I, _I, _VP, _VP, _I, _F, _VP, _VP, _I, _I, _VP,
+                             _VP), _I),
     # x, x dtype (2: int8 codes), sx, w, sw, bias, bias dtype, residual, out,
     # out dtype, q8_out scales (or null), q8_out block (0: none), m, n, k,
-    # stream
+    # tile shape, K splits, int32 workspace (or null), int8 workspace of a
+    # float x (or null), stream
     "tae_int8_matmul_rows_fwd": ((_VP, _I, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I,
-                                  _VP, _I, _I, _I, _I, _VP), _I),
+                                  _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP),
+                                 _I),
     # xq, sx, w1, sw1, b1, w2, sw2, b2, residual, out, m, d, hdim, block_h,
-    # rows per block, out dtype, bias dtype, gamma, beta, ln dtype, eps, nq,
-    # ns, workspace of the hidden groups, hidden groups, stream
+    # out dtype, bias dtype, gamma, beta, ln dtype, eps, nq, ns, hidden codes,
+    # hidden scales, fp32 workspace of the hidden groups, hidden groups, fc1
+    # tile shape, fc2 tile shape, stream
     "tae_int8_mlp_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
-                          _I, _I, _I, _I, _I, _I, _VP, _VP, _I, _F, _VP, _VP,
-                          _VP, _I, _VP), _I),
+                          _I, _I, _I, _I, _I, _VP, _VP, _I, _F, _VP, _VP, _VP,
+                          _VP, _VP, _I, _I, _I, _VP), _I),
     # x, sx, packed w, group scales, bias, residual, out, m, n, k, group,
     # out dtype, bias dtype, small tiles, stream
     "tae_int4_matmul_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,

@@ -2,14 +2,19 @@
 ``tae_tpu/ops/pallas/int8_matmul.py::int8_matmul_fused``; source
 ``tae_tpu_torch/csrc/int8_matmul.cu``) and its plain version.
 
+A call is one or two device launches: the product, tiled over (M, N) (and,
+with a row epilogue, split over K) by :func:`matmul_tiles`, and, for a row
+epilogue (``ln_out``, ``q8_out``), a finish pass over the int32 partials
+in a workspace this module allocates; a float x adds its quantize pass.
+Each call counts one launch.
+
 :func:`int8_matmul_fused`: prequantized input (int8 x with one scale per
 row), bias, residual and the chained ``ln_out`` epilogue.
 :func:`int8_matmul_rows`: the ``q8_out`` output mode (int8 y with one scale
 per row and block of ``q8_block`` columns, the input of the int8-input
 attention K15) and the in-kernel quantization of a float x from its
 precomputed row scales (``prequantize=False`` in the JAX package), which
-share the kernel's row-block form. The two entries count their launches
-apart.
+share a C entry. The two entries count their launches apart.
 
 Weights are stored torch-style, ``(N, K)``, so both operands of the product
 are contiguous along K.
@@ -24,41 +29,81 @@ from tae_tpu_torch.ops.cuda import build
 _FLOATS = (torch.float32, torch.bfloat16)
 #: dynamic shared memory one block may use on sm_90 (bytes)
 SMEM_LIMIT = 232448
-#: (rows per block, columns per tile) of the row-block kernels (the ln_out
-#: form of K4, and K5), in the order they are tried
-ROW_BLOCKS = ((32, 256), (16, 128))
-
-
-def ring_bytes(rows: int, cols: int) -> int:
-    """Shared memory of csrc/int8_common.cuh's operand ring: three stages
-    of a (rows + cols) x 64-byte tile pair, rows padded to 80 bytes."""
-    return 3 * (rows + cols) * 80
-
-
-def tile_bytes(rows: int, cols: int) -> int:
-    """An int32 result tile, rows padded by 4 columns."""
-    return rows * (cols + 4) * 4
+#: bytes of K per step of the products' cp.async ring (csrc/int8_common.cuh)
+K_STEP = 128
+#: K4's output tiles (rows, columns), in the order of csrc/int8_matmul.cu's
+#: kLarge, kMedium, kSmall
+MATMUL_TILES = ((128, 128), (64, 128), (16, 64))
+#: most K splits of one product
+MAX_SPLITS = 8
 
 
 def ln_chain_rows(n: int) -> int | None:
-    """Rows per block of the chained ``ln_out`` epilogue for an N-wide
-    output, or None when the chain is off.
+    """Whether the chained ``ln_out`` epilogue is on for an N-wide output:
+    a row count (32 up to N = 1272, 16 up to N = 3088), or None (N beyond
+    that, or not a multiple of 8), when the caller runs the standalone
+    ``ln_quant`` instead.
 
-    The epilogue needs LayerNorm statistics over a full fp32 output row, so
-    a block keeps its ``rows x (N + 4)`` fp32 outputs in shared memory
-    beside the operand ring. The rule: 32 rows per block (256-column tiles)
-    if that fits the 232,448 bytes a block may use, else 16 rows
-    (128-column tiles), else no chain (the caller then runs the standalone
-    ``ln_quant``). That is 32 rows up to N = 1272, 16 up to N = 3088, and
-    none beyond; N must be a multiple of 8 either way.
+    The widths are those where the earlier row-owning kernel held a block's
+    fp32 output rows in shared memory; the finish pass of the present one
+    has no such limit, but the rule stays as it was, so that dispatch
+    (``ops/int8.py``) and the launch counts per block do not change. The
+    kernel's tiling is :func:`matmul_tiles`.
     """
     if n % 8:
         return None
-    for rows, cols in ROW_BLOCKS:
-        work = max(ring_bytes(rows, cols), tile_bytes(rows, cols))
-        if rows * (n + 4) * 4 + work <= SMEM_LIMIT:
-            return rows
+    if n <= 1272:
+        return 32
+    if n <= 3088:
+        return 16
     return None
+
+
+def matmul_tiles(m: int, n: int, k: int, sms: int,
+                 finish: bool) -> tuple[int, int]:
+    """(tile shape, K splits) of one K4 product: an index into
+    :data:`MATMUL_TILES` and how many ranges of K the grid splits the
+    product into.
+
+    Up to 64 rows take the 16-row tile, more the 128-row tile where its
+    blocks fill the ``sms`` SMs and the 64-row tile otherwise. A launch
+    with a finish pass anyway (``finish``: a row epilogue) splits K in two,
+    four or eight where the blocks are still fewer than the SMs (each split
+    at least two ring steps of :data:`K_STEP` bytes); the int32 partials add
+    up exactly, so the split changes no output bit. Without one, a split
+    would add the finish pass, which costs more than the split gains
+    (measured: 0.0151 against 0.0086 ms at 4 x 2560 x 7680).
+    """
+    if m <= 64:
+        tile = 2
+    else:
+        bm, bn = MATMUL_TILES[0]
+        tile = 0 if -(-m // bm) * -(-n // bn) >= sms else 1
+    bm, bn = MATMUL_TILES[tile]
+    blocks = -(-m // bm) * -(-n // bn)
+    steps = -(-k // K_STEP)
+    splits = 1
+    while (finish and blocks * splits < sms and splits < MAX_SPLITS
+           and steps >= 4 * splits):
+        splits *= 2
+    return tile, splits
+
+
+def split_ranges(k: int, splits: int) -> list[tuple[int, int]]:
+    """The K byte ranges of the splits, as the kernel cuts them: whole ring
+    steps, ``ceil(steps / splits)`` to a split (the last ones may be short
+    or empty)."""
+    steps = -(-k // K_STEP)
+    per = -(-steps // splits) * K_STEP
+    return [(min(s * per, k), min(s * per + per, k)) for s in range(splits)]
+
+
+def split_partials(xq: torch.Tensor, w_q: torch.Tensor,
+                   splits: int) -> torch.Tensor:
+    """Plain version of the split product: the (splits, M, N) int32 sums
+    over :func:`split_ranges`, which the finish pass adds."""
+    return torch.stack([int_matmul(xq[:, a:b], w_q[:, a:b]).to(torch.int32)
+                        for a, b in split_ranges(xq.shape[1], splits)])
 
 
 def int_matmul(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
@@ -158,13 +203,11 @@ def int8_matmul_fused(xq: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
         build.check_operand("bias", bias, dev, _FLOATS, (n,))
     if residual is not None:
         build.check_operand("residual", residual, dev, (out_dtype,), (m, n))
-    ln_rows, nq, ns = 0, None, None
-    gamma = beta = None
+    nq = ns = gamma = beta = None
     eps = 0.0
     if ln_out is not None:
         gamma, beta, eps = ln_out
-        ln_rows = ln_chain_rows(n)
-        if ln_rows is None:
+        if ln_chain_rows(n) is None:
             raise ValueError(f"the ln_out epilogue does not take N={n} "
                              "(see ln_chain_rows)")
         build.check_operand("ln weight", gamma, dev, _FLOATS, (n,))
@@ -175,21 +218,36 @@ def int8_matmul_fused(xq: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
     if m == 0:
         return out if ln_out is None else (out, nq, ns)
 
+    tiles, splits = matmul_tiles(m, n, k, _sms(dev), ln_out is not None)
+    ws = _workspace(m, n, splits, ln_out is not None, dev)
     ptr = build.ptr
     rc = build.library().tae_int8_matmul_fwd(
         xq.data_ptr(), sx.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
         ptr(bias), ptr(residual), out.data_ptr(), m, n, k,
         build.dtype_code(out_dtype),
-        0 if bias is None else build.dtype_code(bias.dtype), ln_rows,
-        ptr(gamma), ptr(beta),
+        0 if bias is None else build.dtype_code(bias.dtype),
+        int(ln_out is not None), ptr(gamma), ptr(beta),
         0 if gamma is None else build.dtype_code(gamma.dtype), float(eps),
-        ptr(nq), ptr(ns), torch.cuda.current_stream(dev).cuda_stream)
+        ptr(nq), ptr(ns), tiles, splits, ptr(ws),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "tae_int8_matmul_fwd")
     int8_matmul_fused.launches += 1
     return out if ln_out is None else (out, nq, ns)
 
 
 int8_matmul_fused.launches = 0
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _workspace(m: int, n: int, splits: int, row_epilogue: bool, device):
+    """The (splits, M, N) int32 partials of a split product or of a row
+    epilogue's finish pass, else None."""
+    if splits == 1 and not row_epilogue:
+        return None
+    return torch.empty((splits, m, n), dtype=torch.int32, device=device)
 
 
 def quantize_with_scales(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
@@ -235,17 +293,15 @@ def int8_matmul_rows(x: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
                      residual: torch.Tensor | None = None,
                      out_dtype: torch.dtype = torch.bfloat16,
                      q8_block: int | None = None):
-    """K4's row-block form. x (M, K): int8 codes, or a float x that the
-    kernel quantizes with its row scales sx (M, 1) (the JAX package's
-    ``prequantize=False``). ``q8_block``: the ``q8_out`` mode, returning
+    """K4's ``q8_out`` and float-input forms. x (M, K): int8 codes, or a
+    float x that a first pass quantizes with its row scales sx (M, 1) (the
+    JAX package's ``prequantize=False``). ``q8_block``: the ``q8_out`` mode, returning
     ``(yq (M, N) int8, ys (N / q8_block, M, 1) fp32)``, one scale per row
     and block of ``q8_block`` columns; None: y (M, N) of ``out_dtype``,
     which needs a float x (int8 codes take :func:`int8_matmul_fused`).
     ``residual`` is added in fp32 before either. On CUDA: K a multiple of
     16, N of 8, ``q8_block`` of 8 dividing N, a float x of float32 or
-    bfloat16 with K small enough for the block's (32 x K) int8 tile (K <=
-    3968 with ``q8_block`` 512), everything contiguous; anything else
-    raises."""
+    bfloat16, everything contiguous; anything else raises."""
     if w_q.dtype != torch.int8 or x.ndim != 2 or w_q.ndim != 2 \
             or x.shape[1] != w_q.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} {x.dtype} and w "
@@ -289,12 +345,16 @@ def int8_matmul_rows(x: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
     if m == 0:
         return out if so is None else (out, so)
     x_code = 2 if x.dtype == torch.int8 else build.dtype_code(x.dtype)
+    tiles, splits = matmul_tiles(m, n, k, _sms(dev), q8_block is not None)
+    ws = _workspace(m, n, splits, q8_block is not None, dev)
+    xq_ws = (None if x.dtype == torch.int8
+             else torch.empty((m, k), dtype=torch.int8, device=dev))
     rc = build.library().tae_int8_matmul_rows_fwd(
         x.data_ptr(), x_code, sx.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
         build.ptr(bias), 0 if bias is None else build.dtype_code(bias.dtype),
         build.ptr(residual), out.data_ptr(), build.dtype_code(res_dtype),
-        build.ptr(so), q8_block or 0, m, n, k,
-        torch.cuda.current_stream(dev).cuda_stream)
+        build.ptr(so), q8_block or 0, m, n, k, tiles, splits, build.ptr(ws),
+        build.ptr(xq_ws), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "tae_int8_matmul_rows_fwd")
     int8_matmul_rows.launches += 1
     return out if so is None else (out, so)

@@ -145,8 +145,8 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 def _int8_linear_rows(x, w_q, w_scale, bias, backend, x_scale, residual,
                       out_dtype, q8_out: bool, block_n: int | None,
                       prequantize: bool):
-    """int8_linear through K4's row-block form (q8_out, or a float x
-    quantized in the kernel)."""
+    """int8_linear through K4's int8_matmul_rows entry (q8_out, or a float
+    x quantized by the kernel's first pass)."""
     if x_scale is None:
         if not x.is_floating_point():
             raise TypeError("an int8 x needs its x_scale")

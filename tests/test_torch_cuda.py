@@ -10,8 +10,10 @@ use and the card's machine need not have.) ``chip_smoke.py`` checks the
 kernels at the slice's shapes; these cover the edges: token counts that are
 not a multiple of the kernels' 16-row tiles, both head dims, both dtypes,
 both softmax forms, and the shapes the wrappers must refuse; for the int8
-kernels, row counts off the 16/32/128-row blocks, the three model widths,
-N and K off the 128 x 64 tiles, ``block_h`` values and both dtypes; for
+kernels, row counts off the 16-, 64- and 128-row tiles of their GEMM body,
+every tile shape, K split and hidden split it picks, the three model
+widths, N 8 past a tile and K 16 past a 128-byte ring step, ``block_h``
+values, both dtypes and bit-equal reruns; for
 the tiny-N and int8-output attention entries, token counts that do and do
 not divide the 16-row tiles, batches that end inside a tile, both head dims;
 for the training kernels (the stats and LSE forwards, the LayerNorm and
@@ -23,8 +25,8 @@ tile forms and every hidden split; for the codebook search (K14), row and
 code counts off the tiles, every latent width class (z resident and z tiled
 over V), exact ties and the shapes the wrapper must refuse; for the unpacked
 attention (K16, K17), both forms, every token count class, strided operands
-and the qk_norm block; for K4's row-block form (``q8_out``, in-kernel
-quantize) and the int8-input attention (K15), ragged rows and every scale
+and the qk_norm block; for K4's ``int8_matmul_rows`` entry (``q8_out``,
+in-kernel quantize) and the int8-input attention (K15), ragged rows and every scale
 block a model gives them; for the bf16 forward body that K2, K16 and K15
 share, token counts on both sides of its 64-key chunks and exact forms on
 scores far past the serving clip.
@@ -310,6 +312,70 @@ def test_int8_mlp_kernel_matches_plain(gen, m, d, hdim, bh, chain, dtype):
     _codes_close(got[1], want[1])
 
 
+@pytest.mark.parametrize("form", ["plain", "ln_out", "q8_out", "float x"])
+@pytest.mark.parametrize("m,k,n", [(1, 2560, 2560), (4, 1024, 3072),
+                                   (17, 272, 136), (129, 1024, 1032),
+                                   (256, 2560, 2560), (300, 1040, 264)])
+def test_int8_matmul_tiles_and_splits_match_plain(gen, m, k, n, form):
+    """The GEMM body at every tile shape and K split matmul_tiles picks
+    (16-, 64- and 128-row tiles; 1 to 8 splits), ragged M, N 8 past a tile
+    and K 16 past a 128-byte ring step; two runs bit-equal (int32 sums, no
+    atomics)."""
+    xq, sx, wq, sw, b, r = _matmul_case(gen, m, k, n, torch.bfloat16, True,
+                                        True)
+    if form == "float x":
+        x = (torch.randn((m, k), generator=gen, device="cuda") * 3).bfloat16()
+        sx = int8.row_scales(x)
+
+        def run():
+            return (int8_matmul_rows(x, sx, wq, sw, b, r),)
+        want = (int8_matmul_rows_reference(x, sx, wq, sw, b, r),)
+    elif form == "q8_out":
+        block = 512 if n % 512 == 0 else n
+
+        def run():
+            return int8_matmul_rows(xq, sx, wq, sw, b, q8_block=block)
+        want = int8_matmul_rows_reference(xq, sx, wq, sw, b, q8_block=block)
+    else:
+        ln = (*_affine(gen, n, torch.bfloat16), 1e-6) if form == "ln_out" else None
+
+        def run():
+            got = int8_matmul_fused(xq, sx, wq, sw, b, r, ln_out=ln)
+            return got if ln else (got,)
+        want = int8_matmul_reference(xq, sx, wq, sw, b, r, ln_out=ln)
+        want = want if ln else (want,)
+    got, again = run(), run()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    if form == "q8_out":
+        _codes_close(got[0], want[0])
+        _scales_close(got[1], want[1])
+        return
+    _close(got[0], want[0], torch.bfloat16)
+    if form == "ln_out":
+        _codes_close(got[1], want[1])
+        _scales_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("m,d,hdim", [(1, 2560, 10240), (4, 2560, 10240),
+                                      (17, 144, 768), (129, 1040, 512),
+                                      (256, 2560, 10240), (2048, 1024, 4096)])
+def test_int8_mlp_tiles_match_plain_and_rerun_bit_equal(gen, m, d, hdim):
+    """K5's fc1 / fc2 / finish launches at every fc1 and fc2 tile shape and
+    hidden split mlp_tiles picks, D 16 past a tile, one to forty hidden
+    blocks; two runs bit-equal (the fp32 fold in a fixed order)."""
+    args = _mlp_case(gen, m, d, hdim, torch.bfloat16)
+    ln = (*_affine(gen, d, torch.bfloat16), 1e-6)
+    got = int8_mlp(*args, ln_next=ln)
+    again = int8_mlp(*args, ln_next=ln)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = int8_mlp_reference(*args, ln_next=ln)
+    _close(got[0], want[0], torch.bfloat16)
+    # as test_int8_mlp_kernel_matches_plain: a hidden code on a rounding tie
+    # moves its row's LN scale by one hidden quantization step
+    _scales_close(got[2], want[2], rtol=1e-3)
+    _codes_close(got[1], want[1])
+
+
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
     args = _matmul_case(gen, 4, 24, 8, torch.bfloat16, True, True)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -344,7 +410,7 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
         int8_mlp(*mlp, block_h=64)
     big = _mlp_case(gen, 4, 2560, 1024, torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
-        int8_mlp(*big, block_h=512)
+        int8_mlp(*big, block_h=1024)
 
 
 @pytest.mark.parametrize("d,heads,ratio", [(128, 2, 4.0), (160, 2, 3.2)])
@@ -1132,7 +1198,7 @@ def test_qk_norm_blocks_kernels_match_reference_backend(gen, n, dim, heads):
 
 
 # ---------------------------------------------------------------------------
-# K4's row-block form (q8_out, in-kernel quantize) and K15
+# K4's int8_matmul_rows entry (q8_out, in-kernel quantize) and K15
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("xdtype", [torch.int8, torch.bfloat16, torch.float32])

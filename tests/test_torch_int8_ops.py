@@ -295,14 +295,15 @@ def test_int8_mlp_block_h_is_part_of_the_numerics():
     with pytest.raises(ValueError, match="block_h"):
         int8_mlp_reference(*args, block_h=384)
     assert int8_block.DEFAULT_BLOCK_H == int8.DEFAULT_BLOCK_H == 256
-    # the kernel's block size follows from the shapes alone
-    assert int8_block.mlp_block_rows(1024, 4096, 256) == 32
-    assert int8_block.mlp_block_rows(2048, 8192, 256) == 16
-    assert int8_block.mlp_block_rows(2560, 10240, 256) == 16
+    # the kernel's tiles (fc1, fc2, hidden groups) follow from the shapes
+    # and the SM count alone: p16, p32 and p128 at B = 64 on 132 SMs
+    assert int8_block.mlp_tiles(16384, 1024, 4096, 256, 132) == (2, 0, 1)
+    assert int8_block.mlp_tiles(4096, 2048, 8192, 256, 132) == (2, 0, 1)
+    assert int8_block.mlp_tiles(256, 2560, 10240, 256, 132) == (2, 1, 1)
     with pytest.raises(ValueError, match="block_h"):
-        int8_block.mlp_block_rows(1024, 4096, 192)
+        int8_block.mlp_tiles(64, 1024, 4096, 192, 132)
     with pytest.raises(ValueError, match="shared memory"):
-        int8_block.mlp_block_rows(2560, 10240, 2048)
+        int8_block.mlp_tiles(64, 2560, 10240, 2048, 132)
 
 
 @pytest.mark.parametrize("row_blocks,hidden_blocks,sms,want", [
