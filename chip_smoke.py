@@ -12,8 +12,9 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
    sm_90a and prints the seconds and ptxas's registers and spills of every
    kernel; fails if an instantiation of the register-resident attention
-   bodies, forward (K2, K15, K16) or backward (K10, K17), or of the int8
-   GEMM body's products (K4, K5's fc1 and fc2), spills;
+   bodies, forward (K2, K15, K16, and its int8-output form behind K7 / K8)
+   or backward (K10, K17), or of the int8 GEMM body's products (K4, K5's
+   fc1 and fc2), spills;
 3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
@@ -23,7 +24,13 @@ Phases (each prints its lines; any failure exits non-zero):
    four tiny-N / int8-output attention entries are also timed beside the
    per-image attention kernel (plus the plain per-row quantize) at the same
    shape: the measurements the dispatch rule of
-   ``tae_tpu_torch.ops.attention.attention_route`` rests on. The int4
+   ``tae_tpu_torch.ops.attention.attention_route`` rests on. K7 and K8 (on
+   the forward body from 16 tokens, their row epilogue shared over a
+   thread-block cluster) are also held at ragged token counts, head counts
+   whose last cluster rank takes fewer heads, rows whose largest output lies
+   in the last rank's heads and all-zero rows, their launch plan against the
+   library's, and K7's fp32 output against K2's on the same input (the
+   same-o check). The int4
    kernels (K12 ``int4_matmul_fused``, K13 ``int4_mlp``) run at the few-row
    shapes int4 serving is for (width 2560, 4 to 256 rows) and at the p16
    shape, beside the int8 kernels and a dequantize + bf16 product at the
@@ -274,9 +281,10 @@ QKNORM_STEPS = 3
 # untimed, two runs bit-equal)
 BWD_EDGES = tuple((2, n, 2, dh) for dh in (64, 80) for n in (1, 17, 129, 255))
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W); fp32 is
+# the CUDA cores' rate, which the float32 forms run at (no TF32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 K1 = dict(name="fused_layer_norm", route="cuda",
           source="tae_tpu_torch/csrc/layernorm.cu",
@@ -341,6 +349,12 @@ TRAIN_FORMS = {"fused_layer_norm": "fused_layer_norm_fwd_stats",
 ROW_FORMS = {"int8_matmul_fused": "int8_matmul_rows"}
 
 
+# Kernels whose SASS phase_build reads: their ptxas report may show spills,
+# so long as none lies in an innermost tensor-core loop, and both of their
+# cluster barriers must stand on the main path
+SASS_CHECKED = ("attention_q8_bf16",)
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -379,9 +393,9 @@ def phase_build():
     print(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(build.PACKAGE_DIR.parent)}")
     entry = ""
-    body = {"attention_fwd_bf16": {}, "attention_bwd_bf16": {},
-            "int8_matmul_kernel": {}, "int8_mlp_fc1_kernel": {},
-            "int8_mlp_fc2_kernel": {}}
+    body = {"attention_fwd_bf16": {}, "attention_q8_bf16": {},
+            "attention_bwd_bf16": {}, "int8_matmul_kernel": {},
+            "int8_mlp_fc1_kernel": {}, "int8_mlp_fc2_kernel": {}}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -391,11 +405,13 @@ def phase_build():
                 if kernel in entry:
                     body[kernel].setdefault(entry, []).append(line.strip())
     # the register-resident bodies: the attention forward (K2, K15, K16) at
-    # dh 64 and 80, serving and exact, bf16 and (serving only) int8 sources;
-    # the backward (K10, K17) at dh 64 and 80; the int8 GEMM body's products
-    # (K4: three tile shapes, each with its epilogue or its int32 partials;
-    # K5: fc1 at five tile shapes, fc2 at three)
-    for kernel, want in (("attention_fwd_bf16", 6), ("attention_bwd_bf16", 2),
+    # dh 64 and 80, serving and exact, bf16 and (serving only) int8 sources,
+    # and its int8-output form (K7, K8) at dh 64 and 80; the backward (K10,
+    # K17) at dh 64 and 80; the int8 GEMM body's products (K4: three tile
+    # shapes, each with its epilogue or its int32 partials; K5: fc1 at five
+    # tile shapes, fc2 at three)
+    for kernel, want in (("attention_fwd_bf16", 6), ("attention_q8_bf16", 2),
+                         ("attention_bwd_bf16", 2),
                          ("int8_matmul_kernel", 6), ("int8_mlp_fc1_kernel", 5),
                          ("int8_mlp_fc2_kernel", 3)):
         found = body[kernel]
@@ -418,8 +434,72 @@ def phase_build():
                     " partial" if "Lb1E" in entry else "")
             print(f"[build] {name}: registers {regs}, spill bytes "
                   f"{sum(spills)}")
-            check(len(spills) == 2 and sum(spills) == 0,
+            check(len(spills) == 2 and (sum(spills) == 0
+                                        or kernel in SASS_CHECKED),
                   f"ptxas spills in {entry}: {lines}")
+    # K7 / K8's body unrolls its two heads and may keep a few values (a
+    # block's head count, row maxima, addresses) across each head's sweep in
+    # local memory: measured faster than a runtime head loop without spills,
+    # whose registers cost the sweeps' schedule. Its innermost tensor-core
+    # loops must touch no local memory. Its main path (the code ahead of the
+    # first EXIT; nvcc puts the barriers' divergent fallbacks after it) must
+    # hold both cluster barriers: the one that publishes the row maxima and
+    # the one that keeps each block's shared memory alive until every block
+    # has read it. Without the second the outputs stay right on every run
+    # measured (the race is rare), so only the code can show it is there.
+    for kernel in SASS_CHECKED:
+        for entry, (loops, local, arrives, waits) in sass_report(lib, kernel).items():
+            print(f"[build] {kernel}: {loops} innermost mma loops, {local} "
+                  f"local-memory instructions in them; {arrives} cluster "
+                  f"barrier arrives and {waits} waits on the main path "
+                  f"({entry[:60]}...)")
+            check(loops > 0 and local == 0,
+                  f"{entry}: {local} local-memory instructions in its "
+                  f"{loops} innermost mma loops")
+            check(arrives == waits == 2, f"{entry}: {arrives} cluster "
+                  f"barrier arrives and {waits} waits on the main path, "
+                  "expected 2 and 2")
+
+
+def sass_report(lib, kernel: str) -> dict:
+    """Per instantiation of ``kernel`` in the library, read from
+    ``cuobjdump -sass``: (the innermost loops that issue tensor-core
+    products, the local-memory instructions LDL / STL in them, the cluster
+    barrier arrives and waits ahead of the first EXIT). A loop is the span
+    from a backward branch's target to the branch."""
+    import bisect
+
+    from tae_tpu_torch.ops.cuda import build
+
+    cuobjdump = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    found = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = fn.split("\n", 1)
+        if kernel not in name:
+            continue
+        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);",
+            body)]
+        addr = [a for a, _, _ in ins]
+        ops = [op for _, op, _ in ins]
+        mma = []
+        for i, (a, op, rest) in enumerate(ins):
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and target and int(target.group(1), 16) < a:
+                j = bisect.bisect_left(addr, int(target.group(1), 16))
+                if any(o.startswith("HMMA") for o in ops[j:i + 1]):
+                    mma.append((j, i))
+        inner = [(j, i) for j, i in mma
+                 if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
+                            for j2, i2 in mma)]
+        local = sum(o.startswith(("LDL", "STL"))
+                    for j, i in inner for o in ops[j:i + 1])
+        main = ops[:ops.index("EXIT")] if "EXIT" in ops else ops
+        found[name] = (len(inner), local, main.count("UCGABAR_ARV"),
+                       main.count("UCGABAR_WAIT"))
+    return found
 
 
 def time_ms(fn) -> float:
@@ -587,7 +667,8 @@ def phase_kernels() -> dict:
                 plain = time_ms(lambda: fused_qkv_attention_reference(
                     qkv, h, serving=serving))
                 bnd = bound(nbytes(qkv, got),
-                            4.0 * KERNEL_BATCH * h * n * n * dh, "bf16")
+                            4.0 * KERNEL_BATCH * h * n * n * dh,
+                            "bf16" if dtype == torch.bfloat16 else "fp32")
                 lib = None
                 if not serving:
                     # the library call has only the exact softmax
@@ -814,7 +895,7 @@ def phase_attention_kernels() -> dict:
         fused_qkv_attention_wide_q8_2d,
         fused_qkv_attention_wide_q8_2d_reference,
         fused_qkv_attention_wide_q8_reference,
-        fused_qkv_attention_wide_reference)
+        fused_qkv_attention_wide_reference, q8_plan, q8_plan_of_library)
     from tae_tpu_torch.ops.int8 import quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
@@ -834,9 +915,9 @@ def phase_attention_kernels() -> dict:
                     f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
         print(f"[kernels] {label}: max_abs_err {err:.3g}{line}{extra}")
 
-    def timing(fn, plain, qkv, outs, h, n, dh, timed):
+    def timing(fn, plain, qkv, outs, h, n, dh, timed, kind="bf16"):
         b = qkv.numel() // (n * 3 * h * dh)
-        bnd = bound(nbytes(qkv, *outs), 4.0 * b * h * n * n * dh, "bf16")
+        bnd = bound(nbytes(qkv, *outs), 4.0 * b * h * n * n * dh, kind)
         return dict(ms=time_ms(fn) if timed else None,
                     plain_ms=time_ms(plain) if timed else None,
                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
@@ -881,45 +962,135 @@ def phase_attention_kernels() -> dict:
                 record(K6["name"], label, err, t, extra)
 
     # ---- int8 output: K7 at the p16 shape; K8 at the p32 and p64 shapes;
-    #      K9 (flat rows) at the p128 shape. K2 + the plain quantize is what
-    #      each replaces.
-    def q8_case(meta, fn, plain, n, h, dh, b, flat):
+    #      K9 (flat rows) at the p128 shape, each also at an odd batch. K2
+    #      alone (the same body with a bf16 output) and K2 + the plain
+    #      quantize (what attn_q8=False runs) at the same shape.
+    def q8_case(meta, fn, plain, n, h, dh, b, flat, tweak=None, what=""):
         qkv = randn((b, n, 3 * h * dh))
+        if tweak is not None:
+            tweak(qkv, h, dh)
         arg = (qkv.reshape(b * n, -1), n, h) if flat else (qkv, h)
         got, want = fn(*arg), plain(*arg)
         label = (f"{meta['name'].replace('fused_qkv_attention', 'attention')} "
-                 f"{tuple(arg[0].shape)} n={n} h={h} dh={dh} bf16")
+                 f"{tuple(arg[0].shape)} n={n} h={h} dh={dh} bf16{what}")
         err, share = compare_q8(label, got, want)
-        timed = b == KERNEL_BATCH
+        timed = b == KERNEL_BATCH and tweak is None
         t = timing(lambda: fn(*arg), lambda: plain(*arg), qkv, got, h, n, dh,
                    timed)
         extra = f"; codes off by one on a share {share:.2g}"
+        if not flat:
+            plan, clusters = q8_plan_of_library(n, h, dh)
+            check(plan == q8_plan(n, h, dh), f"{label}: the library plans "
+                  f"{plan}, ops/cuda/wide_attention.q8_plan {q8_plan(n, h, dh)}")
+            check(plan is None or clusters > 0,
+                  f"{label}: no cluster of {plan} fits on the card")
+            extra += ("; flat-row body" if plan is None else
+                      f"; cluster {plan.cluster} x {plan.heads_per_block} "
+                      f"heads, {clusters} clusters at once")
         if timed:
+            t["k2_ms"] = time_ms(lambda: fused_qkv_attention(qkv, h,
+                                                             serving=True))
             t["k2_quantize_ms"] = time_ms(lambda: quantize_rows(
                 fused_qkv_attention(qkv, h, serving=True)))
-            extra += (f"; K2 + plain quantize_rows at this shape "
-                      f"{t['k2_quantize_ms']:.4f} ms")
+            extra += (f"; K2 at this shape {t['k2_ms']:.4f} ms, K2 + plain "
+                      f"quantize_rows {t['k2_quantize_ms']:.4f} ms")
         record(meta["name"], label, err, t, extra)
         return qkv, got
 
+    def last_head_dominant(qkv, h, dh):
+        qkv[..., 3 * h * dh - dh:] *= 8.0      # v of the last rank's last head
+
+    def zero_image(qkv, h, dh):
+        qkv[0, :, 2 * h * dh:] = 0.0            # image 0: v = 0, o = 0
+
+    k7 = (K7, fused_qkv_attention_q8, fused_qkv_attention_q8_reference)
+    k8 = (K8, fused_qkv_attention_wide_q8,
+          fused_qkv_attention_wide_q8_reference)
     for b in (KERNEL_BATCH, odd):
-        q8_case(K7, fused_qkv_attention_q8, fused_qkv_attention_q8_reference,
-                256, 16, 64, b, False)
+        q8_case(*k7, 256, 16, 64, b, False)
     for n, h, dh in ((64, 32, 64), (16, 32, 80), (4, 32, 80)):
         for b in (KERNEL_BATCH, odd):
-            qkv, (q3, s3) = q8_case(K8, fused_qkv_attention_wide_q8,
-                                    fused_qkv_attention_wide_q8_reference,
-                                    n, h, dh, b, False)
-            # the flat entry on the same bytes: equal bit for bit
-            q2, s2 = fused_qkv_attention_wide_q8_2d(qkv.reshape(b * n, -1), n, h)
-            check(torch.equal(q2, q3.reshape(b * n, -1))
-                  and torch.equal(s2, s3.reshape(b * n, 1)),
-                  f"K9 differs from K8 at n={n} B={b}")
-    print("[kernels] K9 (flat rows) equals K8 bit for bit at n = 64, 16, 4, "
-          f"B = {KERNEL_BATCH} and {odd}")
+            qkv, (q3, s3) = q8_case(*k8, n, h, dh, b, False)
+            if q8_plan(n, h, dh) is None:
+                # the flat-row body on the same bytes: equal bit for bit
+                q2, s2 = fused_qkv_attention_wide_q8_2d(
+                    qkv.reshape(b * n, -1), n, h)
+                check(torch.equal(q2, q3.reshape(b * n, -1))
+                      and torch.equal(s2, s3.reshape(b * n, 1)),
+                      f"K9 differs from K8 at n={n} B={b}")
+    print("[kernels] K9 (flat rows) equals K8 bit for bit where both run "
+          f"the flat-row body (n = 4, B = {KERNEL_BATCH} and {odd})")
     for b in (KERNEL_BATCH, odd):
         q8_case(K9, fused_qkv_attention_wide_q8_2d,
                 fused_qkv_attention_wide_q8_2d_reference, 4, 32, 80, b, True)
+    # the cluster body's edges: ragged token counts, a last rank with fewer
+    # heads (17 heads: 9 blocks of 2, the last with 1), head counts the
+    # cluster does not divide into 16, a dominant last head, zero rows
+    for meta, n, h, dh, b in ((k7, 65, 12, 64, 3), (k7, 129, 17, 80, 3),
+                              (k7, 255, 24, 64, 2), (k7, 256, 3, 80, 2),
+                              (k8, 63, 12, 80, 5), (k8, 16, 17, 64, 3),
+                              (k8, 8, 17, 64, 4)):
+        q8_case(*meta, n, h, dh, b, False)
+    for meta, n, h, dh in ((k7, 256, 16, 64), (k7, 129, 17, 80),
+                           (k8, 64, 32, 64)):
+        q8_case(*meta, n, h, dh, 5, False, last_head_dominant,
+                ", v of the last head x 8")
+        _, (q, sc) = q8_case(*meta, n, h, dh, 4, False, zero_image,
+                             ", image 0 with v = 0")
+        check(bool((sc[0] == 1e-12).all()) and not bool(q[0].any()),
+              f"{meta[0]['name']} zero rows: scales {sc[0].unique()} and "
+              "codes not 0")
+    # the same o: K7's codes times its scales against K2's bf16 output on
+    # the same input, elementwise within half a step (the codes' rounding)
+    # and K2's own rounding (2^-8 relative); the reciprocal and the
+    # products round in fp32, hence the 2^-16 of a step
+    qkv = randn((KERNEL_BATCH, 256, 3 * 1024))
+    q, sc = fused_qkv_attention_q8(qkv, 16)
+    y = fused_qkv_attention(qkv, 16, serving=True).double()
+    dev = (q.double() * sc.double() - y).abs()
+    lim = 0.5 * sc.double() * (1 + 2.0 ** -16) + 2.0 ** -8 * y.abs()
+    check(bool((dev <= lim).all()), "K7 and K2 disagree beyond the "
+          f"quantization: worst excess {float((dev - lim).max()):.3g}")
+    print(f"[kernels] K7 {tuple(qkv.shape)} h=16: codes x scales within half "
+          "a step plus one bf16 rounding of K2 on every element (the same "
+          "fp32 o)")
+
+    # ---- float32, the flat-row body's CUDA-core form (off the serving
+    #      path, which is bf16): K6 at the p128 shape beside SDPA in float32
+    #      (its exact form), K7 at p16's and K8 at p32's
+    f32 = torch.float32
+    qkv = torch.randn((KERNEL_BATCH, 4, 3 * 2560), generator=gen,
+                      device="cuda")
+    for serving in (True, False):
+        got = fused_qkv_attention_wide(qkv, 32, serving=serving)
+        want = fused_qkv_attention_wide_reference(qkv, 32, serving=serving)
+        label = (f"K6 wide {tuple(qkv.shape)} h=32 dh=80 fp32 "
+                 f"{'serving' if serving else 'exact'}")
+        err = compare(label, got, want, **TOL["float32"])
+        t = timing(lambda: fused_qkv_attention_wide(qkv, 32, serving=serving),
+                   lambda: fused_qkv_attention_wide_reference(
+                       qkv, 32, serving=serving),
+                   qkv, [got], 32, 4, 80, True, "fp32")
+        extra = ""
+        if not serving:
+            r = qkv.view(KERNEL_BATCH, 4, 3, 32, 80).permute(2, 0, 3, 1, 4)
+            t["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                r[0], r[1], r[2]))
+            extra = f"; SDPA (fp32) {t['library_ms']:.4f} ms"
+        record(K6["name"], label, err, t, extra)
+    for meta, fn, plain, n, h, dh in k7 + (256, 16, 64), k8 + (64, 32, 64):
+        qkv = torch.randn((KERNEL_BATCH, n, 3 * h * dh), generator=gen,
+                          device="cuda", dtype=f32)
+        (q, sc), (q_ref, s_ref) = fn(qkv, h), plain(qkv, h)
+        label = (f"{meta['name'].replace('fused_qkv_attention', 'attention')} "
+                 f"{tuple(qkv.shape)} n={n} h={h} dh={dh} fp32")
+        compare_scales(label, sc, s_ref)
+        share = compare_codes(label, q, q_ref)
+        err = float((q.float() * sc - q_ref.float() * s_ref).abs().max())
+        t = timing(lambda: fn(qkv, h), lambda: plain(qkv, h), qkv, (q, sc),
+                   h, n, dh, True, "fp32")
+        record(meta["name"], label, err, t,
+               f"; codes off by one on a share {share:.2g}; flat-row body")
 
     # ---- the serving clamp: every score far below -60 (aligned q rows
     #      against anti-aligned k rows) stays finite and equals the plain form

@@ -1,7 +1,10 @@
-"""Time the bf16 attention forward body (K2, K15, K16;
-``csrc/flash_attention.cu``) at the main path's shape, B 64, N 256, 16
-heads of 64, as built and in variants made by replacing a line or two of
-the source:
+"""Time the bf16 attention forward body (K2, K15, K16, and K7 / K8 with its
+int8 output; ``csrc/flash_attention.cu``) at the main path's shape, B 64,
+N 256, 16 heads of 64, and K8 at the p32 and p64 shapes ((64, 64) tokens,
+32 heads of 64; (64, 16), 32 heads of 80), each int8 entry beside K2 alone
+(the floor: the same body with a bf16 output) and K2 + the plain
+``quantize_rows`` at its shape, as built and in variants made by replacing
+a line or two of the sources:
 
 * ``warps4``: 4 warps of 16 query rows a block instead of 8 (``kWarps``);
   ``one_wait``: the first pass waits for all of K and V behind one barrier
@@ -24,17 +27,30 @@ the source:
   (p = s), the copy of K and V into shared memory, the tensor-core
   instructions of Q.K^T and those of P.V, so that the differences in time
   say what each part costs inside the whole.
+* ``one_head``: K7 / K8 with one head a block (``tae::q8::kHeadsPerBlock``,
+  2 as built), so clusters of 16 blocks at 16 heads; at 32 heads the
+  per-image body no longer takes the shape and K8 runs the flat-row body.
+  Not compared, for that; where both run the per-image body (16 heads)
+  they are bit-equal, the row max being exact.
+* ``no_exchange`` (diagnostic, outputs wrong): each block quantizes with its
+  own heads' maxima, a block barrier in place of each cluster barrier, no
+  distributed shared memory; ``no_cluster``: the same launched without a
+  cluster, so the difference to ``no_exchange`` is what co-scheduling the
+  cluster costs.
 
 * ``--parent DIR``: the body of another checkout, built from its kernel
   sources (``DIR`` a ``csrc`` directory, for example of a ``git archive`` of
-  the parent commit); its outputs must equal the tree's bit for bit where
-  the forward body did not change.
+  the parent commit), its K7 and K8 through their own C entries; its
+  outputs must equal the tree's bit for bit where the forward body did not
+  change (K2, K15, K16; not K7 / K8, which the parent ran on another body).
 
 Each variant is built from a copy of the sources under
 ``tae_tpu_torch/_build/`` and loaded beside the tree's library; the two
 run in turns (tree, variant, variant, tree) in one process on one card.
 Prints the card's name and power limit, ptxas's report for the body's
-instantiations, and the median device time of each entry.
+instantiations (and the int8-output kernel's), K7 / K8's plan at each shape
+with the clusters the card holds at once, and the median device time of
+each entry.
 
     python -m tae_tpu_torch.bench.attention_body [--parent DIR] [variant ...]
 
@@ -53,11 +69,15 @@ import sys
 import torch
 
 from tae_tpu_torch.ops.cuda import build
+from tae_tpu_torch.ops.int8 import quantize_rows
 
 REPS, REPLAYS = 20, 7           # launches per CUDA graph, replays (median)
 B, N, H, DH, BN = 64, 256, 16, 64, 512
-# variant -> ([(text of flash_attention.cu, its replacement), ...], outputs
-# compared with the tree's)
+# the int8-output entries' shapes beyond the main path's: (tag, batch,
+# tokens, heads, head dim) of p32 and p64
+Q8_SHAPES = (("p32", 64, 64, 32, 64), ("p64", 64, 16, 32, 80))
+# variant -> ([(text of flash_attention.cu, its replacement) or (file of
+# csrc/, text, replacement), ...], outputs compared with the tree's)
 ONE_WAIT = ("    if (WAIT && i * KT % kKC == 0) {\n      tae::wait_pending(chunks - 1 - i * KT / kKC);",
             "    if (WAIT && i == 0) {\n      tae::wait_pending(0);")
 STAGGER = ("const int c0 = i * KT;", "const int c0 = (i + (threadIdx.x >> 5)) % tiles * KT;")
@@ -82,21 +102,32 @@ VARIANTS = {
     "no_pv": ([("        tae::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);\n"
                 "        tae::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);\n", "")], False),
 }
+NO_EXCHANGE = [("const float* pm = cluster.map_shared_rank(pmax, r);", "const float* pm = pmax;"),
+               ("cluster.sync();  // every rank's partial maxima", "__syncthreads();  //"),
+               ("cluster.sync();  // no block's shared memory", "//")]
+VARIANTS.update({
+    "one_head": ([("attention_q8.cuh", "constexpr int kHeadsPerBlock = 2;",
+                   "constexpr int kHeadsPerBlock = 1;")], False),
+    "no_exchange": (NO_EXCHANGE, False),
+    "no_cluster": (NO_EXCHANGE + [("attr.val.clusterDim.y = p.cluster;",
+                                   "attr.val.clusterDim.y = 1;")], False),
+})
 
 
 def build_variant(tag: str, source: str, edits):
     """(library, its build directory) of the kernel sources with ``edits``
-    ((text, replacement) pairs, each text found exactly once) made to
-    ``source`` (a file of ``csrc/``), built from a copy under ``_build/``."""
-    text = (build.CSRC_DIR / source).read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{tag}: {old!r} is not in {source} exactly once")
-        text = text.replace(old, new)
+    made, built from a copy under ``_build/``: each edit a (text,
+    replacement) pair for ``source`` (a file of ``csrc/``) or a (file, text,
+    replacement) triple, each text found exactly once."""
     src = build.BUILD_ROOT / f"csrc_{tag}"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.CSRC_DIR, src)
-    (src / source).write_text(text)
+    for edit in edits:
+        name, old, new = edit if len(edit) == 3 else (source, *edit)
+        text = (src / name).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{tag}: {old!r} is not in {name} exactly once")
+        (src / name).write_text(text.replace(old, new))
     path = build.build_library(build.BUILD_ROOT, src)
     return build.load(path), path.parent
 
@@ -109,15 +140,18 @@ def variant(name: str):
     return build_variant(name, "flash_attention.cu", VARIANTS[name][0])
 
 
-def ptxas_report(build_dir, kernel: str = "attention_fwd_bf16") -> list[str]:
-    """ptxas's registers and spills of ``kernel``'s instantiations."""
+def ptxas_report(build_dir, kernels=("attention_fwd_bf16", "attention_q8_bf16")
+                 ) -> list[str]:
+    """ptxas's registers and spills of the instantiations of ``kernels``."""
     out, entry = [], ""
     for line in (build_dir / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif kernel in entry and ("spill" in line or "registers" in line):
+            continue
+        kernel = next((k for k in kernels if k in entry), None)
+        if kernel is not None and ("spill" in line or "registers" in line):
             m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d))?", entry)
-            name = f"dh {m.group(1)}"
+            name = f"{kernel} dh {m.group(1)}"
             if m.group(2) is not None:
                 name += (f" {'serving' if m.group(2) == '1' else 'exact'}"
                          f" {'int8' if 'I8Src' in entry else 'bf16'}")
@@ -149,8 +183,13 @@ def time_ms(fn) -> float:
 
 
 def entries(lib):
-    """(name, call, outputs) for each C entry on one set of inputs; a call
-    launches on the current stream (a graph capture's, while capturing)."""
+    """(name, call, outputs, body) for each C entry on one set of inputs; a
+    call launches on the current stream (a graph capture's, while
+    capturing). ``body`` is "fwd" for the bf16-output forms of the forward
+    body, which a parent's must equal bit for bit, and "q8" for K7 / K8 and
+    K2 + quantize_rows. The inputs stay referenced by the calls: a closure
+    that held only their addresses would let the allocator hand the memory
+    to the next set of inputs."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     c = H * DH
     qkv = torch.randn((B, N, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -172,24 +211,80 @@ def entries(lib):
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    return [
+    runs = [
         ("K2 serving", lambda: run(lib.tae_packed_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), B, N, H, DH, scale, 1, 1, stream())), (out,)),
+            qkv.data_ptr(), out.data_ptr(), B, N, H, DH, scale, 1, 1, stream())), (out,),
+         "fwd"),
         ("K2 exact", lambda: run(lib.tae_packed_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), B, N, H, DH, scale, 0, 1, stream())), (out,)),
+            qkv.data_ptr(), out.data_ptr(), B, N, H, DH, scale, 0, 1, stream())), (out,),
+         "fwd"),
         ("K2 LSE", lambda: run(lib.tae_packed_attention_fwd_lse(
             qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, N, H, DH, scale, 1,
-            stream())), (out, lse)),
+            stream())), (out, lse), "fwd"),
         ("K16", lambda: run(lib.tae_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(), None, strides, B, N,
-            H, DH, scale, 1, stream())), (o4,)),
+            H, DH, scale, 1, stream())), (o4,), "fwd"),
         ("K16 LSE", lambda: run(lib.tae_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(), lse.data_ptr(),
-            strides, B, N, H, DH, scale, 1, stream())), (o4, lse)),
+            strides, B, N, H, DH, scale, 1, stream())), (o4, lse), "fwd"),
         ("K15", lambda: run(lib.tae_qkv_i8_attention_fwd(
             qkv_q.data_ptr(), scales.data_ptr(), out.data_ptr(), B, N, H, DH, BN, scale,
-            stream())), (out,)),
+            stream())), (out,), "fwd"),
     ]
+    for tag, b, n, h, dh in (("p16", B, N, H, DH), *Q8_SHAPES):
+        runs += q8_entries(lib, gen, tag, b, n, h, dh, run, stream)
+    return runs
+
+
+def q8_entries(lib, gen, tag, b, n, h, dh, run, stream):
+    """K7 (over 64 tokens) or K8 at one shape, with K2 (serving) alone and
+    K2 + the plain quantize_rows at the same shape."""
+    c = h * dh
+    x = torch.randn((b, n, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    y = torch.empty((b, n, c), dtype=torch.bfloat16, device="cuda")
+    yq = torch.empty((b, n, c), dtype=torch.int8, device="cuda")
+    ys = torch.empty((b, n, 1), dtype=torch.float32, device="cuda")
+    name, entry = (("K7", lib.tae_packed_attention_q8_fwd) if n > 64
+                   else ("K8", lib.tae_wide_attention_q8_fwd))
+    scale = dh ** -0.5
+    shape = f"({b}, {n}, {3 * c}) h{h} dh{dh}"
+
+    def k2():
+        run(lib.tae_packed_attention_fwd(x.data_ptr(), y.data_ptr(), b, n, h, dh, scale, 1,
+                                         1, stream()))
+
+    def k2_quantize():
+        k2()
+        return quantize_rows(y)
+
+    held = {}
+
+    def k2_quantize_held():
+        held["out"] = k2_quantize()
+
+    return [
+        (f"{name} {tag} {shape}", lambda: run(entry(
+            x.data_ptr(), yq.data_ptr(), ys.data_ptr(), b, n, h, dh, scale, 1, stream())),
+         (yq, ys), "q8"),
+        (f"K2 serving {tag}", k2, (y,), "fwd"),
+        (f"K2 + quantize_rows {tag}", k2_quantize_held, (y,), "q8"),
+    ]
+
+
+def print_plans(tag: str, lib) -> None:
+    """K7 / K8's plan at each shape in ``lib`` (absent from a parent's
+    library) and the clusters of that shape the card holds at once."""
+    if not hasattr(lib, "tae_attention_q8_plan"):
+        return
+    import ctypes
+
+    for _, _, n, h, dh in (("p16", B, N, H, DH), *Q8_SHAPES):
+        out = (ctypes.c_int * 6)()
+        build.check(lib.tae_attention_q8_plan(n, h, dh, out), "tae_attention_q8_plan")
+        plan = ("flat-row body" if not out[0] else
+                f"cluster {out[1]}, {out[2]} heads a block, {out[3]} warps, {out[4]} bytes; "
+                f"{out[5]} clusters at once")
+        print(f"[{tag}] plan n {n} h {h} dh {dh}: {plan}")
 
 
 def main(argv: list[str]) -> int:
@@ -208,21 +303,23 @@ def main(argv: list[str]) -> int:
     tree, build_dir = variant(None)
     for line in ptxas_report(build_dir):
         print(f"[tree] {line}")
+    print_plans("tree", tree)
     base = entries(tree)
     ok = True
     for name in names:
         if name == "parent":
             lib = build.load(build.build_library(build.BUILD_ROOT / "parent", parent))
-            compared = True
+            compared = {"fwd"}
         else:
             lib, build_dir = variant(name)
-            compared = VARIANTS[name][1]
-        if name == "warps4":
+            compared = {"fwd", "q8"} if VARIANTS[name][1] else set()
             for line in ptxas_report(build_dir):
                 print(f"[{name}] {line}")
+            print_plans(name, lib)
         runs = entries(lib)
-        for (entry, call0, res0), (_, call1, res1) in zip(base, runs):
-            if compared:
+        for (entry, call0, res0, body), (_, call1, res1, _) in zip(base, runs):
+            same = None
+            if body in compared:
                 outs = []
                 for call, res in ((call0, res0), (call1, res1)):
                     call()
@@ -233,11 +330,10 @@ def main(argv: list[str]) -> int:
             times = {0: [], 1: []}
             for k, call in ((0, call0), (1, call1), (1, call1), (0, call0)):
                 times[k].append(time_ms(call))
-            print(f"[{name}] {entry} (B {B}, N {N}, H {H}, dh {DH}): tree "
-                  f"{statistics.mean(times[0]):.4f} ms ({times[0][0]:.4f}, "
-                  f"{times[0][1]:.4f}), {name} {statistics.mean(times[1]):.4f} ms "
-                  f"({times[1][0]:.4f}, {times[1][1]:.4f})"
-                  + (f"; outputs bit-equal: {same}" if compared else ""))
+            print(f"[{name}] {entry}: tree {statistics.mean(times[0]):.4f} ms "
+                  f"({times[0][0]:.4f}, {times[0][1]:.4f}), {name} "
+                  f"{statistics.mean(times[1]):.4f} ms ({times[1][0]:.4f}, {times[1][1]:.4f})"
+                  + ("" if same is None else f"; outputs bit-equal: {same}"), flush=True)
     return 0 if ok else 1
 
 

@@ -1,4 +1,5 @@
-// K2, K15, K16 — attention forward, one device body with three sources.
+// K2, K15, K16 — attention forward, one device body with three sources —
+// and its int8-output form behind K7 / K8.
 //
 // Replaces:
 //   K2  tae_tpu/ops/pallas/flash_attention.py::fused_qkv_attention
@@ -20,6 +21,15 @@
 //       the q8_out output of K4. Each head's q, k and v columns are
 //       dequantized on their way into shared memory, code * scale in fp32
 //       rounded to bfloat16, then the serving softmax; output (B, N, C) bf16.
+//   K7  flash_attention.py::fused_qkv_attention_q8
+//       (_packed_fwd_kernel_stacked_q8) and K8 fused_qkv_attention_wide_q8
+//       (_packed_wide_fwd_kernel_stacked_q8) in bf16 from 16 tokens (the C
+//       entries are in wide_attention.cu, which keeps the other shapes):
+//       K2's serving pass, then per flat row over all heads s = max(max|o| /
+//       127, 1e-12) and codes clip(rint(o * (1 / s)), +-127) from the fp32 o
+//       (int8_common.cuh's quant_scale / quantize1); outputs int8 (B, N, C)
+//       and fp32 (B, N, 1). Up to o *= 1 / l it executes K2's instructions,
+//       so its fp32 o is K2's before rounding.
 // Numerics, as the Pallas bodies: fp32 scores s = (q . k) * scale; serving
 //   form p = exp(clip(s, -60, 45)) with no row max, exact form p = exp(s -
 //   rowmax) with the row's global max; the row sum l takes the fp32 p, the
@@ -71,16 +81,29 @@
 //     each lane scoring N/32 keys against the broadcast q row, then the P.V
 //     loop with float2 output columns per lane. Shared-memory bandwidth
 //     bounds this path.
+//   * int8 output (K7, K8): a row's scale needs every head, and the heads
+//     of one row tile sit in different blocks. Those blocks form a
+//     thread-block cluster (two heads a block, up to 16 blocks); each
+//     publishes its rows' partial max |o| in shared memory and reads the
+//     others' through distributed shared memory between two cluster
+//     barriers, so no fp32 o reaches device memory and the output is int8
+//     (half of K2's bytes written). A cluster is placed whole on one GPC, so
+//     fewer blocks are resident than K2's (240 of 264 at p16), which is most
+//     of what it loses to K2 (PERF.md section 6).
 //   The bf16 body stops short of half its bound. What would move it: more
 //   query rows per warp, so that each K and V fragment feeds two row tiles,
 //   or wgmma, whose 64-row tiles read K and V from shared memory once per 64
 //   rows; later work, as is folding qk_norm's LayerNorm into K16's load.
+#include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "attention_q8.cuh"
 #include "common.cuh"
+#include "int8_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 using tae::HeadLayout;
 
@@ -311,23 +334,22 @@ __device__ __forceinline__ void sweep(const unsigned (&qa)[DH / 16][4], float (&
   }
 }
 
-template <int DH, bool SERVING, typename Src>
-__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
-attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
-                   float* __restrict__ lse, int n, int heads, float scale) {
+// One (image, head) for the warp's 16 query rows from q0: the block's warps
+// stage every chunk of the head's K and V into ks / vs (one commit group per
+// chunk; zero rows pad the last chunk to a multiple of 16 keys), the warp
+// reads its Q rows into A fragments, sweeps the key tiles and leaves o =
+// (P.V) * (1 / l) in registers, with l in lsum and (exact form) the row max
+// in mx, both reduced over the quad. Returns false for a warp whose rows all
+// lie at or beyond n: it has taken part in the block's barriers, and its o
+// is 0.
+template <int DH, bool SERVING, typename R>
+__device__ __forceinline__ bool attend_head(const R& rows, int n, int q0, float scale, bf16* ks,
+                                            bf16* vs, float (&o)[DH / 8][4], float (&mx)[2],
+                                            float (&lsum)[2]) {
   constexpr int LDK = tc_kv_ld<DH>();
   constexpr int CH = DH / 8;  // 16-byte chunks per head row
   const int np = tc_pad16(n);
   const int chunks = (np + kKC - 1) / kKC;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // (np, LDK)
-  bf16* vs = ks + np * LDK;                       // (np, LDK)
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const auto rows = src.rows(b, h);
-
-  // every chunk's K and V rows, one commit group per chunk; zero rows pad
-  // the last chunk to a multiple of 16 keys
   for (int c = 0; c < chunks; ++c) {
     const int r0 = c * kKC, nr = min(kKC, np - r0);
     for (int idx = threadIdx.x; idx < nr * CH; idx += blockDim.x) {
@@ -345,9 +367,8 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
     tae::cp_async_commit();
   }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;  // the warp's first row
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
   const bool active = q0 < n;
 
   // Q's A fragments, read once (tae::a_fragments)
@@ -357,9 +378,8 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
     return active && r < n ? load16(rows, 0, r, ch) : make_uint4(0u, 0u, 0u, 0u);
   });
 
-  float mx[2] = {-INFINITY, -INFINITY};  // rows g, g + 8
-  float lsum[2] = {0.f, 0.f};
-  float o[DH / 8][4];
+  mx[0] = mx[1] = -INFINITY;  // rows g, g + 8
+  lsum[0] = lsum[1] = 0.f;
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d)
 #pragma unroll
@@ -372,10 +392,10 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
   // each row's max in a pass of their own (reduced across the row's quad)
   if (SERVING) {
     sweep<DH, SERVING, 1, true>(qa, o, mx, lsum, ks, vl, n, np, scale, active);
-    if (!active) return;
+    if (!active) return false;
   } else {
     sweep<DH, SERVING, 0, true>(qa, o, mx, lsum, ks, vl, n, np, scale, active);
-    if (!active) return;
+    if (!active) return false;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
@@ -390,21 +410,196 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
     lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 1);
     lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
     inv[i] = 1.f / lsum[i];
-    const int r = q0 + g + 8 * i;
-    if (!SERVING && lse != nullptr && t == 0 && r < n)
-      lse[(static_cast<long>(b) * heads + h) * n + r] = mx[i] + logf(lsum[i]);
   }
-
-  // o * (1 / l) rounded to bf16, 16 bytes a lane (tae::store_c_rows)
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] *= inv[e >> 1];
+  return true;
+}
+
+template <int DH, bool SERVING, typename Src>
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
+attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
+                   float* __restrict__ lse, int n, int heads, float scale) {
+  constexpr int LDK = tc_kv_ld<DH>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // (np, LDK)
+  bf16* vs = ks + tc_pad16(n) * LDK;              // (np, LDK)
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;  // the warp's first row
+
+  float o[DH / 8][4], mx[2], lsum[2];
+  if (!attend_head<DH, SERVING>(src.rows(b, h), n, q0, scale, ks, vs, o, mx, lsum)) return;
+  if (!SERVING && lse != nullptr && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + g + 8 * i;
+      if (r < n) lse[(static_cast<long>(b) * heads + h) * n + r] = mx[i] + logf(lsum[i]);
+    }
+  }
+
+  // o rounded to bf16, 16 bytes a lane (tae::store_c_rows)
   bf16* obase = out + ol.at(b, h);
   tae::store_c_rows<DH>(o, [&](int half, int ch, uint4 w) {
     const int r = q0 + g + 8 * half;
     if (r < n) *reinterpret_cast<uint4*>(obase + r * ol.row + ch * 8) = w;
   });
+}
+
+// ------------------------------------------------------- int8 output (K7, K8)
+
+// The int8 codes of a warp's 16 x DH fp32 tile c (the m16n8 C fragments of
+// o, rows g and g + 8), clip(rint(c * inv[half]), +-127), handed over 16
+// bytes a lane: store(half, ch, codes) for the codes of columns 16 ch ..
+// 16 ch + 15 of row g + 8 * half, ch < DH / 16. Lane t packs the codes of
+// d-tiles 2 ch, 2 ch + 1 into word ch % 4 (two bytes each), the quad
+// transpose hands lane t word t of every lane, and byte permutes put them
+// in column order.
+template <int DH, typename Store>
+__device__ __forceinline__ void store_c_codes(const float (&c)[DH / 8][4], const float (&inv)[2],
+                                              Store store) {
+  constexpr int CH = DH / 16, QG = (CH + 3) / 4;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int q = 0; q < QG; ++q) {
+      unsigned w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ch = 4 * q + i;
+        w[i] = 0u;
+        if (ch < CH) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float y = c[2 * ch + k / 2][2 * half + k % 2];
+            const unsigned code = static_cast<unsigned>(tae::i8::quantize1(y, inv[half])) & 0xffu;
+            w[i] |= code << (8 * k);
+          }
+        }
+      }
+      tae::quad_transpose(w);
+      const int ch = 4 * q + t;
+      if (ch < CH)
+        store(half, ch, make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                                   __byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632)));
+    }
+  }
+}
+
+// K7 and K8 in bf16: the serving form of the body above with the int8
+// output of _packed_fwd_kernel_stacked_q8, one scale per row over all heads.
+// A block runs up to tae::q8::kHeadsPerBlock heads of one (image, 16 *
+// warps-row tile) in turn, the last in registers and the others' o in
+// shared memory (fp32, the lane's own positions, so no barrier guards
+// them); the head loop is unrolled, which keeps the sweeps' code as tight
+// as K2's (a runtime loop cost it 6-17%, PERF.md). The blocks that cover a
+// row tile's heads form a thread-block cluster along grid.y (grid: row
+// tiles, cluster, images). Each block reduces |o| of its heads to one
+// partial max per row, the cluster barrier publishes them, each block takes
+// the max over every rank's through distributed shared memory (exact, so
+// the scale does not depend on the cluster size), scales and codes its own
+// columns from registers; rank 0 writes the scales. A second cluster
+// barrier keeps every block's shared memory alive until all have read it.
+template <int DH>
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
+attention_q8_bf16(const PlainSrc<bf16> src, int8_t* __restrict__ out_q, float* __restrict__ out_s,
+                  int n, int heads, int heads_per_block, float scale) {
+  constexpr int LDK = tc_kv_ld<DH>();
+  constexpr int LDO = DH + 8;  // fp32 row stride of a buffered head: float2 stores without conflicts
+  cg::cluster_group cluster = cg::this_cluster();
+  const int np = tc_pad16(n), rows = blockDim.x / 2;  // 16 query rows a warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);               // (np, LDK)
+  bf16* vs = ks + np * LDK;                                    // (np, LDK)
+  float* obuf = reinterpret_cast<float*>(vs + np * LDK);       // (kHeadsPerBlock - 1, rows, LDO)
+  float* pmax = obuf + (tae::q8::kHeadsPerBlock - 1) * rows * LDO;  // (rows)
+
+  // grid.y is the cluster: blockIdx.y is the block's rank
+  const int b = blockIdx.z, rank = blockIdx.y, ranks = gridDim.y;
+  const int h0 = rank * heads_per_block, nh = min(heads_per_block, heads - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;
+  const int c = heads * DH;
+
+  float o[DH / 8][4], mx[2], lsum[2];
+  float amax[2] = {0.f, 0.f};  // rows g, g + 8 over the block's heads
+#pragma unroll
+  for (int j = 0; j < tae::q8::kHeadsPerBlock; ++j) {
+    if (j >= nh) break;
+    if (j > 0) __syncthreads();  // every warp is done with the last head's K and V
+    attend_head<DH, true>(src.rows(b, h0 + j), n, q0, scale, ks, vs, o, mx, lsum);
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) amax[e >> 1] = fmaxf(amax[e >> 1], fabsf(o[d][e]));
+    if (j + 1 < nh) {
+      float* ob = obuf + (j * rows + warp * 16 + g) * LDO + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        tae::store2(ob + 8 * d, o[d][0], o[d][1]);
+        tae::store2(ob + 8 * LDO + 8 * d, o[d][2], o[d][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], 1));
+    amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], 2));
+  }
+  if (t == 0) {
+    pmax[warp * 16 + g] = amax[0];
+    pmax[warp * 16 + g + 8] = amax[1];
+  }
+  cluster.sync();  // every rank's partial maxima are in its shared memory
+
+  // the rows' maxima over every rank's heads: lane t reads ranks t, t + 4, ...
+  float m[2] = {0.f, 0.f};
+  for (int r = t; r < ranks; r += 4) {
+    const float* pm = cluster.map_shared_rank(pmax, r);
+    m[0] = fmaxf(m[0], pm[warp * 16 + g]);
+    m[1] = fmaxf(m[1], pm[warp * 16 + g + 8]);
+  }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    const float s = tae::i8::quant_scale(m[i]);
+    inv[i] = 1.0f / s;
+    const int r = q0 + g + 8 * i;
+    if (rank == 0 && t == 0 && r < n) out_s[static_cast<long>(b) * n + r] = s;
+  }
+
+  // the codes: the last head's from registers, then the buffered heads'
+  int8_t* qbase = out_q + static_cast<long>(b) * n * c;
+#pragma unroll
+  for (int j = tae::q8::kHeadsPerBlock - 1; j >= 0; --j) {
+    if (j >= nh) continue;
+    if (j + 1 < nh) {
+      const float* ob = obuf + (j * rows + warp * 16 + g) * LDO + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        const float2 lo = *reinterpret_cast<const float2*>(ob + 8 * d);
+        const float2 hi = *reinterpret_cast<const float2*>(ob + 8 * LDO + 8 * d);
+        o[d][0] = lo.x;
+        o[d][1] = lo.y;
+        o[d][2] = hi.x;
+        o[d][3] = hi.y;
+      }
+    }
+    int8_t* hbase = qbase + (h0 + j) * DH;
+    store_c_codes<DH>(o, inv, [&](int half, int ch, uint4 w) {
+      const int r = q0 + g + 8 * half;
+      if (r < n) *reinterpret_cast<uint4*>(hbase + static_cast<long>(r) * c + ch * 16) = w;
+    });
+  }
+  cluster.sync();  // no block's shared memory goes away while another block reads it
 }
 
 // ----------------------------------------------------------------- float32
@@ -618,7 +813,105 @@ int launch_packed(const void* qkv, void* out, void* lse, int batch, int n, int h
   return launch_dh(dh, ptrs, il, out, ol, lse, batch, n, heads, scale, serving, dtype, stream);
 }
 
+// attention_q8_bf16<DH> with p's shape: the attributes it needs set once per
+// instantiation (the shared-memory limit raised as launches need), and the
+// launch configuration with its cluster dimension.
+template <int DH>
+cudaError_t q8_config(const tae::q8::Plan& p, int batch, int n, cudaStream_t stream,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  auto* kernel = attention_q8_bf16<DH>;
+  static bool prepared = false;
+  static int smem_allowed = 0;
+  if (!prepared) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    prepared = true;
+  }
+  if (p.smem > smem_allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = p.smem;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((n + 16 * p.warps - 1) / (16 * p.warps), p.cluster, batch);
+  cfg.blockDim = dim3(32 * p.warps);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = p.cluster;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int DH>
+int launch_q8(const tae::q8::Plan& p, const PlainSrc<bf16>& src, void* out_q, void* out_s,
+              int batch, int n, int heads, float scale, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = q8_config<DH>(p, batch, n, stream, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, attention_q8_bf16<DH>, src, static_cast<int8_t*>(out_q),
+                             static_cast<float*>(out_s), n, heads, p.heads_per_block, scale);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// How many clusters of p's shape the card holds at once (0: none fits).
+template <int DH>
+int q8_active_clusters(const tae::q8::Plan& p, int n, int& clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = q8_config<DH>(p, 1, n, nullptr, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, attention_q8_bf16<DH>, &cfg);
+  return static_cast<int>(err);
+}
+
 }  // namespace
+
+namespace tae {
+namespace q8 {
+
+bool plan(int n, int heads, int dh, Plan& p) {
+  if (n < kMinTokens || n > kMaxN || heads < 1 || heads > kHeadsPerBlock * kMaxCluster ||
+      (dh != 64 && dh != 80))
+    return false;
+  p.heads_per_block = heads < kHeadsPerBlock ? heads : kHeadsPerBlock;
+  p.cluster = (heads + p.heads_per_block - 1) / p.heads_per_block;
+  p.warps = tc_warps(n);
+  const long long rows = 16LL * p.warps;
+  const long long smem = 4LL * tc_pad16(n) * (dh + 8)                      // K and V, bf16
+                         + 4LL * (kHeadsPerBlock - 1) * rows * (dh + 8)     // buffered o, fp32
+                         + 4LL * rows;                                      // partial maxima
+  p.smem = static_cast<int>(smem);
+  return smem <= tae::i8::kSmemLimit;
+}
+
+int launch(const Plan& p, const void* qkv, void* out_q, void* out_s, int batch, int n, int heads,
+           int dh, float scale, void* stream) {
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long c = static_cast<long long>(heads) * dh;
+  const bf16* base = static_cast<const bf16*>(qkv);
+  const HeadLayout in = {n * 3 * c, dh, 3 * c};
+  PlainSrc<bf16> src;
+  for (int i = 0; i < 3; ++i) {
+    src.p[i] = base + i * c;
+    src.l[i] = in;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64) return launch_q8<64>(p, src, out_q, out_s, batch, n, heads, scale, s);
+  if (dh == 80) return launch_q8<80>(p, src, out_q, out_s, batch, n, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace q8
+}  // namespace tae
 
 // K2. qkv: (batch, n, 3 * heads * dh) contiguous; out: (batch, n, heads * dh).
 extern "C" int tae_packed_attention_fwd(const void* qkv, void* out, int batch, int n,
@@ -675,4 +968,19 @@ extern "C" int tae_qkv_i8_attention_fwd(const void* qkv, const void* scales, voi
   if (dh == 64) return launch_bf16<64, true>(src, out, ol, nullptr, batch, n, heads, scale, s);
   if (dh == 80) return launch_bf16<80, true>(src, out, ol, nullptr, batch, n, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan of K7 / K8 on the forward body for (n, heads, dh) in bf16: out[0]
+// 1 where the body takes the shape (else 0, and nothing more is written),
+// out[1..4] cluster, heads per block, warps, shared memory bytes, out[5] the
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+extern "C" int tae_attention_q8_plan(int n, int heads, int dh, int* out) {
+  tae::q8::Plan p;
+  out[0] = tae::q8::plan(n, heads, dh, p) ? 1 : 0;
+  if (!out[0]) return 0;
+  out[1] = p.cluster;
+  out[2] = p.heads_per_block;
+  out[3] = p.warps;
+  out[4] = p.smem;
+  return dh == 64 ? q8_active_clusters<64>(p, n, out[5]) : q8_active_clusters<80>(p, n, out[5]);
 }

@@ -10,10 +10,12 @@
 // This is a file of its own beside flash_attention.cu (K2): K2 gives a block
 // one (image, head); here a block owns 16 consecutive rows of the flat
 // (B*N, 3C) token axis, whatever images they belong to, and every head.
-// All four entries run one kernel template: qkv (B, N, 3C) and its
-// (B*N, 3C) view are the same bytes, so the 3D and the 2D entry differ in
-// nothing on this card and K8 / K9 are bit-identical by construction; K7 is
-// the same code at N up to 256, where a 16-row tile lies inside one image.
+// K6, K9 and every float32 form run one kernel template here; qkv (B, N, 3C)
+// and its (B*N, 3C) view are the same bytes. K7 and K8 in bf16 from 16
+// tokens (tae::q8::kMinTokens) and up to 32 heads run on K2's body instead
+// (flash_attention.cu, attention_q8.cuh), with the row epilogue shared over
+// a thread-block cluster; below 16 tokens, in float32 and above 32 heads
+// they run here, where K8 and K9 are bit-identical.
 //
 // Numerics, as the Pallas bodies: fp32 scores s = (q . k) * scale; serving
 //   form p = exp(clip(s, -60, 45)), exact form (K6 only) p = exp(s - rowmax)
@@ -51,10 +53,12 @@
 //     TF32): a warp per (row, head), lanes over the row's own keys straight
 //     from device memory, then over output columns. It is off the serving
 //     path, which is bf16.
-//   Each image's K and V are read by N/16 blocks at N > 16 (from L2);
-//   double buffering of the chunks, wgmma and larger tiles are later work.
+//   Each image's K and V are read by N/16 blocks at N > 16 (from L2), which
+//   is why K7 and K8 moved to K2's body from 16 tokens; K9 (4 tokens) and K6
+//   stay here, on the redesign queue.
 #include <mma.h>
 
+#include "attention_q8.cuh"
 #include "common.cuh"
 #include "int8_common.cuh"
 
@@ -516,6 +520,19 @@ int launch_rows(const void* qkv, void* out, void* out_q, void* out_s, long rows,
 
 constexpr int kWideMaxN = 64;  // tokens per image of the wide entries
 
+// K7 and K8: in bf16, from tae::q8::kMinTokens tokens and where its shared
+// memory holds the heads a block buffers, the attention forward body of
+// flash_attention.cu with the row epilogue shared over a thread-block
+// cluster; otherwise (fewer tokens, float32) the flat-row body here.
+int launch_q8(const void* qkv, void* out_q, void* out_s, int batch, int n, int max_n, int heads,
+              int dh, float scale, int dtype, void* stream) {
+  tae::q8::Plan p;
+  if (dtype == tae::kBFloat16 && n <= max_n && tae::q8::plan(n, heads, dh, p))
+    return tae::q8::launch(p, qkv, out_q, out_s, batch, n, heads, dh, scale, stream);
+  return launch_rows<kQ8>(qkv, nullptr, out_q, out_s, static_cast<long>(batch) * n, n, max_n,
+                          heads, dh, scale, dtype, stream);
+}
+
 }  // namespace
 
 // K6. qkv: (batch, n, 3 * heads * dh) contiguous; out: (batch, n, heads * dh)
@@ -535,16 +552,14 @@ extern "C" int tae_wide_attention_fwd(const void* qkv, void* out, int batch, int
 extern "C" int tae_packed_attention_q8_fwd(const void* qkv, void* out_q, void* out_s,
                                            int batch, int n, int heads, int dh, float scale,
                                            int dtype, void* stream) {
-  return launch_rows<kQ8>(qkv, nullptr, out_q, out_s, static_cast<long>(batch) * n, n, kMaxN,
-                          heads, dh, scale, dtype, stream);
+  return launch_q8(qkv, out_q, out_s, batch, n, kMaxN, heads, dh, scale, dtype, stream);
 }
 
 // K8. As K7 with n <= 64.
 extern "C" int tae_wide_attention_q8_fwd(const void* qkv, void* out_q, void* out_s, int batch,
                                          int n, int heads, int dh, float scale, int dtype,
                                          void* stream) {
-  return launch_rows<kQ8>(qkv, nullptr, out_q, out_s, static_cast<long>(batch) * n, n,
-                          kWideMaxN, heads, dh, scale, dtype, stream);
+  return launch_q8(qkv, out_q, out_s, batch, n, kWideMaxN, heads, dh, scale, dtype, stream);
 }
 
 // K9. qkv2: (rows, 3 * heads * dh) flat token rows of rows / n images; out_q:

@@ -121,11 +121,15 @@ def attention_route(n: int, int8_block: bool, serving: bool,
     tokens and the per-image entry above. A serving int8 block takes an
     int8-output entry at every n: the flat-row one below 8 tokens, the wide
     one up to 64, the per-image one above; its ``(y, y_scale)`` is the proj
-    matmul's prequantized input, and no separate quantize pass runs (on the
-    H100 at B = 64 each beats the per-image kernel plus the plain per-row
-    quantize or draws level with it, and it is one launch in place of
-    nine). ``attn_q8`` forces the int8 output on (True) or off (False) for
-    a serving int8 block; None is the rule."""
+    matmul's prequantized input, and no separate quantize pass runs. The
+    JAX package takes the int8 output up to 64 tokens only; on the H100 it
+    wins above too (NVIDIA H100 80GB HBM3 at 700 W, B = 64, ``chip_smoke.py``:
+    K7 0.1429 ms at 256 tokens against 0.4096 for the per-image kernel plus
+    the plain per-row quantize, the p16 int8 request 21.92 against 25.97
+    ms; K8 0.0454 against 0.1878 ms at 64 tokens, the p32 request 21.82
+    against 24.83 ms; K9 level at 4 tokens, 0.0346 against 0.0363 ms).
+    ``attn_q8`` forces the int8 output on (True) or off (False) for a
+    serving int8 block; None is the rule."""
     q8 = int8_block and serving and (attn_q8 is None or bool(attn_q8))
     if not q8:
         return ("wide" if n <= FLOAT_WIDE_MAX_TOKENS else "packed"), False

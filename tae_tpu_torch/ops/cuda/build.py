@@ -83,6 +83,8 @@ SIGNATURES = {
                                    _VP), _I),
     "tae_wide_attention_q8_2d_fwd": ((_VP, _VP, _VP, _I, _I, _I, _I, _F, _I,
                                       _VP), _I),
+    # tokens, heads, head dim, int[6] out: K7 / K8's plan on the forward body
+    "tae_attention_q8_plan": ((_I, _I, _I, ctypes.POINTER(_I)), _I),
     # x, gamma, beta, q, s, rows, cols, eps, x dtype, gamma dtype, stream
     "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
     # x, sx, w, sw, bias, residual, out, m, n, k, out dtype, bias dtype,
@@ -203,9 +205,12 @@ def build_library(build_root: pathlib.Path = BUILD_ROOT,
 
 
 def load(path: pathlib.Path) -> ctypes.CDLL:
-    """A built kernel library, its C entry points typed."""
+    """A built kernel library, its C entry points typed (an entry that a
+    library built from an older checkout lacks is left out)."""
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype

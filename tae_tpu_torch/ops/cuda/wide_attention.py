@@ -5,9 +5,13 @@
 source ``tae_tpu_torch/csrc/wide_attention.cu``) and their plain versions.
 
 The four entries keep the JAX entries' argument order and layouts, without
-``block_b`` and ``interpret``. They share one kernel template that works on
-16 consecutive rows of the flat (B*N, 3C) token axis, so the 3D and the 2D
-int8 entry are the same computation on the same bytes.
+``block_b`` and ``interpret``. K6, K9 and the float32 forms share one kernel
+template that works on 16 consecutive rows of the flat (B*N, 3C) token axis.
+K7 and K8 in bfloat16 from :data:`Q8_MIN_TOKENS` tokens run on the per-image
+attention forward body of ``csrc/flash_attention.cu`` (K2's), whose int8 row
+epilogue is shared over a thread-block cluster (:func:`q8_plan`); there the
+3D int8 entry and the flat 2D one (K9, always the flat-row body) are no
+longer the same computation, and agree within the int8 tolerances.
 
 The int8 output is the proj matmul's prequantized input: per token one
 scale over all heads' fp32 output, ``s = max(max|o| / 127, 1e-12)``, codes
@@ -25,6 +29,9 @@ either), not a fallback: no kernel exists to fall back from.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from tae_tpu_torch.ops.cuda import build
@@ -34,10 +41,86 @@ from tae_tpu_torch.ops.cuda.flash_attention import (HEAD_DIMS, MAX_TOKENS,
 
 #: tokens per image the wide entries take (every registered tiny-N config)
 WIDE_MAX_TOKENS = 64
-#: widest attention output the int8 entries take on CUDA: a block keeps 16
-#: fp32 output rows in shared memory beside one warp's K and V
-Q8_MAX_WIDTH = 3072
+#: Fewest tokens per image at which K7 and K8 in bfloat16 run on the
+#: per-image forward body (``tae::q8::kMinTokens`` in
+#: ``csrc/attention_q8.cuh``); below it a per-image block pads its 16-row
+#: tiles, and the flat-row body keeps them.
+Q8_MIN_TOKENS = 16
+#: most blocks of one thread-block cluster (``tae::q8::kMaxCluster``)
+Q8_MAX_CLUSTER = 16
+#: heads a block of the cluster takes (``tae::q8::kHeadsPerBlock``), so the
+#: per-image body takes up to 32 heads
+Q8_HEADS_PER_BLOCK = 2
+#: widest output the flat-row body's int8 form takes on CUDA: a block keeps
+#: 16 fp32 output rows in shared memory beside one warp's K and V
+ROWS_Q8_MAX_WIDTH = 3072
+#: dynamic shared memory of one block on the H100
+SMEM_LIMIT = 232448
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Q8Plan:
+    """Launch shape of K7 / K8 on the per-image body: ``cluster`` blocks of
+    one (image, row tile) along grid.y, each taking ``heads_per_block``
+    heads (the last rank fewer), ``warps`` warps of 16 query rows, ``smem``
+    bytes of dynamic shared memory."""
+    cluster: int
+    heads_per_block: int
+    warps: int
+    smem: int
+
+
+def q8_plan(n: int, num_heads: int, dh: int,
+            dtype: torch.dtype = torch.bfloat16) -> Q8Plan | None:
+    """The plan ``tae::q8::plan`` computes for K7 / K8, or None where the
+    flat-row body runs them (float32, fewer than :data:`Q8_MIN_TOKENS`
+    tokens, more heads than :data:`Q8_MAX_CLUSTER` blocks of
+    :data:`Q8_HEADS_PER_BLOCK` take, or a block beyond :data:`SMEM_LIMIT`).
+
+    heads_per_block = min(H, Q8_HEADS_PER_BLOCK), cluster = ceil(H /
+    heads_per_block); shared memory: the head's K and V in bf16 (rows of
+    dh + 8, tokens padded to 16), the fp32 o of every head of a block but
+    the last (one row of dh + 8 per query row) and one partial max per
+    query row."""
+    if (dtype != torch.bfloat16 or not Q8_MIN_TOKENS <= n <= MAX_TOKENS
+            or dh not in HEAD_DIMS
+            or not 1 <= num_heads <= Q8_HEADS_PER_BLOCK * Q8_MAX_CLUSTER):
+        return None
+    hpb = min(num_heads, Q8_HEADS_PER_BLOCK)
+    cluster = -(-num_heads // hpb)
+    tokens = -(-n // 16) * 16
+    warps = min(tokens // 16, 8)
+    rows = 16 * warps
+    smem = (4 * tokens * (dh + 8) + 4 * (Q8_HEADS_PER_BLOCK - 1) * rows
+            * (dh + 8) + 4 * rows)
+    return Q8Plan(cluster, hpb, warps, smem) if smem <= SMEM_LIMIT else None
+
+
+def q8_plan_of_library(n: int, num_heads: int, dh: int
+                       ) -> tuple[Q8Plan | None, int]:
+    """(the built library's plan for bf16 (n, H, dh), the clusters of that
+    shape the card holds at once; 0 where the body does not take it): what
+    ``chip_smoke.py`` holds :func:`q8_plan` against. Needs the card."""
+    out = (ctypes.c_int * 6)()
+    build.check(build.library().tae_attention_q8_plan(n, num_heads, dh, out),
+                "tae_attention_q8_plan")
+    if not out[0]:
+        return None, 0
+    return Q8Plan(*out[1:5]), out[5]
+
+
+def check_q8_width(name: str, n: int, num_heads: int, dh: int,
+                   dtype: torch.dtype) -> None:
+    """Raise where neither body takes the int8 output on CUDA: the per-image
+    body up to 32 heads, the flat-row body up to :data:`ROWS_Q8_MAX_WIDTH`
+    columns."""
+    width = num_heads * dh
+    if q8_plan(n, num_heads, dh, dtype) is None and width > ROWS_Q8_MAX_WIDTH:
+        raise ValueError(
+            f"{name} takes an output width up to {ROWS_Q8_MAX_WIDTH} where "
+            f"the per-image body does not run ({dtype}, {n} tokens, "
+            f"{num_heads} heads of {dh}), got {width}")
 
 
 def quantize_attention_rows(o: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -69,9 +152,8 @@ def _check_cuda(name: str, qkv: torch.Tensor, n: int, num_heads: int, dh: int,
         raise ValueError(f"{name} takes head dim in {HEAD_DIMS}, got {dh}")
     if num_heads > 65535 or qkv.shape[0] == 0:
         raise ValueError(f"{name}: {num_heads} heads / an empty batch")
-    if q8 and num_heads * dh > Q8_MAX_WIDTH:
-        raise ValueError(f"{name} takes an output width up to {Q8_MAX_WIDTH} "
-                         f"(16 fp32 rows in shared memory), got {num_heads * dh}")
+    if q8:
+        check_q8_width(name, n, num_heads, dh, qkv.dtype)
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{name} needs a contiguous, 16-byte aligned qkv")
 
