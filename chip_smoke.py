@@ -14,7 +14,9 @@ Phases (each prints its lines; any failure exits non-zero):
    kernel; fails if an instantiation of the register-resident attention
    bodies, forward (K2, K15, K16, and its int8-output form behind K7 / K8)
    or backward (K10, K17), or of the int8 GEMM body's products (K4, K5's
-   fc1 and fc2), spills;
+   fc1 and fc2, and with the packed int4 weight K12, K13's fc1 and fc2),
+   spills, or if the int4 products' SASS lacks ldmatrix or touches local
+   memory in its innermost tensor-core loops;
 3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
@@ -34,8 +36,9 @@ Phases (each prints its lines; any failure exits non-zero):
    kernels (K12 ``int4_matmul_fused``, K13 ``int4_mlp``) run at the few-row
    shapes int4 serving is for (width 2560, 4 to 256 rows) and at the p16
    shape, beside the int8 kernels and a dequantize + bf16 product at the
-   same shapes; the codebook search (K14 ``nearest_code``) at 16384 x 256
-   latents against 8192 codes beside ``torch.cdist(...).argmin``, and at the
+   same shapes, K12 bit for bit; the codebook search (K14 ``nearest_code``)
+   at 16384 x 256 latents against 8192 codes beside
+   ``torch.cdist(...).argmin``, and at the
    4096- and 16384-wide latents of the vocab-4096 / -16384 configs; the
    unpacked attention of a qk_norm block (K16, both forms; K17) beside SDPA's
    forward and backward; K4's ``q8_out`` and in-kernel-quantize forms, and the
@@ -353,6 +356,11 @@ ROW_FORMS = {"int8_matmul_fused": "int8_matmul_rows"}
 # so long as none lies in an innermost tensor-core loop, and both of their
 # cluster barriers must stand on the main path
 SASS_CHECKED = ("attention_q8_bf16",)
+# The int8 GEMM body's products with the packed int4 weight (K12, K13) and
+# their instantiations: no spills, ldmatrix in their SASS, no local memory
+# in their innermost tensor-core loops
+W4_PRODUCTS = {"int4_matmul_kernel": 4, "int4_mlp_fc1_kernel": 4,
+               "int4_mlp_fc2_kernel": 4}
 
 
 class SmokeFailure(Exception):
@@ -395,7 +403,8 @@ def phase_build():
     entry = ""
     body = {"attention_fwd_bf16": {}, "attention_q8_bf16": {},
             "attention_bwd_bf16": {}, "int8_matmul_kernel": {},
-            "int8_mlp_fc1_kernel": {}, "int8_mlp_fc2_kernel": {}}
+            "int8_mlp_fc1_kernel": {}, "int8_mlp_fc2_kernel": {},
+            **{kernel: {} for kernel in W4_PRODUCTS}}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -409,11 +418,14 @@ def phase_build():
     # and its int8-output form (K7, K8) at dh 64 and 80; the backward (K10,
     # K17) at dh 64 and 80; the int8 GEMM body's products (K4: three tile
     # shapes, each with its epilogue or its int32 partials; K5: fc1 at five
-    # tile shapes, fc2 at three)
+    # tile shapes, fc2 at three) and its packed int4 form (K12 and K13's fc1
+    # and fc2 at two tile shapes each, each with a fold after whole ring
+    # stages and one after every two k32 steps)
     for kernel, want in (("attention_fwd_bf16", 6), ("attention_q8_bf16", 2),
                          ("attention_bwd_bf16", 2),
                          ("int8_matmul_kernel", 6), ("int8_mlp_fc1_kernel", 5),
-                         ("int8_mlp_fc2_kernel", 3)):
+                         ("int8_mlp_fc2_kernel", 3),
+                         *W4_PRODUCTS.items()):
         found = body[kernel]
         check(len(found) == want, f"ptxas reported {len(found)} "
                                   f"instantiations of {kernel}, expected {want}")
@@ -428,10 +440,14 @@ def phase_build():
                     f" {'serving' if m.group(2) == '1' else 'exact'} "
                     f"{'int8' if 'I8Src' in entry else 'bf16'}")
                 name = f"{kernel} dh {m.group(1)}{form}"
-            else:   # Tiles<BM, BN, WARPS_M, WARPS_N, STAGES>[, partial]
-                tiles = re.findall(r"ILi(\d+)E", entry)[:5]
-                name = f"{kernel} <{', '.join(tiles)}>" + (
-                    " partial" if "Lb1E" in entry else "")
+            else:   # Tiles<BM, BN, WARPS_M, WARPS_N, STAGES, MINB>[, ...]
+                tiles = re.search(r"TilesI((?:Li\d+E)+)E", entry)
+                fold = re.search(r"RowsI4ILi(\d+)E", entry)
+                name = (f"{kernel} <"
+                        + ", ".join(re.findall(r"\d+", tiles.group(1)))
+                        + ">" + (" partial" if "Lb1E" in entry else "")
+                        + (f" int4, fold every {fold.group(1)} of K"
+                           if fold else ""))
             print(f"[build] {name}: registers {regs}, spill bytes "
                   f"{sum(spills)}")
             check(len(spills) == 2 and (sum(spills) == 0
@@ -448,7 +464,7 @@ def phase_build():
     # has read it. Without the second the outputs stay right on every run
     # measured (the race is rare), so only the code can show it is there.
     for kernel in SASS_CHECKED:
-        for entry, (loops, local, arrives, waits) in sass_report(lib, kernel).items():
+        for entry, (loops, local, arrives, waits, _) in sass_report(lib, kernel).items():
             print(f"[build] {kernel}: {loops} innermost mma loops, {local} "
                   f"local-memory instructions in them; {arrives} cluster "
                   f"barrier arrives and {waits} waits on the main path "
@@ -459,14 +475,26 @@ def phase_build():
             check(arrives == waits == 2, f"{entry}: {arrives} cluster "
                   f"barrier arrives and {waits} waits on the main path, "
                   "expected 2 and 2")
+    # The int4 products: B read by ldmatrix (the packed words of four k32
+    # steps a load) and decoded in registers, nothing of the mainloop in
+    # local memory.
+    for kernel in W4_PRODUCTS:
+        for entry, (loops, local, _, _, ldsm) in sass_report(lib, kernel).items():
+            print(f"[build] {kernel}: {loops} innermost mma loops, {local} "
+                  f"local-memory instructions in them, {ldsm} ldmatrix "
+                  f"({entry[:60]}...)")
+            check(loops > 0 and local == 0 and ldsm > 0,
+                  f"{entry}: {loops} innermost mma loops with {local} "
+                  f"local-memory instructions, {ldsm} ldmatrix")
 
 
 def sass_report(lib, kernel: str) -> dict:
     """Per instantiation of ``kernel`` in the library, read from
     ``cuobjdump -sass``: (the innermost loops that issue tensor-core
     products, the local-memory instructions LDL / STL in them, the cluster
-    barrier arrives and waits ahead of the first EXIT). A loop is the span
-    from a backward branch's target to the branch."""
+    barrier arrives and waits ahead of the first EXIT, the ldmatrix
+    instructions). A loop is the span from a backward branch's target to
+    the branch."""
     import bisect
 
     from tae_tpu_torch.ops.cuda import build
@@ -489,7 +517,7 @@ def sass_report(lib, kernel: str) -> dict:
             target = re.search(r"0x([0-9a-f]+)", rest)
             if op.startswith("BRA") and target and int(target.group(1), 16) < a:
                 j = bisect.bisect_left(addr, int(target.group(1), 16))
-                if any(o.startswith("HMMA") for o in ops[j:i + 1]):
+                if any(o.startswith(("HMMA", "IMMA")) for o in ops[j:i + 1]):
                     mma.append((j, i))
         inner = [(j, i) for j, i in mma
                  if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
@@ -498,7 +526,8 @@ def sass_report(lib, kernel: str) -> dict:
                     for j, i in inner for o in ops[j:i + 1])
         main = ops[:ops.index("EXIT")] if "EXIT" in ops else ops
         found[name] = (len(inner), local, main.count("UCGABAR_ARV"),
-                       main.count("UCGABAR_WAIT"))
+                       main.count("UCGABAR_WAIT"),
+                       sum(o.startswith("LDSM") for o in ops))
     return found
 
 
@@ -1301,13 +1330,13 @@ def phase_int4_kernels() -> dict:
     p128 shape at B = 64."""
     import torch
 
-    from tae_tpu_torch.ops.cuda.int4_block import (BLOCK_ROWS, int4_mlp,
-                                                   int4_mlp_reference)
+    from tae_tpu_torch.ops.cuda.int4_block import (int4_mlp,
+                                                   int4_mlp_reference,
+                                                   mlp4_tiles)
     from tae_tpu_torch.ops.cuda.int4_matmul import (int4_matmul_fused,
                                                     int4_matmul_reference,
                                                     pack_int4)
-    from tae_tpu_torch.ops.cuda.int8_block import (DEFAULT_BLOCK_H, int8_mlp,
-                                                   mlp_hidden_groups)
+    from tae_tpu_torch.ops.cuda.int8_block import DEFAULT_BLOCK_H, int8_mlp
     from tae_tpu_torch.ops.cuda.int8_matmul import int8_matmul_fused
     from tae_tpu_torch.ops.int4 import dequantize_int4, group_size, int4_ok
 
@@ -1357,6 +1386,9 @@ def phase_int4_kernels() -> dict:
                      f"{k // ws.shape[0]} +bias"
                      f"{' +residual' if residual else ''}")
             err = max(err, compare(f"{label} {dtype}", got, want, **tol))
+            # the same fp32 terms in the same order: equal bit for bit
+            check(torch.equal(got, want), f"{label} {dtype}: not bit-equal "
+                                          "to the plain version")
         bnd = bound(nbytes(xq, sx, wq, ws, b, r, got), 2.0 * m * k * n, "int8")
         if not timed:
             return record(K12["name"], label, err, None, None, bnd,
@@ -1390,7 +1422,7 @@ def phase_int4_kernels() -> dict:
         w2, s2 = w4(d, hdim)
         s1, s2 = s1 * 0.03, s2 * 0.03
         b1, b2 = randn((hdim,), 0.1), randn((d,), 0.1)
-        groups = mlp_hidden_groups(-(-m // BLOCK_ROWS), hdim // bh, sms)
+        groups = mlp4_tiles(m, d, hdim, sms)[2]
         label = (f"K13 int4_mlp ({m}, {d}) hidden {hdim} block_h {bh} "
                  f"hidden groups {groups}")
         # fp32 output: rows that a flipped hidden code moved, counted

@@ -10,10 +10,15 @@
 //     of K. mma.sync.m16n8k32 (tae::mma_s8) with the accumulators in
 //     registers; both operands read from shared memory by ldmatrix on the
 //     b16 view of 16-byte rows; a cp.async ring of STAGES slots of 128
-//     bytes of K each (one block barrier per 128 bytes), rows padded to 144
+//     values of K each (one block barrier per 128), A rows padded to 144
 //     bytes so that the eight rows an ldmatrix reads fall in eight
 //     different bank groups. A fold functor runs after every group of K
-//     steps (K5's fc2 folds each hidden block's int32 sums into fp32).
+//     steps (K5's fc2 folds each hidden block's int32 sums into fp32). The
+//     B operand is int8 rows (RowsI8) or, for the w4a8 kernels K12 and K13,
+//     packed int4 rows (RowsI4, int4_common.cuh's layout): 64 bytes of a row
+//     a stage on an 80-byte stride, one ldmatrix.x4 a stage and n8 tile,
+//     each of its four words decoded in registers into one k32 step's B
+//     registers.
 //   * transpose_rows8 / for_rows8: the accumulator tile handed to an
 //     epilogue as 8 consecutive columns of one row per lane, turned from the
 //     C fragments by quad transposes (tae::quad_transpose), so epilogues
@@ -196,27 +201,52 @@ __device__ __forceinline__ void cp_async16_zfill(unsigned dst, const void* src, 
                : "r"(dst), "l"(src), "r"(valid ? 16 : 0));
 }
 
-// Copy K bytes [k, k + kBK) of ROWS operand rows (row stride ld bytes, from
-// src) into a ring slot (32-bit shared address dst), 16 bytes a cp.async:
-// thread t copies chunk t % 8 of rows t / 8, t / 8 + NT / 8, ... Rows at or
-// beyond valid_rows and bytes at or beyond k_end are zero-filled, so ragged
-// edges add nothing to the product.
-template <int NT, int ROWS>
+// Copy bytes [k, k + BYTES) of ROWS operand rows (row stride ld bytes, from
+// src) into a ring slot (32-bit shared address dst, row stride LD), 16
+// bytes a cp.async: thread t copies chunk t % (BYTES / 16) of rows
+// t / (BYTES / 16), ... Rows at or beyond valid_rows and bytes at or beyond
+// k_end are zero-filled, so ragged edges add nothing to the product.
+template <int NT, int ROWS, int BYTES = kBK, int LD = kLd>
 __device__ __forceinline__ void stage_k_tile(unsigned dst, const int8_t* __restrict__ src, long ld,
                                              int valid_rows, int k, int k_end) {
-  constexpr int kChunks = kBK / 16, kStep = NT / kChunks;
+  constexpr int kChunks = BYTES / 16, kStep = NT / kChunks;
   static_assert(NT % kChunks == 0, "whole rows per pass");
   const int ch = (threadIdx.x % kChunks) * 16, r0 = threadIdx.x / kChunks;
   const bool in_k = k + ch < k_end;
   const int8_t* s = src + r0 * ld + k + ch;
-  const unsigned d = dst + r0 * kLd + ch;
+  const unsigned d = dst + r0 * LD + ch;
 #pragma unroll
   for (int i = 0; i < (ROWS + kStep - 1) / kStep; ++i) {
     const int r = r0 + i * kStep;
     if (ROWS % kStep != 0 && r >= ROWS) break;
     const bool valid = in_k && r < valid_rows;
-    cp_async16_zfill(d + i * kStep * kLd, valid ? s + i * kStep * ld : src, valid);
+    cp_async16_zfill(d + i * kStep * LD, valid ? s + i * kStep * ld : src, valid);
   }
+}
+
+// The B operand of gemm_mainloop. RowsI8: int8 rows, kBK bytes a stage on
+// the A operand's 144-byte stride. RowsI4<FOLD_K>: packed int4 rows
+// (int4_common.cuh), kBK / 2 bytes a stage on an 80-byte stride: the eight
+// 16-byte rows an ldmatrix reads start at 80 r bytes, r = 0..7, which fall
+// in the 16-byte bank groups 0, 5, 2, 7, 4, 1, 6, 3 of a 128-byte bank
+// line, all different. FOLD_K is the K of a fold unit: kBK (a fold after
+// every group of whole stages) or 64 (groups of 64-value units, a fold
+// possible after every two k32 steps).
+struct RowsI8 {
+  static constexpr bool kPacked = false;
+  static constexpr int kLdB = kLd;
+};
+template <int FOLD_K>
+struct RowsI4 {
+  static constexpr bool kPacked = true;
+  static constexpr int kBytes = kBK / 2, kLdB = kBK / 2 + 16, kFoldK = FOLD_K;
+  static_assert(FOLD_K == kBK || FOLD_K == 64, "fold after a stage or a half stage");
+};
+
+// Bytes of S's operand ring with a B operand of form B.
+template <class S, class B>
+__host__ __device__ constexpr int ring_bytes() {
+  return S::STAGES * (S::BM * kLd + S::BN * B::kLdB);
 }
 
 struct NoFold {
@@ -225,14 +255,17 @@ struct NoFold {
 
 // acc = A[a_rows][k0:k1] x B[b_rows][k0:k1]^T for one block tile.
 //   a, b: the tile's first row in device memory (row stride lda / ldb
-//     bytes); rows beyond a_rows / b_rows read as zero.
-//   k0, k1: the K range in bytes, multiples of 16; k0 a multiple of kBK.
-//   fold(acc, i) runs after the i-th group of group_steps K steps (and
-//     may use and clear acc); the last group may be partial only when
-//     fold does nothing.
-//   smem: S::kSmem bytes, 16-byte aligned.
+//     bytes); rows beyond a_rows / b_rows read as zero. B of form B (an
+//     int8 row, or a packed int4 row holding K / 2 bytes).
+//   k0, k1: the K range in values (A's bytes), multiples of 16 (of 32 for
+//     packed rows); k0 a multiple of kBK.
+//   fold(acc, i) runs after the i-th group of group_steps fold units (K
+//     steps of kBK, or of B::kFoldK values; it may use and clear acc); the
+//     last group may be partial only when fold does nothing. Packed int4
+//     sums are 16 times the codes' product (int4_common.cuh).
+//   smem: ring_bytes<S, B>() bytes, 16-byte aligned.
 // No barrier at the end: the caller syncs before reusing smem.
-template <class S, class Fold>
+template <class S, class B = RowsI8, class Fold>
 __device__ __forceinline__ void gemm_mainloop(Acc<S>& acc, const int8_t* __restrict__ a, long lda,
                                               int a_rows, const int8_t* __restrict__ b, long ldb,
                                               int b_rows, int k0, int k1, int group_steps,
@@ -244,24 +277,33 @@ __device__ __forceinline__ void gemm_mainloop(Acc<S>& acc, const int8_t* __restr
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
 
+  constexpr int kStage = S::BM * kLd + S::BN * B::kLdB;   // bytes of one ring slot
   const int nk = k1 > k0 ? (k1 - k0 + kBK - 1) / kBK : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
   // ldmatrix row addresses. A (x4): matrices (rows 0-7 | 8-15) x (bytes
-  // 0-15 | 16-31) give a0..a3. B (x4): two n8 tiles, matrices (n 0-7,
+  // 0-15 | 16-31) give a0..a3. int8 B (x4): two n8 tiles, matrices (n 0-7,
   // bytes 0-15), (n 0-7, 16-31), (n 8-15, 0-15), (n 8-15, 16-31) give
-  // b0, b1 of the first and of the second.
+  // b0, b1 of the first and of the second. Packed B (x4): one n8 tile,
+  // matrix j the 16 bytes of k32 step j, whose word (row g, t) is that
+  // step's b0 and b1 still packed.
   const unsigned base = smem_addr(smem);
   const unsigned a_off = (wm * S::WM + (lane & 15)) * kLd + (lane >> 4) * 16;
-  const unsigned b_off = S::BM * kLd +
-                         (wn * S::WN + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                         ((lane >> 3) & 1) * 16;
+  const unsigned b_off =
+      B::kPacked ? S::BM * kLd + (wn * S::WN + (lane & 7)) * B::kLdB + (lane >> 3) * 16
+                 : S::BM * kLd + (wn * S::WN + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+                       ((lane >> 3) & 1) * 16;
 
   auto stage = [&](int kt) {
-    const unsigned slot = base + (kt % S::STAGES) * S::kStage;
+    const unsigned slot = base + (kt % S::STAGES) * kStage;
     const int k = k0 + kt * kBK;
     stage_k_tile<S::NT, S::BM>(slot, a, lda, a_rows, k, k1);
-    stage_k_tile<S::NT, S::BN>(slot + S::BM * kLd, b, ldb, b_rows, k, k1);
+    if constexpr (B::kPacked) {
+      stage_k_tile<S::NT, S::BN, B::kBytes, B::kLdB>(slot + S::BM * kLd, b, ldb, b_rows, k / 2,
+                                                     k1 / 2);
+    } else {
+      stage_k_tile<S::NT, S::BN>(slot + S::BM * kLd, b, ldb, b_rows, k, k1);
+    }
   };
 
   // one commit per slot whether or not it loads, so group kt is step kt
@@ -276,28 +318,56 @@ __device__ __forceinline__ void gemm_mainloop(Acc<S>& acc, const int8_t* __restr
     if (kt + S::STAGES - 1 < nk) stage(kt + S::STAGES - 1);
     cp_async_commit();
 
-    const unsigned slot = base + (kt % S::STAGES) * S::kStage;
+    const unsigned slot = base + (kt % S::STAGES) * kStage;
+    if constexpr (B::kPacked) {
+      unsigned bw[S::NI][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk) {
-      unsigned af[S::MI][4], bf[S::NI][2];
+      for (int ni = 0; ni < S::NI; ++ni) ldmatrix_x4_at(bw[ni], slot + b_off + ni * 8 * B::kLdB);
 #pragma unroll
-      for (int mi = 0; mi < S::MI; ++mi)
-        ldmatrix_x4_at(af[mi], slot + a_off + mi * 16 * kLd + kk * 32);
+      for (int kk = 0; kk < kBK / 32; ++kk) {
+        unsigned af[S::MI][4];
 #pragma unroll
-      for (int nj = 0; nj < S::NI / 2; ++nj) {
-        unsigned r[4];
-        ldmatrix_x4_at(r, slot + b_off + nj * 16 * kLd + kk * 32);
-        bf[2 * nj][0] = r[0];
-        bf[2 * nj][1] = r[1];
-        bf[2 * nj + 1][0] = r[2];
-        bf[2 * nj + 1][1] = r[3];
+        for (int mi = 0; mi < S::MI; ++mi)
+          ldmatrix_x4_at(af[mi], slot + a_off + mi * 16 * kLd + kk * 32);
+#pragma unroll
+        for (int ni = 0; ni < S::NI; ++ni) {
+          // each byte of b0, b1: 16 times its code (int4_common.cuh)
+          const unsigned b0 = (bw[ni][kk] << 4) & 0xF0F0F0F0u, b1 = bw[ni][kk] & 0xF0F0F0F0u;
+#pragma unroll
+          for (int mi = 0; mi < S::MI; ++mi) mma_s8(acc[mi][ni], af[mi], b0, b1);
+        }
+        if constexpr (B::kFoldK < kBK) {
+          const int u = 2 * kt + kk / 2;   // the 64-value unit this step ends
+          if (kk % 2 == 1 && (u + 1) % group_steps == 0 && (u + 1) * 64 <= k1 - k0)
+            fold(acc, u / group_steps);
+        }
       }
+      if constexpr (B::kFoldK == kBK) {
+        if ((kt + 1) % group_steps == 0) fold(acc, kt / group_steps);
+      }
+    } else {
 #pragma unroll
-      for (int mi = 0; mi < S::MI; ++mi)
+      for (int kk = 0; kk < kBK / 32; ++kk) {
+        unsigned af[S::MI][4], bf[S::NI][2];
 #pragma unroll
-        for (int ni = 0; ni < S::NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+        for (int mi = 0; mi < S::MI; ++mi)
+          ldmatrix_x4_at(af[mi], slot + a_off + mi * 16 * kLd + kk * 32);
+#pragma unroll
+        for (int nj = 0; nj < S::NI / 2; ++nj) {
+          unsigned r[4];
+          ldmatrix_x4_at(r, slot + b_off + nj * 16 * kLd + kk * 32);
+          bf[2 * nj][0] = r[0];
+          bf[2 * nj][1] = r[1];
+          bf[2 * nj + 1][0] = r[2];
+          bf[2 * nj + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < S::MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < S::NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+      }
+      if ((kt + 1) % group_steps == 0) fold(acc, kt / group_steps);
     }
-    if ((kt + 1) % group_steps == 0) fold(acc, kt / group_steps);
   }
 }
 

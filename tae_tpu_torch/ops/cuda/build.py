@@ -108,14 +108,16 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _VP, _VP, _I, _F, _VP, _VP, _VP,
                           _VP, _VP, _I, _I, _I, _VP), _I),
     # x, sx, packed w, group scales, bias, residual, out, m, n, k, group,
-    # out dtype, bias dtype, small tiles, stream
+    # out dtype, bias dtype, tile shape, stream
     "tae_int4_matmul_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                              _I, _I, _I, _VP), _I),
     # xq, sx, packed w1, s1, b1, packed w2, s2, b2, residual, out, m, d, hdim,
-    # fc1 group, fc2 group, out dtype, bias dtype, workspace of the hidden
-    # groups, hidden groups, stream
+    # fc1 group, fc2 group, out dtype, bias dtype, hidden codes, hidden
+    # scales, fp32 workspace of the hidden groups (or null), hidden groups,
+    # fc1 tile shape, fc2 tile shape, stream
     "tae_int4_mlp_fwd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
-                          _I, _I, _I, _I, _I, _I, _VP, _I, _VP), _I),
+                          _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I,
+                          _VP), _I),
     # z, codebook, norms workspace, ids, workspace of the codebook ranges (or
     # null), m, v, k, dtype, rows per block, codebook ranges, stream
     "tae_nearest_code_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,

@@ -1,7 +1,8 @@
 """K12: w4a8 matmul with group-wise dequantization (counterpart of
 ``tae_tpu/ops/pallas/int4_matmul.py::int4_matmul_fused``; source
-``tae_tpu_torch/csrc/int4_matmul.cu``), its plain version, and the packed
-int4 byte layout both share.
+``tae_tpu_torch/csrc/int4_matmul.cu``), its plain version, the packed int4
+byte layout both share, and the kernel's tiling rule
+(:func:`w4_matmul_tiles`). One device launch a call.
 
 The byte layout (:data:`LAYOUT`, ``"k32-twos"``). A weight of ``N`` output
 channels and ``K`` inputs is stored torch-style and K-contiguous, ``(N,
@@ -43,9 +44,24 @@ _FLOATS = (torch.float32, torch.bfloat16)
 LAYOUT = "k32-twos"
 #: K values per run of the layout: pack / unpack need K a multiple of it
 RUN = 32
-#: output tile (rows, columns) of the kernel's two forms: the large tile
-#: where it alone fills the card, the small one for few rows
-TILES = ((128, 128), (32, 64))
+#: the kernel's output tiles (rows, columns), in the order of
+#: csrc/int4_matmul.cu's kMany, kFew
+W4_TILES = ((64, 128), (16, 64))
+
+
+def w4_matmul_tiles(m: int, n: int, k: int) -> int:
+    """The kernel's tile shape for an (M, K) x (N, K) product: an index
+    into :data:`W4_TILES`. Up to 64 rows take the 16-row tile, more the
+    64-row tile: K4's rule (:func:`~tae_tpu_torch.ops.cuda.int8_matmul.
+    matmul_tiles`) without its 128-row tile, which measured slower at every
+    shape of the int4 paths where it fills the card (H100: 0.3465 against
+    0.3184 ms at p16's qkv), so the SM count plays no part. There is no K
+    split: the fp32 group sums keep their ascending order. Raises on a
+    shape the kernel does not take (K a multiple of 64, N of 8)."""
+    if m < 1 or n < 8 or n % 8 or k < 64 or k % 64:
+        raise ValueError(f"int4_matmul_fused takes M >= 1, N a multiple of 8 "
+                         f"and K of 64, got M={m}, N={n}, K={k}")
+    return 1 if m <= 64 else 0
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -171,16 +187,12 @@ def int4_matmul_fused(xq: torch.Tensor, sx: torch.Tensor, w4: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    # the large tile where its blocks alone fill the card, else the small
-    # one: few rows leave most SMs idle unless N is cut finely
-    (bm, bn), sms = TILES[0], torch.cuda.get_device_properties(
-        dev).multi_processor_count
-    small = -(-m // bm) * -(-n // bn) < sms
     rc = build.library().tae_int4_matmul_fwd(
         xq.data_ptr(), sx.data_ptr(), w4.data_ptr(), w_scale.data_ptr(),
         build.ptr(bias), build.ptr(residual), out.data_ptr(), m, n, k, group,
         build.dtype_code(out_dtype),
-        0 if bias is None else build.dtype_code(bias.dtype), int(small),
+        0 if bias is None else build.dtype_code(bias.dtype),
+        w4_matmul_tiles(m, n, k),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "tae_int4_matmul_fwd")
     int4_matmul_fused.launches += 1

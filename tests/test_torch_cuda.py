@@ -20,8 +20,10 @@ for the training kernels (the stats and LSE forwards, the LayerNorm and
 attention backwards), row counts off the 128-row chunks, every model width,
 token counts off the 16-row tiles, gradients in a non-contiguous layout, and
 bit-equal results of two runs; for the int4 kernels (K12, K13), row counts
-off the 16 / 32 / 128-row tiles, both scale groups, every model width, both
-tile forms and every hidden split; for the codebook search (K14), row and
+off the 16- and 64-row tiles of both tile shapes bit for bit, groups of 64,
+128 and 256, every model width, each of K13's launches (fc1, fc2, finish)
+against its plain version, and 1 to 40 hidden groups; for the codebook
+search (K14), row and
 code counts off the tiles, every latent width class (z resident and z tiled
 over V), exact ties and the shapes the wrapper must refuse; for the unpacked
 attention (K16, K17), both forms, every token count class, strided operands
@@ -37,11 +39,14 @@ import torch
 
 from tae_tpu_torch.models.tae import TAE, TAEConfig
 from tae_tpu_torch.ops import int4, int8, quantizer
+from tae_tpu_torch.ops.cuda import build
 from tae_tpu_torch.ops.cuda import quantizer as cuda_quantizer
-from tae_tpu_torch.ops.cuda.int4_block import int4_mlp, int4_mlp_reference
+from tae_tpu_torch.ops.cuda.int4_block import (
+    int4_mlp, int4_mlp_reference, mlp4_fc1_reference, mlp4_fc2_reference,
+    mlp4_finish_reference, mlp4_tiles)
 from tae_tpu_torch.ops.cuda.int4_matmul import (int4_matmul_fused,
                                                 int4_matmul_reference,
-                                                pack_int4)
+                                                pack_int4, w4_matmul_tiles)
 from tae_tpu_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_backward_reference, flash_attention_bwd,
     flash_attention_fwd_lse, flash_attention_reference, fused_qkv_attention,
@@ -893,6 +898,24 @@ def test_int4_matmul_kernel_matches_plain(gen, m, k, n, group, dtype, bias,
     torch.testing.assert_close(got.float(), want.float(), **W4_TOL[dtype])
 
 
+@pytest.mark.parametrize("m,k,n,group,tile", [
+    (16, 384, 136, 128, 1), (17, 256, 72, 64, 1), (64, 512, 1000, 256, 1),
+    (65, 512, 1000, 256, 0), (129, 384, 520, 64, 0), (129, 256, 8456, 128, 0),
+    (257, 512, 8456, 64, 0)])
+def test_int4_matmul_tile_edges_bit_equal(gen, m, k, n, group, tile):
+    """K12 at the edges of each tile w4_matmul_tiles picks (rows one past a
+    tile, N 8 past one, K past a 128-value ring stage, 64-wide groups that
+    fold every two k32 steps on every tile): fp32 and bf16 outputs equal to
+    the plain version bit for bit (the same fp32 terms in the same order),
+    and two runs alike."""
+    assert w4_matmul_tiles(m, n, k) == tile
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _w4_matmul_case(gen, m, k, n, group, dtype, True, True)
+        got = int4_matmul_fused(*args)
+        assert torch.equal(got, int4_matmul_fused(*args))
+        assert torch.equal(got, int4_matmul_reference(*args))
+
+
 def test_int4_matmul_wrapper_refuses_what_the_kernel_does_not_take(gen):
     xq, sx, w4, scale, b, r, _ = _w4_matmul_case(gen, 4, 256, 16, 128,
                                                  torch.bfloat16, True, True)
@@ -950,14 +973,10 @@ def _mlp4_close(got, want, dtype):
     (256, 2560, 10240, 256, 256, None), (1001, 1024, 4096, 256, 256, 1),
     (17, 2048, 8192, 256, 64, 4)])
 def test_int4_mlp_kernel_matches_plain(gen, m, d, hdim, g1, g2, groups, dtype):
-    from tae_tpu_torch.ops.cuda.int4_block import BLOCK_ROWS
-    from tae_tpu_torch.ops.cuda.int8_block import mlp_hidden_groups
-
     args = _w4_mlp_case(gen, m, d, hdim, g1, g2, dtype)
     if groups is None:
-        groups = mlp_hidden_groups(
-            -(-m // BLOCK_ROWS), hdim // 256,
-            torch.cuda.get_device_properties(0).multi_processor_count)
+        groups = mlp4_tiles(
+            m, d, hdim, torch.cuda.get_device_properties(0).multi_processor_count)[2]
     before = int4_mlp.launches
     got = int4_mlp(*args, 256, dtype, groups)
     assert int4_mlp.launches == before + 1
@@ -974,9 +993,66 @@ def test_int4_mlp_wrapper_refuses_what_the_kernel_does_not_take(gen):
         int4_mlp(*args[:8], args[8].float())
     with pytest.raises(RuntimeError, match="forward-only"):
         int4_mlp(*args[:8], args[8].requires_grad_())
+    # no width cap: the accumulator lives in registers, not shared memory
     wide = _w4_mlp_case(gen, 4, 4096, 1024, 256, 256, torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        int4_mlp(*wide)
+    _mlp4_close(int4_mlp(*wide), int4_mlp_reference(*wide), torch.bfloat16)
+
+
+def _mlp4_launches(args, groups, fc1, fc2):
+    """K13's C entry with its workspaces kept: (out, hq, sh, part or
+    None)."""
+    xq, sx, w1, s1, b1, w2, s2, b2, r = args
+    (m, d), hdim = xq.shape, w1.shape[0]
+    hq = torch.empty((m, hdim), dtype=torch.int8, device="cuda")
+    sh = torch.empty((hdim // 256, m), dtype=torch.float32, device="cuda")
+    part = (torch.empty((groups, m, d), dtype=torch.float32, device="cuda")
+            if groups > 1 else None)
+    out = torch.empty_like(r)
+    rc = build.library().tae_int4_mlp_fwd(
+        xq.data_ptr(), sx.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        r.data_ptr(), out.data_ptr(), m, d, hdim, 2 * w1.shape[1] // s1.shape[0],
+        2 * w2.shape[1] // s2.shape[0], build.dtype_code(r.dtype),
+        build.dtype_code(b1.dtype), hq.data_ptr(), sh.data_ptr(),
+        build.ptr(part), groups, fc1, fc2, torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "tae_int4_mlp_fwd")
+    torch.cuda.synchronize()
+    return out, hq, sh, part
+
+
+@pytest.mark.parametrize("m,d,hdim,g2,groups", [
+    (4, 2560, 10240, 256, 2), (17, 512, 2048, 128, 1), (129, 1024, 4096, 64, 4),
+    (300, 256, 1024, 256, 1), (33, 512, 2048, 256, 8),
+    (2048, 1024, 4096, 128, 1)])
+def test_int4_mlp_launches_match_their_plain_halves(gen, m, d, hdim, g2, groups):
+    """Each of K13's launches against its plain version: fc1's codes and
+    scales (tanhf against torch.tanh: a code on a rounding tie may flip);
+    fc2 on the kernel's own codes, whose fp32 partials are the plain
+    version's bit for bit (the same terms in the same order); the finish
+    pass (or fc2's epilogue with one group) on them, bit for bit."""
+    args = _w4_mlp_case(gen, m, d, hdim, 256, g2, torch.float32)
+    fc1, fc2, _ = mlp4_tiles(
+        m, d, hdim, torch.cuda.get_device_properties(0).multi_processor_count)
+    out, hq, sh, part = _mlp4_launches(args, groups, fc1, fc2)
+    want_hq, want_sh = mlp4_fc1_reference(*args[:5])
+    _codes_close(hq, want_hq)
+    _scales_close(sh, want_sh)
+    want_part = mlp4_fc2_reference(hq, sh, args[5], args[6], 256, groups)
+    if part is not None:
+        assert torch.equal(part, want_part)
+    assert torch.equal(out, mlp4_finish_reference(want_part, args[7], args[8],
+                                                  torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_int4_mlp_hidden_groups_match_plain(gen, groups, dtype):
+    """K13 with its hidden blocks dealt to 1, 2, 4 and 8 groups over fc2's
+    grid, against the plain version summing the same groups."""
+    args = _w4_mlp_case(gen, 33, 512, 2048, 256, 256, dtype)
+    got = int4_mlp(*args, 256, dtype, groups)
+    _mlp4_close(got, int4_mlp_reference(*args, 256, dtype, groups), dtype)
+    assert torch.equal(got, int4_mlp(*args, 256, dtype, groups))
 
 
 def test_tiny_int4_tae_kernels_match_reference_backend(gen):
