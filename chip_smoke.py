@@ -12,11 +12,13 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: compiles the kernels in ``tae_tpu_torch/csrc/`` with nvcc for
    sm_90a and prints the seconds and ptxas's registers and spills of every
    kernel; fails if an instantiation of the register-resident attention
-   bodies, forward (K2, K15, K16, and its int8-output form behind K7 / K8)
-   or backward (K10, K17), or of the int8 GEMM body's products (K4, K5's
-   fc1 and fc2, and with the packed int4 weight K12, K13's fc1 and fc2),
-   spills, or if the int4 products' SASS lacks ldmatrix or touches local
-   memory in its innermost tensor-core loops;
+   bodies, forward (K2, K15, K16, and its int8-output form behind K7 / K8),
+   flat-row (K6, K9) or backward (K10, K17), or of the int8 GEMM body's
+   products (K4, K5's fc1 and fc2, and with the packed int4 weight K12,
+   K13's fc1 and fc2), spills, if the int4 products' SASS lacks ldmatrix or
+   touches local memory in its innermost tensor-core loops, or if a
+   cluster body's SASS (K7 / K8's, and the flat-row body's int8 form) lacks
+   one of its two cluster barriers;
 3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
@@ -32,7 +34,9 @@ Phases (each prints its lines; any failure exits non-zero):
    whose last cluster rank takes fewer heads, rows whose largest output lies
    in the last rank's heads and all-zero rows, their launch plan against the
    library's, and K7's fp32 output against K2's on the same input (the
-   same-o check). The int4
+   same-o check). K6 and K9 (the flat-row body) are timed at p128's shape
+   at B = 64, 8 and 1, their plan held against the library's with the
+   clusters or blocks the card holds at once. The int4
    kernels (K12 ``int4_matmul_fused``, K13 ``int4_mlp``) run at the few-row
    shapes int4 serving is for (width 2560, 4 to 256 rows) and at the p16
    shape, beside the int8 kernels and a dequantize + bf16 product at the
@@ -402,6 +406,7 @@ def phase_build():
           f"{lib.relative_to(build.PACKAGE_DIR.parent)}")
     entry = ""
     body = {"attention_fwd_bf16": {}, "attention_q8_bf16": {},
+            "rows_attention_bf16": {},
             "attention_bwd_bf16": {}, "int8_matmul_kernel": {},
             "int8_mlp_fc1_kernel": {}, "int8_mlp_fc2_kernel": {},
             **{kernel: {} for kernel in W4_PRODUCTS}}
@@ -415,14 +420,15 @@ def phase_build():
                     body[kernel].setdefault(entry, []).append(line.strip())
     # the register-resident bodies: the attention forward (K2, K15, K16) at
     # dh 64 and 80, serving and exact, bf16 and (serving only) int8 sources,
-    # and its int8-output form (K7, K8) at dh 64 and 80; the backward (K10,
+    # and its int8-output form (K7, K8) at dh 64 and 80; the flat-row body
+    # (K6 exact and serving, K9) at dh 64 and 80; the backward (K10,
     # K17) at dh 64 and 80; the int8 GEMM body's products (K4: three tile
     # shapes, each with its epilogue or its int32 partials; K5: fc1 at five
     # tile shapes, fc2 at three) and its packed int4 form (K12 and K13's fc1
     # and fc2 at two tile shapes each, each with a fold after whole ring
     # stages and one after every two k32 steps)
     for kernel, want in (("attention_fwd_bf16", 6), ("attention_q8_bf16", 2),
-                         ("attention_bwd_bf16", 2),
+                         ("rows_attention_bf16", 6), ("attention_bwd_bf16", 2),
                          ("int8_matmul_kernel", 6), ("int8_mlp_fc1_kernel", 5),
                          ("int8_mlp_fc2_kernel", 3),
                          *W4_PRODUCTS.items()):
@@ -435,7 +441,11 @@ def phase_build():
             regs = [int(x) for line in lines for x in
                     re.findall(r"Used (\d+) registers", line)]
             m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d))?", entry)
-            if m is not None:
+            rows_mode = re.search(r"rows_attention_bf16ILi\d+ELi(\d)E", entry)
+            if rows_mode is not None:
+                name = (f"{kernel} dh {m.group(1)} "
+                        + ("exact", "serving", "int8")[int(rows_mode.group(1))])
+            elif m is not None:
                 form = "" if m.group(2) is None else (
                     f" {'serving' if m.group(2) == '1' else 'exact'} "
                     f"{'int8' if 'I8Src' in entry else 'bf16'}")
@@ -475,6 +485,22 @@ def phase_build():
             check(arrives == waits == 2, f"{entry}: {arrives} cluster "
                   f"barrier arrives and {waits} waits on the main path, "
                   "expected 2 and 2")
+    # The flat-row body (K6, K9): no local memory in its innermost mma
+    # loops; its int8 form (mode 2) holds both cluster barriers on its main
+    # path, as K7 / K8's body does, the bf16 forms none.
+    for entry, (loops, local, arrives, waits, _) in sass_report(
+            lib, "rows_attention_bf16").items():
+        mode = re.search(r"rows_attention_bf16ILi(\d+)ELi(\d)E", entry)
+        want = 2 if mode.group(2) == "2" else 0
+        print(f"[build] rows_attention_bf16 dh {mode.group(1)} mode "
+              f"{mode.group(2)}: {loops} innermost mma loops, {local} "
+              f"local-memory instructions in them; {arrives} cluster barrier "
+              f"arrives and {waits} waits on the main path")
+        check(loops > 0 and local == 0,
+              f"{entry}: {local} local-memory instructions in its {loops} "
+              "innermost mma loops")
+        check(arrives == waits == want, f"{entry}: {arrives} cluster barrier "
+              f"arrives and {waits} waits on the main path, expected {want}")
     # The int4 products: B read by ldmatrix (the packed words of four k32
     # steps a load) and decoded in registers, nothing of the mainloop in
     # local memory.
@@ -769,22 +795,24 @@ def phase_int8_kernels() -> dict:
             f"{bnd[0]:.4f} ms ({bnd[1]})")
         print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{extra}")
 
-    # ---- K3
-    g, be = randn((d,), 0.5, 1.0), randn((d,), 0.2)
-    for m in (m_full, 1001):
-        x = randn((m, d), 3.0, 1.0)
-        q, s = ln_quant(x, g, be, 1e-6)
-        q_ref, s_ref = ln_quant_reference(x, g, be, 1e-6)
-        label = f"K3 ln_quant ({m}, {d}) bf16"
+    # ---- K3: p16's shape, an odd row count, and p128's width at the rows
+    #      of B = 64, 8 and 1 (the int4 path's 44 launches a request)
+    g, be = randn((d,), 0.5, 1.0), randn((d,), 0.2)   # also K5's ln_next
+    for m, w in ((m_full, d), (1001, d), (256, 2560), (32, 2560), (4, 2560)):
+        gw, bw = (g, be) if w == d else (randn((w,), 0.5, 1.0), randn((w,), 0.2))
+        x = randn((m, w), 3.0, 1.0)
+        q, s = ln_quant(x, gw, bw, 1e-6)
+        q_ref, s_ref = ln_quant_reference(x, gw, bw, 1e-6)
+        label = f"K3 ln_quant ({m}, {w}) bf16"
         compare_scales(label, s, s_ref)
         share = compare_codes(label, q, q_ref)
         err = float((q.float() * s - q_ref.float() * s_ref).abs().max())
-        timed = m == m_full
+        timed = m != 1001
         record("ln_quant", label, err,
-               time_ms(lambda: ln_quant(x, g, be, 1e-6)) if timed else None,
-               time_ms(lambda: ln_quant_reference(x, g, be, 1e-6))
+               time_ms(lambda: ln_quant(x, gw, bw, 1e-6)) if timed else None,
+               time_ms(lambda: ln_quant_reference(x, gw, bw, 1e-6))
                if timed else None,
-               bound(nbytes(x, g, be, q, s), 0.0, "int8"),
+               bound(nbytes(x, gw, bw, q, s), 0.0, "int8"),
                extra=f"; codes off by one on a share {share:.2g}")
 
     # ---- K4: the five products of the main path, then the epilogue forms
@@ -910,10 +938,12 @@ def phase_int8_kernels() -> dict:
 
 def phase_attention_kernels() -> dict:
     """K6-K9 against their plain versions at the shapes of the tiny-N and
-    int8 paths (B = 64) and at an odd batch each, and beside the per-image
-    kernel K2 (plus the plain per-row quantize for the int8-output entries)
-    at the same shape. Returns one list of case records per kernel; the
-    first is the shape of that kernel's full-depth path."""
+    int8 paths (B = 64; K6 and K9 at p128's shape also at B = 8 and 1) and
+    at an odd batch each, and beside the per-image kernel K2 (plus the plain
+    per-row quantize for the int8-output entries) at the same shape; each
+    body's launch plan against the library's. Returns one list of case
+    records per kernel; the first is the shape of that kernel's full-depth
+    path."""
     import torch
     import torch.nn.functional as F
 
@@ -924,7 +954,8 @@ def phase_attention_kernels() -> dict:
         fused_qkv_attention_wide_q8_2d,
         fused_qkv_attention_wide_q8_2d_reference,
         fused_qkv_attention_wide_q8_reference,
-        fused_qkv_attention_wide_reference, q8_plan, q8_plan_of_library)
+        fused_qkv_attention_wide_reference, q8_plan, q8_plan_of_library,
+        rows_plan, rows_plan_of_library)
     from tae_tpu_torch.ops.int8 import quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
@@ -951,6 +982,19 @@ def phase_attention_kernels() -> dict:
                     plain_ms=time_ms(plain) if timed else None,
                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
 
+    def rows_plan_line(label, n, h, dh, q8) -> str:
+        """The flat-row body's plan in the library against rows_plan."""
+        plan, units = rows_plan_of_library(n, h, dh, q8)
+        check(plan is not None and plan == rows_plan(n, h, dh, q8),
+              f"{label}: the library plans {plan}, "
+              f"ops/cuda/wide_attention.rows_plan {rows_plan(n, h, dh, q8)}")
+        check(units > 0, f"{label}: no {'cluster' if q8 else 'block'} of "
+              f"{plan} fits on the card")
+        return (f"; flat-row body, {plan.groups} groups of "
+                f"{plan.heads_per_block} heads"
+                + (f" in a cluster, {units} clusters at once" if q8
+                   else f", {units} blocks at once"))
+
     def compare_q8(label, got, want) -> tuple[float, float]:
         (q, s), (q_ref, s_ref) = got, want
         compare_scales(label, s, s_ref, SCALE_RTOL, ATTN_SCALE_SHARE,
@@ -958,10 +1002,11 @@ def phase_attention_kernels() -> dict:
         share = compare_codes(label, q, q_ref)
         return float((q.float() * s - q_ref.float() * s_ref).abs().max()), share
 
-    # ---- K6, bf16 output: p128, p64 and p32 shapes, and 8 tokens (the last
-    #      count at which images share a tile); both softmax forms
+    # ---- K6, bf16 output: p128 (at B = 64, 8 and 1), p64 and p32 shapes,
+    #      and 8 tokens (the last count at which images share a tile); both
+    #      softmax forms
     for n, h, dh in ((4, 32, 80), (8, 32, 80), (16, 32, 80), (64, 32, 64)):
-        for b in (KERNEL_BATCH, odd):
+        for b in (KERNEL_BATCH, 8, 1, odd) if n == 4 else (KERNEL_BATCH, odd):
             qkv = randn((b, n, 3 * h * dh))
             for serving in (True, False):
                 got = fused_qkv_attention_wide(qkv, h, serving=serving)
@@ -970,17 +1015,17 @@ def phase_attention_kernels() -> dict:
                 mode = "serving" if serving else "exact"
                 label = f"K6 wide {tuple(qkv.shape)} h={h} dh={dh} bf16 {mode}"
                 err = compare(label, got, want, **tol)
-                timed = b == KERNEL_BATCH
+                timed = b == KERNEL_BATCH or (n == 4 and b != odd)
                 t = timing(lambda: fused_qkv_attention_wide(qkv, h,
                                                             serving=serving),
                            lambda: fused_qkv_attention_wide_reference(
                                qkv, h, serving=serving),
                            qkv, [got], h, n, dh, timed)
-                extra = ""
+                extra = rows_plan_line(label, n, h, dh, False)
                 if timed:
                     t["k2_ms"] = time_ms(lambda: fused_qkv_attention(
                         qkv, h, serving=serving))
-                    extra = f"; K2 at this shape {t['k2_ms']:.4f} ms"
+                    extra += f"; K2 at this shape {t['k2_ms']:.4f} ms"
                     if not serving:
                         # the library call has only the exact softmax
                         r = qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
@@ -994,7 +1039,8 @@ def phase_attention_kernels() -> dict:
     #      K9 (flat rows) at the p128 shape, each also at an odd batch. K2
     #      alone (the same body with a bf16 output) and K2 + the plain
     #      quantize (what attn_q8=False runs) at the same shape.
-    def q8_case(meta, fn, plain, n, h, dh, b, flat, tweak=None, what=""):
+    def q8_case(meta, fn, plain, n, h, dh, b, flat, tweak=None, what="",
+                timed=None):
         qkv = randn((b, n, 3 * h * dh))
         if tweak is not None:
             tweak(qkv, h, dh)
@@ -1003,7 +1049,8 @@ def phase_attention_kernels() -> dict:
         label = (f"{meta['name'].replace('fused_qkv_attention', 'attention')} "
                  f"{tuple(arg[0].shape)} n={n} h={h} dh={dh} bf16{what}")
         err, share = compare_q8(label, got, want)
-        timed = b == KERNEL_BATCH and tweak is None
+        if timed is None:
+            timed = b == KERNEL_BATCH and tweak is None
         t = timing(lambda: fn(*arg), lambda: plain(*arg), qkv, got, h, n, dh,
                    timed)
         extra = f"; codes off by one on a share {share:.2g}"
@@ -1013,9 +1060,11 @@ def phase_attention_kernels() -> dict:
                   f"{plan}, ops/cuda/wide_attention.q8_plan {q8_plan(n, h, dh)}")
             check(plan is None or clusters > 0,
                   f"{label}: no cluster of {plan} fits on the card")
-            extra += ("; flat-row body" if plan is None else
-                      f"; cluster {plan.cluster} x {plan.heads_per_block} "
-                      f"heads, {clusters} clusters at once")
+            if plan is not None:
+                extra += (f"; cluster {plan.cluster} x {plan.heads_per_block} "
+                          f"heads, {clusters} clusters at once")
+        if flat or q8_plan(n, h, dh) is None:
+            extra += rows_plan_line(label, n, h, dh, True)
         if timed:
             t["k2_ms"] = time_ms(lambda: fused_qkv_attention(qkv, h,
                                                              serving=True))
@@ -1049,9 +1098,11 @@ def phase_attention_kernels() -> dict:
                       f"K9 differs from K8 at n={n} B={b}")
     print("[kernels] K9 (flat rows) equals K8 bit for bit where both run "
           f"the flat-row body (n = 4, B = {KERNEL_BATCH} and {odd})")
-    for b in (KERNEL_BATCH, odd):
+    # K9 at p128's rows at B = 64, 8 and 1 (timed) and an odd batch
+    for b in (KERNEL_BATCH, 8, 1, odd):
         q8_case(K9, fused_qkv_attention_wide_q8_2d,
-                fused_qkv_attention_wide_q8_2d_reference, 4, 32, 80, b, True)
+                fused_qkv_attention_wide_q8_2d_reference, 4, 32, 80, b, True,
+                timed=b != odd)
     # the cluster body's edges: ragged token counts, a last rank with fewer
     # heads (17 heads: 9 blocks of 2, the last with 1), head counts the
     # cluster does not divide into 16, a dominant last head, zero rows

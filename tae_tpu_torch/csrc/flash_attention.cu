@@ -452,45 +452,6 @@ attention_fwd_bf16(const Src src, bf16* __restrict__ out, const HeadLayout ol,
 
 // ------------------------------------------------------- int8 output (K7, K8)
 
-// The int8 codes of a warp's 16 x DH fp32 tile c (the m16n8 C fragments of
-// o, rows g and g + 8), clip(rint(c * inv[half]), +-127), handed over 16
-// bytes a lane: store(half, ch, codes) for the codes of columns 16 ch ..
-// 16 ch + 15 of row g + 8 * half, ch < DH / 16. Lane t packs the codes of
-// d-tiles 2 ch, 2 ch + 1 into word ch % 4 (two bytes each), the quad
-// transpose hands lane t word t of every lane, and byte permutes put them
-// in column order.
-template <int DH, typename Store>
-__device__ __forceinline__ void store_c_codes(const float (&c)[DH / 8][4], const float (&inv)[2],
-                                              Store store) {
-  constexpr int CH = DH / 16, QG = (CH + 3) / 4;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-#pragma unroll
-    for (int q = 0; q < QG; ++q) {
-      unsigned w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ch = 4 * q + i;
-        w[i] = 0u;
-        if (ch < CH) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float y = c[2 * ch + k / 2][2 * half + k % 2];
-            const unsigned code = static_cast<unsigned>(tae::i8::quantize1(y, inv[half])) & 0xffu;
-            w[i] |= code << (8 * k);
-          }
-        }
-      }
-      tae::quad_transpose(w);
-      const int ch = 4 * q + t;
-      if (ch < CH)
-        store(half, ch, make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
-                                   __byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632)));
-    }
-  }
-}
-
 // K7 and K8 in bf16: the serving form of the body above with the int8
 // output of _packed_fwd_kernel_stacked_q8, one scale per row over all heads.
 // A block runs up to tae::q8::kHeadsPerBlock heads of one (image, 16 *
@@ -594,7 +555,7 @@ attention_q8_bf16(const PlainSrc<bf16> src, int8_t* __restrict__ out_q, float* _
       }
     }
     int8_t* hbase = qbase + (h0 + j) * DH;
-    store_c_codes<DH>(o, inv, [&](int half, int ch, uint4 w) {
+    tae::i8::store_c_codes<DH>(o, inv, [&](int half, int ch, uint4 w) {
       const int r = q0 + g + 8 * half;
       if (r < n) *reinterpret_cast<uint4*>(hbase + static_cast<long>(r) * c + ch * 16) = w;
     });

@@ -1,5 +1,6 @@
 // Device code shared by the int8 (w8a8) serving kernels: K3 ln_quant and
-// K5 int8_mlp (int8_block.cu) and K4 int8_matmul_fused (int8_matmul.cu).
+// K5 int8_mlp (int8_block.cu), K4 int8_matmul_fused (int8_matmul.cu) and
+// the int8-output attention (flash_attention.cu, wide_attention.cu).
 //
 //   * ln_quant_row: LayerNorm of one row with fp32 statistics followed by
 //     per-row symmetric int8 quantization, one warp per row. It is the body
@@ -23,6 +24,10 @@
 //     epilogue as 8 consecutive columns of one row per lane, turned from the
 //     C fragments by quad transposes (tae::quad_transpose), so epilogues
 //     read and write 16 bytes a lane without passing through shared memory.
+//   * store_c_codes: the int8 codes of an attention warp's fp32 m16n8 C
+//     fragments, 16 bytes a lane: the row epilogue of the int8-output
+//     attention bodies (K7 / K8 in flash_attention.cu, K9 in
+//     wide_attention.cu).
 //
 // Numerics shared with the plain PyTorch versions: int32 sums are exact in
 // any order; rounding is half-even (rintf), the quantize step multiplies by
@@ -156,6 +161,45 @@ struct RowF32 {
     load_vec(row + i + 4, v + 4);
   }
 };
+
+// The int8 codes of a warp's 16 x DH fp32 tile c (the m16n8 C fragments of
+// o, rows g and g + 8), clip(rint(c * inv[half]), +-127), handed over 16
+// bytes a lane: store(half, ch, codes) for the codes of columns 16 ch ..
+// 16 ch + 15 of row g + 8 * half, ch < DH / 16. Lane t packs the codes of
+// d-tiles 2 ch, 2 ch + 1 into word ch % 4 (two bytes each), the quad
+// transpose hands lane t word t of every lane, and byte permutes put them
+// in column order.
+template <int DH, typename Store>
+__device__ __forceinline__ void store_c_codes(const float (&c)[DH / 8][4], const float (&inv)[2],
+                                              Store store) {
+  constexpr int CH = DH / 16, QG = (CH + 3) / 4;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int q = 0; q < QG; ++q) {
+      unsigned w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ch = 4 * q + i;
+        w[i] = 0u;
+        if (ch < CH) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float y = c[2 * ch + k / 2][2 * half + k % 2];
+            const unsigned code = static_cast<unsigned>(quantize1(y, inv[half])) & 0xffu;
+            w[i] |= code << (8 * k);
+          }
+        }
+      }
+      quad_transpose(w);
+      const int ch = 4 * q + t;
+      if (ch < CH)
+        store(half, ch, make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                                   __byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632)));
+    }
+  }
+}
 
 // 8 int32 as fp32 (round to nearest even; exact below 2^24).
 __device__ __forceinline__ void to_float8(const int* v, float* y) {

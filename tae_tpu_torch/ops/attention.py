@@ -127,7 +127,8 @@ def attention_route(n: int, int8_block: bool, serving: bool,
     K7 0.1429 ms at 256 tokens against 0.4096 for the per-image kernel plus
     the plain per-row quantize, the p16 int8 request 21.92 against 25.97
     ms; K8 0.0454 against 0.1878 ms at 64 tokens, the p32 request 21.82
-    against 24.83 ms; K9 level at 4 tokens, 0.0346 against 0.0363 ms).
+    against 24.83 ms; K9 0.0075 against 0.0361 ms at 4 tokens and 256
+    rows, 0.0065 against 0.0249 at 4 rows).
     ``attn_q8`` forces the int8 output on (True) or off (False) for a
     serving int8 block; None is the rule."""
     q8 = int8_block and serving and (attn_q8 is None or bool(attn_q8))

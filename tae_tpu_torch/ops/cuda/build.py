@@ -85,6 +85,9 @@ SIGNATURES = {
                                       _VP), _I),
     # tokens, heads, head dim, int[6] out: K7 / K8's plan on the forward body
     "tae_attention_q8_plan": ((_I, _I, _I, ctypes.POINTER(_I)), _I),
+    # tokens, heads, head dim, int8 output (0 / 1), int[7] out: the flat-row
+    # body's plan (K6, K9)
+    "tae_rows_attention_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
     # x, gamma, beta, q, s, rows, cols, eps, x dtype, gamma dtype, stream
     "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
     # x, sx, w, sw, bias, residual, out, m, n, k, out dtype, bias dtype,

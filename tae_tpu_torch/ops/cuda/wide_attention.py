@@ -5,12 +5,15 @@
 source ``tae_tpu_torch/csrc/wide_attention.cu``) and their plain versions.
 
 The four entries keep the JAX entries' argument order and layouts, without
-``block_b`` and ``interpret``. K6, K9 and the float32 forms share one kernel
-template that works on 16 consecutive rows of the flat (B*N, 3C) token axis.
-K7 and K8 in bfloat16 from :data:`Q8_MIN_TOKENS` tokens run on the per-image
+``block_b`` and ``interpret``. K6, K9 and the float32 forms run on the
+flat-row body, which works on 16 consecutive rows of the flat (B*N, 3C)
+token axis: in bfloat16 a block takes a few heads, a warp each, and with the
+int8 output the head groups of one row tile share the row scale over a
+thread-block cluster (:func:`rows_plan`). K7 and K8 in bfloat16 from
+:data:`Q8_MIN_TOKENS` tokens and up to 32 heads run on the per-image
 attention forward body of ``csrc/flash_attention.cu`` (K2's), whose int8 row
-epilogue is shared over a thread-block cluster (:func:`q8_plan`); there the
-3D int8 entry and the flat 2D one (K9, always the flat-row body) are no
+epilogue is shared over a thread-block cluster too (:func:`q8_plan`); there
+the 3D int8 entry and the flat 2D one (K9, always the flat-row body) are no
 longer the same computation, and agree within the int8 tolerances.
 
 The int8 output is the proj matmul's prequantized input: per token one
@@ -51,8 +54,21 @@ Q8_MAX_CLUSTER = 16
 #: heads a block of the cluster takes (``tae::q8::kHeadsPerBlock``), so the
 #: per-image body takes up to 32 heads
 Q8_HEADS_PER_BLOCK = 2
-#: widest output the flat-row body's int8 form takes on CUDA: a block keeps
-#: 16 fp32 output rows in shared memory beside one warp's K and V
+#: The flat-row body's bfloat16 plan (``csrc/rows_attention.cuh``): a
+#: block takes ``ROWS_TILE`` flat rows and ``ROWS_HEADS_PER_BLOCK`` heads, a
+#: warp each; with the int8 output the blocks of one row tile form a cluster
+#: of up to ``ROWS_MAX_CLUSTER``, taking more heads a block where those do
+#: not cover them, up to ``ROWS_MAX_HEADS_PER_BLOCK``; keys are staged in
+#: chunks of up to ``ROWS_MAX_CHUNK``.
+ROWS_TILE = 16
+ROWS_HEADS_PER_BLOCK = 4
+ROWS_MAX_CLUSTER = 16
+ROWS_MAX_HEADS_PER_BLOCK = 8
+ROWS_MAX_CHUNK = 64
+#: most heads the flat-row body's bfloat16 int8 form takes
+ROWS_Q8_MAX_HEADS = ROWS_MAX_CLUSTER * ROWS_MAX_HEADS_PER_BLOCK
+#: widest output the flat-row body's float32 int8 form takes on CUDA: a
+#: block keeps 16 fp32 output rows in shared memory
 ROWS_Q8_MAX_WIDTH = 3072
 #: dynamic shared memory of one block on the H100
 SMEM_LIMIT = 232448
@@ -110,17 +126,90 @@ def q8_plan_of_library(n: int, num_heads: int, dh: int
     return Q8Plan(*out[1:5]), out[5]
 
 
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """Launch shape of the flat-row body in bfloat16: ``groups`` blocks of
+    ``heads_per_block`` heads (a warp each; the last group fewer) along
+    grid.y for each 16-row tile, ``cluster`` of them in one thread-block
+    cluster (the int8 output; else 1), keys staged ``chunk`` at a time,
+    ``smem`` bytes of dynamic shared memory."""
+    cluster: int
+    groups: int
+    heads_per_block: int
+    chunk: int
+    smem: int
+
+
+def rows_chunk(n: int) -> int:
+    """Keys per staged chunk for ``n`` tokens per image
+    (``tae::rows::chunk_for``): the widest key range a 16-row tile sees
+    (16 / n whole images, one image, or parts of up to 15 // n + 2 images),
+    padded to 16, up to :data:`ROWS_MAX_CHUNK`."""
+    span = (ROWS_TILE if ROWS_TILE % n == 0 else n if n % ROWS_TILE == 0
+            else n * (15 // n + 2))
+    return min(-(-span // 16) * 16, ROWS_MAX_CHUNK)
+
+
+def rows_plan(n: int, num_heads: int, dh: int, q8: bool) -> RowsPlan | None:
+    """The plan ``tae::rows::plan`` computes for the bfloat16 flat-row body
+    with the int8 output (``q8``: K9, and K7 / K8 where they run there) or a
+    bfloat16 one (K6), or None where it does not take the shape (tokens
+    outside 1..256, another head dim, more heads than its grid or, with the
+    int8 output, than :data:`ROWS_Q8_MAX_HEADS`).
+
+    heads_per_block = min(H, ROWS_HEADS_PER_BLOCK), raised to ceil(H /
+    ROWS_MAX_CLUSTER) with the int8 output; groups = ceil(H /
+    heads_per_block), all in one cluster with the int8 output; shared
+    memory: per warp the Q tile and a chunk of K and V in bf16 rows of dh +
+    8, and with the int8 output one fp32 max per warp and row and one per
+    row for the block."""
+    if not 1 <= n <= MAX_TOKENS or dh not in HEAD_DIMS or not 1 <= num_heads <= 65535:
+        return None
+    hpb = min(num_heads, ROWS_HEADS_PER_BLOCK)
+    if q8:
+        hpb = max(hpb, -(-num_heads // ROWS_MAX_CLUSTER))
+        if hpb > ROWS_MAX_HEADS_PER_BLOCK:
+            return None
+    groups = -(-num_heads // hpb)
+    chunk = rows_chunk(n)
+    smem = (hpb * (ROWS_TILE + 2 * chunk) * (dh + 8) * 2
+            + (4 * ROWS_TILE * (hpb + 1) if q8 else 0))
+    return RowsPlan(groups if q8 else 1, groups, hpb, chunk, smem)
+
+
+def rows_plan_of_library(n: int, num_heads: int, dh: int, q8: bool
+                         ) -> tuple[RowsPlan | None, int]:
+    """(the built library's flat-row plan for bf16 (n, H, dh), the clusters
+    (``q8``) or blocks of that shape the card holds at once; 0 where the
+    body does not take it): what ``chip_smoke.py`` holds :func:`rows_plan`
+    against. Needs the card."""
+    out = (ctypes.c_int * 7)()
+    build.check(build.library().tae_rows_attention_plan(n, num_heads, dh,
+                                                        int(q8), out),
+                "tae_rows_attention_plan")
+    if not out[0]:
+        return None, 0
+    return RowsPlan(*out[1:6]), out[6]
+
+
 def check_q8_width(name: str, n: int, num_heads: int, dh: int,
                    dtype: torch.dtype) -> None:
-    """Raise where neither body takes the int8 output on CUDA: the per-image
-    body up to 32 heads, the flat-row body up to :data:`ROWS_Q8_MAX_WIDTH`
-    columns."""
+    """Raise where neither body takes the int8 output on CUDA: in bfloat16
+    the per-image body up to 32 heads from 16 tokens, the flat-row body up
+    to :data:`ROWS_Q8_MAX_HEADS` heads at any width; in float32 the
+    flat-row body up to :data:`ROWS_Q8_MAX_WIDTH` columns."""
     width = num_heads * dh
-    if q8_plan(n, num_heads, dh, dtype) is None and width > ROWS_Q8_MAX_WIDTH:
+    if dtype == torch.bfloat16:
+        if (q8_plan(n, num_heads, dh, dtype) is None
+                and rows_plan(n, num_heads, dh, q8=True) is None):
+            raise ValueError(
+                f"{name} takes up to {ROWS_Q8_MAX_HEADS} heads in bfloat16 "
+                f"({n} tokens, {num_heads} heads of {dh}: output width "
+                f"{width})")
+    elif width > ROWS_Q8_MAX_WIDTH:
         raise ValueError(
-            f"{name} takes an output width up to {ROWS_Q8_MAX_WIDTH} where "
-            f"the per-image body does not run ({dtype}, {n} tokens, "
-            f"{num_heads} heads of {dh}), got {width}")
+            f"{name} takes an output width up to {ROWS_Q8_MAX_WIDTH} in "
+            f"{dtype} ({n} tokens, {num_heads} heads of {dh}), got {width}")
 
 
 def quantize_attention_rows(o: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

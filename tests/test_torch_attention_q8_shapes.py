@@ -188,12 +188,16 @@ def test_q8_plan_mirrors_the_kernel_header():
 
 def test_the_width_check_follows_the_body():
     """The per-image body takes up to 32 heads, whatever their width; the
-    flat-row body up to 3072 columns; beyond both the wrapper raises."""
+    flat-row body in bf16 up to 128 heads (16 blocks of 8, a cluster),
+    whatever their width, in float32 up to 3072 columns; beyond both the
+    wrapper raises."""
     twa.check_q8_width("k", 256, 32, 80, torch.bfloat16)          # 2560
     twa.check_q8_width("k", 4, 48, 64, torch.bfloat16)            # 3072
     twa.check_q8_width("k", 256, 48, 64, torch.bfloat16)          # 3072
-    for args in ((4, 50, 64, torch.bfloat16), (256, 40, 80, torch.float32),
-                 (256, 49, 64, torch.bfloat16)):
+    twa.check_q8_width("k", 4, 50, 64, torch.bfloat16)            # 3200
+    twa.check_q8_width("k", 256, 128, 80, torch.bfloat16)         # 10240
+    for args in ((4, 129, 64, torch.bfloat16), (256, 40, 80, torch.float32),
+                 (256, 129, 64, torch.bfloat16)):
         with pytest.raises(ValueError, match="output width"):
             twa.check_q8_width("k", *args)
 

@@ -66,7 +66,7 @@ from tae_tpu_torch.ops.cuda.wide_attention import (
     fused_qkv_attention_wide, fused_qkv_attention_wide_q8,
     fused_qkv_attention_wide_q8_2d, fused_qkv_attention_wide_q8_2d_reference,
     fused_qkv_attention_wide_q8_reference, fused_qkv_attention_wide_reference,
-    q8_plan, q8_plan_of_library)
+    q8_plan, q8_plan_of_library, rows_plan, rows_plan_of_library)
 from tae_tpu_torch.ops.layernorm import (
     layer_norm_backward_reference, layer_norm_reference,
     layer_norm_stats_reference)
@@ -573,6 +573,69 @@ def test_q8_cluster_body_dominant_last_head_and_zero_rows(gen, b, n, h, dh):
     _attn_scales_close(s, s_ref, torch.bfloat16)
     _codes_close(q, q_ref)
     assert bool((s[0] == 1e-12).all()) and not bool(q[0].any())
+
+
+# The flat-row body in bf16 (K6, K9; K7 / K8 where the per-image body does
+# not take the shape): (batch, tokens, heads, head dim) at p128's shape at
+# B = 64, 8, 1, rows that leave the last tile part-filled, head counts whose
+# last group (or cluster rank) takes fewer heads, 48 heads (3 a block),
+# chunked key ranges (40 tokens)
+ROWS_BODY_SHAPES = [(64, 4, 32, 80), (8, 4, 32, 80), (1, 4, 32, 80),
+                    (7, 3, 17, 80), (5, 5, 48, 64), (3, 12, 1, 64),
+                    (2, 40, 3, 80), (9, 8, 3, 64)]
+
+
+@pytest.mark.parametrize("q8", [True, False])
+@pytest.mark.parametrize("b,n,h,dh", ROWS_BODY_SHAPES)
+def test_rows_body_plan_matches_the_library(gen, b, n, h, dh, q8):
+    """The library's plan equal to rows_plan's, and the card holds at least
+    one cluster (int8) or block of it at once."""
+    plan, units = rows_plan_of_library(n, h, dh, q8)
+    assert plan == rows_plan(n, h, dh, q8) and plan is not None and units > 0
+
+
+@pytest.mark.parametrize("b,n,h,dh", ROWS_BODY_SHAPES)
+def test_rows_body_kernels_match_plain_and_k8(gen, b, n, h, dh):
+    """K9 and K6 (both forms) against their plain versions; below 16 tokens
+    K8 runs the same body and equals K9 bit for bit."""
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    flat = qkv.reshape(b * n, -1)
+    before = fused_qkv_attention_wide_q8_2d.launches
+    q2, s2 = fused_qkv_attention_wide_q8_2d(flat, n, h)
+    assert fused_qkv_attention_wide_q8_2d.launches == before + 1
+    q_ref, s_ref = fused_qkv_attention_wide_q8_2d_reference(flat, n, h)
+    _attn_scales_close(s2, s_ref, torch.bfloat16)
+    _codes_close(q2, q_ref)
+    if q8_plan(n, h, dh) is None:
+        q3, s3 = fused_qkv_attention_wide_q8(qkv, h)
+        assert torch.equal(q3.reshape(b * n, -1), q2)
+        assert torch.equal(s3.reshape(b * n, 1), s2)
+    for serving in (True, False):
+        got = fused_qkv_attention_wide(qkv, h, serving=serving)
+        _close(got, fused_qkv_attention_wide_reference(qkv, h, serving=serving),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,n,h,dh", [(2, 100, 48, 64), (1, 256, 36, 80),
+                                      (2, 64, 128, 64), (3, 16, 100, 80)])
+def test_rows_body_takes_int8_heads_past_the_cluster_body(gen, b, n, h, dh):
+    """K7 / K8 in bf16 past 32 heads run the flat-row body (up to 8 heads a
+    block, 64-key chunks above 64 tokens): against the plain version, two
+    runs bit-equal; 129 heads raise."""
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    assert q8_plan(n, h, dh) is None and rows_plan(n, h, dh, True) is not None
+    fn = fused_qkv_attention_wide_q8 if n <= 64 else fused_qkv_attention_q8
+    q, s = fn(qkv, h)
+    q_ref, s_ref = fused_qkv_attention_q8_reference(qkv, h)
+    _attn_scales_close(s, s_ref, torch.bfloat16)
+    _codes_close(q, q_ref)
+    q2, s2 = fn(qkv, h)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    with pytest.raises(ValueError, match="128 heads"):
+        fused_qkv_attention_q8(torch.randn((1, 4, 3 * 129 * 64), device="cuda",
+                                           dtype=torch.bfloat16), 129)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
