@@ -16,9 +16,12 @@ Phases (each prints its lines; any failure exits non-zero):
    flat-row (K6, K9) or backward (K10, K17), or of the int8 GEMM body's
    products (K4, K5's fc1 and fc2, and with the packed int4 weight K12,
    K13's fc1 and fc2), spills, if the int4 products' SASS lacks ldmatrix or
-   touches local memory in its innermost tensor-core loops, or if a
+   touches local memory in its innermost tensor-core loops, if a
    cluster body's SASS (K7 / K8's, and the flat-row body's int8 form) lacks
-   one of its two cluster barriers;
+   one of its two cluster barriers, if an instantiation of the LayerNorm
+   row kernels' register bodies (K3, K11) spills at a registered width, or
+   if the SASS of K4's and K5's finish passes or of K1's forward differs
+   from the fingerprints recorded for this nvcc release (``FINISH_SASS``);
 3. kernels: holds each of the seventeen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
@@ -53,7 +56,10 @@ Phases (each prints its lines; any failure exits non-zero):
    CUDA events as SDPA's backward is; K4 (plain, ``ln_out``, ``q8_out``)
    and K5 also at p128's width at 256, 32 and 4 rows and at p32's shapes,
    and at the edges of the int8 GEMM body's tiles (1, 17 and 129 rows, N 8
-   past a tile, K 16 past a ring step);
+   past a tile, K 16 past a ring step); K3 at p128's width beside an empty
+   kernel on its grid, and K11 at ``p128_train``'s (32, 2560) too, each
+   with its launch plan held against the library's, K11 as two device
+   launches a call;
 4. paths (``PATHS``): for each model, built at full width with weights from
    ``torch.Generator("cuda").manual_seed(0)``, the bf16 and / or the int8
    (w8a8) ``Tokenizer`` answers encode, decode and reconstruct requests;
@@ -365,6 +371,21 @@ SASS_CHECKED = ("attention_q8_bf16",)
 # in their innermost tensor-core loops
 W4_PRODUCTS = {"int4_matmul_kernel": 4, "int4_mlp_fc1_kernel": 4,
                "int4_mlp_fc2_kernel": 4}
+# The LayerNorm row kernels' register bodies (csrc/row_norm.cuh): K3 at each
+# nv of 1, 2, 4, 8, 10, 12, 16 and K11 at each of 1, 2, 4, 8, 10, both in
+# the four pairs of x and affine dtypes. None may spill where a registered
+# width runs it (1024, 2048, 2560 columns: nv 4, 8, 10).
+ROW_NORM_BODIES = {"ln_quant_regs_kernel": 28, "layer_norm_bwd_rows_kernel": 20}
+ROW_NORM_WIDTH_NV = (4, 8, 10)
+# The SASS of K4's and K5's finish passes, which run the first design of
+# K3's row (int8_common.cuh::ln_quant_row), and of K1's forward, as the
+# commit before the LayerNorm row kernels' redesign compiled them: sha256 of
+# each kernel's instructions (bench/norm_body.py's sass_fingerprints),
+# keyed by the nvcc release that compiled them. Under another release the
+# build phase prints the fingerprints and compares none.
+FINISH_SASS = {"V12.9.86": {"int8_matmul_finish_kernel": "feb0335991a37245",
+                             "int8_mlp_finish_kernel": "0bc4fb7000f690c9",
+                             "layer_norm_fwd_kernel": "a88b5e1d2c3e6db5"}}
 
 
 class SmokeFailure(Exception):
@@ -409,7 +430,8 @@ def phase_build():
             "rows_attention_bf16": {},
             "attention_bwd_bf16": {}, "int8_matmul_kernel": {},
             "int8_mlp_fc1_kernel": {}, "int8_mlp_fc2_kernel": {},
-            **{kernel: {} for kernel in W4_PRODUCTS}}
+            **{kernel: {} for kernel in W4_PRODUCTS},
+            **{kernel: {} for kernel in ROW_NORM_BODIES}}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -463,6 +485,39 @@ def phase_build():
             check(len(spills) == 2 and (sum(spills) == 0
                                         or kernel in SASS_CHECKED),
                   f"ptxas spills in {entry}: {lines}")
+    # K3's and K11's register bodies: registers and spills of each
+    # instantiation, no spill at a registered width's nv
+    for kernel, want in ROW_NORM_BODIES.items():
+        found = body[kernel]
+        check(len(found) == want, f"ptxas reported {len(found)} "
+                                  f"instantiations of {kernel}, expected {want}")
+        for entry, lines in sorted(found.items()):
+            spills = sum(int(x) for line in lines for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+            regs = [int(x) for line in lines for x in
+                    re.findall(r"Used (\d+) registers", line)]
+            m = re.search(kernel + r"I(13__nv_bfloat16|f)(\w+?)Li(\d+)E", entry)
+            x_t = "bf16" if m.group(1) != "f" else "fp32"
+            w_t = "fp32" if m.group(2).startswith("f") else "bf16"
+            nv = int(m.group(3))
+            print(f"[build] {kernel}<x {x_t}, affine {w_t}, nv {nv}>: "
+                  f"registers {regs}, spill bytes {spills}")
+            check(spills == 0 or nv not in ROW_NORM_WIDTH_NV,
+                  f"ptxas spills in {entry} (nv {nv}, a registered width's): "
+                  f"{lines}")
+    # the finish passes that keep the first design's ln_quant_row, and K1's
+    # forward, compiled as before the row kernels' redesign
+    from tae_tpu_torch.bench.norm_body import sass_fingerprints
+
+    release = nvcc_release()
+    prints = sass_fingerprints(lib)
+    want = FINISH_SASS.get(release)
+    print(f"[build] SASS fingerprints (nvcc {release}): {prints}"
+          + ("" if want else "; no recorded fingerprints for this release, "
+             "none compared"))
+    if want:
+        check(prints == want, f"the SASS of {sorted(k for k in want if prints[k] != want[k])}"
+                              f" changed: {prints}, recorded {want}")
     # K7 / K8's body unrolls its two heads and may keep a few values (a
     # block's head count, row maxima, addresses) across each head's sweep in
     # local memory: measured faster than a runtime head loop without spills,
@@ -555,6 +610,15 @@ def sass_report(lib, kernel: str) -> dict:
                        main.count("UCGABAR_WAIT"),
                        sum(o.startswith("LDSM") for o in ops))
     return found
+
+
+def nvcc_release() -> str:
+    """nvcc's release, as its --version prints it (for example V12.4.131)."""
+    from tae_tpu_torch.ops.cuda import build
+
+    out = subprocess.run([build.find_nvcc(), "--version"], check=True,
+                         capture_output=True, text=True, timeout=60).stdout
+    return re.search(r"release [\d.]+, (V[\d.]+)", out).group(1)
 
 
 def time_ms(fn) -> float:
@@ -764,8 +828,11 @@ def phase_int8_kernels() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from tae_tpu_torch.bench.rows_body import empty_library
+    from tae_tpu_torch.ops.cuda import build
     from tae_tpu_torch.ops.cuda.int8_block import (
-        int8_mlp, int8_mlp_reference, ln_quant, ln_quant_reference)
+        int8_mlp, int8_mlp_reference, ln_quant, ln_quant_plan,
+        ln_quant_plan_of_library, ln_quant_reference)
     from tae_tpu_torch.ops.cuda.int8_matmul import (
         int8_matmul_fused, int8_matmul_reference)
     from tae_tpu_torch.ops.int8 import DEFAULT_BLOCK_H, quantize_rows
@@ -796,11 +863,19 @@ def phase_int8_kernels() -> dict:
         print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{extra}")
 
     # ---- K3: p16's shape, an odd row count, and p128's width at the rows
-    #      of B = 64, 8 and 1 (the int4 path's 44 launches a request)
+    #      of B = 64, 8 and 1 (the int4 path's 44 launches a request), each
+    #      with its launch plan held against the library's; at p128's an
+    #      empty kernel on K3's grid beside it (the bound there is under a
+    #      launch)
     g, be = randn((d,), 0.5, 1.0), randn((d,), 0.2)   # also K5's ln_next
+    empty = empty_library()
     for m, w in ((m_full, d), (1001, d), (256, 2560), (32, 2560), (4, 2560)):
         gw, bw = (g, be) if w == d else (randn((w,), 0.5, 1.0), randn((w,), 0.2))
         x = randn((m, w), 3.0, 1.0)
+        plan = ln_quant_plan(m, w)
+        check(ln_quant_plan_of_library(m, w) == plan,
+              f"K3's plan at ({m}, {w}): library {ln_quant_plan_of_library(m, w)}, "
+              f"ops/cuda/int8_block.ln_quant_plan {plan}")
         q, s = ln_quant(x, gw, bw, 1e-6)
         q_ref, s_ref = ln_quant_reference(x, gw, bw, 1e-6)
         label = f"K3 ln_quant ({m}, {w}) bf16"
@@ -808,12 +883,20 @@ def phase_int8_kernels() -> dict:
         share = compare_codes(label, q, q_ref)
         err = float((q.float() * s - q_ref.float() * s_ref).abs().max())
         timed = m != 1001
+        extra = (f"; codes off by one on a share {share:.2g}; plan nv {plan.nv}, "
+                 f"{plan.blocks} blocks of {plan.warps} warps")
+        if w == 2560:
+            empty_ms = time_ms(lambda: build.check(empty.tae_empty_launch(
+                plan.blocks, 1, 32 * plan.warps, 1,
+                torch.cuda.current_stream().cuda_stream), "empty launch"))
+            extra += f"; empty kernel on its grid {empty_ms:.4f} ms"
         record("ln_quant", label, err,
                time_ms(lambda: ln_quant(x, gw, bw, 1e-6)) if timed else None,
                time_ms(lambda: ln_quant_reference(x, gw, bw, 1e-6))
                if timed else None,
-               bound(nbytes(x, gw, bw, q, s), 0.0, "int8"),
-               extra=f"; codes off by one on a share {share:.2g}")
+               bound(nbytes(x, gw, bw, q, s), 0.0, "int8"), extra=extra)
+        if w == 2560:
+            res["ln_quant"][-1]["empty_launch_ms"] = empty_ms
 
     # ---- K4: the five products of the main path, then the epilogue forms
     #      on the proj shape, then an odd row count
@@ -1208,10 +1291,12 @@ def phase_train_kernels() -> dict:
     from tae_tpu_torch.ops.cuda.flash_attention import (
         fused_qkv_attention_backward_reference, fused_qkv_attention_bwd,
         fused_qkv_attention_fwd_lse, fused_qkv_attention_lse_reference)
-    from tae_tpu_torch.ops.cuda.layernorm import (fused_layer_norm_bwd,
+    from tae_tpu_torch.ops.cuda.layernorm import (bwd_plan, bwd_plan_of_library,
+                                                  fused_layer_norm_bwd,
                                                   fused_layer_norm_fwd_stats)
     from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
                                              layer_norm_stats_reference)
+    from tae_tpu_torch.profile_serving import profile
 
     gen = torch.Generator(device="cuda").manual_seed(1357)
     res = {name: [] for name in ("fused_layer_norm_fwd_stats",
@@ -1237,14 +1322,20 @@ def phase_train_kernels() -> dict:
             lib_s += f"; kernel between events as {lib_name} {events:.4f} ms"
         print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{lib_s}")
 
-    # ---- K1 with stats, K11
+    # ---- K1 with stats, K11: the train path's shape, fp32, and the wider
+    #      models' widths; p128_train's (32, 2560) timed too. K11's launch
+    #      plan held against the library's at each
     for rows, d, dtype in ((KERNEL_BATCH * 256, 1024, torch.bfloat16),
                            (8 * 256, 1024, torch.float32),
                            (1001, 2560, torch.bfloat16),
-                           (8 * 64, 2048, torch.bfloat16)):
+                           (8 * 64, 2048, torch.bfloat16),
+                           (32, 2560, torch.bfloat16)):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
-        timed = rows == KERNEL_BATCH * 256
+        timed = rows in (KERNEL_BATCH * 256, 32)
+        check(bwd_plan_of_library(rows, d) == bwd_plan(rows, d),
+              f"K11's plan at ({rows}, {d}): library {bwd_plan_of_library(rows, d)}, "
+              f"ops/cuda/layernorm.bwd_plan {bwd_plan(rows, d)}")
         x = randn((rows, d), dtype, 3.0, 1.0)
         w, b = randn((d,), dtype, 1.0, 1.0), randn((d,), dtype)
         dy = randn((rows, d), dtype)
@@ -1276,6 +1367,13 @@ def phase_train_kernels() -> dict:
         again = fused_layer_norm_bwd(x, w, mean, rstd, dy)
         check(all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dw, db))),
               f"{label}: two runs differ in their bits")
+        if timed:
+            # one pass over x and dy and the finish: two device launches
+            kernels, _ = profile(lambda _: fused_layer_norm_bwd(x, w, mean, rstd, dy),
+                                 None, 1)
+            launched = {k: n for k, (_, n) in kernels.items() if "layer_norm_bwd" in k}
+            check(sum(launched.values()) == 2,
+                  f"{label}: one call launched {launched}, expected two kernels")
         lib = None
         if timed:
             # F.layer_norm's backward as one library call on its own saved

@@ -5,9 +5,23 @@
 //   s = max(max|y| / 127, 1e-12), q = clip(round(y * (1 / s)), -127, 127).
 //   x (M, D) float32 / bfloat16 -> (M, D) int8 + (M,) float32.
 //   Bound on the H100 by device-memory bytes (one read of x, half as many
-//   bytes written). One warp per row, 16-byte loads, 8-byte code stores,
-//   shuffle reductions; the four passes over a row (sum, centred squares,
-//   max|y|, quantize) re-read it from L1, so device memory sees one read.
+//   bytes written) at many rows; at p128's few rows (4 to 256 of 2560) the
+//   work is a few microseconds of memory latency, under a launch's cost.
+//   Design (ln_quant_regs_kernel; plan in row_norm.cuh): one warp per row,
+//   the row held in registers. Templated on the input and affine dtypes
+//   and on nv, the 8-column groups a lane holds (4 at 1024 columns, 8 at
+//   2048, 10 at 2560), a lane issues its nv 16-byte loads of x, and in
+//   bf16 of gamma and beta, in one unrolled burst, so a row costs one memory
+//   round trip; then the four steps (sum, centred squares, max|y|,
+//   quantize) run on registers, y computed once. Each lane sums in the
+//   first design's column order and every epilogue product is rounded as
+//   in ln_quant_row, so codes and scales are that design's bit for bit;
+//   what is exact in any order is reordered: max|y| as a tree and one
+//   redux, the codes without conversion instructions (codes8).
+//   Rows a block from the rows: 4 from 256 rows on, fewer below, so that
+//   few rows spread over the SMs. Rows wider than 4096 columns take the
+//   first design: ln_quant_row's runtime loop of 16-byte loads, re-read
+//   from L1 in each of the four passes.
 //
 // K5 replaces: tae_tpu/ops/pallas/int8_block.py::int8_mlp (_mlp_kernel).
 //   out = residual + fc2(gelu_tanh(fc1(xq))); the hidden activation is
@@ -43,6 +57,7 @@
 //   and the finish adds the groups in order (the last bit of a sum then
 //   follows the group count).
 #include "int8_common.cuh"
+#include "row_norm.cuh"
 
 namespace {
 
@@ -51,18 +66,161 @@ using namespace tae::i8;
 
 // ------------------------------------------------------------------- K3
 
-constexpr int kLnWarps = 4;
-
-__global__ void __launch_bounds__(kLnWarps * 32)
+// The first design, for rows wider than the register body takes: a warp a
+// row, blockDim.x / 32 rows a block.
+__global__ void __launch_bounds__(rownorm::kLnqMaxWarps * 32)
 ln_quant_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict__ gamma,
                 const void* __restrict__ beta, int w_dtype, int8_t* __restrict__ q,
                 float* __restrict__ s, int rows, int cols, float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long row = static_cast<long>(blockIdx.x) * kLnWarps + warp;
+  const long row = static_cast<long>(blockIdx.x) * (blockDim.x / 32) + warp;
   if (row >= rows) return;
   const long base = row * cols;
   auto load = [=](int i, float* v) { load8(x, base + i, x_dtype, v); };
   ln_quant_row(load, cols, gamma, beta, w_dtype, eps, q + base, s + row, lane);
+}
+
+// quantize8's codes of y[0..7] * inv, clip(rint(y * inv), -127, 127),
+// without its conversions: the value clamped to the integer bounds first
+// (rint commutes with such a clamp; a NaN clamps to -127 either way), then
+// 1.5 * 2^23 added, which rounds it half to even into the low mantissa
+// bits, whose low byte is the two's-complement code; byte permutes pack
+// them.
+__device__ __forceinline__ uint2 codes8(const float* y, float inv) {
+  unsigned c[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    c[k] = __float_as_uint(__fadd_rn(
+        fminf(fmaxf(__fmul_rn(y[k], inv), -127.0f), 127.0f), 12582912.0f));
+  unsigned w[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    w[h] = __byte_perm(__byte_perm(c[4 * h], c[4 * h + 1], 0x0040),
+                       __byte_perm(c[4 * h + 2], c[4 * h + 3], 0x0040), 0x5410);
+  return make_uint2(w[0], w[1]);
+}
+
+// The register body: lane holds columns (32 j + lane) * 8 .. + 7 of its
+// row for j < NV. gamma and beta come with x's burst where they fit beside
+// it (bf16 up to NV 10), else at the affine step (from L1 / L2: every row
+// of the card reads them).
+template <typename T, typename W, int NV>
+__global__ void __launch_bounds__(rownorm::kLnqMaxWarps * 32, rownorm::lnq_min_blocks(NV))
+ln_quant_regs_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                     const W* __restrict__ beta, int8_t* __restrict__ q,
+                     float* __restrict__ s, int rows, int cols, float eps) {
+  constexpr bool kAffineFirst = rownorm::lnq_affine_first(NV, sizeof(T), sizeof(W));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long row = static_cast<long>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (row >= rows) return;
+  const T* xr = x + row * cols;
+  rownorm::Group<T> xg[NV];
+  rownorm::Group<W> gg[NV], bg[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = (j * 32 + lane) * 8;
+    if (i < cols) {
+      xg[j].load(xr + i);
+      if (kAffineFirst) {
+        gg[j].load(gamma + i);
+        bg[j].load(beta + i);
+      }
+    }
+  }
+  float v[NV][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if ((j * 32 + lane) * 8 < cols) {
+      xg[j].get(v[j]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum += v[j][k];
+    }
+  }
+  const float mean = warp_sum(sum) / cols;
+
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if ((j * 32 + lane) * 8 < cols) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = v[j][k] - mean;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / cols + eps);
+
+  // max|y| is exact in any order: a tree over the lane's groups, not a chain
+  float gmax[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = (j * 32 + lane) * 8;
+    gmax[j] = 0.f;
+    if (i < cols) {
+      if (!kAffineFirst) {
+        gg[j].load(gamma + i);
+        bg[j].load(beta + i);
+      }
+      float g[8], b[8], m[4];
+      gg[j].get(g);
+      bg[j].get(b);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[j][k] = __fadd_rn(__fmul_rn(__fmul_rn(v[j][k] - mean, rstd), g[k]), b[k]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) m[k] = fmaxf(fabsf(v[j][k]), fabsf(v[j][k + 4]));
+      gmax[j] = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
+    }
+  }
+#pragma unroll
+  for (int w = 1; w < NV; w *= 2)
+#pragma unroll
+    for (int j = 0; j + w < NV; j += 2 * w) gmax[j] = fmaxf(gmax[j], gmax[j + w]);
+  // fmaxf with 0 maps a NaN-only lane to 0, as the first design's chain from
+  // 0 does; non-negative floats order as their bits, so one redux instruction
+  // gives warp_max's value
+  const float amax = __uint_as_float(
+      __reduce_max_sync(0xffffffffu, __float_as_uint(fmaxf(gmax[0], 0.f))));
+  const float sc = quant_scale(amax);
+  const float inv = 1.0f / sc;
+
+  int8_t* qr = q + row * cols;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = (j * 32 + lane) * 8;
+    if (i < cols) *reinterpret_cast<uint2*>(qr + i) = codes8(v[j], inv);
+  }
+  if (lane == 0) s[row] = sc;
+}
+
+template <typename T, typename W>
+int launch_ln_quant_regs(const rownorm::LnqPlan& p, const void* x, const void* gamma,
+                         const void* beta, int8_t* q, float* s, int rows, int cols, float eps,
+                         cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const W* gp = static_cast<const W*>(gamma);
+  const W* bp = static_cast<const W*>(beta);
+  const int threads = p.warps * 32;
+  switch (p.nv) {
+#define TAE_LNQ_CASE(NV)                                                                      \
+  case NV:                                                                                    \
+    ln_quant_regs_kernel<T, W, NV><<<p.blocks, threads, 0, stream>>>(xp, gp, bp, q, s, rows, \
+                                                                     cols, eps);              \
+    break;
+    TAE_LNQ_CASE(1)
+    TAE_LNQ_CASE(2)
+    TAE_LNQ_CASE(4)
+    TAE_LNQ_CASE(8)
+    TAE_LNQ_CASE(10)
+    TAE_LNQ_CASE(12)
+    TAE_LNQ_CASE(16)
+#undef TAE_LNQ_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------- K5
@@ -349,17 +507,46 @@ bool bad_dtype(int d) { return d != kFloat32 && d != kBFloat16; }
 
 // x (rows, cols) of x_dtype, gamma / beta (cols,) of w_dtype -> q (rows, cols)
 // int8, s (rows,) f32. cols a multiple of 8; all contiguous, 16-byte aligned.
+// Launched as row_norm.cuh's ln_quant_plan says.
 extern "C" int tae_ln_quant_fwd(const void* x, const void* gamma, const void* beta, void* q,
                                 void* s, int rows, int cols, float eps, int x_dtype,
                                 int w_dtype, void* stream) {
-  if (rows < 1 || cols < 8 || cols % 8 != 0 || bad_dtype(x_dtype) || bad_dtype(w_dtype)) {
+  rownorm::LnqPlan p;
+  if (!rownorm::ln_quant_plan(rows, cols, p) || bad_dtype(x_dtype) || bad_dtype(w_dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (rows + kLnWarps - 1) / kLnWarps;
-  ln_quant_kernel<<<blocks, kLnWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, x_dtype, gamma, beta, w_dtype, static_cast<int8_t*>(q), static_cast<float*>(s), rows,
-      cols, eps);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(s);
+  if (p.nv == 0) {
+    ln_quant_kernel<<<p.blocks, p.warps * 32, 0, st>>>(x, x_dtype, gamma, beta, w_dtype, qp,
+                                                       sp, rows, cols, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool xb = x_dtype == kBFloat16, wb = w_dtype == kBFloat16;
+  if (xb && wb)
+    return launch_ln_quant_regs<__nv_bfloat16, __nv_bfloat16>(p, x, gamma, beta, qp, sp, rows,
+                                                              cols, eps, st);
+  if (xb)
+    return launch_ln_quant_regs<__nv_bfloat16, float>(p, x, gamma, beta, qp, sp, rows, cols,
+                                                      eps, st);
+  if (wb)
+    return launch_ln_quant_regs<float, __nv_bfloat16>(p, x, gamma, beta, qp, sp, rows, cols,
+                                                      eps, st);
+  return launch_ln_quant_regs<float, float>(p, x, gamma, beta, qp, sp, rows, cols, eps, st);
+}
+
+// K3's plan for (rows, cols) (row_norm.cuh): out[0] 1 where the kernel
+// takes the shape (else 0, and nothing more is written), out[1] nv (0: the
+// runtime-loop body), out[2] warps a block, out[3] blocks.
+extern "C" int tae_ln_quant_plan(int rows, int cols, int* out) {
+  rownorm::LnqPlan p;
+  out[0] = rownorm::ln_quant_plan(rows, cols, p) ? 1 : 0;
+  if (!out[0]) return 0;
+  out[1] = p.nv;
+  out[2] = p.warps;
+  out[3] = p.blocks;
+  return 0;
 }
 
 // xq (m, d) int8, sx (m,) f32, w1 (hdim, d) int8, sw1 (hdim,) f32, b1 (hdim,),

@@ -90,6 +90,10 @@ SIGNATURES = {
     "tae_rows_attention_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
     # x, gamma, beta, q, s, rows, cols, eps, x dtype, gamma dtype, stream
     "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
+    # rows, cols, int[4] out: K3's plan
+    "tae_ln_quant_plan": ((_I, _I, ctypes.POINTER(_I)), _I),
+    # rows, cols, int[8] out: K11's plan
+    "tae_layer_norm_bwd_plan": ((_I, _I, ctypes.POINTER(_I)), _I),
     # x, sx, w, sw, bias, residual, out, m, n, k, out dtype, bias dtype,
     # ln_out (0 / 1), gamma, beta, ln dtype, eps, nq, ns, tile shape, K
     # splits, int32 workspace (or null), stream

@@ -18,12 +18,15 @@ versions and compose into :func:`int8_mlp_reference`.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
 import torch
 
 from tae_tpu_torch.ops.cuda import build
 from tae_tpu_torch.ops.cuda.int8_matmul import int_matmul, ln_quant_rows
+from tae_tpu_torch.ops.cuda.layernorm import nv_for
 
 _FLOATS = (torch.float32, torch.bfloat16)
 #: hidden columns that share one activation scale per row. 256 is two of the
@@ -45,6 +48,45 @@ def ln_quant_reference(x: torch.Tensor, weight: torch.Tensor,
     """Plain version: x (M, D) float -> (int8 LayerNorm(x), (M, 1) f32
     per-row scales)."""
     return ln_quant_rows(x.float(), weight, bias, eps)
+
+
+#: K3's plan (csrc/row_norm.cuh): the row in registers up to LNQ_MAX_NV
+#: 8-column groups a lane (4096 columns), wider rows through the first
+#: design's runtime loop; LNQ_MAX_WARPS warps (rows) a block, halved while
+#: the grid would have fewer than LNQ_MIN_BLOCKS blocks
+LNQ_MAX_NV = 16
+LNQ_MAX_WARPS = 4
+LNQ_MIN_BLOCKS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class LnQuantPlan:
+    """K3's launch: ``nv`` 8-column groups a lane holds (0: the first
+    design's runtime loop), ``warps`` rows a block, ``blocks``."""
+    nv: int
+    warps: int
+    blocks: int
+
+
+def ln_quant_plan(rows: int, cols: int) -> LnQuantPlan | None:
+    """The plan ``tae::rownorm::ln_quant_plan`` computes, or None where the
+    kernel does not take the shape (no rows, a width that is not a multiple
+    of 8)."""
+    if rows < 1 or cols < 8 or cols % 8:
+        return None
+    warps = LNQ_MAX_WARPS
+    while warps > 1 and rows < warps * LNQ_MIN_BLOCKS:
+        warps //= 2
+    return LnQuantPlan(nv_for(cols, LNQ_MAX_NV), warps, -(-rows // warps))
+
+
+def ln_quant_plan_of_library(rows: int, cols: int) -> LnQuantPlan | None:
+    """The built library's K3 plan for (rows, cols): what ``chip_smoke.py``
+    holds :func:`ln_quant_plan` against. Needs the card's build."""
+    out = (ctypes.c_int * 4)()
+    build.check(build.library().tae_ln_quant_plan(rows, cols, out),
+                "tae_ln_quant_plan")
+    return LnQuantPlan(*out[1:4]) if out[0] else None
 
 
 def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -12,6 +12,9 @@ shows no training launch and the reverse.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from tae_tpu_torch.ops.cuda import build
@@ -20,16 +23,91 @@ from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
                                          layer_norm_stats_reference)
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: rows per partial sum of dw / db in the backward (more for very many rows,
-#: so that the partial sums stay within MAX_ROW_CHUNKS)
+
+# The row kernels' launch plans, mirrored from csrc/row_norm.cuh (K3's is
+# ops/cuda/int8_block.py::ln_quant_plan): a lane holds nv groups of 8
+# columns, nv the first of NV_STEPS that covers the row.
+NV_STEPS = (1, 2, 4, 8, 10, 12, 16)
+GROUP_COLS = 256
+#: blocks that cover the card (about one for each of the H100's 132 SMs)
+FILL_BLOCKS = 128
+#: K11: the row in registers up to BWD_MAX_NV groups (2560 columns), wider
+#: rows through the first design's three launches; each warp's column sums
+#: in registers up to BWD_REG_ACC_NV groups (1024 columns), in shared memory
+#: above; BWD_WARPS warps a block taking a chunk's rows in turn; chunks as
+#: :func:`bwd_row_chunks` says
+BWD_MAX_NV = 10
+BWD_REG_ACC_NV = 4
+BWD_WARPS = 8
 BWD_ROWS_PER_CHUNK = 128
-MAX_ROW_CHUNKS = 1024
+BWD_MAX_CHUNKS = 1024
+
+
+def nv_for(cols: int, max_nv: int) -> int:
+    """``tae::rownorm::nv_for``: the first of :data:`NV_STEPS` that covers
+    ``cols`` columns in groups of 256, or 0 above ``max_nv``."""
+    need = -(-cols // GROUP_COLS)
+    return next((nv if nv <= max_nv else 0 for nv in NV_STEPS if nv >= need), 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """K11's launch: ``nv`` 8-column groups a lane (0: the first design's
+    launches), ``chunks`` blocks of ``rows_per_chunk`` rows along grid.x,
+    ``warps`` a block, the column sums in registers (``reg_acc``) or shared
+    memory, ``smem`` bytes of dynamic shared memory a block, ``splits``
+    slices of the columns along grid.y."""
+    nv: int
+    chunks: int
+    rows_per_chunk: int
+    warps: int
+    reg_acc: int
+    smem: int
+    splits: int
 
 
 def bwd_row_chunks(rows: int) -> tuple[int, int]:
-    """``(chunks, rows per chunk)`` of the backward's partial column sums."""
-    per = max(BWD_ROWS_PER_CHUNK, -(-rows // MAX_ROW_CHUNKS))
+    """``(chunks, rows per chunk)`` of K11's column sums: chunks of
+    :data:`BWD_ROWS_PER_CHUNK` rows where that makes :data:`FILL_BLOCKS`
+    chunks or more (more rows a chunk where there would be over
+    :data:`BWD_MAX_CHUNKS`); fewer rows take the fewest rows a chunk, a
+    multiple of :data:`BWD_WARPS`, that make at most :data:`FILL_BLOCKS`
+    chunks."""
+    per = -(-rows // BWD_MAX_CHUNKS)
+    if per < BWD_ROWS_PER_CHUNK:
+        if rows >= BWD_ROWS_PER_CHUNK * FILL_BLOCKS:
+            per = BWD_ROWS_PER_CHUNK
+        else:
+            per = -(-(-(-rows // FILL_BLOCKS)) // BWD_WARPS) * BWD_WARPS
     return -(-rows // per), per
+
+
+def bwd_plan(rows: int, cols: int) -> BwdPlan | None:
+    """The plan ``tae::rownorm::layer_norm_bwd_plan`` computes for K11, or
+    None where the kernels do not take the shape (no rows, a width that is
+    not a multiple of 8). Shared memory: the weight in fp32 and each warp's
+    two column sums, nv groups wide. Where the chunks are FILL_BLOCKS / 2 or
+    fewer, the columns are split into up to FILL_BLOCKS / chunks slices of
+    256-column groups (a block reads its rows whole for their means and
+    writes dx and the sums of its slice)."""
+    if rows < 1 or cols < 8 or cols % 8:
+        return None
+    chunks, per = bwd_row_chunks(rows)
+    nv = nv_for(cols, BWD_MAX_NV)
+    smem = (2 * BWD_WARPS + 1) * nv * GROUP_COLS * 4 if nv else 0
+    splits = (min(FILL_BLOCKS // chunks, -(-cols // GROUP_COLS))
+              if nv and chunks <= FILL_BLOCKS // 2 else 1)
+    return BwdPlan(nv, chunks, per, BWD_WARPS,
+                   int(0 < nv <= BWD_REG_ACC_NV), smem, splits)
+
+
+def bwd_plan_of_library(rows: int, cols: int) -> BwdPlan | None:
+    """The built library's K11 plan for (rows, cols): what ``chip_smoke.py``
+    holds :func:`bwd_plan` against. Needs the card's build."""
+    out = (ctypes.c_int * 8)()
+    build.check(build.library().tae_layer_norm_bwd_plan(rows, cols, out),
+                "tae_layer_norm_bwd_plan")
+    return BwdPlan(*out[1:8]) if out[0] else None
 
 
 def _check(name: str, x, weight, bias, extra=()) -> tuple[int, int]:
@@ -141,12 +219,14 @@ def fused_layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor,
     dw, db = torch.empty_like(weight), torch.empty_like(weight)
     if rows == 0:
         return dx, dw.zero_(), db.zero_()
-    chunks, per = bwd_row_chunks(rows)
-    part = torch.empty((2, chunks, d), dtype=torch.float32, device=x.device)
+    plan = bwd_plan(rows, d)
+    part = torch.empty((2, plan.chunks, d), dtype=torch.float32,
+                       device=x.device)
     rc = build.library().tae_layer_norm_bwd(
         x.data_ptr(), weight.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        part.data_ptr(), rows, d, chunks, per, build.dtype_code(x.dtype),
+        part.data_ptr(), rows, d, plan.chunks, plan.rows_per_chunk,
+        build.dtype_code(x.dtype),
         build.dtype_code(weight.dtype), _stream(x))
     build.check(rc, "tae_layer_norm_bwd")
     fused_layer_norm_bwd.launches += 1

@@ -18,6 +18,8 @@ the tiny-N and int8-output attention entries, token counts that do and do
 not divide the 16-row tiles, batches that end inside a tile, both head dims;
 for the training kernels (the stats and LSE forwards, the LayerNorm and
 attention backwards), row counts off the 128-row chunks, every model width,
+the LayerNorm row kernels' (K3, K11) plans against the library's at widths
+where their register rows end,
 token counts off the 16-row tiles, gradients in a non-contiguous layout, and
 bit-equal results of two runs; for the int4 kernels (K12, K13), row counts
 off the 16- and 64-row tiles of both tile shapes bit for bit, groups of 64,
@@ -55,12 +57,14 @@ from tae_tpu_torch.ops.cuda.flash_attention import (
     fused_qkv_attention_i8_reference, fused_qkv_attention_lse_reference,
     fused_qkv_attention_reference)
 from tae_tpu_torch.ops.cuda.int8_block import (
-    int8_mlp, int8_mlp_reference, ln_quant, ln_quant_reference)
+    int8_mlp, int8_mlp_reference, ln_quant, ln_quant_plan,
+    ln_quant_plan_of_library, ln_quant_reference)
 from tae_tpu_torch.ops.cuda.int8_matmul import (
     int8_matmul_fused, int8_matmul_reference, int8_matmul_rows,
     int8_matmul_rows_reference, ln_chain_rows)
 from tae_tpu_torch.ops.cuda.layernorm import (
-    fused_layer_norm, fused_layer_norm_bwd, fused_layer_norm_fwd_stats)
+    bwd_plan, bwd_plan_of_library, fused_layer_norm, fused_layer_norm_bwd,
+    fused_layer_norm_fwd_stats)
 from tae_tpu_torch.ops.cuda.wide_attention import (
     fused_qkv_attention_q8, fused_qkv_attention_q8_reference,
     fused_qkv_attention_wide, fused_qkv_attention_wide_q8,
@@ -806,6 +810,48 @@ def test_layer_norm_autograd_takes_any_gradient_layout(gen):
     # the plain forward sums in fp32 and never rounds: one bf16 rounding
     torch.testing.assert_close(gw, rw, atol=5e-2, rtol=1e-2)
     torch.testing.assert_close(gb, rb, atol=5e-2, rtol=1e-2)
+
+
+# The LayerNorm row kernels' plan edges (K3, K11; csrc/row_norm.cuh): one
+# group and part of a second (8, 264), rows off a block and a chunk, the
+# registered widths at p128's and p128_train's rows, K3's widest register
+# row (4096) and the first widths past each register body (4104 for K3,
+# 2568 for K11: the first designs' loops)
+ROW_NORM_EDGES = [(1, 8), (129, 264), (7, 2048), (33, 2560), (256, 2560),
+                  (3, 4096), (5, 4104), (130, 2568)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", ROW_NORM_EDGES)
+def test_row_norm_kernels_at_their_plan_edges(gen, m, d, dtype):
+    """The library's plans equal the Python mirrors; K3 and K11 against
+    their plain versions, one launch count a call, K11's two runs
+    bit-equal."""
+    assert ln_quant_plan_of_library(m, d) == ln_quant_plan(m, d)
+    assert bwd_plan_of_library(m, d) == bwd_plan(m, d)
+    x = (torch.randn((m, d), generator=gen, device="cuda") * 3 + 1).to(dtype)
+    g, b = _affine(gen, d, dtype)
+    before = ln_quant.launches
+    q, s = ln_quant(x, g, b, 1e-6)
+    assert ln_quant.launches == before + 1
+    q_ref, s_ref = ln_quant_reference(x, g, b, 1e-6)
+    _scales_close(s, s_ref)
+    _codes_close(q, q_ref)
+    dy = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+    _, mean, rstd = layer_norm_stats_reference(x, g, b, 1e-6)
+    before = fused_layer_norm_bwd.launches
+    dx, dw, db = fused_layer_norm_bwd(x, g, mean, rstd, dy)
+    assert fused_layer_norm_bwd.launches == before + 1
+    dx_ref, dw_ref, db_ref = layer_norm_backward_reference(x, g, mean, rstd, dy)
+    _close(dx, dx_ref, dtype)
+    # as test_layer_norm_training_kernels_match_plain: fp32 sums of m terms
+    tol = (dict(atol=1e-2 * max(1.0, m ** 0.5 / 8), rtol=1e-2)
+           if dtype == torch.bfloat16
+           else dict(atol=2e-5 * max(1.0, m ** 0.5), rtol=1e-4))
+    torch.testing.assert_close(dw.float(), dw_ref.float(), **tol)
+    torch.testing.assert_close(db.float(), db_ref.float(), **tol)
+    again = fused_layer_norm_bwd(x, g, mean, rstd, dy)
+    assert all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db)))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -328,4 +328,8 @@ def test_backward_row_chunks_cover_every_row():
     for rows in (1, 127, 128, 129, 16384, 131072, 131073, 2 ** 31 - 1):
         chunks, per = ln.bwd_row_chunks(rows)
         assert chunks * per >= rows > (chunks - 1) * per
-        assert chunks <= ln.MAX_ROW_CHUNKS and per >= ln.BWD_ROWS_PER_CHUNK
+        assert chunks <= ln.BWD_MAX_CHUNKS
+        # 128 rows a chunk or more, or few rows spread over at most 128
+        # chunks of a multiple of 8 rows
+        assert per >= ln.BWD_ROWS_PER_CHUNK or (chunks <= ln.FILL_BLOCKS
+                                                and per % ln.BWD_WARPS == 0)
