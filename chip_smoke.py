@@ -371,12 +371,18 @@ SASS_CHECKED = ("attention_q8_bf16",)
 # in their innermost tensor-core loops
 W4_PRODUCTS = {"int4_matmul_kernel": 4, "int4_mlp_fc1_kernel": 4,
                "int4_mlp_fc2_kernel": 4}
-# The LayerNorm row kernels' register bodies (csrc/row_norm.cuh): K3 at each
-# nv of 1, 2, 4, 8, 10, 12, 16 and K11 at each of 1, 2, 4, 8, 10, both in
-# the four pairs of x and affine dtypes. None may spill where a registered
-# width runs it (1024, 2048, 2560 columns: nv 4, 8, 10).
-ROW_NORM_BODIES = {"ln_quant_regs_kernel": 28, "layer_norm_bwd_rows_kernel": 20}
+# The LayerNorm row kernels' register bodies (csrc/row_norm.cuh): K3 and K1
+# at each nv of 1, 2, 4, 8, 10, 12, 16 and K11 at each of 1, 2, 4, 8, 10,
+# all in the four pairs of x and affine dtypes. None may spill where a
+# registered width runs it (1024, 2048, 2560 columns: nv 4, 8, 10).
+ROW_NORM_BODIES = {"ln_quant_regs_kernel": 28, "layer_norm_fwd_rows_kernel": 28,
+                   "layer_norm_bwd_rows_kernel": 20}
 ROW_NORM_WIDTH_NV = (4, 8, 10)
+# K14's bf16 search on TMA and wgmma (csrc/quantizer.cu), in its
+# instantiations: one or two consumer warpgroups, z resident or riding the
+# ring
+VQ_SEARCH = "nearest_code_wgmma_kernel"
+VQ_SEARCH_FORMS = 4
 # The SASS of K4's and K5's finish passes, which run the first design of
 # K3's row (int8_common.cuh::ln_quant_row), and of K1's forward, as the
 # commit before the LayerNorm row kernels' redesign compiled them: sha256 of
@@ -431,7 +437,7 @@ def phase_build():
             "attention_bwd_bf16": {}, "int8_matmul_kernel": {},
             "int8_mlp_fc1_kernel": {}, "int8_mlp_fc2_kernel": {},
             **{kernel: {} for kernel in W4_PRODUCTS},
-            **{kernel: {} for kernel in ROW_NORM_BODIES}}
+            **{kernel: {} for kernel in ROW_NORM_BODIES}, VQ_SEARCH: {}}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -529,7 +535,7 @@ def phase_build():
     # has read it. Without the second the outputs stay right on every run
     # measured (the race is rare), so only the code can show it is there.
     for kernel in SASS_CHECKED:
-        for entry, (loops, local, arrives, waits, _) in sass_report(lib, kernel).items():
+        for entry, (loops, local, arrives, waits, _, _) in sass_report(lib, kernel).items():
             print(f"[build] {kernel}: {loops} innermost mma loops, {local} "
                   f"local-memory instructions in them; {arrives} cluster "
                   f"barrier arrives and {waits} waits on the main path "
@@ -543,7 +549,7 @@ def phase_build():
     # The flat-row body (K6, K9): no local memory in its innermost mma
     # loops; its int8 form (mode 2) holds both cluster barriers on its main
     # path, as K7 / K8's body does, the bf16 forms none.
-    for entry, (loops, local, arrives, waits, _) in sass_report(
+    for entry, (loops, local, arrives, waits, _, _) in sass_report(
             lib, "rows_attention_bf16").items():
         mode = re.search(r"rows_attention_bf16ILi(\d+)ELi(\d)E", entry)
         want = 2 if mode.group(2) == "2" else 0
@@ -560,22 +566,47 @@ def phase_build():
     # steps a load) and decoded in registers, nothing of the mainloop in
     # local memory.
     for kernel in W4_PRODUCTS:
-        for entry, (loops, local, _, _, ldsm) in sass_report(lib, kernel).items():
+        for entry, (loops, local, _, _, ldsm, _) in sass_report(lib, kernel).items():
             print(f"[build] {kernel}: {loops} innermost mma loops, {local} "
                   f"local-memory instructions in them, {ldsm} ldmatrix "
                   f"({entry[:60]}...)")
             check(loops > 0 and local == 0 and ldsm > 0,
                   f"{entry}: {loops} innermost mma loops with {local} "
                   f"local-memory instructions, {ldsm} ldmatrix")
+    # K14's bf16 search: wgmma (HGMMA in its SASS), no spill, no local
+    # memory in its innermost product loops, and no wgmma serialized by
+    # ptxas (it says so where a wait or an accumulator read sits on a path
+    # it takes for divergent)
+    for entry, lines in sorted(body[VQ_SEARCH].items()):
+        spills = sum(int(x) for line in lines for x in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", line))
+        regs = [int(x) for line in lines for x in
+                re.findall(r"Used (\d+) registers", line)]
+        print(f"[build] {VQ_SEARCH} {entry[-60:]}: registers {regs}, spill "
+              f"bytes {spills}")
+        check(spills == 0, f"ptxas spills in {entry}: {lines}")
+    check(len(body[VQ_SEARCH]) == VQ_SEARCH_FORMS,
+          f"ptxas reported {len(body[VQ_SEARCH])} instantiations of "
+          f"{VQ_SEARCH}, expected {VQ_SEARCH_FORMS}")
+    serial = [line for line in (lib.parent / "build.log").read_text().splitlines()
+              if "wgmma.mma_async instructions are serialized" in line]
+    check(not serial, f"ptxas serialized wgmma: {serial[:2]}")
+    for entry, (loops, local, _, _, _, hgmma) in sass_report(lib, VQ_SEARCH).items():
+        print(f"[build] {VQ_SEARCH}: {hgmma} HGMMA, {loops} innermost product "
+              f"loops, {local} local-memory instructions in them "
+              f"({entry[:70]}...)")
+        check(hgmma > 0 and loops > 0 and local == 0,
+              f"{entry}: {hgmma} HGMMA, {loops} innermost product loops with "
+              f"{local} local-memory instructions")
 
 
 def sass_report(lib, kernel: str) -> dict:
     """Per instantiation of ``kernel`` in the library, read from
     ``cuobjdump -sass``: (the innermost loops that issue tensor-core
-    products, the local-memory instructions LDL / STL in them, the cluster
-    barrier arrives and waits ahead of the first EXIT, the ldmatrix
-    instructions). A loop is the span from a backward branch's target to
-    the branch."""
+    products (HMMA, IMMA, HGMMA), the local-memory instructions LDL / STL in
+    them, the cluster barrier arrives and waits ahead of the first EXIT, the
+    ldmatrix instructions, the warpgroup products HGMMA). A loop is the span
+    from a backward branch's target to the branch."""
     import bisect
 
     from tae_tpu_torch.ops.cuda import build
@@ -598,7 +629,7 @@ def sass_report(lib, kernel: str) -> dict:
             target = re.search(r"0x([0-9a-f]+)", rest)
             if op.startswith("BRA") and target and int(target.group(1), 16) < a:
                 j = bisect.bisect_left(addr, int(target.group(1), 16))
-                if any(o.startswith(("HMMA", "IMMA")) for o in ops[j:i + 1]):
+                if any(o.startswith(("HMMA", "IMMA", "HGMMA")) for o in ops[j:i + 1]):
                     mma.append((j, i))
         inner = [(j, i) for j, i in mma
                  if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
@@ -608,7 +639,8 @@ def sass_report(lib, kernel: str) -> dict:
         main = ops[:ops.index("EXIT")] if "EXIT" in ops else ops
         found[name] = (len(inner), local, main.count("UCGABAR_ARV"),
                        main.count("UCGABAR_WAIT"),
-                       sum(o.startswith("LDSM") for o in ops))
+                       sum(o.startswith("LDSM") for o in ops),
+                       sum(o.startswith("HGMMA") for o in ops))
     return found
 
 
@@ -740,7 +772,8 @@ def phase_kernels() -> dict:
 
     from tae_tpu_torch.ops.cuda.flash_attention import (
         fused_qkv_attention, fused_qkv_attention_reference)
-    from tae_tpu_torch.ops.cuda.layernorm import fused_layer_norm
+    from tae_tpu_torch.ops.cuda.layernorm import (fused_layer_norm, fwd_plan,
+                                                  fwd_plan_of_library)
     from tae_tpu_torch.ops.layernorm import layer_norm_reference
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -750,10 +783,19 @@ def phase_kernels() -> dict:
         x = torch.randn(shape, generator=gen, device="cuda")
         return (x * scale + shift).to(dtype)
 
-    d = 1024
-    for dtype in (torch.bfloat16, torch.float32):
+    # K1 at the bf16 path's shape in both dtypes, then at p128's width,
+    # (M, 2560) bf16 at M = 256 / 32 / 4 (B = 64 / 8 / 1), its launch plan
+    # held against the library's at each
+    for rows, d, dtype in ((KERNEL_BATCH * 256, 1024, torch.bfloat16),
+                           (KERNEL_BATCH * 256, 1024, torch.float32),
+                           (256, 2560, torch.bfloat16),
+                           (32, 2560, torch.bfloat16),
+                           (4, 2560, torch.bfloat16)):
         tol = TOL[str(dtype).split(".")[1]]
-        x = randn((KERNEL_BATCH * 256, d), dtype, 3.0, 1.0)
+        check(fwd_plan_of_library(rows, d) == fwd_plan(rows, d),
+              f"K1's plan at ({rows}, {d}): library {fwd_plan_of_library(rows, d)}, "
+              f"ops/cuda/layernorm.fwd_plan {fwd_plan(rows, d)}")
+        x = randn((rows, d), dtype, 3.0, 1.0)
         w, b = randn((d,), dtype, 1.0, 1.0), randn((d,), dtype)
         got = fused_layer_norm(x, w, b, 1e-6)
         want = layer_norm_reference(x, w, b, 1e-6)
@@ -763,7 +805,8 @@ def phase_kernels() -> dict:
         lib = time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6))
         bnd = bound(nbytes(x, w, b, got), 0.0, "bf16")
         res["fused_layer_norm"].append((dtype, err, ms, plain, bnd, lib))
-        print(f"[kernels] K1 layer_norm {tuple(x.shape)} {dtype}: max_abs_err "
+        print(f"[kernels] K1 layer_norm {tuple(x.shape)} {dtype} (plan "
+              f"{fwd_plan(rows, d)}): max_abs_err "
               f"{err:.3g} (atol {tol['atol']}, rtol {tol['rtol']}); kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]}), F.layer_norm {lib:.4f} ms")
@@ -1293,7 +1336,8 @@ def phase_train_kernels() -> dict:
         fused_qkv_attention_fwd_lse, fused_qkv_attention_lse_reference)
     from tae_tpu_torch.ops.cuda.layernorm import (bwd_plan, bwd_plan_of_library,
                                                   fused_layer_norm_bwd,
-                                                  fused_layer_norm_fwd_stats)
+                                                  fused_layer_norm_fwd_stats,
+                                                  fwd_plan, fwd_plan_of_library)
     from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
                                              layer_norm_stats_reference)
     from tae_tpu_torch.profile_serving import profile
@@ -1323,8 +1367,8 @@ def phase_train_kernels() -> dict:
         print(f"[kernels] {label}: max_abs_err {err:.3g}{timing}{lib_s}")
 
     # ---- K1 with stats, K11: the train path's shape, fp32, and the wider
-    #      models' widths; p128_train's (32, 2560) timed too. K11's launch
-    #      plan held against the library's at each
+    #      models' widths; p128_train's (32, 2560) timed too. K1's and K11's
+    #      launch plans held against the library's at each
     for rows, d, dtype in ((KERNEL_BATCH * 256, 1024, torch.bfloat16),
                            (8 * 256, 1024, torch.float32),
                            (1001, 2560, torch.bfloat16),
@@ -1336,6 +1380,9 @@ def phase_train_kernels() -> dict:
         check(bwd_plan_of_library(rows, d) == bwd_plan(rows, d),
               f"K11's plan at ({rows}, {d}): library {bwd_plan_of_library(rows, d)}, "
               f"ops/cuda/layernorm.bwd_plan {bwd_plan(rows, d)}")
+        check(fwd_plan_of_library(rows, d) == fwd_plan(rows, d),
+              f"K1's plan at ({rows}, {d}): library {fwd_plan_of_library(rows, d)}, "
+              f"ops/cuda/layernorm.fwd_plan {fwd_plan(rows, d)}")
         x = randn((rows, d), dtype, 3.0, 1.0)
         w, b = randn((d,), dtype, 1.0, 1.0), randn((d,), dtype)
         dy = randn((rows, d), dtype)
@@ -1646,12 +1693,15 @@ def compare_ids(label: str, z, codebook, got, want, share: float) -> float:
 def phase_vq_kernel() -> dict:
     """K14 against its plain version: the VQ path's shape (256 tokens x
     B = 64, 8, 1 rows of 256-wide latents against 8192 codes) in bf16, B = 8
-    in fp32, ragged row and code counts, and an exact tie. Returns the case
-    records; the first is the B = 64 shape."""
+    in fp32, ragged row and code counts, the bf16 search's plan edges, and
+    an exact tie. Returns the case records; the first is the B = 64
+    shape."""
     import torch
 
-    from tae_tpu_torch.ops.cuda.quantizer import (nearest_code,
-                                                  nearest_code_reference)
+    from tae_tpu_torch.ops.cuda.quantizer import (CODES as VQ_TILE_CODES,
+                                                  nearest_code,
+                                                  nearest_code_reference,
+                                                  vq_plan, vq_plan_of_library)
 
     gen = torch.Generator(device="cuda").manual_seed(9753)
     cases = []
@@ -1684,6 +1734,21 @@ def phase_vq_kernel() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         case(100, 130, 32, dtype, False)
         case(1000, 777, 1024, dtype, False)
+    # the bf16 search's edges: rows one and off a 64-row block, codes one and
+    # either side of a 128-code tile, widths of one vector, part of a second
+    # 64-column step and past z's resident widths (z rides the ring); the
+    # launch plan held against the library's at each
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (1, 65, 129):
+        for k in (1, VQ_TILE_CODES - 1, VQ_TILE_CODES + 1):
+            for v in (8, 72, 1480):
+                check(vq_plan_of_library(m, v, k, sms) == vq_plan(m, v, k, sms),
+                      f"K14's plan at ({m}, {v}) x ({k}, {v}): library "
+                      f"{vq_plan_of_library(m, v, k, sms)}, ops/cuda/quantizer."
+                      f"vq_plan {vq_plan(m, v, k, sms)}")
+                case(m, k, v, torch.bfloat16, False)
+    print(f"[kernels] K14 bf16 edges: 27 shapes, plans "
+          f"{vq_plan(129, 1480, VQ_TILE_CODES + 1, sms)} at the widest")
     # one code four times, and all distances equal: the lowest index
     for dtype in (torch.bfloat16, torch.float32):
         cb = torch.randn((700, 64), generator=gen, device="cuda").to(dtype)

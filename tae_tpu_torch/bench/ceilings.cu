@@ -1,6 +1,9 @@
 // Ceilings of one Hopper card for the kernels' building blocks:
 //   * mma.sync int8 issue rate, m16n8k16 and m16n8k32, and bf16 m16n8k16
 //     with fp32 accumulators (the attention bodies'), register operands only;
+//   * wgmma m64nNk16 bf16 with fp32 accumulators (the codebook search's),
+//     both operands from 128-byte-swizzled shared memory, two warpgroups a
+//     block, four k16 products a group and one group in flight;
 //   * a three-stage cp.async ring streaming L2-resident tiles into shared
 //     memory with one barrier per step and no compute, as the int8 GEMM
 //     body's ring (int8_common.cuh) runs it.
@@ -11,6 +14,8 @@
 #include <cstdlib>
 #include <cuda_runtime.h>
 #include <cuda_pipeline.h>
+
+#include "../csrc/common.cuh"
 
 template <int K32>
 __global__ void __launch_bounds__(256) mma_rate(int iters, int* out) {
@@ -49,6 +54,34 @@ __global__ void __launch_bounds__(256) mma_rate_bf16(int iters, float* out) {
   }
   float s = 0.f;
   for (int i = 0; i < 8; ++i) for (int j = 0; j < 4; ++j) s += c[i][j];
+  if (s == 1.2345f) out[0] = s;
+}
+
+template <int N>
+__global__ void __launch_bounds__(256) wgmma_rate(int iters, float* out) {
+  using namespace tae::sm90;
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = raw + ((1024u - (tae::smem_addr(raw) & 1023u)) & 1023u);
+  for (int i = threadIdx.x; i < (2 * 64 + N) * 128 / 16; i += 256)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  const uint64_t da = desc_sw128(smem + wg * 64 * 128), db = desc_sw128(smem + 2 * 64 * 128);
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_bf16<N>(acc, da + 2 * k, db + 2 * k, 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s += acc[i];
   if (s == 1.2345f) out[0] = s;
 }
 
@@ -109,6 +142,22 @@ int main(int argc, char** argv) {
     double ops = mmas * 2.0 * 16 * 8 * 16;
     printf("mma m16n8k16 bf16 -> f32, %d blocks of 8 warps per SM: %.3f ms, %.1f TFLOP/s, %.3f mma/clk/SM (at %.3f GHz)\n",
            bps, ms, ops / ms / 1e9, mmas / sms / (ms * 1e-3 * ghz * 1e9), ghz);
+  }
+  for (int n = 128; n <= 256; n *= 2) {
+    const int iters = 20000, blocks = sms, smem = (2 * 64 + n) * 128 + 1024;
+    auto kernel = n == 128 ? wgmma_rate<128> : wgmma_rate<256>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    for (int rep = 0; rep < 2; ++rep) {
+      cudaEventRecord(e0);
+      kernel<<<blocks, 256, smem>>>(iters, reinterpret_cast<float*>(out));
+      cudaEventRecord(e1); cudaEventSynchronize(e1);
+    }
+    cudaEventElapsedTime(&ms, e0, e1);
+    const double wgmmas = (double)blocks * 2 * iters * 4;
+    const double ops = wgmmas * 2.0 * 64 * n * 16;
+    printf("wgmma m64n%dk16 bf16 -> f32, 2 warpgroups a block, a block per SM: %.3f ms, %.1f TFLOP/s, "
+           "%.0f FLOP/clk/SM (at %.3f GHz)\n",
+           n, ms, ops / ms / 1e9, ops / sms / (ms * 1e-3 * ghz * 1e9), ghz);
   }
   int8_t* src; size_t src_bytes = 8u << 20; cudaMalloc(&src, src_bytes); cudaMemset(src, 1, src_bytes);
   for (int tile = 8192; tile <= 32768; tile *= 2) for (int bps = 1; bps <= 2; ++bps) {

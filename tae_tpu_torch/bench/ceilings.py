@@ -1,7 +1,8 @@
 """Build and run ``ceilings.cu``: what one Hopper card can do at most for the
-int8 kernels' two building blocks (``mma.sync`` int8 issue rate; a
-three-stage ``cp.async`` ring from L2 into shared memory). The kernels'
-times in ``PERF.md`` are read against these.
+kernels' building blocks (``mma.sync`` int8 and bf16 issue rates; the bf16
+``wgmma`` rate from shared memory; a three-stage ``cp.async`` ring from L2
+into shared memory). The kernels' times in ``PERF.md`` are read against
+these.
 
     python -m tae_tpu_torch.bench.ceilings
 

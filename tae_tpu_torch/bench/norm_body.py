@@ -3,9 +3,10 @@ at p128's width, (M, 2560) bf16 at M = 256, 32 and 4 (B = 64, 8, 1), and at
 p16's (16384, 1024), beside an empty kernel launched on K3's grid; K11, the
 LayerNorm backward (``csrc/layernorm.cu``), at (16384, 1024) in bf16 and
 fp32 and at ``p128_train``'s (32, 2560); and K1, the LayerNorm forward, at
-(M, 2560), M = 256 / 32 / 4, beside its bound and ``F.layer_norm``. Each
-measured the same way: a CUDA graph of 20 launches replayed 7 times, median
-/ 20.
+(M, 2560), M = 256 / 32 / 4, and (16384, 1024), its stats form (y, mean,
+rstd) at (32, 2560) and (16384, 1024), beside its bound and the library
+call (``F.layer_norm``, ``aten.native_layer_norm``). Each measured the same
+way: a CUDA graph of 20 launches replayed 7 times, median / 20.
 
 * ``--parent DIR``: the kernels of another checkout (``DIR`` a ``csrc``
   directory, for example of a ``git archive`` of the parent commit),
@@ -15,11 +16,14 @@ measured the same way: a CUDA graph of 20 launches replayed 7 times, median
   ``K11_EDGES``: widths 8, 264, 4096 and past each register body, rows
   that leave a block or a chunk part-filled), K11's dw and db too where
   both chunk the rows alike (from 16384 rows; below, the tree spreads the
-  rows over more chunks and the largest difference is printed), K1's y too
-  (its kernel is not changed). The SASS of K4's
-  and K5's finish passes (``int8_matmul_finish_kernel``,
-  ``int8_mlp_finish_kernel``, which run the first design's
-  ``ln_quant_row``) and of K1's forward must be the parent's.
+  rows over more chunks and the largest difference is printed), K1's y,
+  mean and rstd in both entries too (``K1_EDGES``: widths 8, 264, 4096,
+  4104, fp32 rows whose 4-column vectors leave a lane's last 8-column group
+  half-filled). The SASS of K4's and K5's finish passes
+  (``int8_matmul_finish_kernel``, ``int8_mlp_finish_kernel``, which run the
+  first design's ``ln_quant_row``) and of K1's first design
+  (``layer_norm_fwd_kernel``, which rows past 4096 columns still run) must
+  be the parent's.
 * variants, built from edited copies of the sources: ``loop`` (no register
   body: K3 through the first design's runtime loop on the new launch plan,
   K11 through the first design's three launches), ``warps1``, ``warps2``,
@@ -31,12 +35,14 @@ measured the same way: a CUDA graph of 20 launches replayed 7 times, median
   / ``l2ahead4`` / ``l2ahead6`` (that prefetch 3, 4 or 6 rows ahead, not
   2); ``affine_late`` (K3 reading gamma and beta at the affine step at
   every width), ``finish32`` (K11's finish loading 32 chunks at once, not
-  64); and diagnostics whose outputs are not compared: ``k3_stats_only``
+  64), ``k1_loop`` (K1 through its first design's runtime loop on the new
+  launch plan: the loop kernel's rows a block taken from its launch); and
+  diagnostics whose outputs are not compared: ``k3_stats_only``
   (K3 stops once it has the row's statistics: the loads, the two sums and
   their reductions), ``k11_no_finish`` (K11 without its finish launch).
 
 Prints the card's name and power limit, ptxas's registers and spills of
-K3's and K11's register-body instantiations, the library's plans at each
+K3's, K1's and K11's register-body instantiations, the library's plans at each
 timed shape, each kernel's time beside its bound, its plain version's and
 the library call's (``F.layer_norm``, its backward), and a fingerprint of
 the finish passes' SASS (what ``chip_smoke.py`` holds them to).
@@ -68,7 +74,8 @@ from tae_tpu_torch.ops.cuda import build
 from tae_tpu_torch.ops.cuda.int8_block import ln_quant_plan, ln_quant_reference
 from tae_tpu_torch.ops.cuda.layernorm import bwd_row_chunks
 from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
-                                         layer_norm_reference)
+                                         layer_norm_reference,
+                                         layer_norm_stats_reference)
 
 HBM_BYTES_PER_S = 3.35e12
 P128_ROWS = (256, 32, 4)
@@ -82,10 +89,17 @@ K3_EDGES = ((1, 8, BF16), (129, 264, BF16), (1001, 1024, F32), (7, 2048, BF16),
             (3, 4096, BF16), (5, 4104, BF16), (130, 2568, F32))
 K11_EDGES = ((1, 8, BF16), (129, 264, BF16), (1001, 2560, BF16), (512, 2048, BF16),
              (2048, 1024, F32), (129, 2560, F32), (7, 4096, BF16), (130, 2568, BF16))
+# K1's untimed shapes, each through both entries: one group, part of a
+# second, fp32 rows whose 4-column vectors end inside a lane's 8-column
+# group (264, 1032, 2568), p128's width in fp32, the widest register row
+# and the first width past it (the first design), rows off a block
+K1_EDGES = ((1, 8, BF16), (1, 8, F32), (129, 264, BF16), (129, 264, F32), (7, 1032, F32),
+            (1001, 2560, F32), (130, 2568, F32), (5, 4096, BF16), (5, 4096, F32),
+            (3, 4104, BF16), (3, 4104, F32))
 # the kernels whose SASS the tree must share with the parent
 SAME_SASS = ("int8_matmul_finish_kernel", "int8_mlp_finish_kernel", "layer_norm_fwd_kernel")
 # the register bodies' instantiations, for ptxas's report
-BODIES = ("ln_quant_regs_kernel", "layer_norm_bwd_rows_kernel")
+BODIES = ("ln_quant_regs_kernel", "layer_norm_fwd_rows_kernel", "layer_norm_bwd_rows_kernel")
 
 HEADER = "row_norm.cuh"
 # variant -> ([(file of csrc/, text, replacement), ...], what is compared:
@@ -112,6 +126,19 @@ VARIANTS = {
     # K11's finish loading 32 chunks at once, not 64
     "finish32": ([("layernorm.cu", "  constexpr int kBatch = 64;",
                    "  constexpr int kBatch = 32;")], "all"),
+    # K1's first design (its runtime loop) on the register body's launch plan
+    "k1_loop": ([(HEADER, "constexpr int kFwdMaxNv = 16;", "constexpr int kFwdMaxNv = 0;"),
+                 ("layernorm.cu",
+                  "  const long row = static_cast<long>(blockIdx.x) * kWarpsPerBlock + warp;\n"
+                  "  if (row >= rows) return;\n  const T* xr = x + row * cols;\n"
+                  "  T* yr = y + row * cols;",
+                  "  const long row = static_cast<long>(blockIdx.x) * (blockDim.x / 32) + warp;\n"
+                  "  if (row >= rows) return;\n  const T* xr = x + row * cols;\n"
+                  "  T* yr = y + row * cols;"),
+                 ("layernorm.cu",
+                  "<<<(rows + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0, stream>>>(",
+                  "<<<p.blocks, p.warps * 32, 0, stream>>>(")],
+                "all"),
     # diagnostics, outputs not compared: K11 without its finish launch
     "k11_no_finish": ([("layernorm.cu",
                         "  if (rc != 0) return rc;\n  layer_norm_bwd_finish_kernel<W>",
@@ -246,18 +273,35 @@ def cases(gen, tree):
         name = str(dtype).split(".")[1]
         out.append((f"K11 ({m}, {d}) {name}", "k11", call, bnd, timed, m))
 
-    def k1(m, d):
-        x = randn((m, d), BF16, 3.0, 1.0)
-        w, b = randn((d,), BF16, 1.0, 1.0), randn((d,), BF16)
+    def k1(m, d, dtype, timed, stats=False):
+        x = randn((m, d), dtype, 3.0, 1.0)
+        w, b = randn((d,), dtype, 1.0, 1.0), randn((d,), dtype)
+        code = build.dtype_code(dtype)
 
         def call(lib):
             y = torch.empty_like(x)
-            build.check(lib.tae_layer_norm_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                               y.data_ptr(), m, d, EPS, 1, 1, stream()), "K1")
-            return (y,)
-        call.plain = lambda: layer_norm_reference(x, w, b, EPS)
-        call.library = lambda: F.layer_norm(x, (d,), w, b, EPS)
-        out.append((f"K1 ({m}, {d}) bfloat16", "k1", call, bound_ms(x, w, b, x), True, m))
+            if not stats:
+                build.check(lib.tae_layer_norm_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                                   y.data_ptr(), m, d, EPS, code, code,
+                                                   stream()), "K1")
+                return (y,)
+            mean = torch.empty(m, dtype=F32, device="cuda")
+            rstd = torch.empty(m, dtype=F32, device="cuda")
+            build.check(lib.tae_layer_norm_fwd_stats(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                rstd.data_ptr(), m, d, EPS, code, code, stream()), "K1 stats")
+            return y, mean, rstd
+        if stats:
+            call.plain = lambda: layer_norm_stats_reference(x, w, b, EPS)
+            call.library = lambda: torch.ops.aten.native_layer_norm(x, [d], w, b, EPS)
+            bnd = bound_ms(x, w, b, x) + 8 * m / HBM_BYTES_PER_S * 1e3
+        else:
+            call.plain = lambda: layer_norm_reference(x, w, b, EPS)
+            call.library = lambda: F.layer_norm(x, (d,), w, b, EPS)
+            bnd = bound_ms(x, w, b, x)
+        name = str(dtype).split(".")[1]
+        form = " stats" if stats else ""
+        out.append((f"K1{form} ({m}, {d}) {name}", "k1", call, bnd, timed, m))
 
     for m in P128_ROWS:
         k3(m, 2560, BF16, True)
@@ -270,7 +314,13 @@ def cases(gen, tree):
     for m, d, dtype in K11_EDGES:
         k11(m, d, dtype, False)
     for m in P128_ROWS:
-        k1(m, 2560)
+        k1(m, 2560, BF16, True)
+    k1(32, 2560, BF16, True, stats=True)
+    k1(16384, 1024, BF16, True)
+    k1(16384, 1024, BF16, True, stats=True)
+    for m, d, dtype in K1_EDGES:
+        k1(m, d, dtype, False)
+        k1(m, d, dtype, False, stats=True)
     return out
 
 
@@ -294,6 +344,12 @@ def print_plans(tag: str, lib) -> None:
         build.check(lib.tae_ln_quant_plan(m, d, out), "tae_ln_quant_plan")
         print(f"[{tag}] K3 plan ({m}, {d}): nv {out[1]}, {out[2]} warps a block, "
               f"{out[3]} blocks", flush=True)
+    for m, d in [(m, 2560) for m in P128_ROWS] + [(16384, 1024), (5, 4104)]:
+        if hasattr(lib, "tae_layer_norm_fwd_plan"):
+            out = (ctypes.c_int * 4)()
+            build.check(lib.tae_layer_norm_fwd_plan(m, d, out), "tae_layer_norm_fwd_plan")
+            print(f"[{tag}] K1 plan ({m}, {d}): nv {out[1]}, {out[2]} warps a block, "
+                  f"{out[3]} blocks", flush=True)
     for m, d in ((16384, 1024), (32, 2560), (1001, 2560)):
         out = (ctypes.c_int * 8)()
         build.check(lib.tae_layer_norm_bwd_plan(m, d, out), "tae_layer_norm_bwd_plan")
@@ -394,7 +450,7 @@ def main(argv: list[str]) -> int:
             same, note = compare(kind, what if alike else "dx", mine, theirs)
             ok &= same
             line = f"[{name}] {label}"
-            if timed and kind != "k1":
+            if timed:
                 times = {0: [], 1: []}
                 for k, which in ((0, tree), (1, lib), (1, lib), (0, tree)):
                     times[k].append(time_ms(lambda: call(which)))

@@ -9,11 +9,27 @@
 // What bounds it on the H100: device-memory bytes. Each row is read once
 //   from HBM and written once; there is no tensor-core work. At the slice's
 //   shape (B*256 rows of 1024) a row is 2 KB in bf16.
-// What the design does about it: one warp per row, 16-byte vector loads and
-//   stores, warp-shuffle reductions, no shared memory and no block-wide
-//   barrier. The three passes over a row (sum, centred sum of squares,
-//   normalise) re-read it from L1 rather than HBM, so HBM traffic stays one
-//   read and one write. The row width must be a multiple of 8 elements.
+// What the design does about it (layer_norm_fwd_rows_kernel; plan in
+//   row_norm.cuh, K3's): one warp a row, the row held in registers as the
+//   16-byte vectors of the first design's loop (a lane's vector m at columns
+//   (32 m + lane) * V, V = 8 in bf16 and 4 in fp32), all of a lane's loads
+//   issued in one unrolled burst, and gamma and beta with them where K3
+//   measured that this helps: one memory round trip a row, then the sum,
+//   the centred sum of squares and the normalise on registers, warp-shuffle
+//   reductions, no shared memory and no block-wide barrier. Each lane meets
+//   its columns in the first design's order and every expression keeps its
+//   form (sum / cols, rsqrtf(q / cols + eps), (v - mean) * rstd * w + b), so
+//   y, mean and rstd are that design's bit for bit. 1, 2 or 4 rows a block
+//   (4 from 256 rows on), so that few rows spread over the SMs. Rows wider
+//   than 4096 columns take the first design, layer_norm_fwd_kernel: 4 warps
+//   a block, three passes over the row through a runtime loop (sum, centred
+//   sum of squares, normalise), re-read from L1. The row width must be a
+//   multiple of 8 elements. Measured in turns with the first design
+//   (bench/norm_body.py --parent; H100 80GB HBM3, 700 W): (M, 2560) bf16 at
+//   M = 256 / 32 / 4 0.0035 / 0.0032 / 0.0031 ms against 0.0060 / 0.0059 /
+//   0.0057 (F.layer_norm 0.0054 / 0.0050 / 0.0050), (16384, 1024) 0.0259
+//   against 0.0339; the first design's loop on this plan (k1_loop) keeps
+//   the first design's time: the gain is the register row's.
 //
 // K11 replaces: tae_tpu/ops/pallas/layernorm.py::_fln_bwd (_bwd_kernel).
 // Numerics, all in fp32: xhat = (x - mean) * rstd, g = dy * w,
@@ -96,6 +112,85 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
       v[k] = (v[k] - mean) * rstd * tae::to_float(w[i + k]) + tae::to_float(b[i + k]);
     }
     tae::store_vec(yr + i, v);
+  }
+}
+
+// The register body: a lane holds its row's 16-byte vectors m < NV * 8 / V
+// at columns (32 m + lane) * V; gamma and beta come with x's burst where
+// they fit beside it (lnq_affine_first), else at the normalise (from L1 /
+// L2: every row of the card reads them).
+template <typename T, typename W, int NV>
+__global__ void __launch_bounds__(tae::rownorm::kFwdMaxWarps * 32,
+                                  tae::rownorm::fwd_min_blocks(NV, sizeof(T)))
+layer_norm_fwd_rows_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                           const W* __restrict__ b, T* __restrict__ y,
+                           float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                           int rows, int cols, float eps) {
+  constexpr int V = tae::Vec<T>::kN;
+  constexpr int NVEC = NV * 8 / V;
+  constexpr bool kAffineFirst = tae::rownorm::lnq_affine_first(NV, sizeof(T), sizeof(W));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long row = static_cast<long>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (row >= rows) return;
+  const T* xr = x + row * cols;
+  uint4 xu[NVEC];
+  tae::rownorm::Affine<W, V> wa[NVEC], ba[NVEC];
+#pragma unroll
+  for (int m = 0; m < NVEC; ++m) {
+    const int i = (m * 32 + lane) * V;
+    if (i < cols) {
+      xu[m] = *reinterpret_cast<const uint4*>(xr + i);
+      if (kAffineFirst) {
+        wa[m].load(w + i);
+        ba[m].load(b + i);
+      }
+    }
+  }
+  float v[NVEC][V];
+  float sum = 0.f;
+#pragma unroll
+  for (int m = 0; m < NVEC; ++m) {
+    if ((m * 32 + lane) * V < cols) {
+      tae::rownorm::unpack16<T>(xu[m], v[m]);
+#pragma unroll
+      for (int k = 0; k < V; ++k) sum += v[m][k];
+    }
+  }
+  const float mean = tae::warp_sum(sum) / cols;
+
+  float sq = 0.f;
+#pragma unroll
+  for (int m = 0; m < NVEC; ++m) {
+    if ((m * 32 + lane) * V < cols) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float d = v[m][k] - mean;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(tae::warp_sum(sq) / cols + eps);
+  if (mean_out != nullptr && lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+
+  T* yr = y + row * cols;
+#pragma unroll
+  for (int m = 0; m < NVEC; ++m) {
+    const int i = (m * 32 + lane) * V;
+    if (i < cols) {
+      if (!kAffineFirst) {
+        wa[m].load(w + i);
+        ba[m].load(b + i);
+      }
+      float g[V], c[V];
+      wa[m].get(g);
+      ba[m].get(c);
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[m][k] = (v[m][k] - mean) * rstd * g[k] + c[k];
+      tae::store_vec(yr + i, v[m]);
+    }
   }
 }
 
@@ -499,11 +594,37 @@ int launch_bwd(const tae::rownorm::BwdPlan& p, const void* x, const void* w,
 template <typename T, typename W>
 int launch(const void* x, const void* w, const void* b, void* y, void* mean,
            void* rstd, int rows, int cols, float eps, cudaStream_t stream) {
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  layer_norm_fwd_kernel<T, W><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<const W*>(b),
-      static_cast<T*>(y), static_cast<float*>(mean), static_cast<float*>(rstd), rows,
-      cols, eps);
+  tae::rownorm::FwdPlan p;
+  if (!tae::rownorm::layer_norm_fwd_plan(rows, cols, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const W* wp = static_cast<const W*>(w);
+  const W* bp = static_cast<const W*>(b);
+  T* yp = static_cast<T*>(y);
+  float* mp = static_cast<float*>(mean);
+  float* rp = static_cast<float*>(rstd);
+  switch (p.nv) {
+    case 0:  // the first design
+      layer_norm_fwd_kernel<T, W>
+          <<<(rows + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0, stream>>>(
+              xp, wp, bp, yp, mp, rp, rows, cols, eps);
+      break;
+#define TAE_FWD_CASE(NV)                                                           \
+  case NV:                                                                         \
+    layer_norm_fwd_rows_kernel<T, W, NV><<<p.blocks, p.warps * 32, 0, stream>>>(   \
+        xp, wp, bp, yp, mp, rp, rows, cols, eps);                                  \
+    break;
+    TAE_FWD_CASE(1)
+    TAE_FWD_CASE(2)
+    TAE_FWD_CASE(4)
+    TAE_FWD_CASE(8)
+    TAE_FWD_CASE(10)
+    TAE_FWD_CASE(12)
+    TAE_FWD_CASE(16)
+#undef TAE_FWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,6 +696,19 @@ extern "C" int tae_layer_norm_bwd(const void* x, const void* w, const void* mean
     return launch_bwd<__nv_bfloat16, __nv_bfloat16>(p, x, w, mean, rstd, dy, dx, dw, db, part,
                                                     rows, cols, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1's plan for (rows, cols) (row_norm.cuh): out[0] 1 where the kernels
+// take the shape (else 0, and nothing more is written), out[1] nv (0: the
+// first design), out[2] warps a block, out[3] blocks.
+extern "C" int tae_layer_norm_fwd_plan(int rows, int cols, int* out) {
+  tae::rownorm::FwdPlan p;
+  out[0] = tae::rownorm::layer_norm_fwd_plan(rows, cols, p) ? 1 : 0;
+  if (!out[0]) return 0;
+  out[1] = p.nv;
+  out[2] = p.warps;
+  out[3] = p.blocks;
+  return 0;
 }
 
 // K11's plan for (rows, cols) (row_norm.cuh): out[0] 1 where the kernels

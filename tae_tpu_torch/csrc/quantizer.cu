@@ -6,48 +6,54 @@
 //   distances. The (M, K) distance matrix never reaches device memory.
 // What bounds it on the H100: tensor-core operations at the serving shape
 //   (2 * M * K * V = 6.9e10 at M = 16384, K = 8192, V = 256; the inputs are
-//   12 MB).
-// What the design does about it. nearest_code_norms_kernel writes |c_k|^2 in
-//   fp32 once per call (a warp per code). bf16: a block keeps its rows of z
-//   in shared memory and streams the codebook through a four-stage cp.async
-//   ring as one flat sequence of (64 codes x 64 columns) tiles, so the ring
-//   never drains between code tiles; the product is mma.sync.m16n8k16
-//   (bf16, fp32 accumulate), whose documented register layout lets each
-//   thread turn its scores into distances and keep a running (min, argmin)
-//   for its four rows in registers. A thread meets its columns in ascending
-//   order and replaces only on <; the lanes and warps that share a row are
-//   merged at the end by comparing (distance, index) pairs, so the lowest
-//   index wins every tie. Codes beyond K get the distance 3.4e38 and never
-//   win; rows beyond M are zero-filled and not written. fp32 inputs take a
-//   plain CUDA-core kernel (16 rows a block, a thread per code of a 64-code
-//   tile): right, not fast. Few rows make few blocks (M = 256 is 8 of
-//   32 rows), each streaming the whole codebook at one SM's rate: there the
-//   bf16 kernel splits the codebook over the grid's second axis, each block
-//   searching a contiguous range of code tiles, and a merge kernel takes
-//   each row's (distance, index) pairs in code order, so the lowest index
-//   still wins a tie across the ranges.
-// Latents too wide for a block's rows of z to stay in shared memory (V above
-//   1,472 at 64 rows, 2,944 at 32; the registry's vocab-4096 and -16384
-//   configs)
-//   take the same kernels with z tiled over V as well: each pipeline step
-//   stages the z tile of its 64 columns beside the code tile, and the
-//   partial dot products of the V tiles add up in the fp32 accumulators
-//   before the running (min, argmin) sees a code. z is read from L2 once per
-//   code tile instead of once.
-#include <cuda_pipeline.h>
+//   12 MB); where z is too wide to stay in shared memory, what the SMs can
+//   take from L2 (z's and the codebook's slabs, restaged for every code
+//   range and row block).
+// What the design does about it (nearest_code_wgmma_kernel; plan in
+//   quantizer.cuh). nearest_code_norms_kernel writes |c_k|^2 in fp32 once
+//   per call (a warp per code), and 3.4e38 for the codes past K up to a
+//   whole tile. bf16: a block is one producer warp and one or two consumer
+//   warpgroups of 64 rows. The producer issues TMA loads
+//   (cp.async.bulk.tensor from tensor maps the launcher encodes each call
+//   and passes as __grid_constant__ parameters, 128-byte swizzle, zeros
+//   past M, K and V) into an mbarrier ring of codebook slabs (128 codes x 64
+//   columns) as the flat sequence of (code tile, 64-column step) of the
+//   block's range, so the ring never drains between tiles; z's slabs are
+//   loaded once where they fit beside the ring, else z's 64 columns ride
+//   each slot; each tile's norms ride its last step's slot by a bulk copy.
+//   The consumers run wgmma.mma_async m64n128k16 (bf16, fp32 accumulate),
+//   both operands K-major from shared memory: four k16 products a step, one
+//   group in flight while the previous step's slot is released. After a
+//   tile's last step a thread holds the m64n128 accumulator in mma.sync's C
+//   layout per 8 codes (rows 16 w + g, + 8; codes 8 j + 2 t + {0, 1}),
+//   turns it into distances |c|^2 - 2 acc in one rounding (as the first
+//   design's product and difference: 2 acc is exact) and keeps a running
+//   (min, argmin) for its two rows, meeting its codes in ascending order and
+//   replacing only on <; the four lanes of a row are merged by (distance,
+//   index) pairs, so the lowest index wins every tie. A code past K has a
+//   zero row, so a product of 0 and the distance 3.4e38: it never wins.
+//   Rows past M are zero-filled and not written. Few rows make few row
+//   blocks (M = 256: four of 64 rows), each streaming the whole codebook at
+//   one SM's rate: there the codebook is split over the grid's second axis,
+//   each block searching a contiguous range of code tiles, and a merge
+//   kernel takes each row's (distance, index) pairs in code order, so the
+//   lowest index still wins a tie across the ranges.
+//   fp32 inputs take a plain CUDA-core kernel (16 rows a block, a thread
+//   per code of a 64-code tile, z resident where it fits and tiled over V
+//   otherwise): right, not fast.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "quantizer.cuh"
 
 namespace {
 
 using namespace tae;
+using vq::round_up;
 
 constexpr float kBig = 3.4e38f;   // larger than any real distance
 constexpr int kNT = 256;
-constexpr int kTile = 64;         // codes per tile, columns per pipeline step
-constexpr int kStages = 4;
-constexpr int kLdC = kTile + 8;   // bf16 row stride of a codebook tile
+constexpr int kTile = 64;         // codes of the fp32 kernel's tile
 constexpr int kSmemLimit = 232448;
 
 // (d2, i2) replaces (d, i) if it is nearer, or as near with a lower index
@@ -58,199 +64,175 @@ __device__ __forceinline__ void take_better(float& d, int& i, float d2, int i2) 
   }
 }
 
+// |c|^2 of codes [0, k), and `pad` for [k, kp): the bf16 search reads
+// whole tiles of norms, and a code past K (a zero row, so that its product
+// is 0) takes pad (kBig) for its distance and never wins.
 template <typename T>
 __global__ void __launch_bounds__(kNT) nearest_code_norms_kernel(const T* __restrict__ cb,
                                                                  float* __restrict__ cn, int k,
-                                                                 int v) {
+                                                                 int kp, int v, float pad) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long code = static_cast<long>(blockIdx.x) * (kNT / 32) + warp;
-  if (code >= k) return;
+  if (code >= kp) return;
   float s = 0.f;
-  for (int i = lane; i < v; i += 32) {
+  for (int i = lane; code < k && i < v; i += 32) {
     const float c = to_float(cb[code * v + i]);
     s += c * c;
   }
   s = warp_sum(s);
-  if (lane == 0) cn[code] = s;
+  if (lane == 0) cn[code] = code < k ? s : pad;
 }
 
-__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
-__host__ __device__ constexpr int bf16_smem(int bm, int v) {
-  return bm * (round_up(v, kTile) + 8) * 2 + kStages * kTile * kLdC * 2;
-}
-// z tiled over V: every ring slot holds a code tile and the block's z tile
-__host__ __device__ constexpr int bf16_stream_smem(int bm) {
-  return kStages * (bm + kTile) * kLdC * 2;
-}
-
-// BM rows of z per block (32, 64 or 128), 8 warps as (BM / 32) x (256 / BM):
-// a warp owns 32 rows and 64 / (256 / BM) codes of every tile. ZS: z tiled
-// over V through the ring; otherwise the block's z rows stay resident.
-template <int BM, bool ZS>
-__global__ void __launch_bounds__(kNT)
-nearest_code_bf16_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ cb,
-                         const float* __restrict__ cn, long long* __restrict__ out,
-                         float* __restrict__ ws_d, int* __restrict__ ws_i, int m, int v, int k,
-                         int tiles_per_split) {
-  constexpr int WARPS_M = BM / 32, WARPS_N = kNT / 32 / WARPS_M;
-  constexpr int WN = kTile / WARPS_N, NI = WN / 8;
-  static_assert(WN % 8 == 0, "a warp holds whole 8-code fragments");
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kSlot = (ZS ? BM + kTile : kTile) * kLdC;  // elements of a ring slot
-  const int vp = round_up(v, kTile), ldz = ZS ? kLdC : vp + 8;
-  __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ring = zs + (ZS ? 0 : BM * ldz);
-
+// The bf16 search. NC consumer warpgroups (64 rows each) and one producer
+// warp; ZS: z rides the ring (else its slabs stay resident). per: code
+// tiles of the block's range (blockIdx.y); p_stages: ring slots (the
+// plan's). ws_d / ws_i: the ranges' per-row bests, where the codebook is
+// split (null otherwise: ids go to out).
+template <int NC, bool ZS>
+__global__ void __launch_bounds__(NC * 128 + 32, 1)
+nearest_code_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
+                          const __grid_constant__ CUtensorMap cmap, const float* __restrict__ cn,
+                          long long* __restrict__ out, float* __restrict__ ws_d,
+                          int* __restrict__ ws_i, int m, int v, int k, int per,
+                          int p_stages) {
+  using namespace sm90;
+  constexpr int BN = vq::kCodes, BM = 64 * NC, kCols = vq::kCols;
+  constexpr int kZSlab = BM * kCols * 2, kCSlab = BN * kCols * 2;
+  constexpr int kSlot = vq::slot_bytes(BM, BN, !ZS);
+  constexpr int kNorms = kCSlab + (ZS ? kZSlab : 0);  // the tile's norms in a slot
+  __shared__ __align__(8) uint64_t full[vq::kMaxStages], empty[vq::kMaxStages], zfull;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled slabs start on 1024-byte boundaries
+  unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int ksteps = (v + kCols - 1) / kCols;
+  unsigned char* ring = smem + (ZS ? 0 : ksteps * kZSlab);
+  const int tile0 = blockIdx.y * per;
+  const int tiles = min(per, (k + BN - 1) / BN - tile0);
   const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int g = lane / 4, t = lane % 4;
-  // this block's range of code tiles (the whole codebook unless split)
-  const int ksteps = vp / kTile, tile0 = blockIdx.y * tiles_per_split;
-  const int tiles = min(tiles_per_split, (k + kTile - 1) / kTile - tile0);
-  const int steps = tiles * ksteps;
+  // the warp index through a shuffle, so that the compiler knows it is the
+  // same across the warp: wgmma on a path it takes for divergent is
+  // serialized
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 32), 0);
+  const int lane = threadIdx.x % 32;
 
-  // the block's rows of z, zero beyond m and beyond v
-  for (int c = threadIdx.x; !ZS && c < BM * (vp / 8); c += kNT) {
-    const int r = c / (vp / 8), col = (c % (vp / 8)) * 8;
-    __nv_bfloat16* d = zs + r * ldz + col;
-    if (row0 + r < m && col < v) {
-      __pipeline_memcpy_async(d, z + static_cast<long>(row0 + r) * v + col, 16);
-    } else {
-      *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p_stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);  // each consumer warpgroup
     }
+    mbar_init(&zfull, 1);
+    mbar_init_fence();
   }
-  auto stage = [&](int step) {
-    const int code0 = (tile0 + step / ksteps) * kTile, col0 = (step % ksteps) * kTile;
-    __nv_bfloat16* slot = ring + (step % kStages) * kSlot;
-    for (int c = threadIdx.x; c < kTile * (kTile / 8); c += kNT) {
-      const int r = c / (kTile / 8), col = col0 + (c % (kTile / 8)) * 8;
-      __nv_bfloat16* d = slot + r * kLdC + (col - col0);
-      if (code0 + r < k && col < v) {
-        __pipeline_memcpy_async(d, cb + static_cast<long>(code0 + r) * v + col, 16);
-      } else {
-        *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+  __syncthreads();
+
+  if (warp == NC * 4) {
+    // the producer warp, whole (its lanes never wait apart from each
+    // other), one lane issuing the copies
+    if (!ZS && lane == 0) {
+      mbar_expect_tx(&zfull, ksteps * kZSlab);
+      for (int s = 0; s < ksteps; ++s)
+        tma_load_2d(smem + s * kZSlab, &zmap, &zfull, s * kCols, row0);
+    }
+    int stage = 0;
+    unsigned phase = 0;
+    for (int step = 0; step < tiles * ksteps; ++step) {
+      const int ks = step % ksteps;
+      const int code0 = (tile0 + step / ksteps) * BN;
+      unsigned char* slot = ring + stage * kSlot;
+      mbar_wait(&empty[stage], phase ^ 1u);  // released by every consumer
+      if (lane == 0) {
+        const bool last = ks == ksteps - 1;
+        mbar_expect_tx(&full[stage], kCSlab + (ZS ? kZSlab : 0) + (last ? BN * 4 : 0));
+        tma_load_2d(slot, &cmap, &full[stage], ks * kCols, code0);
+        if (ZS) tma_load_2d(slot + kCSlab, &zmap, &full[stage], ks * kCols, row0);
+        if (last) bulk_load(slot + kNorms, cn + code0, BN * 4, &full[stage]);
+      }
+      __syncwarp();
+      if (++stage == p_stages) {
+        stage = 0;
+        phase ^= 1u;
       }
     }
-    for (int c = threadIdx.x; ZS && c < BM * (kTile / 8); c += kNT) {
-      const int r = c / (kTile / 8), col = col0 + (c % (kTile / 8)) * 8;
-      __nv_bfloat16* d = slot + (kTile + r) * kLdC + (col - col0);
-      if (row0 + r < m && col < v) {
-        __pipeline_memcpy_async(d, z + static_cast<long>(row0 + r) * v + col, 16);
-      } else {
-        *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+  } else {
+    // a consumer warpgroup: rows row0 + 64 wg ..; thread (w, g, t) holds
+    // rows 16 w + g and + 8 of them
+    const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    float best[2] = {kBig, kBig};
+    int best_i[2] = {0, 0};
+    // one elected thread a warpgroup frees a slot
+    auto release = [&](int s) {
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+    };
+    if (!ZS) mbar_wait(&zfull, 0);
+    int stage = 0, held = -1;
+    unsigned phase = 0;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const unsigned char* slot = nullptr;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        slot = ring + stage * kSlot;
+        mbar_wait(&full[stage], phase);
+        const unsigned char* zs = (ZS ? slot + kCSlab : smem + ks * kZSlab) + wg * 64 * kCols * 2;
+        const uint64_t da = desc_sw128(zs), db = desc_sw128(slot);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kCols / 16; ++kk)
+          wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk, (ks > 0 || kk > 0) ? 1 : 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's products are done with its slot
+        if (held >= 0) release(held);
+        held = stage;
+        if (++stage == p_stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
       }
-    }
-  };
-  // z rides the first group
+      // the tile is whole: distances, then the running (min, argmin)
+      wgmma_wait<0>();
+      // |c|^2 - 2 acc in one rounding, as the first design's
+      // __fsub_rn(norm, __fmul_rn(2, acc)) (2 acc is exact); codes past K
+      // carry the norm kBig and a product of 0, so kBig and never win
+      const int code0 = (tile0 + tile) * BN + 2 * t;
+      const float* sn = reinterpret_cast<const float*>(slot + kNorms) + 2 * t;
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) stage(s);
-    __pipeline_commit();
-  }
-
-  float c[2][NI][4];
-  float best[2][2];
-  int best_i[2][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      best[mi][h] = kBig;
-      best_i[mi][h] = 0;
-    }
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[mi][ni][e] = 0.f;
-  }
-
-  for (int step = 0; step < steps; ++step) {
-    __pipeline_wait_prior(kStages - 2);
-    __syncthreads();
-    if (step + kStages - 1 < steps) stage(step + kStages - 1);
-    __pipeline_commit();
-
-    const __nv_bfloat16* ct = ring + (step % kStages) * kSlot;
-    const __nv_bfloat16* zt = ZS ? ct + kTile * kLdC : zs;
-    const int zc0 = ZS ? 0 : (step % ksteps) * kTile;  // z tile's first column
-#pragma unroll
-    for (int kk = 0; kk < kTile; kk += 16) {
-      unsigned fa[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* ap = zt + (wm * 32 + mi * 16 + g) * ldz + zc0 + kk + 2 * t;
-        fa[mi][0] = *reinterpret_cast<const unsigned*>(ap);
-        fa[mi][1] = *reinterpret_cast<const unsigned*>(ap + 8 * ldz);
-        fa[mi][2] = *reinterpret_cast<const unsigned*>(ap + 8);
-        fa[mi][3] = *reinterpret_cast<const unsigned*>(ap + 8 * ldz + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const __nv_bfloat16* bp = ct + (wn * WN + ni * 8 + g) * kLdC + kk + 2 * t;
-        const unsigned b0 = *reinterpret_cast<const unsigned*>(bp);
-        const unsigned b1 = *reinterpret_cast<const unsigned*>(bp + 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(c[mi][ni], fa[mi], b0, b1);
-      }
-    }
-
-    if (step % ksteps == ksteps - 1) {
-      // a code tile is whole: distances, then the running (min, argmin)
-      const int code0 = (tile0 + step / ksteps) * kTile;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 nn = *reinterpret_cast<const float2*>(sn + 8 * j);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int code = code0 + wn * WN + ni * 8 + 2 * t + e;
-          const float norm = code < k ? cn[code] : 0.f;
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float d =
-                  code < k ? __fsub_rn(norm, __fmul_rn(2.0f, c[mi][ni][2 * h + e])) : kBig;
-              if (d < best[mi][h]) {
-                best[mi][h] = d;
-                best_i[mi][h] = code;
-              }
-              c[mi][ni][2 * h + e] = 0.f;
+          for (int h = 0; h < 2; ++h) {
+            const float d = __fmaf_rn(-2.0f, acc[4 * j + 2 * h + e], e ? nn.y : nn.x);
+            if (d < best[h]) {
+              best[h] = d;
+              best_i[h] = code0 + 8 * j + e;
             }
+          }
         }
+      }
+      named_sync(1 + wg, 128);  // every warp of the warpgroup has read the norms
+      release(held);
+      held = -1;
     }
-  }
-  __syncthreads();   // the ring is free: the merge below reuses it
-
-  // the four lanes of a row, then the warps side by side over the codes
-  float* red_d = reinterpret_cast<float*>(ring);
-  int* red_i = reinterpret_cast<int*>(red_d + WARPS_N * BM);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    // the four lanes of a row
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int o = 1; o <= 2; o <<= 1) {
-        const float d2 = __shfl_xor_sync(0xffffffffu, best[mi][h], o);
-        const int i2 = __shfl_xor_sync(0xffffffffu, best_i[mi][h], o);
-        take_better(best[mi][h], best_i[mi][h], d2, i2);
+        const float d2 = __shfl_xor_sync(0xffffffffu, best[h], o);
+        const int i2 = __shfl_xor_sync(0xffffffffu, best_i[h], o);
+        take_better(best[h], best_i[h], d2, i2);
       }
-      if (t == 0) {
-        const int r = wm * 32 + mi * 16 + g + 8 * h;
-        red_d[wn * BM + r] = best[mi][h];
-        red_i[wn * BM + r] = best_i[mi][h];
+      const int r = row0 + wg * 64 + 16 * w + g + 8 * h;
+      if (t == 0 && r < m) {
+        if (ws_d == nullptr) {
+          out[r] = best_i[h];
+        } else {
+          ws_d[static_cast<long>(blockIdx.y) * m + r] = best[h];
+          ws_i[static_cast<long>(blockIdx.y) * m + r] = best_i[h];
+        }
       }
-    }
-  __syncthreads();
-  for (int r = threadIdx.x; r < BM; r += kNT) {
-    if (row0 + r >= m) break;
-    float d = red_d[r];
-    int i = red_i[r];
-    for (int w = 1; w < WARPS_N; ++w) take_better(d, i, red_d[w * BM + r], red_i[w * BM + r]);
-    if (ws_d == nullptr) {
-      out[row0 + r] = i;
-    } else {
-      ws_d[static_cast<long>(blockIdx.y) * m + row0 + r] = d;
-      ws_i[static_cast<long>(blockIdx.y) * m + row0 + r] = i;
     }
   }
 }
@@ -380,66 +362,70 @@ nearest_code_f32_kernel(const float* __restrict__ z, const float* __restrict__ c
   }
 }
 
-// splits > 1: the codebook's tiles in that many contiguous ranges, one per
-// grid row, their per-row bests in ws (splits x m floats, then as many ints)
-// and merged after.
-template <int BM, bool ZS>
-int launch_bf16(const void* z, const void* cb, const float* cn, long long* out, void* ws,
-                int m, int v, int k, int splits, cudaStream_t stream) {
-  const int smem = ZS ? bf16_stream_smem(BM) : bf16_smem(BM, v);
-  cudaError_t rc = cudaFuncSetAttribute(nearest_code_bf16_kernel<BM, ZS>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int NC, bool ZS>
+int launch_wgmma(const vq::Plan& p, const CUtensorMap& zmap, const CUtensorMap& cmap,
+                 const float* cn, long long* out, float* ws_d, int* ws_i, int m, int v, int k,
+                 cudaStream_t stream) {
+  auto* kernel = nearest_code_wgmma_kernel<NC, ZS>;
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int tiles = (k + kTile - 1) / kTile;
-  const int per = (tiles + splits - 1) / splits;
-  const int ranges = (tiles + per - 1) / per;  // none of them empty
-  float* ws_d = ranges > 1 ? static_cast<float*>(ws) : nullptr;
-  int* ws_i = ranges > 1 ? reinterpret_cast<int*>(ws_d + static_cast<long>(ranges) * m) : nullptr;
-  const dim3 grid((m + BM - 1) / BM, ranges);
-  nearest_code_bf16_kernel<BM, ZS><<<grid, kNT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(cb), cn, out, ws_d,
-      ws_i, m, v, k, per);
-  if (ranges > 1) {
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    nearest_code_merge_kernel<<<(m + kNT - 1) / kNT, kNT, 0, stream>>>(ws_d, ws_i, out, m,
-                                                                       ranges);
-  }
+  kernel<<<dim3(p.blocks, p.splits), NC * 128 + 32, p.smem, stream>>>(
+      zmap, cmap, cn, out, ws_d, ws_i, m, v, k, p.per, p.stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM>
-int launch_bf16_rows(const void* z, const void* cb, const float* cn, long long* out, void* ws,
-                     int m, int v, int k, int splits, cudaStream_t stream) {
-  return bf16_smem(BM, v) <= kSmemLimit
-             ? launch_bf16<BM, false>(z, cb, cn, out, ws, m, v, k, splits, stream)
-             : launch_bf16<BM, true>(z, cb, cn, out, ws, m, v, k, splits, stream);
+// The plan's search, then (splits > 1) the merge of its ranges' per-row
+// bests (ws: splits x m floats, then as many ints).
+int launch_bf16(const vq::Plan& p, const void* z, const void* cb, const float* cn,
+                long long* out, void* ws, int m, int v, int k, cudaStream_t stream) {
+  CUtensorMap zmap, cmap;
+  const uint64_t row_bytes = static_cast<uint64_t>(v) * 2;
+  int rc = tensor_map_bf16_2d(&zmap, z, v, m, row_bytes, vq::kCols, p.rows);
+  if (rc != 0) return rc;
+  rc = tensor_map_bf16_2d(&cmap, cb, v, k, row_bytes, vq::kCols, p.codes);
+  if (rc != 0) return rc;
+  float* ws_d = p.splits > 1 ? static_cast<float*>(ws) : nullptr;
+  int* ws_i = p.splits > 1 ? reinterpret_cast<int*>(ws_d + static_cast<long>(p.splits) * m)
+                           : nullptr;
+  const bool zs = p.resident == 0, two = p.consumers == 2;
+#define TAE_VQ_CASE(NC, ZS)                                                            \
+  if (two == (NC == 2) && zs == ZS)                                                    \
+    rc = launch_wgmma<NC, ZS>(p, zmap, cmap, cn, out, ws_d, ws_i, m, v, k, stream);
+  TAE_VQ_CASE(1, false)
+  TAE_VQ_CASE(1, true)
+  TAE_VQ_CASE(2, false)
+  TAE_VQ_CASE(2, true)
+#undef TAE_VQ_CASE
+  if (rc != 0 || p.splits == 1) return rc;
+  nearest_code_merge_kernel<<<(m + kNT - 1) / kNT, kNT, 0, stream>>>(ws_d, ws_i, out, m,
+                                                                     p.splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // z (m, v) and codebook (k, v) of dtype (bfloat16: v a multiple of 8;
-// float32: of 4), norms a (k,) f32 workspace, out (m,) int64; all
-// contiguous and 16-byte aligned. block_rows: rows of z per block of the
-// bf16 kernel (32, 64 or 128), whose rows of z stay in shared memory where
-// they fit and are tiled over V where they do not; splits: ranges of the
-// codebook searched by separate blocks (bf16; 1: none), with ws a workspace
-// of 2 * splits * m 4-byte words (null when splits is 1). fp32 ignores both.
+// float32: of 4), out (m,) int64; all contiguous and 16-byte aligned. sms:
+// the card's SM count, which the bf16 plan (quantizer.cuh) reads; splits:
+// that plan's ranges of the codebook (1 for float32), with ws a workspace
+// of 2 * splits * m 4-byte words (null when splits is 1). norms: an f32
+// workspace of k values (float32) or of the bf16 plan's whole tiles
+// (ceil(k / codes) * codes).
 extern "C" int tae_nearest_code_fwd(const void* z, const void* cb, void* norms, void* out,
-                                    void* ws, int m, int v, int k, int dtype, int block_rows,
+                                    void* ws, int m, int v, int k, int dtype, int sms,
                                     int splits, void* stream) {
   if (m < 1 || k < 1 || v < 4 || (dtype != kFloat32 && dtype != kBFloat16) ||
-      v % (dtype == kBFloat16 ? 8 : 4) != 0 || splits < 1 || splits > 65535 ||
-      (dtype == kBFloat16 && splits > 1 && ws == nullptr)) {
+      v % (dtype == kBFloat16 ? 8 : 4) != 0 || splits < 1 || splits > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* cn = static_cast<float*>(norms);
   long long* ids = static_cast<long long*>(out);
-  const int norm_blocks = (k + kNT / 32 - 1) / (kNT / 32);
   if (dtype == kFloat32) {
-    nearest_code_norms_kernel<float><<<norm_blocks, kNT, 0, s>>>(static_cast<const float*>(cb),
-                                                                  cn, k, v);
+    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    nearest_code_norms_kernel<float><<<(k + kNT / 32 - 1) / (kNT / 32), kNT, 0, s>>>(
+        static_cast<const float*>(cb), cn, k, k, v, 0.f);
     const bool zs = f32_smem(v, false) > kSmemLimit;
     const int smem = f32_smem(v, zs);
     auto kernel = zs ? nearest_code_f32_kernel<true> : nearest_code_f32_kernel<false>;
@@ -450,10 +436,27 @@ extern "C" int tae_nearest_code_fwd(const void* z, const void* cb, void* norms, 
         static_cast<const float*>(z), static_cast<const float*>(cb), cn, ids, m, v, k);
     return static_cast<int>(cudaGetLastError());
   }
-  nearest_code_norms_kernel<__nv_bfloat16><<<norm_blocks, kNT, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(cb), cn, k, v);
-  if (block_rows == 128) return launch_bf16_rows<128>(z, cb, cn, ids, ws, m, v, k, splits, s);
-  if (block_rows == 64) return launch_bf16_rows<64>(z, cb, cn, ids, ws, m, v, k, splits, s);
-  if (block_rows == 32) return launch_bf16_rows<32>(z, cb, cn, ids, ws, m, v, k, splits, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  vq::Plan p;
+  if (!vq::plan(m, v, k, sms, p) || splits != p.splits || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kp = vq::round_up(k, p.codes);
+  nearest_code_norms_kernel<__nv_bfloat16><<<(kp + kNT / 32 - 1) / (kNT / 32), kNT, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(cb), cn, k, kp, v, kBig);
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return launch_bf16(p, z, cb, cn, ids, ws, m, v, k, s);
+}
+
+// The bf16 plan for (m, v, k) on a card of `sms` SMs (quantizer.cuh):
+// out[0] 1 where the kernel takes the shape (else 0, and nothing more is
+// written), then rows, consumers, codes, stages, resident, blocks,
+// splits, per, smem.
+extern "C" int tae_nearest_code_plan(int m, int v, int k, int sms, int* out) {
+  vq::Plan p;
+  out[0] = vq::plan(m, v, k, sms, p) ? 1 : 0;
+  if (!out[0]) return 0;
+  const int fields[] = {p.rows,   p.consumers, p.codes, p.stages, p.resident,
+                        p.blocks, p.splits,    p.per,   p.smem};
+  for (int i = 0; i < 9; ++i) out[1 + i] = fields[i];
+  return 0;
 }

@@ -1,8 +1,9 @@
 // The LayerNorm row kernels that hold a row in registers: K3 ln_quant
-// (ln_quant_regs_kernel in int8_block.cu) and K11, the LayerNorm backward
-// (layer_norm_bwd_rows_kernel in layernorm.cu). Their launch plans, and the
-// 8-column groups a lane holds. ops/cuda/int8_block.py::ln_quant_plan and
-// ops/cuda/layernorm.py::bwd_plan mirror the plans.
+// (ln_quant_regs_kernel in int8_block.cu), K1, the LayerNorm forward
+// (layer_norm_fwd_rows_kernel in layernorm.cu), and K11, its backward
+// (layer_norm_bwd_rows_kernel). Their launch plans, and the units of a row
+// a lane holds. ops/cuda/int8_block.py::ln_quant_plan and
+// ops/cuda/layernorm.py::fwd_plan / bwd_plan mirror the plans.
 #pragma once
 
 #include "common.cuh"
@@ -13,8 +14,9 @@ namespace rownorm {
 // One warp a row. A lane holds nv groups of 8 consecutive columns: group j
 // is columns (32 j + lane) * 8 .. + 7, so a warp's 16-byte loads of one
 // group are contiguous and a lane meets its columns in the order of the
-// first design's runtime loop (i = lane * 8, lane * 8 + 256, ...). K11
-// holds the same columns as 16-byte vectors, the unit of its first design:
+// first design's runtime loop (i = lane * 8, lane * 8 + 256, ...). K1 and
+// K11 hold the same columns as 16-byte vectors, the unit of their first
+// designs:
 // vector m is columns (32 m + lane) * Vec<T>::kN .., 8 nv / kN of them (in
 // fp32 4 columns a vector, 2 nv vectors). nv is the first of kNvSteps that
 // covers the row; the bodies are instantiated at each.
@@ -95,6 +97,38 @@ inline bool ln_quant_plan(int rows, int cols, LnqPlan& p) {
   return true;
 }
 
+// K1, both entries (y; y, mean and rstd). K3's plan: the row in registers
+// up to kFwdMaxNv groups (4096 columns), a wider row through the first
+// design's runtime loop and launch (layer_norm_fwd_kernel, 4 warps a
+// block; nv 0 names it); warps a block kFwdMaxWarps, halved while the grid
+// would have fewer than kFwdMinBlocks blocks, down to 1 (p128's 256 / 32 /
+// 4 rows: 64 blocks of 4 / 32 of 1 / 4 of 1); K3's rule for reading gamma
+// and beta with x's loads (lnq_affine_first) and K3's registers a thread
+// (lnq_min_blocks), but for fp32 rows of up to 1024 columns 6 blocks an SM
+// (80 registers): fp32 x with fp32 gamma and beta spilled at nv 4 in 64.
+constexpr int kFwdMaxNv = 16;
+constexpr int kFwdMaxWarps = 4;
+constexpr int kFwdMinBlocks = 64;
+__host__ __device__ constexpr int fwd_min_blocks(int nv, int x_bytes) {
+  return nv <= 4 && x_bytes == 4 ? 6 : lnq_min_blocks(nv);
+}
+
+struct FwdPlan {
+  int nv;      // groups a lane holds; 0: the first design
+  int warps;   // warps (rows) a block of the register body
+  int blocks;  // its grid
+};
+
+inline bool layer_norm_fwd_plan(int rows, int cols, FwdPlan& p) {
+  if (rows < 1 || cols < 8 || cols % 8 != 0) return false;
+  p.nv = nv_for(cols, kFwdMaxNv);
+  int warps = kFwdMaxWarps;
+  while (warps > 1 && rows < static_cast<long>(warps) * kFwdMinBlocks) warps /= 2;
+  p.warps = warps;
+  p.blocks = static_cast<int>((static_cast<long>(rows) + warps - 1) / warps);
+  return true;
+}
+
 struct BwdPlan {
   int nv;              // groups a lane holds; 0: the first design's launches
   int chunks;          // blocks, and partial sums of each column
@@ -169,6 +203,38 @@ template <> struct Group<float> {
   __device__ __forceinline__ void get(float* o) const {
     o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
     o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+};
+
+// K1: N values of the affine (gamma or beta) beside one 16-byte vector of
+// x (N = Vec<T>::kN: 8 with bf16 x, 4 with fp32), held raw: 8 or 16 bytes
+// of bf16, 16 or 32 of fp32.
+template <typename W, int N> struct Affine {
+  static constexpr int kWords = N * static_cast<int>(sizeof(W)) / 4;
+  unsigned u[kWords];
+  __device__ __forceinline__ void load(const W* p) {
+    if constexpr (kWords == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      u[0] = v.x; u[1] = v.y;
+    } else {
+#pragma unroll
+      for (int h = 0; h < kWords; h += 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned*>(p) + h);
+        u[h] = v.x; u[h + 1] = v.y; u[h + 2] = v.z; u[h + 3] = v.w;
+      }
+    }
+  }
+  __device__ __forceinline__ void get(float* o) const {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      if constexpr (sizeof(W) == 4) {
+        o[k] = __uint_as_float(u[k]);
+      } else {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[k]));
+        o[2 * k] = f.x;
+        o[2 * k + 1] = f.y;
+      }
+    }
   }
 };
 

@@ -92,6 +92,8 @@ SIGNATURES = {
     "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
     # rows, cols, int[4] out: K3's plan
     "tae_ln_quant_plan": ((_I, _I, ctypes.POINTER(_I)), _I),
+    # rows, cols, int[4] out: K1's plan
+    "tae_layer_norm_fwd_plan": ((_I, _I, ctypes.POINTER(_I)), _I),
     # rows, cols, int[8] out: K11's plan
     "tae_layer_norm_bwd_plan": ((_I, _I, ctypes.POINTER(_I)), _I),
     # x, sx, w, sw, bias, residual, out, m, n, k, out dtype, bias dtype,
@@ -126,9 +128,11 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I,
                           _VP), _I),
     # z, codebook, norms workspace, ids, workspace of the codebook ranges (or
-    # null), m, v, k, dtype, rows per block, codebook ranges, stream
+    # null), m, v, k, dtype, the card's SMs, codebook ranges, stream
     "tae_nearest_code_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                               _VP), _I),
+    # m, v, k, the card's SMs, int[11] out: K14's bf16 plan
+    "tae_nearest_code_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
     "tae_error_string": ((_I,), ctypes.c_char_p),
 }
 

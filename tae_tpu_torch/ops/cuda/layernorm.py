@@ -1,6 +1,8 @@
 """K1 and K11: fused LayerNorm forward and backward (counterparts of
 ``tae_tpu/ops/pallas/layernorm.py``::``fused_layer_norm`` and its VJP,
-``_fln_fwd`` / ``_fln_bwd``; source ``tae_tpu_torch/csrc/layernorm.cu``).
+``_fln_fwd`` / ``_fln_bwd``; source ``tae_tpu_torch/csrc/layernorm.cu``,
+launch plans ``csrc/row_norm.cuh``, mirrored by :func:`fwd_plan` and
+:func:`bwd_plan`).
 
 :func:`fused_layer_norm` is the entry. Where autograd records, it runs as
 :class:`FusedLayerNormFn`: the forward that also saves each row's mean and
@@ -31,6 +33,13 @@ NV_STEPS = (1, 2, 4, 8, 10, 12, 16)
 GROUP_COLS = 256
 #: blocks that cover the card (about one for each of the H100's 132 SMs)
 FILL_BLOCKS = 128
+#: K1 (both entries): the row in registers up to FWD_MAX_NV groups (4096
+#: columns), wider rows through the first design; FWD_MAX_WARPS warps (rows)
+#: a block, halved while the grid would have fewer than FWD_MIN_BLOCKS
+#: blocks (K3's plan)
+FWD_MAX_NV = 16
+FWD_MAX_WARPS = 4
+FWD_MIN_BLOCKS = 64
 #: K11: the row in registers up to BWD_MAX_NV groups (2560 columns), wider
 #: rows through the first design's three launches; each warp's column sums
 #: in registers up to BWD_REG_ACC_NV groups (1024 columns), in shared memory
@@ -48,6 +57,37 @@ def nv_for(cols: int, max_nv: int) -> int:
     ``cols`` columns in groups of 256, or 0 above ``max_nv``."""
     need = -(-cols // GROUP_COLS)
     return next((nv if nv <= max_nv else 0 for nv in NV_STEPS if nv >= need), 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """K1's launch: ``nv`` 8-column groups a lane holds (0: the first
+    design's loop, 4 warps a block), ``warps`` rows a block of the register
+    body, ``blocks``."""
+    nv: int
+    warps: int
+    blocks: int
+
+
+def fwd_plan(rows: int, cols: int) -> FwdPlan | None:
+    """The plan ``tae::rownorm::layer_norm_fwd_plan`` computes for K1, or
+    None where the kernels do not take the shape (no rows, a width that is
+    not a multiple of 8)."""
+    if rows < 1 or cols < 8 or cols % 8:
+        return None
+    warps = FWD_MAX_WARPS
+    while warps > 1 and rows < warps * FWD_MIN_BLOCKS:
+        warps //= 2
+    return FwdPlan(nv_for(cols, FWD_MAX_NV), warps, -(-rows // warps))
+
+
+def fwd_plan_of_library(rows: int, cols: int) -> FwdPlan | None:
+    """The built library's K1 plan for (rows, cols): what ``chip_smoke.py``
+    holds :func:`fwd_plan` against. Needs the card's build."""
+    out = (ctypes.c_int * 4)()
+    build.check(build.library().tae_layer_norm_fwd_plan(rows, cols, out),
+                "tae_layer_norm_fwd_plan")
+    return FwdPlan(*out[1:4]) if out[0] else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,8 +173,9 @@ def _check(name: str, x, weight, bias, extra=()) -> tuple[int, int]:
             raise ValueError(f"{label} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous {label}")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} needs a 16-byte aligned x")
+    for label, t in named[:3]:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a 16-byte aligned {label}")
     rows = x.numel() // d
     if rows >= 2 ** 31:
         raise ValueError(f"{name} takes < 2**31 rows, got {rows}")
@@ -149,7 +190,8 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis of x (..., D), fp32 statistics, output in
     x's dtype. x: float32 or bfloat16; weight, bias: (D,), both float32 or
-    both bfloat16. D must be a multiple of 8 on CUDA. Differentiable: where
+    both bfloat16. On CUDA: D a multiple of 8, x, weight and bias
+    contiguous and 16-byte aligned. Differentiable: where
     autograd records through x, weight or bias, the training forward and the
     backward kernel run."""
     if build.needs_grad(x, weight, bias):

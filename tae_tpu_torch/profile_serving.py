@@ -7,10 +7,14 @@ Run on a machine with a CUDA card, from the repository root::
         --quantization int4
     python -m tae_tpu_torch.profile_serving --model tae_patch128_vocab4096_px256 \
         --quantization int8 --attn-q8 off
+    python -m tae_tpu_torch.profile_serving --codebook-size 8192 --depth 2 \
+        --direction discrete
 
 Builds the named model (``--model``, any registered config) at full size
-with seeded random weights, serves
-``--requests`` encode (or decode) requests per batch size under
+(``--depth`` cuts its encoder and decoder to that many blocks each;
+``--codebook-size`` adds the VQ bottleneck) with seeded random weights,
+serves ``--requests`` encode (or decode, or ``encode_discrete``: token ids
+through the codebook search) requests per batch size under
 ``torch.profiler`` after ``--warmup`` unprofiled ones, and prints per batch
 size: the device time of each kernel name per request with its launches per
 request, the sum over all kernels, the wall time per request (host clock to
@@ -69,7 +73,11 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-q8", default="rule", choices=["rule", "on", "off"],
                     help="int8 path: the attention entry's output")
     ap.add_argument("--direction", default="encode",
-                    choices=["encode", "decode"])
+                    choices=["encode", "decode", "discrete"])
+    ap.add_argument("--codebook-size", type=int, default=None,
+                    help="a VQ bottleneck of this many codes (quantize=True)")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="encoder and decoder blocks each (a cut)")
     ap.add_argument("--batches", type=int, nargs="+", default=[64, 8, 1])
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
@@ -82,10 +90,16 @@ def main(argv=None) -> int:
     from tae_tpu_torch.tokenizer import Tokenizer
 
     print(card_line())
+    overrides = {}
+    if args.codebook_size:
+        overrides.update(quantize=True, codebook_size=args.codebook_size)
+    if args.depth:
+        overrides.update(depth=args.depth, decoder_depth=args.depth)
     tok = Tokenizer.from_checkpoint(args.model, device="cuda", seed=args.seed,
                                     quantization=args.quantization,
                                     attn_q8={"rule": None, "on": True,
-                                             "off": False}[args.attn_q8])
+                                             "off": False}[args.attn_q8],
+                                    **overrides)
     cfg = tok.model.cfg
     gen = torch.Generator(device="cuda").manual_seed(1)
     mode = args.quantization or "bf16"
@@ -94,7 +108,7 @@ def main(argv=None) -> int:
     for b in args.batches:
         x = torch.randint(0, 256, (b, 3, cfg.img_size, cfg.img_size),
                           dtype=torch.uint8, device="cuda", generator=gen)
-        fn = tok.encode
+        fn = tok.encode_discrete if args.direction == "discrete" else tok.encode
         if args.direction == "decode":
             x, fn = tok.encode(x), tok.decode
         for _ in range(args.warmup):

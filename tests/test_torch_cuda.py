@@ -64,7 +64,7 @@ from tae_tpu_torch.ops.cuda.int8_matmul import (
     int8_matmul_rows_reference, ln_chain_rows)
 from tae_tpu_torch.ops.cuda.layernorm import (
     bwd_plan, bwd_plan_of_library, fused_layer_norm, fused_layer_norm_bwd,
-    fused_layer_norm_fwd_stats)
+    fused_layer_norm_fwd_stats, fwd_plan, fwd_plan_of_library)
 from tae_tpu_torch.ops.cuda.wide_attention import (
     fused_qkv_attention_q8, fused_qkv_attention_q8_reference,
     fused_qkv_attention_wide, fused_qkv_attention_wide_q8,
@@ -854,6 +854,30 @@ def test_row_norm_kernels_at_their_plan_edges(gen, m, d, dtype):
     assert all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db)))
 
 
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", ROW_NORM_EDGES)
+def test_layer_norm_fwd_at_its_plan_edges(gen, m, d, dtype, wdtype):
+    """K1's plan equals the Python mirror; both entries against their plain
+    versions, one launch count a call each, and the same y from both (one
+    body: the stats form only adds mean and rstd)."""
+    assert fwd_plan_of_library(m, d) == fwd_plan(m, d)
+    x = (torch.randn((m, d), generator=gen, device="cuda") * 3 + 1).to(dtype)
+    w = (torch.randn(d, generator=gen, device="cuda") + 1).to(wdtype)
+    b = torch.randn(d, generator=gen, device="cuda").to(wdtype)
+    before = (fused_layer_norm.launches, fused_layer_norm_fwd_stats.launches)
+    y = fused_layer_norm(x, w, b, 1e-6)
+    y2, mean, rstd = fused_layer_norm_fwd_stats(x, w, b, 1e-6)
+    assert (fused_layer_norm.launches, fused_layer_norm_fwd_stats.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(y, layer_norm_reference(x, w, b, 1e-6), dtype)
+    y_ref, mean_ref, rstd_ref = layer_norm_stats_reference(x, w, b, 1e-6)
+    _close(y2, y_ref, dtype)
+    torch.testing.assert_close(mean, mean_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(y, y2)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,h,dh", [(9, 2, 64), (16, 32, 80), (17, 2, 64),
                                     (64, 4, 64), (100, 2, 80), (255, 2, 64),
@@ -1288,6 +1312,32 @@ def test_nearest_code_wide_latents_raise_on_the_card(gen, v):
     zq, _ = quantizer.vq_ste(z, cb)
     assert zq.shape == z.shape
     assert cuda_quantizer.nearest_code.launches == before + 3
+
+
+# K14's bf16 plan edges: rows one, off a 64-row and a 128-row block;
+# codes one, one short of and one past a 128-code tile; latent widths of
+# one 8-column vector, a 64-column step and part of a second, and past the
+# widths whose z stays resident (z rides the ring)
+VQ_EDGES = [(m, k, v) for m in (1, 65, 129) for k in (1, 127, 129)
+            for v in (8, 72, 1480)]
+
+
+@pytest.mark.parametrize("m,k,v", VQ_EDGES)
+def test_nearest_code_bf16_at_its_plan_edges(gen, m, k, v):
+    """The library's bf16 plan equals the Python mirror; ids against the
+    plain version's (near-ties aside), one launch a call, in range."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cuda_quantizer.vq_plan_of_library(m, v, k, sms) == \
+        cuda_quantizer.vq_plan(m, v, k, sms)
+    z = torch.randn((m, v), generator=gen, device="cuda").bfloat16()
+    cb = torch.randn((k, v), generator=gen, device="cuda").bfloat16()
+    before = cuda_quantizer.nearest_code.launches
+    got = cuda_quantizer.nearest_code(z, cb)
+    assert cuda_quantizer.nearest_code.launches == before + 1
+    assert int(got.min()) >= 0 and int(got.max()) < k
+    _ids_close(z, cb, got, cuda_quantizer.nearest_code_reference(z, cb), 1e-3)
+    cb[k - 1], z[m - 1] = cb[0], cb[0]        # a tie across the last tile
+    assert int(cuda_quantizer.nearest_code(z, cb)[m - 1]) == 0
 
 
 @pytest.mark.parametrize("m,k,v", [(2048, 8192, 256), (100, 130, 32)])

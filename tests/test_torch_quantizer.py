@@ -102,12 +102,14 @@ def test_nearest_code_dispatch_on_the_cpu():
         assert torch.equal(quantizer.nearest_code(z, cb, backend), want)
     assert torch.equal(cuda_quantizer.nearest_code(z, cb), want)
     assert cuda_quantizer.nearest_code.launches == 0
-    # which bf16 blocks keep z resident, and which tile it over V
-    assert cuda_quantizer.resident(64, 1472) and not cuda_quantizer.resident(
-        64, 1536) and not cuda_quantizer.resident(32, 4096)
-    assert cuda_quantizer.block_rows(65536, 4096, 132) == 128
-    assert cuda_quantizer.block_rows(16384, 4096, 132) == 64
-    assert cuda_quantizer.block_rows(256, 4096, 132) == 32
+    # which bf16 blocks keep z resident, and which tile it over V (the
+    # launch plan: 64 rows a block up to 64 rows, 128 above)
+    plan = cuda_quantizer.vq_plan
+    assert plan(64, 1216, 8192, 132).resident and not plan(
+        64, 1224, 8192, 132).resident and not plan(64, 4096, 8192, 132).resident
+    assert plan(65536, 4096, 8192, 132).rows == 128
+    assert plan(16384, 4096, 8192, 132).rows == 128
+    assert plan(64, 4096, 8192, 132).rows == 64
     wide = torch.from_numpy(rng.standard_normal((3, 2056)).astype(np.float32))
     assert tuple(quantizer.nearest_code(wide, wide).shape) == (3,)
     with pytest.raises(ValueError, match="unknown backend"):

@@ -1,15 +1,16 @@
-"""The LayerNorm row kernels, K3 ``ln_quant`` and K11 (the LayerNorm
-backward), at the edges of their launch plans, on the CPU: the plans the
-CUDA entries follow (``ln_quant_plan`` in ``ops/cuda/int8_block.py`` and
-``bwd_plan`` in ``ops/cuda/layernorm.py``, both mirrored from
-``csrc/row_norm.cuh``), and the port's plain versions against
-``tae_tpu.ops.pallas`` in interpret mode at row counts and widths where
-those plans' blocks, chunks and register rows end.
+"""The LayerNorm row kernels, K3 ``ln_quant``, K1 (the LayerNorm forward,
+both entries) and K11 (its backward), at the edges of their launch plans,
+on the CPU: the plans the CUDA entries follow (``ln_quant_plan`` in
+``ops/cuda/int8_block.py``, ``fwd_plan`` and ``bwd_plan`` in
+``ops/cuda/layernorm.py``, all mirrored from ``csrc/row_norm.cuh``), and
+the port's plain versions against ``tae_tpu.ops.pallas`` in interpret mode
+at row counts and widths where those plans' blocks, chunks and register
+rows end.
 
-On the card both kernels take one warp a row and hold the row in
+On the card the three kernels take one warp a row and hold the row in
 registers: a lane holds nv groups of 8 columns, nv the first of 1, 2, 4,
-8, 10, 12, 16 that covers the row. K3 does so up to 4096 columns and packs
-1, 2 or 4 rows a block (4 from 256 rows on); K11 up to 2560
+8, 10, 12, 16 that covers the row. K3 and K1 do so up to 4096 columns and
+pack 1, 2 or 4 rows a block (4 from 256 rows on); K11 up to 2560
 columns, in blocks of 8 warps over chunks of 128 rows (from 16384 rows;
 fewer rows in up to 128 chunks of a multiple of 8 rows), its column sums
 in registers up to 1024 columns and in shared memory above. Wider rows run
@@ -18,7 +19,10 @@ kernels to these plain versions.
 
 Tolerances: K3 as tests/test_torch_int8_ops.py (codes off by one on at
 most 1e-3 of the elements, scales rtol 1e-6: both packages round the same
-fp32 value, which can differ in its last bits); K11 as
+fp32 value, which can differ in its last bits); K1 as
+tests/test_torch_ops.py (fp32 atol = rtol = 1e-5: sums over D in another
+order; bf16 ``BF16_ULP``, rtol 2^-7: one rounding of the same fp32 value;
+the fp32 statistics atol = rtol = 1e-5 in both); K11 as
 tests/test_torch_train_ops.py (fp32 atol = rtol = 1e-4: the column sums
 add up to 1001 terms of size ~1 in another order; bf16 atol 1e-3, rtol
 2^-7: fp32 sums rounded once to bf16, one bf16 ulp).
@@ -33,17 +37,22 @@ import pytest
 import torch
 
 from tae_tpu.ops.pallas.int8_block import ln_quant as j_ln_quant
+from tae_tpu.ops.pallas.layernorm import _fln_fwd as j_fln_fwd
 from tae_tpu.ops.pallas.layernorm import fused_layer_norm as j_fln
 from tae_tpu_torch.ops.cuda import build
 from tae_tpu_torch.ops.cuda import int8_block as ib
 from tae_tpu_torch.ops.cuda import layernorm as ln
 from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
+                                         layer_norm_reference,
                                          layer_norm_stats_reference)
 
 CODE_FLIP_SHARE = 1e-3
 SCALE_RTOL = 1e-6
 GRAD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
             "bfloat16": dict(atol=1e-3, rtol=2.0 ** -7)}
+FWD_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+           "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
+STATS_TOL = dict(atol=1e-5, rtol=1e-5)
 SMEM_LIMIT = 232448          # dynamic shared memory of one H100 block
 MAX_GRID_Y = 65535
 SMS = 132                    # the H100's SMs
@@ -73,6 +82,32 @@ def test_ln_quant_plan_at_p128():
     assert ib.ln_quant_plan(32, 2560).blocks <= SMS
     assert ib.ln_quant_plan(4, 2560) == ib.LnQuantPlan(10, 1, 4)
     assert ib.ln_quant_plan(16384, 1024) == ib.LnQuantPlan(4, 4, 4096)
+
+
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("cols", WIDTHS)
+def test_fwd_plan_at_the_registered_shapes(cols, rows):
+    """K1 on K3's plan: nv = cols / 256 (4, 8, 10: the register body),
+    rows a block 4 from 256 rows on, 2 from 128, else 1, every row in one
+    block."""
+    plan = ln.fwd_plan(rows, cols)
+    assert plan.nv == cols // 256
+    assert plan.warps == (4 if rows >= 256 else 2 if rows >= 128 else 1)
+    assert (plan.blocks - 1) * plan.warps < rows <= plan.blocks * plan.warps
+    k3 = ib.ln_quant_plan(rows, cols)
+    assert (plan.nv, plan.warps, plan.blocks) == (k3.nv, k3.warps, k3.blocks)
+
+
+def test_fwd_plan_at_p128_and_p16():
+    """p128's 256 / 32 / 4 rows of 2560: 64 blocks of 4 warps, then a
+    block a row (32 and 4 blocks, each on an SM of its own; the first
+    design ran 8 and 1 blocks of 4 warps); p16's 16384 rows of 1024: 4096
+    blocks of 4."""
+    assert ln.fwd_plan(256, 2560) == ln.FwdPlan(10, 4, 64)
+    assert ln.fwd_plan(32, 2560) == ln.FwdPlan(10, 1, 32)
+    assert ln.fwd_plan(32, 2560).blocks <= SMS
+    assert ln.fwd_plan(4, 2560) == ln.FwdPlan(10, 1, 4)
+    assert ln.fwd_plan(16384, 1024) == ln.FwdPlan(4, 4, 4096)
 
 
 @pytest.mark.parametrize("rows", ROWS)
@@ -153,11 +188,25 @@ def test_plans_at_their_width_edges(cols, k3_nv, k11_nv):
         assert nv == 0 or cols <= nv * 256
 
 
+@pytest.mark.parametrize("cols,k3_nv,k11_nv", EDGES)
+@pytest.mark.parametrize("rows", [1, 5, 257])
+def test_fwd_plan_at_its_width_edges(rows, cols, k3_nv, k11_nv):
+    """K1's register body to 4096 columns, as K3's: 4104 and 8192 columns
+    (nv 0) run the first design."""
+    plan = ln.fwd_plan(rows, cols)
+    assert plan.nv == k3_nv == ln.nv_for(cols, ln.FWD_MAX_NV)
+    if plan.nv:
+        i = ln.NV_STEPS.index(plan.nv)
+        assert cols <= plan.nv * 256 and (i == 0 or ln.NV_STEPS[i - 1] * 256 < cols)
+    assert plan.warps * plan.blocks >= rows > plan.warps * (plan.blocks - 1)
+
+
 @pytest.mark.parametrize("rows,cols", [(0, 1024), (4, 12), (4, 1030), (4, 0),
                                        (-1, 2560)])
 def test_plans_refuse_what_the_kernels_do_not_take(rows, cols):
     """No rows, or a width that is not a positive multiple of 8."""
     assert ib.ln_quant_plan(rows, cols) is None
+    assert ln.fwd_plan(rows, cols) is None
     assert ln.bwd_plan(rows, cols) is None
 
 
@@ -188,6 +237,31 @@ def test_row_norm_plans_mirror_the_kernel_header():
         body = (build.CSRC_DIR / src).read_text()
         cases = tuple(int(n) for n in re.findall(rf"    {name}\((\d+)\)", body))
         assert cases == tuple(n for n in ln.NV_STEPS if n <= top)
+
+
+def test_fwd_plan_mirrors_the_kernel_header():
+    """K1's constants, plan entry and instantiations: the register body at
+    each nv of NV_STEPS (the first design, nv 0, beside them), the plan's
+    warp halving as K3's."""
+    text = (build.CSRC_DIR / "row_norm.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("kFwdMaxNv") == ln.FWD_MAX_NV == ib.LNQ_MAX_NV
+    assert const("kFwdMaxWarps") == ln.FWD_MAX_WARPS
+    assert const("kFwdMinBlocks") == ln.FWD_MIN_BLOCKS
+    plan = re.search(r"inline bool layer_norm_fwd_plan\(.*?\n}", text, re.S).group(0)
+    assert "nv_for(cols, kFwdMaxNv)" in plan
+    assert "warps > 1 && rows < static_cast<long>(warps) * kFwdMinBlocks" in plan
+    assert "tae_layer_norm_fwd_plan" in build.SIGNATURES
+    body = (build.CSRC_DIR / "layernorm.cu").read_text()
+    cases = tuple(int(n) for n in re.findall(r"    TAE_FWD_CASE\((\d+)\)", body))
+    assert cases == tuple(n for n in ln.NV_STEPS if n <= ln.FWD_MAX_NV)
+    assert "layer_norm_fwd_rows_kernel" in body
+    # the first design keeps its own 4-warp launch, which its kernel's row
+    # index assumes
+    assert "kWarpsPerBlock * 32, 0, stream>>>(" in body
 
 
 # ------------------------------------------- the plain versions against JAX
@@ -249,3 +323,51 @@ def test_k11_plain_version_matches_jax(rows, cols, dtype):
         np.testing.assert_allclose(g.float().numpy(),
                                    np.asarray(jnp.asarray(wnt, jnp.float32)),
                                    **GRAD_TOL[dtype])
+
+
+# rows: one, a part-filled block, past a 256-row JAX block; widths: one
+# 8-column group, part of a second, p128's, past the register body
+K1_SHAPES = [(r, c) for r in (1, 5, 257) for c in (8, 264, 2560, 4104)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols", K1_SHAPES)
+def test_k1_plain_version_matches_jax(rows, cols, dtype):
+    """The inference entry on the CPU (its plain version, no launch)
+    against the Pallas ``fused_layer_norm`` in interpret mode."""
+    x, w, b, _ = _inputs(rows, cols, seed=29)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = j_fln(*(jnp.asarray(a, jd) for a in (x, w, b)), 1e-6, True)
+    args = [torch.from_numpy(a).to(td) for a in (x, w, b)]
+    before = ln.fused_layer_norm.launches
+    got = ln.fused_layer_norm(*args, 1e-6)
+    assert ln.fused_layer_norm.launches == before == 0
+    assert got.dtype == td and tuple(got.shape) == (rows, cols)
+    assert torch.equal(got, layer_norm_reference(*args, 1e-6))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jnp.asarray(want, jnp.float32)),
+                               **FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols", K1_SHAPES)
+def test_k1_stats_form_matches_jax(rows, cols, dtype):
+    """The training entry: y, and each row's fp32 mean and rstd (flat),
+    against ``_fln_fwd`` of the Pallas kernel in interpret mode."""
+    x, w, b, _ = _inputs(rows, cols, seed=31)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want_y, (_, _, want_mean, want_rstd) = j_fln_fwd(
+        *(jnp.asarray(a, jd) for a in (x, w, b)), 1e-6, True)
+    args = [torch.from_numpy(a).to(td) for a in (x, w, b)]
+    y, mean, rstd = ln.fused_layer_norm_fwd_stats(*args, 1e-6)
+    assert ln.fused_layer_norm_fwd_stats.launches == 0
+    assert y.dtype == td and tuple(y.shape) == (rows, cols)
+    assert mean.dtype == rstd.dtype == torch.float32
+    assert tuple(mean.shape) == tuple(rstd.shape) == (rows,)
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jnp.asarray(want_y, jnp.float32)),
+                               **FWD_TOL[dtype])
+    np.testing.assert_allclose(mean.numpy(), np.asarray(want_mean).reshape(-1),
+                               **STATS_TOL)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(want_rstd).reshape(-1),
+                               **STATS_TOL)

@@ -63,20 +63,23 @@ def test_wide_latent_ties_go_to_the_lowest_index():
 
 def test_block_rows_tile_wide_latents():
     """Which bf16 blocks keep z resident in shared memory and which tile it
-    over V: every block fits, whatever the width."""
+    over V (the launch plan, ops/cuda/quantizer.vq_plan): every block fits,
+    whatever the width."""
+    plan = cuda_quantizer.vq_plan
     for v in (4096, 16384):
-        assert not any(cuda_quantizer.resident(bm, v) for bm in (32, 64, 128))
-        assert cuda_quantizer.block_rows(256, v, 132) == 32
-        assert cuda_quantizer.block_rows(64 * 256, v, 132) == 64
-    assert cuda_quantizer.resident(128, 256)
-    assert cuda_quantizer.resident(32, 2048) and not cuda_quantizer.resident(
-        128, 2048)
-    # few row blocks split the codebook into ranges (about two blocks an SM,
-    # at most one range per 64-code tile); enough row blocks do not
-    assert cuda_quantizer.code_splits(256, 32, 8192, 132) == 33
-    assert cuda_quantizer.code_splits(16, 32, 8192, 132) == 128
-    assert cuda_quantizer.code_splits(16, 32, 100, 132) == 2
-    assert cuda_quantizer.code_splits(16384, 64, 8192, 132) == 1
+        assert not any(plan(m, v, 8192, 132).resident for m in (1, 256, 64 * 256))
+        assert plan(256, v, 8192, 132).rows == 128
+        assert plan(64, v, 8192, 132).rows == 64
+        assert plan(64 * 256, v, 8192, 132).smem <= cuda_quantizer.SMEM_LIMIT
+    assert plan(16384, 256, 8192, 132).resident
+    assert plan(64, 1216, 8192, 132).resident and not plan(
+        512, 1216, 8192, 132).resident
+    # few row blocks split the codebook into ranges (about one block an SM,
+    # at most one range per 128-code tile); enough row blocks do not
+    assert plan(256, 256, 8192, 132).splits == 32
+    assert plan(16, 256, 8192, 132).splits == 64
+    assert plan(16, 256, 100, 132).splits == 1
+    assert plan(16384, 256, 8192, 132).splits == 1
 
 
 def test_vocab_4096_discrete_tokens_match_jax():
