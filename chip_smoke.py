@@ -147,6 +147,15 @@ VQ_PATHS = {
 # far from every row: noisy copies of its 4096-wide rows made near-ties that
 # two correct searches broke apart on more rows than VQ_ID_SHARE allows.
 VQ_STEP_RIVALS = {"vq_p16"}
+# The fp32 path: vq_p16's model (2 + 2 blocks, 8192 codes) with fp32
+# parameters and activations, through the CUDA-core forms of K2 (2 per
+# encode) and K14 (1 per encode_discrete)
+VQ_F32_PATH = "vq_p16_f32"
+# fp32 latents and reconstructions against backend="reference" on the same
+# card, relative Frobenius error: both compute in fp32 and differ only in
+# summation order and the last bits of exp / rsqrt, through 2 + 2 blocks
+# (measured on an H100: 3.9e-7 to 9.1e-7; the bound leaves 10x)
+F32_SLICE_REL_TOL = 1e-5
 BATCHES = (1, 8, 64)         # encode / decode request sizes
 KERNEL_BATCH = 64            # batch of the kernel-vs-plain shapes
 TIMED_REPS = 20              # kernel timings: launches per replayed graph
@@ -383,6 +392,11 @@ ROW_NORM_WIDTH_NV = (4, 8, 10)
 # ring
 VQ_SEARCH = "nearest_code_wgmma_kernel"
 VQ_SEARCH_FORMS = 4
+# The fp32 bodies on the CUDA cores and their instantiations: the
+# register-tiled attention forward (dh 64 / 80, serving / exact) and K14's
+# fp32 search (z resident / riding the ring, 16 / 8 codes a thread). No
+# spills.
+F32_BODIES = {"attention_fwd_f32_tiled": 4, "nearest_code_f32_kernel": 4}
 # The SASS of K4's and K5's finish passes, which run the first design of
 # K3's row (int8_common.cuh::ln_quant_row), and of K1's forward, as the
 # commit before the LayerNorm row kernels' redesign compiled them: sha256 of
@@ -437,7 +451,8 @@ def phase_build():
             "attention_bwd_bf16": {}, "int8_matmul_kernel": {},
             "int8_mlp_fc1_kernel": {}, "int8_mlp_fc2_kernel": {},
             **{kernel: {} for kernel in W4_PRODUCTS},
-            **{kernel: {} for kernel in ROW_NORM_BODIES}, VQ_SEARCH: {}}
+            **{kernel: {} for kernel in ROW_NORM_BODIES}, VQ_SEARCH: {},
+            **{kernel: {} for kernel in F32_BODIES}}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -598,6 +613,21 @@ def phase_build():
         check(hgmma > 0 and loops > 0 and local == 0,
               f"{entry}: {hgmma} HGMMA, {loops} innermost product loops with "
               f"{local} local-memory instructions")
+    # the fp32 CUDA-core bodies (K2 / K16 forward, K14's search): no spill
+    # in any instantiation
+    for kernel, want in F32_BODIES.items():
+        found = body[kernel]
+        check(len(found) == want, f"ptxas reported {len(found)} "
+                                  f"instantiations of {kernel}, expected {want}")
+        for entry, lines in sorted(found.items()):
+            spills = sum(int(x) for line in lines for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+            regs = [int(x) for line in lines for x in
+                    re.findall(r"Used (\d+) registers", line)]
+            args = re.search(kernel + r"I((?:L[ib]\d+E)+)E", entry)
+            print(f"[build] {kernel}<{args.group(1) if args else entry}>: "
+                  f"registers {regs}, spill bytes {spills}")
+            check(spills == 0, f"ptxas spills in {entry}: {lines}")
 
 
 def sass_report(lib, kernel: str) -> dict:
@@ -735,6 +765,12 @@ def bound(n_bytes: int, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def peak_kind(dtype) -> str:
+    """The peak rate a float dtype's products run at: fp32 on the CUDA
+    cores (no TF32), bf16 on the tensor cores."""
+    return "fp32" if str(dtype) == "torch.float32" else "bf16"
+
+
 def compare_codes(label: str, got, want) -> float:
     import torch
 
@@ -811,9 +847,9 @@ def phase_kernels() -> dict:
               f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]}), F.layer_norm {lib:.4f} ms")
 
-    # the slice's shape, a dh=80 shape (p64 configs), and N=4 (p128), which
-    # pads the token axis to the kernel's 16-row tiles
-    for n, h, dh in ((256, 16, 64), (16, 32, 80), (4, 32, 80)):
+    # the slice's shape, p32's, a dh=80 shape (p64 configs), and N=4 (p128),
+    # which pads the token axis to the kernel's 16-row tiles
+    for n, h, dh in ((256, 16, 64), (64, 32, 64), (16, 32, 80), (4, 32, 80)):
         c = h * dh
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
@@ -845,6 +881,58 @@ def phase_kernels() -> dict:
                       f"(atol {tol['atol']}, rtol {tol['rtol']}); kernel "
                       f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
                       f"{bnd[0]:.4f} ms ({bnd[1]}){lib_s}")
+
+    # the fp32 bodies (the first design below F32_TILED_MIN_TOKENS tokens,
+    # the register-tiled one from there) where their 64-key chunks and
+    # 64-row blocks end: K2's three forms packed, K16's two with v a view of
+    # the packed projection, at dh 64 and 80
+    from tae_tpu_torch.ops.cuda.flash_attention import (
+        F32_TILED_MIN_TOKENS, flash_attention, flash_attention_fwd_lse,
+        flash_attention_reference, fused_qkv_attention_fwd_lse,
+        fused_qkv_attention_lse_reference)
+
+    f32, tol = torch.float32, TOL["float32"]
+    edges = (1, 4, 16, F32_TILED_MIN_TOKENS - 1, F32_TILED_MIN_TOKENS, 63, 64,
+             65, 129, 255, 256)
+    for dh in (64, 80):
+        for n in edges:
+            h = 2 if dh == 64 else 3
+            qkv = randn((3, n, 3 * h * dh), f32)
+            shape = f"(3, {n}, {3 * h * dh}) h={h} dh={dh} fp32"
+            for serving in (True, False):
+                compare(f"K2 {shape} {'serving' if serving else 'exact'}",
+                        fused_qkv_attention(qkv, h, serving=serving),
+                        fused_qkv_attention_reference(qkv, h, serving=serving), **tol)
+            o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+            o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+            compare(f"K2 with LSE {shape}", o, o_ref, **tol)
+            compare(f"K2 with LSE {shape} lse", lse, lse_ref, **STATS_TOL)
+            r = qkv.view(3, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+            q, k, v = r[0].contiguous(), r[1].contiguous(), r[2]
+            o_ref, lse_ref = flash_attention_reference(q, k, v)
+            compare(f"K16 {shape}", flash_attention(q, k, v), o_ref, **tol)
+            o, lse = flash_attention_fwd_lse(q, k, v)
+            compare(f"K16 with LSE {shape}", o, o_ref, **tol)
+            compare(f"K16 with LSE {shape} lse", lse, lse_ref, **STATS_TOL)
+    print(f"[kernels] K2 (serving, exact, LSE) and K16 (exact, LSE) fp32 at n = "
+          f"{edges}, dh 64 and 80: within atol {tol['atol']}, rtol {tol['rtol']} "
+          f"(tiled body from {F32_TILED_MIN_TOKENS} tokens)")
+    # the tiled body's ring: each K and V chunk is waited for before it is
+    # read; a read ahead of its cp.async shows as runs that differ. Eight
+    # runs at the main path's shape in both forms, each bit-equal to the
+    # first, on fresh inputs each time
+    for serving in (True, False):
+        for i in range(8):
+            qkv = randn((KERNEL_BATCH, 256, 3 * 1024), f32)
+            got = fused_qkv_attention(qkv, 16, serving=serving)
+            again = fused_qkv_attention(qkv, 16, serving=serving)
+            check(torch.equal(got, again), f"K2 fp32 serving={serving}: two runs "
+                                           "on the same input differ")
+            if i == 0:
+                compare(f"K2 fp32 rerun serving={serving}", got,
+                        fused_qkv_attention_reference(qkv, 16, serving=serving), **tol)
+    print("[kernels] K2 fp32 (64, 256, 3072) h16: 8 inputs x 2 runs bit-equal, "
+          "both forms")
 
     # the exact form on scores in the hundreds, far past the serving clip,
     # across three 64-key chunks: exp(s) alone overflows fp32, so only the
@@ -1436,9 +1524,12 @@ def phase_train_kernels() -> dict:
                bound(nbytes(x, w, mean, rstd, dy, dx, dw, db), 0.0, "bf16"),
                lib, "F.layer_norm's backward")
 
-    # ---- K2 with LSE, K10; then, untimed, the token counts at the edges of
-    #      the bf16 backward body's 16-row tiles and 128-row ranges
+    # ---- K2 with LSE, K10 (in bf16, and the fp32 forms at the main path's
+    #      shape, timed beside SDPA's fp32 backward); then, untimed, the
+    #      token counts at the edges of the bf16 backward body's 16-row tiles
+    #      and 128-row ranges
     for batch, n, h, dh, dtype in ((KERNEL_BATCH, 256, 16, 64, torch.bfloat16),
+                                   (KERNEL_BATCH, 256, 16, 64, torch.float32),
                                    (8, 256, 16, 64, torch.float32),
                                    (KERNEL_BATCH, 64, 32, 64, torch.bfloat16),
                                    (KERNEL_BATCH, 16, 32, 80, torch.bfloat16),
@@ -1464,7 +1555,7 @@ def phase_train_kernels() -> dict:
                time_ms(lambda: fused_qkv_attention_lse_reference(qkv, h))
                if timed else None,
                bound(nbytes(qkv, o, lse), 4.0 * batch * h * n * n * dh,
-                     "bf16"),
+                     peak_kind(dtype)),
                time_ms(lambda: F.scaled_dot_product_attention(
                    r[0], r[1], r[2])) if timed else None, "SDPA")
 
@@ -1490,7 +1581,7 @@ def phase_train_kernels() -> dict:
                time_ms(lambda: fused_qkv_attention_backward_reference(
                    qkv, o, lse, do, h)) if timed else None,
                bound(nbytes(qkv, o, lse, do, dqkv),
-                     10.0 * batch * h * n * n * dh, "bf16"),
+                     10.0 * batch * h * n * n * dh, peak_kind(dtype)),
                lib, "SDPA's backward", events)
 
     # scores far below zero at a ragged token count: every key of a head is
@@ -1692,22 +1783,30 @@ def compare_ids(label: str, z, codebook, got, want, share: float) -> float:
 
 def phase_vq_kernel() -> dict:
     """K14 against its plain version: the VQ path's shape (256 tokens x
-    B = 64, 8, 1 rows of 256-wide latents against 8192 codes) in bf16, B = 8
-    in fp32, ragged row and code counts, the bf16 search's plan edges, and
-    an exact tie. Returns the case records; the first is the B = 64
-    shape."""
+    B = 64, 8, 1 rows of 256-wide latents against 8192 codes) in bf16 and
+    fp32, ragged row and code counts, each search's plan edges (its plan
+    held against the library's at every case), and an exact tie. Returns
+    the case records; the first is the bf16 B = 64 shape."""
     import torch
 
     from tae_tpu_torch.ops.cuda.quantizer import (CODES as VQ_TILE_CODES,
-                                                  nearest_code,
+                                                  F32_CODES, nearest_code,
                                                   nearest_code_reference,
+                                                  vq_f32_plan,
+                                                  vq_f32_plan_of_library,
                                                   vq_plan, vq_plan_of_library)
 
     gen = torch.Generator(device="cuda").manual_seed(9753)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
 
     def case(m, k, v, dtype, timed):
         name = str(dtype).split(".")[1]
+        ours, lib_plan = ((vq_plan, vq_plan_of_library) if dtype == torch.bfloat16
+                          else (vq_f32_plan, vq_f32_plan_of_library))
+        check(lib_plan(m, v, k, sms) == ours(m, v, k, sms),
+              f"K14's {name} plan at ({m}, {v}) x ({k}, {v}): library "
+              f"{lib_plan(m, v, k, sms)}, ops/cuda/quantizer {ours(m, v, k, sms)}")
         z = torch.randn((m, v), generator=gen, device="cuda").to(dtype)
         cb = torch.randn((k, v), generator=gen, device="cuda").to(dtype)
         got, want = nearest_code(z, cb), nearest_code_reference(z, cb)
@@ -1719,7 +1818,7 @@ def phase_vq_kernel() -> dict:
             plain = time_ms(lambda: nearest_code_reference(z, cb))
             zf, cf = z.float(), cb.float()
             lib = time_ms(lambda: torch.cdist(zf, cf).argmin(dim=-1))
-        bnd = bound(nbytes(z, cb, got), 2.0 * m * k * v, "bf16")
+        bnd = bound(nbytes(z, cb, got), 2.0 * m * k * v, peak_kind(dtype))
         cases.append(dict(case=label, max_abs_err=differ, ms=ms, plain_ms=plain,
                           bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib))
         timing = "" if ms is None else (
@@ -1728,27 +1827,30 @@ def phase_vq_kernel() -> dict:
         print(f"[kernels] {label}: ids differ on a share {differ:.3g} of the "
               f"rows (allowed {VQ_ID_SHARE[name]}, near-ties only){timing}")
 
-    for b in (KERNEL_BATCH, 8, 1):
-        case(b * 256, 8192, 256, torch.bfloat16, True)
-    case(8 * 256, 8192, 256, torch.float32, True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (KERNEL_BATCH, 8, 1):
+            case(b * 256, 8192, 256, dtype, True)
     for dtype in (torch.bfloat16, torch.float32):
         case(100, 130, 32, dtype, False)
         case(1000, 777, 1024, dtype, False)
     # the bf16 search's edges: rows one and off a 64-row block, codes one and
     # either side of a 128-code tile, widths of one vector, part of a second
-    # 64-column step and past z's resident widths (z rides the ring); the
-    # launch plan held against the library's at each
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # 64-column step and past z's resident widths (z rides the ring)
     for m in (1, 65, 129):
         for k in (1, VQ_TILE_CODES - 1, VQ_TILE_CODES + 1):
             for v in (8, 72, 1480):
-                check(vq_plan_of_library(m, v, k, sms) == vq_plan(m, v, k, sms),
-                      f"K14's plan at ({m}, {v}) x ({k}, {v}): library "
-                      f"{vq_plan_of_library(m, v, k, sms)}, ops/cuda/quantizer."
-                      f"vq_plan {vq_plan(m, v, k, sms)}")
                 case(m, k, v, torch.bfloat16, False)
     print(f"[kernels] K14 bf16 edges: 27 shapes, plans "
           f"{vq_plan(129, 1480, VQ_TILE_CODES + 1, sms)} at the widest")
+    # the fp32 search's edges: one row and rows off a 128-row block, codes
+    # either side of a 128-code tile, widths of one vector, off a 32-column
+    # chunk and past z's resident widths; the codebook split at these rows
+    for m in (1, 127, 129):
+        for k in (1, F32_CODES - 1, F32_CODES + 1):
+            for v in (4, 36, 1028):
+                case(m, k, v, torch.float32, False)
+    print(f"[kernels] K14 fp32 edges: 27 shapes, plans "
+          f"{vq_f32_plan(129, 1028, F32_CODES + 1, sms)} at the widest")
     # one code four times, and all distances equal: the lowest index
     for dtype in (torch.bfloat16, torch.float32):
         cb = torch.randn((700, 64), generator=gen, device="cuda").to(dtype)
@@ -1841,7 +1943,7 @@ def phase_last_kernels() -> dict:
                time_ms(lambda: flash_attention(q, k, v)) if timed else None,
                time_ms(lambda: flash_attention_reference(q, k, v))
                if timed else None,
-               bound(nbytes(q, k, v, o), ops, "bf16"), sdpa, sdpa_s)
+               bound(nbytes(q, k, v, o), ops, peak_kind(dtype)), sdpa, sdpa_s)
         o, lse = flash_attention_fwd_lse(q, k, v)
         label = f"K16 attention with LSE {shape}"
         err = compare(label, o, o_ref, **tol)
@@ -1851,7 +1953,8 @@ def phase_last_kernels() -> dict:
                if timed else None,
                time_ms(lambda: flash_attention_reference(q, k, v))
                if timed else None,
-               bound(nbytes(q, k, v, o, lse), ops, "bf16"), sdpa, sdpa_s)
+               bound(nbytes(q, k, v, o, lse), ops, peak_kind(dtype)), sdpa,
+               sdpa_s)
         got = flash_attention_bwd(q, k, v, o, lse, do)
         want = flash_attention_backward_reference(q, k, v, o, lse, do)
         label = f"K17 attention backward {shape}"
@@ -1895,7 +1998,8 @@ def phase_last_kernels() -> dict:
                if timed else None,
                time_ms(lambda: flash_attention_backward_reference(
                    q, k, v, o, lse, do)) if timed else None,
-               bound(nbytes(q, k, v, o, lse, do, *got), 2.5 * ops, "bf16"),
+               bound(nbytes(q, k, v, o, lse, do, *got), 2.5 * ops,
+                     peak_kind(dtype)),
                lib, "" if lib is None else (
                    f"; SDPA's backward {lib:.4f} ms; kernel between events "
                    f"as SDPA's backward {events:.4f} ms"), **more)
@@ -2026,7 +2130,7 @@ def phase_last_kernels() -> dict:
         record("nearest_code", label, differ,
                time_ms(lambda: nearest_code(z, cb)) if timed else None,
                time_ms(lambda: nearest_code_reference(z, cb)) if timed else None,
-               bound(nbytes(z, cb, got), 2.0 * m * k * v, "bf16"), lib,
+               bound(nbytes(z, cb, got), 2.0 * m * k * v, peak_kind(dtype)), lib,
                f"; ids differ on a share {differ:.3g}" + (
                    "" if lib is None else
                    f"; torch.cdist + argmin (fp32) {lib:.4f} ms"))
@@ -2778,6 +2882,27 @@ def codebook_from(z, k: int, gen, replace: bool = False):
     return rows + 0.1 * std * noise
 
 
+def counted_request(tag: str, fns: dict, totals: dict, fn, arg, want: dict):
+    """One request fn(arg), timed on the host clock between synchronizes:
+    checks that it launched each wrapper of ``fns`` exactly as often as
+    ``want`` says and adds its launches to ``totals``. Returns (output,
+    seconds)."""
+    import torch
+
+    before = {n: f.launches for n, f in fns.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(arg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = {n: f.launches - before[n] for n, f in fns.items()}
+    check(got == {n: want.get(n, 0) for n in fns},
+          f"{tag} {fn.__name__}: launches {got}, expected {want}")
+    for n, c in got.items():
+        totals[n] = totals.get(n, 0) + c
+    return out, dt
+
+
 def phase_vq(tag: str) -> dict:
     """Path ``tag`` of VQ_PATHS: discrete tokens through the VQ bottleneck,
     then one train step with it. Returns the launch counts of the path's own
@@ -2814,18 +2939,7 @@ def phase_vq(tag: str) -> dict:
     totals = {}
 
     def request(fn, arg, want):
-        before = {n: f.launches for n, f in fns.items()}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(arg)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        got = {n: f.launches - before[n] for n, f in fns.items()}
-        check(got == {n: want.get(n, 0) for n in fns},
-              f"{tag} {fn.__name__}: launches {got}, expected {want}")
-        for n, c in got.items():
-            totals[n] = totals.get(n, 0) + c
-        return out, dt
+        return counted_request(tag, fns, totals, fn, arg, want)
 
     per_call = expected_launches(cfg, None)
     enc_want = dict(per_call["encode"], nearest_code=1)
@@ -2908,6 +3022,101 @@ def phase_vq(tag: str) -> dict:
     return totals
 
 
+def phase_vq_f32() -> dict:
+    """Path VQ_F32_PATH: vq_p16's model and codebook recipe in fp32. encode
+    at every batch size, encode_discrete and decode_discrete at B = 8,
+    each call's launches checked; latents, ids and reconstructions held
+    against backend="reference". Returns the path's launch counts."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    tag = VQ_F32_PATH
+    name, overrides = VQ_PATHS["vq_p16"]
+    fns = wrappers()
+    tok = Tokenizer.from_checkpoint(name, dtype=torch.float32, device="cuda",
+                                    seed=0, **overrides)
+    cfg, codebook = tok.model.cfg, tok.model.codebook
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    images = {b: torch.randint(0, 256, (b, 3, cfg.img_size, cfg.img_size),
+                               dtype=torch.uint8, device="cuda", generator=gen)
+              for b in BATCHES}
+    z0 = tok.encode(images[BATCHES[-1]]).reshape(-1, cfg.vocab_size)
+    check(z0.dtype == torch.float32 and codebook.dtype == torch.float32,
+          f"{tag}: latents {z0.dtype}, codebook {codebook.dtype}")
+    with torch.no_grad():
+        codebook.copy_(codebook_from(z0, cfg.codebook_size, gen))
+    per_call = expected_launches(cfg, None)
+    check(per_call["encode"].get("fused_qkv_attention") == cfg.depth,
+          f"{tag}: an encode runs {per_call['encode']}")
+    print(f"[{tag}] {name} at depth {cfg.depth}+{cfg.decoder_depth} in fp32, "
+          f"codebook {tuple(codebook.shape)} from seeded latents + noise; per "
+          f"encode {json.dumps(per_call['encode'])}")
+
+    totals = {}
+
+    def request(fn, arg, want):
+        return counted_request(tag, fns, totals, fn, arg, want)
+
+    tok.encode(images[1])                                # warm-up request
+    for f in fns.values():
+        f.launches = 0
+    ref = Tokenizer(model=tok.model, policy=tok.policy, backend="reference")
+    n, v = cfg.num_patches, cfg.vocab_size
+    latents = {}
+    for b in BATCHES:
+        runs = [request(tok.encode, images[b], per_call["encode"])
+                for _ in range(REQUEST_REPS)]
+        z = latents[b] = runs[-1][0]
+        check(tuple(z.shape) == (b, n, v) and z.dtype == torch.float32
+              and bool(torch.isfinite(z).all()), f"{tag} B={b}: latents "
+                                                 f"{tuple(z.shape)} {z.dtype}")
+        err = rel_err(z, ref.encode(images[b]))
+        print(f"[{tag}] encode B={b}: "
+              f"{statistics.median(dt for _, dt in runs) * 1e3:.2f} ms/request; "
+              f"latents rel_err {err:.3g} vs backend='reference' (tolerance "
+              f"{F32_SLICE_REL_TOL})")
+        check(err <= F32_SLICE_REL_TOL, f"{tag} B={b}: latents disagree with "
+                                        "the plain versions")
+    b = BATCHES[1]
+    enc_want = dict(per_call["encode"], nearest_code=1)
+    ids, dt_enc = request(tok.encode_discrete, images[b], enc_want)
+    check(tuple(ids.shape) == (b, n) and ids.dtype == torch.int64,
+          f"{tag}: ids {tuple(ids.shape)} {ids.dtype}")
+    rec, dt_dec = request(tok.decode_discrete, ids, per_call["decode"])
+    check(tuple(rec.shape) == (b, 3, cfg.img_size, cfg.img_size)
+          and rec.dtype == torch.float32 and bool(torch.isfinite(rec).all()),
+          f"{tag}: reconstruction {tuple(rec.shape)} {rec.dtype}")
+    # the comparisons: their launches stay out of the path's totals
+    z = tok.encode(images[b])
+    check(torch.equal(z, latents[b]), f"{tag}: two encodes of B={b} differ")
+    check(torch.equal(tok.encode_discrete(z), ids),
+          f"{tag}: ids of latents differ from ids of their images")
+    differ = compare_ids(f"{tag} B={b}", z, codebook, ids,
+                         ref.encode_discrete(z), VQ_ID_SHARE["float32"])
+    err = rel_err(rec, ref.decode(codebook[ids]))
+    check(err <= F32_SLICE_REL_TOL,
+          f"{tag}: decode_discrete rel_err {err:.3g} vs backend='reference'")
+    check(torch.equal(rec, tok.decode(codebook[ids])),
+          f"{tag}: decode_discrete(ids) != decode(codebook[ids])")
+    print(f"[{tag}] B={b}: encode_discrete {dt_enc * 1e3:.2f} ms, "
+          f"decode_discrete {dt_dec * 1e3:.2f} ms; ids differ from "
+          f"backend='reference' on a share {differ:.3g} of the rows (allowed "
+          f"{VQ_ID_SHARE['float32']}); {int(ids.unique().numel())} codes used; "
+          f"reconstruction rel_err {err:.3g}")
+    ran = {k: c for k, c in totals.items() if c}
+    check(totals.get("nearest_code", 0) > 0
+          and totals.get("fused_qkv_attention", 0) > 0,
+          f"{tag}: K2 or K14 never launched: {ran}")
+    print(f"[{tag}] main path launches: {json.dumps(ran)}")
+    del tok, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     try:
         phase_device()
@@ -2931,6 +3140,7 @@ def main() -> int:
         launches = phase_paths()
         for tag in VQ_PATHS:
             launches[tag] = phase_vq(tag)
+        launches[VQ_F32_PATH] = phase_vq_f32()
         launches["qknorm_blocks"] = phase_qknorm(kres)
         launches["train_bf16"] = phase_train(kres)
         launches["p128_train"] = phase_p128_train()

@@ -38,21 +38,46 @@ a line or two of the sources:
   cluster, so the difference to ``no_exchange`` is what co-scheduling the
   cluster costs.
 
+* ``f32_first``, ``f32_tiled``: the fp32 forward on the first design (a
+  warp a query row) or on the register-tiled body at every token count
+  (``kF32TiledMinTokens``, 33 as built). Both must equal the tree bit for
+  bit: the two bodies add the same products in the same order. They time
+  the shape rule. ``f32_pv_unroll8``, ``f32_qk_unroll8``, ``f32_qk_unroll``,
+  ``f32_qk_prefetch``, ``f32_lb1``, ``f32_slots3``: the tiled body's P.V
+  key loop unrolled by 8 (16 as built), its Q.K^T column loop by 8 or whole
+  (4 as built), q loaded a column step ahead, one block an SM with up to
+  255 registers a thread, three ring slots (two as built); bit-equal to the
+  tree. ``f32_no_qk``, ``f32_no_pv``,
+  ``f32_no_products``, ``f32_no_exp``, ``f32_no_sync_k``,
+  ``f32_no_sync_v``: diagnostics of the tiled body without its Q.K^T
+  products, its P.V products, both, the exp of p, or the barrier of each K
+  or each V chunk (outputs not compared).
+* the fp32 entries (K2 serving, exact and LSE, K16 and its LSE form at the
+  main path's shape; K2 serving and exact at p32's (64, 64) tokens, 32
+  heads of 64, p64's and p128's (64, 16) and (64, 4), 32 heads of 80, and
+  (64, 32) and (64, 40), 16 heads of 64, either side of the shape rule):
+  the forward's CUDA-core form, no TF32.
+
 * ``--parent DIR``: the body of another checkout, built from its kernel
   sources (``DIR`` a ``csrc`` directory, for example of a ``git archive`` of
   the parent commit), its K7 and K8 through their own C entries; its
   outputs must equal the tree's bit for bit where the forward body did not
-  change (K2, K15, K16; not K7 / K8, which the parent ran on another body).
+  change (K2, K15, K16, bf16 and fp32; not K7 / K8, which the parent ran
+  on another body).
+* ``--cases TEXT``: only the entries whose name holds TEXT (for example
+  ``fp32``).
 
 Each variant is built from a copy of the sources under
 ``tae_tpu_torch/_build/`` and loaded beside the tree's library; the two
 run in turns (tree, variant, variant, tree) in one process on one card.
 Prints the card's name and power limit, ptxas's report for the body's
-instantiations (and the int8-output kernel's), K7 / K8's plan at each shape
+instantiations (and the int8-output kernel's, and the fp32 bodies'), K7 /
+K8's plan at each shape
 with the clusters the card holds at once, and the median device time of
 each entry.
 
-    python -m tae_tpu_torch.bench.attention_body [--parent DIR] [variant ...]
+    python -m tae_tpu_torch.bench.attention_body [--parent DIR] [--cases TEXT]
+        [variant ...]
 
 Needs ``nvcc`` and a CUDA card.
 """
@@ -76,6 +101,10 @@ B, N, H, DH, BN = 64, 256, 16, 64, 512
 # the int8-output entries' shapes beyond the main path's: (tag, batch,
 # tokens, heads, head dim) of p32 and p64
 Q8_SHAPES = (("p32", 64, 64, 32, 64), ("p64", 64, 16, 32, 80))
+# the fp32 forward's shapes beyond the main path's: (tag, batch, tokens,
+# heads, head dim)
+F32_SHAPES = (("p32", 64, 64, 32, 64), ("p64", 64, 16, 32, 80), ("p128", 64, 4, 32, 80),
+              ("n32", 64, 32, 16, 64), ("n40", 64, 40, 16, 64))
 # variant -> ([(text of flash_attention.cu, its replacement) or (file of
 # csrc/, text, replacement), ...], outputs compared with the tree's)
 ONE_WAIT = ("    if (WAIT && i * KT % kKC == 0) {\n      tae::wait_pending(chunks - 1 - i * KT / kKC);",
@@ -102,6 +131,60 @@ VARIANTS = {
     "no_pv": ([("        tae::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);\n"
                 "        tae::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);\n", "")], False),
 }
+F32_RULE = "constexpr int kF32TiledMinTokens = 33;"
+QK_PREFETCH = ("""#pragma unroll 4
+      for (int d = 0; d < DH; d += 4) {
+        float4 qv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * LD + d);
+""", """      float4 qn[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qn[i] = *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * LD);
+#pragma unroll 4
+      for (int d = 0; d < DH; d += 4) {
+        float4 qv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qv[i] = qn[i];
+          qn[i] = *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * LD + (d + 4) % DH);
+        }
+""")
+VARIANTS.update({
+    "f32_first": ([(F32_RULE, "constexpr int kF32TiledMinTokens = kMaxN + 1;")], True),
+    "f32_tiled": ([(F32_RULE, "constexpr int kF32TiledMinTokens = 1;")], True),
+    # the tiled body's P.V key loop unrolled by 8 (16 as built), its Q.K^T
+    # column loop by 8 or whole (4 as built), one block an SM with up to 255
+    # registers a thread
+    "f32_pv_unroll8": ([("#pragma unroll 16\n      for (int j = 0; j < kc; ++j) {",
+                         "#pragma unroll 8\n      for (int j = 0; j < kc; ++j) {")], True),
+    "f32_qk_unroll8": ([("#pragma unroll 4\n      for (int d = 0; d < DH; d += 4) {",
+                         "#pragma unroll 8\n      for (int d = 0; d < DH; d += 4) {")], True),
+    # Q.K^T loading the next four columns of q ahead of the current FMAs
+    "f32_qk_prefetch": ([QK_PREFETCH], True),
+    "f32_qk_unroll": ([("#pragma unroll 4\n      for (int d = 0; d < DH; d += 4) {",
+                        "#pragma unroll\n      for (int d = 0; d < DH; d += 4) {")], True),
+    "f32_lb1": ([("__launch_bounds__(kTThreads, 2)", "__launch_bounds__(kTThreads, 1)")], True),
+    # the ring at three slots (two as built)
+    "f32_slots3": ([("constexpr int kTSlots = 2;", "constexpr int kTSlots = 3;")], True),
+    # diagnostics of the tiled body: no Q.K^T products, no P.V products
+    "f32_no_qk": ([("      for (int d = 0; d < DH; d += 4) {",
+                    "      for (int d = 0; d < DH && n < 0; d += 4) {")], False),
+    "f32_no_pv": ([("      for (int j = 0; j < kc; ++j) {",
+                    "      for (int j = 0; j < kc && n < 0; ++j) {")], False),
+    "f32_no_products": ([("      for (int d = 0; d < DH; d += 4) {",
+                          "      for (int d = 0; d < DH && n < 0; d += 4) {"),
+                         ("      for (int j = 0; j < kc; ++j) {",
+                          "      for (int j = 0; j < kc && n < 0; ++j) {")], False),
+    # diagnostics: the barrier of each K chunk, or of each V chunk, dropped
+    "f32_no_sync_k": ([("      __syncthreads();  // ... for every thread; slot (c - 1) % S is free",
+                        "")], False),
+    "f32_no_sync_v": ([("      __syncthreads();  // V chunk c and its p visible to all; chunk c - 1 done with",
+                        "")], False),
+    "f32_no_exp": ([("key < n ? softmax_p(s[c][r][j], mx, SERVING) : 0.f;",
+                     "key < n ? s[c][r][j] - mx : 0.f;")], False),
+})
 NO_EXCHANGE = [("const float* pm = cluster.map_shared_rank(pmax, r);", "const float* pm = pmax;"),
                ("cluster.sync();  // every rank's partial maxima", "__syncthreads();  //"),
                ("cluster.sync();  // no block's shared memory", "//")]
@@ -140,7 +223,8 @@ def variant(name: str):
     return build_variant(name, "flash_attention.cu", VARIANTS[name][0])
 
 
-def ptxas_report(build_dir, kernels=("attention_fwd_bf16", "attention_q8_bf16")
+def ptxas_report(build_dir, kernels=("attention_fwd_bf16", "attention_q8_bf16",
+                                     "attention_fwd_f32_tiled", "attention_fwd_f32")
                  ) -> list[str]:
     """ptxas's registers and spills of the instantiations of ``kernels``."""
     out, entry = [], ""
@@ -153,8 +237,8 @@ def ptxas_report(build_dir, kernels=("attention_fwd_bf16", "attention_q8_bf16")
             m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d))?", entry)
             name = f"{kernel} dh {m.group(1)}"
             if m.group(2) is not None:
-                name += (f" {'serving' if m.group(2) == '1' else 'exact'}"
-                         f" {'int8' if 'I8Src' in entry else 'bf16'}")
+                src = "fp32" if "f32" in kernel else "int8" if "I8Src" in entry else "bf16"
+                name += f" {'serving' if m.group(2) == '1' else 'exact'} {src}"
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
 
@@ -233,6 +317,50 @@ def entries(lib):
     ]
     for tag, b, n, h, dh in (("p16", B, N, H, DH), *Q8_SHAPES):
         runs += q8_entries(lib, gen, tag, b, n, h, dh, run, stream)
+    return runs + f32_entries(lib, gen, run, stream)
+
+
+def f32_entries(lib, gen, run, stream):
+    """The fp32 forward: K2's three forms and K16's two at the main path's
+    shape (v a strided view of the packed qkv), K2 serving and exact at
+    F32_SHAPES."""
+    c = H * DH
+    qkv = torch.randn((B, N, 3 * c), generator=gen, device="cuda")
+    r = qkv.view(B, N, 3, H, DH).permute(2, 0, 3, 1, 4)
+    q, k, v = r[0].contiguous(), r[1].contiguous(), r[2]
+    out = torch.empty((B, N, c), device="cuda")
+    o4 = torch.empty((B, H, N, DH), device="cuda")
+    lse = torch.empty((B, H, N), device="cuda")
+    strides = build.int64_array([*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                 *o4.stride()[:3]])
+    scale = DH ** -0.5
+    runs = [
+        ("K2 serving fp32", lambda: run(lib.tae_packed_attention_fwd(
+            qkv.data_ptr(), out.data_ptr(), B, N, H, DH, scale, 1, 0, stream())), (out,),
+         "fwd"),
+        ("K2 exact fp32", lambda: run(lib.tae_packed_attention_fwd(
+            qkv.data_ptr(), out.data_ptr(), B, N, H, DH, scale, 0, 0, stream())), (out,),
+         "fwd"),
+        ("K2 LSE fp32", lambda: run(lib.tae_packed_attention_fwd_lse(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, N, H, DH, scale, 0,
+            stream())), (out, lse), "fwd"),
+        ("K16 fp32", lambda: run(lib.tae_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(), None, strides, B, N,
+            H, DH, scale, 0, stream())), (o4,), "fwd"),
+        ("K16 LSE fp32", lambda: run(lib.tae_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(), lse.data_ptr(),
+            strides, B, N, H, DH, scale, 0, stream())), (o4, lse), "fwd"),
+    ]
+    for tag, b, n, h, dh in F32_SHAPES:
+        x = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda")
+        y = torch.empty((b, n, h * dh), device="cuda")
+        for serving in (1, 0):
+            runs.append((f"K2 {'serving' if serving else 'exact'} fp32 {tag} "
+                         f"({b}, {n}, {3 * h * dh}) h{h} dh{dh}",
+                         lambda x=x, y=y, b=b, n=n, h=h, dh=dh, serving=serving: run(
+                             lib.tae_packed_attention_fwd(x.data_ptr(), y.data_ptr(), b, n, h,
+                                                          dh, dh ** -0.5, serving, 0,
+                                                          stream())), (y,), "fwd"))
     return runs
 
 
@@ -291,10 +419,13 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    parent = None
+    parent = cases = None
     if "--parent" in argv:
         i = argv.index("--parent")
         parent, argv = pathlib.Path(argv[i + 1]), argv[:i] + argv[i + 2:]
+    if "--cases" in argv:
+        i = argv.index("--cases")
+        cases, argv = argv[i + 1], argv[:i] + argv[i + 2:]
     names = (["parent"] if parent else []) + (argv or ([] if parent else list(VARIANTS)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -318,6 +449,8 @@ def main(argv: list[str]) -> int:
             print_plans(name, lib)
         runs = entries(lib)
         for (entry, call0, res0, body), (_, call1, res1, _) in zip(base, runs):
+            if cases is not None and cases not in entry:
+                continue
             same = None
             if body in compared:
                 outs = []
@@ -327,6 +460,10 @@ def main(argv: list[str]) -> int:
                     outs.append([t.clone() for t in res])
                 same = all(torch.equal(a, b) for a, b in zip(*outs))
                 ok &= same
+                if not same:
+                    worst = max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(*outs))
+                    print(f"[{name}] {entry}: max |tree - {name}| {worst:.3g}")
             times = {0: [], 1: []}
             for k, call in ((0, call0), (1, call1), (1, call1), (0, call0)):
                 times[k].append(time_ms(call))

@@ -6,7 +6,11 @@
 //     block, four k16 products a group and one group in flight;
 //   * a three-stage cp.async ring streaming L2-resident tiles into shared
 //     memory with one barrier per step and no compute, as the int8 GEMM
-//     body's ring (int8_common.cuh) runs it.
+//     body's ring (int8_common.cuh) runs it;
+//   * 16-byte shared-memory loads (ld.shared.v4) a warp issues with 32, 8,
+//     4 and 1 distinct addresses (the fp32 bodies' register tiles read 8
+//     or 4 distinct float4s a warp, broadcast across the rest), and the
+//     fp32 FMA rate with such loads mixed in at 1 per 8 and 1 per 16 FMAs.
 // Build and run: python -m tae_tpu_torch.bench.ceilings  (needs nvcc and a card)
 // Rates per clock assume the SM clock printed last (nvidia-smi).
 #include <cstdio>
@@ -109,6 +113,70 @@ __global__ void __launch_bounds__(256) ring_rate(const int8_t* src, size_t src_b
   if (acc == 0x7fffffff) out[0] = acc;
 }
 
+// 16-byte shared loads: lane l reads unit u(l) of a 512-byte row, rows in
+// turn (UNIQ distinct units a warp: l, l % 8, l / 8, 0)
+template <int UNIQ>
+__global__ void __launch_bounds__(256) lds_rate(int iters, float* out) {
+  __shared__ __align__(16) float buf[8 * 128];
+  for (int i = threadIdx.x; i < 8 * 128; i += 256) buf[i] = static_cast<float>(i);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int unit = UNIQ == 32 ? lane : UNIQ == 8 ? (lane & 7) : UNIQ == 4 ? (lane >> 3) : 0;
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(buf)) + unit * 16;
+  float acc = 0.f;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      // the row turns with the iteration, so that no load can be hoisted
+      float a, b, c, d;
+      asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];"
+                   : "=f"(a), "=f"(b), "=f"(c), "=f"(d) : "r"(base + ((it + k) & 7) * 512));
+      acc += a;
+    }
+  }
+  if (acc == 1.2345f) out[0] = acc;
+}
+
+// fp32 FMAs with 16-byte shared loads mixed in: per step LDS loads of 8
+// distinct float4s a warp (lane % 8) and 16 * LDS FMAs on 16 accumulators
+template <int FMA_PER_LDS>
+__global__ void __launch_bounds__(256) ffma_lds_rate(int iters, float* out) {
+  __shared__ __align__(16) float buf[8 * 128];
+  for (int i = threadIdx.x; i < 8 * 128; i += 256) buf[i] = static_cast<float>(i) * 1e-3f;
+  __syncthreads();
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(buf)) + (threadIdx.x & 7) * 16;
+  float acc[16];
+  for (int i = 0; i < 16; ++i) acc[i] = static_cast<float>(threadIdx.x + i);
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float4 v;
+      asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];"
+                   : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                   : "r"(base + ((it + k) & 7) * 512));
+#pragma unroll
+      for (int f = 0; f < FMA_PER_LDS; ++f) acc[f % 16] = fmaf(v.x, acc[f % 16], v.y);
+    }
+  }
+  float s = 0.f;
+  for (int i = 0; i < 16; ++i) s += acc[i];
+  if (s == 1.2345f) out[0] = s;
+}
+
+template <typename K>
+float time_blocks(K kernel, int blocks, int iters, float* out, cudaEvent_t e0, cudaEvent_t e1) {
+  float ms = 0.f;
+  for (int rep = 0; rep < 2; ++rep) {
+    cudaEventRecord(e0);
+    kernel<<<blocks, 256>>>(iters, out);
+    cudaEventRecord(e1);
+    cudaEventSynchronize(e1);
+  }
+  cudaEventElapsedTime(&ms, e0, e1);
+  return ms;
+}
+
 int main(int argc, char** argv) {
   // SM clock in GHz (argv[1], e.g. from nvidia-smi clocks.max.sm) for the per-clock figures
   const double ghz = argc > 1 ? atof(argv[1]) : 1.98;
@@ -185,6 +253,31 @@ int main(int argc, char** argv) {
     }
     cudaEventElapsedTime(&ms, e0, e1);
     printf("cp.async ring, 8 blocks only: %.1f B/clk/SM\n", (double)steps * tile / (ms * 1e-3 * ghz * 1e9));
+  }
+  // shared-memory loads: 16-byte loads a clock per SM by distinct addresses a warp
+  {
+    const int iters = 20000, blocks = 2 * sms;
+    float* f = reinterpret_cast<float*>(out);
+    const float t32 = time_blocks(lds_rate<32>, blocks, iters, f, e0, e1);
+    const float t8 = time_blocks(lds_rate<8>, blocks, iters, f, e0, e1);
+    const float t4 = time_blocks(lds_rate<4>, blocks, iters, f, e0, e1);
+    const float t1 = time_blocks(lds_rate<1>, blocks, iters, f, e0, e1);
+    const double lds = (double)blocks * 8 * iters * 8 / sms;  // warp loads per SM
+    printf("ld.shared.v4 (16 warps per SM), warp loads per clk per SM: 32 distinct %.3f, "
+           "8 distinct %.3f, 4 distinct %.3f, 1 distinct %.3f\n",
+           lds / (t32 * 1e-3 * ghz * 1e9), lds / (t8 * 1e-3 * ghz * 1e9),
+           lds / (t4 * 1e-3 * ghz * 1e9), lds / (t1 * 1e-3 * ghz * 1e9));
+    for (int bps = 1; bps <= 2; ++bps) {
+      const float m8 = time_blocks(ffma_lds_rate<8>, bps * sms, iters, f, e0, e1);
+      const float m16 = time_blocks(ffma_lds_rate<16>, bps * sms, iters, f, e0, e1);
+      const float m64 = time_blocks(ffma_lds_rate<64>, bps * sms, iters, f, e0, e1);
+      // FLOP per SM for one FMA a load: blocks x warps x lanes x steps x 2
+      const double flop = 2.0 * bps * 8 * 32 * iters * 4;
+      const double clk = ghz * 1e9 * 1e-3;  // clocks per ms
+      printf("fp32 FMA with a 16-byte shared load (8 distinct a warp) per 8 / 16 / 64 FMAs, %d "
+             "blocks of 8 warps per SM: %.1f / %.1f / %.1f FLOP/clk/SM of 256\n", bps,
+             flop * 8 / (m8 * clk), flop * 16 / (m16 * clk), flop * 64 / (m64 * clk));
+    }
   }
   printf("%s\n", cudaGetErrorString(cudaGetLastError()));
   return 0;

@@ -75,12 +75,21 @@
 //     bytes a clock of shared memory and the mma.sync rate, and the
 //     accurate expf costs about 12 instructions a score.
 //   * float32: tensor cores would round to TF32, so the products run on the
-//     CUDA cores in fp32: one block per (64 query rows, head, image), K, V
-//     and its Q rows staged as fp32 (rows padded to dh+4 so 16-byte loads of
-//     32 different key rows hit distinct banks), one warp per query row,
-//     each lane scoring N/32 keys against the broadcast q row, then the P.V
-//     loop with float2 output columns per lane. Shared-memory bandwidth
-//     bounds this path.
+//     CUDA cores in fp32 (67 TFLOP/s: 0.256 ms at the main path's shape,
+//     where the bytes take 0.080). From 33 tokens (kF32TiledMinTokens) the
+//     register-tiled body (attention_fwd_f32_tiled, described at it): a
+//     block of 256 threads per (64 query rows, head, image), 4 x 4 register
+//     tiles of (row, key) and (row, column), K and V through a two-slot
+//     cp.async ring, every score of the head kept in registers. Below, the
+//     first design (attention_fwd_f32): one warp per query row, each lane
+//     scoring N/32 keys against the broadcast q row from shared memory, then
+//     the P.V loop with float2 output columns per lane. Both compute the
+//     same products, sums and p in the same order, so their outputs are
+//     equal bit for bit (bench/attention_body.py's f32_first / f32_tiled).
+//     What bounds the tiled body: one 16-byte shared load per 8 FMAs in
+//     both products, where the card sustains about 70% of its FMA rate
+//     (bench/ceilings); it runs at 44% of the operations bound (PERF.md
+//     section 6).
 //   * int8 output (K7, K8): a row's scale needs every head, and the heads
 //     of one row tile sit in different blocks. Those blocks form a
 //     thread-block cluster (two heads a block, up to 16 blocks); each
@@ -673,6 +682,263 @@ attention_fwd_f32(const PlainSrc<float> src, float* __restrict__ out, const Head
   }
 }
 
+// The register-tiled fp32 body, from kF32TiledMinTokens tokens. A block
+// takes kTR query rows of one (image, head) with kTThreads threads on a
+// 16 x 16 grid: thread (rg, cg) scores rows rg + 16 i against keys
+// cg + 16 j of each 64-key chunk (i, j < 4: four float4s of q, then one of
+// k at a time, feed 64 FMAs), keeps all of its up to 4 x 16 scores of the
+// head in registers (so the exact form's row max needs no second pass; the
+// max itself stays in shared memory), and for P.V owns rows 4 rg .. 4 rg +
+// 3 and columns 4 cg .. 4 cg + 3 (and 64 + cg at dh 80): per key one float4
+// of p and one of v feed 16 FMAs. K and then V arrive in 64-key chunks by
+// 16-byte cp.async through a ring of two slots, chunk i + 1 landing while
+// chunk i is used; Q is staged once with chunk 0; p goes to two tiles in
+// turn, so a V chunk takes one barrier. Every product, p and sum is the
+// first design's: s sums fmaf(q_d, k_d) over d ascending and is scaled
+// once; P.V sums fmaf(p_j, v_j) over j ascending; l takes each row's p in
+// the first design's order (lane partials over keys lane + 32 t, then
+// tae::warp_sum's butterfly), read back from the p tile by a warp of 32
+// lanes per 8 rows. So o and lse equal attention_fwd_f32's bit for bit.
+//   Measured on an H100 80GB HBM3 at 700 W (bench/attention_body.py, in
+// turns with the variants named): at (64, 256, 3072) h16 0.583 ms serving,
+// 0.590 exact; the Q.K^T products cost 0.20 of it and the P.V products 0.22
+// (f32_no_qk, f32_no_pv), the exp 0.03 (f32_no_exp); a third ring slot
+// spilled and ran 1-3% slower (f32_slots3), the P.V loop unrolled by 8 ran
+// 1.5% slower than by 16, q loaded a step ahead (f32_qk_prefetch) and the
+// column loop unrolled by 8 moved nothing, unrolled whole ran 22% slower,
+// one block an SM with 255 registers 35% slower in the exact form. The
+// first design keeps 32 tokens and fewer: at 32 tokens both took 0.038 ms
+// at (64, 32, 3072) h16, at 40 the first design 0.070 against 0.044, at 16
+// and 4 tokens (dh 80, h32) 0.044 / 0.011 against 0.072 / 0.064.
+constexpr int kTR = 64;              // query rows a block
+constexpr int kTK = 64;              // keys a chunk: one cp.async group
+constexpr int kTThreads = 256;       // 16 row groups x 16 key / column groups
+constexpr int kTChunks = kMaxN / kTK;
+constexpr int kTLdP = kTR + 4;       // the p tile, [key][row]
+// tokens from which the tiled body runs (below: attention_fwd_f32)
+constexpr int kF32TiledMinTokens = 33;
+
+// ring slots: chunk i + 1 lands while chunk i is used (three spilled at dh
+// 64 and ran 1-3% slower, and leave room for one block an SM at dh 80)
+constexpr int kTSlots = 2;
+
+template <int DH> __host__ __device__ constexpr int t_ld() { return DH + 4; }
+
+// qs (kTR rows), the ring's slots (kTK rows each) of DH + 4 floats, two p
+// tiles (chunks in turn), two halves of the row maxima and the row sums
+template <int DH>
+constexpr size_t tiled_smem_bytes() {
+  return sizeof(float) * (static_cast<size_t>(kTR + kTSlots * kTK) * t_ld<DH>() +
+                          2 * kTK * kTLdP + 3 * kTR);
+}
+
+template <int DH, bool SERVING>
+__global__ void __launch_bounds__(kTThreads, 2)
+attention_fwd_f32_tiled(const PlainSrc<float> src, float* __restrict__ out,
+                        const HeadLayout ol, float* __restrict__ lse, int n, int heads,
+                        float scale) {
+  constexpr int LD = t_ld<DH>(), S = kTSlots;
+  constexpr int CW = DH == 80 ? 5 : 4;  // output columns a thread
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // [kTR][LD]
+  float* ring = qs + kTR * LD;        // [S][kTK][LD]
+  float* ps = ring + S * kTK * LD;    // [2][kTK][kTLdP]
+  float* mxs = ps + 2 * kTK * kTLdP;  // [2][kTR]
+  float* ls = mxs + 2 * kTR;          // [kTR]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTR;
+  const Rows<float> rows = src.rows(b, h);
+  const int nq = min(kTR, n - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = (warp & 1) * 8 + (lane & 7);  // key group, then column group
+  const int rg = (warp >> 1) * 4 + (lane >> 3);  // row group
+  const int nc = (n + kTK - 1) / kTK, items = 2 * nc;  // K chunks, then V chunks
+
+  // item i: K chunk i, or V chunk i - nc, into ring slot i % S; rows past
+  // n zero-filled; nothing past the last item
+  auto issue = [&](int i) {
+    if (i >= items) return;
+    const int c = i < nc ? i : i - nc;
+    // k's or v's rows, chosen without indexing rows' arrays at run time
+    // (which would put them in local memory)
+    const float* src = i < nc ? rows.p[1] : rows.p[2];
+    const long long stride = i < nc ? rows.row[1] : rows.row[2];
+    float* dst = ring + (i % S) * kTK * LD;
+    for (int idx = tid; idx < kTK * (DH / 4); idx += kTThreads) {
+      const int r = idx / (DH / 4), col = (idx - r * (DH / 4)) * 4;
+      const int key = c * kTK + r;
+      if (key < n)
+        tae::cp_async16(dst + r * LD + col, src + key * stride + col);
+      else
+        *reinterpret_cast<float4*>(dst + r * LD + col) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    tae::cp_async_commit();
+  };
+  for (int idx = tid; idx < kTR * (DH / 4); idx += kTThreads) {
+    const int r = idx / (DH / 4), col = (idx - r * (DH / 4)) * 4;
+    if (r < nq)
+      tae::cp_async16(qs + r * LD + col, rows.at(0, q0 + r) + col);
+    else
+      *reinterpret_cast<float4*>(qs + r * LD + col) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = 0; i < S - 1; ++i) issue(i);  // Q rides with item 0
+
+  // ---- S = Q K^T, every chunk's scores kept: s[c][i][j] is row rg + 16 i,
+  //      key 64 c + cg + 16 j
+  float s[kTChunks][4][4];
+#pragma unroll
+  for (int c = 0; c < kTChunks; ++c) {
+    if (c < nc) {
+      // K chunk c (and Q) landed: S - 2 newer chunks may still fly
+      tae::wait_pending(c + 1 < items ? S - 2 : 0);
+      __syncthreads();  // ... for every thread; slot (c - 1) % S is free
+      issue(c + S - 1);
+      const float* ks = ring + (c % S) * kTK * LD;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[c][i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < DH; d += 4) {
+        float4 qv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(ks + (cg + 16 * j) * LD + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float acc = s[c][i][j];
+            acc = fmaf(qv[i].x, kv.x, acc);
+            acc = fmaf(qv[i].y, kv.y, acc);
+            acc = fmaf(qv[i].z, kv.z, acc);
+            acc = fmaf(qv[i].w, kv.w, acc);
+            s[c][i][j] = acc;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[c][i][j] *= scale;
+    }
+  }
+
+  // ---- the exact forms' row max: the thread's keys, its 8 lanes of the
+  //      row group (lane bits 0-2), then the two warps of the row group,
+  //      whose halves stay in shared memory (registers are what the P.V
+  //      loop's unrolling needs)
+  if (!SERVING) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kTChunks; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c * kTK + cg + 16 * j < n) m = fmaxf(m, s[c][i][j]);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if ((lane & 7) == 0) mxs[(warp & 1) * kTR + rg + 16 * i] = m;
+    }
+    __syncthreads();
+  }
+
+  // ---- p, l and P.V chunk by chunk
+  float o[4][CW], lp[8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < CW; ++e) o[r][e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) lp[r] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kTChunks; ++c) {
+    if (c < nc) {
+      const int i = nc + c;
+      // p of chunk c into its half of the p tile, last read for chunk c - 2
+      float* pc = ps + (c & 1) * kTK * kTLdP;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float mx = SERVING ? 0.f : fmaxf(mxs[rg + 16 * r], mxs[kTR + rg + 16 * r]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = c * kTK + cg + 16 * j;
+          pc[(cg + 16 * j) * kTLdP + rg + 16 * r] =
+              key < n ? softmax_p(s[c][r][j], mx, SERVING) : 0.f;
+        }
+      }
+      tae::wait_pending(i + 1 < items ? S - 2 : 0);  // V chunk c; the last waits for all
+      __syncthreads();  // V chunk c and its p visible to all; chunk c - 1 done with
+      issue(i + S - 1);
+      // warp w's rows 8 w .. 8 w + 7: lane l adds keys l, then l + 32
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int key = c * kTK + lane + 32 * t;
+        if (key < n) {
+          const float* pr = pc + (lane + 32 * t) * kTLdP + 8 * warp;
+          const float4 a = *reinterpret_cast<const float4*>(pr);
+          const float4 e = *reinterpret_cast<const float4*>(pr + 4);
+          lp[0] += a.x;
+          lp[1] += a.y;
+          lp[2] += a.z;
+          lp[3] += a.w;
+          lp[4] += e.x;
+          lp[5] += e.y;
+          lp[6] += e.z;
+          lp[7] += e.w;
+        }
+      }
+      const float* vs = ring + (i % S) * kTK * LD;
+      const int kc = min(kTK, n - c * kTK);
+#pragma unroll 16
+      for (int j = 0; j < kc; ++j) {
+        const float4 pv = *reinterpret_cast<const float4*>(pc + j * kTLdP + 4 * rg);
+        const float4 vv = *reinterpret_cast<const float4*>(vs + j * LD + 4 * cg);
+        const float p4[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          o[r][0] = fmaf(p4[r], vv.x, o[r][0]);
+          o[r][1] = fmaf(p4[r], vv.y, o[r][1]);
+          o[r][2] = fmaf(p4[r], vv.z, o[r][2]);
+          o[r][3] = fmaf(p4[r], vv.w, o[r][3]);
+        }
+        if (CW == 5) {
+          const float v5 = vs[j * LD + 64 + cg];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) o[r][CW - 1] = fmaf(p4[r], v5, o[r][CW - 1]);
+        }
+      }
+    }
+  }
+
+  // ---- l (and lse) per row, then o * (1 / l)
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float l = tae::warp_sum(lp[r]);
+    const int row = 8 * warp + r;
+    if (lane == r) {
+      ls[row] = l;
+      if (!SERVING && lse != nullptr && row < nq)
+        lse[(static_cast<long>(b) * heads + h) * n + q0 + row] =
+            fmaxf(mxs[row], mxs[kTR + row]) + logf(l);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * rg + r;
+    if (row < nq) {
+      const float inv = 1.f / ls[row];
+      float* orow = out + ol.at(b, h) + (q0 + row) * ol.row;
+      *reinterpret_cast<float4*>(orow + 4 * cg) =
+          make_float4(o[r][0] * inv, o[r][1] * inv, o[r][2] * inv, o[r][3] * inv);
+      if (CW == 5) orow[64 + cg] = o[r][CW - 1] * inv;
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 // smem_allowed: the kernel's dynamic shared-memory limit as last raised (one
@@ -731,9 +997,27 @@ int launch_dtype(const void* const (&qkv)[3], const HeadLayout (&il)[3], void* o
       src.p[i] = static_cast<const float*>(qkv[i]);
       src.l[i] = il[i];
     }
+    // the shape rule: the first design up to 32 tokens, where it is as fast
+    // or faster (0.038 against 0.038 ms at 32 tokens, 0.044 against 0.072 at
+    // 16; the tiled body 0.044 against 0.070 at 40: attention_fwd_f32_tiled's
+    // note); no fallback on failure
+    if (n < kF32TiledMinTokens) {
+      static size_t smem_allowed = 0;
+      return launch(attention_fwd_f32<DH, SERVING>, f32_smem_bytes<DH>(n), smem_allowed,
+                    kF32Warps * 32, kBQ, src, out, ol, lse, batch, n, heads, scale, stream);
+    }
+    auto* kernel = attention_fwd_f32_tiled<DH, SERVING>;
     static size_t smem_allowed = 0;
-    return launch(attention_fwd_f32<DH, SERVING>, f32_smem_bytes<DH>(n), smem_allowed,
-                  kF32Warps * 32, kBQ, src, out, ol, lse, batch, n, heads, scale, stream);
+    static bool carved = false;
+    if (!carved) {
+      // two blocks an SM need more than the default carveout's shared memory
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      carved = true;
+    }
+    return launch(kernel, tiled_smem_bytes<DH>(), smem_allowed, kTThreads, kTR, src, out, ol,
+                  lse, batch, n, heads, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -38,9 +38,24 @@
 //   each block searching a contiguous range of code tiles, and a merge
 //   kernel takes each row's (distance, index) pairs in code order, so the
 //   lowest index still wins a tie across the ranges.
-//   fp32 inputs take a plain CUDA-core kernel (16 rows a block, a thread
-//   per code of a 64-code tile, z resident where it fits and tiled over V
-//   otherwise): right, not fast.
+//   fp32 (nearest_code_f32_kernel; plan vq::f32 in quantizer.cuh): the
+//   products stay fp32 FMAs on the CUDA cores (67 TFLOP/s: 0.128 ms at
+//   (2048, 256) x 8192 codes, where the bytes take 0.004), as the first
+//   design's, so its distances and ids are the first design's. That design
+//   (16 rows a block, a thread per code of a 64-code tile) fed each 16 FMAs
+//   with five shared-memory float4s and staged behind plain loads. Now a
+//   block takes 128 rows and 256-code tiles over 256 threads, each an 8 x 16
+//   register tile (24 float4s per 512 FMAs; 128-code tiles and 8 x 8 where
+//   the wide tiles would leave SMs idle), 32-column chunks arrive by
+//   cp.async through a ring of up to 4 slots, z stays resident where it
+//   fits (V <= 288 wide, 352 narrow) and rides the ring otherwise, and at
+//   few rows the codebook is split over grid.y and merged as in bf16.
+//   Measured on an H100 80GB HBM3 at 700 W (bench/vq_body.py): (2048, 256)
+//   0.235 ms, (16384, 256) 1.79, (256, 256) 0.046 (the first design 1.03,
+//   4.28, 1.02); the 8 x 8 tile at every shape (f32_narrow) 0.257 and 1.97;
+//   the column loop unrolled by 2 (f32_unroll2) 1-2% slower; the distances
+//   and running argmin cost 5% (f32_no_epilogue); two ring slots as fast as
+//   four (f32_stages2).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -53,8 +68,6 @@ using vq::round_up;
 
 constexpr float kBig = 3.4e38f;   // larger than any real distance
 constexpr int kNT = 256;
-constexpr int kTile = 64;         // codes of the fp32 kernel's tile
-constexpr int kSmemLimit = 232448;
 
 // (d2, i2) replaces (d, i) if it is nearer, or as near with a lower index
 __device__ __forceinline__ void take_better(float& d, int& i, float d2, int i2) {
@@ -250,116 +263,185 @@ nearest_code_merge_kernel(const float* __restrict__ ws_d, const int* __restrict_
   out[row] = i;
 }
 
-// fp32 on CUDA cores: 16 rows of z in shared memory (ZS: their 32 columns of
-// the current chunk), tiles of 64 codes x 32 columns; thread (ty, tx) holds
-// rows 4 ty .. 4 ty + 3 against code tx.
-constexpr int kRowsF = 16, kChunkF = 32, kLdF = kChunkF + 4;
-
-__host__ __device__ constexpr int f32_smem(int v, bool zs) {
-  return (kRowsF * (zs ? kChunkF : round_up(v, kChunkF)) + kTile * kLdF + 4 * kRowsF) * 4;
-}
-
-template <bool ZS>
-__global__ void __launch_bounds__(kNT)
+// fp32 on the CUDA cores (plan: quantizer.cuh, vq::f32). Thread (rg, cg) of
+// the 16 x 16 grid owns rows rg + 16 r (r < 8) and codes cg + 16 j (j < NJ)
+// of the block's tile of 16 NJ codes: per 4 columns, 8 float4s of z (held)
+// and NJ of the codebook (one at a time, each feeding 32 FMAs) feed 32 NJ
+// FMAs. Both are read along their rows (the codebook's
+// chunk and z's, resident or riding, padded to an odd number of 16-byte
+// units, so the 8 rows or codes a quarter-warp reads lie in distinct
+// banks). Item i of the ring is chunk i % chunks of the range's code tile
+// i / chunks; after a tile's last chunk each thread turns its sums into
+// distances and keeps a running (min, argmin) for its 8 rows, meeting its
+// codes in ascending order and replacing only on <; the 16 threads of a row
+// are then merged by (distance, index) pairs, so the lowest index wins
+// every tie.
+template <bool ZRES, int NJ>
+__global__ void __launch_bounds__(vq::f32::kThreads, 1)
 nearest_code_f32_kernel(const float* __restrict__ z, const float* __restrict__ cb,
-                        const float* __restrict__ cn, long long* __restrict__ out, int m, int v,
-                        int k) {
+                        const float* __restrict__ cn, long long* __restrict__ out,
+                        float* __restrict__ ws_d, int* __restrict__ ws_i, int m, int v, int k,
+                        int per, int stages) {
+  constexpr int kRows = vq::f32::kRows, kChunk = vq::f32::kChunk, kCodes = 16 * NJ;
+  constexpr int kLd = vq::f32::kLd, kThreads = vq::f32::kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int vp = round_up(v, kChunkF), ldz = ZS ? kChunkF : vp;
-  float* zs = reinterpret_cast<float*>(smem);           // [16][ldz]
-  float* cs = zs + kRowsF * ldz;                        // [64][kLdF]
-  float* red_d = cs + kTile * kLdF;                     // [2][16]
-  int* red_i = reinterpret_cast<int*>(red_d + 2 * kRowsF);
+  const int vp = round_up(v, kChunk), chunks = vp / kChunk, lz = vq::f32::ldz(v);
+  float* zs = reinterpret_cast<float*>(smem);                  // [kRows][lz], resident
+  float* ring = zs + (ZRES ? kRows * lz : 0);                   // [stages][slot]
+  constexpr int kSlot = (kCodes + (ZRES ? 0 : kRows)) * kLd;    // floats
+  float* red_d = ring + stages * kSlot;                         // [2][kRows]
+  int* red_i = reinterpret_cast<int*>(red_d + 2 * kRows);
 
-  const int row0 = blockIdx.x * kRowsF;
-  const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
-  for (int c = threadIdx.x; !ZS && c < kRowsF * (vp / 4); c += kNT) {
-    const int r = c / (vp / 4), col = (c % (vp / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < m && col < v) {
-      val = *reinterpret_cast<const float4*>(z + static_cast<long>(row0 + r) * v + col);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = (warp & 1) * 8 + (lane & 7), rg = (warp >> 1) * 4 + (lane >> 3);
+  const int row0 = blockIdx.x * kRows;
+  const int tiles = vq::ceil_div(k, kCodes), t0 = blockIdx.y * per;
+  const int t1 = min(tiles, t0 + per), items = (t1 - t0) * chunks;
+
+  // 16 bytes from src into dst, or zeros
+  auto copy16 = [](float* dst, const float* src, bool valid) {
+    if (valid)
+      tae::cp_async16(dst, src);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto issue = [&](int i) {
+    if (i < items) {
+      const int code0 = (t0 + i / chunks) * kCodes, col0 = (i % chunks) * kChunk;
+      float* slot = ring + (i % stages) * kSlot;
+      for (int idx = tid; idx < kCodes * (kChunk / 4); idx += kThreads) {
+        const int r = idx / (kChunk / 4), col = col0 + (idx % (kChunk / 4)) * 4;
+        copy16(slot + r * kLd + col - col0, cb + static_cast<long>(code0 + r) * v + col,
+               code0 + r < k && col < v);
+      }
+      for (int idx = tid; !ZRES && idx < kRows * (kChunk / 4); idx += kThreads) {
+        const int r = idx / (kChunk / 4), col = col0 + (idx % (kChunk / 4)) * 4;
+        copy16(slot + (kCodes + r) * kLd + col - col0,
+               z + static_cast<long>(row0 + r) * v + col, row0 + r < m && col < v);
+      }
     }
-    *reinterpret_cast<float4*>(zs + r * vp + col) = val;
+    tae::cp_async_commit();
+  };
+  for (int idx = tid; ZRES && idx < kRows * (vp / 4); idx += kThreads) {
+    const int r = idx / (vp / 4), col = (idx % (vp / 4)) * 4;
+    copy16(zs + r * lz + col, z + static_cast<long>(row0 + r) * v + col,
+           row0 + r < m && col < v);
   }
+  for (int i = 0; i < stages - 1; ++i) issue(i);  // with resident z in the first group
 
-  float best[4];
-  int best_i[4];
+  float acc[8][NJ], best[8];
+  int best_i[8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < 8; ++r) {
     best[r] = kBig;
     best_i[r] = 0;
   }
-  for (int code0 = 0; code0 < k; code0 += kTile) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int col0 = 0; col0 < vp; col0 += kChunkF) {
-      __syncthreads();   // the previous chunk is consumed (and zs is whole)
-      for (int c = threadIdx.x; c < kTile * (kChunkF / 4); c += kNT) {
-        const int r = c / (kChunkF / 4), col = col0 + (c % (kChunkF / 4)) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (code0 + r < k && col < v) {
-          val = *reinterpret_cast<const float4*>(cb + static_cast<long>(code0 + r) * v + col);
-        }
-        *reinterpret_cast<float4*>(cs + r * kLdF + (col - col0)) = val;
-      }
-      for (int c = threadIdx.x; ZS && c < kRowsF * (kChunkF / 4); c += kNT) {
-        const int r = c / (kChunkF / 4), col = col0 + (c % (kChunkF / 4)) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 + r < m && col < v) {
-          val = *reinterpret_cast<const float4*>(z + static_cast<long>(row0 + r) * v + col);
-        }
-        *reinterpret_cast<float4*>(zs + r * kChunkF + (col - col0)) = val;
-      }
-      __syncthreads();
+  for (int i = 0; i < items; ++i) {
+    tae::wait_pending(stages - 2);  // item i (stages - 2 newer groups may fly)
+    __syncthreads();                // ... landed for all; slot (i - 1) % stages is free
+    issue(i + stages - 1);
+    const int ch = i % chunks;
+    if (ch == 0) {
 #pragma unroll
-      for (int j = 0; j < kChunkF; j += 4) {
-        const float4 cv = *reinterpret_cast<const float4*>(cs + tx * kLdF + j);
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float4 zv =
-              *reinterpret_cast<const float4*>(zs + (ty * 4 + r) * ldz + (ZS ? 0 : col0) + j);
-          acc[r] = fmaf(zv.x, cv.x, acc[r]);
-          acc[r] = fmaf(zv.y, cv.y, acc[r]);
-          acc[r] = fmaf(zv.z, cv.z, acc[r]);
-          acc[r] = fmaf(zv.w, cv.w, acc[r]);
+        for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
+    }
+    const float* cs = ring + (i % stages) * kSlot;
+    const float* zr = ZRES ? zs + ch * kChunk : cs + kCodes * kLd;
+    const int ldr = ZRES ? lz : kLd;
+#pragma unroll 1
+    for (int c = 0; c < kChunk; c += 4) {
+      float4 zv[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        zv[r] = *reinterpret_cast<const float4*>(zr + (rg + 16 * r) * ldr + c);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 cv = *reinterpret_cast<const float4*>(cs + (cg + 16 * j) * kLd + c);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float a = acc[r][j];
+          a = fmaf(zv[r].x, cv.x, a);
+          a = fmaf(zv[r].y, cv.y, a);
+          a = fmaf(zv[r].z, cv.z, a);
+          a = fmaf(zv[r].w, cv.w, a);
+          acc[r][j] = a;
         }
       }
     }
-    const int code = code0 + tx;
-    if (code < k) {
-      const float norm = cn[code];
+    if (ch == chunks - 1) {
+      const int code0 = (t0 + i / chunks) * kCodes;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float d = __fsub_rn(norm, __fmul_rn(2.0f, acc[r]));
-        if (d < best[r]) {
-          best[r] = d;
-          best_i[r] = code;
+      for (int j = 0; j < NJ; ++j) {
+        const int code = code0 + cg + 16 * j;
+        if (code < k) {
+          const float norm = cn[code];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float d = __fsub_rn(norm, __fmul_rn(2.0f, acc[r][j]));
+            if (d < best[r]) {
+              best[r] = d;
+              best_i[r] = code;
+            }
+          }
         }
       }
     }
   }
-  // the 64 threads of a row group: a warp's lanes, then its two warps
-  const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2;
+  tae::wait_pending(0);  // no copy in flight (the trailing groups are empty)
+  // the 16 threads of a row: its 8 lanes of the warp (lane bits 0-2), then
+  // the two warps of the row group
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < 8; ++r) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
+    for (int o = 1; o < 8; o <<= 1) {
       const float d2 = __shfl_xor_sync(0xffffffffu, best[r], o);
       const int i2 = __shfl_xor_sync(0xffffffffu, best_i[r], o);
       take_better(best[r], best_i[r], d2, i2);
     }
-    if (lane == 0) {
-      red_d[half * kRowsF + ty * 4 + r] = best[r];
-      red_i[half * kRowsF + ty * 4 + r] = best_i[r];
+    if ((lane & 7) == 0) {
+      red_d[(warp & 1) * kRows + rg + 16 * r] = best[r];
+      red_i[(warp & 1) * kRows + rg + 16 * r] = best_i[r];
     }
   }
   __syncthreads();
-  if (threadIdx.x < kRowsF && row0 + threadIdx.x < m) {
-    const int r = threadIdx.x;
-    float d = red_d[r];
-    int i = red_i[r];
-    take_better(d, i, red_d[kRowsF + r], red_i[kRowsF + r]);
-    out[row0 + r] = i;
+  if (tid < kRows && row0 + tid < m) {
+    float d = red_d[tid];
+    int i = red_i[tid];
+    take_better(d, i, red_d[kRows + tid], red_i[kRows + tid]);
+    const long row = row0 + tid;
+    if (ws_d == nullptr) {
+      out[row] = i;
+    } else {
+      ws_d[static_cast<long>(blockIdx.y) * m + row] = d;
+      ws_i[static_cast<long>(blockIdx.y) * m + row] = i;
+    }
   }
+}
+
+// The fp32 plan's search, then (splits > 1) the merge of its ranges'
+// per-row bests (ws as launch_bf16's).
+int launch_f32(const vq::f32::Plan& p, const float* z, const float* cb, const float* cn,
+               long long* out, void* ws, int m, int v, int k, cudaStream_t stream) {
+  const bool wide = p.codes == vq::f32::kWideCodes;
+  auto* kernel = p.resident ? (wide ? nearest_code_f32_kernel<true, 16>
+                                    : nearest_code_f32_kernel<true, 8>)
+                            : (wide ? nearest_code_f32_kernel<false, 16>
+                                    : nearest_code_f32_kernel<false, 8>);
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  float* ws_d = p.splits > 1 ? static_cast<float*>(ws) : nullptr;
+  int* ws_i = p.splits > 1 ? reinterpret_cast<int*>(ws_d + static_cast<long>(p.splits) * m)
+                           : nullptr;
+  kernel<<<dim3(p.blocks, p.splits), vq::f32::kThreads, p.smem, stream>>>(
+      z, cb, cn, out, ws_d, ws_i, m, v, k, p.per, p.stages);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
+  nearest_code_merge_kernel<<<(m + kNT - 1) / kNT, kNT, 0, stream>>>(ws_d, ws_i, out, m,
+                                                                     p.splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int NC, bool ZS>
@@ -407,11 +489,11 @@ int launch_bf16(const vq::Plan& p, const void* z, const void* cb, const float* c
 
 // z (m, v) and codebook (k, v) of dtype (bfloat16: v a multiple of 8;
 // float32: of 4), out (m,) int64; all contiguous and 16-byte aligned. sms:
-// the card's SM count, which the bf16 plan (quantizer.cuh) reads; splits:
-// that plan's ranges of the codebook (1 for float32), with ws a workspace
-// of 2 * splits * m 4-byte words (null when splits is 1). norms: an f32
-// workspace of k values (float32) or of the bf16 plan's whole tiles
-// (ceil(k / codes) * codes).
+// the card's SM count, which the plans (quantizer.cuh) read; splits: the
+// dtype's plan's ranges of the codebook, with ws a workspace of 2 * splits
+// * m 4-byte words (null when splits is 1). norms: an f32 workspace of k
+// values (float32) or of the bf16 plan's whole tiles (ceil(k / codes) *
+// codes).
 extern "C" int tae_nearest_code_fwd(const void* z, const void* cb, void* norms, void* out,
                                     void* ws, int m, int v, int k, int dtype, int sms,
                                     int splits, void* stream) {
@@ -423,18 +505,15 @@ extern "C" int tae_nearest_code_fwd(const void* z, const void* cb, void* norms, 
   float* cn = static_cast<float*>(norms);
   long long* ids = static_cast<long long*>(out);
   if (dtype == kFloat32) {
-    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    vq::f32::Plan p;
+    if (!vq::f32::plan(m, v, k, sms, p) || splits != p.splits || (splits > 1 && ws == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
     nearest_code_norms_kernel<float><<<(k + kNT / 32 - 1) / (kNT / 32), kNT, 0, s>>>(
         static_cast<const float*>(cb), cn, k, k, v, 0.f);
-    const bool zs = f32_smem(v, false) > kSmemLimit;
-    const int smem = f32_smem(v, zs);
-    auto kernel = zs ? nearest_code_f32_kernel<true> : nearest_code_f32_kernel<false>;
-    cudaError_t rc =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t rc = cudaGetLastError();
     if (rc != cudaSuccess) return static_cast<int>(rc);
-    kernel<<<(m + kRowsF - 1) / kRowsF, kNT, smem, s>>>(
-        static_cast<const float*>(z), static_cast<const float*>(cb), cn, ids, m, v, k);
-    return static_cast<int>(cudaGetLastError());
+    return launch_f32(p, static_cast<const float*>(z), static_cast<const float*>(cb), cn, ids,
+                      ws, m, v, k, s);
   }
   vq::Plan p;
   if (!vq::plan(m, v, k, sms, p) || splits != p.splits || (splits > 1 && ws == nullptr))
@@ -457,6 +536,20 @@ extern "C" int tae_nearest_code_plan(int m, int v, int k, int sms, int* out) {
   if (!out[0]) return 0;
   const int fields[] = {p.rows,   p.consumers, p.codes, p.stages, p.resident,
                         p.blocks, p.splits,    p.per,   p.smem};
+  for (int i = 0; i < 9; ++i) out[1 + i] = fields[i];
+  return 0;
+}
+
+// The fp32 plan for (m, v, k) on a card of `sms` SMs (quantizer.cuh,
+// vq::f32): out[0] 1 where the kernel takes the shape (else 0, and nothing
+// more is written), then rows, codes, chunk, stages, resident, blocks,
+// splits, per, smem.
+extern "C" int tae_nearest_code_f32_plan(int m, int v, int k, int sms, int* out) {
+  vq::f32::Plan p;
+  out[0] = vq::f32::plan(m, v, k, sms, p) ? 1 : 0;
+  if (!out[0]) return 0;
+  const int fields[] = {p.rows,   p.codes,  p.chunk, p.stages, p.resident,
+                        p.blocks, p.splits, p.per,   p.smem};
   for (int i = 0; i < 9; ++i) out[1 + i] = fields[i];
   return 0;
 }

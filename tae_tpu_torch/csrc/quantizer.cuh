@@ -100,5 +100,81 @@ inline bool plan(int m, int v, int k, int sms, Plan& p) {
   return p.stages >= 2;
 }
 
+// The fp32 search (nearest_code_f32_kernel, on the CUDA cores: no TF32),
+// mirrored by ops/cuda/quantizer.py::vq_f32_plan and exposed as
+// tae_nearest_code_f32_plan. A block of kThreads threads (16 x 16) takes
+// kRows rows of z and a contiguous range of `per` code tiles, each thread
+// an 8-row register tile of (row, code) sums against 16 codes of a
+// kWideCodes-code tile (8 of a kCodes-code tile where the row blocks times
+// the wide tiles are fewer than the SMs: there the narrow tile keeps every
+// SM busy). The columns come in chunks of kChunk by cp.async through a
+// ring of `stages` slots (the codebook's chunk, and z's where z rides the
+// ring); z stays resident in shared memory, its rows padded to an odd
+// number of 16-byte units, where it fits beside kMinStages slots. Where the
+// row blocks are fewer than the SMs the codebook is split over grid.y as
+// the bf16 plan splits it, and nearest_code_merge_kernel takes each row's
+// best of the ranges.
+namespace f32 {
+
+constexpr int kRows = 128;       // rows of z a block
+constexpr int kCodes = 128;      // codes of a narrow tile: 8 a thread
+constexpr int kWideCodes = 256;  // codes of a wide tile: 16 a thread
+constexpr int kChunk = 32;       // columns of a ring slot
+constexpr int kMinStages = 2;    // ring slots, at least
+constexpr int kMaxStages = 4;    // ring slots, at most
+constexpr int kThreads = 256;    // 16 x 16 threads, each 8 rows x 8 or 16 codes
+constexpr int kLd = kChunk + 4;  // a ring slot's row of floats
+
+struct Plan {
+  int rows;      // rows of z a block
+  int codes;     // codes of a tile (kCodes or kWideCodes)
+  int chunk;     // columns of a ring slot
+  int stages;    // ring slots
+  int resident;  // 1: z stays in shared memory; 0: z rides the ring
+  int blocks;    // grid.x: row blocks
+  int splits;    // grid.y: ranges of the codebook
+  int per;       // code tiles a range
+  int smem;      // dynamic shared memory of a block, bytes
+};
+
+// a resident z row: V rounded up to whole chunks (zeros past V), plus 4
+__host__ __device__ constexpr int ldz(int v) { return round_up(v, kChunk) + 4; }
+// one ring slot: the codebook's chunk, and z's where it rides
+__host__ __device__ constexpr int slot_bytes(int codes, bool resident) {
+  return 4 * (codes + (resident ? 0 : kRows)) * kLd;
+}
+// resident z, `stages` slots, and the (distance, index) pairs of the
+// block's two row halves
+__host__ __device__ constexpr int smem_bytes(int v, int codes, int stages, bool resident) {
+  return (resident ? 4 * kRows * ldz(v) : 0) + stages * slot_bytes(codes, resident) +
+         8 * 2 * kRows;
+}
+
+// False where the kernel does not take the shape (V a multiple of 4:
+// 16-byte rows for cp.async).
+inline bool plan(int m, int v, int k, int sms, Plan& p) {
+  if (m < 1 || k < 1 || v < 4 || v % 4 != 0 || sms < 1) return false;
+  p.rows = kRows;
+  p.chunk = kChunk;
+  p.blocks = ceil_div(m, kRows);
+  p.codes = p.blocks * ceil_div(k, kWideCodes) >= sms ? kWideCodes : kCodes;
+  const int tiles = ceil_div(k, p.codes);
+  int splits = 1;
+  if (p.blocks < sms) {
+    splits = sms / p.blocks;
+    if (splits > tiles) splits = tiles;
+    if (splits < 1) splits = 1;
+  }
+  p.per = ceil_div(tiles, splits);
+  p.splits = ceil_div(tiles, p.per);  // none of the ranges empty
+  p.resident = smem_bytes(v, p.codes, kMinStages, true) <= kSmemLimit ? 1 : 0;
+  const int room = kSmemLimit - smem_bytes(v, p.codes, 0, p.resident != 0);
+  const int fit = room / slot_bytes(p.codes, p.resident != 0);
+  p.stages = fit < kMaxStages ? fit : kMaxStages;
+  p.smem = smem_bytes(v, p.codes, p.stages, p.resident != 0);
+  return p.stages >= kMinStages;
+}
+
+}  // namespace f32
 }  // namespace vq
 }  // namespace tae

@@ -133,6 +133,8 @@ SIGNATURES = {
                               _VP), _I),
     # m, v, k, the card's SMs, int[11] out: K14's bf16 plan
     "tae_nearest_code_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
+    # m, v, k, the card's SMs, int[10] out: K14's fp32 plan
+    "tae_nearest_code_f32_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
     "tae_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -33,6 +33,9 @@ MAX_TOKENS = 256
 HEAD_DIMS = (64, 80)
 #: the serving softmax's score clamp (tae_tpu _SOFTMAX_CLIP)
 SOFTMAX_CLIP = (-60.0, 45.0)
+#: tokens from which the fp32 forward runs its register-tiled body
+#: (csrc/flash_attention.cu, kF32TiledMinTokens); below, a warp a query row
+F32_TILED_MIN_TOKENS = 33
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -1,7 +1,8 @@
 """K14: codebook nearest-neighbour search (counterpart of
 ``tae_tpu/ops/pallas/quantizer.py::nearest_code_pallas``; source
-``tae_tpu_torch/csrc/quantizer.cu``, its bf16 launch plan
-``csrc/quantizer.cuh``, mirrored by :func:`vq_plan`) and its plain version.
+``tae_tpu_torch/csrc/quantizer.cu``, its launch plans in
+``csrc/quantizer.cuh``, mirrored by :func:`vq_plan` for bf16 and
+:func:`vq_f32_plan` for fp32) and its plain version.
 
 For latents z (M, V) and a codebook (K, V): ``argmin_k (|c_k|^2 - 2 z.c_k)``
 in fp32 (the ``|z|^2`` term is constant per row) on the codebook rounded to
@@ -10,7 +11,9 @@ kernel streams the codebook and never writes the (M, K) distances; the plain
 version materializes them. In bf16 a block's rows of z stay in shared
 memory where they fit beside the codebook ring and ride it otherwise;
 where the row blocks are fewer than the SMs, the codebook is split into
-ranges searched by separate blocks whose per-row bests are merged.
+ranges searched by separate blocks whose per-row bests are merged. fp32
+runs on the CUDA cores (no TF32) in register tiles of 8 rows x 8 codes a
+thread, with the same split at few rows.
 
 The search returns ids and has no gradient: both versions run on detached
 tensors under ``no_grad``, so a z that requires a gradient (training calls
@@ -106,6 +109,76 @@ def vq_plan(m: int, v: int, k: int, sms: int) -> VqPlan | None:
                   smem_bytes(rows, CODES, stages, v, resident))
 
 
+# The fp32 plan's constants, mirrored from csrc/quantizer.cuh (vq::f32)
+#: rows of z a block; codes of a narrow and of a wide tile (16 x 16
+#: threads, each 8 rows x 8 or 16 codes)
+F32_ROWS = 128
+F32_CODES = 128
+F32_WIDE_CODES = 256
+#: columns of a ring slot, and a slot's row of floats
+F32_CHUNK = 32
+F32_LD = F32_CHUNK + 4
+#: ring slots, at least and at most
+F32_MIN_STAGES = 2
+F32_MAX_STAGES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class VqF32Plan:
+    """K14's fp32 launch (``tae::vq::f32::Plan``): ``rows`` of z a block,
+    ``codes`` a tile, ``chunk`` columns a ring slot, ``stages`` slots, z
+    ``resident`` in shared memory or riding the ring, grid (``blocks``,
+    ``splits``) with ``per`` code tiles a range, ``smem`` bytes of dynamic
+    shared memory a block."""
+    rows: int
+    codes: int
+    chunk: int
+    stages: int
+    resident: int
+    blocks: int
+    splits: int
+    per: int
+    smem: int
+
+
+def f32_smem_bytes(v: int, codes: int, stages: int, resident: bool) -> int:
+    """Resident z (its rows rounded up to whole chunks, plus 4 floats),
+    ``stages`` ring slots (the codebook's chunk of ``codes`` rows, and z's
+    where it rides), and the (distance, index) pairs of a block's two row
+    halves."""
+    ldz = -(-v // F32_CHUNK) * F32_CHUNK + 4
+    slot = 4 * (codes + (0 if resident else F32_ROWS)) * F32_LD
+    return ((4 * F32_ROWS * ldz if resident else 0) + stages * slot
+            + 8 * 2 * F32_ROWS)
+
+
+def vq_f32_plan(m: int, v: int, k: int, sms: int) -> VqF32Plan | None:
+    """The plan ``tae::vq::f32::plan`` computes for (M, V) fp32 latents
+    against K codes on a card of ``sms`` SMs, or None where the kernel does
+    not take the shape (V a multiple of 4): 128-row blocks; 256-code tiles
+    where the row blocks times such tiles are at least the SMs, else
+    128-code tiles; the codebook split as in :func:`vq_plan`; z resident
+    where it fits beside F32_MIN_STAGES slots, the ring as many slots as
+    then fit, up to F32_MAX_STAGES."""
+    if m < 1 or k < 1 or v < 4 or v % 4 or sms < 1:
+        return None
+    blocks = -(-m // F32_ROWS)
+    codes = F32_WIDE_CODES if blocks * -(-k // F32_WIDE_CODES) >= sms else F32_CODES
+    tiles = -(-k // codes)
+    splits = max(1, min(tiles, sms // blocks)) if blocks < sms else 1
+    per = -(-tiles // splits)
+    resident = f32_smem_bytes(v, codes, F32_MIN_STAGES, True) <= SMEM_LIMIT
+    slot = (f32_smem_bytes(v, codes, 1, resident)
+            - f32_smem_bytes(v, codes, 0, resident))
+    stages = min(F32_MAX_STAGES,
+                 (SMEM_LIMIT - f32_smem_bytes(v, codes, 0, resident)) // slot)
+    if stages < F32_MIN_STAGES:
+        return None
+    return VqF32Plan(F32_ROWS, codes, F32_CHUNK, stages, int(resident),
+                     blocks, -(-tiles // per), per,
+                     f32_smem_bytes(v, codes, stages, resident))
+
+
 def vq_plan_of_library(m: int, v: int, k: int, sms: int) -> VqPlan | None:
     """The built library's plan: what ``chip_smoke.py`` holds
     :func:`vq_plan` against. Needs the card's build."""
@@ -113,6 +186,16 @@ def vq_plan_of_library(m: int, v: int, k: int, sms: int) -> VqPlan | None:
     build.check(build.library().tae_nearest_code_plan(m, v, k, sms, out),
                 "tae_nearest_code_plan")
     return VqPlan(*out[1:]) if out[0] else None
+
+
+def vq_f32_plan_of_library(m: int, v: int, k: int, sms: int
+                           ) -> VqF32Plan | None:
+    """The built library's fp32 plan (``tae_nearest_code_f32_plan``). Needs
+    the card's build."""
+    out = (ctypes.c_int * 10)()
+    build.check(build.library().tae_nearest_code_f32_plan(m, v, k, sms, out),
+                "tae_nearest_code_f32_plan")
+    return VqF32Plan(*out[1:]) if out[0] else None
 
 
 @torch.no_grad()
@@ -155,10 +238,11 @@ def nearest_code(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, kp = 1, k
     if z.dtype == torch.bfloat16:
         plan = vq_plan(m, v, k, sms)
         splits, kp = plan.splits, -(-k // plan.codes) * plan.codes
+    else:
+        splits, kp = vq_f32_plan(m, v, k, sms).splits, k
     norms = torch.empty((kp,), dtype=torch.float32, device=dev)
     ws = (torch.empty((2 * splits * m,), dtype=torch.float32, device=dev)
           if splits > 1 else None)

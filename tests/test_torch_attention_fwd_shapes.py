@@ -1,7 +1,7 @@
 """The attention forwards' plain versions vs the JAX package at the ragged
 token counts the card kernel must mask: K2 (packed qkv: serving, exact and
-LSE forms), K16 (unpacked q, k, v with v a strided view) and K15 (int8 qkv
-with per-block scales).
+LSE forms, in bf16 and fp32), K16 (unpacked q, k, v with v a strided view)
+and K15 (int8 qkv with per-block scales).
 
 The card kernel takes keys in chunks of 64 and tokens padded to a multiple
 of 16, so the counts here sit on both sides of those edges (1, 63, 65, 129,
@@ -10,6 +10,8 @@ the JAX side runs its Pallas entries in interpret mode, as
 tests/test_torch_ops.py does, and the port runs the plain versions its
 wrappers take for CPU tensors (no launch is counted).
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from tae_tpu.ops.pallas.flash_attention import _packed_fwd_call as j_packed_fwd
 from tae_tpu.ops.pallas.flash_attention import fused_qkv_attention as j_fqa
 from tae_tpu.ops.pallas.flash_attention import (
     fused_qkv_attention_i8 as j_fqa_i8)
+from tae_tpu_torch.ops.cuda import build
 from tae_tpu_torch.ops.cuda import flash_attention as fa
 
 # bf16 outputs: p is rounded to bf16 ahead of P·V on both sides; an fp32
@@ -35,6 +38,10 @@ LSE = dict(atol=2e-5, rtol=2e-5)
 
 PACKED_SHAPES = [(n, 64) for n in (1, 63, 65, 129, 255, 256)] + [
     (n, 80) for n in (65, 255)]
+# fp32: nothing is rounded; both sides sum exact fp32 products in another
+# order and take their own exp (chip_smoke.py's fp32 bound, TOL["float32"])
+F32 = dict(atol=2e-5, rtol=1e-4)
+F32_SHAPES = [(n, dh) for dh in (64, 80) for n in (1, 63, 65, 129, 255, 256)]
 B, H = 2, 2
 
 
@@ -70,6 +77,41 @@ def test_packed_attention_forms_match_jax(n, dh, form):
         assert fa.fused_qkv_attention.launches == 0
     assert o.dtype == torch.bfloat16 and tuple(o.shape) == (B, n, H * dh)
     _close(o, o_j, BF16)
+
+
+@pytest.mark.parametrize("form", ["serving", "exact", "lse"])
+@pytest.mark.parametrize("n,dh", F32_SHAPES)
+def test_packed_attention_fp32_forms_match_jax(n, dh, form):
+    """The fp32 forms the CUDA-core bodies run (the first design below
+    F32_TILED_MIN_TOKENS tokens, the register-tiled body from there), on
+    either side of their 64-key chunks and 64-row blocks."""
+    rng = np.random.default_rng(7000 * dh + n)
+    x = rng.standard_normal((B, n, 3 * H * dh)).astype(np.float32)
+    jq, tq = jnp.asarray(x), torch.from_numpy(x)
+    if form == "lse":
+        o_j, lse_j = j_packed_fwd(jq, H, dh ** -0.5, True, True)
+        o, lse = fa.fused_qkv_attention_fwd_lse(tq, H)
+        assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, H, n)
+        _close(lse, lse_j[..., 0], F32)
+        assert fa.fused_qkv_attention_fwd_lse.launches == 0
+    else:
+        serving = form == "serving"
+        o_j = j_fqa(jq, H, interpret=True, serving=serving)
+        o = fa.fused_qkv_attention(tq, H, serving=serving)
+        assert fa.fused_qkv_attention.launches == 0
+    assert o.dtype == torch.float32 and tuple(o.shape) == (B, n, H * dh)
+    _close(o, o_j, F32)
+
+
+def test_f32_body_rule_mirrors_the_kernel_source():
+    """The fp32 forward's shape rule (csrc/flash_attention.cu): the
+    register-tiled body from kF32TiledMinTokens tokens, the first design
+    below."""
+    text = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    m = re.search(r"constexpr int kF32TiledMinTokens = (\d+);", text)
+    assert m is not None and int(m.group(1)) == fa.F32_TILED_MIN_TOKENS
+    assert "if (n < kF32TiledMinTokens) {" in text
+    assert 1 < fa.F32_TILED_MIN_TOKENS <= fa.MAX_TOKENS
 
 
 @pytest.mark.parametrize("n", [65, 255])

@@ -50,7 +50,8 @@ from tae_tpu_torch.ops.cuda.int4_matmul import (int4_matmul_fused,
                                                 int4_matmul_reference,
                                                 pack_int4, w4_matmul_tiles)
 from tae_tpu_torch.ops.cuda.flash_attention import (
-    flash_attention, flash_attention_backward_reference, flash_attention_bwd,
+    F32_TILED_MIN_TOKENS, flash_attention, flash_attention_backward_reference,
+    flash_attention_bwd,
     flash_attention_fwd_lse, flash_attention_reference, fused_qkv_attention,
     fused_qkv_attention_backward_reference, fused_qkv_attention_bwd,
     fused_qkv_attention_fwd_lse, fused_qkv_attention_i8,
@@ -126,6 +127,41 @@ def test_attention_kernel_matches_plain(gen, n, h, dh, dtype, serving):
     got = fused_qkv_attention(qkv, h, serving=serving)
     assert fused_qkv_attention.launches == before + 1
     _close(got, fused_qkv_attention_reference(qkv, h, serving=serving), dtype)
+
+
+# the fp32 forward's bodies: the first design below F32_TILED_MIN_TOKENS
+# tokens, the register-tiled one from there; 64-key chunks and 64-row
+# blocks end at 63 / 64 / 65 and 129
+F32_EDGES = [(n, dh) for dh in (64, 80)
+             for n in (1, 31, 32, 33, 63, 64, 65, 128, 129, 255, 256)]
+
+
+@pytest.mark.parametrize("n,dh", F32_EDGES)
+def test_attention_f32_bodies_match_plain(gen, n, dh):
+    """K2's serving, exact and LSE forms and K16's two forms (v a view of
+    the packed projection) in fp32 against their plain versions; each call
+    one launch, two runs bit-equal."""
+    h = 3
+    assert F32_TILED_MIN_TOKENS == 33
+    qkv = torch.randn((2, n, 3 * h * dh), generator=gen, device="cuda")
+    for serving in (True, False):
+        got = fused_qkv_attention(qkv, h, serving=serving)
+        _close(got, fused_qkv_attention_reference(qkv, h, serving=serving),
+               torch.float32)
+        assert torch.equal(got, fused_qkv_attention(qkv, h, serving=serving))
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+    _close(o, o_ref, torch.float32)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    r = qkv.view(2, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    q, k, v = r[0].contiguous(), r[1].contiguous(), r[2]
+    o_ref, lse_ref = flash_attention_reference(q, k, v)
+    before = flash_attention_fwd_lse.launches
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    assert flash_attention_fwd_lse.launches == before + 1
+    _close(o, o_ref, torch.float32)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    _close(flash_attention(q, k, v), o_ref, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1337,6 +1373,32 @@ def test_nearest_code_bf16_at_its_plan_edges(gen, m, k, v):
     assert int(got.min()) >= 0 and int(got.max()) < k
     _ids_close(z, cb, got, cuda_quantizer.nearest_code_reference(z, cb), 1e-3)
     cb[k - 1], z[m - 1] = cb[0], cb[0]        # a tie across the last tile
+    assert int(cuda_quantizer.nearest_code(z, cb)[m - 1]) == 0
+
+
+# K14's fp32 plan edges: one row, rows off a 128-row block; codes off the
+# 128- and 256-code tiles; widths of one vector, off a 32-column chunk and
+# past z's resident widths; 2048 and 16384 rows (wide tiles, split and not)
+VQ_F32_EDGES = [(m, k, v) for m in (1, 127, 129) for k in (1, 129, 257)
+                for v in (4, 36, 292)] + [(2048, 8192, 256), (16384, 1000, 64),
+                                          (300, 8192, 1028)]
+
+
+@pytest.mark.parametrize("m,k,v", VQ_F32_EDGES)
+def test_nearest_code_f32_at_its_plan_edges(gen, m, k, v):
+    """The library's fp32 plan equals the Python mirror; ids equal to the
+    plain version's on every row (the same fp32 products), one launch a
+    call; a tie across the last tile goes to the lowest index."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = cuda_quantizer.vq_f32_plan(m, v, k, sms)
+    assert cuda_quantizer.vq_f32_plan_of_library(m, v, k, sms) == plan
+    z = torch.randn((m, v), generator=gen, device="cuda")
+    cb = torch.randn((k, v), generator=gen, device="cuda")
+    before = cuda_quantizer.nearest_code.launches
+    got = cuda_quantizer.nearest_code(z, cb)
+    assert cuda_quantizer.nearest_code.launches == before + 1
+    _ids_close(z, cb, got, cuda_quantizer.nearest_code_reference(z, cb), 0.0)
+    cb[k - 1], z[m - 1] = cb[0], cb[0]
     assert int(cuda_quantizer.nearest_code(z, cb)[m - 1]) == 0
 
 
