@@ -13,7 +13,8 @@ Phases (each prints its lines; any failure exits non-zero):
    sm_90a and prints the seconds and ptxas's registers and spills of every
    kernel; fails if an instantiation of the register-resident attention
    bodies, forward (K2, K15, K16, and its int8-output form behind K7 / K8),
-   flat-row (K6, K9) or backward (K10, K17), or of the int8 GEMM body's
+   flat-row (K6, K9) or backward (K10, K17), of their fp32 CUDA-core
+   bodies (``F32_BODIES``), or of the int8 GEMM body's
    products (K4, K5's fc1 and fc2, and with the packed int4 weight K12,
    K13's fc1 and fc2), spills, if the int4 products' SASS lacks ldmatrix or
    touches local memory in its innermost tensor-core loops, if a
@@ -52,8 +53,15 @@ Phases (each prints its lines; any failure exits non-zero):
    int8-input attention K15 on K4's ``q8_out`` output, beside the default
    int8 route (K4, then K7); the attention backward (K10, K17) also at the
    token counts where its bf16 body's tiles and row ranges end
-   (``BWD_EDGES``), two runs bit-equal at every shape, and timed between
-   CUDA events as SDPA's backward is; K4 (plain, ``ln_out``, ``q8_out``)
+   (``BWD_EDGES``) and, in fp32, either side of its tiled body's rule and
+   at its key chunks' edges (``F32_BWD_EDGES``), its fp32 launch held
+   against ``bwd_f32_plan``, two runs bit-equal at every shape, and timed
+   between CUDA events as SDPA's backward is (fp32 at p16's, p32's and
+   p64's shapes); the fp32 forms of K6-K9 (the flat-row body's CUDA-core
+   form; K7 / K8 from 33 tokens on the fp32 forward's tiled body) at p128's,
+   p16's and p32's shapes beside SDPA in fp32 and K2 fp32 + the plain
+   quantize, their plans held against the library's, K8 equal to K9 on the
+   same bytes; K4 (plain, ``ln_out``, ``q8_out``)
    and K5 also at p128's width at 256, 32 and 4 rows and at p32's shapes,
    and at the edges of the int8 GEMM body's tiles (1, 17 and 129 rows, N 8
    past a tile, K 16 past a ring step); K3 at p128's width beside an empty
@@ -82,7 +90,11 @@ Phases (each prints its lines; any failure exits non-zero):
    latents. ``qknorm_blocks``: qk_norm block stacks (no registered model has
    one) driven through ``nn.vit.blocks_apply``, a serving forward and one
    AdamW train step each, launch counts and outputs and gradients against
-   ``backend="reference"``;
+   ``backend="reference"``. ``vq_p16_f32`` serves vq_p16's model in fp32;
+   ``p128_f32`` serves ``tae_patch128_vocab4096_px256`` at depth 2 + 2
+   through ``Tokenizer(dtype=torch.float32)`` (K6 in fp32 in every block),
+   and its int8 tokenizer with fp32 activations (K9 in fp32), each call's
+   launches checked, against ``backend="reference"``;
 5. training (``train_bf16``): ``tae_patch16_vocab256_px256`` at full width
    and depth, fp32 parameters, bf16 compute, AdamW, through
    ``make_train_step``: one step at B = 8 against a second copy of the model
@@ -94,7 +106,10 @@ Phases (each prints its lines; any failure exits non-zero):
    ``remat=True``; step time, images per second and peak memory for both.
    ``p128_train``: one step of ``tae_patch128_vocab4096_px256`` at depth
    2 + 2 through the tiny-N attention entry, gradients against
-   ``backend="reference"``;
+   ``backend="reference"``. ``train_f32``: ``tae_patch16_vocab256_px256`` at
+   depth 2 + 2 under the FP32 policy (K10 and K2's LSE form in fp32), one
+   step at B = 8 against ``backend="reference"``, steps at B = 64 with
+   their launches checked and timed;
 6. prints a JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
@@ -156,6 +171,22 @@ VQ_F32_PATH = "vq_p16_f32"
 # summation order and the last bits of exp / rsqrt, through 2 + 2 blocks
 # (measured on an H100: 3.9e-7 to 9.1e-7; the bound leaves 10x)
 F32_SLICE_REL_TOL = 1e-5
+# The fp32 training path: train_bf16's model and recipe at depth 2 + 2 under
+# the FP32 policy (fp32 parameters, activations and compute): K10 and K2's
+# LSE form in fp32, 4 each a step
+TRAIN_F32_PATH = "train_f32"
+TRAIN_F32_STEPS = 3
+# Its step against backend="reference" on the same card: fp32 on both sides,
+# differing only in summation order and the last bits of exp and rsqrt, as
+# F32_SLICE_REL_TOL; the loss is one such forward, a gradient also sums over
+# the B x N = 2048 rows of the step's batch, so 10x the slice's bound
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_GRAD_REL_TOL = 1e-4
+# The fp32 serving path: tae_patch128_vocab4096_px256 at depth 2 + 2 through
+# Tokenizer(dtype=torch.float32): K6 in fp32 (the flat-row body's CUDA-core
+# form) in every block; its int8 tokenizer with fp32 activations runs K9 in
+# fp32
+P128_F32_PATH = "p128_f32"
 BATCHES = (1, 8, 64)         # encode / decode request sizes
 KERNEL_BATCH = 64            # batch of the kernel-vs-plain shapes
 TIMED_REPS = 20              # kernel timings: launches per replayed graph
@@ -303,6 +334,13 @@ QKNORM_STEPS = 3
 # untimed, two runs bit-equal)
 BWD_EDGES = tuple((2, n, 2, dh) for dh in (64, 80) for n in (1, 17, 129, 255))
 
+# (batch, tokens, heads, head dim) of the attention backward's fp32 checks
+# either side of its tiled body's rule (F32_BWD_TILED_MIN_TOKENS), at its
+# key chunks' edges (32 keys at dh 64, 16 at dh 80) and at the most tokens,
+# where every row tile is live (untimed, two runs bit-equal)
+F32_BWD_EDGES = tuple((3, n, 2, dh) for dh in (64, 80)
+                      for n in (16, 17, 33, 55, 56, 57, 255, 256))
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W); fp32 is
 # the CUDA cores' rate, which the float32 forms run at (no TF32)
 HBM_BYTES_PER_S = 3.35e12
@@ -393,10 +431,15 @@ ROW_NORM_WIDTH_NV = (4, 8, 10)
 VQ_SEARCH = "nearest_code_wgmma_kernel"
 VQ_SEARCH_FORMS = 4
 # The fp32 bodies on the CUDA cores and their instantiations: the
-# register-tiled attention forward (dh 64 / 80, serving / exact) and K14's
-# fp32 search (z resident / riding the ring, 16 / 8 codes a thread). No
-# spills.
-F32_BODIES = {"attention_fwd_f32_tiled": 4, "nearest_code_f32_kernel": 4}
+# register-tiled attention forward (dh 64 / 80, serving / exact) and its
+# int8-output form behind K7 / K8 (dh 64 / 80, up to two heads a block or
+# more), K14's fp32 search (z resident / riding the ring, 16 / 8 codes a
+# thread), the register-tiled attention backward (dh 64 / 80, every row
+# tile live or guarded) and the flat-row body's fp32 form (dh 64 / 80,
+# exact / serving / int8). No spills.
+F32_BODIES = {"attention_fwd_f32_tiled": 4, "attention_q8_f32_tiled": 4,
+              "nearest_code_f32_kernel": 4, "attention_bwd_f32_tiled": 4,
+              "rows_attention_f32": 6}
 # The SASS of K4's and K5's finish passes, which run the first design of
 # K3's row (int8_common.cuh::ln_quant_row), and of K1's forward, as the
 # commit before the LayerNorm row kernels' redesign compiled them: sha256 of
@@ -613,8 +656,9 @@ def phase_build():
         check(hgmma > 0 and loops > 0 and local == 0,
               f"{entry}: {hgmma} HGMMA, {loops} innermost product loops with "
               f"{local} local-memory instructions")
-    # the fp32 CUDA-core bodies (K2 / K16 forward, K14's search): no spill
-    # in any instantiation
+    # the fp32 CUDA-core bodies (K2 / K16 forward and its int8 form behind
+    # K7 / K8, K14's search, K10 / K17's backward, the flat-row body behind
+    # K6 / K9): no spill in any instantiation
     for kernel, want in F32_BODIES.items():
         found = body[kernel]
         check(len(found) == want, f"ptxas reported {len(found)} "
@@ -1349,42 +1393,115 @@ def phase_attention_kernels() -> dict:
           "a step plus one bf16 rounding of K2 on every element (the same "
           "fp32 o)")
 
-    # ---- float32, the flat-row body's CUDA-core form (off the serving
-    #      path, which is bf16): K6 at the p128 shape beside SDPA in float32
-    #      (its exact form), K7 at p16's and K8 at p32's
+    # ---- float32 (the fp32 policy's forms, path p128_f32): K6 and K9 on
+    #      the flat-row body's CUDA-core form at p128's shape (B = 64, 8, 1)
+    #      beside SDPA in fp32 (K6's exact form) and K2 fp32 + the plain
+    #      quantize_rows (K9), an empty launch on K9's grid; K7 at p16's and
+    #      K8 at p32's shape on the tiled forward body's int8 form beside K2
+    #      fp32 + quantize_rows; both plans held against the library's; K7 /
+    #      K8 either side of the rule and K8 against K9 on the same bytes
+    #      (both keep the first design's sums: equal bit for bit)
     f32 = torch.float32
-    qkv = torch.randn((KERNEL_BATCH, 4, 3 * 2560), generator=gen,
-                      device="cuda")
-    for serving in (True, False):
-        got = fused_qkv_attention_wide(qkv, 32, serving=serving)
-        want = fused_qkv_attention_wide_reference(qkv, 32, serving=serving)
-        label = (f"K6 wide {tuple(qkv.shape)} h=32 dh=80 fp32 "
-                 f"{'serving' if serving else 'exact'}")
-        err = compare(label, got, want, **TOL["float32"])
-        t = timing(lambda: fused_qkv_attention_wide(qkv, 32, serving=serving),
-                   lambda: fused_qkv_attention_wide_reference(
-                       qkv, 32, serving=serving),
-                   qkv, [got], 32, 4, 80, True, "fp32")
-        extra = ""
-        if not serving:
-            r = qkv.view(KERNEL_BATCH, 4, 3, 32, 80).permute(2, 0, 3, 1, 4)
-            t["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                r[0], r[1], r[2]))
-            extra = f"; SDPA (fp32) {t['library_ms']:.4f} ms"
-        record(K6["name"], label, err, t, extra)
-    for meta, fn, plain, n, h, dh in k7 + (256, 16, 64), k8 + (64, 32, 64):
-        qkv = torch.randn((KERNEL_BATCH, n, 3 * h * dh), generator=gen,
-                          device="cuda", dtype=f32)
+    from tae_tpu_torch.bench.rows_body import empty_library
+    from tae_tpu_torch.ops.cuda import build
+    from tae_tpu_torch.ops.cuda.wide_attention import (q8_body, q8_f32_plan,
+                                                       rows_plan_f32)
+
+    def f32_plan_line(label, n, h, dh, q8, flat) -> str:
+        """The fp32 body's plan in the library against the Python mirror."""
+        body = q8_body(n, h, dh, f32, flat) if q8 else "rows"
+        if body == "image":
+            plan, units = q8_plan_of_library(n, h, dh, f32)
+            want = q8_f32_plan(n, h, dh)
+            what = (f"tiled forward body, cluster {plan.cluster} x "
+                    f"{plan.heads_per_block} heads")
+        else:
+            plan, units = rows_plan_of_library(n, h, dh, q8, f32)
+            want = rows_plan_f32(n, h, dh, q8)
+            what = (f"flat-row body, {plan.groups} groups of "
+                    f"{plan.heads_per_block} heads")
+        check(plan is not None and plan == want, f"{label}: the library plans "
+              f"{plan}, ops/cuda/wide_attention {want}")
+        check(units > 0, f"{label}: no unit of {plan} fits on the card")
+        return (f"; {what}, {units} "
+                f"{'clusters' if q8 else 'blocks'} at once")
+
+    empty = empty_library()
+    for b in (KERNEL_BATCH, 8, 1):
+        qkv = torch.randn((b, 4, 3 * 2560), generator=gen, device="cuda")
+        for serving in (True, False):
+            got = fused_qkv_attention_wide(qkv, 32, serving=serving)
+            want = fused_qkv_attention_wide_reference(qkv, 32, serving=serving)
+            label = (f"K6 wide {tuple(qkv.shape)} h=32 dh=80 fp32 "
+                     f"{'serving' if serving else 'exact'}")
+            err = compare(label, got, want, **TOL["float32"])
+            t = timing(lambda: fused_qkv_attention_wide(qkv, 32, serving=serving),
+                       lambda: fused_qkv_attention_wide_reference(
+                           qkv, 32, serving=serving),
+                       qkv, [got], 32, 4, 80, True, "fp32")
+            extra = f32_plan_line(label, 4, 32, 80, False, True)
+            t["k2_ms"] = time_ms(lambda: fused_qkv_attention(qkv, 32, serving=serving))
+            extra += f"; K2 fp32 at this shape {t['k2_ms']:.4f} ms"
+            if not serving:
+                r = qkv.view(b, 4, 3, 32, 80).permute(2, 0, 3, 1, 4)
+                t["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                    r[0], r[1], r[2]))
+                extra += f"; SDPA (fp32) {t['library_ms']:.4f} ms"
+            record(K6["name"], label, err, t, extra)
+        # K9 at the same bytes: the int8 form of the same body
+        arg = (qkv.reshape(b * 4, -1), 4, 32)
+        got = fused_qkv_attention_wide_q8_2d(*arg)
+        want = fused_qkv_attention_wide_q8_2d_reference(*arg)
+        label = f"attention_wide_q8_2d {tuple(arg[0].shape)} n=4 h=32 dh=80 fp32"
+        compare_scales(label, got[1], want[1])
+        share = compare_codes(label, got[0], want[0])
+        err = float((got[0].float() * got[1] - want[0].float() * want[1]).abs().max())
+        t = timing(lambda: fused_qkv_attention_wide_q8_2d(*arg),
+                   lambda: fused_qkv_attention_wide_q8_2d_reference(*arg),
+                   qkv, got, 32, 4, 80, True, "fp32")
+        extra = (f"; codes off by one on a share {share:.2g}"
+                 + f32_plan_line(label, 4, 32, 80, True, True))
+        plan = rows_plan_f32(4, 32, 80, True)
+        t["empty_launch_ms"] = time_ms(lambda: build.check(empty.tae_empty_launch(
+            -(-b * 4 // 16), plan.groups, 32 * plan.heads_per_block, plan.cluster,
+            torch.cuda.current_stream().cuda_stream), "empty launch"))
+        t["k2_quantize_ms"] = time_ms(lambda: quantize_rows(
+            fused_qkv_attention(qkv, 32, serving=True)))
+        extra += (f"; empty kernel on its grid (cluster {plan.cluster}) "
+                  f"{t['empty_launch_ms']:.4f} ms; K2 fp32 + plain quantize_rows "
+                  f"{t['k2_quantize_ms']:.4f} ms")
+        record(K9["name"], label, err, t, extra)
+    for meta, fn, plain, n, h, dh, b in (k7 + (256, 16, 64, KERNEL_BATCH),
+                                         k8 + (64, 32, 64, KERNEL_BATCH),
+                                         k7 + (32, 16, 64, 3), k7 + (33, 16, 64, 3),
+                                         k8 + (32, 32, 80, 3), k8 + (33, 32, 80, 3),
+                                         k7 + (255, 5, 80, 2)):
+        qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda",
+                          dtype=f32)
         (q, sc), (q_ref, s_ref) = fn(qkv, h), plain(qkv, h)
         label = (f"{meta['name'].replace('fused_qkv_attention', 'attention')} "
                  f"{tuple(qkv.shape)} n={n} h={h} dh={dh} fp32")
         compare_scales(label, sc, s_ref)
         share = compare_codes(label, q, q_ref)
         err = float((q.float() * sc - q_ref.float() * s_ref).abs().max())
+        timed = b == KERNEL_BATCH
         t = timing(lambda: fn(qkv, h), lambda: plain(qkv, h), qkv, (q, sc),
-                   h, n, dh, True, "fp32")
-        record(meta["name"], label, err, t,
-               f"; codes off by one on a share {share:.2g}; flat-row body")
+                   h, n, dh, timed, "fp32")
+        extra = (f"; codes off by one on a share {share:.2g}"
+                 + f32_plan_line(label, n, h, dh, True, False))
+        if n <= 64:
+            # K9 on the same bytes: another body at n >= 33, the same sums
+            q9, s9 = fused_qkv_attention_wide_q8_2d(qkv.reshape(b * n, -1), n, h)
+            check(torch.equal(q9.view_as(q), q) and torch.equal(s9.view_as(sc), sc),
+                  f"{label}: K9 on the same bytes gives other codes or scales")
+            extra += "; equal to K9's bit for bit"
+        if timed:
+            t["k2_ms"] = time_ms(lambda: fused_qkv_attention(qkv, h, serving=True))
+            t["k2_quantize_ms"] = time_ms(lambda: quantize_rows(
+                fused_qkv_attention(qkv, h, serving=True)))
+            extra += (f"; K2 fp32 {t['k2_ms']:.4f} ms, K2 fp32 + plain "
+                      f"quantize_rows {t['k2_quantize_ms']:.4f} ms")
+        record(meta["name"], label, err, t, extra)
 
     # ---- the serving clamp: every score far below -60 (aligned q rows
     #      against anti-aligned k rows) stays finite and equals the plain form
@@ -1420,6 +1537,7 @@ def phase_train_kernels() -> dict:
     import torch.nn.functional as F
 
     from tae_tpu_torch.ops.cuda.flash_attention import (
+        F32_BWD_TILED_MIN_TOKENS, bwd_f32_plan, bwd_f32_plan_of_library,
         fused_qkv_attention_backward_reference, fused_qkv_attention_bwd,
         fused_qkv_attention_fwd_lse, fused_qkv_attention_lse_reference)
     from tae_tpu_torch.ops.cuda.layernorm import (bwd_plan, bwd_plan_of_library,
@@ -1533,9 +1651,12 @@ def phase_train_kernels() -> dict:
                                    (8, 256, 16, 64, torch.float32),
                                    (KERNEL_BATCH, 64, 32, 64, torch.bfloat16),
                                    (KERNEL_BATCH, 16, 32, 80, torch.bfloat16),
+                                   (KERNEL_BATCH, 64, 32, 64, torch.float32),
+                                   (KERNEL_BATCH, 16, 32, 80, torch.float32),
                                    (7, 100, 4, 80, torch.bfloat16),
                                    (3, 100, 4, 80, torch.float32),
-                                   *(e + (torch.bfloat16,) for e in BWD_EDGES)):
+                                   *(e + (torch.bfloat16,) for e in BWD_EDGES),
+                                   *(e + (torch.float32,) for e in F32_BWD_EDGES)):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
         timed = batch == KERNEL_BATCH
@@ -1584,26 +1705,42 @@ def phase_train_kernels() -> dict:
                      10.0 * batch * h * n * n * dh, peak_kind(dtype)),
                lib, "SDPA's backward", events)
 
+    # the fp32 backward's launch (first design or tiled body, chunk, shared
+    # memory) in the library against ops/cuda/flash_attention.bwd_f32_plan
+    for dh in (64, 80):
+        for n in (1, 16, 33, 55, 56, 64, 129, 248, 249, 252, 253, 256):
+            plan = bwd_f32_plan_of_library(n, dh)
+            check(plan == bwd_f32_plan(n, dh), f"K10 fp32 n={n} dh={dh}: the "
+                  f"library plans {plan}, ops/cuda/flash_attention.bwd_f32_plan "
+                  f"{bwd_f32_plan(n, dh)}")
+    print("[kernels] K10 / K17 fp32: the library's launch equals bwd_f32_plan at "
+          f"n 1-256, dh 64 and 80 (tiled body from {F32_BWD_TILED_MIN_TOKENS} "
+          "tokens)")
+
     # scores far below zero at a ragged token count: every key of a head is
     # one +-1 vector u and every query -25 u, so lse is about -200 and a key
     # beyond n (zero in shared memory, score 0) would have exp(0 - lse) =
     # inf unless the last tile masks it to p = 0
-    b, n, h, dh = 2, 17, 2, 64
-    c = h * dh
-    u = (torch.randint(0, 2, (1, 1, h, dh), generator=gen, device="cuda") * 2
-         - 1).float().expand(b, n, h, dh)
-    qkv = torch.cat([(-25.0 * u).reshape(b, n, c), u.reshape(b, n, c),
-                     randn((b, n, c), torch.float32)], dim=-1).bfloat16()
-    do = randn((b, n, c), torch.bfloat16)
-    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
-    label = f"K10 attention backward {tuple(qkv.shape)} h={h}, lse " \
-            f"{float(lse.max()):.1f} or less"
-    dqkv = fused_qkv_attention_bwd(qkv, o, lse, do, h)
-    err = compare(label, dqkv, fused_qkv_attention_backward_reference(
-        qkv, o, lse, do, h), **TOL["bfloat16"])
-    record("fused_qkv_attention_bwd", label, err, None, None,
-           bound(nbytes(qkv, o, lse, do, dqkv), 10.0 * b * h * n * n * dh,
-                 "bf16"), None, "")
+    # (the same in fp32 at 65 tokens: the tiled fp32 body's third 32-key
+    # chunk holds one key and 31 zero rows)
+    for b, n, h, dh, dtype in ((2, 17, 2, 64, torch.bfloat16),
+                               (2, 65, 2, 64, torch.float32)):
+        c = h * dh
+        u = (torch.randint(0, 2, (1, 1, h, dh), generator=gen, device="cuda") * 2
+             - 1).float().expand(b, n, h, dh)
+        qkv = torch.cat([(-25.0 * u).reshape(b, n, c), u.reshape(b, n, c),
+                         randn((b, n, c), torch.float32)], dim=-1).to(dtype)
+        do = randn((b, n, c), dtype)
+        o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+        name = str(dtype).split(".")[1]
+        label = f"K10 attention backward {tuple(qkv.shape)} h={h} {name}, lse " \
+                f"{float(lse.max()):.1f} or less"
+        dqkv = fused_qkv_attention_bwd(qkv, o, lse, do, h)
+        err = compare(label, dqkv, fused_qkv_attention_backward_reference(
+            qkv, o, lse, do, h), **TOL[name])
+        record("fused_qkv_attention_bwd", label, err, None, None,
+               bound(nbytes(qkv, o, lse, do, dqkv), 10.0 * b * h * n * n * dh,
+                     peak_kind(dtype)), None, "")
     return res
 
 
@@ -1921,7 +2058,9 @@ def phase_last_kernels() -> dict:
                                (KERNEL_BATCH, 16, 32, 80, bf16),
                                (KERNEL_BATCH, 4, 32, 80, bf16),
                                (7, 100, 4, 80, bf16), (8, 256, 16, 64, f32),
-                               (3, 17, 2, 64, f32),
+                               (KERNEL_BATCH, 256, 16, 64, f32),
+                               (3, 17, 2, 64, f32), (3, 33, 2, 80, f32),
+                               (3, 256, 2, 80, f32),
                                *(e + (bf16,) for e in BWD_EDGES)):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
@@ -2582,6 +2721,167 @@ def phase_train(kres: dict) -> dict:
     return totals
 
 
+def phase_train_f32() -> dict:
+    """Path TRAIN_F32_PATH: tae_patch16_vocab256_px256 at depth 2 + 2 under
+    the FP32 policy, AdamW and train_bf16's recipe: one step at B = 8
+    against a second copy with backend="reference" (loss and every gradient
+    tensor), then TRAIN_F32_STEPS steps at B = 64, each step's launches
+    checked (K10 and K2's LSE form in fp32 4 each, K1's stats form and K11
+    at the LayerNorm count); the step time at B = 64. Returns the path's
+    launch counts."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.profile_training import build_state, make_step
+    from tae_tpu_torch.utils.dtypes import FP32
+
+    tag, name = TRAIN_F32_PATH, PATHS[0][0]
+    cut = dict(depth=2, decoder_depth=2)
+    fns = wrappers()
+    state, step = build_state(name, **cut), make_step(policy=FP32)
+    cfg = state.model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    size = (cfg.in_chans, cfg.img_size, cfg.img_size)
+    small = torch.randn((8, *size), generator=gen, device="cuda")
+    batch = torch.randn((TRAIN_BATCH, *size), generator=gen, device="cuda")
+    want, totals = train_launches(cfg), {}
+    blocks = cfg.depth + cfg.decoder_depth
+    check(want.get("fused_qkv_attention_bwd") == blocks
+          and want.get("fused_qkv_attention_fwd_lse") == blocks,
+          f"{tag}: a step runs {want}")
+    print(f"[{tag}] {name} at depth {cfg.depth}+{cfg.decoder_depth}, width "
+          f"{cfg.embed_dim}, {cfg.num_patches} tokens, fp32 parameters and "
+          f"compute, AdamW; per step {json.dumps(want)}")
+
+    # ---- the main path: every count is 0 here and read right after each
+    #      step; first one step at B = 8 against the plain versions
+    ref_state = build_state(name, **cut)
+    ref_step = make_step(policy=FP32, backend="reference")
+    ref_state.model.load_state_dict(state.model.state_dict())
+    for f in fns.values():
+        f.launches = 0
+    m, dt8 = counted_step(tag, step, state, small, 0, want, totals)
+    m_ref, _ = counted_step(tag, ref_step, ref_state, small, 0, {}, {})
+    loss, loss_ref = float(m["loss"]), float(m_ref["loss"])
+    print(f"[{tag}] B=8 step: loss {loss:.8f} vs {loss_ref:.8f} with "
+          f"backend='reference' (relative {abs(loss - loss_ref) / abs(loss_ref):.3g}, "
+          f"rtol {TRAIN_F32_LOSS_RTOL})")
+    check(abs(loss - loss_ref) <= TRAIN_F32_LOSS_RTOL * abs(loss_ref),
+          f"{tag}: losses differ")
+    compare_gradients(tag, state.model, ref_state.model, TRAIN_F32_GRAD_REL_TOL)
+    del ref_state, ref_step, m_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for it in range(1, TRAIN_F32_STEPS + 1):
+        m, dt = counted_step(tag, step, state, batch, it, want, totals)
+        losses.append(float(m["loss"]))
+        times.append(dt)
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"{tag}: losses {losses} are not finite")
+    ms = statistics.median(times[1:]) * 1e3
+    print(f"[{tag}] {TRAIN_F32_STEPS} steps at B={TRAIN_BATCH}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; {ms:.2f} ms/step (runs "
+          f"{min(times[1:]) * 1e3:.2f}-{max(times[1:]) * 1e3:.2f}), "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    ran = {k: v for k, v in totals.items() if v}
+    check(all(totals.get(k, 0) > 0 for k, v in want.items() if v),
+          f"{tag}: a kernel of the path never launched: {ran}")
+    print(f"[{tag}] main path launches: {json.dumps(ran)}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_p128_f32() -> dict:
+    """Path P128_F32_PATH: tae_patch128_vocab4096_px256 at depth 2 + 2
+    through Tokenizer(dtype=torch.float32): encode and decode at every batch
+    size (K6 in fp32, one a block), each call's launches checked, latents
+    and reconstructions against backend="reference" (F32_SLICE_REL_TOL);
+    then its int8 tokenizer on the same weights with fp32 activations (K9 in
+    fp32, one a block) against its own reference and the float one. Returns
+    the path's launch counts."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    tag, name = P128_F32_PATH, PATHS[1][0]
+    cut = dict(depth=2, decoder_depth=2)
+    fns = wrappers()
+    tok = Tokenizer.from_checkpoint(name, dtype=torch.float32, device="cuda",
+                                    seed=0, **cut)
+    tok8 = Tokenizer.from_checkpoint(name, dtype=torch.float32, device="cuda",
+                                     seed=0, quantization="int8", **cut)
+    cfg = tok.model.cfg
+    per_call = expected_launches(cfg, None)
+    per_call8 = expected_launches(cfg, "int8")
+    check(per_call["encode"].get("fused_qkv_attention_wide") == cfg.depth
+          and per_call8["encode"].get("fused_qkv_attention_wide_q8_2d") == cfg.depth,
+          f"{tag}: an encode runs {per_call['encode']} / {per_call8['encode']}")
+    print(f"[{tag}] {name} at depth {cfg.depth}+{cfg.decoder_depth} in fp32, "
+          f"width {cfg.embed_dim}, {cfg.num_patches} tokens; per encode "
+          f"{json.dumps(per_call['encode'])}; int8 with fp32 activations "
+          f"{json.dumps(per_call8['encode'])}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    images = {b: torch.randint(0, 256, (b, 3, cfg.img_size, cfg.img_size),
+                               dtype=torch.uint8, device="cuda", generator=gen)
+              for b in BATCHES}
+    totals = {}
+
+    def request(fn, arg, want):
+        return counted_request(tag, fns, totals, fn, arg, want)
+
+    tok.encode(images[1])                                # warm-up requests
+    tok8.encode(images[1])
+    for f in fns.values():
+        f.launches = 0
+    n, v = cfg.num_patches, cfg.vocab_size
+    for t, calls, rtol, what in ((tok, per_call, F32_SLICE_REL_TOL, "fp32"),
+                                 (tok8, per_call8, INT8_SLICE_REL_TOL,
+                                  "int8, fp32 activations")):
+        ref = Tokenizer(model=t.model, policy=t.policy, backend="reference")
+        for b in BATCHES:
+            runs = [request(t.encode, images[b], calls["encode"])
+                    for _ in range(REQUEST_REPS)]
+            z = runs[-1][0]
+            check(tuple(z.shape) == (b, n, v) and z.dtype == torch.float32
+                  and bool(torch.isfinite(z).all()),
+                  f"{tag} {what} B={b}: latents {tuple(z.shape)} {z.dtype}")
+            dec = [request(t.decode, z, calls["decode"]) for _ in range(REQUEST_REPS)]
+            x = dec[-1][0]
+            check(bool(torch.isfinite(x).all()), f"{tag} {what} B={b}: decode")
+            ez, ex = rel_err(z, ref.encode(images[b])), rel_err(x, ref.decode(z))
+            line = (f"[{tag}] {what} B={b}: encode "
+                    f"{statistics.median(dt for _, dt in runs) * 1e3:.2f} ms, "
+                    f"decode {statistics.median(dt for _, dt in dec) * 1e3:.2f} "
+                    f"ms/request; latents rel_err {ez:.3g}, decode rel_err "
+                    f"{ex:.3g} vs backend='reference' (tolerance {rtol})")
+            check(ez <= rtol and ex <= rtol,
+                  f"{tag} {what} B={b}: kernels disagree with the plain versions")
+            if t is tok8:
+                ez = rel_err(z, tok.encode(images[b]))
+                line += (f"; latents rel_err {ez:.3g} vs the fp32 tokenizer "
+                         f"(tolerance {INT8_VS_BF16_TOL})")
+                check(ez <= INT8_VS_BF16_TOL, f"{tag} B={b}: int8 too far from fp32")
+            print(line)
+        del ref
+    ran = {k: c for k, c in totals.items() if c}
+    check(totals.get("fused_qkv_attention_wide", 0) > 0
+          and totals.get("fused_qkv_attention_wide_q8_2d", 0) > 0,
+          f"{tag}: K6 or K9 never launched: {ran}")
+    print(f"[{tag}] main path launches: {json.dumps(ran)}")
+    del tok, tok8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def phase_p128_train() -> dict:
     """Path ``p128_train``: one step of the 4-token model at depth 2 + 2,
     B = 8, through the tiny-N attention entry (forward kernel, backward by
@@ -3141,6 +3441,8 @@ def main() -> int:
         for tag in VQ_PATHS:
             launches[tag] = phase_vq(tag)
         launches[VQ_F32_PATH] = phase_vq_f32()
+        launches[P128_F32_PATH] = phase_p128_f32()
+        launches[TRAIN_F32_PATH] = phase_train_f32()
         launches["qknorm_blocks"] = phase_qknorm(kres)
         launches["train_bf16"] = phase_train(kres)
         launches["p128_train"] = phase_p128_train()
@@ -3188,6 +3490,20 @@ def main() -> int:
             records[name][key] = dict(
                 {k: kres[form][0][k] for k in keys}, name=form,
                 cases=kres[form])
+    # the fp32 forms of the attention entries, redesigned for the card on
+    # the CUDA cores: the first timed fp32 case is the main fp32 shape
+    f32_paths = {K6["name"]: P128_F32_PATH, K9["name"]: P128_F32_PATH,
+                 K10["name"]: TRAIN_F32_PATH}
+    for name in (K6["name"], K7["name"], K8["name"], K9["name"], K10["name"],
+                 K17["name"]):
+        cases = [c for c in kres[name]
+                 if "fp32" in c["case"] or "float32" in c["case"]]
+        main_case = next(c for c in cases if c["ms"] is not None)
+        records[name]["fp32_form"] = dict(
+            {k: main_case[k] for k in keys}, case=main_case["case"],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            yardstick_ms=main_case.get("k2_quantize_ms"),
+            launches=launches.get(f32_paths.get(name), {}).get(name, 0))
     # ids have no absolute error: K14's figure is the share of rows whose id
     # differs from the plain version's (near-ties, bounded in compare_ids)
     records[K14["name"]]["max_abs_err_is"] = "share of rows with another id"

@@ -236,7 +236,9 @@ def ptxas_report(build_dir, kernels=("attention_fwd_bf16", "attention_q8_bf16",
         if kernel is not None and ("spill" in line or "registers" in line):
             m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d))?", entry)
             name = f"{kernel} dh {m.group(1)}"
-            if m.group(2) is not None:
+            if m.group(2) is not None and "bwd" in kernel:
+                name += " every row tile live" if m.group(2) == "1" else " guarded"
+            elif m.group(2) is not None:
                 src = "fp32" if "f32" in kernel else "int8" if "I8Src" in entry else "bf16"
                 name += f" {'serving' if m.group(2) == '1' else 'exact'} {src}"
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")

@@ -1,5 +1,5 @@
 """Mutation checks of ``chip_smoke.py`` for K14's searches and the fp32
-attention forward: each mutation is a copy of the checkout's
+attention bodies (forward, its int8 form, backward, flat rows): each mutation is a copy of the checkout's
 ``chip_smoke.py`` and ``tae_tpu_torch/`` (its build directory left out) in
 ``_mut/<name>/`` (gitignored), with one deliberate fault put into a kernel
 source, run through its own ``chip_smoke.py``, which must exit 1. The build
@@ -17,7 +17,17 @@ copy builds its own kernels.
 * ``f32_ties_le``: the fp32 search's running argmin replaces on ``<=``;
 * ``f32_attn_last_wait``: the register-tiled fp32 attention skips the
   cp.async wait on its last V chunk (it may read the chunk before it has
-  landed).
+  landed);
+* ``f32_bwd_no_mask``: the tiled fp32 attention backward no longer zeroes p
+  and dS of the keys past n in the last chunk (zero rows, so p = exp(-lse):
+  infinite where every score is far below zero);
+* ``f32_bwd_stale_chunk``: the tiled fp32 backward stores only the first
+  chunk's K and V, every later chunk reads them again;
+* ``f32_rows_no_mask``: the flat-row body's fp32 form drops the
+  block-diagonal mask (a row attends to the keys of every image in its
+  window);
+* ``f32_q8_no_exchange``: K7 / K8's fp32 int8 form takes each block's own
+  row maxima instead of the cluster's (no distributed shared memory).
 
 Prints, for each, the exit code and the copy's ``FAIL`` line; exits 0 only
 if every mutated copy exited 1.
@@ -38,6 +48,8 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[2]
 CSRC = "tae_tpu_torch/csrc/quantizer.cu"
 ATTN = "tae_tpu_torch/csrc/flash_attention.cu"
+BWD = "tae_tpu_torch/csrc/flash_attention_bwd.cu"
+ROWS = "tae_tpu_torch/csrc/wide_attention.cu"
 # (file, text, replacement): the text must be in the file exactly once
 MUTATIONS = {
     "no_full_wait": (CSRC, "        mbar_wait(&full[stage], phase);\n", ""),
@@ -48,6 +60,14 @@ MUTATIONS = {
     "f32_attn_last_wait": (
         ATTN, "      tae::wait_pending(i + 1 < items ? S - 2 : 0);  // V chunk c; the last waits for all\n",
         "      if (i + 1 < items) tae::wait_pending(S - 2);  // V chunk c; the last waits for all\n"),
+    "f32_bwd_no_mask": (BWD, "          if (key >= n) p = ds = 0.f;\n", ""),
+    "f32_bwd_stale_chunk": (BWD, "    park();\n    __syncthreads();  // the chunk",
+                            "    if (c == 0) park();\n    __syncthreads();  // the chunk"),
+    "f32_rows_no_mask": (
+        ROWS, "in[t] = r < rows && lane + 32 * t < wn && key >= own && key < own + n;",
+        "in[t] = r < rows && lane + 32 * t < wn;"),
+    "f32_q8_no_exchange": (
+        ATTN, "m = fmaxf(m, cluster.map_shared_rank(bm, r)[tid]);", "m = fmaxf(m, bm[tid]);"),
 }
 TIMEOUT_S = 900
 

@@ -35,5 +35,16 @@ bool plan(int n, int heads, int dh, Plan& p);
 int launch(const Plan& p, const void* qkv, void* out_q, void* out_s, int batch, int n,
            int heads, int dh, float scale, void* stream);
 
+// K7 / K8 in float32 from kF32TiledMinTokens (33) tokens, on the fp32 tiled
+// forward body (attention_q8_f32_tiled): a cluster of up to kF32MaxCluster
+// blocks of 256 threads covers the heads of one (image, 64-row tile), each
+// taking ceil(heads / kF32MaxCluster) heads (the last rank fewer).
+constexpr int kF32MaxCluster = 16;
+bool plan_f32(int n, int heads, int dh, Plan& p);
+
+// qkv: (batch, n, 3 * heads * dh) fp32 contiguous; out_q, out_s as launch.
+int launch_f32(const Plan& p, const void* qkv, void* out_q, void* out_s, int batch, int n,
+               int heads, int dh, float scale, void* stream);
+
 }  // namespace q8
 }  // namespace tae

@@ -89,7 +89,10 @@
 //     What bounds the tiled body: one 16-byte shared load per 8 FMAs in
 //     both products, where the card sustains about 70% of its FMA rate
 //     (bench/ceilings); it runs at 44% of the operations bound (PERF.md
-//     section 6).
+//     section 6). K7 / K8 in float32 from 33 tokens run the same tiles,
+//     products and sums in the serving form, streamed a key chunk at a time,
+//     with the int8 row epilogue shared over a thread-block cluster
+//     (attention_q8_f32_tiled; plan tae::q8::plan_f32).
 //   * int8 output (K7, K8): a row's scale needs every head, and the heads
 //     of one row tile sit in different blocks. Those blocks form a
 //     thread-block cluster (two heads a block, up to 16 blocks); each
@@ -727,7 +730,7 @@ template <int DH> __host__ __device__ constexpr int t_ld() { return DH + 4; }
 // qs (kTR rows), the ring's slots (kTK rows each) of DH + 4 floats, two p
 // tiles (chunks in turn), two halves of the row maxima and the row sums
 template <int DH>
-constexpr size_t tiled_smem_bytes() {
+__host__ __device__ constexpr size_t tiled_smem_bytes() {
   return sizeof(float) * (static_cast<size_t>(kTR + kTSlots * kTK) * t_ld<DH>() +
                           2 * kTK * kTLdP + 3 * kTR);
 }
@@ -939,6 +942,283 @@ attention_fwd_f32_tiled(const PlainSrc<float> src, float* __restrict__ out,
   }
 }
 
+// The tiled body's serving form for one head of the int8 form
+// (attention_q8_f32_tiled): rows [q0, q0 + 64) of the head whose q, k, v
+// rows are `rows`. The serving softmax needs no row max, so each 64-key
+// chunk's scores are used as soon as they are formed: K chunk c and V chunk
+// c take the ring's two slots in turn (K, V, K, ...), and a thread holds
+// one chunk's 4 x 4 scores instead of the whole head's (the exact form's
+// reason to keep them all), which leaves its head loop room in 128
+// registers. Tiles, products, p, l and the P.V sums are
+// attention_fwd_f32_tiled's, in the same order: o (the thread's P.V sums,
+// rows 4 rg + r, columns 4 cg .. 4 cg + 3 and 64 + cg at dh 80) and the row
+// sums l (in shared memory after a block barrier, q8_tiled_ls) equal that
+// kernel's serving form bit for bit.
+template <int DH>
+__device__ __forceinline__ void q8_tiled_head(const Rows<float> rows, int n, int q0, float scale,
+                                              float* smem, float (&o)[4][DH == 80 ? 5 : 4]) {
+  constexpr int LD = t_ld<DH>();
+  constexpr int CW = DH == 80 ? 5 : 4;  // output columns a thread
+  float* qs = smem;                     // [kTR][LD]
+  float* ring = qs + kTR * LD;          // [2][kTK][LD]: K chunk c, then V chunk c
+  float* ps = ring + 2 * kTK * LD;      // [2][kTK][kTLdP]
+  float* ls = ps + 2 * kTK * kTLdP + 2 * kTR;  // [kTR], past the forward's row maxima
+
+  const int nq = min(kTR, n - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = (warp & 1) * 8 + (lane & 7);  // key group, then column group
+  const int rg = (warp >> 1) * 4 + (lane >> 3);  // row group
+  const int nc = (n + kTK - 1) / kTK;
+
+  // K (which 0) or V (which 1) chunk c into slot `which`; rows past n zero
+  auto issue = [&](int c, int which) {
+    const float* src = which ? rows.p[2] : rows.p[1];
+    const long long stride = which ? rows.row[2] : rows.row[1];
+    float* dst = ring + which * kTK * LD;
+    for (int idx = tid; idx < kTK * (DH / 4); idx += kTThreads) {
+      const int r = idx / (DH / 4), col = (idx - r * (DH / 4)) * 4;
+      const int key = c * kTK + r;
+      if (key < n)
+        tae::cp_async16(dst + r * LD + col, src + key * stride + col);
+      else
+        *reinterpret_cast<float4*>(dst + r * LD + col) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    tae::cp_async_commit();
+  };
+  for (int idx = tid; idx < kTR * (DH / 4); idx += kTThreads) {
+    const int r = idx / (DH / 4), col = (idx - r * (DH / 4)) * 4;
+    if (r < nq)
+      tae::cp_async16(qs + r * LD + col, rows.at(0, q0 + r) + col);
+    else
+      *reinterpret_cast<float4*>(qs + r * LD + col) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  issue(0, 0);  // Q rides with K chunk 0
+
+  float lp[8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < CW; ++e) o[r][e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) lp[r] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < nc; ++c) {
+    tae::wait_pending(0);  // K chunk c (and Q) landed
+    __syncthreads();       // ... for every thread; V chunk c - 1 is done with
+    issue(c, 1);
+    // S = Q K^T of chunk c: row rg + 16 i, key 64 c + cg + 16 j
+    const float* ks = ring;
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int dd = 0; dd < DH; dd += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * LD + dd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (cg + 16 * j) * LD + dd);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float acc = sc[i][j];
+          acc = fmaf(qv[i].x, kv.x, acc);
+          acc = fmaf(qv[i].y, kv.y, acc);
+          acc = fmaf(qv[i].z, kv.z, acc);
+          acc = fmaf(qv[i].w, kv.w, acc);
+          sc[i][j] = acc;
+        }
+      }
+    }
+    // p of chunk c into its half of the p tile, last read for chunk c - 2
+    float* pc = ps + (c & 1) * kTK * kTLdP;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = c * kTK + cg + 16 * j;
+        pc[(cg + 16 * j) * kTLdP + rg + 16 * r] =
+            key < n ? softmax_p(sc[r][j] * scale, 0.f, true) : 0.f;
+      }
+    tae::wait_pending(0);  // V chunk c landed
+    __syncthreads();       // ... and chunk c's p, for every thread; K chunk c is done with
+    if (c + 1 < nc) issue(c + 1, 0);
+    // warp w's rows 8 w .. 8 w + 7: lane l adds keys l, then l + 32
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int key = c * kTK + lane + 32 * t;
+      if (key < n) {
+        const float* pr = pc + (lane + 32 * t) * kTLdP + 8 * warp;
+        const float4 a = *reinterpret_cast<const float4*>(pr);
+        const float4 e = *reinterpret_cast<const float4*>(pr + 4);
+        lp[0] += a.x;
+        lp[1] += a.y;
+        lp[2] += a.z;
+        lp[3] += a.w;
+        lp[4] += e.x;
+        lp[5] += e.y;
+        lp[6] += e.z;
+        lp[7] += e.w;
+      }
+    }
+    const float* vs = ring + kTK * LD;
+    const int keys = min(kTK, n - c * kTK);
+#pragma unroll 16
+    for (int j = 0; j < keys; ++j) {
+      const float4 pv = *reinterpret_cast<const float4*>(pc + j * kTLdP + 4 * rg);
+      const float4 vv = *reinterpret_cast<const float4*>(vs + j * LD + 4 * cg);
+      const float p4[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        o[r][0] = fmaf(p4[r], vv.x, o[r][0]);
+        o[r][1] = fmaf(p4[r], vv.y, o[r][1]);
+        o[r][2] = fmaf(p4[r], vv.z, o[r][2]);
+        o[r][3] = fmaf(p4[r], vv.w, o[r][3]);
+      }
+      if (CW == 5) {
+        const float v5 = vs[j * LD + 64 + cg];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) o[r][CW - 1] = fmaf(p4[r], v5, o[r][CW - 1]);
+      }
+    }
+  }
+
+  // ---- l per row
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float l = tae::warp_sum(lp[r]);
+    if (lane == r) ls[8 * warp + r] = l;
+  }
+  __syncthreads();
+}
+
+// the row sums q8_tiled_head leaves in a block's shared memory
+template <int DH>
+__device__ __forceinline__ const float* q8_tiled_ls(const float* smem) {
+  return smem + (kTR + kTSlots * kTK) * t_ld<DH>() + 2 * kTK * kTLdP + 2 * kTR;
+}
+
+// K7 and K8 in float32 from kF32TiledMinTokens tokens: the tiled body's
+// serving form with the int8 output, one scale per row over all heads, as
+// attention_q8_bf16 does for bf16. A block runs heads_per_block heads of one
+// (image, 64-row tile) in turn and keeps each head's o * (1 / l) in shared
+// memory at the thread's own positions (so no barrier guards them): the
+// last head's in the Q tile's rows, which its body no longer reads, the
+// others' in a buffer of their own. Nothing but the head index lives
+// across a head's body: the body is at 128 registers in K2's serving form,
+// and each value held across it spilled. TWO: up to 2 heads a block (32
+// heads), two blocks an SM; else one block an SM at up to 255 registers.
+// The blocks that cover a row tile's heads form a thread-block cluster
+// along grid.y; the 16 threads of a row group reduce |o| to a partial max
+// per row (shuffles, then the row group's two warps in shared memory), the
+// cluster barrier publishes each block's, a thread per row takes the max
+// over every rank's through distributed shared memory, and each thread
+// codes its own positions. o is the tiled body's, which equals the first
+// design's, so the codes and scales equal those of the flat-row form at
+// the same tokens (K9) and follow the plain version's arithmetic.
+template <int DH, bool TWO>
+__global__ void __launch_bounds__(kTThreads, TWO ? 2 : 1)
+attention_q8_f32_tiled(const PlainSrc<float> src, int8_t* __restrict__ out_q,
+                       float* __restrict__ out_s, int n, int heads, int heads_per_block,
+                       float scale) {
+  constexpr int CW = DH == 80 ? 5 : 4, LDO = DH + 4;
+  static_assert(LDO == t_ld<DH>(), "the last head's o takes the Q tile's rows");
+  extern __shared__ __align__(16) float smem[];
+  // grid.y is the cluster: blockIdx.y is the block's rank
+#pragma unroll 1
+  for (int j = 0; j < min(heads_per_block, heads - static_cast<int>(blockIdx.y) * heads_per_block);
+       ++j) {
+    float o[4][CW];
+    const int h = blockIdx.y * heads_per_block + j;
+    q8_tiled_head<DH>(src.rows(blockIdx.z, h), n, blockIdx.x * kTR, scale, smem, o);
+    const float* ls = q8_tiled_ls<DH>(smem);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int col = (warp & 1) * 8 + (lane & 7), rg = (warp >> 1) * 4 + (lane >> 3);
+    // head j's o: the last one's in the Q tile's rows
+    const int hb = min(heads_per_block, heads - static_cast<int>(blockIdx.y) * heads_per_block);
+    float* base = j + 1 < hb ? smem + tiled_smem_bytes<DH>() / sizeof(float) + j * kTR * LDO
+                             : smem;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float inv = 1.f / ls[4 * rg + r];
+      float* ob = base + (4 * rg + r) * LDO;
+      *reinterpret_cast<float4*>(ob + 4 * col) =
+          make_float4(o[r][0] * inv, o[r][1] * inv, o[r][2] * inv, o[r][3] * inv);
+      if (CW == 5) ob[64 + col] = o[r][CW - 1] * inv;
+    }
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  float* obuf = smem + tiled_smem_bytes<DH>() / sizeof(float);  // (heads_per_block - 1, kTR, LDO)
+  float* pm = obuf + (heads_per_block - 1) * kTR * LDO;  // [2][kTR]: a row group's two warps
+  float* bm = pm + 2 * kTR;                               // [kTR]: the block's row maxima
+  float* gi = bm + kTR;                                   // [kTR]: 1 / scale of each row
+  const int b = blockIdx.z, rank = blockIdx.y, ranks = gridDim.y, q0 = blockIdx.x * kTR;
+  const int h0 = rank * heads_per_block, nh = min(heads_per_block, heads - h0);
+  // head j's o: the last one's in the Q tile's rows
+  auto slot = [obuf, nh](int j) { return j + 1 < nh ? obuf + j * kTR * LDO : smem; };
+  const int nq = min(kTR, n - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col = (warp & 1) * 8 + (lane & 7), rg = (warp >> 1) * 4 + (lane >> 3);
+  const int c = heads * DH;
+
+  // each row's max |o| over the block's heads (rows past nq, finite values
+  // of zero query rows, do not count)
+  float amax[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = 0; j < nh; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* ob = slot(j) + (4 * rg + r) * LDO;
+      const float4 v = *reinterpret_cast<const float4*>(ob + 4 * col);
+      amax[r] = fmaxf(amax[r], fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+      if (CW == 5) amax[r] = fmaxf(amax[r], fabsf(ob[64 + col]));
+    }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float m = 4 * rg + r < nq ? amax[r] : 0.f;
+#pragma unroll
+    for (int x = 1; x < 8; x <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, x));
+    if ((lane & 7) == 0) pm[(warp & 1) * kTR + 4 * rg + r] = m;
+  }
+  __syncthreads();
+  if (tid < kTR) bm[tid] = fmaxf(pm[tid], pm[kTR + tid]);
+  cluster.sync();  // every rank's row maxima are in its shared memory
+  if (tid < kTR) {
+    float m = 0.f;
+    for (int r = 0; r < ranks; ++r) m = fmaxf(m, cluster.map_shared_rank(bm, r)[tid]);
+    const float sc = tae::i8::quant_scale(m);
+    gi[tid] = 1.0f / sc;
+    if (rank == 0 && tid < nq) out_s[static_cast<long>(b) * n + q0 + tid] = sc;
+  }
+  // done with the others' shared memory: arrive now, wait before exiting
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+  int8_t* qbase = out_q + (static_cast<long>(b) * n + q0) * c;
+  for (int j = 0; j < nh; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * rg + r;
+      if (row < nq) {
+        const float* ob = slot(j) + row * LDO;
+        const float4 v = *reinterpret_cast<const float4*>(ob + 4 * col);
+        const float inv = gi[row];
+        int8_t* qrow = qbase + static_cast<long>(row) * c + (h0 + j) * DH;
+        const unsigned w = (static_cast<unsigned>(tae::i8::quantize1(v.x, inv)) & 0xffu) |
+                           (static_cast<unsigned>(tae::i8::quantize1(v.y, inv)) & 0xffu) << 8 |
+                           (static_cast<unsigned>(tae::i8::quantize1(v.z, inv)) & 0xffu) << 16 |
+                           (static_cast<unsigned>(tae::i8::quantize1(v.w, inv)) & 0xffu) << 24;
+        *reinterpret_cast<unsigned*>(qrow + 4 * col) = w;
+        if (CW == 5) qrow[64 + col] = static_cast<int8_t>(tae::i8::quantize1(ob[64 + col], inv));
+      }
+    }
+  // no block's shared memory goes away while another block reads it
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- launchers
 
 // smem_allowed: the kernel's dynamic shared-memory limit as last raised (one
@@ -1118,10 +1398,117 @@ int q8_active_clusters(const tae::q8::Plan& p, int n, int& clusters) {
   return static_cast<int>(err);
 }
 
+// attention_q8_f32_tiled<DH, TWO> with p's shape, as q8_config: TWO where a
+// block takes up to two heads.
+template <int DH, bool TWO>
+cudaError_t q8_f32_config(const tae::q8::Plan& p, int batch, int n, cudaStream_t stream,
+                          cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  auto* kernel = attention_q8_f32_tiled<DH, TWO>;
+  static bool prepared = false;
+  static int smem_allowed = 0;
+  if (!prepared) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    prepared = true;
+  }
+  if (p.smem > smem_allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = p.smem;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((n + kTR - 1) / kTR, p.cluster, batch);
+  cfg.blockDim = dim3(kTThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = static_cast<unsigned>(p.cluster);
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int DH, bool TWO>
+int launch_q8_f32_two(const tae::q8::Plan& p, const PlainSrc<float>& src, void* out_q,
+                      void* out_s, int batch, int n, int heads, float scale,
+                      cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = q8_f32_config<DH, TWO>(p, batch, n, stream, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, attention_q8_f32_tiled<DH, TWO>, src,
+                             static_cast<int8_t*>(out_q), static_cast<float*>(out_s), n, heads,
+                             p.heads_per_block, scale);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int DH>
+int launch_q8_f32(const tae::q8::Plan& p, const PlainSrc<float>& src, void* out_q, void* out_s,
+                  int batch, int n, int heads, float scale, cudaStream_t stream) {
+  if (p.heads_per_block <= 2)
+    return launch_q8_f32_two<DH, true>(p, src, out_q, out_s, batch, n, heads, scale, stream);
+  return launch_q8_f32_two<DH, false>(p, src, out_q, out_s, batch, n, heads, scale, stream);
+}
+
+template <int DH, bool TWO>
+int q8_f32_clusters(const tae::q8::Plan& p, int n, int& clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = q8_f32_config<DH, TWO>(p, 1, n, nullptr, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, attention_q8_f32_tiled<DH, TWO>, &cfg);
+  return static_cast<int>(err);
+}
+
+template <int DH>
+int q8_f32_active_clusters(const tae::q8::Plan& p, int n, int& clusters) {
+  return p.heads_per_block <= 2 ? q8_f32_clusters<DH, true>(p, n, clusters)
+                                : q8_f32_clusters<DH, false>(p, n, clusters);
+}
+
 }  // namespace
 
 namespace tae {
 namespace q8 {
+
+bool plan_f32(int n, int heads, int dh, Plan& p) {
+  if (n < kF32TiledMinTokens || n > kMaxN || heads < 1 || heads > 65535 ||
+      (dh != 64 && dh != 80))
+    return false;
+  p.heads_per_block = (heads + kF32MaxCluster - 1) / kF32MaxCluster;
+  p.cluster = (heads + p.heads_per_block - 1) / p.heads_per_block;
+  p.warps = kTThreads / 32;
+  const long long smem =
+      static_cast<long long>(dh == 64 ? tiled_smem_bytes<64>() : tiled_smem_bytes<80>()) +
+      4LL * (p.heads_per_block - 1) * kTR * (dh + 4)  // o of every head but the last, fp32
+      + 4LL * 4 * kTR;  // row maxima, block maxima, 1 / scale
+  p.smem = static_cast<int>(smem);
+  return smem <= tae::i8::kSmemLimit;
+}
+
+int launch_f32(const Plan& p, const void* qkv, void* out_q, void* out_s, int batch, int n,
+               int heads, int dh, float scale, void* stream) {
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long c = static_cast<long long>(heads) * dh;
+  const float* base = static_cast<const float*>(qkv);
+  const HeadLayout in = {n * 3 * c, dh, 3 * c};
+  PlainSrc<float> src;
+  for (int i = 0; i < 3; ++i) {
+    src.p[i] = base + i * c;
+    src.l[i] = in;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64) return launch_q8_f32<64>(p, src, out_q, out_s, batch, n, heads, scale, s);
+  if (dh == 80) return launch_q8_f32<80>(p, src, out_q, out_s, batch, n, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 
 bool plan(int n, int heads, int dh, Plan& p) {
   if (n < kMinTokens || n > kMaxN || heads < 1 || heads > kHeadsPerBlock * kMaxCluster ||
@@ -1213,6 +1600,22 @@ extern "C" int tae_qkv_i8_attention_fwd(const void* qkv, const void* scales, voi
   if (dh == 64) return launch_bf16<64, true>(src, out, ol, nullptr, batch, n, heads, scale, s);
   if (dh == 80) return launch_bf16<80, true>(src, out, ol, nullptr, batch, n, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan of K7 / K8 in float32 on the tiled body (attention_q8_f32_tiled),
+// as tae_attention_q8_plan: out[0] 1 where it takes the shape, out[1..4]
+// cluster, heads per block, warps, shared memory bytes, out[5] the clusters
+// the card holds at once.
+extern "C" int tae_attention_q8_f32_plan(int n, int heads, int dh, int* out) {
+  tae::q8::Plan p;
+  out[0] = tae::q8::plan_f32(n, heads, dh, p) ? 1 : 0;
+  if (!out[0]) return 0;
+  out[1] = p.cluster;
+  out[2] = p.heads_per_block;
+  out[3] = p.warps;
+  out[4] = p.smem;
+  return dh == 64 ? q8_f32_active_clusters<64>(p, n, out[5])
+                  : q8_f32_active_clusters<80>(p, n, out[5]);
 }
 
 // The plan of K7 / K8 on the forward body for (n, heads, dh) in bf16: out[0]

@@ -61,9 +61,15 @@
 //     Only the last, ragged tile masks (p = 0 for queries, or keys, at or
 //     beyond n); nothing is written beyond n. Outputs leave as one 16-byte
 //     store a lane after a quad transpose. No WMMA, no per-warp scratch.
-//   * float32: CUDA cores, fp32 throughout. K and V are staged for the dQ
-//     phase (a warp per query row, a lane per key), then Q and dO take their
-//     place for the dK / dV phase (a warp per key, a lane per query row).
+//   * float32: CUDA cores, fp32 throughout (the tensor cores would round to
+//     TF32). From kF32TiledMinTokens tokens the register-tiled body
+//     (attention_bwd_f32_tiled, described at it) forms S and dP once per
+//     (query, key): the formula's 5 N^2 dh products. Below, the first
+//     design (attention_bwd_f32): K and V staged for the dQ phase (a warp
+//     per query row, a lane per key), then Q and dO in their place for the
+//     dK / dV phase (a warp per key, a lane per query row), S and dP formed
+//     in both (7 products). Both sum in the same order, so their outputs
+//     are equal bit for bit.
 //   wgmma and TMA are later work.
 #include "common.cuh"
 
@@ -650,6 +656,358 @@ attention_bwd_f32(const BwdArgs<float> a) {
   }
 }
 
+// ------------------------------------------------ float32, register tiles
+
+// The register-tiled fp32 body, from kF32TiledMinTokens tokens. A block of
+// kBT threads takes one (image, head) and forms S and dP once per (query,
+// key): Q and dO of the whole head stay in shared memory (rows of DH + 4
+// floats, so that 16-byte loads of 8 consecutive rows hit 8 distinct bank
+// groups), K and V arrive in chunks of KC keys, ascending. Per chunk:
+//   A. thread (ra, ka) forms S and dP of rows ra + ARG i and keys ka + AKG j
+//      (AR x AK register tiles: per 4 columns of d, one float4 of q, k, dO
+//      and v a row or key feeds 4 FMAs of each of its row's or key's
+//      scores), then P = exp(S * scale - lse) and dS = P (dP - delta) scale,
+//      written to two (rows, KC) tiles in shared memory (0 for keys past n);
+//   B. dQ += dS.K_chunk on AR x (4 QH) register tiles held across chunks
+//      (per 4 keys, a float4 of dS a row and QH of K a key), and the chunk's
+//      dK = dS^T.Q and dV = P^T.dO on 4 x 4 tiles (a float4 of each operand
+//      a query feeds 16 FMAs), complete once every query has been summed,
+//      so written once.
+// The next chunk's K and V are loaded into registers while a chunk is in
+// use and stored to its single slot after the chunk's last barrier (a second
+// slot does not fit beside Q, dO, P and dS at 256 tokens). Every product and
+// sum is the first design's: s and dp sum fmaf over d ascending, s is scaled
+// once, p and dS are the same expressions; dQ sums fmaf(dS_ij, k_j) over j
+// ascending, dK and dV over i ascending, each from 0; delta is the first
+// design's lane-strided sum and tae::warp_sum. Keys past n (zero rows, p =
+// dS = 0) and queries past n add exact zeros or are never read. So dq, dk
+// and dv equal attention_bwd_f32's bit for bit; no atomics, two runs are
+// bit-equal.
+//   Measured on an H100 80GB HBM3 at 700 W (bench/attention_bwd_body.py
+// --dtype fp32, in turns with the variants named): 1.283 ms at (64, 256,
+// 3072) h16, the first design 6.17; the S and dP products cost 0.42 of it,
+// dK / dV 0.48, dQ 0.18, the exp 0.015, the K / V staging 0.02 (f32_no_*).
+// The unguarded instantiation (FULL) saves 0.64 (f32_guarded: 1.93), the
+// prologue's o rows loaded at once 0.23 (one row at a time: 1.51); dQ kept
+// in device memory between chunks ran 7% slower (f32_dq_global), the dK /
+// dV loop unrolled by 16 beat 8 by 2.4%. One block an SM: Q, dO, P and dS
+// fill 227 KB at 256 tokens. The first design keeps fewer than 56 tokens:
+// at 48, (64, 48, 3072) h16, it took 0.265 ms against the tiled body's
+// 0.277, at 56 0.325 against 0.295.
+constexpr int kBT = 256;  // threads of the tiled body
+// tokens from which the tiled body runs (below: attention_bwd_f32)
+constexpr int kF32TiledMinTokens = 56;
+
+// Per head dim: KC keys a chunk; AKG key groups of phase A (each thread AK
+// = KC / AKG keys, AR = kMaxN / (kBT / AKG) rows); QCG column groups of dQ
+// (each thread QH float4 columns, QR rows). dK / dV take 4 x 4 tiles, one
+// thread each, (KC / 4) (DH / 4) a product.
+template <int DH> struct BwdTiles;
+template <> struct BwdTiles<64> {
+  static constexpr int KC = 32, AKG = 8, QCG = 8;
+};
+template <> struct BwdTiles<80> {
+  static constexpr int KC = 16, AKG = 4, QCG = 4;
+};
+__host__ __device__ constexpr int pad8(int n) { return (n + 7) / 8 * 8; }
+
+// Q, dO (pad8(n) rows of DH + 4), the K and V slot (KC rows), P and dS
+// (pad8(n) rows of KC + 4), lse and delta (pad8(n))
+template <int DH>
+size_t tiled_smem_bytes(int n) {
+  constexpr int KC = BwdTiles<DH>::KC;
+  const size_t np = pad8(n);
+  return sizeof(float) * (2 * np * f32_ld<DH>() + 2 * KC * f32_ld<DH>() + 2 * np * (KC + 4) +
+                          2 * np);
+}
+
+// FULL: every warp's every row tile of phases A and B holds a row below n
+// (n >= full_tokens<DH>()), so no tile is guarded: at 256 tokens the guards
+// cost 8% (bench/attention_bwd_body.py's f32_no_guard).
+template <int DH>
+__host__ __device__ constexpr int full_tokens() {
+  using T = BwdTiles<DH>;
+  return (kBT / T::AKG) * (kMaxN / (kBT / T::AKG) - 1) + (kBT / 32 - 1) * 32 / T::AKG + 1;
+}
+
+template <int DH, bool FULL>
+__global__ void __launch_bounds__(kBT, 1)
+attention_bwd_f32_tiled(const BwdArgs<float> a) {
+  using T = BwdTiles<DH>;
+  constexpr int LD = f32_ld<DH>(), KC = T::KC, LDP = KC + 4;
+  constexpr int AKG = T::AKG, ARG = kBT / AKG, AR = kMaxN / ARG, AK = KC / AKG;
+  constexpr int QCG = T::QCG, QRG = kBT / QCG, QR = kMaxN / QRG, QH = DH / 4 / QCG;
+  constexpr int KVT = (KC / 4) * (DH / 4);           // dK (or dV) tiles of a chunk
+  constexpr int C4 = DH / 4;                         // float4 columns of a row
+  constexpr int PF = (2 * KC * C4 + kBT - 1) / kBT;  // float4s a thread prefetches
+  // unrolling of the dQ and dK / dV loops: whole and by 16 where no row tile
+  // is guarded; by 2 and 8 where one is (the registers of the guards spill
+  // at the wider unrolling)
+  constexpr int kDqUnroll = FULL ? KC / 4 : 2, kKvUnroll = FULL ? 16 : 8;
+  const int n = a.n, np = pad8(n), nc = (n + KC - 1) / KC;
+  const float scale = a.scale;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // (np, LD)
+  float* dos = qs + np * LD;        // (np, LD)
+  float* ks = dos + np * LD;        // (KC, LD)
+  float* vs = ks + KC * LD;         // (KC, LD)
+  float* ps = vs + KC * LD;         // (np, LDP)
+  float* dss = ps + np * LDP;       // (np, LDP)
+  float* lse = dss + np * LDP;      // (np)
+  float* delta = lse + np;          // (np)
+
+  const int b = blockIdx.y, h = blockIdx.x;
+  const float* qb = a.q + a.lq.at(b, h);
+  const float* kb = a.k + a.lk.at(b, h);
+  const float* vb = a.v + a.lv.at(b, h);
+  const float* obase = a.o + a.lo.at(b, h);
+  const float* dobase = a.dout + a.ldo.at(b, h);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // Q and dO by cp.async, rows past n zero
+  for (int idx = tid; idx < np * C4; idx += kBT) {
+    const int r = idx / C4, col = (idx - r * C4) * 4;
+    if (r < n) {
+      tae::cp_async16(qs + r * LD + col, qb + r * a.lq.row + col);
+      tae::cp_async16(dos + r * LD + col, dobase + r * a.ldo.row + col);
+    } else {
+      *reinterpret_cast<float4*>(qs + r * LD + col) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dos + r * LD + col) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  tae::cp_async_commit();
+  // chunk c's K and V rows into registers (zero past n), then into the slot
+  float4 pf[PF];
+  auto fetch = [&](int c) {
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      const int idx = tid + kBT * u;
+      const int which = idx / (KC * C4), rem = idx - which * (KC * C4);
+      const int r = rem / C4, col = (rem - r * C4) * 4, key = c * KC + r;
+      pf[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (idx < 2 * KC * C4 && key < n)
+        pf[u] = *reinterpret_cast<const float4*>(
+            which ? vb + key * a.lv.row + col : kb + key * a.lk.row + col);
+    }
+  };
+  auto park = [&]() {
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      const int idx = tid + kBT * u;
+      const int which = idx / (KC * C4), rem = idx - which * (KC * C4);
+      const int r = rem / C4, col = (rem - r * C4) * 4;
+      if (idx < 2 * KC * C4) *reinterpret_cast<float4*>((which ? vs : ks) + r * LD + col) = pf[u];
+    }
+  };
+  fetch(0);
+  // lse and delta of every query: warp w takes rows w + kWarps k, their o
+  // and lse loaded RB rows at once (at dh 64 while Q and dO land; one row at
+  // a time each row's device-memory latency stood in line: 15% of the
+  // kernel at 256 tokens), delta summed as the first design does (the
+  // lane's columns in order, then tae::warp_sum), dO from its staged rows.
+  // At dh 80 two batches of 16 rows, as 32 rows of o spilled.
+  constexpr int OT = (DH + 31) / 32, RW = kMaxN / kWarps, RB = DH == 80 ? RW / 2 : RW;
+  const float* lse_in = a.lse + (static_cast<long>(b) * a.heads + h) * n;
+#pragma unroll 1
+  for (int k0 = 0; k0 < RW; k0 += RB) {
+    float ov[RB][OT], lv[RB];
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int r = warp + kWarps * (k0 + k);
+      lv[k] = r < n ? lse_in[r] : 0.f;
+#pragma unroll
+      for (int t = 0; t < OT; ++t) {
+        const int d = lane + 32 * t;
+        ov[k][t] = r < n && d < DH ? obase[r * a.lo.row + d] : 0.f;
+      }
+    }
+    if (k0 == 0) {
+      tae::wait_pending(0);
+      __syncthreads();  // Q and dO staged
+    }
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int r = warp + kWarps * (k0 + k);
+      if (r < np) {
+        float sum = 0.f;
+        if (r < n)
+#pragma unroll
+          for (int t = 0; t < OT; ++t) {
+            const int d = lane + 32 * t;
+            if (d < DH) sum += dos[r * LD + d] * ov[k][t];
+          }
+        sum = tae::warp_sum(sum);
+        if (lane == 0) {
+          delta[r] = sum;
+          lse[r] = lv[k];
+        }
+      }
+    }
+  }
+
+  // phase A's rows ra + ARG i and keys ka + AKG j; a warp's rows are
+  // consecutive, so whether row tile i holds a row below n is warp-uniform
+  const int ra = tid / AKG, ka = tid % AKG, wa = (warp * 32) / AKG;
+  // dQ's rows rq + QRG i and float4 columns cq + QCG hh
+  const int rq = tid / QCG, cq = tid % QCG, wq = (warp * 32) / QCG;
+  // dK (tid < KVT) or dV (KVT <= tid < 2 KVT): keys 4 kg .., columns 4 cgk ..
+  const bool kv_v = tid >= KVT, kv_on = tid < 2 * KVT;
+  const int kvt = kv_v ? tid - KVT : tid, kg = kvt % (KC / 4), cgk = kvt / (KC / 4);
+  const float* kv_a = kv_v ? ps : dss;   // [query][key]
+  const float* kv_b = kv_v ? dos : qs;   // [query][column]
+  float* kv_out = kv_v ? a.dv + a.ldv.at(b, h) : a.dk + a.ldk.at(b, h);
+  const long long kv_row = kv_v ? a.ldv.row : a.ldk.row;
+
+  float dq[QR][QH][4];
+#pragma unroll
+  for (int i = 0; i < QR; ++i)
+#pragma unroll
+    for (int hh = 0; hh < QH; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[i][hh][e] = 0.f;
+
+  for (int c = 0; c < nc; ++c) {
+    park();
+    __syncthreads();  // the chunk (and on the first, Q, dO, lse, delta) visible
+    if (c + 1 < nc) fetch(c + 1);
+
+    // ---- A: S and dP of the chunk, then P and dS into shared memory
+    float s[AR][AK], dp[AR][AK];
+#pragma unroll
+    for (int i = 0; i < AR; ++i)
+#pragma unroll
+      for (int j = 0; j < AK; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      float4 kv[AK];
+#pragma unroll
+      for (int j = 0; j < AK; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (ka + AKG * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < AR; ++i) {
+        if (FULL || ARG * i + wa < n) {
+          const float4 x = *reinterpret_cast<const float4*>(qs + (ra + ARG * i) * LD + d);
+#pragma unroll
+          for (int j = 0; j < AK; ++j) {
+            float acc = s[i][j];
+            acc = fmaf(x.x, kv[j].x, acc);
+            acc = fmaf(x.y, kv[j].y, acc);
+            acc = fmaf(x.z, kv[j].z, acc);
+            acc = fmaf(x.w, kv[j].w, acc);
+            s[i][j] = acc;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < AK; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(vs + (ka + AKG * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < AR; ++i) {
+        if (FULL || ARG * i + wa < n) {
+          const float4 x = *reinterpret_cast<const float4*>(dos + (ra + ARG * i) * LD + d);
+#pragma unroll
+          for (int j = 0; j < AK; ++j) {
+            float acc = dp[i][j];
+            acc = fmaf(x.x, kv[j].x, acc);
+            acc = fmaf(x.y, kv[j].y, acc);
+            acc = fmaf(x.z, kv[j].z, acc);
+            acc = fmaf(x.w, kv[j].w, acc);
+            dp[i][j] = acc;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < AR; ++i) {
+      if (FULL || ARG * i + wa < n) {
+        const int row = ra + ARG * i;
+        const float li = lse[row], di = delta[row];
+#pragma unroll
+        for (int j = 0; j < AK; ++j) {
+          const int key = c * KC + ka + AKG * j;
+          const float sv = s[i][j] * scale;
+          float p = expf(sv - li);
+          float ds = p * (dp[i][j] - di) * scale;
+          if (key >= n) p = ds = 0.f;
+          ps[row * LDP + ka + AKG * j] = p;
+          dss[row * LDP + ka + AKG * j] = ds;
+        }
+      }
+    }
+    __syncthreads();  // P and dS of the chunk visible
+
+    // ---- B: dQ += dS.K over the chunk's keys, ascending
+#pragma unroll kDqUnroll
+    for (int j = 0; j < KC; j += 4) {
+      float4 d4[QR];
+#pragma unroll
+      for (int i = 0; i < QR; ++i)
+        if (FULL || QRG * i + wq < n)
+          d4[i] = *reinterpret_cast<const float4*>(dss + (rq + QRG * i) * LDP + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float4 kk[QH];
+#pragma unroll
+        for (int hh = 0; hh < QH; ++hh)
+          kk[hh] = *reinterpret_cast<const float4*>(ks + (j + jj) * LD + 4 * (cq + QCG * hh));
+#pragma unroll
+        for (int i = 0; i < QR; ++i) {
+          if (FULL || QRG * i + wq < n) {
+            const float x = jj == 0 ? d4[i].x : jj == 1 ? d4[i].y : jj == 2 ? d4[i].z : d4[i].w;
+#pragma unroll
+            for (int hh = 0; hh < QH; ++hh) {
+              dq[i][hh][0] = fmaf(x, kk[hh].x, dq[i][hh][0]);
+              dq[i][hh][1] = fmaf(x, kk[hh].y, dq[i][hh][1]);
+              dq[i][hh][2] = fmaf(x, kk[hh].z, dq[i][hh][2]);
+              dq[i][hh][3] = fmaf(x, kk[hh].w, dq[i][hh][3]);
+            }
+          }
+        }
+      }
+    }
+    // ---- B: the chunk's dK = dS^T.Q and dV = P^T.dO over every query
+    if (kv_on) {
+      float acc[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[k][e] = 0.f;
+#pragma unroll kKvUnroll
+      for (int i = 0; i < n; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(kv_a + i * LDP + 4 * kg);
+        const float4 y = *reinterpret_cast<const float4*>(kv_b + i * LD + 4 * cgk);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[k][0] = fmaf(xs[k], y.x, acc[k][0]);
+          acc[k][1] = fmaf(xs[k], y.y, acc[k][1]);
+          acc[k][2] = fmaf(xs[k], y.z, acc[k][2]);
+          acc[k][3] = fmaf(xs[k], y.w, acc[k][3]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int key = c * KC + 4 * kg + k;
+        if (key < n)
+          *reinterpret_cast<float4*>(kv_out + key * kv_row + 4 * cgk) =
+              make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+      }
+    }
+    __syncthreads();  // the slot, P and dS are free for the next chunk
+  }
+
+  float* dqb = a.dq + a.ldq.at(b, h);
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    const int row = rq + QRG * i;
+    if (row < n)
+#pragma unroll
+      for (int hh = 0; hh < QH; ++hh)
+        *reinterpret_cast<float4*>(dqb + row * a.ldq.row + 4 * (cq + QCG * hh)) =
+            make_float4(dq[i][hh][0], dq[i][hh][1], dq[i][hh][2], dq[i][hh][3]);
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 // ptrs: q, k, v, o, do, dq, dk, dv; layouts in the same order.
@@ -709,12 +1067,29 @@ int launch_bf16(const BwdArgs<bf16>& args, int batch, cudaStream_t stream) {
 
 template <int DH>
 int launch_f32(const BwdArgs<float>& args, int batch, cudaStream_t stream) {
-  static size_t smem_allowed = 0;
-  const size_t smem = f32_smem_bytes<DH>(args.n);
-  const cudaError_t err = allow_smem(attention_bwd_f32<DH>, smem, smem_allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(args.heads, batch);
-  attention_bwd_f32<DH><<<grid, kWarps * 32, smem, stream>>>(args);
+  // the shape rule: the first design below kF32TiledMinTokens tokens (the
+  // tiled body's note); no fallback on failure
+  if (args.n < kF32TiledMinTokens) {
+    static size_t smem_allowed = 0;
+    const size_t smem = f32_smem_bytes<DH>(args.n);
+    const cudaError_t err = allow_smem(attention_bwd_f32<DH>, smem, smem_allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_bwd_f32<DH><<<grid, kWarps * 32, smem, stream>>>(args);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = tiled_smem_bytes<DH>(args.n);
+  if (args.n >= full_tokens<DH>()) {
+    static size_t smem_allowed = 0;
+    const cudaError_t err = allow_smem(attention_bwd_f32_tiled<DH, true>, smem, smem_allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_bwd_f32_tiled<DH, true><<<grid, kBT, smem, stream>>>(args);
+  } else {
+    static size_t smem_allowed = 0;
+    const cudaError_t err = allow_smem(attention_bwd_f32_tiled<DH, false>, smem, smem_allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_bwd_f32_tiled<DH, false><<<grid, kBT, smem, stream>>>(args);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -770,4 +1145,20 @@ extern "C" int tae_flash_attention_bwd(const void* q, const void* k, const void*
   HeadLayout l[8];
   for (int i = 0; i < 8; ++i) l[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   return launch_dh(ptrs, l, lse, batch, n, heads, dh, scale, dtype, stream);
+}
+
+// The fp32 backward's launch for (n, dh): out[0] 1 where the tiled body
+// runs (else the first design), out[1] keys a chunk (the tiled body; else
+// 0), out[2] threads a block, out[3] dynamic shared memory bytes.
+// ops/cuda/flash_attention.py::bwd_f32_plan mirrors it.
+extern "C" int tae_attention_bwd_f32_plan(int n, int dh, int* out) {
+  if (n < 1 || n > kMaxN || (dh != 64 && dh != 80)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool tiled = n >= kF32TiledMinTokens;
+  out[0] = tiled ? 1 : 0;
+  out[1] = !tiled ? 0 : dh == 64 ? BwdTiles<64>::KC : BwdTiles<80>::KC;
+  out[2] = tiled ? kBT : kWarps * 32;
+  const size_t smem = tiled ? (dh == 64 ? tiled_smem_bytes<64>(n) : tiled_smem_bytes<80>(n))
+                            : (dh == 64 ? f32_smem_bytes<64>(n) : f32_smem_bytes<80>(n));
+  out[3] = static_cast<int>(smem);
+  return 0;
 }

@@ -67,5 +67,41 @@ inline bool plan(int n, int heads, int dh, bool q8, Plan& p) {
   return true;
 }
 
+// float32 (rows_attention_f32, on the CUDA cores): the same tiles and head
+// groups, a warp a head; the warp's shared memory holds its head's Q tile,
+// one window of K and V (fp32 rows of dh + 4) and that window's p, keys by
+// rows (rows of kF32LdP). A window is the tile's keys where they fit a
+// chunk, else one image's. Up to kMaxChunk (64) tokens. Measured at p128
+// (bench/rows_body.py --dtype fp32, H100): 2 heads a block ran level with 4
+// (K6 serving 0.0124 against 0.0124 ms, K9 0.0193 against 0.0196 at 256
+// rows), 8 leave no room for a 64-key window at dh 80.
+constexpr int kF32HeadsPerBlock = 4;
+constexpr int kF32LdP = kTile + 4;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory of one block
+
+__host__ __device__ inline int f32_warp_bytes(int dh, int chunk) {
+  return ((kTile + 2 * chunk) * (dh + 4) + chunk * kF32LdP) * 4;
+}
+
+// Whether the float32 body takes (n, heads, dh), with an int8 output (q8)
+// or an fp32 one, and how it is launched: as plan, with kF32HeadsPerBlock
+// heads a block and fp32 windows.
+inline bool plan_f32(int n, int heads, int dh, bool q8, Plan& p) {
+  if (n < 1 || n > kMaxChunk || heads < 1 || heads > 65535 || (dh != 64 && dh != 80))
+    return false;
+  int hpb = heads < kF32HeadsPerBlock ? heads : kF32HeadsPerBlock;
+  if (q8) {
+    const int need = (heads + kMaxCluster - 1) / kMaxCluster;
+    hpb = hpb > need ? hpb : need;
+    if (hpb > kMaxHeadsPerBlock) return false;
+  }
+  p.heads_per_block = hpb;
+  p.groups = (heads + hpb - 1) / hpb;
+  p.cluster = q8 ? p.groups : 1;
+  p.chunk = chunk_for(n);
+  p.smem = hpb * f32_warp_bytes(dh, p.chunk) + (q8 ? 4 * kTile * (hpb + 1) : 0);
+  return p.smem <= kSmemLimit;
+}
+
 }  // namespace rows
 }  // namespace tae

@@ -64,12 +64,17 @@
 //   Above 16 tokens the tile's keys come in chunks of up to 64, staged one
 //   at a time (the exact form stages K alone for its max pass); that is K7
 //   and K8 past 32 heads, off the serving paths.
-// float32 (rows_attention_f32, the first design, unchanged): tensor cores
-//   would round to TF32, so a warp takes a (row, head) on the CUDA cores,
-//   lanes over the row's own keys straight from device memory, then over
-//   output columns; the int8 form keeps the block's 16 fp32 rows in a
-//   (16, C + 4) shared scratch for its row epilogue, so it takes up to 3072
-//   columns. It is off the serving path, which is bf16.
+// float32: tensor cores would round to TF32, so the products run on the
+//   CUDA cores (67 TFLOP/s). K7 and K8 from 33 tokens run on the fp32
+//   attention forward's register-tiled body (flash_attention.cu,
+//   attention_q8_f32_tiled) with the int8 row epilogue over a thread-block
+//   cluster, as in bf16; the rest (K6, K9, K7 / K8 below 33 tokens) on
+//   rows_attention_f32 here: the bf16 plan's tiles and head groups, a warp
+//   a head staging its Q tile and the tile's keys by cp.async, scores and
+//   P.V on register tiles (described at it). Both keep the first design's
+//   order of every sum (a warp per (row, head) reading keys from device
+//   memory), so their outputs equal it bit for bit; K8 at 33 tokens and
+//   more and K9 at the same shape are therefore bit-identical too.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -84,8 +89,7 @@ namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = tae::rows::kTile;  // flat query rows of one block
-constexpr int kMaxWarps = 8;             // float32 form
-constexpr int kMaxN = tae::rows::kMaxTokens;  // tokens per image (float32: N/32 scores per lane)
+constexpr int kMaxN = tae::rows::kMaxTokens;  // tokens per image (K7)
 constexpr float kClipLo = -60.f, kClipHi = 45.f;  // _SOFTMAX_CLIP
 
 // what a kernel instantiation computes
@@ -99,35 +103,6 @@ __device__ __forceinline__ float softmax_p(float s, float mx) {
 }
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
-// the block-wide fp32 output rows of the float32 int8 epilogue: row stride, bytes
-__host__ __device__ constexpr int scratch_ld(int c) { return c + 4; }
-__host__ __device__ constexpr int scratch_bytes(int c) { return kTile * scratch_ld(c) * 4; }
-
-// amax, scale and codes of the block's rows from the fp32 scratch; the warps
-// take the rows in turn. Call after a block barrier.
-__device__ __forceinline__ void quantize_rows_epilogue(const float* scratch, int c, int r0,
-                                                       int rows, int8_t* __restrict__ out_q,
-                                                       float* __restrict__ out_s) {
-  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int rr = warp; rr < kTile && r0 + rr < rows; rr += warps) {
-    const tae::i8::RowF32 load{scratch + rr * scratch_ld(c)};
-    float v[8];
-    float amax = 0.f;
-    for (int i = lane * 8; i < c; i += 256) {
-      load(i, v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(v[k]));
-    }
-    const float s = tae::i8::quant_scale(tae::warp_max(amax));
-    const float inv = 1.0f / s;
-    int8_t* q = out_q + static_cast<long>(r0 + rr) * c;
-    for (int i = lane * 8; i < c; i += 256) {
-      load(i, v);
-      *reinterpret_cast<uint2*>(q + i) = tae::i8::quantize8(v, inv);
-    }
-    if (lane == 0) out_s[r0 + rr] = s;
-  }
-}
 
 // ---------------------------------------------------------------- bfloat16
 
@@ -427,98 +402,260 @@ rows_attention_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
 // ----------------------------------------------------------------- float32
 
-constexpr int kKeysPerLane = kMaxN / 32;
+// Head rows [j0, j0 + nr) of one fp32 operand into rows of DH + 4 floats of
+// dst by 16-byte cp.async in the lane's current group; rows at or beyond
+// `end` are zero.
+template <int DH>
+__device__ __forceinline__ void stage_rows_f32(const float* __restrict__ src, long row_stride,
+                                               int j0, int nr, int end, float* dst, int lane) {
+  constexpr int LD = DH + 4, CH = DH / 4;
+  for (int idx = lane; idx < nr * CH; idx += 32) {
+    const int rr = idx / CH, ch = idx - rr * CH;
+    float* d = dst + rr * LD + ch * 4;
+    if (j0 + rr < end)
+      tae::cp_async16(d, src + (j0 + rr) * row_stride + ch * 4);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
 
-// A warp per (row, head): each lane scores the row's own keys lane, lane +
-// 32, ... straight from device memory, then takes float2 output columns.
+// The float32 form: qkv (rows, 3 * heads * DH) fp32, a block per 16 flat
+// rows and heads_per_block heads along grid.y (the plan:
+// tae::rows::plan_f32), a warp a head. The warp stages its head's Q tile
+// and a window of keys (the tile's keys where they fit `chunk`, else one
+// image's; K, V by cp.async into its own shared memory), then on the CUDA
+// cores: lane l scores keys l and l + 32 of the window against all 16 rows
+// (s sums fmaf(q_d, k_d) over d ascending and is scaled once), p goes to a
+// (key, row) tile, 0 for keys of another image; each row's l is summed from
+// that tile as the first design did (lane partials over its own keys lane +
+// 32 t, then tae::warp_sum); P.V takes float2 output columns a lane for all
+// 16 rows, one float4 of p per 4 rows and key, in ascending key order
+// (another image's keys add exact zeros); o = (P.V) * (1 / l). So the
+// outputs equal the first design's (a warp per (row, head) reading keys
+// from device memory) bit for bit. The int8 output shares each row's max
+// over the cluster as rows_attention_bf16 does.
+//   Measured on an H100 80GB HBM3 at 700 W (bench/rows_body.py --dtype fp32,
+// in turns with the variants named): K6 at p128's (64, 4, 7680) 0.0124 ms
+// serving against the first design's 0.0526, K9 at 256 rows 0.0195 against
+// 0.1892; of K6's exact form (0.0135) the scores take 0.0018 (f32_no_scores),
+// P.V 0.0012 (f32_no_pv), staging K and V 0.0011 (f32_no_staging): the rest
+// is a block's latency (K2 fp32 takes 0.0108 at the same shape).
 template <int DH, int MODE>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(tae::rows::kMaxHeadsPerBlock * 32)
 rows_attention_f32(const float* __restrict__ qkv, float* __restrict__ out,
                    int8_t* __restrict__ out_q, float* __restrict__ out_s, int rows, int n,
-                   int heads, int heads_per_block, int /*chunk*/, float scale) {
-  constexpr int C2 = DH / 2;  // float2 output columns
-  constexpr int C2_PER_LANE = (C2 + 31) / 32;
+                   int heads, int heads_per_block, int chunk, float scale) {
+  constexpr int LD = DH + 4, LDP = tae::rows::kF32LdP;
+  constexpr int C2 = DH / 2, C2L = (C2 + 31) / 32;  // float2 output columns, a lane's
   const int c = heads * DH;
   const long row_stride = 3L * c;
   const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = blockIdx.y * heads_per_block + warp;
+  const bool has_head = h < heads;  // warp-uniform
+
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* scratch = reinterpret_cast<float*>(smem_raw);  // kQ8 only
+  const int per_warp = tae::rows::f32_warp_bytes(DH, chunk);
+  float* qs = reinterpret_cast<float*>(smem_raw + warp * per_warp);  // (16, LD)
+  float* ks = qs + kTile * LD;                                       // (chunk, LD)
+  float* vs = ks + chunk * LD;                                       // (chunk, LD)
+  float* pt = vs + chunk * LD;                                       // (chunk, LDP)
+  float* pmax = reinterpret_cast<float*>(smem_raw + warps * per_warp);  // kQ8: (warps + 1, 16)
 
   const int r0 = blockIdx.x * kTile;
-  const int h_begin = static_cast<int>(blockIdx.y) * heads_per_block;
-  const int nh = min(heads, h_begin + heads_per_block) - h_begin;
-  for (int item = warp; item < kTile * nh; item += warps) {
-    const int rr = item % kTile, h = h_begin + item / kTile;
-    const int r = r0 + rr;
-    if (r >= rows) continue;
-    const int own_lo = r / n * n;
-    const float4* q4 = reinterpret_cast<const float4*>(qkv + r * row_stride + h * DH);
-    const float* kbase = qkv + c + h * DH;
-    const float* vbase = qkv + 2 * c + h * DH;
+  const int r_last = min(r0 + kTile, rows) - 1;
+  const int k_lo = r0 / n * n, k_hi = (r_last / n + 1) * n;
 
-    float p[kKeysPerLane];
-    float mx = -INFINITY;
+  float2 acc[kTile][C2L];
+  float l[kTile];
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const int jj = lane + 32 * t;
-      p[t] = -INFINITY;
-      if (jj < n) {
-        const float4* k4 = reinterpret_cast<const float4*>(kbase + (own_lo + jj) * row_stride);
-        float acc = 0.f;
+  for (int rr = 0; rr < kTile; ++rr) {
+    l[rr] = 1.f;
 #pragma unroll
-        for (int d = 0; d < DH / 4; ++d) {
-          const float4 a = q4[d], kk = k4[d];
-          acc = fmaf(a.x, kk.x, acc);
-          acc = fmaf(a.y, kk.y, acc);
-          acc = fmaf(a.z, kk.z, acc);
-          acc = fmaf(a.w, kk.w, acc);
+    for (int k = 0; k < C2L; ++k) acc[rr][k] = make_float2(0.f, 0.f);
+  }
+  if (has_head) {
+    const float* head = qkv + h * DH;
+    const bool single = k_hi - k_lo <= chunk;  // else one window an image
+    const int windows = single ? 1 : (k_hi - k_lo) / n;
+    for (int w = 0; w < windows; ++w) {
+      const int w_lo = single ? k_lo : k_lo + w * n, wn = single ? k_hi - k_lo : n;
+      __syncwarp();  // every lane is done with the last window
+      if (w == 0) stage_rows_f32<DH>(head, row_stride, r0, kTile, rows, qs, lane);
+      stage_rows_f32<DH>(head + c, row_stride, w_lo, wn, k_hi, ks, lane);
+      stage_rows_f32<DH>(head + 2 * c, row_stride, w_lo, wn, k_hi, vs, lane);
+      tae::cp_async_commit();
+      tae::wait_pending(0);
+      __syncwarp();
+
+      // scores of keys lane, lane + 32 against the 16 rows
+      const bool two = wn > 32;  // warp-uniform
+      float s[2][kTile];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int rr = 0; rr < kTile; ++rr) s[t][rr] = 0.f;
+      const int kr0 = min(lane, chunk - 1), kr1 = min(lane + 32, chunk - 1);
+#pragma unroll 4
+      for (int d = 0; d < DH; d += 4) {
+        const float4 k0 = *reinterpret_cast<const float4*>(ks + kr0 * LD + d);
+        const float4 k1 = two ? *reinterpret_cast<const float4*>(ks + kr1 * LD + d) : k0;
+#pragma unroll
+        for (int rr = 0; rr < kTile; ++rr) {
+          const float4 x = *reinterpret_cast<const float4*>(qs + rr * LD + d);
+          float a0 = s[0][rr];
+          a0 = fmaf(x.x, k0.x, a0);
+          a0 = fmaf(x.y, k0.y, a0);
+          a0 = fmaf(x.z, k0.z, a0);
+          a0 = fmaf(x.w, k0.w, a0);
+          s[0][rr] = a0;
+          if (two) {
+            float a1 = s[1][rr];
+            a1 = fmaf(x.x, k1.x, a1);
+            a1 = fmaf(x.y, k1.y, a1);
+            a1 = fmaf(x.z, k1.z, a1);
+            a1 = fmaf(x.w, k1.w, a1);
+            s[1][rr] = a1;
+          }
         }
-        p[t] = acc * scale;
-        mx = fmaxf(mx, p[t]);
       }
-    }
-    if (MODE == kExact) mx = tae::warp_max(mx);
-    float l = 0.f;
+      // the mask: row r0 + rr sees keys [own, own + n) of its image
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      // fp32 input: rounding p to the input dtype is exact
-      p[t] = lane + 32 * t < n ? softmax_p<MODE>(p[t], mx) : 0.f;
-      l += p[t];
-    }
-    const float inv = 1.f / tae::warp_sum(l);
-
-    float2 acc[C2_PER_LANE];
+      for (int rr = 0; rr < kTile; ++rr) {
+        const int r = r0 + rr, own = r / n * n;
+        bool in[2];
+        float mx = -INFINITY;
 #pragma unroll
-    for (int k = 0; k < C2_PER_LANE; ++k) acc[k] = make_float2(0.f, 0.f);
+        for (int t = 0; t < 2; ++t) {
+          const int key = w_lo + lane + 32 * t;
+          in[t] = r < rows && lane + 32 * t < wn && key >= own && key < own + n;
+          s[t][rr] = s[t][rr] * scale;
+          if (in[t]) mx = fmaxf(mx, s[t][rr]);
+        }
+        if (MODE == kExact) mx = tae::warp_max(mx);
 #pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      for (int src = 0; src < 32 && 32 * t + src < n; ++src) {
-        const float pj = __shfl_sync(0xffffffffu, p[t], src);
-        const float2* v2 =
-            reinterpret_cast<const float2*>(vbase + (own_lo + 32 * t + src) * row_stride);
+        for (int t = 0; t < 2; ++t)
+          if (lane + 32 * t < chunk)
+            pt[(lane + 32 * t) * LDP + rr] = in[t] ? softmax_p<MODE>(s[t][rr], mx) : 0.f;
+      }
+      __syncwarp();
+      // l of the rows whose image is this window's, in the first design's order
 #pragma unroll
-        for (int k = 0; k < C2_PER_LANE; ++k) {
+      for (int rr = 0; rr < kTile; ++rr) {
+        const int r = r0 + rr, own = r / n * n;
+        if (r < rows && own >= w_lo && own < w_lo + wn) {  // warp-uniform
+          const float* pc = pt + (own - w_lo) * LDP + rr;
+          float lp = lane < n ? pc[lane * LDP] : 0.f;
+          if (n > 32) lp += lane + 32 < n ? pc[(lane + 32) * LDP] : 0.f;
+          l[rr] = tae::warp_sum(lp);
+        }
+      }
+      // P.V over the window's keys, ascending
+#pragma unroll 2
+      for (int kw = 0; kw < wn; ++kw) {
+        float pr[kTile];
+#pragma unroll
+        for (int q = 0; q < kTile / 4; ++q) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pt + kw * LDP + 4 * q);
+          pr[4 * q] = p4.x;
+          pr[4 * q + 1] = p4.y;
+          pr[4 * q + 2] = p4.z;
+          pr[4 * q + 3] = p4.w;
+        }
+#pragma unroll
+        for (int k = 0; k < C2L; ++k) {
           const int cc = lane + 32 * k;
           if (cc < C2) {
-            const float2 vv = v2[cc];
-            acc[k].x = fmaf(pj, vv.x, acc[k].x);
-            acc[k].y = fmaf(pj, vv.y, acc[k].y);
+            const float2 vv = *reinterpret_cast<const float2*>(vs + kw * LD + 2 * cc);
+#pragma unroll
+            for (int rr = 0; rr < kTile; ++rr) {
+              acc[rr][k].x = fmaf(pr[rr], vv.x, acc[rr][k].x);
+              acc[rr][k].y = fmaf(pr[rr], vv.y, acc[rr][k].y);
+            }
           }
         }
       }
     }
-    float* orow = MODE == kQ8 ? scratch + rr * scratch_ld(c) + h * DH
-                              : out + static_cast<long>(r) * c + h * DH;
 #pragma unroll
-    for (int k = 0; k < C2_PER_LANE; ++k) {
-      const int cc = lane + 32 * k;
-      if (cc < C2) tae::store2(orow + 2 * cc, __fmul_rn(acc[k].x, inv), __fmul_rn(acc[k].y, inv));
+    for (int rr = 0; rr < kTile; ++rr) {
+      const float inv = 1.f / l[rr];
+#pragma unroll
+      for (int k = 0; k < C2L; ++k) {
+        acc[rr][k].x = __fmul_rn(acc[rr][k].x, inv);
+        acc[rr][k].y = __fmul_rn(acc[rr][k].y, inv);
+      }
     }
   }
 
-  if (MODE == kQ8) {
+  if constexpr (MODE == kQ8) {
+    // each row's max |o| over the warp's head, lane rr holding row rr's ...
+    cg::cluster_group cluster = cg::this_cluster();
+    float mine = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < kTile; ++rr) {
+      float m = 0.f;
+      if (has_head && r0 + rr < rows)
+#pragma unroll
+        for (int k = 0; k < C2L; ++k)
+          if (lane + 32 * k < C2) m = fmaxf(m, fmaxf(fabsf(acc[rr][k].x), fabsf(acc[rr][k].y)));
+      m = tae::warp_max(m);
+      if (lane == rr) mine = m;
+    }
+    if (lane < kTile) pmax[warp * kTile + lane] = mine;
     __syncthreads();
-    quantize_rows_epilogue(scratch, c, r0, rows, out_q, out_s);
+    // ... over the block's heads, published to the cluster ...
+    float* block_max = pmax + warps * kTile;
+    if (warp == 0 && lane < kTile) {
+      float m = 0.f;
+      for (int w = 0; w < warps; ++w) m = fmaxf(m, pmax[w * kTile + lane]);
+      block_max[lane] = m;
+    }
+    cluster.sync();  // the block maxima of every rank are in its shared memory
+    // ... and over every rank: lane rr takes row rr
+    const int ranks = gridDim.y;
+    float inv = 0.f;
+    if (lane < kTile) {
+      float m = 0.f;
+      for (int r = 0; r < ranks; ++r) m = fmaxf(m, cluster.map_shared_rank(block_max, r)[lane]);
+      const float sc = tae::i8::quant_scale(m);
+      inv = 1.0f / sc;
+      if (blockIdx.y == 0 && warp == 0 && r0 + lane < rows) out_s[r0 + lane] = sc;
+    }
+    // done with the others' shared memory: arrive now, wait before exiting
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+#pragma unroll
+    for (int rr = 0; rr < kTile; ++rr) {
+      const float ir = __shfl_sync(0xffffffffu, inv, rr);
+      const int r = r0 + rr;
+      if (has_head && r < rows) {
+        int8_t* q = out_q + static_cast<long>(r) * c + h * DH;
+#pragma unroll
+        for (int k = 0; k < C2L; ++k) {
+          const int cc = lane + 32 * k;
+          if (cc < C2) {
+            const unsigned lo = static_cast<unsigned>(tae::i8::quantize1(acc[rr][k].x, ir)) & 0xffu;
+            const unsigned hi = static_cast<unsigned>(tae::i8::quantize1(acc[rr][k].y, ir)) & 0xffu;
+            *reinterpret_cast<unsigned short*>(q + 2 * cc) =
+                static_cast<unsigned short>(lo | (hi << 8));
+          }
+        }
+      }
+    }
+    // no block's shared memory goes away while another block reads it
+    __syncwarp();
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  } else if (has_head) {
+#pragma unroll
+    for (int rr = 0; rr < kTile; ++rr) {
+      const int r = r0 + rr;
+      if (r < rows) {
+        float* orow = out + static_cast<long>(r) * c + h * DH;
+#pragma unroll
+        for (int k = 0; k < C2L; ++k) {
+          const int cc = lane + 32 * k;
+          if (cc < C2) tae::store2(orow + 2 * cc, acc[rr][k].x, acc[rr][k].y);
+        }
+      }
+    }
   }
 }
 
@@ -595,31 +732,73 @@ int rows_at_once(const tae::rows::Plan& p, int& units) {
   return static_cast<int>(err);
 }
 
-// The float32 form: kQ8 gives one block every head (the epilogue needs
-// them) and kMaxWarps warps beside the (16, C + 4) fp32 scratch; otherwise
-// up to kMaxWarps heads per block, a warp each, and grid.y covers the rest.
+// rows_attention_f32<DH, MODE> with p's shape (tae::rows::plan_f32), as
+// rows_config.
 template <int DH, int MODE>
-int launch_f32(const void* qkv, void* out, void* out_q, void* out_s, int rows, int n, int heads,
-               float scale, cudaStream_t stream) {
-  const int heads_per_block = MODE == kQ8 ? heads : heads < kMaxWarps ? heads : kMaxWarps;
-  const int warps = MODE == kQ8 ? kMaxWarps : heads_per_block;
-  const size_t smem = MODE == kQ8 ? scratch_bytes(heads * DH) : 0;
-  if (smem > tae::i8::kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t rows_f32_config(const tae::rows::Plan& p, int rows, cudaStream_t stream,
+                            cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
   auto* kernel = rows_attention_f32<DH, MODE>;
-  // the kernel's dynamic shared-memory limit as last raised: cudaFuncSetAttribute
-  // runs only when a launch needs more
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
+  static bool prepared = false;
+  static int smem_allowed = 48 * 1024;
+  if (!prepared && MODE == kQ8) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
   }
-  const dim3 grid((rows + kTile - 1) / kTile, (heads + heads_per_block - 1) / heads_per_block);
-  kernel<<<grid, warps * 32, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<int8_t*>(out_q),
-      static_cast<float*>(out_s), rows, n, heads, heads_per_block, 0, scale);
-  return static_cast<int>(cudaGetLastError());
+  prepared = true;
+  if (p.smem > smem_allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = p.smem;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((rows + kTile - 1) / kTile, p.groups);
+  cfg.blockDim = dim3(32 * p.heads_per_block);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = p.cluster;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = MODE == kQ8 ? 1 : 0;
+  return cudaSuccess;
+}
+
+template <int DH, int MODE>
+int launch_f32(const tae::rows::Plan& p, const void* qkv, void* out, void* out_q, void* out_s,
+               int rows, int n, int heads, float scale, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rows_f32_config<DH, MODE>(p, rows, stream, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, rows_attention_f32<DH, MODE>, static_cast<const float*>(qkv),
+                             static_cast<float*>(out), static_cast<int8_t*>(out_q),
+                             static_cast<float*>(out_s), rows, n, heads, p.heads_per_block,
+                             p.chunk, scale);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// How many clusters (int8 output) or blocks of p's fp32 shape the card
+// holds at once (0: none fits).
+template <int DH, int MODE>
+int rows_f32_at_once(const tae::rows::Plan& p, int& units) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rows_f32_config<DH, MODE>(p, kTile, nullptr, cfg, attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (MODE == kQ8)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(&units, rows_attention_f32<DH, MODE>, &cfg));
+  int per_sm = 0, device = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows_attention_f32<DH, MODE>,
+                                                      32 * p.heads_per_block, p.smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  units = per_sm * sms;
+  return static_cast<int>(err);
 }
 
 template <int DH, int MODE>
@@ -631,8 +810,12 @@ int launch_dtype(const void* qkv, void* out, void* out_q, void* out_s, int rows,
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_bf16<DH, MODE>(p, qkv, out, out_q, out_s, rows, n, heads, scale, stream);
   }
-  if (dtype == tae::kFloat32)
-    return launch_f32<DH, MODE>(qkv, out, out_q, out_s, rows, n, heads, scale, stream);
+  if (dtype == tae::kFloat32) {
+    tae::rows::Plan p;
+    if (!tae::rows::plan_f32(n, heads, DH, MODE == kQ8, p))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_f32<DH, MODE>(p, qkv, out, out_q, out_s, rows, n, heads, scale, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -664,6 +847,8 @@ int launch_q8(const void* qkv, void* out_q, void* out_s, int batch, int n, int m
   tae::q8::Plan p;
   if (dtype == tae::kBFloat16 && n <= max_n && tae::q8::plan(n, heads, dh, p))
     return tae::q8::launch(p, qkv, out_q, out_s, batch, n, heads, dh, scale, stream);
+  if (dtype == tae::kFloat32 && n <= max_n && tae::q8::plan_f32(n, heads, dh, p))
+    return tae::q8::launch_f32(p, qkv, out_q, out_s, batch, n, heads, dh, scale, stream);
   return launch_rows<kQ8>(qkv, nullptr, out_q, out_s, static_cast<long>(batch) * n, n, max_n,
                           heads, dh, scale, dtype, stream);
 }
@@ -671,6 +856,11 @@ int launch_q8(const void* qkv, void* out_q, void* out_s, int batch, int n, int m
 template <int MODE>
 int rows_at_once_dh(const tae::rows::Plan& p, int dh, int& units) {
   return dh == 64 ? rows_at_once<64, MODE>(p, units) : rows_at_once<80, MODE>(p, units);
+}
+
+template <int MODE>
+int rows_f32_at_once_dh(const tae::rows::Plan& p, int dh, int& units) {
+  return dh == 64 ? rows_f32_at_once<64, MODE>(p, units) : rows_f32_at_once<80, MODE>(p, units);
 }
 
 }  // namespace
@@ -727,4 +917,19 @@ extern "C" int tae_rows_attention_plan(int n, int heads, int dh, int q8, int* ou
   out[4] = p.chunk;
   out[5] = p.smem;
   return q8 ? rows_at_once_dh<kQ8>(p, dh, out[6]) : rows_at_once_dh<kServing>(p, dh, out[6]);
+}
+
+// The plan of the flat-row body in float32 (tae::rows::plan_f32), as
+// tae_rows_attention_plan.
+extern "C" int tae_rows_attention_f32_plan(int n, int heads, int dh, int q8, int* out) {
+  tae::rows::Plan p;
+  out[0] = tae::rows::plan_f32(n, heads, dh, q8 != 0, p) ? 1 : 0;
+  if (!out[0]) return 0;
+  out[1] = p.cluster;
+  out[2] = p.groups;
+  out[3] = p.heads_per_block;
+  out[4] = p.chunk;
+  out[5] = p.smem;
+  return q8 ? rows_f32_at_once_dh<kQ8>(p, dh, out[6])
+            : rows_f32_at_once_dh<kServing>(p, dh, out[6]);
 }

@@ -85,9 +85,15 @@ SIGNATURES = {
                                       _VP), _I),
     # tokens, heads, head dim, int[6] out: K7 / K8's plan on the forward body
     "tae_attention_q8_plan": ((_I, _I, _I, ctypes.POINTER(_I)), _I),
+    # tokens, head dim, int[4] out: the fp32 attention backward's launch
+    "tae_attention_bwd_f32_plan": ((_I, _I, ctypes.POINTER(_I)), _I),
+    # the same for K7 / K8 in float32 on the tiled fp32 forward body
+    "tae_attention_q8_f32_plan": ((_I, _I, _I, ctypes.POINTER(_I)), _I),
     # tokens, heads, head dim, int8 output (0 / 1), int[7] out: the flat-row
     # body's plan (K6, K9)
     "tae_rows_attention_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
+    # the same for the flat-row body's float32 form
+    "tae_rows_attention_f32_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
     # x, gamma, beta, q, s, rows, cols, eps, x dtype, gamma dtype, stream
     "tae_ln_quant_fwd": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP), _I),
     # rows, cols, int[4] out: K3's plan

@@ -24,6 +24,9 @@ The launch counts are kept apart.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from tae_tpu_torch.ops.cuda import build
@@ -36,7 +39,58 @@ SOFTMAX_CLIP = (-60.0, 45.0)
 #: tokens from which the fp32 forward runs its register-tiled body
 #: (csrc/flash_attention.cu, kF32TiledMinTokens); below, a warp a query row
 F32_TILED_MIN_TOKENS = 33
+#: tokens from which the fp32 backward (K10, K17) runs its register-tiled
+#: body, which forms S and dP once per (query, key) (csrc/
+#: flash_attention_bwd.cu, kF32TiledMinTokens); below, the first design
+F32_BWD_TILED_MIN_TOKENS = 56
+#: keys a chunk of the tiled fp32 backward per head dim (``BwdTiles::KC``)
+F32_BWD_CHUNK = {64: 32, 80: 16}
+#: dynamic shared memory of one block on the H100
+SMEM_LIMIT = 232448
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdF32Plan:
+    """Launch of the fp32 attention backward (K10, K17) for one head of n
+    tokens: the register-tiled body (``tiled``, ``chunk`` keys a chunk) or
+    the first design, ``threads`` a block (one per (image, head)),
+    ``smem`` bytes of dynamic shared memory."""
+    tiled: bool
+    chunk: int
+    threads: int
+    smem: int
+
+
+def bwd_f32_plan(n: int, dh: int) -> BwdF32Plan | None:
+    """The launch ``tae_attention_bwd_f32_plan`` reports for (n, dh), or
+    None where the backward does not take it.
+
+    From :data:`F32_BWD_TILED_MIN_TOKENS` tokens the tiled body: 256
+    threads; Q and dO of the head (rows padded to 8, fp32 rows of dh + 4),
+    one K and V chunk of :data:`F32_BWD_CHUNK` keys, P and dS of the chunk
+    (rows of chunk + 4) and lse and delta a row. Below, the first design: 8
+    warps; K and V, then Q and dO, of the head (rows of dh + 4), lse and
+    delta (padded to 4), each warp's own two rows and its p and dS rows."""
+    if not 1 <= n <= MAX_TOKENS or dh not in HEAD_DIMS:
+        return None
+    ld = dh + 4
+    if n >= F32_BWD_TILED_MIN_TOKENS:
+        kc, np_ = F32_BWD_CHUNK[dh], -(-n // 8) * 8
+        smem = 4 * (2 * np_ * ld + 2 * kc * ld + 2 * np_ * (kc + 4) + 2 * np_)
+        return BwdF32Plan(True, kc, 256, smem)
+    smem = 4 * (2 * n * ld + 2 * (-(-n // 4) * 4) + 8 * 2 * ld + 8 * 2 * n)
+    return BwdF32Plan(False, 0, 256, smem)
+
+
+def bwd_f32_plan_of_library(n: int, dh: int) -> BwdF32Plan:
+    """The built library's fp32 backward launch for (n, dh): what
+    ``chip_smoke.py`` holds :func:`bwd_f32_plan` against. Needs the card's
+    build of the kernels."""
+    out = (ctypes.c_int * 4)()
+    build.check(build.library().tae_attention_bwd_f32_plan(n, dh, out),
+                "tae_attention_bwd_f32_plan")
+    return BwdF32Plan(bool(out[0]), out[1], out[2], out[3])
 
 
 def _split(qkv: torch.Tensor, num_heads: int):

@@ -5,16 +5,19 @@
 source ``tae_tpu_torch/csrc/wide_attention.cu``) and their plain versions.
 
 The four entries keep the JAX entries' argument order and layouts, without
-``block_b`` and ``interpret``. K6, K9 and the float32 forms run on the
-flat-row body, which works on 16 consecutive rows of the flat (B*N, 3C)
-token axis: in bfloat16 a block takes a few heads, a warp each, and with the
-int8 output the head groups of one row tile share the row scale over a
-thread-block cluster (:func:`rows_plan`). K7 and K8 in bfloat16 from
-:data:`Q8_MIN_TOKENS` tokens and up to 32 heads run on the per-image
-attention forward body of ``csrc/flash_attention.cu`` (K2's), whose int8 row
-epilogue is shared over a thread-block cluster too (:func:`q8_plan`); there
-the 3D int8 entry and the flat 2D one (K9, always the flat-row body) are no
-longer the same computation, and agree within the int8 tolerances.
+``block_b`` and ``interpret``. K6 and K9 run on the flat-row body, which
+works on 16 consecutive rows of the flat (B*N, 3C) token axis: a block takes
+a few heads, a warp each, and with the int8 output the head groups of one
+row tile share the row scale over a thread-block cluster (:func:`rows_plan`
+in bfloat16, :func:`rows_plan_f32` in float32, on the CUDA cores). K7 and
+K8 run on the per-image attention forward body of ``csrc/flash_attention.cu``
+(K2's), whose int8 row epilogue is shared over a thread-block cluster too,
+in bfloat16 from :data:`Q8_MIN_TOKENS` tokens and up to 32 heads
+(:func:`q8_plan`), in float32 from :data:`F32_TILED_MIN_TOKENS` tokens
+(:func:`q8_f32_plan`); otherwise on the flat-row body (:func:`q8_body`). In
+bfloat16 the 3D int8 entry and the flat 2D one (K9) are then no longer the
+same computation, and agree within the int8 tolerances; in float32 every
+body keeps the first design's sums, and they are equal bit for bit.
 
 The int8 output is the proj matmul's prequantized input: per token one
 scale over all heads' fp32 output, ``s = max(max|o| / 127, 1e-12)``, codes
@@ -38,8 +41,9 @@ import dataclasses
 import torch
 
 from tae_tpu_torch.ops.cuda import build
-from tae_tpu_torch.ops.cuda.flash_attention import (HEAD_DIMS, MAX_TOKENS,
-                                                    _split,
+from tae_tpu_torch.ops.cuda.flash_attention import (F32_TILED_MIN_TOKENS,
+                                                    HEAD_DIMS, MAX_TOKENS,
+                                                    SMEM_LIMIT, _split,
                                                     packed_attention_f32)
 
 #: tokens per image the wide entries take (every registered tiny-N config)
@@ -67,11 +71,18 @@ ROWS_MAX_HEADS_PER_BLOCK = 8
 ROWS_MAX_CHUNK = 64
 #: most heads the flat-row body's bfloat16 int8 form takes
 ROWS_Q8_MAX_HEADS = ROWS_MAX_CLUSTER * ROWS_MAX_HEADS_PER_BLOCK
-#: widest output the flat-row body's float32 int8 form takes on CUDA: a
-#: block keeps 16 fp32 output rows in shared memory
-ROWS_Q8_MAX_WIDTH = 3072
-#: dynamic shared memory of one block on the H100
-SMEM_LIMIT = 232448
+#: The flat-row body's float32 form (``tae::rows::plan_f32``):
+#: ``ROWS_F32_HEADS_PER_BLOCK`` heads a block, a warp each, each warp's
+#: window of keys in fp32 rows of dh + 4 and its p in rows of
+#: ``ROWS_F32_LDP``; up to ``ROWS_MAX_CHUNK`` tokens
+ROWS_F32_HEADS_PER_BLOCK = 4
+ROWS_F32_LDP = ROWS_TILE + 4
+#: K7 / K8 in float32 from :data:`F32_TILED_MIN_TOKENS` tokens run on the
+#: fp32 forward's tiled body (``tae::q8::plan_f32``): blocks of 256 threads
+#: and 64 query rows, ``Q8_F32_ROWS``, ceil(H / ``Q8_F32_MAX_CLUSTER``)
+#: heads a block, the blocks of a row tile in one cluster
+Q8_F32_ROWS = 64
+Q8_F32_MAX_CLUSTER = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -113,14 +124,41 @@ def q8_plan(n: int, num_heads: int, dh: int,
     return Q8Plan(cluster, hpb, warps, smem) if smem <= SMEM_LIMIT else None
 
 
-def q8_plan_of_library(n: int, num_heads: int, dh: int
+def q8_f32_plan(n: int, num_heads: int, dh: int) -> Q8Plan | None:
+    """The plan ``tae::q8::plan_f32`` computes for K7 / K8 in float32 on the
+    fp32 forward's register-tiled body, or None where the flat-row body runs
+    them (fewer than :data:`F32_TILED_MIN_TOKENS` tokens) or a block would
+    exceed :data:`SMEM_LIMIT`.
+
+    heads_per_block = ceil(H / Q8_F32_MAX_CLUSTER), cluster = ceil(H /
+    heads_per_block), 8 warps; shared memory: the tiled body's (a 64-row Q
+    tile, two 64-key ring slots of fp32 rows of dh + 4, two p tiles of 64 x
+    68, row maxima and sums), the fp32 o of every head of a block but the
+    last (64 rows of dh + 4; the last head's takes the Q tile's rows) and
+    four floats a row (two warps' partial maxima, the block's, 1 /
+    scale)."""
+    if (not F32_TILED_MIN_TOKENS <= n <= MAX_TOKENS or dh not in HEAD_DIMS
+            or not 1 <= num_heads <= 65535):
+        return None
+    hpb = -(-num_heads // Q8_F32_MAX_CLUSTER)
+    cluster = -(-num_heads // hpb)
+    rows = Q8_F32_ROWS
+    tiled = 4 * ((rows + 2 * 64) * (dh + 4) + 2 * 64 * (rows + 4) + 3 * rows)
+    smem = tiled + 4 * (hpb - 1) * rows * (dh + 4) + 4 * 4 * rows
+    return Q8Plan(cluster, hpb, 8, smem) if smem <= SMEM_LIMIT else None
+
+
+def q8_plan_of_library(n: int, num_heads: int, dh: int,
+                       dtype: torch.dtype = torch.bfloat16
                        ) -> tuple[Q8Plan | None, int]:
-    """(the built library's plan for bf16 (n, H, dh), the clusters of that
-    shape the card holds at once; 0 where the body does not take it): what
-    ``chip_smoke.py`` holds :func:`q8_plan` against. Needs the card."""
+    """(the built library's plan for (n, H, dh) in ``dtype`` (bf16:
+    :func:`q8_plan`, fp32: :func:`q8_f32_plan`), the clusters of that shape
+    the card holds at once; 0 where the body does not take it): what
+    ``chip_smoke.py`` holds the mirrors against. Needs the card."""
     out = (ctypes.c_int * 6)()
-    build.check(build.library().tae_attention_q8_plan(n, num_heads, dh, out),
-                "tae_attention_q8_plan")
+    entry = ("tae_attention_q8_f32_plan" if dtype == torch.float32
+             else "tae_attention_q8_plan")
+    build.check(getattr(build.library(), entry)(n, num_heads, dh, out), entry)
     if not out[0]:
         return None, 0
     return Q8Plan(*out[1:5]), out[5]
@@ -177,39 +215,87 @@ def rows_plan(n: int, num_heads: int, dh: int, q8: bool) -> RowsPlan | None:
     return RowsPlan(groups if q8 else 1, groups, hpb, chunk, smem)
 
 
-def rows_plan_of_library(n: int, num_heads: int, dh: int, q8: bool
+def rows_plan_f32(n: int, num_heads: int, dh: int, q8: bool
+                  ) -> RowsPlan | None:
+    """The plan ``tae::rows::plan_f32`` computes for the flat-row body in
+    float32 (K6, K9, and K7 / K8 below :data:`F32_TILED_MIN_TOKENS`
+    tokens), or None where it does not take the shape (tokens outside
+    1..:data:`ROWS_MAX_CHUNK`, another head dim, more heads than a cluster
+    of :data:`ROWS_MAX_HEADS_PER_BLOCK`-head blocks takes with the int8
+    output, or a block beyond :data:`SMEM_LIMIT`).
+
+    As :func:`rows_plan` with :data:`ROWS_F32_HEADS_PER_BLOCK` heads a
+    block; shared memory per warp: the Q tile and a window of K and V in
+    fp32 rows of dh + 4 and the window's p in rows of
+    :data:`ROWS_F32_LDP`, and with the int8 output the row maxima."""
+    if not 1 <= n <= ROWS_MAX_CHUNK or dh not in HEAD_DIMS or not 1 <= num_heads <= 65535:
+        return None
+    hpb = min(num_heads, ROWS_F32_HEADS_PER_BLOCK)
+    if q8:
+        hpb = max(hpb, -(-num_heads // ROWS_MAX_CLUSTER))
+        if hpb > ROWS_MAX_HEADS_PER_BLOCK:
+            return None
+    groups = -(-num_heads // hpb)
+    chunk = rows_chunk(n)
+    smem = (hpb * ((ROWS_TILE + 2 * chunk) * (dh + 4) + chunk * ROWS_F32_LDP) * 4
+            + (4 * ROWS_TILE * (hpb + 1) if q8 else 0))
+    if smem > SMEM_LIMIT:
+        return None
+    return RowsPlan(groups if q8 else 1, groups, hpb, chunk, smem)
+
+
+def rows_plan_of_library(n: int, num_heads: int, dh: int, q8: bool,
+                         dtype: torch.dtype = torch.bfloat16
                          ) -> tuple[RowsPlan | None, int]:
-    """(the built library's flat-row plan for bf16 (n, H, dh), the clusters
+    """(the built library's flat-row plan for (n, H, dh) in ``dtype``
+    (bf16: :func:`rows_plan`, fp32: :func:`rows_plan_f32`), the clusters
     (``q8``) or blocks of that shape the card holds at once; 0 where the
-    body does not take it): what ``chip_smoke.py`` holds :func:`rows_plan`
+    body does not take it): what ``chip_smoke.py`` holds the mirrors
     against. Needs the card."""
     out = (ctypes.c_int * 7)()
-    build.check(build.library().tae_rows_attention_plan(n, num_heads, dh,
-                                                        int(q8), out),
-                "tae_rows_attention_plan")
+    entry = ("tae_rows_attention_f32_plan" if dtype == torch.float32
+             else "tae_rows_attention_plan")
+    build.check(getattr(build.library(), entry)(n, num_heads, dh, int(q8),
+                                                 out), entry)
     if not out[0]:
         return None, 0
     return RowsPlan(*out[1:6]), out[6]
 
 
+def q8_body(n: int, num_heads: int, dh: int, dtype: torch.dtype,
+            flat: bool = False) -> str | None:
+    """Which body runs the int8 output on CUDA: ``"image"`` (the per-image
+    forward body: bf16 :func:`q8_plan`, fp32 :func:`q8_f32_plan`),
+    ``"rows"`` (the flat-row body: :func:`rows_plan` / :func:`rows_plan_f32`)
+    or None (neither takes the shape). ``flat``: K9, always the flat-row
+    body."""
+    image = q8_plan(n, num_heads, dh, dtype) if dtype == torch.bfloat16 \
+        else q8_f32_plan(n, num_heads, dh)
+    if image is not None and not flat:
+        return "image"
+    rows = rows_plan(n, num_heads, dh, q8=True) if dtype == torch.bfloat16 \
+        else rows_plan_f32(n, num_heads, dh, q8=True)
+    return "rows" if rows is not None else None
+
+
 def check_q8_width(name: str, n: int, num_heads: int, dh: int,
-                   dtype: torch.dtype) -> None:
-    """Raise where neither body takes the int8 output on CUDA: in bfloat16
-    the per-image body up to 32 heads from 16 tokens, the flat-row body up
-    to :data:`ROWS_Q8_MAX_HEADS` heads at any width; in float32 the
-    flat-row body up to :data:`ROWS_Q8_MAX_WIDTH` columns."""
+                   dtype: torch.dtype, flat: bool = False) -> None:
+    """Raise where no body takes the int8 output on CUDA (:func:`q8_body`):
+    in bfloat16 up to :data:`ROWS_Q8_MAX_HEADS` heads; in float32 from
+    :data:`F32_TILED_MIN_TOKENS` tokens while a block's shared memory holds
+    its heads, below (and K9 at every token count) up to 16 blocks of
+    :data:`ROWS_MAX_HEADS_PER_BLOCK` heads within :data:`SMEM_LIMIT`."""
+    if q8_body(n, num_heads, dh, dtype, flat) is not None:
+        return
     width = num_heads * dh
     if dtype == torch.bfloat16:
-        if (q8_plan(n, num_heads, dh, dtype) is None
-                and rows_plan(n, num_heads, dh, q8=True) is None):
-            raise ValueError(
-                f"{name} takes up to {ROWS_Q8_MAX_HEADS} heads in bfloat16 "
-                f"({n} tokens, {num_heads} heads of {dh}: output width "
-                f"{width})")
-    elif width > ROWS_Q8_MAX_WIDTH:
         raise ValueError(
-            f"{name} takes an output width up to {ROWS_Q8_MAX_WIDTH} in "
-            f"{dtype} ({n} tokens, {num_heads} heads of {dh}), got {width}")
+            f"{name} takes up to {ROWS_Q8_MAX_HEADS} heads in bfloat16 "
+            f"({n} tokens, {num_heads} heads of {dh}: output width {width})")
+    raise ValueError(
+        f"{name} does not take {num_heads} heads of {dh} at {n} tokens in "
+        f"{dtype}: a block's shared memory does not hold them (output width "
+        f"{width})")
 
 
 def quantize_attention_rows(o: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -229,7 +315,7 @@ def _check_wide(name: str, n: int) -> None:
 
 
 def _check_cuda(name: str, qkv: torch.Tensor, n: int, num_heads: int, dh: int,
-                q8: bool) -> None:
+                q8: bool, flat: bool = False) -> None:
     """Raise on what the kernels do not take."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} takes CPU or CUDA tensors, not {qkv.device}")
@@ -242,7 +328,10 @@ def _check_cuda(name: str, qkv: torch.Tensor, n: int, num_heads: int, dh: int,
     if num_heads > 65535 or qkv.shape[0] == 0:
         raise ValueError(f"{name}: {num_heads} heads / an empty batch")
     if q8:
-        check_q8_width(name, n, num_heads, dh, qkv.dtype)
+        check_q8_width(name, n, num_heads, dh, qkv.dtype, flat)
+    elif qkv.dtype == torch.float32 and rows_plan_f32(n, num_heads, dh, False) is None:
+        raise ValueError(f"{name}: {num_heads} heads of {dh} at {n} tokens in "
+                         "float32")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{name} needs a contiguous, 16-byte aligned qkv")
 
@@ -344,7 +433,8 @@ def _launch_q8(entry: str, wrapper, qkv: torch.Tensor, lead: tuple, n: int,
     """Allocate the int8 output and scales of shape ``lead + (C or 1,)`` and
     launch C entry point ``entry`` with the leading ``sizes``."""
     c = num_heads * dh
-    _check_cuda(wrapper.__name__, qkv, n, num_heads, dh, q8=True)
+    _check_cuda(wrapper.__name__, qkv, n, num_heads, dh, q8=True,
+                flat=wrapper is fused_qkv_attention_wide_q8_2d)
     out_q = torch.empty((*lead, c), dtype=torch.int8, device=qkv.device)
     out_s = torch.empty((*lead, 1), dtype=torch.float32, device=qkv.device)
     rc = getattr(build.library(), entry)(

@@ -44,14 +44,14 @@ def build_state(model_name: str, seed: int = 0, device="cuda", **overrides):
 
 
 def make_step(remat: bool = False, backend: str | None = None,
-              accum_iter: int = 1):
-    """The step function of the bench recipe: bf16 compute, AdamW,
-    ``step_lr(1e-4, 1e-5, 450_000)``. It works on any state of
-    :func:`build_state`."""
+              accum_iter: int = 1, policy=None):
+    """The step function of the bench recipe: bf16 compute (or ``policy``,
+    for example ``utils.dtypes.FP32``), AdamW, ``step_lr(1e-4, 1e-5,
+    450_000)``. It works on any state of :func:`build_state`."""
     from tae_tpu_torch.train import adamw, make_train_step, step_lr
     from tae_tpu_torch.utils.dtypes import Policy
 
-    policy = Policy()
+    policy = Policy() if policy is None else policy
 
     def loss_fn(m, batch):
         return m(batch, policy=policy, backend=backend, remat=remat)[0], {}

@@ -1704,3 +1704,96 @@ def test_qkv_q8_tae_kernels_match_reference_backend(gen, n):
     assert ran == ((2, 2) if n >= 128 else (0, 0))
     ref = Tokenizer(model=tok.model, policy=tok.policy, backend="reference")
     assert _rel(z, ref.encode(imgs)) <= 4e-2
+
+
+# ------------------------------------ the fp32 backward and flat-row bodies
+
+# the fp32 backward's bodies: the first design below
+# F32_BWD_TILED_MIN_TOKENS (56) tokens, the register-tiled one from there;
+# its key chunks (32 at dh 64, 16 at dh 80) end at 63 / 64 / 65 and 80 /
+# 81, and every row tile is live from 249 / 253 tokens
+F32_BWD_EDGES = [(n, dh) for dh in (64, 80)
+                 for n in (1, 17, 33, 55, 56, 63, 65, 81, 129, 249, 252, 253, 256)]
+
+
+@pytest.mark.parametrize("n,dh", F32_BWD_EDGES)
+def test_attention_f32_backward_bodies_match_plain(gen, n, dh):
+    """K10 and K17 (v a view of the packed projection) in fp32 against
+    their plain versions; one launch a call, two runs bit-equal, and the
+    launch the library reports equal to bwd_f32_plan's."""
+    from tae_tpu_torch.ops.cuda.flash_attention import (
+        F32_BWD_TILED_MIN_TOKENS, bwd_f32_plan, bwd_f32_plan_of_library)
+
+    h = 2
+    assert bwd_f32_plan_of_library(n, dh) == bwd_f32_plan(n, dh)
+    assert bwd_f32_plan(n, dh).tiled == (n >= F32_BWD_TILED_MIN_TOKENS)
+    qkv = torch.randn((3, n, 3 * h * dh), generator=gen, device="cuda")
+    do = torch.randn((3, n, h * dh), generator=gen, device="cuda")
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    before = fused_qkv_attention_bwd.launches
+    got = fused_qkv_attention_bwd(qkv, o, lse, do, h)
+    assert fused_qkv_attention_bwd.launches == before + 1
+    _close(got, fused_qkv_attention_backward_reference(qkv, o, lse, do, h),
+           torch.float32)
+    assert torch.equal(got, fused_qkv_attention_bwd(qkv, o, lse, do, h))
+    r = qkv.view(3, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    q, k, v = r[0].contiguous(), r[1].contiguous(), r[2]
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    got = flash_attention_bwd(q, k, v, o, lse, dout)
+    want = flash_attention_backward_reference(q, k, v, o, lse, dout)
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, flash_attention_bwd(q, k, v, o, lse, dout)))
+
+
+@pytest.mark.parametrize("b,n,h,dh", [(7, 1, 3, 64), (7, 3, 17, 80), (5, 5, 3, 64),
+                                      (9, 8, 17, 64), (3, 12, 2, 80), (5, 16, 48, 64),
+                                      (3, 24, 3, 80), (2, 33, 3, 64), (3, 63, 5, 80),
+                                      (2, 64, 32, 64), (64, 4, 32, 80)])
+def test_rows_body_f32_matches_plain_and_its_plan(gen, b, n, h, dh):
+    """The flat-row body's fp32 form: K6 in both softmax forms and K9
+    against their plain versions where its tiles, windows (one an image past
+    64 keys a tile) and head groups end; its plan equal to the library's;
+    K8 equal to K9 on the same bytes bit for bit at every token count (the
+    tiled forward body from 33 tokens keeps the same sums)."""
+    from tae_tpu_torch.ops.cuda.wide_attention import rows_plan_f32
+
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda")
+    for q8 in (True, False):
+        plan, units = rows_plan_of_library(n, h, dh, q8, torch.float32)
+        assert plan == rows_plan_f32(n, h, dh, q8) and units > 0
+    for serving in (True, False):
+        _close(fused_qkv_attention_wide(qkv, h, serving=serving),
+               fused_qkv_attention_wide_reference(qkv, h, serving=serving),
+               torch.float32)
+    flat = qkv.reshape(b * n, -1)
+    q9, s9 = fused_qkv_attention_wide_q8_2d(flat, n, h)
+    q_ref, s_ref = fused_qkv_attention_wide_q8_2d_reference(flat, n, h)
+    assert (q9.int() - q_ref.int()).abs().max() <= 1
+    torch.testing.assert_close(s9, s_ref, atol=0, rtol=1e-5)
+    q8_, s8 = fused_qkv_attention_wide_q8(qkv, h)
+    assert torch.equal(q8_.reshape(b * n, -1), q9) and torch.equal(s8.reshape(b * n, 1), s9)
+
+
+@pytest.mark.parametrize("b,n,h,dh", [(3, 32, 16, 64), (3, 33, 16, 64), (2, 65, 3, 80),
+                                      (2, 255, 5, 80), (1, 256, 17, 64), (2, 40, 48, 80)])
+def test_q8_f32_tiled_body_matches_plain_and_its_plan(gen, b, n, h, dh):
+    """K7 in fp32 either side of the rule, at a part-filled 64-row tile,
+    head counts whose last rank takes fewer heads (17, 5) and 3 heads a
+    block (48); its plan equal to the library's from 33 tokens; codes within
+    one step and scales to 1e-5 of the plain version; two runs bit-equal."""
+    from tae_tpu_torch.ops.cuda.wide_attention import q8_f32_plan
+
+    qkv = torch.randn((b, n, 3 * h * dh), generator=gen, device="cuda")
+    plan, clusters = q8_plan_of_library(n, h, dh, torch.float32)
+    assert plan == q8_f32_plan(n, h, dh)
+    assert (plan is None) == (n < F32_TILED_MIN_TOKENS)
+    assert plan is None or clusters > 0
+    q, s = fused_qkv_attention_q8(qkv, h)
+    q_ref, s_ref = fused_qkv_attention_q8_reference(qkv, h)
+    assert (q.int() - q_ref.int()).abs().max() <= 1
+    torch.testing.assert_close(s, s_ref, atol=0, rtol=1e-5)
+    again = fused_qkv_attention_q8(qkv, h)
+    assert torch.equal(q, again[0]) and torch.equal(s, again[1])
