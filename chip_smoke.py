@@ -110,7 +110,17 @@ Phases (each prints its lines; any failure exits non-zero):
    depth 2 + 2 under the FP32 policy (K10 and K2's LSE form in fp32), one
    step at B = 8 against ``backend="reference"``, steps at B = 64 with
    their launches checked and timed;
-6. prints a JSON line with every kernel's numbers, then, as the last line,
+6. drivers (``drivers``): the user's entry points on
+   ``tae_patch16_vocab256_px256`` at full width and depth, on a webdataset
+   shard and an ImageFolder made by ``tae_tpu_torch.data.fake``: the
+   calibration pass of ``Tokenizer.from_checkpoint(calib_images=)`` (its
+   statistics against ``backend="reference"``, its K1 / K2 fp32 launches a
+   batch), ``cli.encode`` in bf16, int8 and int4 (shards bit-equal to
+   ``Tokenizer.encode`` of the same batches, launches a batch),
+   ``cli.evaluate`` against ``--attn_backend reference``, ``cli.train`` with
+   an eval, both checkpoints and a ``--resume_auto`` run (launches every
+   step), ms per step, and the cost of reading the step metrics;
+7. prints a JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -326,6 +336,34 @@ ACCUM_NORM_RTOL = 1e-3
 TRAIN_BATCH = 64
 TRAIN_STEPS = 8
 REMAT_STEPS = 5
+# The drivers phase: the user's entry points (calibration through
+# Tokenizer.from_checkpoint, cli.encode / evaluate / train) on the p16 model
+# at full width and depth, on a webdataset shard of 256 JPEGs and an
+# ImageFolder of 128 (2 classes), made by tae_tpu_torch.data.fake from a
+# seed at 288 px (the val transform resizes the shorter side to 288 and
+# crops 256)
+DRIVER_MODEL = PATHS[0][0]
+DRIVER_SHARD, DRIVER_VAL, DRIVER_PX = 256, 128, 288
+DRIVER_BATCH = 64
+DRIVER_WORKERS = 4
+CALIB_BATCHES = 4
+# The calibration pass, kernels (K1, K2 in fp32, exact softmax) vs
+# backend="reference" on the same weights and images: fp32 on both sides,
+# summation order and the last bits of exp / rsqrt only; per channel,
+# relative to the channel's amax
+CALIB_RTOL = 1e-4
+# The evaluate driver's loss, kernels vs --attn_backend reference: bf16
+# compute through 15 + 15 blocks (SLICE_REL_TOL of the reconstructions), the
+# loss a mean of squares of the reconstruction error, relative. With random
+# weights the loss is mostly the targets' own variance and moves little, so
+# the reconstructions of the same images are held as well, at SLICE_REL_TOL
+EVAL_REF_RTOL = 2e-2
+# The evaluate driver's loss against the mean of the per-sample MSEs of the
+# same weights and images computed outside the driver with the same
+# kernels: the same products, fp32 means summed in another order, relative
+EVAL_OWN_RTOL = 1e-5
+# The train driver: iterations, eval / checkpoint every
+DRIVER_TRAIN_ITS, DRIVER_SAVE_FREQ = 6, 3
 # qknorm_blocks: (width, heads, depth, tokens) of each stack, timed steps
 QKNORM_STACKS = ((1024, 16, 15, 256), (2560, 32, 2, 16))
 QKNORM_STEPS = 3
@@ -460,17 +498,22 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke "
                            "run needs a CUDA card and never runs on the CPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_label())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[device] {torch.cuda.get_device_name(0)} x"
@@ -3417,6 +3460,401 @@ def phase_vq_f32() -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# drivers: the user's entry points at full width
+# ---------------------------------------------------------------------------
+
+def driven(totals: dict | None, fn, *a, **kw):
+    """fn(*a, **kw), a run through a user's entry point: every wrapper's
+    count set to 0 just before, read just after a synchronize, and added to
+    ``totals`` (None: a comparison's run, counted but kept out). Returns
+    (output, {wrapper: launches} of the wrappers that launched)."""
+    import torch
+
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    got = {n: f.launches for n, f in fns.items() if f.launches}
+    if totals is not None:
+        for n, c in got.items():
+            totals[n] = totals.get(n, 0) + c
+    return out, got
+
+
+def times(counts: dict, k: int) -> dict:
+    return {name: k * n for name, n in counts.items() if n}
+
+
+def float_launches(cfg) -> dict:
+    """One forward of both halves of the float model with the exact softmax
+    (calibration, evaluation): a LayerNorm kernel per norm, the attention
+    entry of the route per block."""
+    half = expected_launches(cfg, None)["encode"]
+    return {name: 2 * n for name, n in half.items()}
+
+
+def decoded_batches(data: str, n: int):
+    """The first n batches of the encode driver's deterministic loader
+    (val transform), inline: what the driver reads, decoded once more."""
+    import itertools
+
+    from tae_tpu_torch.cli.encode import make_encode_loader
+    from tae_tpu_torch.models import create
+
+    size = create(DRIVER_MODEL, device="meta").cfg.img_size
+    loader = make_encode_loader(data, size, True, 0, DRIVER_BATCH, 0)
+    return [x for x, _ in itertools.islice(loader, n)]
+
+
+def drivers_calibration(tag: str, data: str, totals: dict) -> None:
+    """Tokenizer.from_checkpoint(int8, equalize=0.5, calib_images=...)."""
+    import torch
+
+    from tae_tpu_torch.calibrate import ln_amax
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    batches = decoded_batches(data, CALIB_BATCHES)
+    build = dict(dtype=torch.bfloat16, device="cuda", seed=0)
+    tok = Tokenizer.from_checkpoint(DRIVER_MODEL, **build)
+    cfg = tok.model.cfg
+    # the dtype each LayerNorm and attention module is handed in the pass:
+    # the counts are by wrapper, the fp32 forms are told apart by this
+    from tae_tpu_torch.nn.vit import Attention, LayerNorm
+
+    seen = set()
+
+    def note(module, args):
+        if args and isinstance(module, (Attention, LayerNorm)):
+            seen.add((type(module).__name__, args[0].dtype))
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(note)
+    try:
+        tok_cal, got = driven(totals, Tokenizer.from_checkpoint, DRIVER_MODEL,
+                              quantization="int8", equalize=0.5,
+                              calib_images=batches, **build)
+    finally:
+        hook.remove()
+    want = times(float_launches(cfg), CALIB_BATCHES)
+    print(f"[{tag}] calibration: {CALIB_BATCHES} batches of {DRIVER_BATCH} "
+          f"through Tokenizer.from_checkpoint(quantization='int8', "
+          f"equalize=0.5, calib_images=...): launches {json.dumps(got)}, "
+          f"expected {json.dumps(want)} (exact softmax); inputs of the "
+          f"LayerNorm and attention modules {sorted(map(str, seen))}")
+    check(got == want, f"{tag}: calibration launches {got}, expected {want}")
+    check(seen == {("Attention", torch.float32), ("LayerNorm", torch.float32)},
+          f"{tag}: the calibration pass ran {seen}, not K1 and K2 in fp32")
+    stats = ln_amax(tok.model, batches)
+    ref = ln_amax(tok.model, batches, backend="reference")
+    check(stats.keys() == ref.keys() and len(stats) == 4 * cfg.depth + 2,
+          f"{tag}: statistics keys {sorted(stats)}")
+    worst = max(float(((stats[k] - ref[k]).abs() / ref[k].abs().clamp_min(
+        1e-30)).max()) for k in ref)
+    print(f"[{tag}] calibration statistics: {len(ref)} LayerNorm outputs, "
+          f"worst channel {worst:.3g} relative to backend='reference' "
+          f"(tolerance {CALIB_RTOL})")
+    check(worst <= CALIB_RTOL, f"{tag}: calibration statistics differ")
+    # the tokenizer's calibration is that pass: its weights equal those
+    # built from the statistics just measured, bit for bit
+    tok_act = Tokenizer.from_checkpoint(DRIVER_MODEL, quantization="int8",
+                                        equalize=0.5, act_amax=stats, **build)
+    a, b = tok_cal.model.state_dict(), tok_act.model.state_dict()
+    check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+          f"{tag}: calib_images and act_amax= of the same statistics give "
+          f"other weights")
+    del tok_act
+    tok_eq = Tokenizer.from_checkpoint(DRIVER_MODEL, quantization="int8",
+                                       equalize=0.5, **build)
+    x = torch.from_numpy(batches[0]).cuda()
+    z = tok.encode(x)
+    e_cal, e_eq = rel_err(tok_cal.encode(x), z), rel_err(tok_eq.encode(x), z)
+    print(f"[{tag}] calibrated int8 latents rel_err {e_cal:.4g} vs the bf16 "
+          f"tokenizer (tolerance {INT8_VS_BF16_TOL}); equalize=0.5 from the "
+          f"LN affines alone {e_eq:.4g} (informative)")
+    check(e_cal <= INT8_VS_BF16_TOL, f"{tag}: calibrated int8 too far from "
+                                     "bf16")
+
+
+def drivers_encode(tag: str, data: str, out: pathlib.Path, label: str,
+                   totals: dict) -> None:
+    """cli.encode.main in bf16, int8 (--equalize 0.5) and int4."""
+    import numpy as np
+    import torch
+
+    from tae_tpu_torch.cli import encode
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    t = time.perf_counter()
+    batches = decoded_batches(data, 4)
+    decode_s = time.perf_counter() - t
+    print(f"[{tag}] the val transform with PIL on one core, inline: "
+          f"{4 * DRIVER_BATCH / decode_s:.1f} img/s (read, decode, resize, "
+          f"crop, normalize, collate)")
+    for mode, flags, quant, eq in (
+            ("bf16", [], None, None),
+            ("int8", ["--quantization", "int8", "--equalize", "0.5"], "int8",
+             0.5),
+            ("int4", ["--quantization", "int4"], "int4", None)):
+        d = out / f"enc_{mode}"
+        args = encode.get_args_parser().parse_args([
+            "--model", DRIVER_MODEL, "--batch_size", str(DRIVER_BATCH),
+            "--num_iters", "4", "--deterministic", "--data_path", data,
+            # the single pass splits by shard: one shard, one worker
+            "--num_workers", "1", "--output_dir", str(d),
+            "--save_prefix", mode, *flags])
+        stats, got = driven(totals, encode.main, args)
+        tok = Tokenizer.from_checkpoint(DRIVER_MODEL, dtype=torch.bfloat16,
+                                        device="cuda", seed=0,
+                                        component="encoder",
+                                        quantization=quant, equalize=eq)
+        want = times(expected_launches(tok.model.cfg, quant)["encode"], 4)
+        check(got == want, f"{tag} encode {mode}: launches {got}, expected "
+                           f"{want}")
+        index = json.loads((d / f"{mode}_index.json").read_text())
+        check(index["num_samples"] == 4 * DRIVER_BATCH == stats["num_samples"],
+              f"{tag} encode {mode}: index {index}")
+        z = np.concatenate([np.load(d / s["path"])["latents"]
+                            for s in index["shards"]])
+        ref, walls = [], []
+        for x in batches:
+            x = torch.from_numpy(x).cuda()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref.append(tok.encode(x).to(torch.float16))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        ref = torch.cat(ref).cpu().numpy()
+        same = z.shape == ref.shape and np.array_equal(z, ref)
+        enc_ms = statistics.median(walls) * 1e3
+        print(f"[{tag}] encode {mode}: {index['num_samples']} samples in "
+              f"{len(index['shards'])} shard(s), latents {z.shape} "
+              f"{z.dtype} bit-equal to Tokenizer.encode of the same batches: "
+              f"{same}; launches per batch {json.dumps(times(got, 1 / 4))}; "
+              f"the run {stats['seconds']:.2f} s, "
+              f"{stats['images_per_sec']:.1f} img/s over its "
+              f"{stats['num_samples']} images (a worker's start and one "
+              f"worker's decoding included: not a throughput); "
+              f"Tokenizer.encode alone {enc_ms:.2f} ms a batch of "
+              f"{DRIVER_BATCH} ({label})")
+        check(same, f"{tag} encode {mode}: latents differ from "
+                    "Tokenizer.encode")
+        del tok
+
+
+def drivers_evaluate(tag: str, val: str, out: pathlib.Path, totals: dict
+                     ) -> None:
+    """cli.evaluate.main with the kernels and with --attn_backend
+    reference; then, outside the driver, the same weights on the same
+    images: the reconstructions with the kernels against the plain
+    versions, and the driver's loss against the mean of the per-sample
+    MSEs."""
+    import numpy as np
+    import torch
+
+    from tae_tpu_torch.cli import _common, evaluate
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    losses = {}
+    for backend in ("kernel", "reference"):
+        args = evaluate.get_args_parser().parse_args([
+            "--model", DRIVER_MODEL, "--batch_size_per_gpu", str(DRIVER_BATCH),
+            "--val_data_path", val, "--num_workers", str(DRIVER_WORKERS),
+            "--output_dir", str(out), "--save_prefix", backend, "--display",
+            *(["--attn_backend", "reference"] if backend == "reference"
+              else [])])
+        losses[backend], got = driven(totals if backend == "kernel" else None,
+                                      evaluate.main, args)
+        if backend == "kernel":
+            # the driver's model, as it builds it
+            model = _common.build_model(DRIVER_MODEL, device="cuda").eval()
+            model.init_weights_(torch.Generator(device="cuda").manual_seed(
+                args.seed))
+            want = times(float_launches(model.cfg),
+                         DRIVER_VAL // DRIVER_BATCH + 1)  # and the grid's
+        else:
+            want = {}
+        check(got == want, f"{tag} evaluate ({backend}): launches {got}, "
+                           f"expected {want}")
+    grid = out / "kernel_sample_reconstructions.jpg"
+    rel = abs(losses["kernel"] - losses["reference"]) / losses["reference"]
+    policy, recon_err, per_rel, means, n = Policy(), 0.0, 0.0, [], 0
+    with torch.no_grad():
+        for x, _ in _common.imagefolder_val_loader(val, model.cfg.img_size,
+                                                   DRIVER_BATCH):
+            x = torch.from_numpy(x).cuda()
+            target = model.patchify(x).float()
+            pred, mse = {}, {}
+            for backend in ("kernel", "reference"):
+                b = None if backend == "kernel" else "reference"
+                pred[backend] = model.forward_decoder(
+                    model.forward_encoder(x, policy=policy, backend=b),
+                    policy=policy, backend=b).float()
+                mse[backend] = (pred[backend] - target).square().mean(
+                    dim=(1, 2))
+            recon_err = max(recon_err, rel_err(pred["kernel"],
+                                               pred["reference"]))
+            per_rel = max(per_rel, float(((mse["kernel"] - mse["reference"])
+                                          / mse["reference"]).abs().max()))
+            means.append(float(mse["kernel"].mean()))
+            n += x.shape[0]
+    own = float(np.mean(means))
+    own_rel = abs(losses["kernel"] - own) / own
+    print(f"[{tag}] evaluate: eval loss {losses['kernel']:.6f} vs "
+          f"{losses['reference']:.6f} with --attn_backend reference, "
+          f"relative {rel:.3g} (tolerance {EVAL_REF_RTOL}); outside the "
+          f"driver, the same {n} images: reconstructions rel_err "
+          f"{recon_err:.3g} vs backend='reference' (tolerance "
+          f"{SLICE_REL_TOL}), per-sample MSE at most {per_rel:.3g} apart "
+          f"(informative), the mean of batch means {own:.6f}, the driver's "
+          f"{own_rel:.3g} from it (tolerance {EVAL_OWN_RTOL}); grid "
+          f"{grid.name} written: {grid.is_file()}")
+    check(n == DRIVER_VAL, f"{tag}: the val loader gave {n} images")
+    check(rel <= EVAL_REF_RTOL and recon_err <= SLICE_REL_TOL
+          and own_rel <= EVAL_OWN_RTOL and grid.is_file(),
+          f"{tag}: evaluate loss, reconstructions or grid")
+    del model
+
+
+def drivers_train(tag: str, data: str, val: str, out: pathlib.Path,
+                  label: str, totals: dict) -> None:
+    """cli.train.main for DRIVER_TRAIN_ITS iterations, then again with
+    --resume_auto; every step's launches counted and timed."""
+    import torch
+
+    from tae_tpu_torch.ckpt.io import checkpoint_step
+    from tae_tpu_torch.cli import train
+    from tae_tpu_torch.models import create
+
+    cfg = create(DRIVER_MODEL, device="meta").cfg
+    want = train_launches(cfg)
+    real = train.make_train_step
+    seen: list[tuple[int, float]] = []
+    # the resumed run's parameters as its first step finds them
+    first_params: dict = {}
+    resuming = [False]
+
+    fns = wrappers()
+
+    def counted_make(*a, **kw):
+        step = real(*a, **kw)
+
+        def train_step(state_batch_it):
+            return step(*state_batch_it)
+
+        def counted(state, batch, it):
+            if resuming[0] and not seen:
+                first_params.update({k: v.detach().clone() for k, v in
+                                     state.model.state_dict().items()})
+            # the run's own count (driven) takes these launches; the step's
+            # are checked here on their own
+            out_, dt = counted_request(f"{tag} iteration {it}", fns, {},
+                                       train_step, (state, batch, it), want)
+            seen.append((it, dt))
+            return out_
+
+        return counted
+
+    def run(extra):
+        args = train.get_args_parser().parse_args([
+            "--model", DRIVER_MODEL, "--batch_size_per_gpu", str(DRIVER_BATCH),
+            "--num_its", str(DRIVER_TRAIN_ITS), "--save_freq",
+            str(DRIVER_SAVE_FREQ), "--log_freq", "1", "--train_data_path",
+            data, "--val_data_path", val, "--num_workers",
+            str(DRIVER_WORKERS), "--output_dir", str(out), "--save_prefix",
+            "tr", *extra])
+        return driven(totals, train.main, args)[1]
+
+    train.make_train_step = counted_make
+    try:
+        got = run([])
+        first_run = list(seen)
+        seen.clear()
+        rows = [json.loads(x) for x in
+                (out / "tr_log.txt").read_text().splitlines()]
+        best, latest = out / "tr_checkpoint", out / "tr_checkpoint_latest"
+        saved = torch.load(latest, map_location="cpu", weights_only=True)
+        check([it for it, _ in first_run] == list(range(DRIVER_TRAIN_ITS)),
+              f"{tag}: train iterations {first_run}")
+        keys = {"train_loss", "train_lr", "train_grad_norm", "eval_loss",
+                "iteration"}
+        check(len(rows) == 1 and set(rows[0]) == keys
+              and rows[0]["iteration"] == DRIVER_SAVE_FREQ,
+              f"{tag}: JSONL rows {rows}")
+        check(checkpoint_step(best) == checkpoint_step(latest)
+              == DRIVER_SAVE_FREQ, f"{tag}: checkpoints "
+              f"{checkpoint_step(best)} {checkpoint_step(latest)}")
+        # the second run: --resume_auto from the newest checkpoint
+        resuming[0] = True
+        run(["--resume_auto"])
+        resumed = [it for it, _ in seen]
+        same = all(torch.equal(first_params[k].cpu(), v)
+                   for k, v in saved["model"].items())
+        check(resumed == list(range(DRIVER_SAVE_FREQ + 1, DRIVER_TRAIN_ITS))
+              and same, f"{tag}: --resume_auto ran {resumed}, parameters "
+                        f"equal to the checkpoint's: {same}")
+    finally:
+        train.make_train_step = real
+    ms = statistics.median(dt for _, dt in first_run[1:]) * 1e3
+    evals = {k: v for k, v in got.items() if k not in want}
+    print(f"[{tag}] train: JSONL row at iteration {rows[0]['iteration']}: "
+          f"{json.dumps(rows[0])}; {best.name} and {latest.name} at step "
+          f"{DRIVER_SAVE_FREQ}; --resume_auto started at iteration "
+          f"{resumed[0]} from the saved parameters; launches per step "
+          f"{json.dumps(want)}, in the run's eval {json.dumps(evals)}")
+    print(f"[{tag}] train: {ms:.2f} ms/step at B={DRIVER_BATCH} (median of "
+          f"steps 1-{DRIVER_TRAIN_ITS - 1}, {DRIVER_BATCH / ms * 1e3:.1f} "
+          f"img/s, {label})")
+
+
+def phase_drivers() -> dict:
+    """Path ``drivers``: calibration, and the encode, evaluate and train
+    drivers on fake data at the p16 model's full width and depth. Returns
+    the launch counts of the runs on the path."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from tae_tpu_torch.data import native
+    from tae_tpu_torch.data.fake import (make_fake_imagefolder,
+                                         make_fake_wds_shard)
+
+    tag, label, totals = "drivers", card_label(), {}
+    try:
+        import PIL
+    except ImportError as e:
+        raise SmokeFailure(f"{tag}: Pillow is missing ({e}); the fake data "
+                           "and the PIL decoder need it") from e
+    decoder = native.decoder_name()
+    print(f"[{tag}] decoder: {decoder} (Pillow {PIL.__version__})")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        shard = make_fake_wds_shard(root / "train-000000.tar",
+                                    num_samples=DRIVER_SHARD, size=DRIVER_PX,
+                                    seed=0)
+        make_fake_imagefolder(root / "val", num_classes=2,
+                              per_class=DRIVER_VAL // 2, size=DRIVER_PX, seed=1)
+        data, val = str(shard), str(root / "val")
+        print(f"[{tag}] {DRIVER_SHARD} JPEGs in a webdataset shard "
+              f"({shard.stat().st_size / 1e6:.1f} MB) and {DRIVER_VAL} in an "
+              f"ImageFolder, {DRIVER_PX} px, made in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for part in (lambda: drivers_calibration(tag, data, totals),
+                     lambda: drivers_encode(tag, data, root, label, totals),
+                     lambda: drivers_evaluate(tag, val, root, totals),
+                     lambda: drivers_train(tag, data, val, root / "train",
+                                           label, totals)):
+            t = time.perf_counter()
+            part()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[{tag}] ({time.perf_counter() - t:.1f} s)")
+    print(f"[{tag}] main path launches: {json.dumps(totals)}")
+    return totals
+
+
 def main() -> int:
     try:
         phase_device()
@@ -3446,6 +3884,7 @@ def main() -> int:
         launches["qknorm_blocks"] = phase_qknorm(kres)
         launches["train_bf16"] = phase_train(kres)
         launches["p128_train"] = phase_p128_train()
+        launches["drivers"] = phase_drivers()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

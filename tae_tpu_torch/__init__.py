@@ -9,9 +9,15 @@ the same relative path as its JAX counterpart:
   wrappers of the hand-written sm_90a kernels in ``csrc/`` (the counterparts
   of ``tae_tpu/ops/pallas/``);
 - ``train/``: AdamW, the schedules and the train / eval step factories;
-- ``ckpt/``: ``bridge.py`` (JAX parameter, gradient and optimizer-state trees
-  and reference ``.pth`` files into the port's layout), ``io.py``
-  (checkpoints), ``interpolate.py`` (positional-embedding resize).
+- ``ckpt/``: ``bridge.py`` (JAX parameter, gradient and optimizer-state trees,
+  calibration statistics and reference ``.pth`` files into the port's
+  layout), ``io.py`` (checkpoints), ``interpolate.py`` (positional-embedding
+  resize);
+- ``calibrate.py``: the activation statistics of the quantized modes;
+- ``cli/``: the encode, evaluate and train drivers, on the host data code
+  of ``data/`` (transforms, tar shards, ImageFolder, worker loader and
+  device prefetch, the native JPEG decoder) and ``utils/`` (meters, image
+  grids).
 
 A wrapper in ``ops/cuda`` runs its plain version only for a tensor on the
 CPU; for a CUDA tensor it launches its kernel or raises. The kernels are

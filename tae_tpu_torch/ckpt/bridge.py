@@ -30,6 +30,10 @@ the moments of the JAX package's ``AdamWState``
 (:func:`load_adamw_state_from_jax`). That is how training state crosses: as
 numpy arrays through this module; the port reads no orbax directory.
 
+:func:`act_amax_from_jax` carries the JAX package's calibration statistics
+(``tae_tpu.calibrate.ln_amax``) into the port's keys, so measured
+activation ranges cross as weights do.
+
 A JAX-trained checkpoint can also reach the port as a ``.pth`` written by
 ``python -m tae_tpu.cli.export_torch``; :func:`state_dict_of` finds the
 state_dict in either form of such a file, and in a checkpoint of the port's
@@ -167,6 +171,32 @@ def load_adamw_state_from_jax(opt: torch.optim.Optimizer, model, step: int,
     set_adamw_state(opt, model, int(step),
                     state_dict_from_jax(mu_np, model.cfg),
                     state_dict_from_jax(nu_np, model.cfg))
+
+
+def act_amax_from_jax(stats_np: Params) -> dict[str, torch.Tensor]:
+    """The JAX package's calibration statistics (the tree
+    ``tae_tpu.calibrate.ln_amax`` returns, numpy leaves: ``x_amax`` under
+    each equalized linear, depth-stacked ``(depth, D)`` in the blocks) ->
+    the port's ``{linear name: (D,) fp32 tensor}``, the form
+    :func:`tae_tpu_torch.calibrate.ln_amax` returns and
+    ``equalize_params_(act_amax=)`` reads."""
+    out: dict[str, torch.Tensor] = {}
+    for half, prefix, head, port_head in (
+            ("encoder", "blocks", "dict_proj", "dict_proj"),
+            ("decoder", "decoder_blocks", "pred", "decoder_pred")):
+        s = stats_np.get(half)
+        if s is None:
+            continue
+        blocks = s.get("blocks")
+        if blocks is not None:
+            for lin, path in (("attn.qkv", ("attn", "qkv")),
+                              ("mlp.fc1", ("mlp", "fc1"))):
+                stacked = np.asarray(blocks[path[0]][path[1]]["x_amax"])
+                for i, row in enumerate(stacked):
+                    out[f"{prefix}.{i}.{lin}"] = _t(row)
+        if head in s:
+            out[port_head] = _t(s[head]["x_amax"])
+    return out
 
 
 def state_dict_of(blob) -> dict[str, torch.Tensor]:

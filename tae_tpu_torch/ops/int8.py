@@ -191,9 +191,13 @@ def int8_mlp(xq: torch.Tensor, sx: torch.Tensor, fc1, fc2,
 # model rewrites: equalize -> quantize
 # ---------------------------------------------------------------------------
 
-def _equalize_pair(norm: nn.Module, lin: nn.Module, alpha: float) -> None:
+def _equalize_pair(norm: nn.Module, lin: nn.Module, alpha: float,
+                   x_amax: torch.Tensor | None = None) -> None:
     g, b, w = norm.weight, norm.bias, lin.weight           # w (out, in)
-    ax = g.float().abs() + b.float().abs()
+    if x_amax is not None:
+        ax = x_amax.to(device=g.device, dtype=torch.float32)
+    else:
+        ax = g.float().abs() + b.float().abs()
     aw = w.float().abs().amax(dim=0)                       # (in,)
     s = ax ** alpha / aw.clamp_min(1e-12) ** (1.0 - alpha)
     ok = (ax > 1e-6) & (aw > 1e-12) & torch.isfinite(s)
@@ -204,7 +208,9 @@ def _equalize_pair(norm: nn.Module, lin: nn.Module, alpha: float) -> None:
 
 
 @torch.no_grad()
-def equalize_params_(model: nn.Module, alpha: float = 0.5) -> nn.Module:
+def equalize_params_(model: nn.Module, alpha: float = 0.5,
+                     act_amax: dict[str, torch.Tensor] | None = None
+                     ) -> nn.Module:
     """SmoothQuant-style activation-outlier equalization of a float TAE, in
     place, before :func:`quantize_params_`. Every pre-LN pair — (norm1 ->
     attn.qkv) and (norm2 -> mlp.fc1) in each block, (norm -> dict_proj) and
@@ -215,20 +221,19 @@ def equalize_params_(model: nn.Module, alpha: float = 0.5) -> nn.Module:
 
     which is exact in real arithmetic, while the per-row activation
     quantizer sees a flattened channel range. ``s_c = ax_c^alpha /
-    aw_c^(1 - alpha)`` with ``ax = |gamma| + |beta|`` (the LN affine predicts
-    the outlier channels without calibration data) and ``aw`` the weight's
-    per-input-channel amax; degenerate channels keep ``s = 1``. Measured
-    activation statistics (the JAX package's ``act_amax``) are not ported
-    yet."""
-    from tae_tpu_torch.nn import vit
+    aw_c^(1 - alpha)`` with ``aw`` the weight's per-input-channel amax and
+    ``ax`` the activation's per-channel amax: measured, from ``act_amax``
+    (``{linear name: (in,) amax}``, the output of
+    :func:`tae_tpu_torch.calibrate.ln_amax`) where it holds the pair's
+    linear, else estimated from the LN affine, ``|gamma| + |beta|`` (the
+    affine predicts the outlier channels without calibration data).
+    Degenerate channels keep ``s = 1``."""
+    from tae_tpu_torch.calibrate import taps
 
-    for blk in model.modules():
-        if isinstance(blk, vit.Block):
-            _equalize_pair(blk.norm1, blk.attn.qkv, alpha)
-            _equalize_pair(blk.norm2, blk.mlp.fc1, alpha)
-    for norm, head in (("norm", "dict_proj"), ("decoder_norm", "decoder_pred")):
-        if hasattr(model, norm) and hasattr(model, head):
-            _equalize_pair(getattr(model, norm), getattr(model, head), alpha)
+    act_amax = act_amax or {}
+    for norm, key in taps(model):
+        _equalize_pair(norm, model.get_submodule(key), alpha,
+                       act_amax.get(key))
     return model
 
 
@@ -270,18 +275,22 @@ def quantize_params_(model: nn.Module, skip: tuple[str, ...] = ("patch_embed",),
 
 
 def prepare_serving_(model: nn.Module, quantization: str,
-                     equalize: float | bool = 0.0, patch_input: bool = False,
+                     equalize: float | bool = 0.0,
+                     act_amax: dict[str, torch.Tensor] | None = None,
+                     patch_input: bool = False,
                      block_h: int = DEFAULT_BLOCK_H) -> nn.Module:
     """The serving rewrite, in order: (optional) equalization -> int8 or
     int4 quantization. ``equalize``: falsy = off, True = alpha 0.5, a number
-    = alpha. ``patch_input=True`` declares pre-patchified (B, N, C*p*p)
-    requests, where the patch embedding is a plain matmul, and int8
-    quantizes it too; int4 ignores it (its patch embedding stays float, as
-    in the JAX package)."""
+    = alpha; ``act_amax``: measured activation statistics for it (see
+    :func:`equalize_params_`). ``patch_input=True`` declares pre-patchified
+    (B, N, C*p*p) requests, where the patch embedding is a plain matmul, and
+    int8 quantizes it too; int4 ignores it (its patch embedding stays float,
+    as in the JAX package)."""
     if quantization not in QUANTIZATIONS:
         raise ValueError(f"unknown quantization mode {quantization!r}")
     if equalize:
-        equalize_params_(model, 0.5 if equalize is True else float(equalize))
+        equalize_params_(model, 0.5 if equalize is True else float(equalize),
+                         act_amax)
     if quantization == "int4":
         from tae_tpu_torch.ops.int4 import quantize_params_int4_
 

@@ -48,11 +48,6 @@ import torch
 
 from tae_tpu_torch.utils.dtypes import Policy
 
-_NOT_YET = {
-    "calibrate": "measured activation statistics (act_amax / calib_images) "
-                 "are not ported yet (ROADMAP A8: calibrate.py)",
-}
-
 
 def set_attn_q8(model, attn_q8: bool | None) -> None:
     """Record the run-time int8-output choice on every attention layer."""
@@ -123,7 +118,12 @@ class Tokenizer:
         linears to packed int4 with group scales (w4a8). ``equalize``:
         SmoothQuant-style equalization before quantizing (``True`` -> alpha
         0.5, or the alpha), an exact float rewrite that folds per-channel
-        factors into the LN affines. ``patch_input=True`` declares that
+        factors into the LN affines. By default it estimates each channel's
+        activation range from the LN affine; ``act_amax`` passes measured
+        ranges (:func:`tae_tpu_torch.calibrate.ln_amax`'s output), and
+        ``calib_images``, an iterable of image batches, measures them here
+        on the float model (after pruning, before quantizing).
+        ``patch_input=True`` declares that
         encode requests are pre-patchified (B, N, C*p*p) rows; int8 then
         quantizes the patch embedding too (image requests still work; int4
         keeps it float either way).
@@ -136,14 +136,16 @@ class Tokenizer:
         from tae_tpu_torch.ckpt.io import load_params
         from tae_tpu_torch.ops.int8 import QUANTIZATIONS, prepare_serving_
 
-        if act_amax is not None or calib_images is not None:
-            raise NotImplementedError(_NOT_YET["calibrate"])
-        if quantization is not None and quantization not in QUANTIZATIONS:
-            raise ValueError(f"unknown quantization mode {quantization!r}")
-        if equalize and quantization is None:
+        # the JAX package's checks, in its order
+        if (act_amax is not None or calib_images is not None) and not equalize:
+            raise ValueError("act_amax/calib_images require equalize= "
+                             "(they feed the equalization rewrite)")
+        if equalize and quantization not in QUANTIZATIONS:
             raise ValueError("equalize= only applies to the quantized "
                              "serving modes (it rewrites ranges the bf16 "
                              "path never quantizes)")
+        if quantization is not None and quantization not in QUANTIZATIONS:
+            raise ValueError(f"unknown quantization mode {quantization!r}")
         device = torch.device(device)
         model = models.create(model_name, device=device, **model_overrides)
         model.init_weights_(torch.Generator(device=device).manual_seed(seed))
@@ -153,7 +155,11 @@ class Tokenizer:
         model = prune_component(model.to(dtype).eval(), component)
         model.requires_grad_(False)     # a serving surface: nothing trains
         if quantization is not None:
-            prepare_serving_(model, quantization, equalize or 0.0,
+            if equalize and calib_images is not None and act_amax is None:
+                from tae_tpu_torch.calibrate import ln_amax
+
+                act_amax = ln_amax(model, calib_images)
+            prepare_serving_(model, quantization, equalize or 0.0, act_amax,
                              patch_input=patch_input)
         set_attn_q8(model, attn_q8)
         set_qkv_q8(model, qkv_q8)
@@ -308,3 +314,25 @@ class Tokenizer:
 
         ids = torch.as_tensor(ids).to(self.device)
         return self.decode(decode_indices(ids, self._codebook()))
+
+    def encode_jpeg(self, jpegs, deterministic: bool = True) -> torch.Tensor:
+        """Raw JPEG bytes -> latents through the val transform (resize the
+        shorter side to size + 32, centre crop): the native decoder where it
+        is built, else PIL. (``deterministic`` is the JAX signature's; the
+        val transform is deterministic either way.)"""
+        import io
+
+        import numpy as np
+
+        from tae_tpu_torch.data import native
+        from tae_tpu_torch.data.transforms import center_crop_transform
+
+        size = self.model.cfg.img_size
+        if native.available():
+            arrs = [native.center_crop(b, size) for b in jpegs]
+        else:
+            from PIL import Image
+
+            tf = center_crop_transform(size)
+            arrs = [tf(Image.open(io.BytesIO(b)).convert("RGB")) for b in jpegs]
+        return self.encode(np.stack(arrs))

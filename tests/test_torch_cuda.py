@@ -1797,3 +1797,71 @@ def test_q8_f32_tiled_body_matches_plain_and_its_plan(gen, b, n, h, dh):
     torch.testing.assert_close(s, s_ref, atol=0, rtol=1e-5)
     again = fused_qkv_attention_q8(qkv, h)
     assert torch.equal(q, again[0]) and torch.equal(s, again[1])
+
+
+# ------------------------------------------------- host pipeline, calibration
+
+def test_device_prefetch_keeps_order_and_overlaps(gen):
+    """Batches come back in order, on the card, equal to the host data; the
+    copies run on a side stream while the current stream is busy with the
+    steps, so steps that keep the card busy for S each take about n·S in
+    all, not n·S plus the copies. (The host batches are pinned already, so
+    pinning costs nothing; nothing in the loop waits on the card, as in a
+    driver, so the host queues ahead.)"""
+    import time
+
+    from tae_tpu_torch.data.loader import device_prefetch
+
+    n, elems = 8, 64 << 20                          # 256 MB of fp32 a batch
+    host = [torch.full((elems,), float(i)).pin_memory() for i in range(n)]
+    cycles = int(torch.cuda.get_device_properties(0).clock_rate * 1e3 * 0.04)
+
+    def run(step_cycles: int, data: bool = True) -> float:
+        marks = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if not data:
+            for _ in range(n):
+                torch.cuda._sleep(step_cycles)
+        else:
+            for x in device_prefetch(iter(host), "cuda"):
+                assert x.is_cuda and x.dtype == torch.float32
+                marks.append(torch.stack([x[0], x[-1]]))
+                torch.cuda._sleep(step_cycles)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if data:                                    # in order, whole
+            assert torch.stack(marks).tolist() == [[float(i)] * 2
+                                                   for i in range(n)]
+        return dt
+
+    run(0)                                          # warm up
+    copies = run(0)
+    steps = run(cycles, data=False)
+    both = run(cycles)
+    # serial copies would add all of `copies`; overlapped, about one of them
+    assert both < steps + 0.5 * copies, (both, steps, copies)
+
+
+def test_ln_amax_on_the_card_equals_its_reference_run(gen):
+    """The calibration pass through K1 and K2 in fp32 (exact softmax) equals
+    the plain versions' run to fp32 rounding, channel by channel, and
+    launches K1 and K2 only."""
+    from tae_tpu_torch.calibrate import ln_amax
+    from tae_tpu_torch.ops.cuda.flash_attention import fused_qkv_attention
+    from tae_tpu_torch.ops.cuda.layernorm import fused_layer_norm
+
+    cfg = TAEConfig(img_size=64, embed_dim=256, depth=2, num_heads=4,
+                    decoder_embed_dim=256, decoder_depth=2, decoder_num_heads=4)
+    model = TAE(cfg, device="cuda").init_weights_(gen).to(torch.bfloat16)
+    batches = [torch.randint(0, 256, (8, 3, 64, 64), dtype=torch.uint8,
+                             device="cuda", generator=gen) for _ in range(2)]
+    ln0, at0 = fused_layer_norm.launches, fused_qkv_attention.launches
+    got = ln_amax(model, batches)
+    assert fused_layer_norm.launches - ln0 == 2 * (2 * 2 * 2 + 2)
+    assert fused_qkv_attention.launches - at0 == 2 * 4
+    want = ln_amax(model, batches, backend="reference")
+    assert got.keys() == want.keys()
+    for k in want:
+        err = float((got[k] - want[k]).abs().max() / want[k].abs().max())
+        assert err <= 1e-4, (k, err)

@@ -436,10 +436,15 @@ def test_unported_quantization_modes_raise():
     blk = tok4.model.blocks[0]
     assert isinstance(blk.attn.qkv, vit.QLinear)
     assert isinstance(blk.mlp.fc2, vit.Q4Linear) and blk.is_int8
-    with pytest.raises(NotImplementedError, match="calibrate"):
-        Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
+    # measured statistics are ported: empty ones leave every pair on the
+    # affine estimate, and a calibration without a batch raises
+    a = Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
                                   equalize=True, act_amax={}, **TINY)
-    with pytest.raises(NotImplementedError, match="calibrate"):
+    b = Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
+                                  equalize=True, **TINY)
+    assert torch.equal(a.model.blocks[0].attn.qkv.w_q,
+                       b.model.blocks[0].attn.qkv.w_q)
+    with pytest.raises(ValueError, match="calibration batch"):
         Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
                                   equalize=True, calib_images=[], **TINY)
     with pytest.raises(ValueError, match="unknown quantization"):

@@ -147,9 +147,14 @@ def test_prune_component(images, component):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
+    # measured statistics (ROADMAP A8) are ported: a calibration run needs
+    # equalize= and at least one batch
+    with pytest.raises(ValueError, match="require equalize"):
         Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
-                                  equalize=True, act_amax={}, **TINY)
+                                  act_amax={}, **TINY)
+    with pytest.raises(ValueError, match="calibration batch"):
+        Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int8",
+                                  equalize=True, calib_images=[], **TINY)
     # int4 serving and discrete tokens are ported: they build and run (a
     # model without a codebook says how to get one)
     tok4 = Tokenizer.from_checkpoint(NAME, device="cpu", quantization="int4",
