@@ -120,7 +120,25 @@ Phases (each prints its lines; any failure exits non-zero):
    ``cli.evaluate`` against ``--attn_backend reference``, ``cli.train`` with
    an eval, both checkpoints and a ``--resume_auto`` run (launches every
    step), ms per step, and the cost of reading the step metrics;
-7. prints a JSON line with every kernel's numbers, then, as the last line,
+7. downstream: the recognition and segmentation trunks (ViT-Base, width
+   768, 12 heads of 64, 256 tokens) on the frozen p16 encoder. The kernel
+   phase holds K2 (exact and LSE forms) and K10 at 12 heads, and K1, its
+   stats form and K11 at width 768 (rec19k's and seg_p16's rows), against
+   their plain versions and times them. ``rec19k``: the JAX bench's
+   ``train_rec19k_int8enc_mb64`` recipe (the int8 encoder, the 19167-class
+   head, remat), one step at B = 8 against ``backend="reference"`` (loss
+   and every gradient), eight steps at B = 64 with each step's launches
+   checked, step time, images per second and peak memory. ``seg_p16``: the
+   segmenter on the bf16 encoder at B = 8, ``out`` and ``aux`` and one step
+   against ``backend="reference"``, steps with their launches checked.
+   ``downstream``: the three downstream drivers through their ``main`` on
+   fake data (the in19k shard with the int8 encoder; in1k from its
+   checkpoint with the head swapped, against ``--attn_backend reference``;
+   segmentation on COCO instances against ``--attn_backend reference``,
+   ``--resume`` for a second epoch, and the first epoch's checkpoint run
+   outside the driver through the kernels and the plain versions), each
+   step's launches checked;
+8. prints a JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -128,6 +146,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -378,6 +397,54 @@ BWD_EDGES = tuple((2, n, 2, dh) for dh in (64, 80) for n in (1, 17, 129, 255))
 # where every row tile is live (untimed, two runs bit-equal)
 F32_BWD_EDGES = tuple((3, n, 2, dh) for dh in (64, 80)
                       for n in (16, 17, 33, 55, 56, 57, 255, 256))
+
+# The downstream paths: the recognition and segmentation ViT-Base trunks
+# (width 768, 12 heads of 64, 256 tokens) on the frozen p16 encoder.
+# rec19k is the JAX bench's recipe for its train_rec19k_int8enc_mb64 cell
+# (bench.py:259-300): the encoder in bf16, pruned to its encoder half, int8
+# serving layout, run with the exact softmax as the drivers call it; the
+# classifier with the in19k head, fp32 parameters, bf16 compute,
+# adamw(weight_decay=0), step_lr(1e-4, 1e-5, 500_000), remat=True
+REC_ENCODER = PATHS[0][0]
+REC_MODEL = "vit_recognition_numpatches256_vocab256_base"
+REC_CLASSES = 19167
+REC_BATCH, REC_STEPS = 64, 8
+# seg_p16: the segmenter on the frozen bf16 encoder at the driver's default
+# batch, the driver's recipe (adamw(weight_decay=1e-4), lr 0.01, 21 classes)
+SEG_MODEL = "vit_segmentation_numpatches256_vocab256_base"
+SEG_CLASSES, SEG_BATCH, SEG_STEPS = 21, 8, 4
+# The downstream drivers on fake data: an in19k shard of 128 JPEGs with
+# classes in the 19167 of the head (DRIVER_WORKERS workers), in1k
+# ImageFolders of 3 classes, 129 train images (two batches of 64) and 63
+# val images (one short batch, padded), COCO instances of 32 and 16 images
+# with learnable masks (make_structured_coco), all at DRIVER_PX. The in1k
+# and segmentation runs, each compared with a run on the plain versions,
+# load inline: worker processes hand their batches over in the order they
+# finish, so two runs with workers can train on the same batches in other
+# orders (in1k's eval losses 6.4% apart in one such pair of runs, equal to
+# 8e-5 in another; NVIDIA H100 80GB HBM3, 700 W)
+DS_SHARD, DS_CLASSES, DS_TRAIN_PER_CLASS, DS_VAL_PER_CLASS = 128, 3, 43, 21
+DS_COCO_TRAIN, DS_COCO_VAL = 32, 16
+DS_ITS, DS_SAVE_FREQ = 6, 3
+# Driver losses, kernels vs --attn_backend reference, relative: bf16
+# compute through the frozen encoder's 15 blocks and the trunk's 12 on the
+# same weights and batches (the CPU tests' TRAIN_EVAL_RTOL against the JAX
+# drivers)
+DS_LOSS_RTOL = 2e-2
+# The segmentation driver's runs take --lr 1e-4. At its default 0.01,
+# AdamW throws the randomly initialised trunk about (seg_p16's losses over
+# four steps on one batch: 4.76, 12.84, 9.81, 12.07), and such steps blow
+# the bf16 rounding differences between the kernels and the plain versions
+# up into other trajectories: one epoch's train losses 12.6% apart, where
+# the first step's agree to 1e-6 (seg_p16, which holds a step at 0.01;
+# NVIDIA H100 80GB HBM3, 700 W). At 1e-4 the runs follow one trajectory,
+# and the comparison says whether the kernels compute what the plain
+# versions do.
+DS_SEG_LR = 1e-4
+# The segmenter's argmax predictions on the val images, the first epoch's
+# checkpoint run with the kernels and with the plain versions: classes whose
+# logits lie within the bf16 rounding flips of each other may swap
+DS_PRED_AGREE = 0.99
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W); fp32 is
 # the CUDA cores' rate, which the float32 forms run at (no TF32)
@@ -3855,6 +3922,733 @@ def phase_drivers() -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# downstream: the recognition and segmentation trunks on the frozen encoder
+# ---------------------------------------------------------------------------
+
+def phase_downstream_kernels(label: str) -> dict:
+    """The downstream trunks' shapes, which no other path runs: K2 (exact
+    and LSE forms) and K10 at (64, 256, 2304) with 12 heads of 64; K1, its
+    stats form and K11 at width 768 with rec19k's rows (64 x 256) and
+    seg_p16's (8 x 256), K1's and K11's plans held against the library's.
+    Each against its plain version, timed beside its bound and library
+    call. Returns case records to add to the kernel phases' lists (tuples
+    for K1 and K2, as phase_kernels keeps them; dicts for the training
+    forms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tae_tpu_torch.ops.cuda.flash_attention import (
+        fused_qkv_attention, fused_qkv_attention_backward_reference,
+        fused_qkv_attention_bwd, fused_qkv_attention_fwd_lse,
+        fused_qkv_attention_lse_reference, fused_qkv_attention_reference)
+    from tae_tpu_torch.ops.cuda.layernorm import (
+        bwd_plan, bwd_plan_of_library, fused_layer_norm, fused_layer_norm_bwd,
+        fused_layer_norm_fwd_stats, fwd_plan, fwd_plan_of_library)
+    from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
+                                             layer_norm_reference,
+                                             layer_norm_stats_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    bf16, tol = torch.bfloat16, TOL["bfloat16"]
+    res = {name: [] for name in (
+        "fused_layer_norm", "fused_qkv_attention", "fused_layer_norm_fwd_stats",
+        "fused_layer_norm_bwd", "fused_qkv_attention_fwd_lse",
+        "fused_qkv_attention_bwd")}
+
+    def randn(shape, scale=1.0, shift=0.0):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x * scale + shift).to(bf16)
+
+    def record(kernel, case, err, ms, plain, bnd, lib, lib_name, **extra):
+        res[kernel].append(dict(case=case, max_abs_err=err, ms=ms,
+                                plain_ms=plain, bound_ms=bnd[0],
+                                bound_by=bnd[1], library_ms=lib, **extra))
+        more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items())
+        print(f"[kernels] {case}: max_abs_err {err:.3g}; kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"{lib_name} {lib:.4f} ms{more} ({label})")
+
+    d = 768
+    for rows in (REC_BATCH * 256, SEG_BATCH * 256):
+        for plan, lib_plan, name in ((fwd_plan, fwd_plan_of_library, "K1"),
+                                     (bwd_plan, bwd_plan_of_library, "K11")):
+            check(lib_plan(rows, d) == plan(rows, d),
+                  f"{name}'s plan at ({rows}, {d}): library "
+                  f"{lib_plan(rows, d)}, ops/cuda/layernorm {plan(rows, d)}")
+        x = randn((rows, d), 3.0, 1.0)
+        w, b = randn((d,), 1.0, 1.0), randn((d,))
+        dy = randn((rows, d))
+        y = fused_layer_norm(x, w, b, 1e-6)
+        err = compare(f"K1 ({rows}, {d})", y,
+                      layer_norm_reference(x, w, b, 1e-6), **tol)
+        ms = time_ms(lambda: fused_layer_norm(x, w, b, 1e-6))
+        plain = time_ms(lambda: layer_norm_reference(x, w, b, 1e-6))
+        lib = time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6))
+        bnd = bound(nbytes(x, w, b, y), 0.0, "bf16")
+        res["fused_layer_norm"].append((bf16, err, ms, plain, bnd, lib))
+        print(f"[kernels] K1 layer_norm ({rows}, {d}) bf16 (plan "
+              f"{fwd_plan(rows, d)}): max_abs_err {err:.3g}; kernel {ms:.4f} "
+              f"ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"F.layer_norm {lib:.4f} ms ({label})")
+
+        y, mean, rstd = fused_layer_norm_fwd_stats(x, w, b, 1e-6)
+        y_ref, mean_ref, rstd_ref = layer_norm_stats_reference(x, w, b, 1e-6)
+        case = f"K1 layer_norm with stats ({rows}, {d}) bfloat16"
+        err = compare(case, y, y_ref, **tol)
+        compare(case + " mean", mean, mean_ref, **STATS_TOL)
+        compare(case + " rstd", rstd, rstd_ref, **STATS_TOL)
+        record("fused_layer_norm_fwd_stats", case, err,
+               time_ms(lambda: fused_layer_norm_fwd_stats(x, w, b, 1e-6)),
+               time_ms(lambda: layer_norm_stats_reference(x, w, b, 1e-6)),
+               bound(nbytes(x, w, b, y, mean, rstd), 0.0, "bf16"),
+               time_ms(lambda: torch.ops.aten.native_layer_norm(
+                   x, [d], w, b, 1e-6)), "aten.native_layer_norm")
+
+        dx, dw, db = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+        dx_ref, dw_ref, db_ref = layer_norm_backward_reference(x, w, mean,
+                                                               rstd, dy)
+        case = f"K11 layer_norm backward ({rows}, {d}) bfloat16"
+        sum_tol = dict(atol=tol["atol"] * max(1.0, rows ** 0.5 / 8),
+                       rtol=tol["rtol"])
+        err = max(compare(case + " dx", dx, dx_ref, **tol),
+                  compare(case + " dw", dw, dw_ref, **sum_tol),
+                  compare(case + " db", db, db_ref, **sum_tol))
+        again = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+        check(all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dw, db))),
+              f"{case}: two runs differ in their bits")
+        _, lm, lr_ = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-6)
+        record("fused_layer_norm_bwd", case, err,
+               time_ms(lambda: fused_layer_norm_bwd(x, w, mean, rstd, dy)),
+               time_ms(lambda: layer_norm_backward_reference(x, w, mean, rstd,
+                                                             dy)),
+               bound(nbytes(x, w, mean, rstd, dy, dx, dw, db), 0.0, "bf16"),
+               time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                   dy, x, [d], lm, lr_, w, b, [True, True, True])),
+               "F.layer_norm's backward")
+
+    batch, n, h, dh = REC_BATCH, 256, 12, 64
+    c = h * dh
+    qkv, do = randn((batch, n, 3 * c)), randn((batch, n, c))
+    shape = f"{tuple(qkv.shape)} h={h} dh={dh} bfloat16"
+    r = qkv.view(batch, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(r[0], r[1], r[2]))
+    flops = 4.0 * batch * h * n * n * dh
+    y = fused_qkv_attention(qkv, h, serving=False)
+    err = compare(f"K2 {shape} exact", y,
+                  fused_qkv_attention_reference(qkv, h, serving=False), **tol)
+    ms = time_ms(lambda: fused_qkv_attention(qkv, h, serving=False))
+    plain = time_ms(lambda: fused_qkv_attention_reference(qkv, h,
+                                                          serving=False))
+    bnd = bound(nbytes(qkv, y), flops, "bf16")
+    res["fused_qkv_attention"].append((bf16, err, ms, plain, n, False, bnd,
+                                       sdpa))
+    print(f"[kernels] K2 attention {shape} exact: max_abs_err {err:.3g}; "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}), SDPA {sdpa:.4f} ms ({label})")
+
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+    case = f"K2 attention with LSE {shape}"
+    err = compare(case, o, o_ref, **tol)
+    compare(case + " lse", lse, lse_ref, **STATS_TOL)
+    record("fused_qkv_attention_fwd_lse", case, err,
+           time_ms(lambda: fused_qkv_attention_fwd_lse(qkv, h)),
+           time_ms(lambda: fused_qkv_attention_lse_reference(qkv, h)),
+           bound(nbytes(qkv, o, lse), flops, "bf16"), sdpa, "SDPA")
+
+    dqkv = fused_qkv_attention_bwd(qkv, o, lse, do, h)
+    case = f"K10 attention backward {shape}"
+    err = compare(case, dqkv, fused_qkv_attention_backward_reference(
+        qkv, o, lse, do, h), **tol)
+    check(torch.equal(dqkv, fused_qkv_attention_bwd(qkv, o, lse, do, h)),
+          f"{case}: two runs differ in their bits")
+    q, k, v = (t.detach().requires_grad_() for t in r)
+    so = F.scaled_dot_product_attention(q, k, v)
+    sdo = do.view(batch, n, h, dh).transpose(1, 2)
+    lib = time_ms_events(lambda: torch.autograd.grad(so, (q, k, v), sdo,
+                                                     retain_graph=True))
+    events = time_ms_events(lambda: fused_qkv_attention_bwd(qkv, o, lse, do, h))
+    record("fused_qkv_attention_bwd", case, err,
+           time_ms(lambda: fused_qkv_attention_bwd(qkv, o, lse, do, h)),
+           time_ms(lambda: fused_qkv_attention_backward_reference(
+               qkv, o, lse, do, h)),
+           bound(nbytes(qkv, o, lse, do, dqkv), 2.5 * flops, "bf16"), lib,
+           "SDPA's backward (between events)", events_ms=events)
+    return res
+
+
+def downstream_encoder(quantization):
+    """The downstream drivers' frozen encoder stage, built as they build it
+    (cli/_common.frozen_encoder): REC_ENCODER from seed 1, bf16, pruned to
+    its encoder half, int8 serving layout or not."""
+    import types
+
+    import torch
+
+    from tae_tpu_torch.cli._common import frozen_encoder as build
+
+    return build(types.SimpleNamespace(
+        encoder=REC_ENCODER, encoder_args="", encoder_ckpt="", seed=0,
+        encoder_quantization=quantization, encoder_equalize=0.0),
+        torch.device("cuda"))
+
+
+def encoder_launches(encoder, quantization) -> dict:
+    """One forward_encoder of the frozen stage with the exact softmax, as
+    the drivers call it (serving=False): the bf16 tokenizer's encode
+    launches, or the int8 ones with the attention in bf16 (K2) and a plain
+    quantize ahead of proj, as ``attn_q8=False`` gives them."""
+    return expected_launches(encoder.cfg, quantization, attn_q8=False)["encode"]
+
+
+def trunk_launches(cfg, remat: bool = False) -> dict:
+    """Each kernel's launches in one train step of a downstream trunk, as
+    the code implies them: a training LayerNorm forward and a LayerNorm
+    backward per norm (two a block, the final one, and the segmenter's
+    auxiliary one), a training attention forward and backward per block;
+    ``remat`` runs every block's forward once more."""
+    from tae_tpu_torch.ops.attention import attention_route
+
+    blocks = cfg.decoder_depth
+    norms = 2 * blocks + 1 + int(hasattr(cfg, "aux_depth"))
+    again = blocks if remat else 0
+    want = {"fused_layer_norm_fwd_stats": norms + 2 * again,
+            "fused_layer_norm_bwd": norms}
+    if attention_route(cfg.num_patches, False, False)[0] == "wide":
+        want["fused_qkv_attention_wide"] = blocks + again
+    else:
+        want["fused_qkv_attention_fwd_lse"] = blocks + again
+        want["fused_qkv_attention_bwd"] = blocks
+    return want
+
+
+def trunk_forward_launches(cfg) -> dict:
+    """One forward of a downstream trunk without a gradient (an eval or a
+    prediction): a LayerNorm kernel per norm, the exact attention per
+    block."""
+    want = trunk_launches(cfg)
+    return {"fused_layer_norm": want["fused_layer_norm_bwd"],
+            "fused_qkv_attention": cfg.decoder_depth}
+
+
+def summed(*counts: dict) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def downstream_step(encoder, model_loss, schedule, weight_decay: float,
+                    backend=None, remat: bool = False):
+    """A downstream driver's train step: the frozen encoder under no_grad
+    (the JAX drivers' stop_gradient) feeding the trainable trunk, bf16
+    compute, AdamW."""
+    import torch
+
+    from tae_tpu_torch.train import adamw, make_train_step
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    enc_policy = Policy(param_dtype=torch.bfloat16)
+
+    def loss_fn(m, batch):
+        x, y = batch
+        with torch.no_grad():
+            z = encoder.forward_encoder(x, policy=enc_policy, backend=backend)
+        return model_loss(m(z, backend=backend, remat=remat), y), {}
+
+    return make_train_step(loss_fn, adamw(weight_decay=weight_decay), schedule)
+
+
+def downstream_state(name: str, weight_decay: float, **kw):
+    import torch
+
+    from tae_tpu_torch import models
+    from tae_tpu_torch.train import TrainState, adamw
+
+    model = models.create(name, device="cuda", trainable=True, **kw)
+    model.init_weights_(torch.Generator(device="cuda").manual_seed(1))
+    return TrainState.create(model, adamw(weight_decay=weight_decay))
+
+
+def trunk_against_reference(tag: str, build, make, state, batch,
+                            want: dict) -> None:
+    """One step with the kernels and one with the plain versions on a copy
+    of the same weights (``build()`` makes the copy's state, ``make(backend)``
+    the step): the losses and every gradient."""
+    import gc
+
+    import torch
+
+    ref = build()
+    ref.model.load_state_dict(state.model.state_dict())
+    m, _ = counted_step(tag, make(None), state, batch, 0, want, {})
+    m_ref, _ = counted_step(tag, make("reference"), ref, batch, 0, {}, {})
+    loss, loss_ref = float(m["loss"]), float(m_ref["loss"])
+    print(f"[{tag}] B={batch[0].shape[0]} step: loss {loss:.6f} vs "
+          f"{loss_ref:.6f} with backend='reference' (rtol {TRAIN_LOSS_RTOL}); "
+          f"grad_norm {float(m['grad_norm']):.4f} vs "
+          f"{float(m_ref['grad_norm']):.4f}")
+    check(abs(loss - loss_ref) <= TRAIN_LOSS_RTOL * abs(loss_ref),
+          f"{tag}: losses differ")
+    compare_gradients(tag, state.model, ref.model, TRAIN_GRAD_REL_TOL)
+    del ref, m_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def timed_steps(tag: str, make, state, batch, steps: int, want: dict,
+                label: str, falling: bool) -> dict:
+    """The main path of a downstream trunk: ``steps`` steps on one batch,
+    every count 0 before the first and each step's launches held to
+    ``want``; finite losses, and with ``falling`` the last below the first;
+    ms / step (the median after the first), img/s and the peak memory of
+    the steps. Returns the launch counts of the steps."""
+    import torch
+
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step, totals, losses, walls = make(None), {}, [], []
+    for it in range(1, steps + 1):
+        m, dt = counted_step(tag, step, state, batch, it, want, totals)
+        losses.append(float(m["loss"]))
+        walls.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses)
+          and (losses[-1] < losses[0] or not falling),
+          f"{tag}: losses {losses} are not finite"
+          + (" and falling" if falling else ""))
+    on_path = [k for k, v in want.items() if v]
+    check(all(totals.get(k, 0) > 0 for k in on_path),
+          f"{tag}: a kernel of the path never launched: {totals}")
+    b = batch[0].shape[0]
+    ms = statistics.median(walls[1:]) * 1e3
+    print(f"[{tag}] {steps} steps at B={b}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}")
+    print(f"[{tag}] {ms:.2f} ms/step (runs {min(walls[1:]) * 1e3:.2f}-"
+          f"{max(walls[1:]) * 1e3:.2f}), {b / ms * 1e3:.1f} img/s at B={b}, "
+          f"peak memory {peak:.2f} GiB ({label})")
+    print(f"[{tag}] main path launches: {json.dumps(totals)} (per step: "
+          f"{json.dumps(want)})")
+    return totals
+
+
+def phase_rec19k(label: str) -> dict:
+    """Path ``rec19k``: the JAX bench's train_rec19k_int8enc_mb64 recipe at
+    full width (see REC_MODEL): one step at B = 8 against
+    backend="reference" on the same weights, then REC_STEPS steps at
+    REC_BATCH with each step's launches checked. Returns the launch counts
+    of the steps."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.train import step_lr
+    from tae_tpu_torch.train.losses import cross_entropy
+
+    tag = "rec19k"
+    encoder = downstream_encoder("int8")
+
+    def build():
+        return downstream_state(REC_MODEL, 0.0, num_classes=REC_CLASSES)
+
+    def make(backend):
+        return downstream_step(encoder, cross_entropy,
+                               step_lr(1e-4, 1e-5, 500_000), 0.0, backend,
+                               remat=True)
+
+    state = build()
+    cfg = state.model.cfg
+    want = summed(encoder_launches(encoder, "int8"),
+                  trunk_launches(cfg, remat=True))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[{tag}] {REC_MODEL}: {n_params} fp32 parameters ({cfg.decoder_depth} "
+          f"blocks of {cfg.decoder_embed_dim}, {cfg.decoder_num_heads} heads, "
+          f"{cfg.num_classes} classes), bf16 compute, remat=True, AdamW "
+          f"(weight decay 0); frozen {REC_ENCODER} encoder, int8, exact "
+          f"softmax; launches per step {json.dumps(want)}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def batch(b):
+        return (torch.randn((b, 3, 256, 256), generator=gen, device="cuda"),
+                torch.arange(b, device="cuda") * 2399 % REC_CLASSES)
+
+    trunk_against_reference(tag, build, make, state, batch(8), want)
+    totals = timed_steps(tag, make, state, batch(REC_BATCH), REC_STEPS, want,
+                         label, falling=True)
+    del state, encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_seg_p16(label: str) -> dict:
+    """Path ``seg_p16``: the segmenter at full width on the frozen bf16
+    encoder, the driver's recipe: its outputs, ``out`` and ``aux`` from the
+    same images, and one step, against backend="reference"; a prediction
+    with its launches checked; SEG_STEPS steps with each step's launches
+    checked. Returns the launch counts of the steps."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.cli.train_segmentation import criterion
+    from tae_tpu_torch.train import epoch_step_lr
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    tag = "seg_p16"
+    encoder = downstream_encoder(None)
+
+    def build():
+        return downstream_state(SEG_MODEL, 1e-4, num_classes=SEG_CLASSES)
+
+    def make(backend):
+        return downstream_step(encoder, criterion, epoch_step_lr(0.01, 90, 0.1),
+                               1e-4, backend)
+
+    state = build()
+    model, cfg = state.model, state.model.cfg
+    enc_want = encoder_launches(encoder, None)
+    want = summed(enc_want, trunk_launches(cfg))
+    print(f"[{tag}] {SEG_MODEL}: {sum(p.numel() for p in model.parameters())} "
+          f"fp32 parameters ({cfg.decoder_depth} blocks, the auxiliary head "
+          f"after {cfg.aux_depth}, {cfg.num_classes} classes, patch "
+          f"{cfg.patch_size}), bf16 compute, AdamW (weight decay 1e-4, lr "
+          f"0.01); frozen bf16 {REC_ENCODER} encoder; launches per step "
+          f"{json.dumps(want)}")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((SEG_BATCH, 3, 256, 256), generator=gen, device="cuda")
+    y = torch.randint(0, SEG_CLASSES, (SEG_BATCH, 256, 256), generator=gen,
+                      device="cuda")
+    y[torch.rand(y.shape, generator=gen, device="cuda") < 0.05] = 255
+
+    fns, policy = wrappers(), Policy()
+    enc_policy = Policy(param_dtype=torch.bfloat16)
+
+    def predict(backend):
+        with torch.no_grad():
+            z = encoder.forward_encoder(x, policy=enc_policy, backend=backend)
+            return model(z, policy=policy, backend=backend)
+
+    out, _ = counted_request(tag, fns, {}, lambda _: predict(None), None,
+                             summed(enc_want, trunk_forward_launches(cfg)))
+    ref = predict("reference")
+    tol = slice_tol(SLICE_REL_TOL, encoder.cfg)
+    errs = {k: rel_err(out[k], ref[k]) for k in ("out", "aux")}
+    print(f"[{tag}] forward at B={SEG_BATCH}: out {tuple(out['out'].shape)} "
+          f"{out['out'].dtype}, rel_err vs backend='reference' out "
+          f"{errs['out']:.4g}, aux {errs['aux']:.4g} (tolerance {tol}); "
+          f"launches {json.dumps(summed(enc_want, trunk_forward_launches(cfg)))}")
+    check(all(bool(torch.isfinite(out[k]).all()) for k in out)
+          and out["out"].shape == out["aux"].shape
+          == (SEG_BATCH, SEG_CLASSES, 256, 256),
+          f"{tag}: outputs not finite or of another shape")
+    check(max(errs.values()) <= tol, f"{tag}: outputs differ from the plain "
+                                     f"versions' ({errs})")
+    del out, ref
+    trunk_against_reference(tag, build, make, state, (x, y), want)
+    # lr 0.01 (the driver's default) need not lower the loss on one batch
+    totals = timed_steps(tag, make, state, (x, y), SEG_STEPS, want, label,
+                         falling=False)
+    del state, model, encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def steps_counted(module, tag: str, want: dict, seen: list):
+    """Wrap a driver's ``make_train_step`` so that each step's launches are
+    held to ``want`` and its wall time (host clock to a synchronize) kept in
+    ``seen`` as (iteration, seconds). Returns the original, to put back."""
+    real = module.make_train_step
+    fns = wrappers()
+
+    def counted_make(*a, **kw):
+        step = real(*a, **kw)
+
+        def train_step(args):
+            return step(*args)
+
+        def counted(state, batch, it):
+            out, dt = counted_request(f"{tag} step {len(seen)}", fns, {},
+                                      train_step, (state, batch, it), want)
+            seen.append((it, dt))
+            return out
+
+        return counted
+
+    module.make_train_step = counted_make
+    return real
+
+
+def run_driver(module, tag: str, argv: list, want: dict, totals: dict | None):
+    """``module.main`` on ``argv`` through ``driven`` (counted from 0, added
+    to ``totals``), each train step's launches held to ``want``. Returns
+    (the run's launch counts, [(iteration, seconds)] of its steps)."""
+    seen: list = []
+    real = steps_counted(module, tag, want, seen)
+    try:
+        _, got = driven(totals, module.main,
+                        module.get_args_parser().parse_args(argv))
+    finally:
+        module.make_train_step = real
+    return got, seen
+
+
+def ds_rows(path: pathlib.Path) -> list[dict]:
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def phase_downstream_drivers(label: str) -> dict:
+    """Path ``downstream``: the three downstream drivers through their
+    ``main`` on fake data made by ``data/fake`` (see DS_SHARD), each step's
+    launches checked, and each run's total: train_recognition_in19k with
+    the int8 encoder and the 19167-class head; train_recognition_in1k from
+    its checkpoint with the head swapped to 3 classes, one epoch, against
+    --attn_backend reference; train_segmentation one epoch against
+    --attn_backend reference, then --resume for the next, and the first
+    epoch's checkpoint run outside the driver through the kernels and the
+    plain versions. Returns the launch counts of the kernel runs."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tae_tpu_torch import models
+    from tae_tpu_torch.ckpt.io import checkpoint_step, load_checkpoint, load_params
+    from tae_tpu_torch.cli import train_recognition_in1k as r1k
+    from tae_tpu_torch.cli import train_recognition_in19k as r19k
+    from tae_tpu_torch.cli import train_segmentation as seg
+    from tae_tpu_torch.data import mask_native, native
+    from tae_tpu_torch.data.coco_seg import load_dataset
+    from tae_tpu_torch.data.fake import (make_fake_imagefolder,
+                                         make_fake_wds_shard,
+                                         make_structured_coco)
+    from tae_tpu_torch.data.seg_transforms import SegEvalTransform
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    tag, totals = "downstream", {}
+    enc_cfg = models.create(REC_ENCODER, device="meta").cfg
+    rec_cfg = models.create(REC_MODEL, num_classes=REC_CLASSES,
+                            device="meta").cfg
+    seg_cfg = models.create(SEG_MODEL, device="meta").cfg
+    enc_bf16 = expected_launches(enc_cfg, None, attn_q8=False)["encode"]
+    enc_int8 = expected_launches(enc_cfg, "int8", attn_q8=False)["encode"]
+    print(f"[{tag}] decoder: {native.decoder_name()}; native mask decoders "
+          f"(native/maskapi.cpp) built: {mask_native.available()}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        shard = make_fake_wds_shard(root / "in19k-000000.tar",
+                                    num_samples=DS_SHARD, size=DRIVER_PX,
+                                    num_classes=REC_CLASSES, seed=10)
+        make_fake_imagefolder(root / "train", num_classes=DS_CLASSES,
+                              per_class=DS_TRAIN_PER_CLASS, size=DRIVER_PX,
+                              seed=11)
+        make_fake_imagefolder(root / "val", num_classes=DS_CLASSES,
+                              per_class=DS_VAL_PER_CLASS, size=DRIVER_PX,
+                              seed=12)
+        coco = make_structured_coco(root / "coco", n_train=DS_COCO_TRAIN,
+                                    n_val=DS_COCO_VAL, size=DRIVER_PX, seed=13)
+        print(f"[{tag}] fake data: a {DS_SHARD}-JPEG in19k shard, in1k "
+              f"ImageFolders of {DS_CLASSES * DS_TRAIN_PER_CLASS} and "
+              f"{DS_CLASSES * DS_VAL_PER_CLASS}, COCO "
+              f"instances of {DS_COCO_TRAIN} + {DS_COCO_VAL}, {DRIVER_PX} px, "
+              f"made in {time.perf_counter() - t:.1f} s")
+
+        # ---- in19k: the int8 encoder, the 19167-class head
+        t = time.perf_counter()
+        want = summed(enc_int8, trunk_launches(rec_cfg))
+        got, seen = run_driver(r19k, f"{tag} in19k", [
+            "--model", REC_MODEL, "--num_classes", str(REC_CLASSES),
+            "--encoder", REC_ENCODER, "--encoder_quantization", "int8",
+            "--batch_size", str(REC_BATCH), "--num_its", str(DS_ITS),
+            "--save_freq", str(DS_SAVE_FREQ), "--log_freq", "1",
+            "--num_workers", str(DRIVER_WORKERS), "--train_data_path",
+            str(shard), "--output_dir", str(root / "in19k"),
+            "--save_prefix", "r19"], want, totals)
+        rows = ds_rows(root / "in19k" / f"r19_{REC_MODEL}_log.txt")
+        ckpt19 = root / "in19k" / f"r19_{REC_MODEL}_checkpoint"
+        check([it for it, _ in seen] == list(range(DS_ITS))
+              and got == times(want, DS_ITS),
+              f"{tag} in19k: iterations {[it for it, _ in seen]}, launches "
+              f"{got}, expected {times(want, DS_ITS)}")
+        check(len(rows) == 1 and rows[0]["iteration"] == DS_SAVE_FREQ
+              and set(rows[0]) == {"train_loss", "train_acc1", "train_acc5",
+                                   "iteration"}
+              and math.isfinite(rows[0]["train_loss"])
+              and checkpoint_step(ckpt19) == DS_SAVE_FREQ,
+              f"{tag} in19k: JSONL rows {rows}, checkpoint step "
+              f"{checkpoint_step(ckpt19)}")
+        ms = statistics.median(dt for _, dt in seen[1:]) * 1e3
+        print(f"[{tag}] in19k: JSONL row {json.dumps(rows[0])}; checkpoint "
+              f"at {DS_SAVE_FREQ}; launches per step {json.dumps(want)}; "
+              f"{ms:.2f} ms/step at B={REC_BATCH} (median of steps 1-"
+              f"{DS_ITS - 1}, {REC_BATCH / ms * 1e3:.1f} img/s, {label}) "
+              f"({time.perf_counter() - t:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- in1k: the head swapped from in19k's, kernels vs reference
+        t = time.perf_counter()
+        want = summed(enc_bf16, trunk_launches(rec_cfg))
+        evals = summed(enc_bf16, trunk_forward_launches(rec_cfg))
+        res = {}
+        for backend in ("kernel", "reference"):
+            out = root / f"in1k_{backend}"
+            got, seen = run_driver(r1k, f"{tag} in1k {backend}", [
+                "--model", REC_MODEL, "--model_ckpt", str(ckpt19),
+                "--pretrain_num_classes", str(REC_CLASSES), "--num_classes",
+                str(DS_CLASSES), "--encoder", REC_ENCODER, "--batch_size",
+                str(REC_BATCH), "--epochs", "1", "--log_freq", "1",
+                # inline: worker processes hand their batches over in the
+                # order they finish, and the two runs must see one order
+                "--num_workers", "0", "--train_data_path", str(root / "train"),
+                "--val_data_path", str(root / "val"), "--output_dir",
+                str(out), "--save_prefix", "ft",
+                *(["--attn_backend", "reference"] if backend == "reference"
+                  else [])],
+                want if backend == "kernel" else {},
+                totals if backend == "kernel" else None)
+            expect = (summed(times(want, len(seen)), evals)
+                      if backend == "kernel" else {})
+            check(len(seen) == 2 and got == expect,
+                  f"{tag} in1k {backend}: {len(seen)} steps, launches {got}, "
+                  f"expected {expect}")
+            res[backend] = ds_rows(out / f"ft_{REC_MODEL}_log.txt")[0]
+        row, ref = res["kernel"], res["reference"]
+        blob, meta = load_checkpoint(root / "in1k_kernel" /
+                                     f"ft_{REC_MODEL}_checkpoint")
+        rel = abs(row["test_loss"] - ref["test_loss"]) / abs(ref["test_loss"])
+        print(f"[{tag}] in1k: eval loss {row['test_loss']:.6f} vs "
+              f"{ref['test_loss']:.6f} with --attn_backend reference, relative "
+              f"{rel:.3g} (tolerance {DS_LOSS_RTOL}); acc1 {row['test_acc1']:.2f}"
+              f" vs {ref['test_acc1']:.2f}; train loss {row['train_loss']:.6f} "
+              f"vs {ref['train_loss']:.6f}; best-acc1 checkpoint: epoch "
+              f"{meta['step']}, best_eval_acc1 {meta['best_eval_acc1']:.2f}, "
+              f"head {tuple(blob['model']['head.weight'].shape)} "
+              f"({time.perf_counter() - t:.1f} s)")
+        check(set(row) == {"train_loss", "train_lr", "test_loss", "test_acc1",
+                           "test_acc5", "epoch"} and rel <= DS_LOSS_RTOL
+              and meta["best_eval_acc1"] == row["test_acc1"] > 0
+              and tuple(blob["model"]["head.weight"].shape)
+              == (DS_CLASSES, rec_cfg.decoder_embed_dim),
+              f"{tag} in1k: rows {res}, checkpoint meta {meta}")
+        del blob
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- segmentation: an epoch with the kernels and with the plain
+        #      versions, then --resume for the next
+        t = time.perf_counter()
+        want = summed(enc_bf16, trunk_launches(seg_cfg))
+        evals = summed(enc_bf16, trunk_forward_launches(seg_cfg))
+        n_eval = -(-DS_COCO_VAL // SEG_BATCH)
+        mats: list = []
+        real_eval = seg.evaluate
+
+        def recorded(*a, **kw):
+            confmat = real_eval(*a, **kw)
+            mats.append(confmat.mat.copy())
+            return confmat
+
+        def seg_argv(out, *extra):
+            return ["--dataset", "coco", "--data_path", str(coco),
+                    "--model", SEG_MODEL, "--encoder", REC_ENCODER,
+                    "--batch_size_per_gpu", str(SEG_BATCH), "--epochs", "1",
+                    "--lr", str(DS_SEG_LR),
+                    # inline, as in1k's runs (one batch order for both)
+                    "--workers", "0", "--print_freq", "1",
+                    "--output_dir", str(out), *extra]
+
+        seg.evaluate = recorded
+        try:
+            res = {}
+            for backend in ("kernel", "reference"):
+                out = root / f"seg_{backend}"
+                extra = (["--attn_backend", "reference"]
+                         if backend == "reference" else [])
+                got, seen = run_driver(
+                    seg, f"{tag} segmentation {backend}",
+                    seg_argv(out, *extra), want if backend == "kernel" else {},
+                    totals if backend == "kernel" else None)
+                expect = (summed(times(want, DS_COCO_TRAIN // SEG_BATCH),
+                                 times(evals, n_eval))
+                          if backend == "kernel" else {})
+                check(len(seen) == DS_COCO_TRAIN // SEG_BATCH and got == expect,
+                      f"{tag} segmentation {backend}: {len(seen)} steps, "
+                      f"launches {got}, expected {expect}")
+                res[backend] = ds_rows(out / "seg_log.txt")[0]
+                if backend == "kernel":
+                    seg_ms = statistics.median(dt for _, dt in seen[1:]) * 1e3
+            got, seen = run_driver(seg, f"{tag} segmentation --resume", [
+                *seg_argv(root / "seg_resumed", "--resume",
+                          str(root / "seg_kernel" / "checkpoint")),
+                "--epochs", "2"], want, totals)
+        finally:
+            seg.evaluate = real_eval
+        resumed = ds_rows(root / "seg_resumed" / "seg_log.txt")
+        row, ref = res["kernel"], res["reference"]
+        valid = [int(m.sum()) for m in mats]
+        rel = abs(row["train_loss"] - ref["train_loss"]) / abs(ref["train_loss"])
+        print(f"[{tag}] segmentation: train loss {row['train_loss']:.6f} vs "
+              f"{ref['train_loss']:.6f} with --attn_backend reference, "
+              f"relative {rel:.3g} (tolerance {DS_LOSS_RTOL}); mean IoU "
+              f"{row['mean_iou']:.5f} vs {ref['mean_iou']:.5f}; valid val "
+              f"pixels in the confusion matrices {valid}; --resume ran epochs "
+              f"{[r['epoch'] for r in resumed]}, {len(seen)} steps; "
+              f"{seg_ms:.2f} ms/step at B={SEG_BATCH} ({label})")
+        check(valid[0] == valid[1] > 0 and rel <= DS_LOSS_RTOL
+              and set(row) == {"train_loss", "train_lr", "mean_iou", "epoch"},
+              f"{tag} segmentation: rows {res}, valid pixels {valid}")
+        check([r["epoch"] for r in resumed] == [1]
+              and checkpoint_step(root / "seg_resumed" / "checkpoint") == 1
+              and len(seen) == DS_COCO_TRAIN // SEG_BATCH,
+              f"{tag} segmentation --resume: rows {resumed}")
+
+        # the first epoch's checkpoint outside the driver: the val images
+        # through the kernels and through the plain versions
+        model = models.create(SEG_MODEL, num_classes=SEG_CLASSES,
+                              device="cuda")
+        load_params(root / "seg_kernel" / "checkpoint", model)
+        encoder = downstream_encoder(None)
+        enc_policy, policy = Policy(param_dtype=torch.bfloat16), Policy()
+        ds, _ = load_dataset("coco", coco, "val", SegEvalTransform(256))
+        agree = total = 0
+        with torch.no_grad():
+            for i in range(0, len(ds), SEG_BATCH):
+                items = [ds[j] for j in range(i, min(i + SEG_BATCH, len(ds)))]
+                x = torch.from_numpy(np.stack([a for a, _ in items])).cuda()
+                target = torch.from_numpy(np.stack([b for _, b in items])).cuda()
+                pred = {}
+                for backend in (None, "reference"):
+                    z = encoder.forward_encoder(x, policy=enc_policy,
+                                                backend=backend)
+                    pred[backend] = model(z, policy=policy,
+                                          backend=backend)["out"].argmax(1)
+                keep = target != 255
+                agree += int((pred[None] == pred["reference"])[keep].sum())
+                total += int(keep.sum())
+        share = agree / total
+        print(f"[{tag}] segmentation checkpoint of epoch 0 outside the driver: "
+              f"argmax predictions with the kernels equal the plain versions' "
+              f"on {share:.5f} of {total} valid val pixels (at least "
+              f"{DS_PRED_AGREE}) ({time.perf_counter() - t:.1f} s)")
+        check(total == valid[0] and share >= DS_PRED_AGREE,
+              f"{tag} segmentation: predictions agree on {share} of {total}")
+        del model, encoder
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[{tag}] main path launches: {json.dumps(totals)} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return totals
+
+
 def main() -> int:
     try:
         phase_device()
@@ -3870,6 +4664,8 @@ def main() -> int:
         kres.update(phase_int8_kernels())
         kres.update(phase_attention_kernels())
         kres.update(phase_train_kernels())
+        for name, cases in phase_downstream_kernels(card_label()).items():
+            kres[name] += cases
         kres.update(phase_int4_kernels())
         kres.update(phase_vq_kernel())
         last = phase_last_kernels()
@@ -3885,6 +4681,10 @@ def main() -> int:
         launches["train_bf16"] = phase_train(kres)
         launches["p128_train"] = phase_p128_train()
         launches["drivers"] = phase_drivers()
+        label = card_label()
+        launches["rec19k"] = phase_rec19k(label)
+        launches["seg_p16"] = phase_seg_p16(label)
+        launches["downstream"] = phase_downstream_drivers(label)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

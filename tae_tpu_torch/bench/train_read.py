@@ -33,7 +33,7 @@ MODES = ("none", "behind", "every")
 def run_mode(mode: str, step, state, batch, steps: int,
              queue: list[float]) -> float:
     """ms per step of ``steps`` steps read the ``mode`` way."""
-    from tae_tpu_torch.cli.train import fetch_metrics, host_metrics
+    from tae_tpu_torch.cli._common import fetch_metrics, host_metrics
 
     torch.cuda.synchronize()
     t = time.perf_counter()

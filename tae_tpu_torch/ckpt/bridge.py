@@ -13,7 +13,11 @@ numpy arrays with depth-stacked blocks, into the reference-layout
     ``attn.q_norm`` / ``attn.k_norm`` where the blocks have qk_norm.
 
 :func:`blocks_state_dict_from_jax` does the same for a bare block stack
-(``tae_tpu.nn.vit.blocks_init``), keyed as ``nn.vit.blocks`` holds it.
+(``tae_tpu.nn.vit.blocks_init``), keyed as ``nn.vit.blocks`` holds it, and
+:func:`recognition_state_dict_from_jax` / :func:`segmentation_state_dict_from_jax`
+for the downstream models' trees (``tae_tpu.models.recognition`` /
+``segmentation``), keyed as the reference's classifier and segmenter (the
+keys ``tae_tpu/ckpt/torch_import.py`` reads).
 
 :func:`serving_state_dict_from_jax` does the same for the JAX package's
 int8 and int4 serving trees (quantized linears ``{w_q (in, out) int8,
@@ -147,6 +151,38 @@ def state_dict_from_jax(params_np: Params, cfg) -> dict[str, torch.Tensor]:
         _linear(sd, "decoder_pred", dec["pred"])
     if "codebook" in params_np:
         sd["codebook"] = _t(params_np["codebook"])
+    return sd
+
+
+def _latent_trunk(out: dict, p: Params) -> None:
+    _linear(out, "decoder_embed", p["embed"])
+    out["decoder_pos_embed"] = _t(p["pos_embed"])
+    _blocks(out, "decoder_blocks", p["blocks"])
+    _layer_norm(out, "decoder_norm", p["norm"])
+
+
+def recognition_state_dict_from_jax(params_np: Params, cfg=None
+                                    ) -> dict[str, torch.Tensor]:
+    """A ``tae_tpu`` ``RecognitionViT`` tree (numpy leaves, depth-stacked
+    blocks; ``head`` absent for a feature extractor) -> the state_dict of
+    :class:`tae_tpu_torch.models.recognition.RecognitionViT`, fp32 tensors
+    on the CPU. ``cfg`` is accepted for symmetry with the JAX importer."""
+    sd: dict[str, torch.Tensor] = {}
+    _latent_trunk(sd, params_np)
+    if "head" in params_np:
+        _linear(sd, "head", params_np["head"])
+    return sd
+
+
+def segmentation_state_dict_from_jax(params_np: Params, cfg=None
+                                     ) -> dict[str, torch.Tensor]:
+    """A ``tae_tpu`` ``SegmentationViT`` tree -> the state_dict of
+    :class:`tae_tpu_torch.models.segmentation.SegmentationViT`."""
+    sd: dict[str, torch.Tensor] = {}
+    _latent_trunk(sd, params_np)
+    _layer_norm(sd, "aux_decoder_norm", params_np["aux_norm"])
+    _linear(sd, "head", params_np["head"])
+    _linear(sd, "aux_head", params_np["aux_head"])
     return sd
 
 

@@ -13,7 +13,9 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
+import sys
 
 import numpy as np
 import torch
@@ -67,6 +69,99 @@ def build_model(name: str, model_args: str = "", **kwargs):
     if model_args:
         kwargs = {**json.loads(model_args), **kwargs}
     return models.create(name, **kwargs)
+
+
+def build_downstream_model(args, device: torch.device, num_classes: int):
+    """A downstream driver's model (``--model``, ``--model_args``) at
+    ``num_classes``, initialised from seed ``--seed``, or, with
+    ``--model_ckpt``, built at ``--pretrain_num_classes``, loaded and given
+    a fresh head for ``num_classes`` (head-swap transfer; the new head drawn
+    from seed ``--seed`` + 2). Every parameter trainable."""
+    build = num_classes if not args.model_ckpt else args.pretrain_num_classes
+    model = build_model(args.model, model_args=args.model_args,
+                        num_classes=build, device=device, trainable=True)
+    model.init_weights_(torch.Generator(device=device).manual_seed(args.seed))
+    if args.model_ckpt:
+        from tae_tpu_torch.ckpt.io import load_params
+
+        load_params(args.model_ckpt, model)
+        model.replace_head(num_classes, torch.Generator(
+            device=device).manual_seed(args.seed + 2))
+        print(f"Loaded {args.model_ckpt} and swapped the head to "
+              f"{num_classes} classes")
+    return model
+
+
+def maybe_quantize_encoder(model, mode: str | None, equalize: float = 0.0):
+    """A frozen encoder stage is pure inference: ``mode == "int8"`` rewrites
+    it in place to the w8a8 serving layout (``ops/int8.prepare_serving_``),
+    after the SmoothQuant-style equalization when ``equalize`` > 0 (the
+    alpha). The JAX package's checks, in its order."""
+    if mode is None:
+        if equalize:
+            raise ValueError("--encoder_equalize requires "
+                             "--encoder_quantization int8")
+        return model
+    if mode != "int8":
+        raise ValueError(f"unknown encoder quantization {mode!r}")
+    from tae_tpu_torch.ops.int8 import prepare_serving_
+
+    return prepare_serving_(model, mode, equalize)
+
+
+def frozen_encoder(args, device: torch.device):
+    """The downstream drivers' frozen TAE encoder: ``--encoder`` built on
+    ``device``, initialised from seed ``--seed`` + 1, ``--encoder_ckpt``
+    loaded, cast once to bf16, pruned to its encoder half (the stage only
+    ever runs ``forward_encoder``) and, with ``--encoder_quantization
+    int8``, rewritten for int8 serving. Every parameter frozen."""
+    from tae_tpu_torch.ckpt.io import load_params
+    from tae_tpu_torch.tokenizer import prune_component
+
+    encoder = build_model(args.encoder, model_args=args.encoder_args,
+                          device=device)
+    encoder.init_weights_(torch.Generator(device=device).manual_seed(
+        args.seed + 1))
+    n_params = sum(p.numel() for p in encoder.parameters())
+    print(f"Encoder: {args.encoder}; params (M): {n_params / 1e6}")
+    if args.encoder_ckpt:
+        load_params(args.encoder_ckpt, encoder)
+        print(f"Loaded encoder {args.encoder_ckpt}")
+    encoder = prune_component(encoder.to(torch.bfloat16).eval(), "encoder")
+    maybe_quantize_encoder(encoder, args.encoder_quantization,
+                           getattr(args, "encoder_equalize", 0.0))
+    return encoder.requires_grad_(False)
+
+
+def fetch_metrics(metrics: dict):
+    """Start copying a step's metrics (0-dim tensors) to the host: one
+    stacked tensor, copied ``non_blocking`` into pinned memory right behind
+    the step, and an event after the copy. :func:`host_metrics` waits on that
+    event alone, so reading step k after step k+1 was queued does not wait
+    for step k+1."""
+    names = list(metrics)
+    vals = torch.stack([metrics[k].detach().float() for k in names])
+    if not vals.is_cuda:
+        return names, vals, None
+    host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+    host.copy_(vals, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return names, host, done
+
+
+def host_metrics(fetched) -> dict[str, float]:
+    names, host, done = fetched
+    if done is not None:
+        done.synchronize()
+    return dict(zip(names, host.tolist()))
+
+
+def check_finite_loss(vals: dict[str, float]) -> None:
+    """The reference's non-finite-loss abort (train.py:152-155): exit 1."""
+    if not math.isfinite(vals["loss"]):
+        print(f"Loss is {vals['loss']}, stopping training", flush=True)
+        sys.exit(1)
 
 
 def print_decoder() -> None:

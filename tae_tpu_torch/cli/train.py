@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import math
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -147,10 +145,8 @@ def main(args) -> None:
     def read(pit: int, fetched) -> None:
         """Step ``pit``'s metrics on the host; abort on a non-finite loss
         (reference train.py:152-155)."""
-        vals = host_metrics(fetched)
-        if not math.isfinite(vals["loss"]):
-            print(f"Loss is {vals['loss']}, stopping training", flush=True)
-            sys.exit(1)
+        vals = _common.host_metrics(fetched)
+        _common.check_finite_loss(vals)
         metric_logger.update(**vals)
         if pit % args.log_freq == 0:
             print(f"it {pit}: {metric_logger}", flush=True)
@@ -165,7 +161,7 @@ def main(args) -> None:
             display_samples = imgs[:8].clone()
 
         state, metrics = step(state, imgs, it)
-        fetched = fetch_metrics(metrics)
+        fetched = _common.fetch_metrics(metrics)
         if pending is not None:
             read(*pending)          # step it - 1, while step it runs
         pending = (it, fetched)
@@ -205,30 +201,6 @@ def main(args) -> None:
         metric_logger = MetricLogger()
     if pending is not None:         # the data ran out before num_its
         read(*pending)
-
-
-def fetch_metrics(metrics: dict):
-    """Start copying a step's metrics (0-dim tensors) to the host: one
-    stacked tensor, copied ``non_blocking`` into pinned memory right behind
-    the step, and an event after the copy. :func:`host_metrics` waits on that
-    event alone, so reading step k after step k+1 was queued does not wait
-    for step k+1."""
-    names = list(metrics)
-    vals = torch.stack([metrics[k].detach().float() for k in names])
-    if not vals.is_cuda:
-        return names, vals, None
-    host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-    host.copy_(vals, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return names, host, done
-
-
-def host_metrics(fetched) -> dict[str, float]:
-    names, host, done = fetched
-    if done is not None:
-        done.synchronize()
-    return dict(zip(names, host.tolist()))
 
 
 def save_reconstructions(model, samples: torch.Tensor, policy: Policy,

@@ -32,11 +32,13 @@ import numpy as np
 from tae_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR.parent / "native" / "taedata.cpp"
+NATIVE_DIR = PACKAGE_DIR.parent / "native"
+SOURCE = NATIVE_DIR / "taedata.cpp"
 BUILD_ROOT = PACKAGE_DIR / "_build"
 LIB_NAME = "libtaedata.so"
-# native/build.sh's flags (its second source, maskapi.cpp, serves the
-# segmentation data, which the port does not have yet)
+# native/build.sh's flags; its second source, maskapi.cpp, needs no libjpeg
+# and is built into a library of its own (data/mask_native.py), so the mask
+# decoders build where libjpeg's header is missing
 CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
              "-std=c++17")
 LIBS = ("-ljpeg", "-lpthread")
@@ -46,21 +48,25 @@ BICUBIC = 1
 
 
 class NativeBuildError(RuntimeError):
-    """g++ is missing or taedata.cpp did not compile (no libjpeg, say)."""
+    """g++ is missing or a native source did not compile (no libjpeg, say)."""
 
 
-def _lib_path(build_root: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
-    h.update(SOURCE.read_bytes())
-    return build_root / h.hexdigest()[:16] / LIB_NAME
+def _lib_path(build_root: pathlib.Path, source: pathlib.Path = SOURCE,
+              lib_name: str = LIB_NAME, libs: tuple = LIBS) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + libs).encode())
+    h.update(source.read_bytes())
+    return build_root / h.hexdigest()[:16] / lib_name
 
 
-def build_library(build_root: pathlib.Path = BUILD_ROOT) -> pathlib.Path:
-    """Compile ``native/taedata.cpp`` unless a build of the same source
-    exists under ``build_root``; returns the library's path. A file lock
-    keeps two processes from building at once; the library is renamed into
-    place whole."""
-    lib = _lib_path(build_root)
+def build_library(build_root: pathlib.Path = BUILD_ROOT,
+                  source: pathlib.Path = SOURCE, lib_name: str = LIB_NAME,
+                  libs: tuple = LIBS) -> pathlib.Path:
+    """Compile ``source`` (``native/taedata.cpp`` by default) with
+    ``native/build.sh``'s flags unless a build of the same source exists
+    under ``build_root``; returns the library's path. A file lock keeps two
+    processes from building at once; the library is renamed into place
+    whole."""
+    lib = _lib_path(build_root, source, lib_name, libs)
     if lib.is_file():
         return lib
     cxx = shutil.which("g++")
@@ -72,8 +78,8 @@ def build_library(build_root: pathlib.Path = BUILD_ROOT) -> pathlib.Path:
         if lib.is_file():
             return lib
         with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
-            out = pathlib.Path(tmp) / LIB_NAME
-            proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), *LIBS, "-o",
+            out = pathlib.Path(tmp) / lib_name
+            proc = subprocess.run([cxx, *CXX_FLAGS, str(source), *libs, "-o",
                                    str(out)], capture_output=True, text=True,
                                   timeout=600)
             if proc.returncode != 0:

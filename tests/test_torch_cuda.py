@@ -1865,3 +1865,118 @@ def test_ln_amax_on_the_card_equals_its_reference_run(gen):
     for k in want:
         err = float((got[k] - want[k]).abs().max() / want[k].abs().max())
         assert err <= 1e-4, (k, err)
+
+
+# ------------------------------------------- the downstream trunks' shapes:
+# width 768 (K1, its stats form, K11) and 12 heads of 64 (K2, K10)
+
+@pytest.mark.parametrize("rows", [16384, 2048, 33])
+def test_layer_norm_kernels_at_the_downstream_width(gen, rows):
+    """K1, its stats form and K11 at width 768 (three groups of 256): the
+    plans equal the library's, each against its plain version, K11's two
+    runs bit-equal, y of both K1 entries the same."""
+    d, dtype = 768, torch.bfloat16
+    assert fwd_plan_of_library(rows, d) == fwd_plan(rows, d)
+    assert bwd_plan_of_library(rows, d) == bwd_plan(rows, d)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 1).to(dtype)
+    w = (torch.randn(d, generator=gen, device="cuda") + 1).to(dtype)
+    b = torch.randn(d, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    y = fused_layer_norm(x, w, b, 1e-6)
+    _close(y, layer_norm_reference(x, w, b, 1e-6), dtype)
+    y2, mean, rstd = fused_layer_norm_fwd_stats(x, w, b, 1e-6)
+    _, mean_ref, rstd_ref = layer_norm_stats_reference(x, w, b, 1e-6)
+    assert torch.equal(y, y2)
+    torch.testing.assert_close(mean, mean_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_ref, atol=1e-5, rtol=1e-5)
+    dx, dw, db = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+    dx_ref, dw_ref, db_ref = layer_norm_backward_reference(x, w, mean, rstd, dy)
+    _close(dx, dx_ref, dtype)
+    tol = dict(atol=1e-2 * max(1.0, rows ** 0.5 / 8), rtol=1e-2)
+    torch.testing.assert_close(dw.float(), dw_ref.float(), **tol)
+    torch.testing.assert_close(db.float(), db_ref.float(), **tol)
+    again = fused_layer_norm_bwd(x, w, mean, rstd, dy)
+    assert all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db)))
+
+
+def test_layer_norm_kernel_refuses_a_view(gen):
+    """K1 takes contiguous rows only: a strided view of a residual stream
+    raises (where the JAX LayerNorm takes it); its contiguous copy runs."""
+    x = torch.randn((4, 32, 768), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.ones(768, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(768, device="cuda", dtype=torch.bfloat16)
+    view = x[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_layer_norm(view, w, b)
+    _close(fused_layer_norm(view.contiguous(), w, b),
+           layer_norm_reference(view, w, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,n", [(64, 256), (3, 129), (2, 17)])
+def test_twelve_head_attention_kernels_match_plain(gen, b, n):
+    """K2 (serving, exact, LSE) and K10 at 12 heads of 64, the downstream
+    trunks' attention; K10's two runs bit-equal."""
+    h, dh, dtype = 12, 64, torch.bfloat16
+    c = h * dh
+    qkv = torch.randn((b, n, 3 * c), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, n, c), generator=gen, device="cuda").to(dtype)
+    for serving in (True, False):
+        _close(fused_qkv_attention(qkv, h, serving=serving),
+               fused_qkv_attention_reference(qkv, h, serving=serving), dtype)
+    o, lse = fused_qkv_attention_fwd_lse(qkv, h)
+    o_ref, lse_ref = fused_qkv_attention_lse_reference(qkv, h)
+    _close(o, o_ref, dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    dqkv = fused_qkv_attention_bwd(qkv, o, lse, do, h)
+    _close(dqkv, fused_qkv_attention_backward_reference(qkv, o, lse, do, h),
+           dtype)
+    assert torch.equal(dqkv, fused_qkv_attention_bwd(qkv, o, lse, do, h))
+
+
+@pytest.mark.parametrize("kind", ["recognition", "segmentation"])
+def test_downstream_trunk_step_kernels_match_reference_backend(gen, kind):
+    """One train step's forward and backward of a small downstream trunk
+    (12 heads of 64, 256 tokens, the segmenter's auxiliary tap after 3 of 4
+    blocks) through the kernels against backend="reference": the training
+    entries' launches, the loss and every gradient."""
+    from tae_tpu_torch import models
+    from tae_tpu_torch.cli.train_segmentation import criterion
+    from tae_tpu_torch.train.losses import cross_entropy
+
+    kw = dict(vocab_size=16, decoder_embed_dim=768, decoder_depth=4,
+              decoder_num_heads=12)
+    if kind == "recognition":
+        name, kw = "vit_recognition_numpatches256_vocab16_base", dict(
+            kw, num_classes=10)
+        target = torch.arange(4, device="cuda")
+        loss_of = cross_entropy
+    else:
+        name, kw = "vit_segmentation_numpatches256_vocab16_base", dict(
+            kw, num_classes=5, patch_size=4)
+        target = torch.randint(0, 5, (4, 64, 64), generator=gen, device="cuda")
+        target[:, :8] = 255
+        loss_of = criterion
+    z = torch.randn((4, 256, 16), generator=gen, device="cuda")
+    grads, losses = [], []
+    for backend in (None, "reference"):
+        model = models.create(name, device="cuda", trainable=True, **kw)
+        model.init_weights_(torch.Generator(device="cuda").manual_seed(3))
+        counts = (fused_layer_norm_fwd_stats.launches,
+                  fused_layer_norm_bwd.launches,
+                  fused_qkv_attention_fwd_lse.launches,
+                  fused_qkv_attention_bwd.launches)
+        loss = loss_of(model(z, policy=Policy(), backend=backend), target)
+        loss.backward()
+        torch.cuda.synchronize()
+        norms = 2 * 4 + 1 + (kind == "segmentation")
+        want = (norms, norms, 4, 4) if backend is None else (0, 0, 0, 0)
+        assert tuple(a - b for a, b in zip(
+            (fused_layer_norm_fwd_stats.launches, fused_layer_norm_bwd.launches,
+             fused_qkv_attention_fwd_lse.launches,
+             fused_qkv_attention_bwd.launches), counts)) == want
+        losses.append(float(loss.detach()))
+        grads.append([p.grad.float() for p in model.parameters()])
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])
+    for a, b in zip(*grads):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-20)) <= 2.5e-2
