@@ -23,7 +23,7 @@ Phases (each prints its lines; any failure exits non-zero):
    row kernels' register bodies (K3, K11) spills at a registered width, or
    if the SASS of K4's and K5's finish passes or of K1's forward differs
    from the fingerprints recorded for this nvcc release (``FINISH_SASS``);
-3. kernels: holds each of the seventeen kernels against its plain PyTorch version
+3. kernels: holds each of the eighteen kernels against its plain PyTorch version
    on the card at the slices' shapes, with the tolerances below, and prints
    the median time of both (CUDA events), the least time the card could
    take for the same work (the larger of bytes / 3.35 TB/s and operations /
@@ -138,7 +138,25 @@ Phases (each prints its lines; any failure exits non-zero):
    ``--resume`` for a second epoch, and the first epoch's checkpoint run
    outside the driver through the kernels and the plain versions), each
    step's launches checked;
-8. prints a JSON line with every kernel's numbers, then, as the last line,
+8. the multi-GPU layer and K18 (AdamW with bf16 moments, the port's own
+   kernel: no TPU kernel behind it). The kernel phase runs K18 on the full
+   p128 model's parameter list (3.73 B fp32 parameters and gradients, bf16
+   moments) three times against its plain version, bit for bit, and times
+   it beside its bound (20 bytes a parameter) and
+   ``torch.optim.AdamW(fused=True)`` with fp32 moments. ``train_p128_fsdp``:
+   the process sets up its own NCCL world of 1 and a (1, 1, 1) mesh; at
+   2 + 2 blocks one step under ``parallel.shard_model`` (FSDP2) is held bit
+   for bit against the unwrapped model and K18, and against
+   ``backend="reference"`` with K18's plain version (loss 1e-3, gradients
+   2.5e-2); then the full model (22 + 22 blocks, width 2560) takes three
+   steps at B = 64 with every launch counted (K18 once a step): step time,
+   images per second, peak memory beside the 44.81 GB floor, and the same
+   model's peak with fp32 moments. ``world2``: two gloo ranks on the one
+   card (FSDP2's collectives on CUDA tensors) take the 2 + 2 step of the
+   global batch against one process. ``drivers_mesh``: ``cli.train`` with
+   ``WORLD_SIZE=1 --mesh_fsdp 1`` against the same driver without a mesh,
+   losses and launches per step;
+9. prints a JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -446,6 +464,17 @@ DS_SEG_LR = 1e-4
 # logits lie within the bf16 rounding flips of each other may swap
 DS_PRED_AGREE = 0.99
 
+# train_p128_fsdp: the full p128 model through parallel.shard_model on
+# this process's (1, 1, 1) mesh over NCCL, bf16 moments (K18); the world-2
+# probe's gates (two ranks' bf16 weight gradients each over its own rows);
+# the train driver as a torchrun launch of one against the same driver
+# without a mesh (FSDP2 on one rank moves the same bits)
+P128_FSDP_MODEL = PATHS[1][0]
+P128_FSDP_BATCH, P128_FSDP_STEPS = 64, 3
+WORLD2_TIMEOUT = 300
+WORLD2_LOSS_RTOL, WORLD2_NORM_RTOL = 1e-5, 1e-3
+DRIVER_MESH_RTOL = 1e-6
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W); fp32 is
 # the CUDA cores' rate, which the float32 forms run at (no TF32)
 HBM_BYTES_PER_S = 3.35e12
@@ -502,8 +531,17 @@ K16 = dict(name="flash_attention", route="cuda",
 K17 = dict(name="flash_attention_bwd", route="cuda",
            source="tae_tpu_torch/csrc/flash_attention_bwd.cu",
            replaces="tae_tpu/ops/pallas/flash_attention.py:55")
+# K18 replaces no TPU kernel: the JAX package's update is elementwise work
+# that XLA fuses into the step (tae_tpu/train/optim.py:51-85); the line
+# names that update
+K18 = dict(name="adamw_update", route="cuda",
+           source="tae_tpu_torch/csrc/adamw.cu",
+           replaces="tae_tpu/train/optim.py:51",
+           replaces_note="no pallas_call: adamw(moment_dtype=)'s update, "
+                         "fused by XLA; torch.optim.AdamW keeps its moments "
+                         "in the parameters' dtype")
 KERNELS = (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14, K15,
-           K16, K17)
+           K16, K17, K18)
 # the training forwards are K1, K2 and K16 with one more output; they count
 # their launches apart from the inference forwards
 TRAIN_FORMS = {"fused_layer_norm": "fused_layer_norm_fwd_stats",
@@ -2412,6 +2450,7 @@ def rel_err(got, want) -> float:
 
 def wrappers() -> dict:
     """The kernel wrappers by name; each counts its launches."""
+    from tae_tpu_torch.ops.cuda.adamw import adamw_update
     from tae_tpu_torch.ops.cuda.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_fwd_lse,
         fused_qkv_attention, fused_qkv_attention_bwd,
@@ -2436,7 +2475,7 @@ def wrappers() -> dict:
         fused_qkv_attention_fwd_lse, fused_qkv_attention_bwd,
         int4_matmul_fused, int4_mlp, nearest_code, fused_qkv_attention_i8,
         flash_attention, flash_attention_fwd_lse, flash_attention_bwd,
-        int8_matmul_rows)}
+        int8_matmul_rows, adamw_update)}
 
 
 def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
@@ -4649,6 +4688,506 @@ def phase_downstream_drivers(label: str) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the multi-GPU layer (parallel/) and K18: AdamW with bf16 moments
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def p128_adamw_shapes() -> list[tuple[tuple[int, ...], bool]]:
+    """(shape, decays) of every parameter of the full p128 model, in the
+    optimizer's order (decayed group, then exempt)."""
+    from tae_tpu_torch import models
+    from tae_tpu_torch.train import no_decay_mask
+
+    model = models.create(P128_FSDP_MODEL, device="meta")
+    mask = no_decay_mask(model)
+    named = list(model.named_parameters())
+    return ([(tuple(p.shape), True) for n, p in named if mask[n]]
+            + [(tuple(p.shape), False) for n, p in named if not mask[n]])
+
+
+def phase_k18_kernel() -> dict:
+    """K18 on the full p128 model's parameter list (fp32 parameters and
+    gradients, bf16 moments, its two decay groups): three updates held bit
+    for bit against its plain version tensor by tensor, timed beside its
+    bound (20 bytes a parameter), the plain version and
+    ``torch.optim.AdamW(fused=True)`` with fp32 moments on the same
+    parameters (the nearest PyTorch call: not the same function). Inputs
+    are drawn again from their seeds for the comparison, so that one copy
+    of the 45 GB state is held at a time."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.ops.cuda.adamw import (adamw_update,
+                                              adamw_update_reference,
+                                              bias_corrections, decay_factor)
+
+    shapes = p128_adamw_shapes()
+    n_params = sum(math.prod(s) for s, _ in shapes)
+    b1, b2, eps, lr = 0.9, 0.95, 1e-8, 1e-4
+    decays = [decay_factor(lr, 0.05) if d else 1.0 for _, d in shapes]
+
+    def draw(i, what, step=0):
+        gen = torch.Generator(device="cuda").manual_seed(
+            (1 + i) * 10 + step * 100_003 + {"p": 1, "m": 2, "v": 3, "g": 4}[what])
+        x = torch.randn(shapes[i][0], generator=gen, device="cuda")
+        if what == "m":
+            return (x * 1e-2).to(torch.bfloat16)
+        if what == "v":
+            return (x.square() * 1e-4).to(torch.bfloat16)
+        return x * 1e-2 if what == "g" else x
+
+    def grads(step):
+        return [draw(i, "g", step) for i in range(len(shapes))]
+
+    t0 = time.perf_counter()
+    ps = [draw(i, "p") for i in range(len(shapes))]
+    ms = [draw(i, "m") for i in range(len(shapes))]
+    vs = [draw(i, "v") for i in range(len(shapes))]
+    k = len(shapes)
+    before = adamw_update.launches
+    for step in (1, 2, 3):
+        gs = grads(step)
+        c1, c2 = bias_corrections(b1, b2, step)
+        adamw_update(ps, gs, ms, vs, decays, [lr] * k, [c1] * k, [c2] * k,
+                     b1=b1, b2=b2, eps=eps)
+        del gs
+    torch.cuda.synchronize()
+    launches = adamw_update.launches - before
+    check(launches == 3, f"K18: {launches} launches for 3 updates of {k} "
+                         "tensors (one a step expected)")
+    same = 0
+    for i in range(k):
+        p, m, v = draw(i, "p"), draw(i, "m"), draw(i, "v")
+        for step in (1, 2, 3):
+            c1, c2 = bias_corrections(b1, b2, step)
+            adamw_update_reference(p, draw(i, "g", step), m, v, lr=lr,
+                                   decay=decays[i], b1=b1, b2=b2, eps=eps,
+                                   c1=c1, c2=c2)
+        same += (torch.equal(p, ps[i]) and torch.equal(m, ms[i])
+                 and torch.equal(v, vs[i]))
+    check(same == k, f"K18: {k - same} of {k} p128 tensors differ from the "
+                     "plain version after 3 updates")
+    print(f"[kernels] K18 adamw_update on p128's {k} tensors ({n_params} "
+          f"parameters, fp32 / bf16 moments): parameters and both moments "
+          f"bit-equal to the plain version after 3 updates, one launch each "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    gs = grads(4)
+    c1, c2 = bias_corrections(b1, b2, 4)
+
+    def kernel():
+        adamw_update(ps, gs, ms, vs, decays, [lr] * k, [c1] * k, [c2] * k,
+                     b1=b1, b2=b2, eps=eps)
+
+    def plain():
+        for i in range(k):
+            adamw_update_reference(ps[i], gs[i], ms[i], vs[i], lr=lr,
+                                   decay=decays[i], b1=b1, b2=b2, eps=eps,
+                                   c1=c1, c2=c2)
+
+    ms_kernel = time_ms_events(kernel)
+    ms_plain = timed_calls(plain, 2)
+    bnd = bound(20 * n_params, 10 * n_params, "fp32")
+    del ms[:], vs[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = [torch.nn.Parameter(p) for p in ps]
+    for p, g in zip(params, gs):
+        p.grad = g
+    fused = torch.optim.AdamW(
+        [dict(params=[p for p, (_, d) in zip(params, shapes) if d],
+              weight_decay=0.05),
+         dict(params=[p for p, (_, d) in zip(params, shapes) if not d],
+              weight_decay=0.0)], lr=lr, betas=(b1, b2), eps=eps, fused=True)
+    ms_fused = timed_calls(fused.step, 5)
+    print(f"[kernels] K18 on p128's parameter list: kernel {ms_kernel:.4f} ms, "
+          f"plain {ms_plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}: 20 B a "
+          f"parameter); torch.optim.AdamW(fused=True) with fp32 moments "
+          f"{ms_fused:.4f} ms (28 B a parameter: bound "
+          f"{28 * n_params / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    del fused, params, ps, gs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {K18["name"]: [dict(
+        case=f"p128 parameter list ({k} tensors, {n_params} parameters), "
+             "fp32 parameters and gradients, bf16 moments",
+        max_abs_err=0.0, ms=ms_kernel, plain_ms=ms_plain, bound_ms=bnd[0],
+        bound_by=bnd[1], library_ms=ms_fused,
+        library_is="torch.optim.AdamW(fused=True), fp32 moments (28 B a "
+                   "parameter; the nearest PyTorch call, not the same "
+                   "function)")]}
+
+
+def timed_calls(fn, reps: int) -> float:
+    """Device time of one call of a long-running ``fn`` in ms: ``reps``
+    calls between CUDA events after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def plain_adamw_update(opt, lr: float) -> None:
+    """``AdamWMoments``' step through K18's plain version, tensor by
+    tensor: the optimizer of the ``backend="reference"`` run."""
+    import torch
+
+    from tae_tpu_torch.ops.cuda.adamw import (adamw_update_reference,
+                                              bias_corrections, decay_factor)
+
+    with torch.no_grad():
+        for group in opt.param_groups:
+            group["lr"] = float(lr)
+            (b1, b2), eps = group["betas"], group["eps"]
+            decay = decay_factor(lr, group["weight_decay"])
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = opt._state(p)
+                state["step"] += 1
+                c1, c2 = bias_corrections(b1, b2, int(state["step"]))
+                adamw_update_reference(p, p.grad, state["exp_avg"],
+                                       state["exp_avg_sq"], lr=lr,
+                                       decay=decay, b1=b1, b2=b2, eps=eps,
+                                       c1=c1, c2=c2)
+
+
+class WholeGrads:
+    """A sharded model's parameters with their whole gradients, as
+    ``compare_gradients`` reads a model."""
+
+    class _Param:
+        def __init__(self, grad):
+            self.grad = grad
+
+    def __init__(self, model):
+        self._params = [(n, self._Param(p.grad.full_tensor()))
+                        for n, p in model.named_parameters()]
+
+    def named_parameters(self):
+        return iter(self._params)
+
+    def parameters(self):
+        return (p for _, p in self._params)
+
+
+def setup_world1():
+    """This process's own world of 1 over NCCL and its (1, 1, 1) mesh."""
+    from tae_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    device = initialize_distributed(
+        init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+        device_type="cuda")
+    mesh = make_mesh(1, 1, 1)
+    return mesh, device
+
+
+def p128_fsdp_trainer(mesh, moment_dtype, backend=None, **overrides):
+    """The p128 model (fp32 parameters from seed 0), placed on ``mesh``
+    (None: left whole), its AdamW state with ``moment_dtype`` and the
+    ``train_bf16`` recipe's step (bf16 compute, decay 0.05,
+    ``step_lr(1e-4, 1e-5, 450_000)``). With ``backend="reference"`` the
+    update is K18's plain version."""
+    import torch
+
+    from tae_tpu_torch import models
+    from tae_tpu_torch.parallel import shard_model
+    from tae_tpu_torch.profile_training import WEIGHT_DECAY
+    from tae_tpu_torch.train import (TrainState, adamw, make_train_step,
+                                     step_lr)
+    from tae_tpu_torch.train.optim import Optimizer
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    model = models.create(P128_FSDP_MODEL, device="cuda", trainable=True,
+                          **overrides)
+    model.init_weights_(torch.Generator(device="cuda").manual_seed(0))
+    shard_model(model, mesh)
+    opt = adamw(weight_decay=WEIGHT_DECAY, moment_dtype=moment_dtype)
+    if backend == "reference":
+        opt = Optimizer(init=opt.init, update=plain_adamw_update)
+    policy = Policy()
+
+    def loss_fn(m, batch):
+        return m(batch, policy=policy, backend=backend)[0], {}
+
+    step = make_train_step(loss_fn, opt, step_lr(1e-4, 1e-5, 450_000))
+    return TrainState.create(model, opt), step
+
+
+def p128_fsdp_batch(b: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return torch.randn((b, 3, 256, 256), generator=gen, device="cuda")
+
+
+def phase_train_p128_fsdp(label: str) -> dict:
+    """Path ``train_p128_fsdp``: the full p128 model (22 + 22 blocks, width
+    2560) placed by ``parallel.shard_model`` on this process's (1, 1, 1)
+    mesh over NCCL, AdamW with bf16 moments (K18), B = 64, three steps with
+    every kernel's launches checked (K18 once a step); step time, images
+    per second and peak memory beside the 44.81 GB floor (12 bytes a
+    parameter), then the same model's peak with fp32 moments
+    (``torch.optim.AdamW(fused=True)`` on FSDP2's DTensors). First, at
+    2 + 2 blocks, the step is held bit for bit against the same model and
+    K18 without ``fully_shard``, and to ``backend="reference"`` with K18's
+    plain version under the train gates. Returns the launch counts."""
+    import gc
+
+    import torch
+
+    tag = "train_p128_fsdp"
+    mesh, device = setup_world1()
+    fns = wrappers()
+    bf16 = torch.bfloat16
+    batch = p128_fsdp_batch(P128_FSDP_BATCH)
+
+    # ---- 1. 2 + 2: sharded, unwrapped and the reference
+    cut = dict(depth=2, decoder_depth=2)
+    sharded, step = p128_fsdp_trainer(mesh, bf16, **cut)
+    whole, whole_step = p128_fsdp_trainer(None, bf16, **cut)
+    ref, ref_step = p128_fsdp_trainer(None, bf16, "reference", **cut)
+    cfg = whole.model.cfg
+    want = dict(train_launches(cfg), adamw_update=1)
+    m_s, _ = counted_step(tag, step, sharded, batch, 0, want, {})
+    m_w, _ = counted_step(tag, whole_step, whole, batch, 0, want, {})
+    m_r, _ = counted_step(tag, ref_step, ref, batch, 0, {}, {})
+    loss_s, loss_w, loss_r = (float(m["loss"]) for m in (m_s, m_w, m_r))
+    same = loss_s == loss_w and all(
+        torch.equal(p.full_tensor(), q) for p, q in
+        zip(sharded.model.parameters(), whole.model.parameters()))
+    print(f"[{tag}] 2+2 blocks, B={P128_FSDP_BATCH}: loss under fully_shard "
+          f"{loss_s!r}, without {loss_w!r}; updated parameters bit-equal: "
+          f"{same} (a (1, 1, 1) mesh gathers each block's parameters into a "
+          f"buffer of its own and reduces nothing: the same kernels on the "
+          f"same bits)")
+    check(same, f"{tag}: the step under fully_shard differs from the "
+                "unwrapped model's")
+    print(f"[{tag}] 2+2 vs backend='reference' with K18's plain version: "
+          f"loss {loss_s:.6f} vs {loss_r:.6f} (rtol {TRAIN_LOSS_RTOL})")
+    check(abs(loss_s - loss_r) <= TRAIN_LOSS_RTOL * abs(loss_r),
+          f"{tag}: losses differ from the reference")
+    compare_gradients(tag, WholeGrads(sharded.model), ref.model,
+                      TRAIN_GRAD_REL_TOL)
+    del sharded, whole, ref, step, whole_step, ref_step, m_s, m_w, m_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2. the main path: full depth, bf16 moments, three steps
+    def run(moment_dtype, steps, totals):
+        t = time.perf_counter()
+        state, step = p128_fsdp_trainer(mesh, moment_dtype)
+        cfg = state.model.cfg
+        n = sum(p.numel() for p in state.model.parameters())
+        built = time.perf_counter() - t
+        want = dict(train_launches(cfg),
+                    adamw_update=1 if moment_dtype is not None else 0)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        for f in fns.values():
+            f.launches = 0
+        losses, times = [], []
+        for it in range(steps):
+            m, dt = counted_step(tag, step, state, batch, it, want, totals)
+            losses.append(float(m["loss"]))
+            times.append(dt)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(math.isfinite(x) for x in losses),
+              f"{tag}: losses {losses}")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return cfg, n, built, want, losses, times, peak
+
+    totals: dict = {}
+    cfg, n, built, want, losses, times, peak = run(bf16, P128_FSDP_STEPS,
+                                                   totals)
+    floor = 12 * n
+    ms = statistics.median(times[1:]) * 1e3
+    check(cfg.depth == 22 and cfg.decoder_depth == 22
+          and cfg.embed_dim == 2560, f"{tag}: not the full model ({cfg})")
+    check(all(totals.get(k, 0) == v * P128_FSDP_STEPS for k, v in
+              want.items()), f"{tag}: launches {totals}, per step {want}")
+    print(f"[{tag}] {P128_FSDP_MODEL}: {n} fp32 parameters, "
+          f"{cfg.depth}+{cfg.decoder_depth} blocks, width {cfg.embed_dim}, "
+          f"{cfg.num_patches} tokens, fully_shard on a (1, 1, 1) mesh over "
+          f"NCCL, AdamW bf16 moments (K18), built in {built:.1f} s")
+    print(f"[{tag}] {P128_FSDP_STEPS} steps at B={P128_FSDP_BATCH}: losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)}; {ms:.2f} ms/step "
+          f"(median of steps 2-{P128_FSDP_STEPS}; first {times[0] * 1e3:.2f}),"
+          f" {P128_FSDP_BATCH / ms * 1e3:.1f} img/s; peak memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2 ** 30:.2f} GiB) beside the "
+          f"{floor / 1e9:.2f} GB floor of parameters, gradients and bf16 "
+          f"moments (12 B a parameter); {label}")
+    print(f"[{tag}] launches per step: {json.dumps(want)}")
+
+    # ---- 3. the same model with fp32 moments (fused torch AdamW on DTensors)
+    _, _, _, _, losses32, times32, peak32 = run(None, 2, {})
+    print(f"[{tag}] fp32 moments (torch.optim.AdamW(fused=True) on FSDP2's "
+          f"DTensor parameters): losses {' '.join(f'{x:.6f}' for x in losses32)}"
+          f", {times32[-1] * 1e3:.2f} ms for step 2; peak memory "
+          f"{peak32 / 1e9:.2f} GB ({peak32 / 2 ** 30:.2f} GiB) beside the "
+          f"{16 * n / 1e9:.2f} GB floor (16 B a parameter); bf16 moments "
+          f"saved {(peak32 - peak) / 1e9:.2f} GB")
+    check(losses32[0] == losses[0], f"{tag}: the first loss depends on the "
+                                    "moments' type")
+    return totals
+
+
+def _world2_rank(rank: int, world: int) -> dict:
+    """One rank of the world-2 probe: gloo on CUDA tensors of one card, the
+    p128 model at 2 + 2 on a (1, 2, 1) mesh, one step of the global batch."""
+    import torch
+
+    from tae_tpu_torch.dryrun import global_mean
+    from tae_tpu_torch.parallel import batch_slice, make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, world, 1, device_type="cuda")
+    state, step = p128_fsdp_trainer(mesh, torch.bfloat16, depth=2,
+                                    decoder_depth=2)
+    batch = batch_slice(p128_fsdp_batch(P128_FSDP_BATCH), mesh)
+    _, m = step(state, batch, 0)
+    torch.cuda.synchronize()
+    return dict(loss=global_mean(m["loss"], mesh),
+                grad_norm=float(m["grad_norm"]),
+                local=[tuple(p.to_local().shape)
+                       for p in state.model.parameters()][:2])
+
+
+def phase_world2() -> None:
+    """Two ranks on the one card: FSDP2 over gloo on CUDA tensors (NCCL
+    refuses two ranks on one device), the p128 step at 2 + 2 on a
+    (1, 2, 1) mesh against this process's unwrapped step of the same global
+    batch. Prints the outcome; a collective that gloo cannot carry fails
+    here, with its error."""
+    import tempfile
+
+    import torch
+
+    from tae_tpu_torch.parallel import spawn
+
+    tag = "world2"
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn.run(_world2_rank, 2, store=str(pathlib.Path(tmp) / "s"),
+                          timeout=WORLD2_TIMEOUT)
+    state, step = p128_fsdp_trainer(None, torch.bfloat16, depth=2,
+                                    decoder_depth=2)
+    _, m = step(state, p128_fsdp_batch(P128_FSDP_BATCH), 0)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    del state, step
+    torch.cuda.empty_cache()
+    got = ranks[0]
+    print(f"[{tag}] gloo, 2 ranks on one card, FSDP2 all-gather and "
+          f"reduce-scatter on CUDA tensors: ok; p128 2+2 at B="
+          f"{P128_FSDP_BATCH} on (1, 2, 1) (rank 0 holds {got['local']} of "
+          f"its first parameters): loss {got['loss']!r} vs {loss!r} in one "
+          f"process (rtol {WORLD2_LOSS_RTOL}), gradient norm "
+          f"{got['grad_norm']!r} vs {norm!r} (rtol {WORLD2_NORM_RTOL}: each "
+          f"rank's bf16 weight gradients over its own rows) "
+          f"({time.perf_counter() - t:.1f} s)")
+    check(abs(got["loss"] - loss) <= WORLD2_LOSS_RTOL * abs(loss)
+          and abs(got["grad_norm"] - norm) <= WORLD2_NORM_RTOL * norm,
+          f"{tag}: two ranks differ from one process")
+
+
+def phase_drivers_mesh() -> dict:
+    """Path ``drivers_mesh``: ``cli.train`` as a torchrun launch of one
+    (``WORLD_SIZE=1``, ``--mesh_fsdp 1``: the model under FSDP2 on this
+    process's NCCL group) against the same driver without a mesh, on the
+    ``drivers`` path's data and recipe (the p16 model, B = 64, 3 steps,
+    inline loading so that both see the same batches); each step's losses
+    and launches. Returns the mesh run's launch counts."""
+    import os
+    import tempfile
+
+    import torch
+
+    from tae_tpu_torch.cli import train
+    from tae_tpu_torch.data.fake import make_fake_wds_shard
+    from tae_tpu_torch.models import create
+
+    tag = "drivers_mesh"
+    cfg = create(DRIVER_MODEL, device="meta").cfg
+    want = train_launches(cfg)
+    real = train.make_train_step
+    fns = wrappers()
+
+    def counted_make(losses):
+        def make(*a, **kw):
+            step = real(*a, **kw)
+
+            def counted(state, batch, it):
+                out, _ = counted_request(f"{tag} iteration {it}", fns, {},
+                                         lambda x: step(*x), (state, batch,
+                                                              it), want)
+                losses.append(float(out[1]["loss"]))
+                return out
+
+            return counted
+        return make
+
+    def run(root, out, env, losses):
+        args = train.get_args_parser().parse_args([
+            "--model", DRIVER_MODEL, "--batch_size_per_gpu", str(DRIVER_BATCH),
+            "--num_its", "3", "--save_freq", "1000", "--log_freq", "1",
+            "--train_data_path", str(root / "train-000000.tar"),
+            "--val_data_path", str(root), "--num_workers", "0",
+            "--output_dir", str(out), "--save_prefix", "tr",
+            "--mesh_fsdp", "1"])
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        train.make_train_step = counted_make(losses)
+        try:
+            return driven({} if env else None, train.main, args)[1]
+        finally:
+            train.make_train_step = real
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        make_fake_wds_shard(root / "train-000000.tar",
+                            num_samples=DRIVER_SHARD, size=DRIVER_PX, seed=0)
+        plain, meshed = [], []
+        t = time.perf_counter()
+        run(root, root / "plain", {}, plain)
+        got = run(root, root / "mesh", dict(WORLD_SIZE="1", RANK="0",
+                                            LOCAL_RANK="0"), meshed)
+    torch.cuda.empty_cache()
+    print(f"[{tag}] cli.train with WORLD_SIZE=1 --mesh_fsdp 1 (FSDP2 on a "
+          f"(1, 1, 1) mesh): losses {meshed}; without a mesh: {plain} "
+          f"(bit-equal: {meshed == plain}); launches per step "
+          f"{json.dumps(want)} ({time.perf_counter() - t:.1f} s)")
+    check(len(meshed) == len(plain) == 3 and all(
+        abs(a - b) <= DRIVER_MESH_RTOL * abs(b) for a, b in zip(meshed, plain)),
+        f"{tag}: losses {meshed} vs {plain}")
+    print(f"[{tag}] main path launches: {json.dumps(got)}")
+    return got
+
+
 def main() -> int:
     try:
         phase_device()
@@ -4671,6 +5210,7 @@ def main() -> int:
         last = phase_last_kernels()
         kres["nearest_code"] += last.pop("nearest_code")
         kres.update(last)
+        kres.update(phase_k18_kernel())
         launches = phase_paths()
         for tag in VQ_PATHS:
             launches[tag] = phase_vq(tag)
@@ -4680,7 +5220,10 @@ def main() -> int:
         launches["qknorm_blocks"] = phase_qknorm(kres)
         launches["train_bf16"] = phase_train(kres)
         launches["p128_train"] = phase_p128_train()
+        launches["train_p128_fsdp"] = phase_train_p128_fsdp(card_label())
+        phase_world2()
         launches["drivers"] = phase_drivers()
+        launches["drivers_mesh"] = phase_drivers_mesh()
         label = card_label()
         launches["rec19k"] = phase_rec19k(label)
         launches["seg_p16"] = phase_seg_p16(label)
@@ -4688,6 +5231,11 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
     import torch
 

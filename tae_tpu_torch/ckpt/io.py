@@ -11,6 +11,17 @@ checkpoint can be read without loading the tensors.
 The file is written beside the old one and renamed over it, so a kill at
 any point leaves a checkpoint that loads (the old one or the new one).
 
+Under a mesh (a model placed by ``parallel.shard_model``: DTensor
+parameters) the same single file is written: every rank takes part in
+gathering the full model and optimizer state to rank 0
+(``torch.distributed.checkpoint.state_dict``, ``full_state_dict=True``,
+``cpu_offload=True``), rank 0 writes it, with barriers around the rename.
+On load every rank reads the file and sets the full state onto its own
+shards, so a checkpoint saved on one mesh restores on another, or in one
+process, and the reverse. The optimizer state keeps torch's layout
+(integer keys in the order of the optimizer's parameter groups) whatever
+the mesh; reduced-precision moments keep their type.
+
 :func:`load_params` takes such a file or a reference-layout ``.pth`` (both
 hold the state_dict under ``"model"``; a bare state_dict works too) and
 interpolates positional embeddings whose token grid differs from the
@@ -47,33 +58,85 @@ def _replace_atomically(write, path: Path) -> None:
     os.replace(tmp, path)
 
 
+def _to_host(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def is_sharded(model: nn.Module) -> bool:
+    """Whether ``model`` is placed on a mesh (FSDP2's DTensor parameters)."""
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(p, DTensor) for p in model.parameters())
+
+
+def _full_options(**kw):
+    from torch.distributed.checkpoint.state_dict import StateDictOptions
+
+    return StateDictOptions(full_state_dict=True, **kw)
+
+
+def _param_names(model: nn.Module, opt: torch.optim.Optimizer) -> list[str]:
+    """The names of ``opt``'s parameters in the order of its groups: the
+    order of torch's integer state keys."""
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    return [name_of[id(p)] for g in opt.param_groups for p in g["params"]]
+
+
+def _model_state(model: nn.Module) -> dict:
+    if not is_sharded(model):
+        return _to_host(model.state_dict())
+    from torch.distributed.checkpoint.state_dict import get_model_state_dict
+
+    return get_model_state_dict(model, options=_full_options(cpu_offload=True))
+
+
+def _optimizer_state(model: nn.Module, opt: torch.optim.Optimizer) -> dict:
+    """torch's ``opt.state_dict()`` layout on the host, gathered from the
+    ranks' shards under a mesh (rank 0 gets it, the others an empty dict)."""
+    if not is_sharded(model):
+        return _to_host(opt.state_dict())
+    from torch.distributed.checkpoint.state_dict import get_optimizer_state_dict
+
+    by_name = get_optimizer_state_dict(model, opt,
+                                       options=_full_options(cpu_offload=True))
+    if not by_name:
+        return {}
+    names = [n for g in by_name["param_groups"] for n in g["params"]]
+    index = {n: i for i, n in enumerate(names)}
+    return {"state": {index[n]: st for n, st in by_name["state"].items()},
+            "param_groups": [dict(g, params=[index[n] for n in g["params"]])
+                             for g in by_name["param_groups"]]}
+
+
 def save_checkpoint(path: str | Path, state: Any, *, step: int = 0,
                     args: dict | None = None, extra: dict | None = None
                     ) -> None:
     """Save a model (``nn.Module``) or a full ``TrainState`` (model and
-    optimizer) with its metadata. Tensors are copied to the host first."""
+    optimizer) with its metadata. Tensors are copied to the host first.
+    Under a mesh every rank calls it and rank 0 writes."""
+    from tae_tpu_torch.parallel.mesh import barrier, is_main_process
+
     path = Path(path).absolute()
-    path.parent.mkdir(parents=True, exist_ok=True)
     model = state if isinstance(state, nn.Module) else state.model
     opt = None if isinstance(state, nn.Module) else state.opt
     meta = {"step": int(step), "args": args or {}, **(extra or {})}
-
-    def to_host(obj):
-        if isinstance(obj, torch.Tensor):
-            return obj.detach().cpu()
-        if isinstance(obj, dict):
-            return {k: to_host(v) for k, v in obj.items()}
-        if isinstance(obj, (list, tuple)):
-            return type(obj)(to_host(v) for v in obj)
-        return obj
-
-    blob = {"format": FORMAT, "model": to_host(model.state_dict()),
-            "optimizer": None if opt is None else to_host(opt.state_dict()),
+    blob = {"format": FORMAT, "model": _model_state(model),
+            "optimizer": None if opt is None else _optimizer_state(model, opt),
             "meta": meta}
-    _replace_atomically(lambda tmp: torch.save(blob, tmp), path)
-    _replace_atomically(
-        lambda tmp: tmp.write_text(json.dumps(meta, indent=2, default=str)),
-        _meta_path(path))
+    barrier()
+    if is_main_process():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        _replace_atomically(lambda tmp: torch.save(blob, tmp), path)
+        _replace_atomically(
+            lambda tmp: tmp.write_text(json.dumps(meta, indent=2, default=str)),
+            _meta_path(path))
+    barrier()
 
 
 def _read(path: str | Path) -> dict:
@@ -96,13 +159,19 @@ def promote_checkpoint(src: str | Path, dst: str | Path) -> None:
     """Copy checkpoint ``src`` over ``dst`` by a local file copy and a
     rename: a training loop saves the train state once (the "latest"
     checkpoint) and promotes it to the best-eval path on improvement. A kill
-    at any point leaves ``dst`` loadable."""
+    at any point leaves ``dst`` loadable. Rank 0 copies; every rank waits.
+    """
+    from tae_tpu_torch.parallel.mesh import barrier, is_main_process
+
     src, dst = Path(src).absolute(), Path(dst).absolute()
-    dst.parent.mkdir(parents=True, exist_ok=True)
-    _replace_atomically(lambda tmp: shutil.copyfile(src, tmp), dst)
-    if _meta_path(src).exists():
-        _replace_atomically(lambda tmp: shutil.copyfile(_meta_path(src), tmp),
-                            _meta_path(dst))
+    if is_main_process():
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        _replace_atomically(lambda tmp: shutil.copyfile(src, tmp), dst)
+        if _meta_path(src).exists():
+            _replace_atomically(
+                lambda tmp: shutil.copyfile(_meta_path(src), tmp),
+                _meta_path(dst))
+    barrier()
 
 
 def checkpoint_step(path: str | Path) -> int | None:
@@ -121,8 +190,33 @@ def _load_state_dict(model: nn.Module, blob: dict) -> None:
     (under ``"model"``, or bare) into ``model``."""
     own = model.state_dict()
     loaded = maybe_interpolate_tree(state_dict_of(blob), own)
-    model.load_state_dict({k: v for k, v in loaded.items() if k in own},
-                          strict=False)
+    loaded = {k: v for k, v in loaded.items() if k in own}
+    if not is_sharded(model):
+        model.load_state_dict(loaded, strict=False)
+        return
+    from torch.distributed.checkpoint.state_dict import set_model_state_dict
+
+    set_model_state_dict(model, loaded, options=_full_options(strict=False))
+
+
+def _load_optimizer(model: nn.Module, opt: torch.optim.Optimizer,
+                    saved: dict) -> None:
+    """torch's layout into ``opt``; under a mesh each rank keeps its shard."""
+    if not is_sharded(model):
+        opt.load_state_dict(saved)
+        return
+    from torch.distributed.checkpoint.state_dict import set_optimizer_state_dict
+
+    names = _param_names(model, opt)
+    ids = [i for g in saved["param_groups"] for i in g["params"]]
+    if len(ids) != len(names):
+        raise ValueError(f"the checkpoint's optimizer has {len(ids)} "
+                         f"parameters, this one {len(names)}")
+    name = dict(zip(ids, names))
+    by_name = {"state": {name[i]: st for i, st in saved["state"].items()},
+               "param_groups": [dict(g, params=[name[i] for i in g["params"]])
+                                for g in saved["param_groups"]]}
+    set_optimizer_state_dict(model, opt, by_name, options=_full_options())
 
 
 def load_params(path: str | Path, model: nn.Module) -> nn.Module:
@@ -150,7 +244,7 @@ def load_train_state(path: str | Path, model: nn.Module,
     restored = False
     if opt is not None and blob.get("optimizer") is not None:
         try:
-            opt.load_state_dict(blob["optimizer"])
+            _load_optimizer(model, opt, blob["optimizer"])
             restored = True
         except (ValueError, KeyError, RuntimeError) as e:
             print(f"checkpoint optimizer state skipped ({e})")

@@ -4,8 +4,11 @@
 Flag names stay those of the JAX package's drivers (and the reference's),
 so a launch script ports with a module-name change. ``--device`` places the
 run (``cuda`` by default; ``--device cpu`` runs the plain PyTorch versions,
-as the tests do); the mesh flags exist for the same scripts and refuse a
-mesh, which the port does not have yet (ROADMAP A13).
+as the tests do). Under ``torchrun`` (``WORLD_SIZE`` set) :func:`build_mesh`
+joins the process group and builds the ``(data, fsdp, 1)`` mesh that
+``--mesh_fsdp`` asks for; the drivers shard the model on it
+(``parallel.shard_model``) and give each rank its rows of every global
+batch. ``--mesh_tensor`` above 1 refuses (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -32,10 +35,11 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
     """The JAX package's ``add_tpu_args``, flag for flag."""
     g = parser.add_argument_group("device")
     g.add_argument("--mesh_fsdp", default=1, type=int,
-                   help="fsdp mesh axis size (>1 is not ported: ROADMAP A13)")
+                   help="fsdp mesh axis size (parameter sharding, FSDP2); "
+                        "the data axis takes the other processes")
     g.add_argument("--mesh_tensor", default=1, type=int,
                    help="tensor-parallel mesh axis size (>1 is not ported: "
-                        "ROADMAP A13)")
+                        "ROADMAP A16)")
     g.add_argument("--remat", action="store_true",
                    help="recompute block activations in the backward pass")
     g.add_argument("--attn_backend", default=None,
@@ -48,21 +52,39 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--device", default="cuda",
                    help="torch device the run is placed on (cuda, or cpu)")
     g.add_argument("--dist_url", default="env://",
-                   help="accepted for compatibility; the port runs one "
-                        "process")
+                   help="init_method of the process group when WORLD_SIZE "
+                        "is set (torchrun's env://, or file:// / tcp://)")
     g.add_argument("--model_args", default="", type=str,
                    help="JSON dict of config overrides for the model factory "
                         "(e.g. '{\"embed_dim\": 64}'; used by tests/smoke runs)")
 
 
-def device_of(args) -> torch.device:
-    """The run's device, after refusing a mesh the port cannot build."""
-    for flag in ("mesh_fsdp", "mesh_tensor"):
-        if getattr(args, flag, 1) > 1:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: parameter and "
-                             "tensor sharding are not ported yet (ROADMAP "
-                             "A13, multi-GPU); the port runs on one device")
-    return torch.device(args.device)
+def build_mesh(args):
+    """``(mesh, device)`` of the run. Where ``WORLD_SIZE`` is set (torchrun)
+    this joins the process group (``--dist_url``; NCCL on ``cuda``, gloo on
+    ``cpu``) and builds the ``(data=-1, fsdp=--mesh_fsdp, 1)`` mesh; the
+    device is ``cuda:LOCAL_RANK`` or the CPU. Without it the run is a world
+    of 1: no mesh, ``--device`` as given. ``--mesh_fsdp`` must divide the
+    world, as the JAX ``make_mesh`` requires; ``--mesh_tensor`` above 1
+    refuses (ROADMAP A16)."""
+    from tae_tpu_torch.parallel import mesh as pmesh
+    from tae_tpu_torch.parallel.sharding import axis_sizes
+
+    fsdp, tensor = getattr(args, "mesh_fsdp", 1), getattr(args, "mesh_tensor", 1)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    try:
+        pmesh.mesh_sizes(world, -1, fsdp, tensor)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(f"--mesh_fsdp {fsdp} --mesh_tensor {tensor}: {e}")
+    device = torch.device(args.device)
+    if "WORLD_SIZE" not in os.environ:
+        return None, device
+    device = pmesh.initialize_distributed(init_method=args.dist_url,
+                                          device_type=device.type)
+    mesh = pmesh.make_mesh(-1, fsdp, tensor, device_type=device.type)
+    print(f"mesh: {axis_sizes(mesh)} over {world} processes, rank "
+          f"{pmesh.rank()} on {device}", flush=True)
+    return mesh, device
 
 
 def build_model(name: str, model_args: str = "", **kwargs):
@@ -133,14 +155,17 @@ def frozen_encoder(args, device: torch.device):
     return encoder.requires_grad_(False)
 
 
-def fetch_metrics(metrics: dict):
+def fetch_metrics(metrics: dict, mesh=None):
     """Start copying a step's metrics (0-dim tensors) to the host: one
     stacked tensor, copied ``non_blocking`` into pinned memory right behind
     the step, and an event after the copy. :func:`host_metrics` waits on that
     event alone, so reading step k after step k+1 was queued does not wait
-    for step k+1."""
+    for step k+1. On a mesh the values are first averaged over the ranks
+    (each rank's loss is the mean of its rows, so the average is the global
+    batch's), every rank reading the same numbers."""
     names = list(metrics)
     vals = torch.stack([metrics[k].detach().float() for k in names])
+    vals = mean_over_ranks(vals, mesh)
     if not vals.is_cuda:
         return names, vals, None
     host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
@@ -148,6 +173,44 @@ def fetch_metrics(metrics: dict):
     done = torch.cuda.Event()
     done.record()
     return names, host, done
+
+
+def mean_over_ranks(vals: torch.Tensor, mesh) -> torch.Tensor:
+    """``vals`` averaged over the (data, fsdp) ranks of ``mesh`` (the
+    tensor itself without one)."""
+    from tae_tpu_torch.parallel.sharding import data_rank
+
+    _, count = data_rank(mesh)
+    if count == 1:
+        return vals
+    import torch.distributed as dist
+
+    vals = vals.clone()
+    dist.all_reduce(vals)
+    return vals / count
+
+
+def rank_batches(batches, mesh):
+    """This rank's rows of each global batch (a tuple of arrays)."""
+    from tae_tpu_torch.parallel.sharding import batch_slice
+
+    for batch in batches:
+        yield tuple(batch_slice(x, mesh) for x in batch)
+
+
+def real_rows_mean(per: torch.Tensor, n: int, mesh) -> float:
+    """The mean of the first ``n`` rows of a padded global batch, from
+    ``per``, this rank's rows of it (per-sample values; all of them without
+    a mesh), summed over the ranks."""
+    from tae_tpu_torch.parallel.mesh import all_reduce_sum
+    from tae_tpu_torch.parallel.sharding import data_rank
+
+    index, count = data_rank(mesh)
+    if count == 1:
+        return float(per[:n].mean())
+    first = index * per.shape[0]
+    mine = per[:max(0, min(per.shape[0], n - first))]
+    return float(all_reduce_sum([float(mine.double().sum())])[0]) / n
 
 
 def host_metrics(fetched) -> dict[str, float]:
@@ -365,23 +428,32 @@ def pad_batch(batch: np.ndarray, target: int) -> tuple[np.ndarray, int]:
 
 
 def clamp_eval_batch(requested: int, model, device: torch.device,
-                     flag: str = "--batch_size_per_gpu") -> int:
+                     mesh=None, flag: str = "--batch_size_per_gpu") -> int:
     """Memory guard for the big eval batches the reference defaults to
     (reference evaluate.py:59-61 uses 8192). Estimates the forward pass's
-    footprint per sample and clamps ``requested`` down to what fits.
+    footprint per sample and clamps ``requested`` (the global batch) down
+    to what fits, a multiple of the data × fsdp ranks.
 
-    Budget = 80% of the device's memory (``TAE_TPU_HBM_BYTES`` overrides;
-    else ``torch.cuda.mem_get_info``'s total on a CUDA device, 16 GiB
-    elsewhere) minus the model's parameter bytes. The per-sample
-    activation model is the JAX package's: the fp32 input image and
-    patchified target, two MLP-hidden-sized bf16 buffers in flight, a few
-    residual-stream buffers, and the fp32 prediction."""
+    Budget per rank = 80% of the device's memory (``TAE_TPU_HBM_BYTES``
+    overrides; else ``torch.cuda.mem_get_info``'s total on a CUDA device,
+    16 GiB elsewhere) minus the rank's parameter bytes (its shards under a
+    mesh). The per-sample activation model is the JAX package's: the fp32
+    input image and patchified target, two MLP-hidden-sized bf16 buffers in
+    flight, a few residual-stream buffers, and the fp32 prediction; each
+    rank holds its share of the batch."""
+    from tae_tpu_torch.parallel.sharding import data_rank
+
     cfg = model.cfg
     hbm = int(os.environ.get("TAE_TPU_HBM_BYTES", "0"))
     if not hbm:
         hbm = (torch.cuda.mem_get_info(device)[1] if device.type == "cuda"
                else 16 << 30)
-    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    def local(p):
+        return p.to_local() if hasattr(p, "to_local") else p
+
+    param_bytes = sum(local(p).numel() * p.element_size()
+                      for p in model.parameters())
 
     p = cfg.patch_size
     n_tok = (cfg.img_size // p) ** 2
@@ -394,17 +466,20 @@ def clamp_eval_batch(requested: int, model, device: torch.device,
         + 2 * n_tok * p * p * 3 * 4            # pred + squared error, fp32
     )
     budget = int(hbm * 0.8) - param_bytes
+    _, ways = data_rank(mesh)
     if budget <= act_per_sample:
         raise SystemExit(
-            f"Model params ({param_bytes / 1e9:.2f} GB) leave no memory for "
-            f"eval activations on a {hbm / 1e9:.2f} GB device (parameter "
-            f"sharding, --mesh_fsdp, is ROADMAP A13).")
-    max_batch = max(budget // act_per_sample, 1)
+            f"Model params ({param_bytes / 1e9:.2f} GB a rank) leave no "
+            f"memory for eval activations on a {hbm / 1e9:.2f} GB device. "
+            f"Shard the params over more devices with --mesh_fsdp N.")
+    max_batch = max(budget // act_per_sample * ways, ways)
     if requested <= max_batch:
         return requested
-    print(f"Clamping {flag} {requested} -> {max_batch}: the forward pass "
-          f"needs ~{act_per_sample * requested / 1e9:.2f} GB of activations "
-          f"on top of {param_bytes / 1e9:.2f} GB of params, but the device "
-          f"has {hbm / 1e9:.2f} GB (set TAE_TPU_HBM_BYTES to override the "
-          f"estimate).")
-    return max_batch
+    clamped = max(max_batch // ways * ways, ways)
+    print(f"Clamping {flag} {requested} -> {clamped}: the forward pass "
+          f"needs ~{act_per_sample * requested // ways / 1e9:.2f} GB a rank "
+          f"of activations on top of {param_bytes / 1e9:.2f} GB of params, "
+          f"but each device has {hbm / 1e9:.2f} GB. Use more devices or "
+          f"--mesh_fsdp to raise the fit (or set TAE_TPU_HBM_BYTES to "
+          f"override the estimate).")
+    return clamped

@@ -14,6 +14,13 @@ k+1.
 Like the reference, the default transform is the train-style random crop
 (encode.py:55-60); ``--deterministic`` takes the val-style centre crop.
 
+Under ``torchrun`` each rank encodes its share of the input shards (rank r
+takes shards r, r + N, ... over its workers) into shards of its own
+(``{prefix}_latents-rRRR-NNNNNN.npz``), and rank 0 writes the one index of
+all of them. With ``--mesh_fsdp`` above 1 the encoder is sharded, and a rank
+whose data has run out encodes empty batches until every rank's has, so
+that the parameter gathers of all ranks meet.
+
 Run: ``python -m tae_tpu_torch.cli.encode --model tae_patch16_vocab256_px256
 --model_ckpt ckpt.pth --data_path 'shards-{000000..000099}.tar'
 --output_dir out --save_prefix train`` (``--device cpu`` for the CPU).
@@ -87,26 +94,29 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def _encode_iter(path: str, input_size: int, deterministic: bool, seed: int,
-                 worker_id: int, num_workers: int):
+                 process_index: int, process_count: int, worker_id: int,
+                 num_workers: int):
     """PIL fallback path (native library unavailable)."""
     spec = ShardSpec.from_string(path, resampled=False)
-    reader = WebDatasetReader(spec, decode=decode_jpg_cls,
-                              shard_index=worker_id, shard_count=num_workers)
+    index = process_index * num_workers + worker_id
+    reader = WebDatasetReader(spec, decode=decode_jpg_cls, shard_index=index,
+                              shard_count=process_count * num_workers)
     if deterministic:
         tf = center_crop_transform(input_size, pad=32)
         for img, cls in reader:
             yield tf(img), np.int32(cls)
     else:
         tf = random_resized_crop_transform(input_size)
-        rng = np.random.default_rng(seed + worker_id)
+        rng = np.random.default_rng(seed + index)
         for img, cls in reader:
             yield tf(img, rng), np.int32(cls)
 
 
 def _encode_iter_batched(path: str, input_size: int, deterministic: bool,
                          seed: int, batch_size: int, u8: bool,
-                         patch_size: int,
-                         worker_id: int, num_workers: int):
+                         patch_size: int, process_index: int,
+                         process_count: int, worker_id: int,
+                         num_workers: int):
     """Native batched path: raw tar bytes -> fused C++ decode_batch straight
     into the batch buffer (no per-sample arrays, no np.stack collate — the
     collate copy alone costs ~40% of host time on the per-sample path).
@@ -115,9 +125,10 @@ def _encode_iter_batched(path: str, input_size: int, deterministic: bool,
     from tae_tpu_torch.data.transforms import _sample_rrc_box
 
     spec = ShardSpec.from_string(path, resampled=False)
-    reader = WebDatasetReader(spec, decode=None,
-                              shard_index=worker_id, shard_count=num_workers)
-    rng = np.random.default_rng(seed + worker_id)
+    index = process_index * num_workers + worker_id
+    reader = WebDatasetReader(spec, decode=None, shard_index=index,
+                              shard_count=process_count * num_workers)
+    rng = np.random.default_rng(seed + index)
     threads = _common.decode_threads(num_workers)
 
     def flush(datas: list[bytes], clss: list[int]):
@@ -176,16 +187,21 @@ def _encode_iter_batched(path: str, input_size: int, deterministic: bool,
 
 def make_encode_loader(data_path: str, input_size: int, deterministic: bool,
                        seed: int, batch_size: int, num_workers: int,
-                       u8: bool = False, patch_size: int = 0) -> BatchLoader:
+                       u8: bool = False, patch_size: int = 0,
+                       process_index: int = 0,
+                       process_count: int = 1) -> BatchLoader:
     """Loader for the tokenization input path: native batched decode when
     libtaedata is available, per-sample PIL otherwise. ``patch_size > 0``
-    emits pre-patchified (N, C·p²) batches (extract_patches layout)."""
+    emits pre-patchified (N, C·p²) batches (extract_patches layout). Process
+    ``process_index`` of ``process_count`` reads its share of the input
+    shards."""
     from tae_tpu_torch.data import native
 
     if native.available():
         make_iter = functools.partial(_encode_iter_batched, data_path,
                                       input_size, deterministic, seed,
-                                      batch_size, u8, patch_size)
+                                      batch_size, u8, patch_size,
+                                      process_index, process_count)
         return BatchLoader(make_iter, batch_size, num_workers=num_workers,
                            prebatched=True)
     if u8 or patch_size:
@@ -196,15 +212,18 @@ def make_encode_loader(data_path: str, input_size: int, deterministic: bool,
               "decoder (native/taedata.cpp, built at first use with g++ and "
               "libjpeg); taking the PIL path", flush=True)
     make_iter = functools.partial(_encode_iter, data_path, input_size,
-                                  deterministic, seed)
+                                  deterministic, seed, process_index,
+                                  process_count)
     return BatchLoader(make_iter, batch_size, num_workers=num_workers)
 
 
 class ShardWriter:
     """Accumulate (latents, targets) and flush ``.npz`` shards + an index."""
 
-    def __init__(self, output_dir: Path, prefix: str, shard_size: int):
+    def __init__(self, output_dir: Path, prefix: str, shard_size: int,
+                 tag: str = ""):
         self.dir = output_dir
+        self.tag = tag
         self.dir.mkdir(parents=True, exist_ok=True)
         self.prefix = prefix
         self.shard_size = shard_size
@@ -226,26 +245,58 @@ class ShardWriter:
         out_z, rest_z = z[:count], z[count:]
         out_t, rest_t = t[:count], t[count:]
         idx = len(self.shards)
-        path = self.dir / f"{self.prefix}_latents-{idx:06d}.npz"
+        path = self.dir / f"{self.prefix}_latents-{self.tag}{idx:06d}.npz"
         np.savez(path, latents=out_z, targets=out_t)
         self.shards.append({"path": path.name, "num_samples": int(out_z.shape[0])})
         self.buf_z, self.buf_t = [rest_z], [rest_t]
         self.buffered = int(rest_z.shape[0])
         print(f"wrote {path} ({out_z.shape[0]} samples)")
 
-    def close(self) -> None:
+    def close(self, mesh=None) -> None:
+        """Flush the rest; the index of every rank's shards, in rank order,
+        written by rank 0."""
+        from tae_tpu_torch.parallel import is_main_process
+        from tae_tpu_torch.parallel.sharding import data_rank
+
         if self.buffered:
             self._flush(self.buffered)
-        index = {"shards": self.shards,
-                 "num_samples": int(sum(s["num_samples"] for s in self.shards))}
+        shards = self.shards
+        if data_rank(mesh)[1] > 1:
+            import torch.distributed as dist
+
+            every: list = [None] * dist.get_world_size()
+            dist.all_gather_object(every, shards)
+            shards = [s for rank_shards in every for s in rank_shards]
+        if not is_main_process():
+            return
+        index = {"shards": shards,
+                 "num_samples": int(sum(s["num_samples"] for s in shards))}
         (self.dir / f"{self.prefix}_index.json").write_text(json.dumps(index, indent=2))
+
+
+def _lockstep(batches, limit: int):
+    """``batches``, then None until every rank's have run out (at most
+    ``limit`` in all): a sharded encoder's forward gathers parameters from
+    every rank, so all ranks run the same number of them."""
+    import torch.distributed as dist
+
+    batches = iter(batches)
+    for _ in range(limit):
+        item = next(batches, None)
+        more = torch.tensor([0 if item is None else 1])
+        if dist.get_backend() == "nccl":
+            more = more.cuda()
+        dist.all_reduce(more, op=dist.ReduceOp.MAX)
+        if not int(more):
+            return
+        yield item
 
 
 def main(args) -> dict:
     from tae_tpu_torch.tokenizer import Tokenizer
 
     print(f"{args}".replace(", ", ",\n"))
-    device = _common.device_of(args)
+    mesh, device = _common.build_mesh(args)
     if args.equalize and args.quantization not in ("int8", "int4"):
         raise SystemExit("--equalize requires --quantization int8/int4")
     # an inference-only driver: parameters in the compute dtype (bf16), and
@@ -254,21 +305,27 @@ def main(args) -> dict:
         args.model, ckpt=args.model_ckpt or None, dtype=torch.bfloat16,
         device=device, quantization=args.quantization, component="encoder",
         equalize=args.equalize or None, patch_input=bool(args.patch_layout),
-        seed=args.seed,
+        seed=args.seed, mesh=mesh,
         **(json.loads(args.model_args) if args.model_args else {}))
     tok.backend = args.attn_backend
     if args.model_ckpt:
         print(f"Loaded checkpoint {args.model_ckpt}")
     cfg = tok.model.cfg
 
+    from tae_tpu_torch.parallel.sharding import axis_sizes, data_rank
+
+    rank, ranks = data_rank(mesh)
+    lockstep = axis_sizes(mesh)["fsdp"] > 1
     _common.print_decoder()
     loader = make_encode_loader(args.data_path, args.input_size,
                                 args.deterministic, args.seed,
                                 args.batch_size, args.num_workers,
                                 u8=args.device_normalize,
                                 patch_size=(cfg.patch_size
-                                            if args.patch_layout else 0))
-    writer = ShardWriter(Path(args.output_dir), args.save_prefix, args.shard_size)
+                                            if args.patch_layout else 0),
+                                process_index=rank, process_count=ranks)
+    writer = ShardWriter(Path(args.output_dir), args.save_prefix,
+                         args.shard_size, f"r{rank:03d}-" if ranks > 1 else "")
     t0 = time.time()
     n_imgs = 0
 
@@ -277,7 +334,19 @@ def main(args) -> dict:
     meta_q: collections.deque = collections.deque()
 
     def host_imgs():
-        for imgs, targets in itertools.islice(loader, args.num_iters):
+        batches = itertools.islice(loader, args.num_iters)
+        if lockstep:
+            batches = _lockstep(batches, args.num_iters)
+        padded = None
+        for item in batches:
+            if item is None:    # this rank is done: encode rows to drop
+                if padded is None:
+                    raise RuntimeError("a rank read no batch at all; give "
+                                       "every rank an input shard")
+                meta_q.append((np.zeros((0,), np.int32), 0))
+                yield padded
+                continue
+            imgs, targets = item
             padded, n = _common.pad_batch(imgs, args.batch_size)
             meta_q.append((np.asarray(targets), n))
             yield padded
@@ -312,8 +381,8 @@ def main(args) -> dict:
             print(f"Iteration {it}: {n_imgs / max(time.time() - t0, 1e-9):.0f} img/s")
     if pending is not None:
         land(pending)
-    writer.close()
-    if args.pth_output:
+    writer.close(mesh)
+    if args.pth_output and rank == 0:
         from tae_tpu_torch.data.latents import shards_to_pth
 
         n_pth = shards_to_pth(

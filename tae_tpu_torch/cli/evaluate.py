@@ -8,6 +8,11 @@ writes an originals / reconstructions grid. ``--resume`` loads a checkpoint
 ``ckpt/io.load_params``. The model holds fp32 parameters and computes in
 bf16 with the exact softmax, as the JAX driver does.
 
+Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh; every
+rank reads the same batches and runs its rows of each, and each batch's mean
+is taken over the real rows of all ranks, so the loss is one process's.
+Rank 0 writes the grid.
+
 Run: ``python -m tae_tpu_torch.cli.evaluate --model tae_patch16_vocab256_px256
 --resume ckpt.pth --val_data_path val/`` (``--device cpu`` for the CPU).
 """
@@ -24,6 +29,7 @@ import torch
 from tae_tpu_torch.cli import _common
 from tae_tpu_torch.data.loader import device_prefetch
 from tae_tpu_torch.data.transforms import IMAGENET_STD
+from tae_tpu_torch.parallel import batch_slice, is_main_process, shard_model
 from tae_tpu_torch.utils.dtypes import Policy
 from tae_tpu_torch.utils.image_grid import save_image
 
@@ -64,7 +70,7 @@ def per_sample_loss_and_pred(model, imgs: torch.Tensor, policy: Policy,
 
 def main(args) -> float:
     print(f"{args}".replace(", ", ",\n"))
-    device = _common.device_of(args)
+    mesh, device = _common.build_mesh(args)
     model = _common.build_model(args.model, model_args=args.model_args,
                                 device=device).eval()
     model.init_weights_(torch.Generator(device=device).manual_seed(args.seed))
@@ -77,11 +83,12 @@ def main(args) -> float:
 
         load_params(args.resume, model)
         print(f"Loaded checkpoint {args.resume}")
+    model = shard_model(model, mesh)
 
     # the reference's batch 8192 default does not fit the big configs;
     # clamp by a footprint estimate instead of running out of memory
     args.batch_size_per_gpu = _common.clamp_eval_batch(
-        args.batch_size_per_gpu, model, device)
+        args.batch_size_per_gpu, model, device, mesh)
 
     _common.print_decoder()
     loader = _common.imagefolder_val_loader(args.val_data_path, args.input_size,
@@ -104,10 +111,10 @@ def main(args) -> float:
     with torch.no_grad():
         for imgs in device_prefetch(padded_batches(), device):
             n = real_counts.popleft()
-            per, psnr, _ = per_sample_loss_and_pred(model, imgs, policy,
-                                                    args.attn_backend)
-            losses.append(float(per[:n].mean()))
-            psnrs.append(float(psnr[:n].mean()))
+            per, psnr, _ = per_sample_loss_and_pred(
+                model, batch_slice(imgs, mesh), policy, args.attn_backend)
+            losses.append(_common.real_rows_mean(per, n, mesh))
+            psnrs.append(_common.real_rows_mean(psnr, n, mesh))
         eval_loss = float(np.mean(losses))
         print(f"Eval loss: {eval_loss}")
         print(f"Eval PSNR: {float(np.mean(psnrs)):.2f} dB")
@@ -117,6 +124,8 @@ def main(args) -> float:
             _, _, pred = per_sample_loss_and_pred(model, x, policy,
                                                   args.attn_backend)
             recon = model.unpatchify(pred).float().cpu().numpy()
+        if args.display and samples_for_display is not None \
+                and is_main_process():
             combined = np.concatenate([samples_for_display, recon], axis=0)
             out = (Path(args.output_dir)
                    / f"{args.save_prefix}_sample_reconstructions.jpg")

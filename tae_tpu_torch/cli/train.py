@@ -21,9 +21,17 @@ reference's best-eval contract, train.py:164-172) when the eval loss
 improves. ``--resume_auto`` continues from the newer of the two at its step
 + 1, with the optimizer state.
 
+Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh
+(``parallel.shard_model``). The global batch is ``--batch_size_per_gpu`` x
+``--accum_iter``, the JAX package's for the same flags: every rank reads the
+same stream and keeps its rows of each batch, so a run on N processes sees
+the images one process sees (each rank decodes the whole batch). Metrics
+are averaged over the ranks; rank 0 writes the logs, checkpoints and grids.
+
 Run: ``python -m tae_tpu_torch.cli.train --model tae_patch16_vocab256_px256
 --train_data_path 'shards-{000000..000099}.tar' --val_data_path val/ ...``
-(``--device cpu`` for the CPU).
+(``--device cpu`` for the CPU; ``torchrun --nproc_per_node N -m
+tae_tpu_torch.cli.train ... --mesh_fsdp F`` for N processes).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from tae_tpu_torch.ckpt.io import load_params, save_checkpoint
 from tae_tpu_torch.cli import _common
 from tae_tpu_torch.cli.evaluate import per_sample_loss_and_pred
 from tae_tpu_torch.data.loader import device_prefetch
+from tae_tpu_torch.parallel import batch_slice, is_main_process, shard_model
 from tae_tpu_torch.train import TrainState, adamw, make_train_step, step_lr
 from tae_tpu_torch.utils.dtypes import Policy
 from tae_tpu_torch.utils.image_grid import save_image
@@ -86,7 +95,7 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def main(args) -> None:
     print(f"{args}".replace(", ", ",\n"))
-    device = _common.device_of(args)
+    mesh, device = _common.build_mesh(args)
     model = _common.build_model(args.model, model_args=args.model_args,
                                 device=device, trainable=True)
     model.init_weights_(torch.Generator(device=device).manual_seed(args.seed))
@@ -98,6 +107,7 @@ def main(args) -> None:
     if args.ckpt:
         load_params(args.ckpt, model)
         print(f"Resumed checkpoint {args.ckpt}")
+    model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
 
     start_it = 0
@@ -123,8 +133,8 @@ def main(args) -> None:
     def loss_fn(m, imgs):
         # uint8 batches (--device_normalize) are normalized on the card
         imgs = maybe_device_normalize(imgs, m.cfg.patch_size, torch.float32)
-        loss, _ = m.forward(imgs, policy=policy, backend=args.attn_backend,
-                            remat=args.remat)
+        loss, _ = m(imgs, policy=policy, backend=args.attn_backend,
+                    remat=args.remat)
         return loss, {}
 
     step = make_train_step(loss_fn, opt,
@@ -137,7 +147,7 @@ def main(args) -> None:
 
     def train_batches():
         for imgs, _ in train_loader:
-            yield imgs
+            yield batch_slice(imgs, mesh)
 
     metric_logger = MetricLogger()
     display_samples = None
@@ -161,7 +171,7 @@ def main(args) -> None:
             display_samples = imgs[:8].clone()
 
         state, metrics = step(state, imgs, it)
-        fetched = _common.fetch_metrics(metrics)
+        fetched = _common.fetch_metrics(metrics, mesh)
         if pending is not None:
             read(*pending)          # step it - 1, while step it runs
         pending = (it, fetched)
@@ -173,7 +183,7 @@ def main(args) -> None:
         if not evaluating:
             continue
         print(f"Iteration {it}, evaluating ...")
-        eval_loss = evaluate(model, args, device, policy)
+        eval_loss = evaluate(model, args, device, policy, mesh)
 
         # the JSONL row first: the eval trajectory is the run's primary
         # artifact and must not wait behind a checkpoint save
@@ -181,7 +191,8 @@ def main(args) -> None:
         log_stats = {**{f"train_{k}": m.global_avg
                         for k, m in metric_logger.meters.items()},
                      "eval_loss": float(eval_loss), "iteration": it}
-        append_jsonl(out_dir / f"{args.save_prefix}_log.txt", log_stats)
+        if is_main_process():
+            append_jsonl(out_dir / f"{args.save_prefix}_log.txt", log_stats)
 
         improved = eval_loss < best_eval_loss
         best_eval_loss = min(best_eval_loss, float(eval_loss))
@@ -205,22 +216,29 @@ def main(args) -> None:
 
 def save_reconstructions(model, samples: torch.Tensor, policy: Policy,
                          path: Path) -> None:
-    """Originals over reconstructions, as a grid of eight a row."""
+    """Originals over reconstructions, as a grid of eight a row. Under a
+    mesh every rank runs the forward (its parameters are gathered) and
+    rank 0 writes."""
     from tae_tpu_torch.data.transforms import device_normalize
 
     with torch.no_grad():
         if samples.dtype == torch.uint8:
             samples = device_normalize(samples, torch.float32)
-        _, pred = model.forward(samples, policy=policy)
+        _, pred = model(samples, policy=policy)
         recon = model.unpatchify(pred).float()
+    if not is_main_process():
+        return
     combined = np.concatenate([samples.cpu().numpy(), recon.cpu().numpy()],
                               axis=0)
     save_image(combined, path, nrow=8, padding=1)
 
 
-def evaluate(model, args, device: torch.device, policy: Policy) -> float:
+def evaluate(model, args, device: torch.device, policy: Policy,
+             mesh=None) -> float:
     """Full val pass; the mean of per-batch mean MSEs (reference
-    train.py:203-223, the unequal final batch included)."""
+    train.py:203-223, the unequal final batch included). Under a mesh every
+    rank reads the same batches and runs its rows; each batch's mean is
+    taken over the real rows of all ranks."""
     eval_bs = 8 * args.batch_size_per_gpu
     loader = _common.imagefolder_val_loader(args.val_data_path, args.input_size,
                                             eval_bs, num_workers=args.num_workers)
@@ -235,9 +253,10 @@ def evaluate(model, args, device: torch.device, policy: Policy) -> float:
     losses = []
     with torch.no_grad():
         for imgs in device_prefetch(padded_batches(), device):
-            per, _, _ = per_sample_loss_and_pred(model, imgs, policy,
-                                                 args.attn_backend)
-            losses.append(float(per[:real_counts.popleft()].mean()))
+            per, _, _ = per_sample_loss_and_pred(
+                model, batch_slice(imgs, mesh), policy, args.attn_backend)
+            losses.append(_common.real_rows_mean(per, real_counts.popleft(),
+                                                 mesh))
     eval_loss = float(np.mean(losses))
     print(f"Current eval loss: {eval_loss}")
     return eval_loss

@@ -15,6 +15,10 @@ The encoder is cast once to bf16, pruned to its encoder half and, with
 softmax, as the JAX drivers call ``forward_encoder``. The reference's
 two-GPU pipeline (encoder on one card, classifier on the other) is one card
 here. Step metrics are read one step behind (:func:`_common.fetch_metrics`).
+Under ``torchrun`` the classifier is sharded on the ``(data, fsdp)`` mesh,
+every rank reads the global batch (``--batch_size`` x ``--accum_iter``) and
+keeps its rows, the frozen encoder is whole on every rank, and rank 0
+writes the checkpoints' files and the logs.
 
 Run: ``python -m tae_tpu_torch.cli.train_recognition_in19k --model
 vit_recognition_numpatches256_vocab256_base --num_classes 19167 --encoder
@@ -34,6 +38,7 @@ from tae_tpu_torch.ckpt.io import load_train_state, save_checkpoint
 from tae_tpu_torch.cli import _common
 from tae_tpu_torch.data.loader import BatchLoader, device_prefetch
 from tae_tpu_torch.data.transforms import maybe_device_normalize
+from tae_tpu_torch.parallel import is_main_process, shard_model
 from tae_tpu_torch.train import TrainState, adamw, make_train_step, step_lr
 from tae_tpu_torch.train.losses import cross_entropy, topk_accuracy
 from tae_tpu_torch.utils.dtypes import Policy
@@ -93,7 +98,7 @@ def _latent_iter(path: str, seed: int, worker_id: int, num_workers: int):
 
 def main(args) -> None:
     print(f"{args}".replace(", ", ",\n"))
-    device = _common.device_of(args)
+    mesh, device = _common.build_mesh(args)
     policy = Policy()
     model = _common.build_model(args.model, model_args=args.model_args,
                                 num_classes=args.num_classes, device=device,
@@ -107,6 +112,7 @@ def main(args) -> None:
     enc_policy = Policy(param_dtype=torch.bfloat16)
 
     opt = adamw(weight_decay=args.weight_decay)
+    model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
     if args.model_ckpt:
         _, restored, _ = load_train_state(args.model_ckpt, model, state.opt)
@@ -157,12 +163,13 @@ def main(args) -> None:
 
     print("Starting training!")
     pending = None
-    for it, batch in enumerate(device_prefetch(loader, device)):
+    for it, batch in enumerate(device_prefetch(
+            _common.rank_batches(loader, mesh), device)):
         if it == args.num_its:
             break
         state, metrics = step(state, tuple(batch), it)
         fetched = _common.fetch_metrics(
-            {k: metrics[k] for k in ("loss", "acc1", "acc5")})
+            {k: metrics[k] for k in ("loss", "acc1", "acc5")}, mesh)
         if pending is not None:
             read(*pending)          # step it - 1, while step it runs
         pending = (it, fetched)
@@ -180,7 +187,8 @@ def main(args) -> None:
         log_stats = {**{f"train_{k}": m.global_avg
                         for k, m in metric_logger.meters.items()},
                      "iteration": it}
-        append_jsonl(out_dir / f"{stem}_log.txt", log_stats)
+        if is_main_process():
+            append_jsonl(out_dir / f"{stem}_log.txt", log_stats)
         metric_logger = MetricLogger()
     if pending is not None:         # the data ran out before num_its
         read(*pending)

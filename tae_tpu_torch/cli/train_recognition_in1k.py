@@ -9,6 +9,10 @@ cross-entropy, StepLR(90, 0.1), head-swap transfer from an in19k checkpoint
 :103-128), an acc1 / acc5 eval each epoch, and a checkpoint written when
 the best eval acc1 improves (reference :173-184). The frozen encoder is
 ``train_recognition_in19k``'s. Step metrics are read one step behind.
+Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh (the
+encoder whole on every rank), every rank reads the same batches and keeps
+its rows, the eval's counts are summed over the ranks, and rank 0 writes
+the logs.
 
 Run: ``python -m tae_tpu_torch.cli.train_recognition_in1k --model
 vit_recognition_numpatches256_vocab256_base --model_ckpt in19k_checkpoint
@@ -31,6 +35,7 @@ from tae_tpu_torch.data.loader import BatchLoader, device_prefetch
 from tae_tpu_torch.data.mixup import mixup_cutmix_collate
 from tae_tpu_torch.data.randaugment import rand_augment
 from tae_tpu_torch.data.transforms import random_resized_crop_transform
+from tae_tpu_torch.parallel import is_main_process, shard_model
 from tae_tpu_torch.train import TrainState, adamw, epoch_step_lr, make_train_step
 from tae_tpu_torch.train.losses import cross_entropy, topk_accuracy
 from tae_tpu_torch.utils.dtypes import Policy
@@ -90,13 +95,14 @@ def _train_iter(root: str, input_size: int, seed: int, worker_id: int,
 
 def main(args) -> None:
     print(f"{args}".replace(", ", ",\n"))
-    device = _common.device_of(args)
+    mesh, device = _common.build_mesh(args)
     policy = Policy()
     model = _common.build_downstream_model(args, device, args.num_classes)
     encoder = _common.frozen_encoder(args, device)
     enc_policy = Policy(param_dtype=torch.bfloat16)
 
     opt = adamw(weight_decay=args.weight_decay)
+    model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
 
     def encode(imgs):
@@ -140,11 +146,11 @@ def main(args) -> None:
                 print(f"ep {epoch} it {pit}: {metric_logger}", flush=True)
 
         pending = None
-        for it, batch in enumerate(device_prefetch(map(collate, loader),
-                                                   device)):
+        batches = _common.rank_batches(map(collate, loader), mesh)
+        for it, batch in enumerate(device_prefetch(batches, device)):
             state, metrics = step(state, tuple(batch), epoch)
             fetched = _common.fetch_metrics(
-                {k: metrics[k] for k in ("loss", "lr")})
+                {k: metrics[k] for k in ("loss", "lr")}, mesh)
             if pending is not None:
                 read(*pending)
             pending = (it, fetched)
@@ -152,7 +158,7 @@ def main(args) -> None:
             read(*pending)
 
         print(f"Epoch {epoch}, evaluating ...")
-        test_stats = evaluate(eval_step, args, device)
+        test_stats = evaluate(eval_step, args, device, mesh)
         if test_stats["acc1"] > best_eval_acc1:
             print("Best eval accuracy improved! Saving checkpoint.")
             save_checkpoint(out_dir / f"{stem}_checkpoint", state, step=epoch,
@@ -165,26 +171,38 @@ def main(args) -> None:
                         for k, m in metric_logger.meters.items()},
                      **{f"test_{k}": v for k, v in test_stats.items()},
                      "epoch": epoch}
-        append_jsonl(out_dir / f"{stem}_log.txt", log_stats)
+        if is_main_process():
+            append_jsonl(out_dir / f"{stem}_log.txt", log_stats)
 
 
-def evaluate(eval_step, args, device: torch.device) -> dict[str, float]:
+def evaluate(eval_step, args, device: torch.device,
+             mesh=None) -> dict[str, float]:
     """Per-epoch eval: sample-weighted acc1 / acc5 and the mean of the
     batches' losses (reference :209-244). A short last batch is padded to
-    the batch size (its loss, as the JAX package's, over the padded batch)."""
+    the batch size (its loss, as the JAX package's, over the padded batch).
+    Under a mesh every rank reads the same batches, runs its rows and
+    counts its real ones; the meters are summed over the ranks."""
+    from tae_tpu_torch.parallel import batch_slice
+    from tae_tpu_torch.parallel.sharding import data_rank
+
+    index, _ = data_rank(mesh)
     loader = _common.imagefolder_val_loader(args.val_data_path, args.input_size,
                                             args.batch_size, num_workers=0)
     logger = MetricLogger()
     for imgs, targets in loader:
         padded, n = _common.pad_batch(imgs, args.batch_size)
         tpad, _ = _common.pad_batch(np.asarray(targets), args.batch_size)
+        padded, tpad = batch_slice(padded, mesh), batch_slice(tpad, mesh)
         loss, logits = eval_step(torch.from_numpy(padded).to(device),
                                  torch.from_numpy(tpad).to(device))
+        first = index * len(padded)
+        n = max(0, min(len(padded), n - first))     # this rank's real rows
         logits = logits[:n].float().cpu().numpy()
-        t = np.asarray(targets)[:n]
+        t = tpad[:n]
         top5 = np.argsort(-logits, axis=-1)[:, :5]
-        acc1 = 100.0 * float(np.mean(top5[:, 0] == t))
-        acc5 = 100.0 * float(np.mean(np.any(top5 == t[:, None], axis=-1)))
+        acc1 = 100.0 * float(np.mean(top5[:, 0] == t)) if n else 0.0
+        acc5 = (100.0 * float(np.mean(np.any(top5 == t[:, None], axis=-1)))
+                if n else 0.0)
         logger.update(loss=float(loss))
         logger.update(n=n, acc1=acc1, acc5=acc5)
     logger.synchronize_between_processes()

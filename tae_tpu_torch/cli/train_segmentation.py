@@ -10,6 +10,10 @@ the saved epoch + 1, and head-swap transfer from an in1k-pretrained
 checkpoint (:133-136, 156-157). The frozen encoder is the recognition
 drivers' (bf16, pruned to its encoder half, optionally int8). Step metrics
 are read one step behind.
+Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh (the
+encoder whole on every rank), every rank reads the same batches and keeps
+its rows, the eval's counts are summed over the ranks, and rank 0 writes
+the logs.
 
 Run: ``python -m tae_tpu_torch.cli.train_segmentation --dataset coco
 --data_path coco/ --model vit_segmentation_numpatches256_vocab256_base
@@ -31,6 +35,7 @@ from tae_tpu_torch.cli import _common
 from tae_tpu_torch.data.coco_seg import load_dataset
 from tae_tpu_torch.data.loader import BatchLoader, device_prefetch
 from tae_tpu_torch.data.seg_transforms import SegEvalTransform, SegTrainTransform
+from tae_tpu_torch.parallel import is_main_process, shard_model
 from tae_tpu_torch.train import TrainState, adamw, epoch_step_lr, make_train_step
 from tae_tpu_torch.utils.confusion import ConfusionMatrix
 from tae_tpu_torch.utils.dtypes import Policy
@@ -105,7 +110,7 @@ def _train_iter(args_tuple, worker_id: int, num_workers: int):
 
 def main(args) -> None:
     print(f"{args}".replace(", ", ",\n"))
-    device = _common.device_of(args)
+    mesh, device = _common.build_mesh(args)
     policy = Policy()
 
     _, num_classes = load_dataset(args.dataset, args.data_path, "val",
@@ -115,6 +120,7 @@ def main(args) -> None:
     enc_policy = Policy(param_dtype=torch.bfloat16)
 
     opt = adamw(weight_decay=args.weight_decay)
+    model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
     start_epoch = args.start_epoch
     if args.resume:
@@ -130,7 +136,7 @@ def main(args) -> None:
     def loss_fn(m, batch):
         imgs, target = batch
         out = m(encode(imgs), policy=policy, backend=args.attn_backend,
-                remat=args.remat)
+                remat=args.remat, mesh=mesh)
         return criterion(out, target), {}
 
     step = make_train_step(loss_fn, opt, epoch_step_lr(args.lr, 90, 0.1))
@@ -157,32 +163,40 @@ def main(args) -> None:
                 print(f"Epoch: [{epoch}] [{pit}] {logger}", flush=True)
 
         pending = None
-        for it, batch in enumerate(device_prefetch(loader, device)):
+        batches = _common.rank_batches(loader, mesh)
+        for it, batch in enumerate(device_prefetch(batches, device)):
             state, metrics = step(state, tuple(batch), epoch)
             fetched = _common.fetch_metrics(
-                {k: metrics[k] for k in ("loss", "lr")})
+                {k: metrics[k] for k in ("loss", "lr")}, mesh)
             if pending is not None:
                 read(*pending)
             pending = (it, fetched)
         if pending is not None:
             read(*pending)
 
-        confmat = evaluate(predict, args, num_classes, device)
+        confmat = evaluate(predict, args, num_classes, device, mesh)
         print(confmat)
         save_checkpoint(out_dir / "checkpoint", state, step=epoch,
                         args=dict(vars(args)),
                         extra={"mean_iou": confmat.mean_iou})
-        append_jsonl(out_dir / "seg_log.txt",
-                     {**{f"train_{k}": m.global_avg
-                         for k, m in logger.meters.items()},
-                      "mean_iou": confmat.mean_iou, "epoch": epoch})
+        if is_main_process():
+            append_jsonl(out_dir / "seg_log.txt",
+                         {**{f"train_{k}": m.global_avg
+                             for k, m in logger.meters.items()},
+                          "mean_iou": confmat.mean_iou, "epoch": epoch})
 
 
-def evaluate(predict, args, num_classes: int,
-             device: torch.device) -> ConfusionMatrix:
+def evaluate(predict, args, num_classes: int, device: torch.device,
+             mesh=None) -> ConfusionMatrix:
     """The val split at ``--input_size`` (image bilinear, mask nearest)
     through ``predict``, in batches of ``--batch_size_per_gpu`` (a short
-    last batch padded), into a confusion matrix."""
+    last batch padded), into a confusion matrix. Under a mesh every rank
+    reads the same batches and counts its real rows; the matrices are
+    summed over the ranks."""
+    from tae_tpu_torch.parallel import batch_slice
+    from tae_tpu_torch.parallel.sharding import data_rank
+
+    index, _ = data_rank(mesh)
     ds, _ = load_dataset(args.dataset, args.data_path, "val",
                          transforms=SegEvalTransform(args.input_size))
     confmat = ConfusionMatrix(num_classes)
@@ -194,8 +208,12 @@ def evaluate(predict, args, num_classes: int,
 
     for imgs, target in BatchLoader(val_iter, bs):
         padded, n = _common.pad_batch(imgs, bs)
+        padded = batch_slice(padded, mesh)
+        first = index * len(padded)
+        n = max(0, min(len(padded), n - first))     # this rank's real rows
         pred = predict(torch.from_numpy(padded).to(device))[:n]
-        confmat.update(torch.from_numpy(np.asarray(target)[:n]), pred)
+        target = np.asarray(target)[first:first + n]
+        confmat.update(torch.from_numpy(target), pred)
     confmat.reduce_from_all_processes()
     return confmat
 

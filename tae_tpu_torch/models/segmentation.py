@@ -29,6 +29,7 @@ from tae_tpu_torch.models.recognition import LatentTrunk
 from tae_tpu_torch.models.registry import register_model
 from tae_tpu_torch.nn import vit
 from tae_tpu_torch.ops.patchify import unpatchify
+from tae_tpu_torch.parallel.sharding import constrain_batch
 from tae_tpu_torch.utils.dtypes import DEFAULT, Policy
 
 
@@ -72,29 +73,31 @@ class SegmentationViT(LatentTrunk):
         self.aux_head = vit.Linear(cfg.decoder_embed_dim, cfg.head_dim, **kw)
         self.requires_grad_(trainable)
 
-    def _dense(self, head, norm, x: torch.Tensor,
-               backend: str | None) -> torch.Tensor:
+    def _dense(self, head, norm, x: torch.Tensor, backend: str | None,
+               mesh) -> torch.Tensor:
         """LayerNorm, head, per-patch logits -> (B, C, H, W)."""
         c = self.cfg
-        return unpatchify(head(norm(x, backend), backend), c.patch_size,
-                          c.num_classes)
+        y = constrain_batch(head(norm(x, backend), backend), mesh)
+        return constrain_batch(unpatchify(y, c.patch_size, c.num_classes),
+                               mesh)
 
     def forward(self, z: torch.Tensor, *, policy: Policy = DEFAULT,
                 backend: str | None = None, remat: bool | str = False,
                 mesh=None) -> dict[str, torch.Tensor]:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharded training is not ported yet (ROADMAP A13, "
-                "multi-GPU); the port runs on one device")
+        """``mesh``: the training mesh, as the JAX package takes it; each
+        rank's activations are its own rows, so it passes through
+        ``parallel.constrain_batch`` unchanged (sharding is the model's,
+        ``parallel.shard_model``)."""
         c = self.cfg
         x = self.embed(z, policy, backend)
         stack = self.decoder_blocks
         # blocks [0, aux), then the auxiliary head (tae.py:416-420); the
         # residual stream stays contiguous, as the LayerNorm kernel reads it
         x = vit.blocks_apply(stack[:c.aux_depth], x, backend, remat=remat)
-        aux = self._dense(self.aux_head, self.aux_decoder_norm, x, backend)
+        aux = self._dense(self.aux_head, self.aux_decoder_norm, x, backend,
+                          mesh)
         x = vit.blocks_apply(stack[c.aux_depth:], x, backend, remat=remat)
-        out = self._dense(self.head, self.decoder_norm, x, backend)
+        out = self._dense(self.head, self.decoder_norm, x, backend, mesh)
         return {"out": policy.cast_to_output(out),
                 "aux": policy.cast_to_output(aux)}
 

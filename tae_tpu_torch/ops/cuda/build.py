@@ -141,6 +141,10 @@ SIGNATURES = {
     "tae_nearest_code_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
     # m, v, k, the card's SMs, int[10] out: K14's fp32 plan
     "tae_nearest_code_f32_plan": ((_I, _I, _I, _I, ctypes.POINTER(_I)), _I),
+    # table, tensors, chunks, parameter dtype, moment dtype, b1, 1 - b1, b2,
+    # 1 - b2, eps, stream: K18's multi-tensor AdamW update
+    "tae_adamw_update": ((_VP, _I, ctypes.c_longlong, _I, _I, _F, _F, _F, _F,
+                          _F, _VP), _I),
     "tae_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -1,0 +1,16 @@
+"""Multi-process training (counterpart of ``tae_tpu/parallel``): the
+``(data, fsdp, tensor)`` mesh over ``torch.distributed`` and FSDP2
+placement on its ``data`` × ``fsdp`` half."""
+
+from tae_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXES,
+    initialize_distributed,
+    is_main_process,
+    make_mesh,
+)
+from tae_tpu_torch.parallel.sharding import (  # noqa: F401
+    batch_slice,
+    constrain_batch,
+    param_placements,
+    shard_model,
+)

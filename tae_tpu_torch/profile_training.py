@@ -22,12 +22,23 @@ JAX bench's ``train_rec19k_int8enc_mb64`` recipe, ``chip_smoke.py``'s
 19167-class head, AdamW without weight decay::
 
     python -m tae_tpu_torch.profile_training --recipe rec19k --batch 64 [--remat]
+
+``--recipe p128_fsdp`` profiles ``chip_smoke.py``'s ``train_p128_fsdp``
+step: the full ``tae_patch128_vocab4096_px256`` (22 + 22 blocks, width
+2560) placed by ``parallel.shard_model`` on a (1, 1, 1) mesh of this
+process's own NCCL group, AdamW with bf16 moments (K18); ``--no_shard``
+takes the same step on the unwrapped model, ``--moments fp32`` the fused
+``torch.optim.AdamW`` with fp32 moments::
+
+    python -m tae_tpu_torch.profile_training --recipe p128_fsdp --batch 64 \
+        [--no_shard] [--moments fp32]
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import torch
 
@@ -108,12 +119,52 @@ def build_rec19k(batch: int, remat: bool, backend: str | None, seed: int = 0):
     return TrainState.create(model, opt), step, (images, labels)
 
 
+P128_FSDP_MODEL = "tae_patch128_vocab4096_px256"
+
+
+def build_p128_fsdp(batch: int, shard: bool, moments: str, seed: int = 0):
+    """The train_p128_fsdp recipe: ``(state, step, images)``."""
+    import socket
+
+    from tae_tpu_torch import models
+    from tae_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                        shard_model)
+    from tae_tpu_torch.train import TrainState, adamw, make_train_step, step_lr
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    mesh = None
+    if shard:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        initialize_distributed(init_method=f"tcp://localhost:{port}",
+                               world_size=1, rank=0, device_type="cuda")
+        mesh = make_mesh(1, 1, 1)
+    model = models.create(P128_FSDP_MODEL, device="cuda", trainable=True)
+    model.init_weights_(torch.Generator(device="cuda").manual_seed(seed))
+    shard_model(model, mesh)
+    opt = adamw(weight_decay=WEIGHT_DECAY,
+                moment_dtype=torch.bfloat16 if moments == "bf16" else None)
+    policy = Policy()
+    step = make_train_step(lambda m, b: (m(b, policy=policy)[0], {}), opt,
+                           step_lr(1e-4, 1e-5, 450_000))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    images = torch.randn((batch, 3, 256, 256), generator=gen, device="cuda")
+    return TrainState.create(model, opt), step, images
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="tae_patch16_vocab256_px256")
-    ap.add_argument("--recipe", default="tae", choices=["tae", "rec19k"],
-                    help="rec19k: the downstream recognition step (see the "
-                         "module docstring; --model is ignored)")
+    ap.add_argument("--recipe", default="tae",
+                    choices=["tae", "rec19k", "p128_fsdp"],
+                    help="rec19k: the downstream recognition step; p128_fsdp:"
+                         " the full p128 model under FSDP2 with bf16 moments "
+                         "(see the module docstring; --model is ignored)")
+    ap.add_argument("--no_shard", action="store_true",
+                    help="p128_fsdp: the same step without fully_shard")
+    ap.add_argument("--moments", default="bf16", choices=["bf16", "fp32"],
+                    help="p128_fsdp: the AdamW moments' type")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--backend", default=None, choices=[None, "reference"],
@@ -131,6 +182,11 @@ def main(argv=None) -> int:
         state, step, batch = build_rec19k(args.batch, args.remat, args.backend,
                                           args.seed)
         title = f"rec19k ({REC19K_MODEL}, int8 {REC19K_ENCODER} encoder)"
+    elif args.recipe == "p128_fsdp":
+        state, step, batch = build_p128_fsdp(args.batch, not args.no_shard,
+                                             args.moments, args.seed)
+        placed = "unwrapped" if args.no_shard else "fully_shard (1, 1, 1)"
+        title = f"{P128_FSDP_MODEL} {placed}, {args.moments} moments"
     else:
         state = build_state(args.model, args.seed)
         step = make_step(args.remat, args.backend)
@@ -150,10 +206,16 @@ def main(argv=None) -> int:
         one_step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        one_step(batch)
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) * 1e3 / args.steps
     rows, wall = profile(one_step, batch, args.steps)
-    # the optimizer's profiler range spans its own kernels on the device
-    # timeline; counting it would count them twice
-    rows = {k: v for k, v in rows.items() if not k.startswith("Optimizer.")}
+    # the optimizer's and FSDP2's profiler ranges span kernels on the device
+    # timeline; counting them would count those kernels twice
+    rows = {k: v for k, v in rows.items()
+            if not k.startswith(("Optimizer.", "FSDP::"))}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     total = sum(ms for ms, _ in rows.values())
     mode = ("remat" if args.remat else "no remat") + (
@@ -161,10 +223,15 @@ def main(argv=None) -> int:
     print(f"== {title} train step B={args.batch} {mode}: kernels "
           f"{total:.3f} ms, wall {wall:.3f} ms per step, busy share "
           f"{total / wall:.3f}, {args.batch / wall * 1e3:.1f} img/s, peak "
-          f"memory {peak:.2f} GiB")
+          f"memory {peak:.2f} GiB; without the profiler {bare:.3f} ms per "
+          f"step")
     for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.4f} ms  {100 * ms / total:5.1f}%  x{n:<6g} "
               f"{short(name)}")
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

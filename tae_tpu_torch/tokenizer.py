@@ -101,7 +101,7 @@ class Tokenizer:
                         patch_input: bool = False,
                         seed: int = 0,
                         attn_q8: bool | None = None,
-                        qkv_q8: bool = False,
+                        qkv_q8: bool = False, mesh=None,
                         **model_overrides) -> "Tokenizer":
         """Build ``model_name`` on ``device``, initialise it from
         ``torch.Generator(device).manual_seed(seed)``, load ``ckpt`` (a
@@ -131,7 +131,15 @@ class Tokenizer:
         (None: the rule of ``attention_route``); ``qkv_q8``: whether an int8
         block from 128 tokens feeds the qkv product's int8 output to the
         int8-input attention; run-time choices that the serving artifact
-        does not record."""
+        does not record.
+
+        ``mesh`` (``parallel.make_mesh``; the JAX signature's): each rank
+        serves its own requests on ``device``. A float model with an
+        ``fsdp`` axis above 1 is sharded by ``parallel.shard_model`` (every
+        rank must then make the same calls: the forward gathers parameters
+        from all of them); the int8 and int4 serving artifacts are buffers
+        and stay whole on every rank, as does a float model on a
+        data-only mesh."""
         from tae_tpu_torch import models
         from tae_tpu_torch.ckpt.io import load_params
         from tae_tpu_torch.ops.int8 import QUANTIZATIONS, prepare_serving_
@@ -163,6 +171,10 @@ class Tokenizer:
                              patch_input=patch_input)
         set_attn_q8(model, attn_q8)
         set_qkv_q8(model, qkv_q8)
+        from tae_tpu_torch.parallel.sharding import axis_sizes, shard_model
+
+        if quantization is None and axis_sizes(mesh)["fsdp"] > 1:
+            shard_model(model, mesh)
         return cls(model=model,
                    policy=Policy(param_dtype=dtype, compute_dtype=dtype))
 

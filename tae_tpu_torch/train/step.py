@@ -81,7 +81,9 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
     losses. ``clip_grad`` scales the gradients by
     ``min(1, clip / (norm + 1e-6))``. ``metrics``: ``loss``, ``lr``,
     ``grad_norm`` (before clipping) and the loss function's aux values, all
-    0-dim device tensors."""
+    0-dim device tensors. On a model placed by ``parallel.shard_model``
+    the loss (and the aux values) are this rank's, over its rows; the
+    gradient norm is the global one."""
 
     def step(state: TrainState, batch: Batch, it: int
              ) -> tuple[TrainState, dict[str, torch.Tensor]]:
@@ -111,6 +113,8 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
             scale = torch.clamp(clip_grad / (gnorm + 1e-6), max=1.0)
             torch._foreach_mul_(grads, scale)
         optimizer.update(opt, lr)
+        if hasattr(gnorm, "full_tensor"):   # FSDP2: a replicated DTensor
+            gnorm = gnorm.full_tensor()
         metrics = {"loss": loss,
                    "lr": torch.full((), lr, dtype=torch.float32,
                                     device=loss.device),

@@ -45,9 +45,14 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self) -> None:
-        """Sum count/total across processes (reference util/misc.py:42-53).
-        The port runs one process (multi-GPU is ROADMAP A13): nothing to
-        sum."""
+        """Sum count/total across processes, in float64 (reference
+        util/misc.py:42-53); nothing to do in a world of 1."""
+        from tae_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+
+        if world_size() == 1:
+            return
+        count, total = all_reduce_sum([self.count, self.total])
+        self.count, self.total = int(count), float(total)
 
     @property
     def median(self) -> float:

@@ -36,6 +36,8 @@ share, token counts on both sides of its 64-key chunks and exact forms on
 scores far past the serving clip.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -1980,3 +1982,45 @@ def test_downstream_trunk_step_kernels_match_reference_backend(gen, kind):
     assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])
     for a, b in zip(*grads):
         assert float((a - b).norm() / b.norm().clamp_min(1e-20)) <= 2.5e-2
+
+
+@pytest.mark.parametrize("p_dtype,m_dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float16),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_adamw_update_kernel_bit_equal_to_plain(gen, p_dtype, m_dtype):
+    """K18 over tensors of ragged lengths (1, a chunk's edges, a 2-D weight,
+    an empty one) and offset views, one launch a step, against its plain
+    version tensor by tensor: three steps bit for bit."""
+    from tae_tpu_torch.ops.cuda import adamw as k18
+
+    shapes = [(1,), (k18.CHUNK - 1,), (k18.CHUNK + 1,), (0,), (320, 77),
+              (3, 5, 7)]
+    base = torch.randn(sum(math.prod(s) for s in shapes) + 1, generator=gen,
+                       device="cuda").to(p_dtype)
+    ps, at = [], 1              # views at odd element offsets
+    for s in shapes:
+        n = math.prod(s)
+        ps.append(base[at:at + n].view(s))
+        at += n
+    ms = [torch.randn(s, generator=gen, device="cuda").to(m_dtype) * 0.01
+          for s in shapes]
+    vs = [(torch.randn(s, generator=gen, device="cuda") ** 2).to(m_dtype)
+          for s in shapes]
+    want = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    decays = [k18.decay_factor(1e-3, 0.05) if len(s) > 1 else 1.0
+              for s in shapes]
+    for step in (1, 2, 3):
+        gs = [torch.randn(s, generator=gen, device="cuda").to(p_dtype)
+              for s in shapes]
+        c1, c2 = k18.bias_corrections(0.9, 0.95, step)
+        before = k18.adamw_update.launches
+        k18.adamw_update(ps, gs, ms, vs, decays, [1e-3] * 6, [c1] * 6,
+                         [c2] * 6, b1=0.9, b2=0.95, eps=1e-8)
+        assert k18.adamw_update.launches == before + 1
+        for i in range(len(shapes)):
+            k18.adamw_update_reference(
+                want[0][i], gs[i], want[1][i], want[2][i], lr=1e-3,
+                decay=decays[i], b1=0.9, b2=0.95, eps=1e-8, c1=c1, c2=c2)
+    torch.cuda.synchronize()
+    for got, exp in zip(ps + ms + vs, want[0] + want[1] + want[2]):
+        assert torch.equal(got, exp)

@@ -194,9 +194,18 @@ def test_reference_state_dict_loads_through_load_params(tmp_path):
 
 
 def test_mesh_is_refused():
+    """``forward(mesh=)`` takes the training mesh, as the JAX package does,
+    and returns what it returns without one (activations are rank-local:
+    ``parallel.constrain_batch`` passes them through)."""
     _, _, tm = _pair("n4")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tm(torch.zeros(1, 4, 16), mesh=object())
+    z = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 4, 16)).astype(np.float32))
+    with torch.no_grad():
+        plain = tm(z, policy=FP32)
+        meshed = tm(z, policy=FP32, mesh={"data": 2, "fsdp": 1})
+    assert set(meshed) == {"out", "aux"}
+    for k in plain:
+        assert torch.equal(plain[k], meshed[k])
 
 
 def test_registry_matches_jax():
