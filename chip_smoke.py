@@ -67,7 +67,8 @@ Phases (each prints its lines; any failure exits non-zero):
    past a tile, K 16 past a ring step); K3 at p128's width beside an empty
    kernel on its grid, and K11 at ``p128_train``'s (32, 2560) too, each
    with its launch plan held against the library's, K11 as two device
-   launches a call;
+   launches a call; K4's first case (p16's qkv) runs ``K4_REPEATS`` more
+   times, each output bit-equal to the first (ROADMAP C6);
 4. paths (``PATHS``): for each model, built at full width with weights from
    ``torch.Generator("cuda").manual_seed(0)``, the bf16 and / or the int8
    (w8a8) ``Tokenizer`` answers encode, decode and reconstruct requests;
@@ -94,7 +95,21 @@ Phases (each prints its lines; any failure exits non-zero):
    ``p128_f32`` serves ``tae_patch128_vocab4096_px256`` at depth 2 + 2
    through ``Tokenizer(dtype=torch.float32)`` (K6 in fp32 in every block),
    and its int8 tokenizer with fp32 activations (K9 in fp32), each call's
-   launches checked, against ``backend="reference"``;
+   launches checked, against ``backend="reference"``. Every ``Tokenizer``
+   serves from CUDA graphs (the default on the card): a shape's first
+   request runs eagerly, its second captures, the later ones (the timed
+   ones) replay, each counting one request's launches, as the graph cache
+   adds them; so for every graph the kernel nodes, read from the graph,
+   are held by name and count against the library kernels of the same
+   request run eagerly under ``torch.profiler``, whose launches the
+   wrappers count (``check_replay``). ``graphs`` (on the tokenizers of
+   ``GRAPH_PATHS``, reused): at every batch size, a graph tokenizer against
+   one with ``cuda_graphs=False`` on the same model, outputs and ids bit for
+   bit, host wall per request (medians in turns), device time (a replay
+   alone between CUDA events; a traced request's kernels summed), peak
+   memory, launches a request, the memory the graphs hold,
+   and the host time of the graph cache's check that the model is
+   unchanged;
 5. training (``train_bf16``): ``tae_patch16_vocab256_px256`` at full width
    and depth, fp32 parameters, bf16 compute, AdamW, through
    ``make_train_step``: one step at B = 8 against a second copy of the model
@@ -163,6 +178,7 @@ Phases (each prints its lines; any failure exits non-zero):
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import pathlib
@@ -239,6 +255,19 @@ KERNEL_BATCH = 64            # batch of the kernel-vs-plain shapes
 TIMED_REPS = 20              # kernel timings: launches per replayed graph
 GRAPH_REPLAYS = 7            # ... and the median of this many replays
 REQUEST_REPS = 3             # slice timings: median of this many requests
+# requests of a shape before its graph replays: the eager one, the capture
+GRAPH_WARM = 2
+# the graphs phase: paths, and requests of each mode a round, in turns
+GRAPH_PATHS = ("bf16", "int8", "p128_bf16", "p128_int8", "p128_int4",
+               "p32_int8", "p16_int8_qkvq8", "vq_p16")
+GRAPH_ROUNDS, GRAPH_PER_ROUND = 4, 6
+UNCHANGED_REPS = 200         # ... and the graph cache's model check, timed
+TRACE_TRIES = 3              # profiler sessions for one traced request
+# ... each first running TRACE_WARM small kernels and pausing, then the
+# request inside a range of this name
+TRACE_WARM, TRACE_PAUSE_S, TRACE_RANGE = 8, 0.005, "chip_smoke.request"
+# ROADMAP C6: K4's qkv case called again this often, each output bit for bit
+K4_REPEATS = 10
 
 # Kernel vs plain on the same card and inputs. Both compute in fp32 and
 # round once; they differ only in fp32 summation order and in the last bit
@@ -1223,7 +1252,8 @@ def phase_int8_kernels() -> dict:
 
     # ---- K4: the five products of the main path, then the epilogue forms
     #      on the proj shape, then an odd row count
-    def k4_case(name, m, k, n, bias, residual, ln, timed=True, lib=False):
+    def k4_case(name, m, k, n, bias, residual, ln, timed=True, lib=False,
+                repeats=0):
         xq, sx = rand_i8((m, k)), scales((m, 1), 0.01, 0.06)
         wq, sw = rand_i8((n, k)), scales((n,), 1e-4, 5e-4)
         b = randn((n,)) if bias else None
@@ -1241,6 +1271,13 @@ def phase_int8_kernels() -> dict:
             extra = f"; ln_out codes off by one on a share {share:.2g}"
             outs, got, want = list(got), got[0], want[0]
         err = compare(label, got, want, **tol)
+        if repeats:
+            # ROADMAP C6: the same call again, each output bit for bit
+            differ = [i + 1 for i in range(repeats) if not torch.equal(
+                int8_matmul_fused(xq, sx, wq, sw, b, r, bf16, ln_out), got)]
+            check(not differ, f"{label}: repeats {differ} of {repeats} differ "
+                              "from the first call")
+            extra += f"; {repeats} repeats bit-equal to the first call"
         lib_ms = None
         if lib and m > 16:   # torch._int_mm takes more than 16 rows
             lib_ms = time_ms(lambda: torch._int_mm(xq, wq.t()))
@@ -1255,7 +1292,8 @@ def phase_int8_kernels() -> dict:
                      + (nbytes(*ln_out[:2]) if ln else 0),
                      2.0 * m * k * n, "int8"), lib_ms, extra)
 
-    k4_case("qkv", m_full, d, 3 * d, True, False, False, lib=True)
+    k4_case("qkv", m_full, d, 3 * d, True, False, False, lib=True,
+            repeats=K4_REPEATS)
     k4_case("proj", m_full, d, d, True, True, True, lib=True)
     k4_case("dict_proj", m_full, d, 256, False, False, False, lib=True)
     k4_case("embed", m_full, 256, d, True, False, False, lib=True)
@@ -2450,32 +2488,239 @@ def rel_err(got, want) -> float:
 
 def wrappers() -> dict:
     """The kernel wrappers by name; each counts its launches."""
-    from tae_tpu_torch.ops.cuda.adamw import adamw_update
-    from tae_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_fwd_lse,
-        fused_qkv_attention, fused_qkv_attention_bwd,
-        fused_qkv_attention_fwd_lse, fused_qkv_attention_i8)
-    from tae_tpu_torch.ops.cuda.int4_block import int4_mlp
-    from tae_tpu_torch.ops.cuda.int4_matmul import int4_matmul_fused
-    from tae_tpu_torch.ops.cuda.int8_block import int8_mlp, ln_quant
-    from tae_tpu_torch.ops.cuda.int8_matmul import (int8_matmul_fused,
-                                                    int8_matmul_rows)
-    from tae_tpu_torch.ops.cuda.layernorm import (
-        fused_layer_norm, fused_layer_norm_bwd, fused_layer_norm_fwd_stats)
-    from tae_tpu_torch.ops.cuda.quantizer import nearest_code
-    from tae_tpu_torch.ops.cuda.wide_attention import (
-        fused_qkv_attention_q8, fused_qkv_attention_wide,
-        fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d)
+    from tae_tpu_torch.ops.cuda import counted
 
-    return {f.__name__: f for f in (
-        fused_layer_norm, fused_qkv_attention, ln_quant, int8_matmul_fused,
-        int8_mlp, fused_qkv_attention_wide, fused_qkv_attention_q8,
-        fused_qkv_attention_wide_q8, fused_qkv_attention_wide_q8_2d,
-        fused_layer_norm_fwd_stats, fused_layer_norm_bwd,
-        fused_qkv_attention_fwd_lse, fused_qkv_attention_bwd,
-        int4_matmul_fused, int4_mlp, nearest_code, fused_qkv_attention_i8,
-        flash_attention, flash_attention_fwd_lse, flash_attention_bwd,
-        int8_matmul_rows, adamw_update)}
+    return {f.__name__: f for f in counted()}
+
+
+@functools.lru_cache(maxsize=None)
+def library_kernels() -> "re.Pattern":
+    """A pattern that finds, in a kernel's name as the profiler gives it,
+    the name of a ``__global__`` function of the port's CUDA sources."""
+    return re.compile(r"(?:^|[\s:])(" + "|".join(kernel_names())
+                      + r")\s*[<(]")
+
+
+def kernel_names() -> list[str]:
+    """The names of the ``__global__`` functions of the port's CUDA
+    sources."""
+    from tae_tpu_torch.ops.cuda import build
+
+    names = set()
+    for src in build.sources():
+        text = src.read_text()
+        for m in re.finditer(r"__global__\s+void\s+", text):
+            i = m.end()
+            if text.startswith("__launch_bounds__", i):
+                i, depth = text.index("(", i), 0
+                while True:
+                    depth += {"(": 1, ")": -1}.get(text[i], 0)
+                    i += 1
+                    if depth == 0:
+                        break
+            names.add(re.match(r"\s*(\w+)", text[i:]).group(1))
+    return sorted(names)
+
+
+def library_names(names) -> "collections.Counter":
+    """The library kernels among kernel ``names`` (demangled, as the
+    profiler gives them, or mangled, as the driver does), by the name of
+    their ``__global__`` function."""
+    import collections
+
+    pattern = library_kernels()
+    mangled = {f"{len(n)}{n}": n for n in kernel_names()}
+    found = collections.Counter()
+    for name in names:
+        m = pattern.search(name)
+        if m is not None:
+            found[m.group(1)] += 1
+        elif name.startswith("_Z"):
+            # the length prefix of a mangled name fixes where it ends
+            hit = [n for key, n in mangled.items() if key in name]
+            if hit:
+                found[max(hit, key=len)] += 1
+    return found
+
+
+def graph_kernels(raw: int) -> list[str]:
+    """The names of the kernel nodes of the CUDA graph ``raw`` (a
+    ``cudaGraph_t``), as the driver gives them (mangled): what each replay
+    of it runs."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc, what):
+        check(rc == 0, f"{what}: CUresult {rc}")
+
+    graph, n = ctypes.c_void_p(raw), ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2",
+                         cu.cuGraphKernelNodeGetParams)
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+        params = (ctypes.c_uint64 * 16)()
+        ok(get_params(ctypes.c_void_p(node), params),
+           "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])),
+               "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name),
+                                  ctypes.c_void_p(params[7])),
+               "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def traced(call, fns: dict) -> dict:
+    """The trace of ``call()`` under ``torch.profiler``: the launches of
+    each library kernel (``kernels``, :func:`library_names`), the CUDA
+    graphs launched (``graph_launches``), the device time of every kernel,
+    copy and fill summed (``device_ms``), the launches that the wrappers of
+    ``fns`` counted in the call (``counted``), and the tries it took
+    (``tries``). Now and then a session reports no device activity at
+    all: such a trace is lost, not empty, as every call here runs on the
+    card, and the call runs again under a new session, at most TRACE_TRIES
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for tries in range(1, TRACE_TRIES + 1):
+        before = {n: f.launches for n, f in fns.items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a session can miss the first kernels the card runs after it
+            # starts (the first LayerNorm and attention of a p16 decode at
+            # B = 1): a few fills and a pause first, left out below
+            warm = torch.zeros(TRACE_WARM, device="cuda")
+            for _ in range(TRACE_WARM):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAUSE_S)
+            with record_function(TRACE_RANGE):
+                call()
+                torch.cuda.synchronize()
+        counted = {n: f.launches - before[n] for n, f in fns.items()
+                   if f.launches != before[n]}
+        events = prof.events()
+        start = min(ev.time_range.start for ev in events
+                    if ev.name == TRACE_RANGE)
+        # the range's own device event spans the request's kernels
+        device = [ev for ev in events
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.time_range.start >= start
+                  and ev.name != TRACE_RANGE]
+        if device:
+            break
+    check(bool(device), f"torch.profiler lost the device activity of "
+                        f"{TRACE_TRIES} sessions in a row")
+    return dict(
+        kernels=library_names(ev.name for ev in device), counted=counted,
+        tries=tries,
+        graph_launches=sum(ev.name.startswith("cudaGraphLaunch")
+                           for ev in events),
+        device_ms=sum(ev.time_range.elapsed_us() for ev in device) / 1e3)
+
+
+def check_replay(tag: str, tok, entry: str, x) -> dict:
+    """What a replay really runs. ``tok`` serves from graphs and has
+    captured ``entry`` on ``x``'s key. The kernel nodes of that graph, read
+    from the graph itself, are what every replay of it runs: its library
+    kernels must be those of the same request run eagerly on a twin of
+    ``tok`` (``cuda_graphs=False``, the same model) under
+    ``torch.profiler``, by name and count, and the launches that the graph
+    cache adds to the wrappers' counts for a replay must be those that the
+    wrappers counted where they launched in the eager request. One replay
+    is traced too: one graph launch, and its device time. Both requests are
+    checks, not main-path requests: the counts are left as they were.
+    Returns both traces (``eager``, ``graph``), the graph's own library
+    kernels (``nodes``), the eager traces taken (``pairs``) and the
+    graph (``captured``)."""
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    what = f"{tag} {entry} {tuple(x.shape)}"
+    fns = wrappers()
+    graphs = [c.graph for k, c in tok._graphs._graphs.items()
+              if k[:3] == (entry, tuple(x.shape), x.dtype)]
+    check(len(graphs) == 1, f"{what}: {len(graphs)} graphs of the key")
+    nodes = library_names(graph_kernels(graphs[0].raw()))
+    saved = {n: f.launches for n, f in fns.items()}
+    twin = Tokenizer(model=tok.model, policy=tok.policy, backend=tok.backend,
+                     cuda_graphs=False)
+    try:
+        # a session may also drop a few of its kernels: the eager request is
+        # traced again where it disagrees with the graph (whose nodes are
+        # read, not traced)
+        for pairs in range(1, TRACE_TRIES + 1):
+            eager = traced(lambda: getattr(twin, entry)(x), fns)
+            if eager["kernels"] == nodes:
+                break
+        graph = traced(lambda: getattr(tok, entry)(x), fns)
+    finally:
+        for n, f in fns.items():
+            f.launches = saved[n]
+    check(graph["graph_launches"] == 1 and eager["graph_launches"] == 0,
+          f"{what}: {graph['graph_launches']} graph launches traced in the "
+          f"replay, {eager['graph_launches']} in the eager request")
+    check(nodes and nodes == eager["kernels"],
+          f"{what}: the graph's library kernels {dict(nodes)}, the eager "
+          f"request's {dict(eager['kernels'])}")
+    check(graph["counted"] == eager["counted"],
+          f"{what}: the graph cache added the launches {graph['counted']} "
+          f"for a replay, the wrappers counted {eager['counted']} in the "
+          "eager request")
+    return {"eager": eager, "graph": graph, "nodes": nodes, "pairs": pairs,
+            "captured": graphs[0]}
+
+
+def replay_ms(graph) -> float:
+    """Device time of one replay of ``graph`` alone (a graph of the
+    ``Tokenizer``'s cache, replayed outside the cache: no input copied, no
+    output copied out, no launch counted), between CUDA events, median of
+    GRAPH_REPLAYS."""
+    import torch
+
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def traced_replays(tag: str, tok, inputs: dict) -> None:
+    """:func:`check_replay` once per entry and batch size, on
+    ``inputs[entry][b]``: the launches that the path's replayed requests
+    counted are those of the graphs' kernel nodes."""
+    ran, lost, again = {}, 0, 0
+    for entry, by_batch in inputs.items():
+        for b, x in by_batch.items():
+            tr = check_replay(tag, tok, entry, x)
+            ran[f"{entry} B={b}"] = sum(tr["nodes"].values())
+            lost += tr["eager"]["tries"] + tr["graph"]["tries"] - 2
+            again += tr["pairs"] - 1
+    print(f"[{tag}] each graph's kernel nodes, read from the graph, are the "
+          f"library kernels of the eager request by name and count "
+          f"({json.dumps(ran)}); a traced replay launches one graph; the "
+          f"launches the graph cache adds for a replay equal those the "
+          f"wrappers count in the eager request ({lost} lost traces and "
+          f"{again} eager traces disagreeing with the graph taken again)")
 
 
 def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
@@ -2521,30 +2766,36 @@ def phase_slice(tag: str, tok, per_call: dict, rel_tol: float,
     request(tok.encode, images[1], ("encode",))          # warm-up request
     for f in fns.values():
         f.launches = 0
+    # each shape's first requests run eagerly and capture its graph; the
+    # later ones are timed
     latents, recon, enc_lat, dec_lat = {}, {}, {}, {}
     for b in BATCHES:
         runs = [request(tok.encode, images[b], ("encode",))
-                for _ in range(REQUEST_REPS)]
+                for _ in range(GRAPH_WARM + REQUEST_REPS)]
         latents[b] = runs[-1][0]
-        enc_lat[b] = statistics.median(dt for _, dt in runs)
+        enc_lat[b] = statistics.median(dt for _, dt in runs[GRAPH_WARM:])
     for b in BATCHES:
         runs = [request(tok.decode, latents[b], ("decode",))
-                for _ in range(REQUEST_REPS)]
+                for _ in range(GRAPH_WARM + REQUEST_REPS)]
         recon[b] = runs[-1][0]
-        dec_lat[b] = statistics.median(dt for _, dt in runs)
+        dec_lat[b] = statistics.median(dt for _, dt in runs[GRAPH_WARM:])
     rec_b = BATCHES[1]
     rec, _ = request(tok.reconstruct, images[rec_b], ("encode", "decode"))
     launches = counts()
+    if tok.cuda_graphs:
+        traced_replays(tag, tok, {"encode": images, "decode": latents})
     on_path = {n for kind in per_call.values() for n, c in kind.items() if c}
     check(all(launches[n] > 0 for n in on_path),
           f"{tag}: a kernel of the path never launched: {launches}")
     print(f"[{tag}] main path launches: {json.dumps(launches)} "
           f"(per call: {json.dumps(per_call)})")
 
+    mode = "graph replays" if tok.cuda_graphs else "eager"
     for b in BATCHES:
         print(f"[{tag}] encode B={b}: {enc_lat[b] * 1e3:.2f} ms/request, "
               f"{b / enc_lat[b]:.1f} img/s; decode B={b}: "
-              f"{dec_lat[b] * 1e3:.2f} ms/request, {b / dec_lat[b]:.1f} img/s")
+              f"{dec_lat[b] * 1e3:.2f} ms/request, {b / dec_lat[b]:.1f} img/s "
+              f"({mode})")
 
     # ---- outputs: shapes, finiteness, against the plain versions
     ref = Tokenizer(model=tok.model, policy=tok.policy, backend="reference")
@@ -2995,14 +3246,16 @@ def phase_p128_f32() -> dict:
                                  (tok8, per_call8, INT8_SLICE_REL_TOL,
                                   "int8, fp32 activations")):
         ref = Tokenizer(model=t.model, policy=t.policy, backend="reference")
+        zs = {}
         for b in BATCHES:
             runs = [request(t.encode, images[b], calls["encode"])
-                    for _ in range(REQUEST_REPS)]
-            z = runs[-1][0]
+                    for _ in range(GRAPH_WARM + REQUEST_REPS)][GRAPH_WARM:]
+            z = zs[b] = runs[-1][0]
             check(tuple(z.shape) == (b, n, v) and z.dtype == torch.float32
                   and bool(torch.isfinite(z).all()),
                   f"{tag} {what} B={b}: latents {tuple(z.shape)} {z.dtype}")
-            dec = [request(t.decode, z, calls["decode"]) for _ in range(REQUEST_REPS)]
+            dec = [request(t.decode, z, calls["decode"])
+                   for _ in range(GRAPH_WARM + REQUEST_REPS)][GRAPH_WARM:]
             x = dec[-1][0]
             check(bool(torch.isfinite(x).all()), f"{tag} {what} B={b}: decode")
             ez, ex = rel_err(z, ref.encode(images[b])), rel_err(x, ref.decode(z))
@@ -3019,6 +3272,7 @@ def phase_p128_f32() -> dict:
                          f"(tolerance {INT8_VS_BF16_TOL})")
                 check(ez <= INT8_VS_BF16_TOL, f"{tag} B={b}: int8 too far from fp32")
             print(line)
+        traced_replays(f"{tag} {what}", t, {"encode": images, "decode": zs})
         del ref
     ran = {k: c for k, c in totals.items() if c}
     check(totals.get("fused_qkv_attention_wide", 0) > 0
@@ -3234,11 +3488,148 @@ def time_qkv_q8(tag: str, tok) -> dict:
     return {"qkv_q8_ms": on, "default_int8_ms": off}
 
 
+def phase_graphs(tag: str, tok, per_call: dict, label: str,
+                 totals: dict) -> None:
+    """The ``graphs`` phase on one path's tokenizer: at every batch size and
+    for each entry of ``per_call`` (``encode`` / ``decode``, or the discrete
+    pair), a Tokenizer serving from CUDA graphs against one with
+    ``cuda_graphs=False`` on the same model: outputs bit for bit (the
+    graph's eager request, its capture and a replay), the host wall per
+    request (to a synchronize), medians of GRAPH_ROUNDS x GRAPH_PER_ROUND
+    requests of each mode in turns (eager, graph, graph, eager, ...), peak
+    memory above what was allocated before, and every request's launches
+    against ``per_call``; then one request of each mode traced
+    (:func:`check_replay`, which holds the graph's kernel nodes against the
+    eager request's kernels): its kernels, copies and fills summed; and
+    the graph replayed alone between CUDA events (:func:`replay_ms`).
+    Times the graph cache's check that the model is unchanged, which every
+    request of a graph tokenizer runs. Adds the requests' launches to
+    ``totals``."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.serving_graphs import _unchanged
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    fns = wrappers()
+    cfg = tok.model.cfg
+    modes = {mode: Tokenizer(model=tok.model, policy=tok.policy,
+                             backend=tok.backend, cuda_graphs=mode == "graph")
+             for mode in ("eager", "graph")}
+    check(tok.cuda_graphs and modes["graph"].cuda_graphs
+          and not modes["eager"].cuda_graphs,
+          f"{tag}: a CUDA tokenizer does not serve from graphs by default")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    entries = list(per_call)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+
+    def request(t, entry, x):
+        """(output, host ms) of one request, its launches checked."""
+        before = {n: f.launches for n, f in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = getattr(t, entry)(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {n: f.launches - before[n] for n, f in fns.items()}
+        want = per_call[entry]
+        check(got == {n: want.get(n, 0) for n in fns},
+              f"[graphs] {tag} {entry}: launches {got}, expected {want}")
+        for n, c in got.items():
+            totals[n] = totals.get(n, 0) + c
+        return out, wall
+
+    for b in BATCHES:
+        images = torch.randint(0, 256, (b, 3, cfg.img_size, cfg.img_size),
+                               dtype=torch.uint8, device="cuda", generator=gen)
+        # a decode's input is the eager encode's output (not counted)
+        inputs = {"encode": images, "encode_discrete": images}
+        if "decode" in per_call:
+            inputs["decode"] = modes["eager"].encode(images)
+        if "decode_discrete" in per_call:
+            inputs["decode_discrete"] = modes["eager"].encode_discrete(images)
+        for entry in entries:
+            x = inputs[entry]
+            want, _ = request(modes["eager"], entry, x)
+            peak = {}
+            for mode in ("eager", "graph"):
+                gc.collect()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(GRAPH_WARM + 1):   # eager, capture, replay
+                    out, _ = request(modes[mode], entry, x)
+                    check(torch.equal(out, want),
+                          f"[graphs] {tag} {entry} B={b}: {mode} request "
+                          f"{i} differs from cuda_graphs=False")
+                peak[mode] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            walls = {"eager": [], "graph": []}
+            for r in range(GRAPH_ROUNDS):
+                for mode in (("eager", "graph") if r % 2 == 0
+                             else ("graph", "eager")):
+                    for _ in range(GRAPH_PER_ROUND):
+                        out, wall = request(modes[mode], entry, x)
+                        walls[mode].append(wall)
+                    check(torch.equal(out, want),
+                          f"[graphs] {tag} {entry} B={b}: a {mode} replay "
+                          "differs from cuda_graphs=False")
+            med = {m: statistics.median(walls[m]) for m in walls}
+            n = sum(per_call[entry].values())
+            print(f"[graphs] {tag} {entry} B={b}: host wall eager "
+                  f"{med['eager']:.3f} ms, graph {med['graph']:.3f} ms "
+                  f"({med['eager'] / med['graph']:.2f}x), medians of "
+                  f"{GRAPH_ROUNDS * GRAPH_PER_ROUND} requests each, in turns "
+                  f"({label})")
+            tr = check_replay(tag, modes["graph"], entry, x)
+            lib = sum(tr["nodes"].values())
+            print(f"[graphs] {tag} {entry} B={b}: device time, the graph "
+                  f"replayed alone between CUDA events "
+                  f"{replay_ms(tr['captured']):.3f} ms (median of "
+                  f"{GRAPH_REPLAYS}); kernels, copies and fills of one "
+                  f"traced request summed (torch.profiler) eager "
+                  f"{tr['eager']['device_ms']:.3f} ms, graph "
+                  f"{tr['graph']['device_ms']:.3f} ms; the graph's {lib} "
+                  f"library kernel nodes are the eager request's by name and "
+                  f"count ({tr['pairs']} eager traces) ({label})")
+            print(f"[graphs] {tag} {entry} B={b}: peak memory above the "
+                  f"allocated before, eager {peak['eager']:.1f} MiB, graph "
+                  f"(its eager request, capture and a replay) "
+                  f"{peak['graph']:.1f} MiB; {n} launches a request in both "
+                  f"modes; graph output bit-equal to cuda_graphs=False "
+                  f"({label})")
+    cache = modes["graph"]._graphs
+    t0 = time.perf_counter()
+    for _ in range(UNCHANGED_REPS):
+        _unchanged(cache._snap)
+    walk_us = (time.perf_counter() - t0) * 1e6 / UNCHANGED_REPS
+    print(f"[graphs] {tag}: the check that the model is unchanged, over "
+          f"{len(cache._snap)} parameters, buffers and submodules, takes "
+          f"{walk_us:.1f} us of host time a request (mean of "
+          f"{UNCHANGED_REPS}) ({label})")
+    captured = len(cache)
+    check(captured == len(BATCHES) * len(entries),
+          f"[graphs] {tag}: {captured} graphs captured, expected "
+          f"{len(BATCHES) * len(entries)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - reserved) / 2**20
+    print(f"[graphs] {tag}: the {captured} graphs of {', '.join(entries)} at "
+          f"B = {', '.join(map(str, BATCHES))} hold {held:.1f} MiB between "
+          f"requests (their pool and static buffers) ({label})")
+    del modes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_paths() -> dict:
     """Every model of PATHS: its bf16 tokenizer (driven where PATHS names a
     bf16 path, and the yardstick of the quantized outputs), then its int8
-    and / or int4 tokenizer on the same weights. Returns each path's launch
-    counts."""
+    and / or int4 tokenizer on the same weights; each path of GRAPH_PATHS
+    then runs the graphs phase on its tokenizer. Returns each path's launch
+    counts, the graphs phase's under "graphs"."""
     import gc
 
     import torch
@@ -3246,7 +3637,7 @@ def phase_paths() -> dict:
     from tae_tpu_torch.nn.vit import Q4Linear, QLinear
     from tae_tpu_torch.tokenizer import Tokenizer
 
-    launches = {}
+    launches, graphs, label = {}, {}, card_label()
     for name, overrides, paths in PATHS:
         def build(**kw):
             t0 = time.perf_counter()
@@ -3266,21 +3657,25 @@ def phase_paths() -> dict:
         tok8 = None
         for tag, quantization in paths.items():
             if quantization is None:
-                launches[tag], _ = phase_slice(
-                    tag, tok, expected_launches(cfg, None),
-                    slice_tol(SLICE_REL_TOL, cfg))
+                per_call = expected_launches(cfg, None)
+                launches[tag], _ = phase_slice(tag, tok, per_call,
+                                               slice_tol(SLICE_REL_TOL, cfg))
+                if tag in GRAPH_PATHS:
+                    phase_graphs(tag, tok, per_call, label, graphs)
                 continue
             if quantization == "int8_qkv_q8":
                 # beside the default int8 tokenizer built just before
                 tokq, secs = build(quantization="int8", qkv_q8=True)
                 print(f"[{tag}] int8 with qkv_q8=True, built and quantized in "
                       f"{secs:.1f} s")
+                per_call = expected_launches(cfg, "int8", qkv_q8=True)
                 launches[tag], _ = phase_slice(
-                    tag, tokq, expected_launches(cfg, "int8", qkv_q8=True),
-                    slice_tol(INT8_SLICE_REL_TOL, cfg),
+                    tag, tokq, per_call, slice_tol(INT8_SLICE_REL_TOL, cfg),
                     against=(tok8, QKV_Q8_VS_INT8_TOL,
                              "the default int8 tokenizer"))
-                time_qkv_q8(tag, tokq)
+                time_qkv_q8(tag, tokq)          # leaves qkv_q8 on
+                if tag in GRAPH_PATHS:
+                    phase_graphs(tag, tokq, per_call, label, graphs)
                 del tokq
                 continue
             tok8 = None                # one quantized model at a time
@@ -3290,23 +3685,25 @@ def phase_paths() -> dict:
             print(f"[{tag}] {n_q} int8 linears (w8a8), {n_q4} int4 linears "
                   f"(w4a8), MLP block_h {tok8.model.blocks[0].mlp.block_h}, "
                   f"built and quantized in {secs:.1f} s")
+            per_call = expected_launches(cfg, quantization)
             if quantization == "int4":
                 check(n_q4 == 4 * (cfg.depth + cfg.decoder_depth) and n_q == 3,
                       f"{tag}: {n_q4} int4 and {n_q} int8 linears")
                 launches[tag], _ = phase_slice(
-                    tag, tok8, expected_launches(cfg, quantization),
-                    slice_tol(INT4_SLICE_REL_TOL, cfg),
+                    tag, tok8, per_call, slice_tol(INT4_SLICE_REL_TOL, cfg),
                     against=(tok, INT4_VS_BF16_TOL, "the bf16 tokenizer"))
-                continue
-            launches[tag], _ = phase_slice(
-                tag, tok8, expected_launches(cfg, quantization),
-                slice_tol(INT8_SLICE_REL_TOL, cfg),
-                against=(tok, INT8_VS_BF16_TOL, "the bf16 tokenizer"))
-            time_attn_q8(tag, tok8)
+            else:
+                launches[tag], _ = phase_slice(
+                    tag, tok8, per_call, slice_tol(INT8_SLICE_REL_TOL, cfg),
+                    against=(tok, INT8_VS_BF16_TOL, "the bf16 tokenizer"))
+                time_attn_q8(tag, tok8)         # leaves attn_q8 on the rule
+            if tag in GRAPH_PATHS:
+                phase_graphs(tag, tok8, per_call, label, graphs)
         # the next model needs the memory: p128 is initialised in fp32
         del tok, tok8
         gc.collect()
         torch.cuda.empty_cache()
+    launches["graphs"] = graphs
     return launches
 
 
@@ -3352,10 +3749,12 @@ def counted_request(tag: str, fns: dict, totals: dict, fn, arg, want: dict):
     return out, dt
 
 
-def phase_vq(tag: str) -> dict:
-    """Path ``tag`` of VQ_PATHS: discrete tokens through the VQ bottleneck,
-    then one train step with it. Returns the launch counts of the path's own
-    requests and step (the comparisons' launches are not counted)."""
+def phase_vq(tag: str, graphs: dict) -> dict:
+    """Path ``tag`` of VQ_PATHS: discrete tokens through the VQ bottleneck
+    (and, for a path of GRAPH_PATHS, the graphs phase on its tokenizer,
+    its launches added to ``graphs``), then one train step with it. Returns
+    the launch counts of the path's own requests and step (the comparisons'
+    launches are not counted)."""
     import gc
 
     import torch
@@ -3398,9 +3797,9 @@ def phase_vq(tag: str) -> dict:
     ref = Tokenizer(model=tok.model, policy=tok.policy, backend="reference")
     for b in BATCHES:
         runs = [request(tok.encode_discrete, images[b], enc_want)
-                for _ in range(REQUEST_REPS)]
+                for _ in range(GRAPH_WARM + REQUEST_REPS)]
         ids = runs[-1][0]
-        enc_ms = statistics.median(dt for _, dt in runs) * 1e3
+        enc_ms = statistics.median(dt for _, dt in runs[GRAPH_WARM:]) * 1e3
         check(tuple(ids.shape) == (b, cfg.num_patches)
               and ids.dtype == torch.int64 and int(ids.min()) >= 0
               and int(ids.max()) < cfg.codebook_size,
@@ -3422,6 +3821,11 @@ def phase_vq(tag: str) -> dict:
               f"differ from backend='reference' on a share {differ:.3g} of "
               f"the rows (near-ties); {int(ids.unique().numel())} codes used; "
               "decode_discrete equals decode(codebook[ids]) bit for bit")
+    traced_replays(tag, tok, {"encode_discrete": images})
+    if tag in GRAPH_PATHS:
+        phase_graphs(tag, tok, {"encode_discrete": enc_want,
+                                "decode_discrete": per_call["decode"]},
+                     card_label(), graphs)
     del tok, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3517,7 +3921,7 @@ def phase_vq_f32() -> dict:
     latents = {}
     for b in BATCHES:
         runs = [request(tok.encode, images[b], per_call["encode"])
-                for _ in range(REQUEST_REPS)]
+                for _ in range(GRAPH_WARM + REQUEST_REPS)][GRAPH_WARM:]
         z = latents[b] = runs[-1][0]
         check(tuple(z.shape) == (b, n, v) and z.dtype == torch.float32
               and bool(torch.isfinite(z).all()), f"{tag} B={b}: latents "
@@ -3529,6 +3933,7 @@ def phase_vq_f32() -> dict:
               f"{F32_SLICE_REL_TOL})")
         check(err <= F32_SLICE_REL_TOL, f"{tag} B={b}: latents disagree with "
                                         "the plain versions")
+    traced_replays(tag, tok, {"encode": images})
     b = BATCHES[1]
     enc_want = dict(per_call["encode"], nearest_code=1)
     ids, dt_enc = request(tok.encode_discrete, images[b], enc_want)
@@ -5213,7 +5618,7 @@ def main() -> int:
         kres.update(phase_k18_kernel())
         launches = phase_paths()
         for tag in VQ_PATHS:
-            launches[tag] = phase_vq(tag)
+            launches[tag] = phase_vq(tag, launches["graphs"])
         launches[VQ_F32_PATH] = phase_vq_f32()
         launches[P128_F32_PATH] = phase_p128_f32()
         launches[TRAIN_F32_PATH] = phase_train_f32()

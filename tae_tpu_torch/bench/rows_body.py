@@ -150,8 +150,10 @@ extern "C" int tae_empty_launch(int gx, int gy, int threads, int cluster, void* 
 """
 
 
-def empty_library() -> ctypes.CDLL:
-    out = build.BUILD_ROOT / "empty"
+def empty_library(out: pathlib.Path | None = None) -> ctypes.CDLL:
+    """The empty kernel's library, built into ``out`` (by default
+    ``_build/empty``; processes that run at once each need their own)."""
+    out = build.BUILD_ROOT / "empty" if out is None else out
     out.mkdir(parents=True, exist_ok=True)
     (out / "empty.cu").write_text(EMPTY_SOURCE)
     flags = [f for f in build.NVCC_FLAGS if f != "-Xptxas=-v"]

@@ -345,13 +345,25 @@ def _wds_train_iter_batched(path: str, input_size: int, jitter_scale,
         yield out
 
 
-def wds_train_loader(args, batch_size: int) -> BatchLoader:
+def wds_train_loader(args, batch_size: int, mesh=None) -> BatchLoader:
     """The reference train pipeline (train.py:84-85): a resampled infinite
     stream, a 10k shuffle, RandomResizedCrop / flip / normalize. The native
     prebatched decode where the decoder is built, else PIL per sample; says
-    which."""
-    from tae_tpu_torch.data import native
+    which.
 
+    Each of the (data, fsdp) ranks of ``mesh`` streams its own shards with
+    its own seeds, as each process of the JAX drivers does (its index and
+    count where they pass ``jax.process_index()``, ``process_count()``),
+    and yields its own rows alone: ``batch_size``, the global batch, over
+    the ranks."""
+    from tae_tpu_torch.data import native
+    from tae_tpu_torch.parallel.sharding import data_rank
+
+    rank, ranks = data_rank(mesh)
+    if batch_size % ranks:
+        raise ValueError(f"global batch {batch_size} does not divide over "
+                         f"{ranks} data x fsdp ranks")
+    rows = batch_size // ranks
     u8 = bool(getattr(args, "device_normalize", False))
     scale = getattr(args, "jitter_scale", [0.2, 1.0])
     ratio = getattr(args, "jitter_ratio", [3 / 4, 4 / 3])
@@ -362,8 +374,8 @@ def wds_train_loader(args, batch_size: int) -> BatchLoader:
               flush=True)
         make_iter = functools.partial(
             _wds_train_iter_batched, args.train_data_path, args.input_size,
-            scale, ratio, args.seed, 0, 1, batch_size, u8)
-        return BatchLoader(make_iter, batch_size, num_workers=args.num_workers,
+            scale, ratio, args.seed, rank, ranks, rows, u8)
+        return BatchLoader(make_iter, rows, num_workers=args.num_workers,
                            prebatched=True)
     if u8:
         print("WARNING: --device_normalize needs the native decoder "
@@ -374,8 +386,8 @@ def wds_train_loader(args, batch_size: int) -> BatchLoader:
           flush=True)
     make_iter = functools.partial(
         _wds_train_iter, args.train_data_path, args.input_size, scale, ratio,
-        args.seed, 0, 1)
-    return BatchLoader(make_iter, batch_size, num_workers=args.num_workers)
+        args.seed, rank, ranks)
+    return BatchLoader(make_iter, rows, num_workers=args.num_workers)
 
 
 def _imagefolder_val_iter(root: str, input_size: int, use_native: bool,

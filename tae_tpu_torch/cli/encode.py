@@ -317,6 +317,9 @@ def main(args) -> dict:
     rank, ranks = data_rank(mesh)
     lockstep = axis_sizes(mesh)["fsdp"] > 1
     _common.print_decoder()
+    # the Tokenizer's default: graphs on one card, eager for an encoder that
+    # fully_shard shards (--mesh_fsdp above 1) and on the CPU
+    print(f"cuda graphs: {'on' if tok.cuda_graphs else 'off'}", flush=True)
     loader = make_encode_loader(args.data_path, args.input_size,
                                 args.deterministic, args.seed,
                                 args.batch_size, args.num_workers,

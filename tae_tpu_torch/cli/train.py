@@ -142,12 +142,9 @@ def main(args) -> None:
                            accum_iter=args.accum_iter)
 
     _common.print_decoder()
+    # this rank's rows from its own stream (the global batch over the ranks)
     train_loader = _common.wds_train_loader(
-        args, args.batch_size_per_gpu * args.accum_iter)
-
-    def train_batches():
-        for imgs, _ in train_loader:
-            yield batch_slice(imgs, mesh)
+        args, args.batch_size_per_gpu * args.accum_iter, mesh)
 
     metric_logger = MetricLogger()
     display_samples = None
@@ -163,7 +160,8 @@ def main(args) -> None:
 
     print("Starting TAE training!")
     pending = None
-    for it, imgs in enumerate(device_prefetch(train_batches(), device),
+    batches = (imgs for imgs, _ in train_loader)
+    for it, imgs in enumerate(device_prefetch(batches, device),
                               start=start_it):
         if it >= args.num_its:
             break

@@ -140,13 +140,14 @@ def main(args) -> None:
 
     batch_size = args.batch_size * args.accum_iter
     if from_latents:
-        loader = BatchLoader(functools.partial(_latent_iter, args.latents_path,
-                                               args.seed),
-                             batch_size, num_workers=args.num_workers,
-                             drop_last=True)
+        # global batches of latents: each rank keeps its rows
+        batches = _common.rank_batches(BatchLoader(
+            functools.partial(_latent_iter, args.latents_path, args.seed),
+            batch_size, num_workers=args.num_workers, drop_last=True), mesh)
     else:
         _common.print_decoder()
-        loader = _common.wds_train_loader(args, batch_size)
+        # this rank's rows from its own stream
+        batches = _common.wds_train_loader(args, batch_size, mesh)
 
     out_dir = Path(args.output_dir)
     stem = f"{args.save_prefix}_{args.model}"
@@ -163,8 +164,7 @@ def main(args) -> None:
 
     print("Starting training!")
     pending = None
-    for it, batch in enumerate(device_prefetch(
-            _common.rank_batches(loader, mesh), device)):
+    for it, batch in enumerate(device_prefetch(batches, device)):
         if it == args.num_its:
             break
         state, metrics = step(state, tuple(batch), it)

@@ -22,6 +22,7 @@ computes them, so both round alike.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
@@ -142,13 +143,32 @@ def center_crop_transform(size: int, pad: int = 32, mean=IMAGENET_MEAN,
 # device half
 # ---------------------------------------------------------------------------
 
+@functools.cache
+def _normalize_constants(mean: tuple, std: tuple, dtype: torch.dtype,
+                         device: torch.device, p2: int):
+    """``(mean · 255, 1 / (std · 255))`` in ``dtype`` on ``device``: per
+    channel shaped (C, 1, 1) for images, each channel repeated ``p2`` times
+    for pre-patchified rows (``p2`` > 0). Made once and kept, so that a
+    request copies nothing from the host (a CUDA graph cannot capture that
+    copy; the first request of a captured entry runs eagerly and makes
+    them). Plain tensors even when first made under inference mode, since
+    a train step reads them too."""
+    with torch.inference_mode(False):
+        mean = torch.tensor(mean, dtype=dtype, device=device)
+        std = torch.tensor(std, dtype=dtype, device=device)
+        if p2:
+            mean, std = mean.repeat_interleave(p2), std.repeat_interleave(p2)
+        else:
+            mean, std = mean.reshape(-1, 1, 1), std.reshape(-1, 1, 1)
+        return mean * 255.0, 1.0 / (std * 255.0)
+
+
 def device_normalize(x: torch.Tensor, dtype: torch.dtype | None = None,
                      mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """ToTensor + Normalize for uint8 (…, C, H, W) batches."""
     dtype = dtype or torch.float32
-    mean = torch.tensor(mean, dtype=dtype, device=x.device).reshape(-1, 1, 1) * 255.0
-    inv = 1.0 / (torch.tensor(std, dtype=dtype, device=x.device)
-                 .reshape(-1, 1, 1) * 255.0)
+    mean, inv = _normalize_constants(tuple(mean), tuple(std), dtype,
+                                     x.device, 0)
     return (x.to(dtype) - mean) * inv
 
 
@@ -159,10 +179,8 @@ def device_normalize_patches(x: torch.Tensor, patch_size: int,
     """Normalize for pre-patchified uint8 (…, N, C·p²) batches in
     ``extract_patches`` layout (channel-major per patch)."""
     dtype = dtype or torch.float32
-    p2 = patch_size * patch_size
-    mean = torch.tensor(mean, dtype=dtype, device=x.device).repeat_interleave(p2) * 255.0
-    inv = 1.0 / (torch.tensor(std, dtype=dtype, device=x.device)
-                 .repeat_interleave(p2) * 255.0)
+    mean, inv = _normalize_constants(tuple(mean), tuple(std), dtype, x.device,
+                                     patch_size * patch_size)
     return (x.to(dtype) - mean) * inv
 
 

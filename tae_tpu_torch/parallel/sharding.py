@@ -85,6 +85,16 @@ def _blocks(model: nn.Module) -> list[nn.Module]:
     return [m for m in model.modules() if isinstance(m, Block)]
 
 
+def is_sharded(model: nn.Module) -> bool:
+    """Whether :func:`shard_model` placed ``model`` (``fully_shard`` on its
+    root)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
+
+
 def shard_model(model: nn.Module, mesh) -> nn.Module:
     """Place ``model`` on ``mesh`` with FSDP2, in place, and return it:
     ``fully_shard`` on each block of every stack, on each head

@@ -19,7 +19,9 @@ through the codebook search) requests per batch size under
 size: the device time of each kernel name per request with its launches per
 request, the sum over all kernels, the wall time per request (host clock to
 a synchronize) and the busy share (kernel time / wall time). The card's name
-and power limit head the output.
+and power limit head the output. The tokenizer serves as a user's does:
+from CUDA graphs, so the profiled requests are replays (a shape's first
+two requests, among the warm-up, run eagerly and capture).
 """
 
 from __future__ import annotations

@@ -38,6 +38,14 @@ A model built with ``quantize=True`` has the VQ bottleneck's codebook::
     tok = Tokenizer.from_checkpoint(name, ckpt, quantize=True)
     ids = tok.encode_discrete(images)          # (B, N) int64 token ids
     rec = tok.decode_discrete(ids)             # (B, 3, H, W)
+
+On a CUDA device a ``Tokenizer`` serves ``encode``, ``decode``,
+``encode_discrete`` and ``decode_discrete`` from captured CUDA graphs, the
+counterpart of the JAX ``Tokenizer``'s ``jit``
+(:mod:`tae_tpu_torch.serving_graphs`): the first request of a shape runs
+eagerly, the second captures, later ones replay. ``cuda_graphs=False``
+dispatches every request eagerly; a model sharded by ``fully_shard``
+serves eagerly; ``tok.reset_graphs()`` drops the graphs and their memory.
 """
 
 from __future__ import annotations
@@ -46,16 +54,19 @@ import dataclasses
 
 import torch
 
+from tae_tpu_torch.serving_graphs import GraphCache, graphs_mode
 from tae_tpu_torch.utils.dtypes import Policy
 
 
 def set_attn_q8(model, attn_q8: bool | None) -> None:
-    """Record the run-time int8-output choice on every attention layer."""
+    """Record the run-time int8-output choice on every attention layer (and
+    on ``model``, where a ``Tokenizer`` keys its graphs on it)."""
     from tae_tpu_torch.nn import vit
 
     for mod in model.modules():
         if isinstance(mod, vit.Attention):
             mod.attn_q8 = attn_q8
+    model.attn_q8 = attn_q8
 
 
 def set_qkv_q8(model, qkv_q8: bool) -> None:
@@ -66,6 +77,7 @@ def set_qkv_q8(model, qkv_q8: bool) -> None:
     for mod in model.modules():
         if isinstance(mod, vit.Attention):
             mod.qkv_q8 = bool(qkv_q8)
+    model.qkv_q8 = bool(qkv_q8)
 
 
 def prune_component(model, component: str):
@@ -89,6 +101,25 @@ class Tokenizer:
     model: torch.nn.Module           # tae_tpu_torch.models.tae.TAE
     policy: Policy
     backend: str | None = None       # None: kernels on CUDA, plain on CPU
+    # None: graphs on a CUDA device unless fully_shard shards the model;
+    # True raises where that rule says off (serving_graphs.graphs_mode).
+    # Fixed here; tok.cuda_graphs says which mode serves.
+    cuda_graphs: bool | None = None
+    _graphs: GraphCache | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        from tae_tpu_torch.parallel.sharding import is_sharded
+
+        self.cuda_graphs = graphs_mode(self.cuda_graphs, self.device,
+                                       is_sharded(self.model))
+        self._graphs = GraphCache() if self.cuda_graphs else None
+
+    def reset_graphs(self) -> None:
+        """Drop the captured graphs and the memory they hold; each request
+        shape then runs eagerly once more before it is captured again."""
+        if self._graphs is not None:
+            self._graphs.reset()
 
     @classmethod
     def from_checkpoint(cls, model_name: str, ckpt: str | None = None,
@@ -102,6 +133,7 @@ class Tokenizer:
                         seed: int = 0,
                         attn_q8: bool | None = None,
                         qkv_q8: bool = False, mesh=None,
+                        cuda_graphs: bool | None = None,
                         **model_overrides) -> "Tokenizer":
         """Build ``model_name`` on ``device``, initialise it from
         ``torch.Generator(device).manual_seed(seed)``, load ``ckpt`` (a
@@ -132,6 +164,9 @@ class Tokenizer:
         block from 128 tokens feeds the qkv product's int8 output to the
         int8-input attention; run-time choices that the serving artifact
         does not record.
+
+        ``cuda_graphs``: serve from captured CUDA graphs (None: on for a
+        CUDA model that is not sharded; see the module's docstring).
 
         ``mesh`` (``parallel.make_mesh``; the JAX signature's): each rank
         serves its own requests on ``device``. A float model with an
@@ -176,7 +211,8 @@ class Tokenizer:
         if quantization is None and axis_sizes(mesh)["fsdp"] > 1:
             shard_model(model, mesh)
         return cls(model=model,
-                   policy=Policy(param_dtype=dtype, compute_dtype=dtype))
+                   policy=Policy(param_dtype=dtype, compute_dtype=dtype),
+                   cuda_graphs=cuda_graphs)
 
     @property
     def device(self) -> torch.device:
@@ -223,6 +259,7 @@ class Tokenizer:
                      component: str = "both",
                      attn_q8: bool | None = None,
                      qkv_q8: bool = False,
+                     cuda_graphs: bool | None = None,
                      **model_overrides) -> "Tokenizer":
         """Load a :meth:`save_serving` artifact (no re-quantization).
         ``dtype=None`` restores the compute dtype the artifact recorded.
@@ -268,20 +305,35 @@ class Tokenizer:
         set_attn_q8(model, attn_q8)
         set_qkv_q8(model, qkv_q8)
         return cls(model=model,
-                   policy=Policy(param_dtype=dtype, compute_dtype=dtype))
+                   policy=Policy(param_dtype=dtype, compute_dtype=dtype),
+                   cuda_graphs=cuda_graphs)
 
     # ------------------------------------------------------------------ api
+    def _serve(self, entry: str, fn, x: torch.Tensor) -> torch.Tensor:
+        """``fn(x)``, the device work of request ``entry`` on ``x`` (on the
+        device already): from the entry's graph for x's shape and dtype, the
+        backend, the policy and the route switches, or eagerly."""
+        if self._graphs is None:
+            return fn(x)
+        m = self.model
+        key = (entry, tuple(x.shape), x.dtype, self.backend, self.policy,
+               getattr(m, "attn_q8", None), getattr(m, "qkv_q8", False))
+        return self._graphs(m, key, fn, x)
+
     @torch.inference_mode()
     def encode(self, images) -> torch.Tensor:
         """(B, 3, H, W) -> (B, N, vocab) latents. Accepts normalized float
         batches or raw uint8 pixel batches (normalized on the device), and
         pre-patchified (B, N, C·p²) rows of either."""
-        from tae_tpu_torch.data.transforms import maybe_device_normalize
-
         if not self.model.has_encoder:
             raise ValueError("encoder was pruned (component='decoder')")
+        return self._serve("encode", self._encode,
+                           torch.as_tensor(images).to(self.device))
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        from tae_tpu_torch.data.transforms import maybe_device_normalize
+
         m, pol = self.model, self.policy
-        x = torch.as_tensor(images).to(self.device)
         x = maybe_device_normalize(x, m.cfg.patch_size, pol.compute_dtype)
         # serving=True: a pure-inference surface, so the clamped softmax is
         # safe here; parity and training paths keep the exact form
@@ -293,8 +345,11 @@ class Tokenizer:
         """(B, N, vocab) latents -> (B, 3, H, W) reconstructions."""
         if not self.model.has_decoder:
             raise ValueError("decoder was pruned (component='encoder')")
+        return self._serve("decode", self._decode,
+                           torch.as_tensor(latents).to(self.device))
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
         m = self.model
-        z = torch.as_tensor(latents).to(self.device)
         return m.unpatchify(m.forward_decoder(z, policy=self.policy,
                                               backend=self.backend,
                                               serving=True))
@@ -313,19 +368,32 @@ class Tokenizer:
         """Nearest-codebook token ids (B, N) int64 of an image batch
         (B, 3, H, W), or of latents (B, N, vocab) already encoded. Needs a
         model built with ``quantize=True``."""
+        self._codebook()
+        x = torch.as_tensor(images_or_latents)
+        if x.ndim == 4 and not self.model.has_encoder:
+            raise ValueError("encoder was pruned (component='decoder')")
+        return self._serve("encode_discrete", self._encode_discrete,
+                           x.to(self.device))
+
+    def _encode_discrete(self, x: torch.Tensor) -> torch.Tensor:
         from tae_tpu_torch.ops.quantizer import encode_indices
 
-        codebook = self._codebook()
-        x = torch.as_tensor(images_or_latents)
-        z = self.encode(x) if x.ndim == 4 else x.to(self.device)
-        return encode_indices(z, codebook, self.backend)
+        z = self._encode(x) if x.ndim == 4 else x
+        return encode_indices(z, self._codebook(), self.backend)
 
+    @torch.inference_mode()
     def decode_discrete(self, ids) -> torch.Tensor:
         """Token ids (B, N) -> (B, 3, H, W): the codebook rows, decoded."""
+        self._codebook()
+        if not self.model.has_decoder:
+            raise ValueError("decoder was pruned (component='encoder')")
+        return self._serve("decode_discrete", self._decode_discrete,
+                           torch.as_tensor(ids).to(self.device))
+
+    def _decode_discrete(self, ids: torch.Tensor) -> torch.Tensor:
         from tae_tpu_torch.ops.quantizer import decode_indices
 
-        ids = torch.as_tensor(ids).to(self.device)
-        return self.decode(decode_indices(ids, self._codebook()))
+        return self._decode(decode_indices(ids, self._codebook()))
 
     def encode_jpeg(self, jpegs, deterministic: bool = True) -> torch.Tensor:
         """Raw JPEG bytes -> latents through the val transform (resize the

@@ -2024,3 +2024,75 @@ def test_adamw_update_kernel_bit_equal_to_plain(gen, p_dtype, m_dtype):
     torch.cuda.synchronize()
     for got, exp in zip(ps + ms + vs, want[0] + want[1] + want[2]):
         assert torch.equal(got, exp)
+
+
+# ------------------------------------------- the Tokenizer's CUDA graphs
+
+GRAPH_MODEL = "tae_patch16_vocab16_px256"
+GRAPH_TINY = dict(img_size=64, embed_dim=256, depth=2, num_heads=4,
+                  decoder_embed_dim=256, decoder_depth=2, decoder_num_heads=4)
+
+
+def _launch_counts():
+    from tae_tpu_torch.ops.cuda import counted
+
+    return [w.launches for w in counted()]
+
+
+def _counted(fn, *args):
+    """fn(*args) and the launches it counted, wrapper by wrapper."""
+    before = _launch_counts()
+    out = fn(*args)
+    return out, [a - b for a, b in zip(_launch_counts(), before)]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("quantization", [None, "int8", "int4"])
+def test_tokenizer_graphs_equal_eager(gen, quantization, b):
+    """Served from graphs by default: the eager first request, the capture
+    and replays bit-equal to cuda_graphs=False, each request counting the
+    eager request's launches."""
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    graph = Tokenizer.from_checkpoint(GRAPH_MODEL, device="cuda",
+                                      quantization=quantization, **GRAPH_TINY)
+    eager = Tokenizer(model=graph.model, policy=graph.policy,
+                      cuda_graphs=False)
+    assert graph.cuda_graphs and not eager.cuda_graphs
+    x = torch.randint(0, 256, (b, 3, 64, 64), dtype=torch.uint8,
+                      device="cuda", generator=gen)
+    z_want, n_enc = _counted(eager.encode, x)
+    rec_want, n_dec = _counted(eager.decode, z_want)
+    assert sum(n_enc) > 0 and sum(n_dec) > 0
+    for _ in range(4):
+        z, n = _counted(graph.encode, x)
+        assert torch.equal(z, z_want) and n == n_enc
+        rec, n = _counted(graph.decode, z)
+        assert torch.equal(rec, rec_want) and n == n_dec
+    assert len(graph._graphs) == 2
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_tokenizer_graphs_discrete_equal_eager(gen, b):
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    graph = Tokenizer.from_checkpoint(GRAPH_MODEL, device="cuda",
+                                      quantize=True, codebook_size=64,
+                                      **GRAPH_TINY)
+    eager = Tokenizer(model=graph.model, policy=graph.policy,
+                      cuda_graphs=False)
+    x = torch.randint(0, 256, (b, 3, 64, 64), dtype=torch.uint8,
+                      device="cuda", generator=gen)
+    with torch.no_grad():      # codes on the latents' scale
+        z = eager.encode(x).reshape(-1, 16).float()
+        pick = torch.randint(0, z.shape[0], (64,), generator=gen,
+                             device="cuda")
+        graph.model.codebook.copy_(z[pick] + 0.1 * z.std() * torch.randn(
+            (64, 16), generator=gen, device="cuda"))
+    ids_want = eager.encode_discrete(x)
+    rec_want = eager.decode_discrete(ids_want)
+    for _ in range(4):
+        ids = graph.encode_discrete(x)
+        assert torch.equal(ids, ids_want)
+        assert torch.equal(graph.decode_discrete(ids), rec_want)
+    assert len(graph._graphs) == 2
