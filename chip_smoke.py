@@ -168,15 +168,27 @@ Phases (each prints its lines; any failure exits non-zero):
    images per second, peak memory beside the 44.81 GB floor, and the same
    model's peak with fp32 moments. ``world2``: two gloo ranks on the one
    card (FSDP2's collectives on CUDA tensors) take the 2 + 2 step of the
-   global batch against one process. ``drivers_mesh``: ``cli.train`` with
-   ``WORLD_SIZE=1 --mesh_fsdp 1`` against the same driver without a mesh,
-   losses and launches per step;
+   global batch against one process. ``tensor2``: two gloo ranks on the
+   one card on a (1, 1, 2) mesh, every block split over ``tensor`` (each
+   rank runs the kernels on its own heads): the flagship at full width and
+   depth (8 heads a rank) one ``train_bf16``-recipe step with bf16 moments
+   at B = 16, p128 at 2 + 2 blocks (16 heads of 80 a rank, K6) one step at
+   B = 64 (gradients clipped), and a bf16 ``Tokenizer`` encoding 8 p16
+   images, each against this process's unsplit run (loss, gradient norm,
+   latents), each step also against the same step unsplit in the rank
+   (leaves' updates and first moments) beside two controls that must miss
+   their limits (peer sums of proj / fc2 rounded to bf16; the gradient
+   peer sum ahead of qkv / fc1 dropped), each rank's launches counted, the
+   wall times printed. ``drivers_mesh``:
+   ``cli.train`` with ``WORLD_SIZE=1 --mesh_fsdp 1`` against the same
+   driver without a mesh, losses and launches per step;
 9. prints a JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -503,6 +515,53 @@ P128_FSDP_BATCH, P128_FSDP_STEPS = 64, 3
 WORLD2_TIMEOUT = 300
 WORLD2_LOSS_RTOL, WORLD2_NORM_RTOL = 1e-5, 1e-3
 DRIVER_MESH_RTOL = 1e-6
+# tensor2: two gloo ranks on the one card on a (1, 1, 2) mesh, every block
+# split over tensor (8 heads a rank at p16, 16 at p128). The flagship at
+# full width and depth takes one train_bf16-recipe step (bf16 moments) of a
+# global batch of 16 (gloo carries each block's activation sums through the
+# host: a larger batch only lengthens the run), p128 at full width and
+# 2 + 2 blocks one step at B = 64, and a bf16 Tokenizer encodes a p16 batch
+# of 8; each against this process's unsplit model on the same inputs, and
+# each step also against the same step unsplit in the rank, leaf by leaf.
+# The split rounds each rank's partial product of proj and fc2 to bf16
+# before their fp32 sum, where one process rounds the whole product once;
+# the latents are held to SLICE_REL_TOL (relative Frobenius error)
+TENSOR2_MODEL = PATHS[0][0]
+TENSOR2_BATCH, TENSOR2_P128_BATCH, TENSOR2_ENCODE_BATCH = 16, 64, 8
+# tag -> (model, global batch, gradient clip, overrides): p128's step
+# clips (its norm is near 0.053), so that the clipping of each rank's
+# local shards is held too
+TENSOR2_TRAIN = {"p16": (TENSOR2_MODEL, TENSOR2_BATCH, None, {}),
+                 "p128": (P128_FSDP_MODEL, TENSOR2_P128_BATCH, 0.01,
+                          dict(depth=2, decoder_depth=2))}
+#: the leaves held after the step, in the first and last blocks: the split
+#: layers and a LayerNorm whole on both ranks (its gradient is the peers')
+TENSOR2_LEAVES = ("attn.qkv.weight", "mlp.fc1.weight", "attn.proj.weight",
+                  "norm1.weight")
+TENSOR2_TIMEOUT = 600
+#: the linear layers' biases, zeros at init, are drawn instead: with zero
+#: biases a bf16 peer sum of two bf16 partials equals the fp32 sum rounded
+#: once (their fp32 sum is exact), and no control could tell them apart
+TENSOR2_BIAS_STD = 0.02
+#: tag -> relative limits of the split step against the same step unsplit
+#: (loss, gradient norm, and the largest relative Frobenius error of the
+#: leaves' updates and first moments). On an H100 (PERF.md § 6) the split
+#: measured, p16 / p128: loss 2.3e-5 / 1.7e-6, norm 7.1e-5 / 5.6e-6,
+#: updates 0.109 / 0.032 (a first AdamW step moves each element by about
+#: the learning rate, signed by its gradient: near-zero gradients flip),
+#: moments 0.0062 / 0.0119. The norm limit lies between the split and the
+#: bf16_sum control (1.7e-4 / 1.2e-5); the loss and the leaves do not
+#: tell the bf16 sum apart (loss 2.3e-6 / 2.7e-6, moments 0.0078 / 0.0120)
+#: and gate what no_grad_sum shows (norm 0.37 / 0.12, moments 1.0 / 0.85,
+#: updates 1.4 / 1.0)
+TENSOR2_LIMITS = {
+    "p16": dict(loss=1e-4, grad_norm=1.1e-4, moment=2.0 ** -6, update=0.25),
+    "p128": dict(loss=1e-4, grad_norm=8.2e-6, moment=2.0 ** -6, update=0.25)}
+#: control -> the limits it must miss: "bf16_sum" rounds the peer sum of
+#: proj and fc2 to bf16 before the bias, "no_grad_sum" drops the peer sum
+#: of the gradient entering qkv and fc1
+TENSOR2_CONTROLS = {"bf16_sum": ("grad_norm",),
+                    "no_grad_sum": ("grad_norm", "moment", "update")}
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W); fp32 is
 # the CUDA cores' rate, which the float32 forms run at (no TF32)
@@ -1069,12 +1128,19 @@ def phase_kernels() -> dict:
               f"({bnd[1]}), F.layer_norm {lib:.4f} ms")
 
     # the slice's shape, p32's, a dh=80 shape (p64 configs), and N=4 (p128),
-    # which pads the token axis to the kernel's 16-row tiles
-    for n, h, dh in ((256, 16, 64), (64, 32, 64), (16, 32, 80), (4, 32, 80)):
+    # which pads the token axis to the kernel's 16-row tiles, in both
+    # dtypes; a tensor rank's share of the split Tokenizer's encode
+    # (tensor2: 8 heads of the p16 shape at its batch) in bf16
+    both, bf16_only = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+    for b, n, h, dh, dtypes in ((KERNEL_BATCH, 256, 16, 64, both),
+                                (KERNEL_BATCH, 64, 32, 64, both),
+                                (KERNEL_BATCH, 16, 32, 80, both),
+                                (KERNEL_BATCH, 4, 32, 80, both),
+                                (TENSOR2_ENCODE_BATCH, 256, 8, 64, bf16_only)):
         c = h * dh
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             tol = TOL[str(dtype).split(".")[1]]
-            qkv = randn((KERNEL_BATCH, n, 3 * c), dtype)
+            qkv = randn((b, n, 3 * c), dtype)
             for serving in (True, False):
                 got = fused_qkv_attention(qkv, h, serving=serving)
                 want = fused_qkv_attention_reference(qkv, h, serving=serving)
@@ -1085,13 +1151,12 @@ def phase_kernels() -> dict:
                                                          serving=serving))
                 plain = time_ms(lambda: fused_qkv_attention_reference(
                     qkv, h, serving=serving))
-                bnd = bound(nbytes(qkv, got),
-                            4.0 * KERNEL_BATCH * h * n * n * dh,
+                bnd = bound(nbytes(qkv, got), 4.0 * b * h * n * n * dh,
                             "bf16" if dtype == torch.bfloat16 else "fp32")
                 lib = None
                 if not serving:
                     # the library call has only the exact softmax
-                    r = qkv.view(KERNEL_BATCH, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+                    r = qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
                     lib = time_ms(lambda: F.scaled_dot_product_attention(
                         r[0], r[1], r[2]))
                 res["fused_qkv_attention"].append(
@@ -1447,10 +1512,12 @@ def phase_attention_kernels() -> dict:
         return float((q.float() * s - q_ref.float() * s_ref).abs().max()), share
 
     # ---- K6, bf16 output: p128 (at B = 64, 8 and 1), p64 and p32 shapes,
-    #      and 8 tokens (the last count at which images share a tile); both
-    #      softmax forms
-    for n, h, dh in ((4, 32, 80), (8, 32, 80), (16, 32, 80), (64, 32, 64)):
-        for b in (KERNEL_BATCH, 8, 1, odd) if n == 4 else (KERNEL_BATCH, odd):
+    #      8 tokens (the last count at which images share a tile), and a
+    #      tensor rank's 16 heads of p128 (tensor2); both softmax forms
+    for n, h, dh in ((4, 32, 80), (8, 32, 80), (16, 32, 80), (64, 32, 64),
+                     (4, 16, 80)):
+        for b in ((KERNEL_BATCH, 8, 1, odd) if (n, h) == (4, 32)
+                  else (KERNEL_BATCH, odd)):
             qkv = randn((b, n, 3 * h * dh))
             for serving in (True, False):
                 got = fused_qkv_attention_wide(qkv, h, serving=serving)
@@ -1459,7 +1526,7 @@ def phase_attention_kernels() -> dict:
                 mode = "serving" if serving else "exact"
                 label = f"K6 wide {tuple(qkv.shape)} h={h} dh={dh} bf16 {mode}"
                 err = compare(label, got, want, **tol)
-                timed = b == KERNEL_BATCH or (n == 4 and b != odd)
+                timed = b == KERNEL_BATCH or ((n, h) == (4, 32) and b != odd)
                 t = timing(lambda: fused_qkv_attention_wide(qkv, h,
                                                             serving=serving),
                            lambda: fused_qkv_attention_wide_reference(
@@ -1717,7 +1784,8 @@ def phase_train_kernels() -> dict:
     """The training kernels against their plain versions: K1's stats form
     (y, mean, rstd), K11 (dx, dw, db), K2's LSE form (o, lse) and K10 (dqkv),
     in bf16 at the train path's shapes (B = 64) and in fp32 at B = 8, plus
-    head dim 80, 64 and 16 tokens and a token count off the 16-row tiles.
+    a tensor rank's 8 heads of the p16 shape (``tensor2``), head dim 80, 64
+    and 16 tokens and a token count off the 16-row tiles.
     Returns case records per kernel name; the first is the main-path shape."""
     import torch
     import torch.nn.functional as F
@@ -1833,6 +1901,8 @@ def phase_train_kernels() -> dict:
     #      token counts at the edges of the bf16 backward body's 16-row tiles
     #      and 128-row ranges
     for batch, n, h, dh, dtype in ((KERNEL_BATCH, 256, 16, 64, torch.bfloat16),
+                                   # a rank's share on tensor2's (1, 1, 2)
+                                   (KERNEL_BATCH, 256, 8, 64, torch.bfloat16),
                                    (KERNEL_BATCH, 256, 16, 64, torch.float32),
                                    (8, 256, 16, 64, torch.float32),
                                    (KERNEL_BATCH, 64, 32, 64, torch.bfloat16),
@@ -5304,12 +5374,16 @@ def setup_world1():
     return mesh, device
 
 
-def p128_fsdp_trainer(mesh, moment_dtype, backend=None, **overrides):
-    """The p128 model (fp32 parameters from seed 0), placed on ``mesh``
-    (None: left whole), its AdamW state with ``moment_dtype`` and the
-    ``train_bf16`` recipe's step (bf16 compute, decay 0.05,
-    ``step_lr(1e-4, 1e-5, 450_000)``). With ``backend="reference"`` the
-    update is K18's plain version."""
+def p128_fsdp_trainer(mesh, moment_dtype, backend=None,
+                      name=P128_FSDP_MODEL, clip_grad=None, bias_std=None,
+                      **overrides):
+    """The p128 model (or model ``name``; fp32 parameters from seed 0),
+    placed on ``mesh`` (None: left whole), its AdamW state with
+    ``moment_dtype`` and the ``train_bf16`` recipe's step (bf16 compute,
+    decay 0.05, ``step_lr(1e-4, 1e-5, 450_000)``; gradients clipped to the
+    norm ``clip_grad`` where given). ``bias_std``: the linear layers'
+    biases, zeros at init, drawn from N(0, bias_std²) (seed 1) instead.
+    With ``backend="reference"`` the update is K18's plain version."""
     import torch
 
     from tae_tpu_torch import models
@@ -5320,9 +5394,16 @@ def p128_fsdp_trainer(mesh, moment_dtype, backend=None, **overrides):
     from tae_tpu_torch.train.optim import Optimizer
     from tae_tpu_torch.utils.dtypes import Policy
 
-    model = models.create(P128_FSDP_MODEL, device="cuda", trainable=True,
-                          **overrides)
+    model = models.create(name, device="cuda", trainable=True, **overrides)
     model.init_weights_(torch.Generator(device="cuda").manual_seed(0))
+    if bias_std is not None:
+        from tae_tpu_torch.nn.vit import Linear
+
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, Linear) and m.bias is not None:
+                    m.bias.normal_(0.0, bias_std, generator=gen)
     shard_model(model, mesh)
     opt = adamw(weight_decay=WEIGHT_DECAY, moment_dtype=moment_dtype)
     if backend == "reference":
@@ -5332,14 +5413,15 @@ def p128_fsdp_trainer(mesh, moment_dtype, backend=None, **overrides):
     def loss_fn(m, batch):
         return m(batch, policy=policy, backend=backend)[0], {}
 
-    step = make_train_step(loss_fn, opt, step_lr(1e-4, 1e-5, 450_000))
+    step = make_train_step(loss_fn, opt, step_lr(1e-4, 1e-5, 450_000),
+                           clip_grad=clip_grad)
     return TrainState.create(model, opt), step
 
 
-def p128_fsdp_batch(b: int):
+def p128_fsdp_batch(b: int, seed: int = 4):
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn((b, 3, 256, 256), generator=gen, device="cuda")
 
 
@@ -5515,6 +5597,300 @@ def phase_world2() -> None:
           f"{tag}: two ranks differ from one process")
 
 
+def tensor2_counted(fn):
+    """``fn()``, its host wall time to a synchronize (ms) and every
+    kernel's launches in it (the counts set to 0 just before and read just
+    after)."""
+    import torch
+
+    fns = wrappers()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    value = fn()
+    torch.cuda.synchronize()
+    return value, (time.perf_counter() - t) * 1e3, {
+        name: f.launches for name, f in fns.items() if f.launches}
+
+
+def tensor2_whole(state, names, moment: bool = False) -> dict:
+    """name -> the parameter (or, with ``moment``, its AdamW first moment)
+    whole, in fp32 on the host, a split qkv in the reference's rows. A
+    split leaf's shards are gathered over the tensor peers by
+    ``dist.all_gather`` on host copies, which every peer calls (on CUDA
+    tensors under gloo, ``DTensor.full_tensor``'s functional all-gather
+    ends the process with a segmentation fault); FSDP2's share is the whole
+    on a (1, 1, 2) mesh."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from tae_tpu_torch.parallel.tensor import local_shard, to_reference
+
+    params = dict(state.model.named_parameters())
+    out = {}
+    for n in names:
+        t = state.opt.state[params[n]]["exp_avg"] if moment else params[n]
+        whole = local_shard(t).detach().to("cpu", torch.float32, copy=True)
+        if isinstance(t, DTensor) and "tensor" in t.device_mesh.mesh_dim_names:
+            sub = t.device_mesh["tensor"]
+            cut = t.placements[t.device_mesh.mesh_dim_names.index("tensor")]
+            check(isinstance(cut, Shard), f"{n}: {t.placements}")
+            parts = [torch.empty_like(whole) for _ in range(sub.size())]
+            dist.all_gather(parts, whole, group=sub.get_group())
+            whole = torch.cat(parts, cut.dim)
+        check(tuple(whole.shape) == tuple(t.shape),
+              f"{n}: gathered {tuple(whole.shape)} of {tuple(t.shape)}")
+        out[n] = whole
+    return to_reference(out, state.model)
+
+
+def tensor2_train(mesh, tag: str) -> dict:
+    """One step of model ``tag`` (``TENSOR2_TRAIN``) on ``mesh`` (None:
+    unsplit): its global loss, gradient norm (before clipping), wall time,
+    launches and heads a rank, and the ``TENSOR2_LEAVES`` of its first and
+    last blocks whole (their update in the step and their first moment
+    after it, each an fp32 tensor on the host)."""
+    import torch
+
+    from tae_tpu_torch.dryrun import global_mean
+    from tae_tpu_torch.parallel import batch_slice
+
+    name, b, clip, overrides = TENSOR2_TRAIN[tag]
+    began = time.perf_counter()
+    state, step = p128_fsdp_trainer(mesh, torch.bfloat16, name=name,
+                                    clip_grad=clip, bias_std=TENSOR2_BIAS_STD,
+                                    **overrides)
+    cfg = state.model.cfg
+    names = [f"{stack}.{leaf}" for stack in
+             ("blocks.0", f"decoder_blocks.{cfg.decoder_depth - 1}")
+             for leaf in TENSOR2_LEAVES]
+    before = tensor2_whole(state, names)
+    batch = batch_slice(p128_fsdp_batch(b, seed=6), mesh)
+    (_, m), ms, launches = tensor2_counted(lambda: step(state, batch, 0))
+    after = tensor2_whole(state, names)
+    # unsplit in a rank: this rank's loss is the whole batch's
+    loss = float(m["loss"]) if mesh is None else global_mean(m["loss"], mesh)
+    out = dict(loss=loss, grad_norm=float(m["grad_norm"]), ms=ms,
+               launches=launches, heads=state.model.blocks[0].attn.num_heads,
+               cfg=cfg, update={n: after[n] - before[n] for n in names},
+               moment=tensor2_whole(state, names, moment=True),
+               seconds=time.perf_counter() - began)
+    del state, step, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor2_errors(got: dict, want: dict) -> dict:
+    """The relative errors of ``got``'s loss and gradient norm, and the
+    largest relative Frobenius error of its leaves' updates and of their
+    first moments, each against ``want``'s, with the leaf at each."""
+    out = dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+               grad_norm=abs(got["grad_norm"] - want["grad_norm"])
+               / want["grad_norm"], seconds=got["seconds"])
+    for k in ("update", "moment"):
+        errs = {n: rel_err(got[k][n], want[k][n]) for n in want[k]}
+        out[f"{k}_at"] = max(errs, key=errs.get)
+        out[k] = errs[out[f"{k}_at"]]
+    return out
+
+
+@contextlib.contextmanager
+def tensor2_control(kind: str):
+    """The split with one fault of ``TENSOR2_CONTROLS`` put in, for as long
+    as the context lasts."""
+    import torch
+
+    import tae_tpu_torch.parallel.tensor as tp
+
+    if kind == "bf16_sum":
+        real, attr = tp._sum_f32, "_sum_f32"
+        setattr(tp, attr, lambda t, group: real(t, group).to(
+            torch.bfloat16).float())
+        owner = tp
+    else:
+        owner, attr = tp.TensorSplit, "enter"
+        real = owner.enter
+        owner.enter = lambda self, x: x
+    try:
+        yield
+    finally:
+        setattr(owner, attr, real)
+
+
+def tensor2_work(mesh) -> dict:
+    """The tensor2 phase's work on ``mesh`` (None: this process, unsplit):
+    (a) one train step of the flagship at full width and depth, (b) one of
+    p128 at 2 + 2 blocks, (c) a bf16 Tokenizer's encode of a p16 batch.
+    Each with its loss and gradient norm or latents, its host wall time to
+    a synchronize, its heads a rank and every kernel's launches in it. On
+    a mesh the split step (``errors``) and each control of
+    ``TENSOR2_CONTROLS`` (``controls``) are also held against the same step
+    unsplit in this rank."""
+    import torch
+
+    from tae_tpu_torch.models import create
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    out = {}
+    for tag in TENSOR2_TRAIN:
+        if mesh is None:
+            got = tensor2_train(None, tag)
+        else:
+            want = tensor2_train(None, tag)
+            got = tensor2_train(mesh, tag)
+            got["errors"] = tensor2_errors(got, want)
+            got["controls"] = {}
+            for kind in TENSOR2_CONTROLS:
+                with tensor2_control(kind):
+                    control = tensor2_train(mesh, tag)
+                got["controls"][kind] = tensor2_errors(control, want)
+                del control
+            del want
+        del got["update"], got["moment"]
+        out[tag] = got
+    tok = Tokenizer.from_checkpoint(TENSOR2_MODEL, dtype=torch.bfloat16,
+                                    device="cuda", mesh=mesh,
+                                    cuda_graphs=None if mesh else False)
+    images = p128_fsdp_batch(TENSOR2_ENCODE_BATCH, seed=7)
+    tok.encode(images)                                      # warm
+    z, ms, launches = tensor2_counted(lambda: tok.encode(images))
+    out["encode"] = dict(z=z.float().cpu().numpy(), ms=ms, launches=launches,
+                         heads=tok.model.blocks[0].attn.num_heads,
+                         cfg=create(TENSOR2_MODEL, device="meta").cfg,
+                         eager=not tok.cuda_graphs)
+    del tok
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tensor2_rank(rank: int, world: int) -> dict:
+    """One rank of the tensor2 phase: gloo on CUDA tensors of one card, a
+    (1, 1, 2) mesh."""
+    import torch
+
+    from tae_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return tensor2_work(make_mesh(1, 1, world, device_type="cuda"))
+
+
+def phase_tensor2(label: str) -> dict:
+    """Path ``tensor2``: every block split over the tensor axis of a
+    (1, 1, 2) mesh of two gloo ranks on the one card (NCCL refuses two
+    ranks on one device), each rank running the kernels on its own heads;
+    :func:`tensor2_work` on both ranks against this process's unsplit run
+    (loss, gradient norm, latents) and, in each rank, against its own
+    unsplit step (the leaves' updates and first moments too), beside the
+    controls, each of which must miss the limits it is named with. Each
+    rank's launches are held to the unsplit model's per-step
+    counts (per encode for the Tokenizer). Returns rank 0's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tae_tpu_torch.parallel import spawn
+
+    tag = "tensor2"
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn.run(_tensor2_rank, 2, store=str(pathlib.Path(tmp) / "s"),
+                          timeout=TENSOR2_TIMEOUT)
+    spawned = time.perf_counter() - t
+    one = tensor2_work(None)
+    totals: dict = {}
+    for what in TENSOR2_TRAIN:
+        want, cfg = one[what], one[what]["cfg"]
+        limits = TENSOR2_LIMITS[what]
+        # the bf16 moments: one K18 launch a step
+        launches = dict(train_launches(cfg), adamw_update=1)
+        check(want["launches"] == launches,
+              f"{tag} {what}: one process launched {want['launches']}, "
+              f"expected {launches}")
+        for rank, r in enumerate(ranks):
+            got = r[what]
+            check(got["launches"] == launches,
+                  f"{tag} {what} rank {rank}: launches {got['launches']}, "
+                  f"expected {launches}")
+            check(got["heads"] * 2 == want["heads"],
+                  f"{tag} {what} rank {rank}: {got['heads']} heads a rank "
+                  f"of {want['heads']}")
+        got = ranks[0][what]
+        loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        norm_err = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        clip = TENSOR2_TRAIN[what][2]
+        print(f"[{tag}] {what}: {cfg.depth}+{cfg.decoder_depth} blocks of "
+              f"width {cfg.embed_dim}, {got['heads']} heads a rank of "
+              f"{want['heads']}, one train_bf16 step (bf16 moments"
+              + ("" if clip is None else f", gradients clipped to {clip}")
+              + f"): loss {got['loss']!r} vs {want['loss']!r} in one process "
+              f"(relative {loss_err:.3g}, tolerance {limits['loss']:.3g}), "
+              f"gradient norm {got['grad_norm']!r} vs {want['grad_norm']!r} "
+              f"(relative {norm_err:.3g}, tolerance "
+              f"{limits['grad_norm']:.3g}); launches a rank "
+              f"{json.dumps(launches)}")
+        for head, e in (("the split", got["errors"]),
+                        *((f"control {kind}", got["controls"][kind])
+                          for kind in TENSOR2_CONTROLS)):
+            print(f"[{tag}] {what}, {head}, against the same step unsplit "
+                  f"in rank 0 ({', '.join(TENSOR2_LEAVES)} of the first and "
+                  f"last blocks): loss {e['loss']:.3g}, gradient norm "
+                  f"{e['grad_norm']:.3g}, updates at most {e['update']:.3g} "
+                  f"({e['update_at']}), first moments at most "
+                  f"{e['moment']:.3g} ({e['moment_at']}); built and run in "
+                  f"{e['seconds']:.1f} s")
+        print(f"[{tag}] {what} limits {json.dumps(limits)}")
+        print(f"[{tag}] {what} step wall (host clock to a synchronize, first "
+              f"step): rank 0 {ranks[0][what]['ms']:.1f} ms, rank 1 "
+              f"{ranks[1][what]['ms']:.1f} ms, one process unsplit "
+              f"{want['ms']:.1f} ms; {label}")
+        check(loss_err <= limits["loss"] and norm_err <= limits["grad_norm"],
+              f"{tag} {what}: the split step differs from one process")
+        for rank, r in enumerate(ranks):
+            e = r[what]["errors"]
+            check(all(e[k] <= v for k, v in limits.items()),
+                  f"{tag} {what} rank {rank}: the split step differs from "
+                  f"the rank's unsplit step: {e}, limits {limits}")
+        for kind, missed in TENSOR2_CONTROLS.items():
+            e = got["controls"][kind]
+            check(all(e[k] > limits[k] for k in missed),
+                  f"{tag} {what}: control {kind} meets a limit of {missed}: "
+                  f"{e}, limits {limits}")
+        for name, n in got["launches"].items():
+            totals[name] = totals.get(name, 0) + n
+    want = one["encode"]
+    per_encode = expected_launches(want["cfg"], None)["encode"]
+    check(want["launches"] == per_encode,
+          f"{tag} encode: one process launched {want['launches']}, expected "
+          f"{per_encode}")
+    for rank, r in enumerate(ranks):
+        got = r["encode"]
+        err = rel_err(torch.from_numpy(got["z"]), torch.from_numpy(want["z"]))
+        check(got["eager"] and got["launches"] == per_encode
+              and got["heads"] * 2 == want["heads"]
+              and bool(np.isfinite(got["z"]).all()) and err <= SLICE_REL_TOL,
+              f"{tag} encode rank {rank}: launches {got['launches']} (expected "
+              f"{per_encode}), heads {got['heads']}, relative error {err:.3g}")
+    err = rel_err(torch.from_numpy(ranks[0]["encode"]["z"]),
+                  torch.from_numpy(want["z"]))
+    print(f"[{tag}] bf16 Tokenizer on (1, 1, 2), eager: encode of "
+          f"{TENSOR2_ENCODE_BATCH} p16 images, latents "
+          f"{tuple(want['z'].shape)} within {err:.3g} of one process's "
+          f"(relative Frobenius, tolerance {SLICE_REL_TOL}); encode wall "
+          f"rank 0 {ranks[0]['encode']['ms']:.2f} ms, rank 1 "
+          f"{ranks[1]['encode']['ms']:.2f} ms, one process eager "
+          f"{want['ms']:.2f} ms; launches a rank {json.dumps(per_encode)}")
+    for name, n in ranks[0]["encode"]["launches"].items():
+        totals[name] = totals.get(name, 0) + n
+    print(f"[{tag}] two ranks spawned and run in {spawned:.1f} s, the "
+          f"unsplit runs in {time.perf_counter() - t - spawned:.1f} s; main "
+          f"path launches (rank 0): {json.dumps(totals)}")
+    return totals
+
+
 def phase_drivers_mesh() -> dict:
     """Path ``drivers_mesh``: ``cli.train`` as a torchrun launch of one
     (``WORLD_SIZE=1``, ``--mesh_fsdp 1``: the model under FSDP2 on this
@@ -5627,6 +6003,7 @@ def main() -> int:
         launches["p128_train"] = phase_p128_train()
         launches["train_p128_fsdp"] = phase_train_p128_fsdp(card_label())
         phase_world2()
+        launches["tensor2"] = phase_tensor2(card_label())
         launches["drivers"] = phase_drivers()
         launches["drivers_mesh"] = phase_drivers_mesh()
         label = card_label()

@@ -16,9 +16,12 @@ parameters) the same single file is written: every rank takes part in
 gathering the full model and optimizer state to rank 0
 (``torch.distributed.checkpoint.state_dict``, ``full_state_dict=True``,
 ``cpu_offload=True``), rank 0 writes it, with barriers around the rename.
-On load every rank reads the file and sets the full state onto its own
-shards, so a checkpoint saved on one mesh restores on another, or in one
-process, and the reverse. The optimizer state keeps torch's layout
+A block split over ``tensor`` groups its qkv rows by rank; the gathered
+tensors are put back in the reference's rows before they are written, and
+a loaded one is grouped again before it is placed
+(:mod:`tae_tpu_torch.parallel.tensor`). On load every rank reads the file
+and sets the full state onto its own shards, so a checkpoint saved on one
+mesh restores on another, or in one process, and the reverse. The optimizer state keeps torch's layout
 (integer keys in the order of the optimizer's parameter groups) whatever
 the mesh; reduced-precision moments keep their type.
 
@@ -43,6 +46,8 @@ from torch import nn
 
 from tae_tpu_torch.ckpt.bridge import state_dict_of
 from tae_tpu_torch.ckpt.interpolate import maybe_interpolate_tree
+from tae_tpu_torch.parallel.sharding import is_sharded
+from tae_tpu_torch.parallel.tensor import to_ranks, to_reference
 
 FORMAT = "tae_tpu_torch.checkpoint.v1"
 
@@ -68,13 +73,6 @@ def _to_host(obj):
     return obj
 
 
-def is_sharded(model: nn.Module) -> bool:
-    """Whether ``model`` is placed on a mesh (FSDP2's DTensor parameters)."""
-    from torch.distributed.tensor import DTensor
-
-    return any(isinstance(p, DTensor) for p in model.parameters())
-
-
 def _full_options(**kw):
     from torch.distributed.checkpoint.state_dict import StateDictOptions
 
@@ -93,7 +91,8 @@ def _model_state(model: nn.Module) -> dict:
         return _to_host(model.state_dict())
     from torch.distributed.checkpoint.state_dict import get_model_state_dict
 
-    return get_model_state_dict(model, options=_full_options(cpu_offload=True))
+    return to_reference(get_model_state_dict(
+        model, options=_full_options(cpu_offload=True)), model)
 
 
 def _optimizer_state(model: nn.Module, opt: torch.optim.Optimizer) -> dict:
@@ -109,7 +108,8 @@ def _optimizer_state(model: nn.Module, opt: torch.optim.Optimizer) -> dict:
         return {}
     names = [n for g in by_name["param_groups"] for n in g["params"]]
     index = {n: i for i, n in enumerate(names)}
-    return {"state": {index[n]: st for n, st in by_name["state"].items()},
+    state = to_reference(by_name["state"], model)
+    return {"state": {index[n]: st for n, st in state.items()},
             "param_groups": [dict(g, params=[index[n] for n in g["params"]])
                              for g in by_name["param_groups"]]}
 
@@ -196,7 +196,8 @@ def _load_state_dict(model: nn.Module, blob: dict) -> None:
         return
     from torch.distributed.checkpoint.state_dict import set_model_state_dict
 
-    set_model_state_dict(model, loaded, options=_full_options(strict=False))
+    set_model_state_dict(model, to_ranks(loaded, model),
+                         options=_full_options(strict=False))
 
 
 def _load_optimizer(model: nn.Module, opt: torch.optim.Optimizer,
@@ -213,7 +214,8 @@ def _load_optimizer(model: nn.Module, opt: torch.optim.Optimizer,
         raise ValueError(f"the checkpoint's optimizer has {len(ids)} "
                          f"parameters, this one {len(names)}")
     name = dict(zip(ids, names))
-    by_name = {"state": {name[i]: st for i, st in saved["state"].items()},
+    state = {name[i]: st for i, st in saved["state"].items()}
+    by_name = {"state": to_ranks(state, model),
                "param_groups": [dict(g, params=[name[i] for i in g["params"]])
                                 for g in saved["param_groups"]]}
     set_optimizer_state_dict(model, opt, by_name, options=_full_options())

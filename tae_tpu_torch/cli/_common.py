@@ -5,10 +5,11 @@ Flag names stay those of the JAX package's drivers (and the reference's),
 so a launch script ports with a module-name change. ``--device`` places the
 run (``cuda`` by default; ``--device cpu`` runs the plain PyTorch versions,
 as the tests do). Under ``torchrun`` (``WORLD_SIZE`` set) :func:`build_mesh`
-joins the process group and builds the ``(data, fsdp, 1)`` mesh that
-``--mesh_fsdp`` asks for; the drivers shard the model on it
-(``parallel.shard_model``) and give each rank its rows of every global
-batch. ``--mesh_tensor`` above 1 refuses (ROADMAP A16).
+joins the process group and builds the ``(data, fsdp, tensor)`` mesh that
+``--mesh_fsdp`` and ``--mesh_tensor`` ask for; the drivers shard the model
+on it (``parallel.shard_model``: each block split over ``tensor``, FSDP2
+over ``data`` × ``fsdp``) and give each ``data`` × ``fsdp`` rank its rows
+of every global batch (tensor peers take the same rows).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
                    help="fsdp mesh axis size (parameter sharding, FSDP2); "
                         "the data axis takes the other processes")
     g.add_argument("--mesh_tensor", default=1, type=int,
-                   help="tensor-parallel mesh axis size (>1 is not ported: "
-                        "ROADMAP A16)")
+                   help="tensor mesh axis size (each block's attention "
+                        "heads and MLP split over it, Megatron style)")
     g.add_argument("--remat", action="store_true",
                    help="recompute block activations in the backward pass")
     g.add_argument("--attn_backend", default=None,
@@ -62,11 +63,11 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
 def build_mesh(args):
     """``(mesh, device)`` of the run. Where ``WORLD_SIZE`` is set (torchrun)
     this joins the process group (``--dist_url``; NCCL on ``cuda``, gloo on
-    ``cpu``) and builds the ``(data=-1, fsdp=--mesh_fsdp, 1)`` mesh; the
-    device is ``cuda:LOCAL_RANK`` or the CPU. Without it the run is a world
-    of 1: no mesh, ``--device`` as given. ``--mesh_fsdp`` must divide the
-    world, as the JAX ``make_mesh`` requires; ``--mesh_tensor`` above 1
-    refuses (ROADMAP A16)."""
+    ``cpu``) and builds the ``(data=-1, fsdp=--mesh_fsdp,
+    tensor=--mesh_tensor)`` mesh; the device is ``cuda:LOCAL_RANK`` or the
+    CPU. Without it the run is a world of 1: no mesh, ``--device`` as
+    given. ``--mesh_fsdp`` × ``--mesh_tensor`` must divide the world, as
+    the JAX ``make_mesh`` requires."""
     from tae_tpu_torch.parallel import mesh as pmesh
     from tae_tpu_torch.parallel.sharding import axis_sizes
 
@@ -74,7 +75,7 @@ def build_mesh(args):
     world = int(os.environ.get("WORLD_SIZE", "1"))
     try:
         pmesh.mesh_sizes(world, -1, fsdp, tensor)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise SystemExit(f"--mesh_fsdp {fsdp} --mesh_tensor {tensor}: {e}")
     device = torch.device(args.device)
     if "WORLD_SIZE" not in os.environ:
@@ -131,12 +132,15 @@ def maybe_quantize_encoder(model, mode: str | None, equalize: float = 0.0):
     return prepare_serving_(model, mode, equalize)
 
 
-def frozen_encoder(args, device: torch.device):
+def frozen_encoder(args, device: torch.device, mesh=None):
     """The downstream drivers' frozen TAE encoder: ``--encoder`` built on
     ``device``, initialised from seed ``--seed`` + 1, ``--encoder_ckpt``
     loaded, cast once to bf16, pruned to its encoder half (the stage only
     ever runs ``forward_encoder``) and, with ``--encoder_quantization
-    int8``, rewritten for int8 serving. Every parameter frozen."""
+    int8``, rewritten for int8 serving. Every parameter frozen. On a mesh a
+    float encoder's blocks split over ``tensor``
+    (``parallel.tensor.split_model_``; every rank then runs the same
+    encoder calls); an int8 one stays whole on every rank."""
     from tae_tpu_torch.ckpt.io import load_params
     from tae_tpu_torch.tokenizer import prune_component
 
@@ -152,7 +156,12 @@ def frozen_encoder(args, device: torch.device):
     encoder = prune_component(encoder.to(torch.bfloat16).eval(), "encoder")
     maybe_quantize_encoder(encoder, args.encoder_quantization,
                            getattr(args, "encoder_equalize", 0.0))
-    return encoder.requires_grad_(False)
+    encoder.requires_grad_(False)
+    if args.encoder_quantization is None:
+        from tae_tpu_torch.parallel.tensor import split_model_
+
+        split_model_(encoder, mesh)
+    return encoder
 
 
 def fetch_metrics(metrics: dict, mesh=None):
@@ -177,7 +186,9 @@ def fetch_metrics(metrics: dict, mesh=None):
 
 def mean_over_ranks(vals: torch.Tensor, mesh) -> torch.Tensor:
     """``vals`` averaged over the (data, fsdp) ranks of ``mesh`` (the
-    tensor itself without one)."""
+    tensor itself without one), each counted once: tensor peers hold the
+    same rows, and only tensor rank 0's values enter the sum."""
+    from tae_tpu_torch.parallel.mesh import tensor_rank
     from tae_tpu_torch.parallel.sharding import data_rank
 
     _, count = data_rank(mesh)
@@ -185,7 +196,7 @@ def mean_over_ranks(vals: torch.Tensor, mesh) -> torch.Tensor:
         return vals
     import torch.distributed as dist
 
-    vals = vals.clone()
+    vals = vals.clone() if tensor_rank(mesh) == 0 else torch.zeros_like(vals)
     dist.all_reduce(vals)
     return vals / count
 
@@ -210,7 +221,7 @@ def real_rows_mean(per: torch.Tensor, n: int, mesh) -> float:
         return float(per[:n].mean())
     first = index * per.shape[0]
     mine = per[:max(0, min(per.shape[0], n - first))]
-    return float(all_reduce_sum([float(mine.double().sum())])[0]) / n
+    return float(all_reduce_sum([float(mine.double().sum())], mesh)[0]) / n
 
 
 def host_metrics(fetched) -> dict[str, float]:
@@ -355,7 +366,8 @@ def wds_train_loader(args, batch_size: int, mesh=None) -> BatchLoader:
     its own seeds, as each process of the JAX drivers does (its index and
     count where they pass ``jax.process_index()``, ``process_count()``),
     and yields its own rows alone: ``batch_size``, the global batch, over
-    the ranks."""
+    the ranks. Tensor peers share a (data, fsdp) rank, so they stream the
+    same shards and seeds and yield the same rows."""
     from tae_tpu_torch.data import native
     from tae_tpu_torch.parallel.sharding import data_rank
 
@@ -449,11 +461,12 @@ def clamp_eval_batch(requested: int, model, device: torch.device,
     Budget per rank = 80% of the device's memory (``TAE_TPU_HBM_BYTES``
     overrides; else ``torch.cuda.mem_get_info``'s total on a CUDA device,
     16 GiB elsewhere) minus the rank's parameter bytes (its shards under a
-    mesh). The per-sample activation model is the JAX package's: the fp32
-    input image and patchified target, two MLP-hidden-sized bf16 buffers in
-    flight, a few residual-stream buffers, and the fp32 prediction; each
-    rank holds its share of the batch."""
+    mesh, on ``tensor`` and on ``fsdp``). The per-sample activation model
+    is the JAX package's: the fp32 input image and patchified target, two
+    MLP-hidden-sized bf16 buffers in flight, a few residual-stream buffers,
+    and the fp32 prediction; each rank holds its share of the batch."""
     from tae_tpu_torch.parallel.sharding import data_rank
+    from tae_tpu_torch.parallel.tensor import local_shard
 
     cfg = model.cfg
     hbm = int(os.environ.get("TAE_TPU_HBM_BYTES", "0"))
@@ -461,10 +474,7 @@ def clamp_eval_batch(requested: int, model, device: torch.device,
         hbm = (torch.cuda.mem_get_info(device)[1] if device.type == "cuda"
                else 16 << 30)
 
-    def local(p):
-        return p.to_local() if hasattr(p, "to_local") else p
-
-    param_bytes = sum(local(p).numel() * p.element_size()
+    param_bytes = sum(local_shard(p).numel() * p.element_size()
                       for p in model.parameters())
 
     p = cfg.patch_size

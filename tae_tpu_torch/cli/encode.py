@@ -17,9 +17,11 @@ Like the reference, the default transform is the train-style random crop
 Under ``torchrun`` each rank encodes its share of the input shards (rank r
 takes shards r, r + N, ... over its workers) into shards of its own
 (``{prefix}_latents-rRRR-NNNNNN.npz``), and rank 0 writes the one index of
-all of them. With ``--mesh_fsdp`` above 1 the encoder is sharded, and a rank
-whose data has run out encodes empty batches until every rank's has, so
-that the parameter gathers of all ranks meet.
+all of them. Tensor peers (``--mesh_tensor``) encode the same rows, and
+tensor rank 0 alone writes them. Where the encoder is sharded (a float
+encoder with ``--mesh_fsdp`` or ``--mesh_tensor`` above 1), a rank whose
+data has run out encodes empty batches until every rank's has, so that
+the collectives of all ranks meet.
 
 Run: ``python -m tae_tpu_torch.cli.encode --model tae_patch16_vocab256_px256
 --model_ckpt ckpt.pth --data_path 'shards-{000000..000099}.tar'
@@ -218,12 +220,15 @@ def make_encode_loader(data_path: str, input_size: int, deterministic: bool,
 
 
 class ShardWriter:
-    """Accumulate (latents, targets) and flush ``.npz`` shards + an index."""
+    """Accumulate (latents, targets) and flush ``.npz`` shards + an index.
+    ``write=False`` (a tensor peer of the rank that writes) keeps nothing
+    and writes nothing, but takes part in the index's gather."""
 
     def __init__(self, output_dir: Path, prefix: str, shard_size: int,
-                 tag: str = ""):
+                 tag: str = "", write: bool = True):
         self.dir = output_dir
         self.tag = tag
+        self.write = write
         self.dir.mkdir(parents=True, exist_ok=True)
         self.prefix = prefix
         self.shard_size = shard_size
@@ -233,6 +238,8 @@ class ShardWriter:
         self.shards: list[dict] = []
 
     def add(self, latents: np.ndarray, targets: np.ndarray) -> None:
+        if not self.write:
+            return
         self.buf_z.append(latents)
         self.buf_t.append(targets)
         self.buffered += latents.shape[0]
@@ -312,13 +319,16 @@ def main(args) -> dict:
         print(f"Loaded checkpoint {args.model_ckpt}")
     cfg = tok.model.cfg
 
-    from tae_tpu_torch.parallel.sharding import axis_sizes, data_rank
+    from tae_tpu_torch.parallel import is_main_process
+    from tae_tpu_torch.parallel.mesh import tensor_rank
+    from tae_tpu_torch.parallel.sharding import data_rank, is_sharded
 
     rank, ranks = data_rank(mesh)
-    lockstep = axis_sizes(mesh)["fsdp"] > 1
+    lockstep = is_sharded(tok.model)
     _common.print_decoder()
     # the Tokenizer's default: graphs on one card, eager for an encoder that
-    # fully_shard shards (--mesh_fsdp above 1) and on the CPU
+    # is sharded (a float encoder on --mesh_fsdp or --mesh_tensor above 1)
+    # and on the CPU
     print(f"cuda graphs: {'on' if tok.cuda_graphs else 'off'}", flush=True)
     loader = make_encode_loader(args.data_path, args.input_size,
                                 args.deterministic, args.seed,
@@ -328,7 +338,8 @@ def main(args) -> dict:
                                             if args.patch_layout else 0),
                                 process_index=rank, process_count=ranks)
     writer = ShardWriter(Path(args.output_dir), args.save_prefix,
-                         args.shard_size, f"r{rank:03d}-" if ranks > 1 else "")
+                         args.shard_size, f"r{rank:03d}-" if ranks > 1 else "",
+                         write=tensor_rank(mesh) == 0)
     t0 = time.time()
     n_imgs = 0
 
@@ -385,7 +396,7 @@ def main(args) -> dict:
     if pending is not None:
         land(pending)
     writer.close(mesh)
-    if args.pth_output and rank == 0:
+    if args.pth_output and is_main_process():
         from tae_tpu_torch.data.latents import shards_to_pth
 
         n_pth = shards_to_pth(
@@ -394,7 +405,8 @@ def main(args) -> dict:
         print(f"wrote {args.pth_output} ({n_pth} samples, reference format)")
     dt = time.time() - t0
     stats = {"num_samples": n_imgs, "seconds": dt,
-             "images_per_sec": n_imgs / max(dt, 1e-9)}
+             "images_per_sec": n_imgs / max(dt, 1e-9),
+             "shards_written": len(writer.shards)}
     print(f"Encoded {n_imgs} samples in {dt:.1f}s "
           f"({stats['images_per_sec']:.0f} img/s)")
     return stats

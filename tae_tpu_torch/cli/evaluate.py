@@ -8,7 +8,7 @@ writes an originals / reconstructions grid. ``--resume`` loads a checkpoint
 ``ckpt/io.load_params``. The model holds fp32 parameters and computes in
 bf16 with the exact softmax, as the JAX driver does.
 
-Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh; every
+Under ``torchrun`` the model is placed on the ``(data, fsdp, tensor)`` mesh; every
 rank reads the same batches and runs its rows of each, and each batch's mean
 is taken over the real rows of all ranks, so the loss is one process's.
 Rank 0 writes the grid.

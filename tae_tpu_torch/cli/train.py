@@ -21,7 +21,7 @@ reference's best-eval contract, train.py:164-172) when the eval loss
 improves. ``--resume_auto`` continues from the newer of the two at its step
 + 1, with the optimizer state.
 
-Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh
+Under ``torchrun`` the model is placed on the ``(data, fsdp, tensor)`` mesh
 (``parallel.shard_model``). The global batch is ``--batch_size_per_gpu`` x
 ``--accum_iter``, the JAX package's for the same flags: every rank reads the
 same stream and keeps its rows of each batch, so a run on N processes sees
@@ -31,7 +31,8 @@ are averaged over the ranks; rank 0 writes the logs, checkpoints and grids.
 Run: ``python -m tae_tpu_torch.cli.train --model tae_patch16_vocab256_px256
 --train_data_path 'shards-{000000..000099}.tar' --val_data_path val/ ...``
 (``--device cpu`` for the CPU; ``torchrun --nproc_per_node N -m
-tae_tpu_torch.cli.train ... --mesh_fsdp F`` for N processes).
+tae_tpu_torch.cli.train ... --mesh_fsdp F --mesh_tensor T`` for N
+processes).
 """
 
 from __future__ import annotations
@@ -185,7 +186,7 @@ def main(args) -> None:
 
         # the JSONL row first: the eval trajectory is the run's primary
         # artifact and must not wait behind a checkpoint save
-        metric_logger.synchronize_between_processes()
+        metric_logger.synchronize_between_processes(mesh)
         log_stats = {**{f"train_{k}": m.global_avg
                         for k, m in metric_logger.meters.items()},
                      "eval_loss": float(eval_loss), "iteration": it}

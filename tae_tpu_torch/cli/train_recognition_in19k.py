@@ -15,9 +15,10 @@ The encoder is cast once to bf16, pruned to its encoder half and, with
 softmax, as the JAX drivers call ``forward_encoder``. The reference's
 two-GPU pipeline (encoder on one card, classifier on the other) is one card
 here. Step metrics are read one step behind (:func:`_common.fetch_metrics`).
-Under ``torchrun`` the classifier is sharded on the ``(data, fsdp)`` mesh,
-every rank reads the global batch (``--batch_size`` x ``--accum_iter``) and
-keeps its rows, the frozen encoder is whole on every rank, and rank 0
+Under ``torchrun`` the classifier is placed on the ``(data, fsdp, tensor)``
+mesh, every rank reads the global batch (``--batch_size`` x
+``--accum_iter``) and keeps its rows, the frozen encoder's blocks split over
+``tensor`` (an int8 encoder whole on every rank), and rank 0
 writes the checkpoints' files and the logs.
 
 Run: ``python -m tae_tpu_torch.cli.train_recognition_in19k --model
@@ -108,7 +109,8 @@ def main(args) -> None:
     print(f"Model: {args.model}; params (M): {n_params / 1e6}")
 
     from_latents = bool(args.latents_path)
-    encoder = None if from_latents else _common.frozen_encoder(args, device)
+    encoder = None if from_latents else _common.frozen_encoder(
+        args, device, mesh)
     enc_policy = Policy(param_dtype=torch.bfloat16)
 
     opt = adamw(weight_decay=args.weight_decay)
@@ -183,7 +185,7 @@ def main(args) -> None:
         print(f"Iteration {it}")
         save_checkpoint(out_dir / f"{stem}_checkpoint", state, step=it,
                         args=dict(vars(args)))
-        metric_logger.synchronize_between_processes()
+        metric_logger.synchronize_between_processes(mesh)
         log_stats = {**{f"train_{k}": m.global_avg
                         for k, m in metric_logger.meters.items()},
                      "iteration": it}

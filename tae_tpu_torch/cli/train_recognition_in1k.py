@@ -9,8 +9,9 @@ cross-entropy, StepLR(90, 0.1), head-swap transfer from an in19k checkpoint
 :103-128), an acc1 / acc5 eval each epoch, and a checkpoint written when
 the best eval acc1 improves (reference :173-184). The frozen encoder is
 ``train_recognition_in19k``'s. Step metrics are read one step behind.
-Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh (the
-encoder whole on every rank), every rank reads the same batches and keeps
+Under ``torchrun`` the model is placed on the ``(data, fsdp, tensor)`` mesh
+(the float encoder's blocks split over ``tensor``, an int8 one whole on
+every rank), every rank reads the same batches and keeps
 its rows, the eval's counts are summed over the ranks, and rank 0 writes
 the logs.
 
@@ -98,7 +99,7 @@ def main(args) -> None:
     mesh, device = _common.build_mesh(args)
     policy = Policy()
     model = _common.build_downstream_model(args, device, args.num_classes)
-    encoder = _common.frozen_encoder(args, device)
+    encoder = _common.frozen_encoder(args, device, mesh)
     enc_policy = Policy(param_dtype=torch.bfloat16)
 
     opt = adamw(weight_decay=args.weight_decay)
@@ -166,7 +167,7 @@ def main(args) -> None:
                             extra={"best_eval_acc1": float(test_stats["acc1"])})
             best_eval_acc1 = test_stats["acc1"]
 
-        metric_logger.synchronize_between_processes()
+        metric_logger.synchronize_between_processes(mesh)
         log_stats = {**{f"train_{k}": m.global_avg
                         for k, m in metric_logger.meters.items()},
                      **{f"test_{k}": v for k, v in test_stats.items()},
@@ -205,7 +206,7 @@ def evaluate(eval_step, args, device: torch.device,
                 if n else 0.0)
         logger.update(loss=float(loss))
         logger.update(n=n, acc1=acc1, acc5=acc5)
-    logger.synchronize_between_processes()
+    logger.synchronize_between_processes(mesh)
     stats = logger.global_avgs()
     print(f"* Acc@1 {stats.get('acc1', 0):.3f} Acc@5 {stats.get('acc5', 0):.3f} "
           f"loss {stats.get('loss', 0):.3f}")

@@ -10,8 +10,9 @@ the saved epoch + 1, and head-swap transfer from an in1k-pretrained
 checkpoint (:133-136, 156-157). The frozen encoder is the recognition
 drivers' (bf16, pruned to its encoder half, optionally int8). Step metrics
 are read one step behind.
-Under ``torchrun`` the model is sharded on the ``(data, fsdp)`` mesh (the
-encoder whole on every rank), every rank reads the same batches and keeps
+Under ``torchrun`` the model is placed on the ``(data, fsdp, tensor)`` mesh
+(the float encoder's blocks split over ``tensor``, an int8 one whole on
+every rank), every rank reads the same batches and keeps
 its rows, the eval's counts are summed over the ranks, and rank 0 writes
 the logs.
 
@@ -116,7 +117,7 @@ def main(args) -> None:
     _, num_classes = load_dataset(args.dataset, args.data_path, "val",
                                   transforms=None) if args.data_path else (None, 21)
     model = _common.build_downstream_model(args, device, num_classes)
-    encoder = _common.frozen_encoder(args, device)
+    encoder = _common.frozen_encoder(args, device, mesh)
     enc_policy = Policy(param_dtype=torch.bfloat16)
 
     opt = adamw(weight_decay=args.weight_decay)
@@ -214,7 +215,7 @@ def evaluate(predict, args, num_classes: int, device: torch.device,
         pred = predict(torch.from_numpy(padded).to(device))[:n]
         target = np.asarray(target)[first:first + n]
         confmat.update(torch.from_numpy(target), pred)
-    confmat.reduce_from_all_processes()
+    confmat.reduce_from_all_processes(mesh)
     return confmat
 
 

@@ -42,13 +42,12 @@ def entry(device: str = "cuda"):
 
 
 def factor_mesh(n: int) -> tuple[int, int, int]:
-    """The JAX dry run's ``_factor_mesh`` (data, fsdp, tensor) with the
-    tensor axis folded into data (ROADMAP A16): 4 -> (2, 2, 1),
-    8 -> (4, 2, 1)."""
+    """The JAX dry run's ``_factor_mesh`` (data, fsdp, tensor), every axis
+    active where ``n`` allows: 4 -> (1, 2, 2), 8 -> (2, 2, 2)."""
     tensor = 2 if n % 2 == 0 else 1
     rem = n // tensor
     fsdp = 2 if rem % 2 == 0 else 1
-    return rem // fsdp * tensor, fsdp, 1
+    return rem // fsdp, fsdp, tensor
 
 
 def global_mean(value: torch.Tensor, mesh) -> float:
@@ -57,14 +56,15 @@ def global_mean(value: torch.Tensor, mesh) -> float:
     from tae_tpu_torch.parallel.sharding import data_rank
 
     _, count = data_rank(mesh)
-    return float(all_reduce_sum([float(value)])[0]) / count
+    return float(all_reduce_sum([float(value)], mesh)[0]) / count
 
 
 def topologies(mesh, n_devices: int) -> dict:
     """One step of each topology on ``mesh`` (None: one process, the whole
     batch): the TAE train step with ``accum_iter=2``, recognition and
     segmentation on the frozen bf16 encoder, and the int8 serving encode.
-    Returns the global-batch losses and this rank's latents."""
+    Returns the global-batch losses and this rank's latents (None on a
+    tensor rank above 0, whose rows its tensor peer 0 holds)."""
     from tae_tpu_torch.cli.train_segmentation import criterion
     from tae_tpu_torch.models.recognition import (RecognitionConfig,
                                                   RecognitionViT)
@@ -143,7 +143,9 @@ def topologies(mesh, n_devices: int) -> dict:
         "int8")
     with torch.no_grad():
         z = served.forward_encoder(batch, policy=enc_policy)
-    out["int8"] = z.float().numpy()
+    from tae_tpu_torch.parallel.mesh import tensor_rank
+
+    out["int8"] = None if tensor_rank(mesh) else z.float().numpy()
     return out
 
 
@@ -155,10 +157,10 @@ def _rank_body(rank: int, world: int, sizes: tuple[int, int, int]) -> dict:
 
 def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
     """Run :func:`topologies` in ``n_devices`` gloo CPU processes on
-    :func:`factor_mesh`'s (data, fsdp, 1) mesh and in this process on the
-    whole batch; every loss must be finite and equal the one-process loss,
-    the int8 latents the one-process latents. Prints an ``ok`` line a
-    topology."""
+    :func:`factor_mesh`'s (data, fsdp, tensor) mesh and in this process on
+    the whole batch; every loss must be finite and equal the one-process
+    loss, the int8 latents (of the tensor-rank-0 ranks) the one-process
+    latents. Prints an ``ok`` line a topology."""
     from tae_tpu_torch.parallel import spawn
 
     sizes = factor_mesh(n_devices)
@@ -174,7 +176,7 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
         label = f"tae train mesh={sizes}" if name == "tae" else f"{name} train"
         print(f"dryrun_multichip ok: {label} loss={got:.4f} (one process "
               f"{want:.4f})")
-    z = np.concatenate([r["int8"] for r in ranks])
+    z = np.concatenate([r["int8"] for r in ranks if r["int8"] is not None])
     if z.shape != one["int8"].shape or not np.isfinite(z).all():
         raise AssertionError(f"dryrun_multichip int8: latents {z.shape}")
     err = float(np.abs(z - one["int8"]).max())

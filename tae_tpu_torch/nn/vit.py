@@ -36,6 +36,12 @@ and the int8 kernels refuse tensors that require a gradient. ``remat=True`` on
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` around the
 block body). The JAX package's ``unroll`` and ``scan`` have no meaning for an
 eager forward and are dropped.
+
+A block split over the mesh's ``tensor`` axis
+(:mod:`tae_tpu_torch.parallel.tensor`) holds its share of qkv / fc1 rows
+and proj / fc2 columns as ``DTensor`` parameters, read through
+``to_local()``; ``attn.tensor`` / ``mlp.tensor`` carry the split, and
+``attn.num_heads`` is the rank's own head count.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from tae_tpu_torch.ops.attention import (QKV_Q8_MIN_TOKENS, attention,
                                          qkv_i8_attention)
 from tae_tpu_torch.ops.layernorm import layer_norm
 from tae_tpu_torch.ops.patchify import extract_patches
+from tae_tpu_torch.parallel.tensor import local_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +119,8 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, backend: str | None = None
                 ) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        bias = None if self.bias is None else local_shard(self.bias).to(x.dtype)
+        return F.linear(x, local_shard(self.weight).to(x.dtype), bias)
 
 
 class QLinear(nn.Module):
@@ -285,6 +292,9 @@ class Attention(nn.Module):
         #: attention reads it (K4 ``q8_out`` + K15), from
         #: QKV_Q8_MIN_TOKENS tokens; off unless asked, as in the JAX package
         self.qkv_q8 = False
+        #: the block's split over the mesh's tensor axis
+        #: (:class:`tae_tpu_torch.parallel.tensor.TensorSplit`), or None
+        self.tensor = None
         self.qkv = Linear(cfg.dim, cfg.dim * 3, bias=cfg.qkv_bias,
                           device=device, dtype=dtype)
         if cfg.qk_norm:
@@ -319,17 +329,37 @@ class Attention(nn.Module):
         exact softmax: the JAX kernel of this branch has no serving form."""
         b, n, c3 = qkv.shape
         r = qkv.reshape(b, n, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
-        q = self.q_norm(r[0].contiguous(), backend)
-        k = self.k_norm(r[1].contiguous(), backend)
+        q = self._head_norm(self.q_norm, r[0].contiguous(), backend)
+        k = self._head_norm(self.k_norm, r[1].contiguous(), backend)
         y = attention(q, k, r[2], backend=backend)
         return y.transpose(1, 2).reshape(b, n, c3 // 3)
 
+    def _head_norm(self, norm: LayerNorm, x: torch.Tensor,
+                   backend: str | None) -> torch.Tensor:
+        """``norm`` over each head's dh columns. In a block split over the
+        tensor axis each rank norms its own heads with the whole
+        LayerNorm, so the gradient of its weight and bias is summed over
+        the tensor peers."""
+        split = self.tensor
+        if split is None:
+            return norm(x, backend)
+        w, b = split.enter(norm.weight), split.enter(norm.bias)
+        return layer_norm(x, w.to(x.dtype), b.to(x.dtype), norm.eps,
+                          backend=backend)
+
     def forward(self, x: torch.Tensor, backend: str | None = None,
                 serving: bool = False) -> torch.Tensor:
+        split = self.tensor
+        if split is not None:
+            x = split.enter(x)
         qkv = self.qkv(x, backend)                          # (B, N, 3C)
         if self.qk_norm:
-            return self.proj(self.attend_qk_norm(qkv, backend), backend)
-        return self.proj(self.attend(qkv, backend, serving)[0], backend)
+            y = self.attend_qk_norm(qkv, backend)
+        else:
+            y = self.attend(qkv, backend, serving)[0]
+        if split is not None:
+            return split.row_linear(y, self.proj)
+        return self.proj(y, backend)
 
 
 class Mlp(nn.Module):
@@ -341,12 +371,20 @@ class Mlp(nn.Module):
         #: hidden columns per activation scale of the fused MLP kernel
         #: (int8 or int4: the port uses one value for both)
         self.block_h = int8.DEFAULT_BLOCK_H
+        #: the block's split over the mesh's tensor axis, or None
+        self.tensor = None
 
     def forward(self, x: torch.Tensor, backend: str | None = None
                 ) -> torch.Tensor:
+        split = self.tensor
+        if split is not None:
+            x = split.enter(x)
         x = self.fc1(x, backend)
         approx = "tanh" if x.dtype == torch.bfloat16 else "none"
-        return self.fc2(F.gelu(x, approximate=approx), backend)
+        x = F.gelu(x, approximate=approx)
+        if split is not None:
+            return split.row_linear(x, self.fc2)
+        return self.fc2(x, backend)
 
 
 class Block(nn.Module):

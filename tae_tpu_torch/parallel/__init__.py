@@ -1,6 +1,6 @@
 """Multi-process training (counterpart of ``tae_tpu/parallel``): the
-``(data, fsdp, tensor)`` mesh over ``torch.distributed`` and FSDP2
-placement on its ``data`` × ``fsdp`` half."""
+``(data, fsdp, tensor)`` mesh over ``torch.distributed``, each block split
+over ``tensor`` and FSDP2 placement on the ``data`` × ``fsdp`` half."""
 
 from tae_tpu_torch.parallel.mesh import (  # noqa: F401
     AXES,
@@ -14,3 +14,4 @@ from tae_tpu_torch.parallel.sharding import (  # noqa: F401
     param_placements,
     shard_model,
 )
+from tae_tpu_torch.parallel.tensor import split_model_  # noqa: F401

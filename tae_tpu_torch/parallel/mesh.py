@@ -4,9 +4,14 @@ The JAX package names one mesh with axes ``data`` (pure data parallelism),
 ``fsdp`` (parameters and optimizer state sharded, ZeRO-style) and
 ``tensor`` (Megatron-style splits inside attention and the MLP), and GSPMD
 inserts the collectives. The port keeps the names and maps them onto
-``torch.distributed``: a ``DeviceMesh`` over one process per device, FSDP2
-(:mod:`tae_tpu_torch.parallel.sharding`) on the ``data`` × ``fsdp`` half.
-The ``tensor`` axis is not ported (ROADMAP A16): a size above 1 refuses.
+``torch.distributed``: a ``DeviceMesh`` over one process per device, the
+Megatron split of each block (:mod:`tae_tpu_torch.parallel.tensor`) over
+``tensor``, FSDP2 (:mod:`tae_tpu_torch.parallel.sharding`) over the
+``data`` × ``fsdp`` half. ``tensor`` is the innermost axis, so tensor
+peers are adjacent ranks (the JAX package's device order).
+
+Tensor peers hold the same rows of every batch: a sum over ranks counts
+each ``data`` × ``fsdp`` rank once (:func:`all_reduce_sum`).
 
 A process with no process group is a world of 1: the drivers build no
 mesh there and run as they always have. :func:`initialize_distributed`
@@ -24,11 +29,6 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "fsdp", "tensor")
-
-TENSOR_AXIS_REFUSAL = (
-    "the tensor mesh axis is not ported (ROADMAP A16: the qkv rule splits "
-    "q, k and v unevenly across heads, K7's int8 scale spans all heads, and "
-    "K5's epilogue needs the whole row); shard over --mesh_fsdp instead")
 
 
 def world_size() -> int:
@@ -55,9 +55,7 @@ def mesh_sizes(n: int, data: int = -1, fsdp: int = 1,
                tensor: int = 1) -> tuple[int, int, int]:
     """``(data, fsdp, tensor)`` for ``n`` devices, with the JAX
     ``make_mesh``'s errors: ``data=-1`` absorbs the devices the other axes
-    leave, and the product must be ``n``. A tensor axis above 1 refuses."""
-    if tensor != 1:
-        raise NotImplementedError(f"tensor={tensor}: {TENSOR_AXIS_REFUSAL}")
+    leave, and the product must be ``n``."""
     if data == -1:
         if n % (fsdp * tensor):
             raise ValueError(
@@ -71,10 +69,10 @@ def mesh_sizes(n: int, data: int = -1, fsdp: int = 1,
 def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1,
               device_type: str | None = None):
     """A ``("data", "fsdp", "tensor")`` ``DeviceMesh`` over the default
-    process group's ranks, in rank order (``fsdp``, the chattier axis,
-    innermost). ``device_type`` defaults to ``cuda`` under NCCL, else
-    ``cpu``. The counts are checked as the JAX ``make_mesh`` checks them
-    before any group is needed; building the mesh needs
+    process group's ranks, in rank order (``tensor``, then ``fsdp``, the
+    chattier axes, innermost). ``device_type`` defaults to ``cuda`` under
+    NCCL, else ``cpu``. The counts are checked as the JAX ``make_mesh``
+    checks them before any group is needed; building the mesh needs
     :func:`initialize_distributed` first."""
     sizes = mesh_sizes(world_size(), data, fsdp, tensor)
     if not dist.is_initialized():
@@ -86,6 +84,14 @@ def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1,
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, sizes, mesh_dim_names=AXES)
+
+
+def tensor_rank(mesh=None) -> int:
+    """This rank's index on the ``tensor`` axis of ``mesh`` (0 without
+    one): tensor rank 0 writes what tensor peers would write alike."""
+    if mesh is None or isinstance(mesh, dict):
+        return 0
+    return mesh.get_local_rank("tensor")
 
 
 def initialize_distributed(init_method: str | None = None,
@@ -129,12 +135,17 @@ def initialize_distributed(init_method: str | None = None,
     return device
 
 
-def all_reduce_sum(values) -> np.ndarray:
-    """The sum over every process of a float64 array (the array itself in a
-    world of 1), through the group's backend: a CUDA tensor under NCCL."""
+def all_reduce_sum(values, mesh=None) -> np.ndarray:
+    """The sum over the ``data`` × ``fsdp`` ranks of ``mesh`` (every
+    process without one) of a float64 array: tensor peers hold the same
+    rows, so only tensor rank 0's array is counted.
+    The array itself in a world of 1; through the group's backend (a CUDA
+    tensor under NCCL)."""
     arr = np.asarray(values, dtype=np.float64)
     if world_size() == 1:
         return arr
+    if tensor_rank(mesh):
+        arr = np.zeros_like(arr)
     device = (torch.device("cuda", torch.cuda.current_device())
               if dist.get_backend() == "nccl" else torch.device("cpu"))
     t = torch.from_numpy(arr.copy()).to(device)

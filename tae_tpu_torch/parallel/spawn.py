@@ -49,7 +49,9 @@ def run(fn, world: int, *args, store: str, timeout: float = 180.0) -> list:
         while len(results) + len(errors) < world:
             left = deadline - time.monotonic()
             try:
-                rank, ok, value = out.get(timeout=max(left, 0.01))
+                # a second at a time: a rank that dies without a word
+                # (a signal) is seen at once, not at the timeout
+                rank, ok, value = out.get(timeout=min(max(left, 0.01), 1.0))
             except queue.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if p.exitcode not in (None, 0)]

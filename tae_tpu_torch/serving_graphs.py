@@ -184,17 +184,18 @@ class GraphCache:
 def graphs_mode(requested: bool | None, device: torch.device,
                 sharded: bool) -> bool:
     """Whether a ``Tokenizer`` serves from graphs: ``requested`` as given,
-    None meaning on for a model on a CUDA ``device`` that ``fully_shard``
-    has not ``sharded`` (as ``jit`` is always on in the JAX package). True
-    on another device or on a sharded model raises."""
+    None meaning on for a model on a CUDA ``device`` that is not
+    ``sharded`` (by ``fully_shard`` or the tensor split; as ``jit`` is
+    always on in the JAX package). True on another device or on a sharded
+    model raises."""
     if requested is None:
         return device.type == "cuda" and not sharded
     if requested and device.type != "cuda":
         raise ValueError(f"cuda_graphs=True needs a model on a CUDA device; "
                          f"this one is on {device}")
     if requested and sharded:
-        raise ValueError("cuda_graphs=True: the model is sharded by "
-                         "fully_shard, whose forward gathers parameters "
-                         "through hooks and collectives of every rank that "
-                         "a graph cannot capture; serve it eagerly")
+        raise ValueError("cuda_graphs=True: the model is sharded (by "
+                         "fully_shard or the tensor split), whose forward "
+                         "runs collectives of every rank that a graph "
+                         "cannot capture; serve it eagerly")
     return bool(requested)

@@ -101,7 +101,8 @@ class Tokenizer:
     model: torch.nn.Module           # tae_tpu_torch.models.tae.TAE
     policy: Policy
     backend: str | None = None       # None: kernels on CUDA, plain on CPU
-    # None: graphs on a CUDA device unless fully_shard shards the model;
+    # None: graphs on a CUDA device unless the model is sharded (FSDP2 or
+    # split over the tensor axis);
     # True raises where that rule says off (serving_graphs.graphs_mode).
     # Fixed here; tok.cuda_graphs says which mode serves.
     cuda_graphs: bool | None = None
@@ -169,12 +170,15 @@ class Tokenizer:
         CUDA model that is not sharded; see the module's docstring).
 
         ``mesh`` (``parallel.make_mesh``; the JAX signature's): each rank
-        serves its own requests on ``device``. A float model with an
-        ``fsdp`` axis above 1 is sharded by ``parallel.shard_model`` (every
-        rank must then make the same calls: the forward gathers parameters
-        from all of them); the int8 and int4 serving artifacts are buffers
-        and stay whole on every rank, as does a float model on a
-        data-only mesh."""
+        serves its own requests on ``device``. A float model on a mesh with
+        an ``fsdp`` axis above 1 is placed by ``parallel.shard_model`` (its
+        blocks split over ``tensor``, FSDP2 over the rest), one with a
+        ``tensor`` axis alone above 1 is split
+        (``parallel.tensor.split_model_``); either is served eagerly, and
+        every rank must make the same calls (the forward gathers parameters
+        and sums the split blocks' outputs over the ranks). The int8 and
+        int4 serving artifacts are buffers and stay whole on every rank, as
+        does a float model on a data-only mesh."""
         from tae_tpu_torch import models
         from tae_tpu_torch.ckpt.io import load_params
         from tae_tpu_torch.ops.int8 import QUANTIZATIONS, prepare_serving_
@@ -207,9 +211,13 @@ class Tokenizer:
         set_attn_q8(model, attn_q8)
         set_qkv_q8(model, qkv_q8)
         from tae_tpu_torch.parallel.sharding import axis_sizes, shard_model
+        from tae_tpu_torch.parallel.tensor import split_model_
 
-        if quantization is None and axis_sizes(mesh)["fsdp"] > 1:
-            shard_model(model, mesh)
+        if quantization is None:
+            if axis_sizes(mesh)["fsdp"] > 1:
+                shard_model(model, mesh)
+            else:
+                split_model_(model, mesh)
         return cls(model=model,
                    policy=Policy(param_dtype=dtype, compute_dtype=dtype),
                    cuda_graphs=cuda_graphs)

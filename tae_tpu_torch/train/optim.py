@@ -32,6 +32,8 @@ from typing import Callable
 import torch
 from torch import nn
 
+from tae_tpu_torch.parallel.tensor import local_shard
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -107,9 +109,9 @@ class AdamWMoments(torch.optim.Optimizer):
                 key = (b1, b2, int(state["step"]))
                 if key not in corrections:
                     corrections[key] = bias_corrections(*key)
-                rows.append((_local(p), _local(p.grad),
-                             _local(state["exp_avg"]),
-                             _local(state["exp_avg_sq"]), decay, lr,
+                rows.append((local_shard(p), local_shard(p.grad),
+                             local_shard(state["exp_avg"]),
+                             local_shard(state["exp_avg_sq"]), decay, lr,
                              *corrections[key]))
         for (b1, b2, eps), rows in by_hyper.items():
             if rows:
@@ -131,13 +133,6 @@ class AdamWMoments(torch.optim.Optimizer):
                 k: v if k == "step" else v.to(device=p.device,
                                               dtype=self.moment_dtype)
                 for k, v in saved[i].items()}
-
-
-def _local(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's local shard (FSDP2), or the tensor itself."""
-    from torch.distributed.tensor import DTensor
-
-    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -182,8 +177,12 @@ def set_adamw_state(opt: torch.optim.Optimizer, model: nn.Module, step: int,
     """Fill ``opt``'s state from moments by parameter name (``mu`` and
     ``nu`` shaped like the state_dict entries) and a step count, as if
     ``step`` updates had run. The moments take the optimizer's moment type
-    (:class:`AdamWMoments`) or the parameters' dtype; under FSDP2 they are
-    placed as their parameters."""
+    (:class:`AdamWMoments`) or the parameters' dtype; under FSDP2 and the
+    tensor split they are placed as their parameters (a split qkv's rows
+    grouped by rank first)."""
+    from tae_tpu_torch.parallel.tensor import to_ranks
+
+    mu, nu = to_ranks(mu, model), to_ranks(nu, model)
     fused = any(g.get("fused") for g in opt.param_groups)
     moment_dtype = getattr(opt, "moment_dtype", None)
 

@@ -19,6 +19,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
+from tae_tpu_torch.parallel.tensor import local_shard
 from tae_tpu_torch.train.optim import Optimizer
 
 Batch = Any
@@ -38,12 +39,22 @@ class TrainState:
 
 def global_norm(tensors) -> torch.Tensor:
     """L2 norm over all tensors (an iterable, or a dict's values), in fp32,
-    as a 0-dim tensor on their device."""
+    as a 0-dim tensor on their device. Sharded tensors (``DTensor``s, on
+    one mesh or several: FSDP2's ``data`` × ``fsdp`` mesh, and that mesh
+    with ``tensor`` for the split blocks) count each element once: the norm
+    of each mesh's tensors is made whole, then the norms combined."""
     if isinstance(tensors, dict):
         tensors = tensors.values()
-    tensors = [t.float() for t in tensors]
-    return torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(tensors)))
+    by_mesh: dict = {}
+    for t in tensors:
+        by_mesh.setdefault(getattr(t, "device_mesh", None), []).append(
+            t.float())
+    norms = []
+    for mesh, group in by_mesh.items():
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(group)))
+        norms.append(norm if mesh is None else norm.full_tensor())
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def _tree_map(fn, batch: Batch) -> Batch:
@@ -106,15 +117,16 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
                                    for a in auxes]).mean() for k in auxes[0]}
         grads = [p.grad for group in opt.param_groups for p in group["params"]
                  if p.grad is not None]
+        # in place on each rank's shards: sharded gradients may lie on
+        # several meshes, which one DTensor operation cannot mix
+        shards = [local_shard(g) for g in grads]
         if accum_iter > 1:
-            torch._foreach_div_(grads, float(accum_iter))
+            torch._foreach_div_(shards, float(accum_iter))
         gnorm = global_norm(grads)
         if clip_grad is not None:
             scale = torch.clamp(clip_grad / (gnorm + 1e-6), max=1.0)
-            torch._foreach_mul_(grads, scale)
+            torch._foreach_mul_(shards, scale)
         optimizer.update(opt, lr)
-        if hasattr(gnorm, "full_tensor"):   # FSDP2: a replicated DTensor
-            gnorm = gnorm.full_tensor()
         metrics = {"loss": loss,
                    "lr": torch.full((), lr, dtype=torch.float32,
                                     device=loss.device),

@@ -47,14 +47,16 @@ class ConfusionMatrix:
             iou = diag / (h.sum(1) + h.sum(0) - diag)
         return float(acc_global), acc, iou
 
-    def reduce_from_all_processes(self) -> None:
-        """Sum the matrices of every process (nothing to do in a world of
-        1). The counts travel as float64, exact below 2**53 pixels."""
+    def reduce_from_all_processes(self, mesh=None) -> None:
+        """Sum the matrices of every process, the tensor peers of ``mesh``
+        counted once
+        (``parallel.mesh.all_reduce_sum``; nothing to do in a world of 1).
+        The counts travel as float64, exact below 2**53 pixels."""
         from tae_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 
         if world_size() == 1:
             return
-        self.mat = np.rint(all_reduce_sum(self.mat)).astype(np.int64)
+        self.mat = np.rint(all_reduce_sum(self.mat, mesh)).astype(np.int64)
 
     @property
     def mean_iou(self) -> float:

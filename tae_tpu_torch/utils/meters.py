@@ -44,14 +44,15 @@ class SmoothedValue:
         self.count += n
         self.total += value * n
 
-    def synchronize_between_processes(self) -> None:
+    def synchronize_between_processes(self, mesh=None) -> None:
         """Sum count/total across processes, in float64 (reference
-        util/misc.py:42-53); nothing to do in a world of 1."""
+        util/misc.py:42-53), the tensor peers of ``mesh`` counted once
+        (``parallel.mesh.all_reduce_sum``); nothing to do in a world of 1."""
         from tae_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 
         if world_size() == 1:
             return
-        count, total = all_reduce_sum([self.count, self.total])
+        count, total = all_reduce_sum([self.count, self.total], mesh)
         self.count, self.total = int(count), float(total)
 
     @property
@@ -100,9 +101,9 @@ class MetricLogger:
     def __str__(self) -> str:
         return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())
 
-    def synchronize_between_processes(self) -> None:
+    def synchronize_between_processes(self, mesh=None) -> None:
         for m in self.meters.values():
-            m.synchronize_between_processes()
+            m.synchronize_between_processes(mesh)
 
     def add_meter(self, name: str, meter: SmoothedValue) -> None:
         self.meters[name] = meter

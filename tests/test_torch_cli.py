@@ -403,10 +403,10 @@ def test_train_nonfinite_at_an_eval_stops_before_it(data, tmp_path,
 
 # ------------------------------------------------------------------ flags
 
-# In a world of 1, --mesh_fsdp 2 refuses on divisibility as the JAX
-# make_mesh does; the tensor axis is not ported and names its ROADMAP item.
+# In a world of 1, --mesh_fsdp 2 and --mesh_tensor 2 refuse on
+# divisibility as the JAX make_mesh does.
 MESH_REFUSAL = {"--mesh_fsdp": "1 devices not divisible by fsdp\\*tensor=2",
-                "--mesh_tensor": "ROADMAP A16"}
+                "--mesh_tensor": "1 devices not divisible by fsdp\\*tensor=2"}
 
 
 @pytest.mark.parametrize("driver", [encode, evaluate, train])
@@ -417,11 +417,10 @@ def test_mesh_flags_refuse(driver, flag, tmp_path, monkeypatch):
         COMMON + ["--device", "cpu", flag, "2", "--output_dir", str(tmp_path)])
     with pytest.raises(SystemExit, match=MESH_REFUSAL[flag]):
         driver.main(args)
-    if flag == "--mesh_fsdp":
-        from tae_tpu.parallel import make_mesh as j_make_mesh
+    from tae_tpu.parallel import make_mesh as j_make_mesh
 
-        with pytest.raises(ValueError, match=MESH_REFUSAL[flag]):
-            j_make_mesh(fsdp=2, devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match=MESH_REFUSAL[flag]):
+        j_make_mesh(**{flag[len("--mesh_"):]: 2}, devices=jax.devices()[:1])
 
 
 @pytest.mark.parametrize("driver", [encode, evaluate, train])

@@ -329,10 +329,10 @@ def test_segmentation_head_swap(segmented, data, tmp_path, capsys):
 DRIVERS = [r19k, r1k, seg]
 
 
-# In a world of 1, --mesh_fsdp 2 refuses on divisibility as the JAX
-# make_mesh does; the tensor axis is not ported and names its ROADMAP item.
+# In a world of 1, --mesh_fsdp 2 and --mesh_tensor 2 refuse on
+# divisibility as the JAX make_mesh does.
 MESH_REFUSAL = {"--mesh_fsdp": "1 devices not divisible by fsdp\\*tensor=2",
-                "--mesh_tensor": "ROADMAP A16"}
+                "--mesh_tensor": "1 devices not divisible by fsdp\\*tensor=2"}
 
 
 @pytest.mark.parametrize("driver", DRIVERS)

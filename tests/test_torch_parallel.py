@@ -93,10 +93,15 @@ def test_make_mesh_counts_match_jax(n, data, fsdp):
 
 
 def test_tensor_axis_refuses():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    """The tensor axis is taken: only the JAX ``make_mesh``'s count errors
+    refuse it (one process cannot hold a tensor axis of 2)."""
+    with pytest.raises(ValueError, match=r"^1 devices not divisible by "
+                                         r"fsdp\*tensor=2$"):
         make_mesh(tensor=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        mesh_sizes(4, 1, 2, 2)
+    with pytest.raises(ValueError, match=r"^1 devices not divisible by "
+                                         r"fsdp\*tensor=2$"):
+        j_make_mesh(tensor=2, devices=jax.devices()[:1])
+    assert mesh_sizes(4, 1, 2, 2) == (1, 2, 2)
 
 
 def test_make_mesh_needs_a_process_group():

@@ -26,46 +26,49 @@ def tiny_model(state_dict=None, cfg_kw=TINY):
     return model
 
 
-def full_params(model) -> dict[str, np.ndarray]:
-    """Every parameter whole (an all-gather of each DTensor: every rank
-    calls it)."""
+def _whole(t):
     from torch.distributed.tensor import DTensor
 
-    out = {}
-    for name, p in model.named_parameters():
-        t = p.full_tensor() if isinstance(p, DTensor) else p
-        out[name] = t.detach().float().numpy().copy()
-    return out
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+
+def full_params(model) -> dict[str, np.ndarray]:
+    """Every parameter whole (an all-gather of each DTensor: every rank
+    calls it), a split qkv in the reference's rows."""
+    from tae_tpu_torch.parallel.tensor import to_reference
+
+    whole = to_reference({name: _whole(p) for name, p in
+                          model.named_parameters()}, model)
+    return {name: t.float().numpy().copy() for name, t in whole.items()}
 
 
 def full_moments(opt, model) -> dict[str, tuple[str, np.ndarray, np.ndarray]]:
-    """name -> (moment dtype, exp_avg, exp_avg_sq) whole, as float32."""
-    from torch.distributed.tensor import DTensor
+    """name -> (moment dtype, exp_avg, exp_avg_sq) whole, as float32, a
+    split qkv's in the reference's rows."""
+    from tae_tpu_torch.parallel.tensor import to_reference
 
-    def whole(t):
-        return t.full_tensor() if isinstance(t, DTensor) else t
-
-    out = {}
-    for name, p in model.named_parameters():
-        st = opt.state[p]
-        m, v = whole(st["exp_avg"]), whole(st["exp_avg_sq"])
-        out[name] = (str(m.dtype), m.float().numpy().copy(),
-                     v.float().numpy().copy())
-    return out
+    state = to_reference({name: {k: _whole(opt.state[p][k]) for k in
+                                 ("exp_avg", "exp_avg_sq")}
+                          for name, p in model.named_parameters()}, model)
+    return {name: (str(st["exp_avg"].dtype),
+                   st["exp_avg"].float().numpy().copy(),
+                   st["exp_avg_sq"].float().numpy().copy())
+            for name, st in state.items()}
 
 
 def train_steps(mesh, state_dict, images: np.ndarray, steps: int,
-                moment_dtype=None, weight_decay: float = 0.05):
-    """``steps`` train steps of the tiny TAE (FP32, AdamW) on ``images``
-    (the global batch), sharded on ``mesh`` (None: one process). Returns
-    the global losses, gradient norms, the whole parameters after the last
-    step and the state."""
+                moment_dtype=None, weight_decay: float = 0.05,
+                cfg_kw=TINY):
+    """``steps`` train steps of the tiny TAE (FP32, AdamW; ``cfg_kw`` its
+    config) on ``images`` (the global batch), sharded on ``mesh`` (None:
+    one process). Returns the global losses, gradient norms, the whole
+    parameters after the last step and the state."""
     from tae_tpu_torch.dryrun import global_mean
     from tae_tpu_torch.parallel import batch_slice, shard_model
     from tae_tpu_torch.train import TrainState, adamw, make_train_step, step_lr
     from tae_tpu_torch.utils.dtypes import FP32
 
-    model = shard_model(tiny_model(state_dict), mesh)
+    model = shard_model(tiny_model(state_dict, cfg_kw), mesh)
     opt = adamw(weight_decay=weight_decay, moment_dtype=moment_dtype)
     state = TrainState.create(model, opt)
     step = make_train_step(lambda m, b: (m(b, policy=FP32)[0], {}), opt,
@@ -162,3 +165,122 @@ def driver(rank, world, module: str, argv: list[str]):
                       LOCAL_RANK=str(rank), TAE_TPU_NATIVE="0")
     mod = importlib.import_module(module)
     return mod.main(mod.get_args_parser().parse_args(argv))
+
+
+# ------------------------------------------------------- the tensor axis
+
+class QkNormStack(torch.nn.Module):
+    """Two qk_norm blocks (width 64, 4 heads) and a squared-error loss."""
+
+    def __init__(self):
+        super().__init__()
+        from tae_tpu_torch.nn.vit import BlockConfig, blocks
+
+        self.blocks = blocks(BlockConfig(64, 4, qk_norm=True), 2)
+        for p in self.parameters():
+            p.requires_grad_(True)
+
+    def forward(self, x):
+        from tae_tpu_torch.nn.vit import blocks_apply
+
+        return (blocks_apply(self.blocks, x) - x).square().mean()
+
+
+def qk_norm_steps(mesh, x: np.ndarray, steps: int):
+    """``steps`` AdamW steps of :class:`QkNormStack` (seed 5) on rows ``x``
+    (the global batch): the losses, gradient norms and whole parameters."""
+    from tae_tpu_torch.dryrun import global_mean
+    from tae_tpu_torch.nn.vit import init_weights_
+    from tae_tpu_torch.parallel import batch_slice, shard_model
+    from tae_tpu_torch.train import TrainState, adamw, make_train_step, step_lr
+
+    model = QkNormStack()
+    init_weights_(model, torch.Generator().manual_seed(5))
+    model = shard_model(model, mesh)
+    opt = adamw(weight_decay=0.05)
+    state = TrainState.create(model, opt)
+    step = make_train_step(lambda m, b: (m(b), {}), opt,
+                           step_lr(1e-3, 1e-4, 100))
+    batch = batch_slice(torch.from_numpy(x), mesh)
+    losses, norms = [], []
+    for it in range(steps):
+        state, metrics = step(state, batch, it)
+        losses.append(global_mean(metrics["loss"], mesh))
+        norms.append(float(metrics["grad_norm"]))
+    return losses, norms, full_params(model)
+
+
+def encode_tiny(mesh, images: np.ndarray) -> np.ndarray:
+    """fp32 latents of ``images`` through ``Tokenizer.from_checkpoint``
+    of the tiny TAE (seed 0), on ``mesh``."""
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer.from_checkpoint("tae_patch16_vocab16_px256", device="cpu",
+                                    dtype=torch.float32, mesh=mesh, **TINY)
+    return tok.encode(torch.from_numpy(images)).numpy()
+
+
+#: the fallback's model: 3 heads, which a tensor axis of 2 does not divide
+THREE_HEADS = dict(TINY, embed_dim=48, num_heads=3, decoder_embed_dim=48,
+                   decoder_num_heads=3)
+
+
+def split_checks(rank, world, state_dict, images, rows, path):
+    """On a (1, 1, 2) mesh: the tiny TAE split (``state_dict`` loaded),
+    its local qkv rows, its head count and a checkpoint of it at ``path``;
+    two steps of the qk_norm stack on ``rows``; two steps of the 3-head
+    TAE, whose blocks stay whole; the tiny Tokenizer's latents."""
+    from tae_tpu_torch.ckpt.io import save_checkpoint
+    from tae_tpu_torch.parallel import make_mesh, shard_model
+
+    mesh = make_mesh(1, 1, 2)
+    model = shard_model(tiny_model(state_dict), mesh)
+    attn = model.blocks[0].attn
+    local_qkv = attn.qkv.weight.to_local().detach().numpy().copy()
+    local_proj = attn.proj.weight.to_local().detach().numpy().copy()
+    save_checkpoint(path, model)
+    fallback = train_steps(mesh, None, images, 2, cfg_kw=THREE_HEADS)[:3]
+    return dict(heads=attn.num_heads, qkv=local_qkv, proj=local_proj,
+                qk_norm=qk_norm_steps(mesh, rows, 2), fallback=fallback,
+                latents=encode_tiny(mesh, images))
+
+
+def tensor_plumbing(rank, world, shards: str):
+    """On a (2, 1, 2) mesh of 4: each rank's rows, meters, confusion
+    matrices, means over ranks and the train loader's rows, tensor peers
+    counted once."""
+    import os
+    import types
+
+    from tae_tpu_torch.cli import _common
+    from tae_tpu_torch.parallel import batch_slice, is_main_process, make_mesh
+    from tae_tpu_torch.parallel.mesh import all_reduce_sum, tensor_rank
+    from tae_tpu_torch.parallel.sharding import data_rank
+    from tae_tpu_torch.utils.confusion import ConfusionMatrix
+    from tae_tpu_torch.utils.meters import SmoothedValue
+
+    os.environ["TAE_TPU_NATIVE"] = "0"
+    mesh = make_mesh(2, 1, 2)
+    index, _ = data_rank(mesh)
+    meter = SmoothedValue()
+    for v in range(index + 1):
+        meter.update(float(10 * index + v), n=2)
+    meter.synchronize_between_processes(mesh)
+    conf = ConfusionMatrix(3)
+    conf.update(np.array([0, 1, 2, 255]), np.array([index % 3, 1, 0, 1]))
+    conf.reduce_from_all_processes(mesh)
+    per = torch.arange(4, dtype=torch.float64) + 4 * index
+    args = types.SimpleNamespace(train_data_path=shards, input_size=32,
+                                 seed=0, num_workers=0)
+    imgs, cls = next(iter(_common.wds_train_loader(args, 4, mesh)))
+    return dict(
+        count=meter.count, total=meter.total, mat=conf.mat.copy(),
+        main=is_main_process(), tensor_rank=tensor_rank(mesh),
+        data_rank=data_rank(mesh), rows=batch_slice(np.arange(8),
+                                                    mesh).tolist(),
+        mean=float(_common.mean_over_ranks(torch.tensor([float(index)]),
+                                           mesh)[0]),
+        real_rows=_common.real_rows_mean(per, 6, mesh),
+        ones=float(all_reduce_sum([1.0], mesh)[0]),
+        ones_all=float(all_reduce_sum([1.0])[0]),
+        loader=(np.asarray(imgs).copy(), np.asarray(cls).copy()))
