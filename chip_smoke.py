@@ -124,7 +124,23 @@ Phases (each prints its lines; any failure exits non-zero):
    ``backend="reference"``. ``train_f32``: ``tae_patch16_vocab256_px256`` at
    depth 2 + 2 under the FP32 policy (K10 and K2's LSE form in fp32), one
    step at B = 8 against ``backend="reference"``, steps at B = 64 with
-   their launches checked and timed;
+   their launches checked and timed. Every step above from the second of a
+   shape on is a CUDA graph replay (``make_train_step``'s default on the
+   card); every graph that a train step or a driver's eval pass captures
+   in this run is held, right after its capture, against its key's work run
+   eagerly under ``torch.profiler`` on the same state, put back after:
+   the graph's kernel nodes against the eager call's library kernels by
+   name and count, and the launches a replay adds against those the
+   wrappers counted (``install_graph_checks``; each phase prints how many
+   it checked). ``train_graphs``: ``train_bf16``'s recipe at B = 64, ``rec19k``'s
+   and ``p128_train``'s, each with fused AdamW and with bf16 moments (K18),
+   eight steps eagerly and eight from a graph from one seed, the learning
+   rate switching at step 4: each step's loss, gradient norm and learning
+   rate equal, every parameter, moment and step count bit-equal after the
+   last; the graph's kernel nodes against a traced eager step's kernels;
+   host wall eager and graph, a replay's device time, peak memory, and the
+   host time of the optimizer's host part and of the graph's model check;
+   fused AdamW with the learning rate as a float against a tensor;
 6. drivers (``drivers``): the user's entry points on
    ``tae_patch16_vocab256_px256`` at full width and depth, on a webdataset
    shard and an ImageFolder made by ``tae_tpu_torch.data.fake``: the
@@ -134,7 +150,11 @@ Phases (each prints its lines; any failure exits non-zero):
    ``Tokenizer.encode`` of the same batches, launches a batch),
    ``cli.evaluate`` against ``--attn_backend reference``, ``cli.train`` with
    an eval, both checkpoints and a ``--resume_auto`` run (launches every
-   step), ms per step, and the cost of reading the step metrics;
+   step), ms per step, and the cost of reading the step metrics; then
+   ``cli.train`` (with two evals, the second replaying the eval pass's
+   graph) and ``cli.evaluate`` by default (from graphs) and with
+   ``--cuda_graphs off``: the same step losses, eval losses and returned
+   loss, and the peak memory of both modes;
 7. downstream: the recognition and segmentation trunks (ViT-Base, width
    768, 12 heads of 64, 256 tokens) on the frozen p16 encoder. The kernel
    phase holds K2 (exact and LSE forms) and K10 at 12 heads, and K1, its
@@ -152,7 +172,9 @@ Phases (each prints its lines; any failure exits non-zero):
    segmentation on COCO instances against ``--attn_backend reference``,
    ``--resume`` for a second epoch, and the first epoch's checkpoint run
    outside the driver through the kernels and the plain versions), each
-   step's launches checked;
+   step's launches checked; the in19k, in1k and segmentation drivers again
+   by default and with ``--cuda_graphs off``: the same step losses and log
+   rows (eval loss and accuracy, IoU), and the peak memory of both modes;
 8. the multi-GPU layer and K18 (AdamW with bf16 moments, the port's own
    kernel: no TPU kernel behind it). The kernel phase runs K18 on the full
    p128 model's parameter list (3.73 B fp32 parameters and gradients, bf16
@@ -181,8 +203,9 @@ Phases (each prints its lines; any failure exits non-zero):
    peer sum ahead of qkv / fc1 dropped), each rank's launches counted, the
    wall times printed. ``drivers_mesh``:
    ``cli.train`` with ``WORLD_SIZE=1 --mesh_fsdp 1`` against the same
-   driver without a mesh, losses and launches per step;
-9. prints a JSON line with every kernel's numbers, then, as the last line,
+   driver without a mesh, at 2 + 2 blocks, losses and launches per step;
+9. prints each phase's seconds on a ``[time]`` line, a JSON line with
+   every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -275,9 +298,9 @@ GRAPH_PATHS = ("bf16", "int8", "p128_bf16", "p128_int8", "p128_int4",
 GRAPH_ROUNDS, GRAPH_PER_ROUND = 4, 6
 UNCHANGED_REPS = 200         # ... and the graph cache's model check, timed
 TRACE_TRIES = 3              # profiler sessions for one traced request
-# ... each first running TRACE_WARM small kernels and pausing, then the
+# ... each first pausing and running TRACE_WARM small kernels, then the
 # request inside a range of this name
-TRACE_WARM, TRACE_PAUSE_S, TRACE_RANGE = 8, 0.005, "chip_smoke.request"
+TRACE_WARM, TRACE_PAUSE_S, TRACE_RANGE = 64, 0.02, "chip_smoke.request"
 # ROADMAP C6: K4's qkv case called again this often, each output bit for bit
 K4_REPEATS = 10
 
@@ -515,6 +538,23 @@ P128_FSDP_BATCH, P128_FSDP_STEPS = 64, 3
 WORLD2_TIMEOUT = 300
 WORLD2_LOSS_RTOL, WORLD2_NORM_RTOL = 1e-5, 1e-3
 DRIVER_MESH_RTOL = 1e-6
+# drivers_mesh's depth: its point is the mesh plumbing (FSDP2 on a world of
+# one against no mesh), which does not depend on depth; cut from 15 + 15 to
+# keep the run inside its time with the step graphs' phase added
+DRIVER_MESH_CUT = dict(depth=2, decoder_depth=2)
+# train_graphs: each recipe's steps eager and from CUDA graphs (eager first
+# step, capture on the second, replays after), the learning rate switching
+# at GRAPH_SWITCH, from one seed each; the cache's model check timed over
+# GRAPH_SNAPSHOT_REPS calls
+GRAPH_STEPS, GRAPH_SWITCH, GRAPH_SNAPSHOT_REPS = 8, 4, 100
+# the drivers' runs with --cuda_graphs off against the default, inline
+# loading (one batch order for both): cli.train's and in19k's iterations,
+# cli.train's eval every GRAPH_DRIVER_EVAL (one batch of 8 x 64 a pass: the
+# second pass replays its graph), cli.evaluate's batch (four of them), and
+# in1k's (eight steps, four eval batches)
+GRAPH_DRIVER_ITS, GRAPH_DRIVER_EVAL = 3, 1
+GRAPH_EVAL_BATCH = 32
+GRAPH_IN1K_BATCH = 16
 # tensor2: two gloo ranks on the one card on a (1, 1, 2) mesh, every block
 # split over tensor (8 heads a rank at p16, 16 at p128). The flagship at
 # full width and depth takes one train_bf16-recipe step (bf16 moments) of a
@@ -910,6 +950,19 @@ def phase_build():
             check(spills == 0, f"ptxas spills in {entry}: {lines}")
 
 
+@functools.lru_cache(maxsize=None)
+def sass_functions(lib) -> tuple:
+    """(name, SASS) of every function in the library ``lib``, from one
+    ``cuobjdump -sass`` (each check reads it; the library is built once)."""
+    from tae_tpu_torch.ops.cuda import build
+
+    cuobjdump = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    return tuple(tuple(fn.split("\n", 1))
+                 for fn in re.split(r"\n\s*Function : ", sass)[1:])
+
+
 def sass_report(lib, kernel: str) -> dict:
     """Per instantiation of ``kernel`` in the library, read from
     ``cuobjdump -sass``: (the innermost loops that issue tensor-core
@@ -919,14 +972,8 @@ def sass_report(lib, kernel: str) -> dict:
     from a backward branch's target to the branch."""
     import bisect
 
-    from tae_tpu_torch.ops.cuda import build
-
-    cuobjdump = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True, timeout=300).stdout
     found = {}
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        name, body = fn.split("\n", 1)
+    for name, body in sass_functions(lib):
         if kernel not in name:
             continue
         ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
@@ -1800,8 +1847,6 @@ def phase_train_kernels() -> dict:
                                                   fwd_plan, fwd_plan_of_library)
     from tae_tpu_torch.ops.layernorm import (layer_norm_backward_reference,
                                              layer_norm_stats_reference)
-    from tae_tpu_torch.profile_serving import profile
-
     gen = torch.Generator(device="cuda").manual_seed(1357)
     res = {name: [] for name in ("fused_layer_norm_fwd_stats",
                                  "fused_layer_norm_bwd",
@@ -1875,10 +1920,16 @@ def phase_train_kernels() -> dict:
         check(all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dw, db))),
               f"{label}: two runs differ in their bits")
         if timed:
-            # one pass over x and dy and the finish: two device launches
-            kernels, _ = profile(lambda _: fused_layer_norm_bwd(x, w, mean, rstd, dy),
-                                 None, 1)
-            launched = {k: n for k, (_, n) in kernels.items() if "layer_norm_bwd" in k}
+            # one pass over x and dy and the finish: two device launches. A
+            # profiler session may lose the card's activity, or some of its
+            # kernels: traced takes a new session for a lost one, and a
+            # session that kept a count other than two is taken again
+            for _ in range(TRACE_TRIES):
+                kernels = traced(lambda: fused_layer_norm_bwd(x, w, mean, rstd, dy),
+                                 {})["kernels"]
+                launched = {k: n for k, n in kernels.items() if "layer_norm_bwd" in k}
+                if sum(launched.values()) == 2:
+                    break
             check(sum(launched.values()) == 2,
                   f"{label}: one call launched {launched}, expected two kernels")
         lib = None
@@ -2660,9 +2711,13 @@ def traced(call, fns: dict) -> dict:
     copy and fill summed (``device_ms``), the launches that the wrappers of
     ``fns`` counted in the call (``counted``), and the tries it took
     (``tries``). Now and then a session reports no device activity at
-    all: such a trace is lost, not empty, as every call here runs on the
-    card, and the call runs again under a new session, at most TRACE_TRIES
-    times."""
+    all, or misses the first kernels the card runs after it starts (the
+    first LayerNorm and attention of a p16 decode at B = 1; of an eval
+    batch late in a long run, in every session): each session first
+    pauses, then runs TRACE_WARM fills, and one that kept none of them may
+    have missed the call's first kernels too. Such a trace is lost, not
+    short, and the call runs again under a new session, at most
+    TRACE_TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2671,14 +2726,12 @@ def traced(call, fns: dict) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            # a session can miss the first kernels the card runs after it
-            # starts (the first LayerNorm and attention of a p16 decode at
-            # B = 1): a few fills and a pause first, left out below
+            # the pause and the fills ahead of the call, left out below
+            time.sleep(TRACE_PAUSE_S)
             warm = torch.zeros(TRACE_WARM, device="cuda")
             for _ in range(TRACE_WARM):
                 warm.add_(1)
             torch.cuda.synchronize()
-            time.sleep(TRACE_PAUSE_S)
             with record_function(TRACE_RANGE):
                 call()
                 torch.cuda.synchronize()
@@ -2687,15 +2740,17 @@ def traced(call, fns: dict) -> dict:
         events = prof.events()
         start = min(ev.time_range.start for ev in events
                     if ev.name == TRACE_RANGE)
+        on_card = [ev for ev in events
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.name != TRACE_RANGE]
         # the range's own device event spans the request's kernels
-        device = [ev for ev in events
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and ev.time_range.start >= start
-                  and ev.name != TRACE_RANGE]
-        if device:
+        device = [ev for ev in on_card if ev.time_range.start >= start]
+        warmed = len(on_card) > len(device)
+        if device and warmed:
             break
-    check(bool(device), f"torch.profiler lost the device activity of "
-                        f"{TRACE_TRIES} sessions in a row")
+    check(bool(device) and warmed, f"torch.profiler lost the device "
+                                   f"activity, or the first kernels, of "
+                                   f"{TRACE_TRIES} sessions in a row")
     return dict(
         kernels=library_names(ev.name for ev in device), counted=counted,
         tries=tries,
@@ -2704,55 +2759,177 @@ def traced(call, fns: dict) -> dict:
         device_ms=sum(ev.time_range.elapsed_us() for ev in device) / 1e3)
 
 
-def check_replay(tag: str, tok, entry: str, x) -> dict:
-    """What a replay really runs. ``tok`` serves from graphs and has
-    captured ``entry`` on ``x``'s key. The kernel nodes of that graph, read
-    from the graph itself, are what every replay of it runs: its library
-    kernels must be those of the same request run eagerly on a twin of
-    ``tok`` (``cuda_graphs=False``, the same model) under
-    ``torch.profiler``, by name and count, and the launches that the graph
-    cache adds to the wrappers' counts for a replay must be those that the
-    wrappers counted where they launched in the eager request. One replay
-    is traced too: one graph launch, and its device time. Both requests are
-    checks, not main-path requests: the counts are left as they were.
-    Returns both traces (``eager``, ``graph``), the graph's own library
-    kernels (``nodes``), the eager traces taken (``pairs``) and the
-    graph (``captured``)."""
-    from tae_tpu_torch.tokenizer import Tokenizer
-
-    what = f"{tag} {entry} {tuple(x.shape)}"
+def hold_graph(what: str, raw: int, eager_call, graph_call,
+               around=contextlib.nullcontext) -> dict:
+    """What a replay really runs. The kernel nodes of the CUDA graph
+    ``raw``, read from the graph itself, are what every replay of it runs:
+    its library kernels must be those of the same work run eagerly
+    (``eager_call()``) under ``torch.profiler``, by name and count, and the
+    launches that one traced replay (``graph_call()``) adds to the
+    wrappers' counts must be those that the wrappers counted where they
+    launched in the eager call. The replay launches one graph. Both calls
+    are checks, not the path's: the counts are left as they were, and each
+    traced call runs inside ``around()`` (a train step's state put back).
+    Returns both traces (``eager``, ``graph``), the graph's library kernels
+    (``nodes``) and the eager traces taken (``pairs``)."""
     fns = wrappers()
-    graphs = [c.graph for k, c in tok._graphs._graphs.items()
-              if k[:3] == (entry, tuple(x.shape), x.dtype)]
-    check(len(graphs) == 1, f"{what}: {len(graphs)} graphs of the key")
-    nodes = library_names(graph_kernels(graphs[0].raw()))
+    nodes = library_names(graph_kernels(raw))
     saved = {n: f.launches for n, f in fns.items()}
-    twin = Tokenizer(model=tok.model, policy=tok.policy, backend=tok.backend,
-                     cuda_graphs=False)
     try:
-        # a session may also drop a few of its kernels: the eager request is
+        # a session may also drop a few of its kernels: the eager call is
         # traced again where it disagrees with the graph (whose nodes are
         # read, not traced)
         for pairs in range(1, TRACE_TRIES + 1):
-            eager = traced(lambda: getattr(twin, entry)(x), fns)
+            with around():
+                eager = traced(eager_call, fns)
             if eager["kernels"] == nodes:
                 break
-        graph = traced(lambda: getattr(tok, entry)(x), fns)
+        with around():
+            graph = traced(graph_call, fns)
     finally:
         for n, f in fns.items():
             f.launches = saved[n]
     check(graph["graph_launches"] == 1 and eager["graph_launches"] == 0,
           f"{what}: {graph['graph_launches']} graph launches traced in the "
-          f"replay, {eager['graph_launches']} in the eager request")
-    check(nodes and nodes == eager["kernels"],
+          f"replay, {eager['graph_launches']} in the eager call")
+    check(nodes == eager["kernels"],
           f"{what}: the graph's library kernels {dict(nodes)}, the eager "
-          f"request's {dict(eager['kernels'])}")
+          f"call's {dict(eager['kernels'])}")
     check(graph["counted"] == eager["counted"],
-          f"{what}: the graph cache added the launches {graph['counted']} "
-          f"for a replay, the wrappers counted {eager['counted']} in the "
-          "eager request")
-    return {"eager": eager, "graph": graph, "nodes": nodes, "pairs": pairs,
-            "captured": graphs[0]}
+          f"{what}: a replay added the launches {graph['counted']}, the "
+          f"wrappers counted {eager['counted']} in the eager call")
+    return {"eager": eager, "graph": graph, "nodes": nodes, "pairs": pairs}
+
+
+def check_replay(tag: str, tok, entry: str, x) -> dict:
+    """:func:`hold_graph` for ``tok``'s graph of ``entry`` on ``x``'s key
+    (``tok`` serves from graphs and has captured it), against the same
+    request on a twin of ``tok`` (``cuda_graphs=False``, the same model).
+    Returns hold_graph's result and the graph (``captured``)."""
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    what = f"{tag} {entry} {tuple(x.shape)}"
+    graphs = [c.graph for k, c in tok._graphs._graphs.items()
+              if k[:3] == (entry, tuple(x.shape), x.dtype)]
+    check(len(graphs) == 1, f"{what}: {len(graphs)} graphs of the key")
+    twin = Tokenizer(model=tok.model, policy=tok.policy, backend=tok.backend,
+                     cuda_graphs=False)
+    out = hold_graph(what, graphs[0].raw(),
+                     lambda: getattr(twin, entry)(x),
+                     lambda: getattr(tok, entry)(x))
+    return {**out, "captured": graphs[0]}
+
+
+@contextlib.contextmanager
+def preserved(state):
+    """``state``'s model and optimizer put back, in place, as they were
+    before the block: every parameter, buffer and optimizer state tensor
+    (copied back, so that a graph's addresses stay), and each parameter's
+    ``.grad``."""
+    import torch
+
+    kept = (list(state.model.parameters()) + list(state.model.buffers())
+            + [v for st in state.opt.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor)])
+    copies = [t.detach().clone() for t in kept]
+    grads = [(p, p.grad) for p in state.model.parameters()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, c in zip(kept, copies):
+                t.copy_(c)
+        for p, g in grads:
+            p.grad = g
+
+
+# Every graph that a train step function (make_train_step) or a driver's
+# eval function (make_eval_fn) captures while these checks are on has its
+# kernel nodes held against the eager work of its key (hold_graph) right
+# after its capture (install_graph_checks); the counts per phase are
+# printed by ``timed``. Off in the comparisons that count nothing
+# (graph_against_eager checks its graphs itself, driver_losses).
+GRAPH_CHECKS = {"on": True, "steps": 0, "evals": 0, "nodes": 0, "again": 0,
+                "lost": 0}
+
+
+@contextlib.contextmanager
+def graph_checks_off():
+    was = GRAPH_CHECKS["on"]
+    GRAPH_CHECKS["on"] = False
+    try:
+        yield
+    finally:
+        GRAPH_CHECKS["on"] = was
+
+
+def tally_check(kind: str, tr: dict) -> None:
+    GRAPH_CHECKS[kind] += 1
+    GRAPH_CHECKS["nodes"] += sum(tr["nodes"].values())
+    GRAPH_CHECKS["again"] += tr["pairs"] - 1
+    GRAPH_CHECKS["lost"] += tr["eager"]["tries"] + tr["graph"]["tries"] - 2
+
+
+def check_step_replay(tag: str, graphs, state, batch, it: int) -> dict:
+    """:func:`hold_graph` for the step graph of ``graphs`` (a StepGraphs)
+    that holds ``state`` on ``batch``'s key, against the same step run
+    eagerly by ``graphs`` itself (its device step with the optimizer's host
+    part) on the same state; ``state`` is put back after each traced step.
+    Returns hold_graph's result and the graph (``captured``)."""
+    from tae_tpu_torch.serving_graphs import signature
+
+    key = (id(state.model), id(state.opt), signature(batch))
+    captured = graphs._graphs.get(key)
+    check(captured is not None, f"{tag}: no graph of the step's key")
+    lr = graphs.schedule(it)
+
+    def eager():
+        graphs.device_step(state, batch, host=lambda plan: graphs.optimizer
+                           .host(state.opt, lr, plan))
+
+    out = hold_graph(tag, captured.graph.raw(), eager,
+                     lambda: graphs(state, batch, it),
+                     around=lambda: preserved(state))
+    check(graphs._graphs.get(key) is captured,
+          f"{tag}: the check dropped the step's graph")
+    return {**out, "captured": captured}
+
+
+def install_graph_checks() -> None:
+    """Every train step function and driver eval function made from here on
+    has each graph it captures checked right after the capture (see
+    GRAPH_CHECKS): by subclasses of StepGraphs and of make_eval_fn's
+    GraphCache, put where ``make_train_step`` and ``make_eval_fn`` find
+    them (the Tokenizer's cache is left alone: its paths check their
+    graphs with check_replay)."""
+    from tae_tpu_torch.serving_graphs import GraphCache
+    from tae_tpu_torch.train import step as step_module
+    from tae_tpu_torch.train import step_graphs
+
+    class CheckedStepGraphs(step_graphs.StepGraphs):
+        def __call__(self, state, batch, it):
+            before = dict(self._graphs)
+            out = super().__call__(state, batch, it)
+            new = [c for k, c in self._graphs.items() if before.get(k) is not c]
+            if GRAPH_CHECKS["on"] and new:
+                tally_check("steps", check_step_replay(
+                    "step graph check", self, state, batch, it))
+            return out
+
+    class CheckedEvalCache(GraphCache):
+        def __call__(self, model, key, fn, x):
+            before = self._graphs.get(key)
+            out = super().__call__(model, key, fn, x)
+            captured = self._graphs.get(key)
+            if (GRAPH_CHECKS["on"] and captured is not None
+                    and captured is not before):
+                tally_check("evals", hold_graph(
+                    "eval graph check", captured.graph.raw(), lambda: fn(x),
+                    lambda: self(model, key, fn, x)))
+            return out
+
+    step_graphs.StepGraphs = CheckedStepGraphs
+    step_module.GraphCache = CheckedEvalCache
 
 
 def replay_ms(graph) -> float:
@@ -3159,10 +3336,14 @@ def phase_train(kres: dict) -> dict:
         ms = statistics.median(times) * 1e3
         inside = sum(kres[k][0]["ms"] * n for k, n in per_step.items()
                      if k in kres)
+        # a graph's activations lie in its pool, allocated at its capture
+        # and reserved since: the allocated peak of replays leaves them out
+        reserved = torch.cuda.max_memory_reserved() / 2 ** 30
         print(f"[{tag}] {label}: {ms:.2f} ms/step (runs "
               f"{min(times) * 1e3:.2f}-{max(times) * 1e3:.2f}), "
               f"{TRAIN_BATCH / ms * 1e3:.1f} img/s at B={TRAIN_BATCH}, peak "
-              f"memory {peak:.2f} GiB; K10 + K11 + K1 + K2 (kernel-phase "
+              f"memory allocated {peak:.2f} GiB, reserved {reserved:.2f} GiB "
+              f"(the step graph's pool); K10 + K11 + K1 + K2 (kernel-phase "
               f"times x launches) {inside:.2f} ms = {inside / ms:.3f} of the "
               "step")
         return ms
@@ -4388,6 +4569,31 @@ def drivers_train(tag: str, data: str, val: str, out: pathlib.Path,
           f"img/s, {label})")
 
 
+def drivers_graphs_off(tag: str, data: str, val: str,
+                       root: pathlib.Path) -> None:
+    """cli.train and cli.evaluate by default (from CUDA graphs) and with
+    --cuda_graphs off, inline loading: cli.train GRAPH_DRIVER_ITS
+    iterations at B = 64 with an eval every GRAPH_DRIVER_EVAL (its second
+    replays the eval pass's graph, in the step's pool), the same step
+    losses and JSONL rows (eval losses) and the peak memory of both;
+    cli.evaluate at B = GRAPH_EVAL_BATCH (its batches replay one graph),
+    the same loss."""
+    from tae_tpu_torch.cli import evaluate, train
+
+    graphs_off_against_default(f"{tag} train", train, [
+        "--model", DRIVER_MODEL, "--batch_size_per_gpu", str(DRIVER_BATCH),
+        "--num_its", str(GRAPH_DRIVER_ITS), "--save_freq",
+        str(GRAPH_DRIVER_EVAL), "--log_freq", "1", "--train_data_path", data,
+        "--val_data_path", val, "--num_workers", "0", "--output_dir",
+        str(root / "train_off"), "--save_prefix", "off"], GRAPH_DRIVER_ITS,
+        root / "train_off" / "off_log.txt")
+    graphs_off_against_default(f"{tag} evaluate", evaluate, [
+        "--model", DRIVER_MODEL, "--batch_size_per_gpu",
+        str(GRAPH_EVAL_BATCH), "--val_data_path", val, "--num_workers", "0",
+        "--output_dir", str(root / "evaluate_off"), "--save_prefix", "off"],
+        0)
+
+
 def phase_drivers() -> dict:
     """Path ``drivers``: calibration, and the encode, evaluate and train
     drivers on fake data at the p16 model's full width and depth. Returns
@@ -4426,7 +4632,8 @@ def phase_drivers() -> dict:
                      lambda: drivers_encode(tag, data, root, label, totals),
                      lambda: drivers_evaluate(tag, val, root, totals),
                      lambda: drivers_train(tag, data, val, root / "train",
-                                           label, totals)):
+                                           label, totals),
+                     lambda: drivers_graphs_off(tag, data, val, root)):
             t = time.perf_counter()
             part()
             gc.collect()
@@ -4655,10 +4862,12 @@ def summed(*counts: dict) -> dict:
 
 
 def downstream_step(encoder, model_loss, schedule, weight_decay: float,
-                    backend=None, remat: bool = False):
+                    backend=None, remat: bool = False, moment_dtype=None,
+                    cuda_graphs=None):
     """A downstream driver's train step: the frozen encoder under no_grad
     (the JAX drivers' stop_gradient) feeding the trainable trunk, bf16
-    compute, AdamW."""
+    compute, AdamW (``moment_dtype`` as ``adamw`` takes it), from CUDA
+    graphs as ``make_train_step(cuda_graphs=)`` says."""
     import torch
 
     from tae_tpu_torch.train import adamw, make_train_step
@@ -4672,7 +4881,9 @@ def downstream_step(encoder, model_loss, schedule, weight_decay: float,
             z = encoder.forward_encoder(x, policy=enc_policy, backend=backend)
         return model_loss(m(z, backend=backend, remat=remat), y), {}
 
-    return make_train_step(loss_fn, adamw(weight_decay=weight_decay), schedule)
+    return make_train_step(loss_fn, adamw(weight_decay=weight_decay,
+                                          moment_dtype=moment_dtype),
+                           schedule, cuda_graphs=cuda_graphs)
 
 
 def downstream_state(name: str, weight_decay: float, **kw):
@@ -4986,6 +5197,15 @@ def phase_downstream_drivers(label: str) -> dict:
             "--num_workers", str(DRIVER_WORKERS), "--train_data_path",
             str(shard), "--output_dir", str(root / "in19k"),
             "--save_prefix", "r19"], want, totals)
+        print(f"[{tag}] in19k ({time.perf_counter() - t:.1f} s)")
+        graphs_off_against_default(f"{tag} in19k", r19k, [
+            "--model", REC_MODEL, "--num_classes", str(REC_CLASSES),
+            "--encoder", REC_ENCODER, "--encoder_quantization", "int8",
+            "--batch_size", str(REC_BATCH), "--num_its",
+            str(GRAPH_DRIVER_ITS), "--save_freq", "1000", "--log_freq", "1",
+            "--num_workers", "0", "--train_data_path", str(shard),
+            "--output_dir", str(root / "in19k_off"), "--save_prefix", "off"],
+            GRAPH_DRIVER_ITS)
         rows = ds_rows(root / "in19k" / f"r19_{REC_MODEL}_log.txt")
         ckpt19 = root / "in19k" / f"r19_{REC_MODEL}_checkpoint"
         check([it for it, _ in seen] == list(range(DS_ITS))
@@ -5054,6 +5274,19 @@ def phase_downstream_drivers(label: str) -> dict:
               == (DS_CLASSES, rec_cfg.decoder_embed_dim),
               f"{tag} in1k: rows {res}, checkpoint meta {meta}")
         del blob
+        # by default and with --cuda_graphs off at a batch whose epoch and
+        # eval replay their graphs: the mixup targets a static input
+        off = root / "in1k_off"
+        graphs_off_against_default(f"{tag} in1k", r1k, [
+            "--model", REC_MODEL, "--model_ckpt", str(ckpt19),
+            "--pretrain_num_classes", str(REC_CLASSES), "--num_classes",
+            str(DS_CLASSES), "--encoder", REC_ENCODER, "--batch_size",
+            str(GRAPH_IN1K_BATCH), "--epochs", "1", "--log_freq", "1",
+            "--num_workers", "0", "--train_data_path", str(root / "train"),
+            "--val_data_path", str(root / "val"), "--output_dir", str(off),
+            "--save_prefix", "off"],
+            DS_CLASSES * DS_TRAIN_PER_CLASS // GRAPH_IN1K_BATCH,
+            off / f"off_{REC_MODEL}_log.txt")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5106,6 +5339,10 @@ def phase_downstream_drivers(label: str) -> dict:
                 "--epochs", "2"], want, totals)
         finally:
             seg.evaluate = real_eval
+        graphs_off_against_default(f"{tag} segmentation", seg,
+                                   seg_argv(root / "seg_off"),
+                                   DS_COCO_TRAIN // SEG_BATCH,
+                                   root / "seg_off" / "seg_log.txt")
         resumed = ds_rows(root / "seg_resumed" / "seg_log.txt")
         row, ref = res["kernel"], res["reference"]
         valid = [int(m.sum()) for m in mats]
@@ -5319,9 +5556,25 @@ def timed_calls(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def plain_adamw(init):
+    """``AdamWMoments``' update through K18's plain version, tensor by
+    tensor, as an Optimizer of ``init``: the optimizer of the
+    ``backend="reference"`` run, whose steps run eagerly (its device part
+    reads the step counts on the host)."""
+    from tae_tpu_torch.train.optim import Optimizer
+
+    def host(opt, lr, plan):
+        for group in opt.param_groups:
+            group["lr"] = float(lr)
+
+    return Optimizer(init=init, bind=lambda opt, plan=None: None, host=host,
+                     apply=lambda opt, plan: plain_adamw_update(
+                         opt, opt.param_groups[0]["lr"]))
+
+
 def plain_adamw_update(opt, lr: float) -> None:
     """``AdamWMoments``' step through K18's plain version, tensor by
-    tensor: the optimizer of the ``backend="reference"`` run."""
+    tensor."""
     import torch
 
     from tae_tpu_torch.ops.cuda.adamw import (adamw_update_reference,
@@ -5391,7 +5644,6 @@ def p128_fsdp_trainer(mesh, moment_dtype, backend=None,
     from tae_tpu_torch.profile_training import WEIGHT_DECAY
     from tae_tpu_torch.train import (TrainState, adamw, make_train_step,
                                      step_lr)
-    from tae_tpu_torch.train.optim import Optimizer
     from tae_tpu_torch.utils.dtypes import Policy
 
     model = models.create(name, device="cuda", trainable=True, **overrides)
@@ -5407,14 +5659,16 @@ def p128_fsdp_trainer(mesh, moment_dtype, backend=None,
     shard_model(model, mesh)
     opt = adamw(weight_decay=WEIGHT_DECAY, moment_dtype=moment_dtype)
     if backend == "reference":
-        opt = Optimizer(init=opt.init, update=plain_adamw_update)
+        opt = plain_adamw(opt.init)
     policy = Policy()
 
     def loss_fn(m, batch):
         return m(batch, policy=policy, backend=backend)[0], {}
 
     step = make_train_step(loss_fn, opt, step_lr(1e-4, 1e-5, 450_000),
-                           clip_grad=clip_grad)
+                           clip_grad=clip_grad,
+                           cuda_graphs=False if backend == "reference"
+                           else None)
     return TrainState.create(model, opt), step
 
 
@@ -5894,10 +6148,11 @@ def phase_tensor2(label: str) -> dict:
 def phase_drivers_mesh() -> dict:
     """Path ``drivers_mesh``: ``cli.train`` as a torchrun launch of one
     (``WORLD_SIZE=1``, ``--mesh_fsdp 1``: the model under FSDP2 on this
-    process's NCCL group) against the same driver without a mesh, on the
-    ``drivers`` path's data and recipe (the p16 model, B = 64, 3 steps,
-    inline loading so that both see the same batches); each step's losses
-    and launches. Returns the mesh run's launch counts."""
+    process's NCCL group, eager) against the same driver without a mesh
+    (from CUDA graphs), on the ``drivers`` path's data and recipe (the p16
+    model at DRIVER_MESH_CUT's depth, B = 64, 3 steps, inline loading so
+    that both see the same batches); each step's losses and launches.
+    Returns the mesh run's launch counts."""
     import os
     import tempfile
 
@@ -5908,7 +6163,7 @@ def phase_drivers_mesh() -> dict:
     from tae_tpu_torch.models import create
 
     tag = "drivers_mesh"
-    cfg = create(DRIVER_MODEL, device="meta").cfg
+    cfg = create(DRIVER_MODEL, device="meta", **DRIVER_MESH_CUT).cfg
     want = train_launches(cfg)
     real = train.make_train_step
     fns = wrappers()
@@ -5934,7 +6189,7 @@ def phase_drivers_mesh() -> dict:
             "--train_data_path", str(root / "train-000000.tar"),
             "--val_data_path", str(root), "--num_workers", "0",
             "--output_dir", str(out), "--save_prefix", "tr",
-            "--mesh_fsdp", "1"])
+            "--mesh_fsdp", "1", "--model_args", json.dumps(DRIVER_MESH_CUT)])
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         train.make_train_step = counted_make(losses)
@@ -5969,6 +6224,404 @@ def phase_drivers_mesh() -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# train_graphs: the train steps from captured CUDA graphs against eager
+# ---------------------------------------------------------------------------
+
+def training_tensors(state) -> list:
+    """(name, tensor) of every parameter of ``state`` and every tensor of
+    its optimizer state (moments, step counts)."""
+    import torch
+
+    out = []
+    for name, p in state.model.named_parameters():
+        out.append((name, p))
+        for k, v in state.opt.state.get(p, {}).items():
+            if isinstance(v, torch.Tensor):
+                out.append((f"{name}:{k}", v))
+    return out
+
+
+def state_difference(got, want) -> tuple[int, float, str]:
+    """Tensors of two training states that are not bit-equal: their count,
+    the largest absolute difference and the name of its tensor."""
+    import torch
+
+    unequal, worst, where = 0, 0.0, ""
+    for (name, a), (_, b) in zip(training_tensors(got),
+                                 training_tensors(want)):
+        if torch.equal(a, b):
+            continue
+        unequal += 1
+        d = float((a.float() - b.float()).abs().max())
+        if d >= worst:
+            worst, where = d, name
+    return unequal, worst, where
+
+
+def graph_steps(tag: str, step, state, batch, want: dict, totals: dict):
+    """GRAPH_STEPS steps of ``step`` on ``batch``, each step's launches held
+    to ``want`` and added to ``totals``: each step's (loss, grad_norm, lr)
+    and host wall."""
+    rows, walls = [], []
+    for it in range(GRAPH_STEPS):
+        m, dt = counted_step(tag, step, state, batch, it, want, totals)
+        rows.append(tuple(float(m[k]) for k in ("loss", "grad_norm", "lr")))
+        walls.append(dt)
+    return rows, walls
+
+
+def graph_against_eager(tag: str, build, batch, want: dict, totals: dict,
+                        optimizer) -> dict:
+    """One recipe eager and from graphs. ``build(cuda_graphs)`` makes a
+    fresh (state, step) from the recipe's seed; the eager run first, then
+    the graph run (the main path: its launches go into ``totals``), each
+    GRAPH_STEPS steps on ``batch`` with the learning rate switching at
+    GRAPH_SWITCH. Each step's loss, gradient norm and learning rate must be
+    equal, and every parameter, moment and step count after the last step
+    bit-equal; then the graph's kernel nodes against the eager step's
+    (check_step_replay), the replay's device time alone, the host time of
+    the optimizer's host part and of the graph's model check, and the peak
+    memory of each run over its base. Returns the numbers printed."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.serving_graphs import _unchanged
+
+    fns = wrappers()
+    runs = {}
+    for mode in (False, None):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, step = build(mode)
+        if mode is None:
+            # the main path: every count is 0 here
+            for f in fns.values():
+                f.launches = 0
+        # the graph is checked below, after the runs' peaks are read
+        with graph_checks_off():
+            rows, walls = graph_steps(tag, step, state, batch, want,
+                                      totals if mode is None else {})
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        if mode is False:
+            state.opt.zero_grad(set_to_none=True)
+        runs[mode] = dict(state=state, step=step, rows=rows, walls=walls,
+                          peak=peak)
+    eager, graph = runs[False], runs[None]
+    check(len(graph["step"].graphs.graphs(graph["state"])) == 1,
+          f"{tag}: the graph run holds "
+          f"{len(graph['step'].graphs.graphs(graph['state']))} graphs")
+    lrs = [r[2] for r in graph["rows"]]
+    check(lrs[GRAPH_SWITCH - 1] != lrs[GRAPH_SWITCH],
+          f"{tag}: the learning rate does not switch ({lrs})")
+    same_rows = graph["rows"] == eager["rows"]
+    unequal, worst, where = state_difference(graph["state"], eager["state"])
+    n_tensors = len(training_tensors(graph["state"]))
+    print(f"[{tag}] {GRAPH_STEPS} steps eager and from a CUDA graph (eager "
+          f"step 0, capture at 1, replays after; lr "
+          f"{lrs[0]:.3g} -> {lrs[-1]:.3g} at step {GRAPH_SWITCH}): (loss, "
+          f"grad_norm, lr) equal at every step: {same_rows}; of {n_tensors} "
+          f"parameters, moments and step counts after step {GRAPH_STEPS}, "
+          f"{unequal} not bit-equal (largest difference {worst:.3g}"
+          f"{' in ' + where if where else ''})")
+    if not same_rows:
+        for i, (a, b) in enumerate(zip(graph["rows"], eager["rows"])):
+            print(f"[{tag}]   step {i}: graph {a!r} eager {b!r}")
+    check(same_rows and unequal == 0,
+          f"{tag}: the graphed steps differ from the eager steps")
+    tr = check_step_replay(tag, graph["step"].graphs, graph["state"], batch,
+                           GRAPH_STEPS)
+    captured = tr["captured"]
+    replay = replay_ms(captured.graph)
+    lr = graph["step"].graphs.schedule(GRAPH_STEPS)
+    t = time.perf_counter()
+    for _ in range(GRAPH_SNAPSHOT_REPS):
+        optimizer.host(graph["state"].opt, lr, captured.plan)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t) / GRAPH_SNAPSHOT_REPS * 1e6
+    t = time.perf_counter()
+    for _ in range(GRAPH_SNAPSHOT_REPS):
+        _unchanged(captured.snap)
+    snap_us = (time.perf_counter() - t) / GRAPH_SNAPSHOT_REPS * 1e6
+    # steps 2 on: eager steps against replays
+    wall_e = statistics.median(eager["walls"][2:]) * 1e3
+    wall_g = statistics.median(graph["walls"][2:]) * 1e3
+    dev_e, dev_g = tr["eager"]["device_ms"], tr["graph"]["device_ms"]
+    nodes = sum(tr["nodes"].values())
+    print(f"[{tag}] host wall per step (median of steps 2-{GRAPH_STEPS - 1},"
+          f" host clock to a synchronize) eager {wall_e:.3f} ms -> graph "
+          f"{wall_g:.3f} ms; a traced step's device time eager {dev_e:.3f} "
+          f"ms, replay {dev_g:.3f} ms (busy share {dev_e / wall_e:.3f} -> "
+          f"{dev_g / wall_g:.3f}); one replay alone between CUDA events "
+          f"{replay:.3f} ms; peak memory over the run's base eager "
+          f"{eager['peak']:.0f} MiB, graph {graph['peak']:.0f} MiB; the "
+          f"optimizer's host part {host_us:.1f} us, the graph's model and "
+          f"optimizer check {snap_us:.1f} us ({len(captured.snap)} entries)")
+    print(f"[{tag}] the graph's kernel nodes, read from the graph, are the "
+          f"library kernels of the eager step by name and count ({nodes}: "
+          f"{json.dumps(dict(tr['nodes']))}); a traced replay launches one "
+          f"graph and adds the eager step's launches")
+    out = dict(wall_e=wall_e, wall_g=wall_g, dev_e=dev_e, dev_g=dev_g,
+               replay=replay, peak_e=eager["peak"], peak_g=graph["peak"],
+               host_us=host_us, snap_us=snap_us)
+    del runs, eager, graph, tr, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_lr_difference() -> dict:
+    """``torch.optim.AdamW(fused=True)`` with the learning rate as a float
+    (the kernel computes with it as a double) and as a 0-dim fp32 tensor on
+    the card (as the port's update passes it, eager and graphed): three
+    steps on the same parameters and gradients (8 tensors of 1024 x 4096,
+    fp32; lr 1e-4, decay 0.05), the share of elements that differ and the
+    largest difference, relative to the update's size."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = [torch.randn((1024, 4096), generator=gen, device="cuda") * 0.02
+              for _ in range(8)]
+    grads = [[torch.randn_like(p) * 1e-3 for p in params] for _ in range(3)]
+    out = {}
+    for form in ("float", "tensor"):
+        ps = [torch.nn.Parameter(p.clone()) for p in params]
+        lr = 1e-4 if form == "float" else torch.tensor(
+            1e-4, dtype=torch.float32, device="cuda")
+        opt = torch.optim.AdamW(ps, lr=lr, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.05, fused=True)
+        for k in range(3):
+            for p, g in zip(ps, grads[k]):
+                p.grad = g
+            opt.step()
+        out[form] = [p.detach() for p in ps]
+    diff = [(a - b).abs() for a, b in zip(out["float"], out["tensor"])]
+    moved = max(float((a - p).abs().max()) for a, p in zip(out["float"],
+                                                           params))
+    n = sum(d.numel() for d in diff)
+    share = sum(int((d > 0).sum()) for d in diff) / n
+    worst = max(float(d.max()) for d in diff)
+    print(f"[train_graphs] fused AdamW, lr as a float against a 0-dim fp32 "
+          f"tensor on the card, 3 steps on {n} fp32 parameters: "
+          f"{share:.4%} of the elements differ, by at most {worst:.3g} "
+          f"({worst / moved:.3g} of the largest update, {moved:.3g})")
+    return dict(share=share, worst=worst, moved=moved)
+
+
+def phase_train_graphs(label: str) -> dict:
+    """Path ``train_graphs``: the train step from captured CUDA graphs (the
+    counterpart of the JAX drivers' ``jax.jit`` of ``make_train_step``)
+    against the same steps run eagerly, bit for bit (graph_against_eager):
+    ``train_bf16``'s recipe at full width and depth (B = 64) with fused
+    AdamW and with bf16 moments (K18), ``rec19k``'s (its int8 encoder inside
+    the graph) with both, and ``p128_train``'s 2 + 2 cut at B = 8 with both;
+    each schedule switching at GRAPH_SWITCH. Returns the launch counts of
+    the graph runs."""
+    import torch
+
+    from tae_tpu_torch import models
+    from tae_tpu_torch.profile_training import WEIGHT_DECAY
+    from tae_tpu_torch.train import (TrainState, adamw, make_train_step,
+                                     step_lr)
+    from tae_tpu_torch.train.losses import cross_entropy
+    from tae_tpu_torch.utils.dtypes import Policy
+
+    fused_lr_difference()
+    totals: dict = {}
+    policy = Policy()
+    bf16 = torch.bfloat16
+
+    def tae_recipe(name, moment_dtype, **cut):
+        def build(mode):
+            model = models.create(name, device="cuda", trainable=True, **cut)
+            model.init_weights_(torch.Generator(device="cuda").manual_seed(0))
+            opt = adamw(weight_decay=WEIGHT_DECAY, moment_dtype=moment_dtype)
+            step = make_train_step(
+                lambda m, b: (m(b, policy=policy)[0], {}), opt,
+                step_lr(1e-4, 1e-5, GRAPH_SWITCH), cuda_graphs=mode)
+            return TrainState.create(model, opt), step
+        return build, adamw(weight_decay=WEIGHT_DECAY,
+                            moment_dtype=moment_dtype)
+
+    encoder = downstream_encoder("int8")
+
+    def rec_recipe(moment_dtype):
+        def build(mode):
+            opt = adamw(weight_decay=0.0, moment_dtype=moment_dtype)
+            model = models.create(REC_MODEL, num_classes=REC_CLASSES,
+                                  device="cuda", trainable=True)
+            model.init_weights_(torch.Generator(device="cuda").manual_seed(1))
+            step = downstream_step(encoder, cross_entropy,
+                                   step_lr(1e-4, 1e-5, GRAPH_SWITCH), 0.0,
+                                   remat=True, moment_dtype=moment_dtype,
+                                   cuda_graphs=mode)
+            return TrainState.create(model, opt), step
+        return build, adamw(weight_decay=0.0, moment_dtype=moment_dtype)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p16_batch = torch.randn((TRAIN_BATCH, 3, 256, 256), generator=gen,
+                            device="cuda")
+    rec_batch = (torch.randn((REC_BATCH, 3, 256, 256), generator=gen,
+                             device="cuda"),
+                 torch.arange(REC_BATCH, device="cuda") * 2399 % REC_CLASSES)
+    p128_batch = torch.randn((8, 3, 256, 256), generator=gen, device="cuda")
+    p16_cfg = models.create(PATHS[0][0], device="meta").cfg
+    p128_cfg = models.create(PATHS[1][0], device="meta",
+                             depth=2, decoder_depth=2).cfg
+    rec_cfg = models.create(REC_MODEL, num_classes=REC_CLASSES,
+                            device="meta").cfg
+    rec_want = summed(encoder_launches(encoder, "int8"),
+                      trunk_launches(rec_cfg, remat=True))
+    cases = [
+        ("train_bf16", tae_recipe(PATHS[0][0], None), p16_batch,
+         train_launches(p16_cfg)),
+        ("train_bf16 bf16 moments", tae_recipe(PATHS[0][0], bf16), p16_batch,
+         dict(train_launches(p16_cfg), adamw_update=1)),
+        ("rec19k", rec_recipe(None), rec_batch, rec_want),
+        ("rec19k bf16 moments", rec_recipe(bf16), rec_batch,
+         dict(rec_want, adamw_update=1)),
+        ("p128_train", tae_recipe(PATHS[1][0], None, depth=2,
+                                  decoder_depth=2), p128_batch,
+         train_launches(p128_cfg)),
+        ("p128_train bf16 moments", tae_recipe(PATHS[1][0], bf16, depth=2,
+                                               decoder_depth=2), p128_batch,
+         dict(train_launches(p128_cfg), adamw_update=1)),
+    ]
+    results = {}
+    for name, (build, optimizer), batch, want in cases:
+        t = time.perf_counter()
+        path_totals: dict = {}
+        results[name] = graph_against_eager(f"train_graphs {name}", build,
+                                            batch, want, path_totals,
+                                            optimizer)
+        for k, v in path_totals.items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"[train_graphs] {name}: ({time.perf_counter() - t:.1f} s; "
+              f"{label})")
+    del encoder
+    print(f"[train_graphs] main path launches: {json.dumps(totals)}")
+    return totals
+
+
+def driver_losses(module, argv: list, log: pathlib.Path | None = None
+                  ) -> dict:
+    """``module.main`` on ``argv``, a comparison's run (no graph checks;
+    the counters put back after it): each train step's loss, read after
+    the step (``losses``), the graphs its step and eval functions hold at
+    the end (``held``), what ``main`` returned (``ret``), the rows it
+    appended to the JSONL log ``log`` (``rows``), and its peak memory
+    allocated and reserved over what was allocated before it (GiB; the
+    cache emptied and the peaks reset first)."""
+    import gc
+
+    import torch
+
+    fns = wrappers()
+    saved = {n: f.launches for n, f in fns.items()}
+    real = {name: getattr(module, name) for name in ("make_train_step",
+                                                     "make_eval_fn")
+            if hasattr(module, name)}
+    losses, made = [], []
+
+    def make_step(*a, **kw):
+        step = real["make_train_step"](*a, **kw)
+        made.append(step)
+
+        def logged(state, batch, it):
+            out = step(state, batch, it)
+            losses.append(float(out[1]["loss"]))
+            return out
+
+        return logged
+
+    def make_eval(*a, **kw):
+        fn = real["make_eval_fn"](*a, **kw)
+        made.append(fn)
+        return fn
+
+    for name, fn in (("make_train_step", make_step),
+                     ("make_eval_fn", make_eval)):
+        if name in real:
+            setattr(module, name, fn)
+    before = len(ds_rows(log)) if log is not None and log.exists() else 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with graph_checks_off():
+            ret = module.main(module.get_args_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+        for n, f in fns.items():
+            f.launches = saved[n]
+    return dict(
+        losses=losses, ret=ret,
+        held=sum(len(m.graphs) for m in made if m.graphs is not None),
+        rows=ds_rows(log)[before:] if log is not None else [],
+        allocated=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        reserved=(torch.cuda.max_memory_reserved() - base) / 2 ** 30)
+
+
+def graphs_off_against_default(tag: str, module, argv: list, steps: int,
+                               log: pathlib.Path | None = None) -> dict:
+    """A driver run by default (graphs on the card) and with --cuda_graphs
+    off on the same arguments (inline loading: one batch order): ``steps``
+    train steps each, each step's loss equal, and the JSONL rows appended
+    to ``log`` (eval losses, accuracies, IoU) and what ``main`` returns
+    equal; the peak memory of both runs printed. Returns both runs."""
+    t = time.perf_counter()
+    on = driver_losses(module, argv, log)
+    off = driver_losses(module, argv + ["--cuda_graphs", "off"], log)
+    name = module.__name__.rsplit(".", 1)[-1]
+    print(f"[{tag}] {name} by default (graphs held at the end: {on['held']})"
+          f" and with --cuda_graphs off ({off['held']}): step losses "
+          f"{on['losses']} and {off['losses']}; log rows {on['rows']} and "
+          f"{off['rows']}; main returned {on['ret']!r} and {off['ret']!r}; "
+          f"equal: {on['losses'] == off['losses'] and on['rows'] == off['rows'] and on['ret'] == off['ret']}"
+          f" ({time.perf_counter() - t:.1f} s)")
+    print(f"[{tag}] {name} peak memory over the run's base, graphs / "
+          f"--cuda_graphs off: allocated {on['allocated']:.2f} / "
+          f"{off['allocated']:.2f} GiB, reserved {on['reserved']:.2f} / "
+          f"{off['reserved']:.2f} GiB ({card_label()})")
+    check(len(on["losses"]) == len(off["losses"]) == steps
+          and on["held"] >= 1 and off["held"] == 0,
+          f"{tag}: {len(on['losses'])} / {len(off['losses'])} steps, "
+          f"{on['held']} / {off['held']} graphs")
+    check(on["losses"] == off["losses"] and on["rows"] == off["rows"]
+          and on["ret"] == off["ret"],
+          f"{tag}: --cuda_graphs off gives other numbers")
+    return {"on": on, "off": off}
+
+
+START = time.perf_counter()
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds printed on a line of their own, after the
+    graph checks it made (GRAPH_CHECKS), where it made any."""
+    t = time.perf_counter()
+    counts = {k: v for k, v in GRAPH_CHECKS.items() if k != "on"}
+    out = fn(*args)
+    made = {k: GRAPH_CHECKS[k] - v for k, v in counts.items()}
+    if made["steps"] or made["evals"]:
+        print(f"[{name}] graph checks: each of the {made['steps']} step "
+              f"graphs and {made['evals']} eval graphs this phase captured "
+              f"holds, read from the graph, the library kernels of its "
+              f"key's eager call by name and count ({made['nodes']} kernel "
+              f"nodes in all), and a traced replay adds the launches the "
+              f"wrappers counted in that call ({made['lost']} lost traces "
+              f"and {made['again']} eager traces disagreeing with the graph "
+              f"taken again)")
+    print(f"[time] {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         phase_device()
@@ -5979,37 +6632,45 @@ def main() -> int:
         except ImportError as e:
             raise SmokeFailure(f"cannot import tae_tpu_torch next to "
                                f"{pathlib.Path(__file__).name}: {e}") from e
-        phase_build()
-        kres = phase_kernels()
-        kres.update(phase_int8_kernels())
-        kres.update(phase_attention_kernels())
-        kres.update(phase_train_kernels())
-        for name, cases in phase_downstream_kernels(card_label()).items():
+        install_graph_checks()
+        timed("build", phase_build)
+        kres = timed("kernels", phase_kernels)
+        kres.update(timed("int8_kernels", phase_int8_kernels))
+        kres.update(timed("attention_kernels", phase_attention_kernels))
+        kres.update(timed("train_kernels", phase_train_kernels))
+        for name, cases in timed("downstream_kernels",
+                                 phase_downstream_kernels,
+                                 card_label()).items():
             kres[name] += cases
-        kres.update(phase_int4_kernels())
-        kres.update(phase_vq_kernel())
-        last = phase_last_kernels()
+        kres.update(timed("int4_kernels", phase_int4_kernels))
+        kres.update(timed("vq_kernel", phase_vq_kernel))
+        last = timed("last_kernels", phase_last_kernels)
         kres["nearest_code"] += last.pop("nearest_code")
         kres.update(last)
-        kres.update(phase_k18_kernel())
-        launches = phase_paths()
+        kres.update(timed("k18_kernel", phase_k18_kernel))
+        launches = timed("paths", phase_paths)
         for tag in VQ_PATHS:
-            launches[tag] = phase_vq(tag, launches["graphs"])
-        launches[VQ_F32_PATH] = phase_vq_f32()
-        launches[P128_F32_PATH] = phase_p128_f32()
-        launches[TRAIN_F32_PATH] = phase_train_f32()
-        launches["qknorm_blocks"] = phase_qknorm(kres)
-        launches["train_bf16"] = phase_train(kres)
-        launches["p128_train"] = phase_p128_train()
-        launches["train_p128_fsdp"] = phase_train_p128_fsdp(card_label())
-        phase_world2()
-        launches["tensor2"] = phase_tensor2(card_label())
-        launches["drivers"] = phase_drivers()
-        launches["drivers_mesh"] = phase_drivers_mesh()
+            launches[tag] = timed(tag, phase_vq, tag, launches["graphs"])
+        launches[VQ_F32_PATH] = timed(VQ_F32_PATH, phase_vq_f32)
+        launches[P128_F32_PATH] = timed(P128_F32_PATH, phase_p128_f32)
+        launches[TRAIN_F32_PATH] = timed(TRAIN_F32_PATH, phase_train_f32)
+        launches["qknorm_blocks"] = timed("qknorm_blocks", phase_qknorm, kres)
+        launches["train_bf16"] = timed("train_bf16", phase_train, kres)
+        launches["p128_train"] = timed("p128_train", phase_p128_train)
         label = card_label()
-        launches["rec19k"] = phase_rec19k(label)
-        launches["seg_p16"] = phase_seg_p16(label)
-        launches["downstream"] = phase_downstream_drivers(label)
+        launches["train_graphs"] = timed("train_graphs", phase_train_graphs,
+                                         label)
+        launches["train_p128_fsdp"] = timed("train_p128_fsdp",
+                                            phase_train_p128_fsdp, label)
+        timed("world2", phase_world2)
+        launches["tensor2"] = timed("tensor2", phase_tensor2, label)
+        launches["drivers"] = timed("drivers", phase_drivers)
+        launches["drivers_mesh"] = timed("drivers_mesh", phase_drivers_mesh)
+        launches["rec19k"] = timed("rec19k", phase_rec19k, label)
+        launches["seg_p16"] = timed("seg_p16", phase_seg_p16, label)
+        launches["downstream"] = timed("downstream", phase_downstream_drivers,
+                                       label)
+        print(f"[time] all phases: {time.perf_counter() - START:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

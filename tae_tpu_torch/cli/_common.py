@@ -58,6 +58,33 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--model_args", default="", type=str,
                    help="JSON dict of config overrides for the model factory "
                         "(e.g. '{\"embed_dim\": 64}'; used by tests/smoke runs)")
+    g.add_argument("--cuda_graphs", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="run the train and eval steps (encode: the "
+                        "Tokenizer's requests) from captured CUDA graphs, "
+                        "the counterpart of the JAX drivers' jit; auto: on "
+                        "one CUDA device for a model that is not sharded, "
+                        "on: the same or raise, off: eager")
+
+
+def cuda_graphs_flag(args) -> bool | None:
+    """``--cuda_graphs`` as the library takes it: None (auto), True, False."""
+    return {"auto": None, "on": True, "off": False}[
+        getattr(args, "cuda_graphs", "auto")]
+
+
+def graphs_mode(args, model) -> bool:
+    """Whether ``model``'s steps run from CUDA graphs under
+    ``--cuda_graphs`` (``train.step.step_graphs_mode``: ``on`` raises on
+    the CPU and on a sharded model); printed as the drivers print it."""
+    from tae_tpu_torch.train.step import step_graphs_mode
+
+    try:
+        on = step_graphs_mode(cuda_graphs_flag(args), model)
+    except ValueError as e:
+        raise SystemExit(f"--cuda_graphs on: {e}") from e
+    print(f"cuda graphs: {'on' if on else 'off'}", flush=True)
+    return on
 
 
 def build_mesh(args):
@@ -169,7 +196,9 @@ def fetch_metrics(metrics: dict, mesh=None):
     stacked tensor, copied ``non_blocking`` into pinned memory right behind
     the step, and an event after the copy. :func:`host_metrics` waits on that
     event alone, so reading step k after step k+1 was queued does not wait
-    for step k+1. On a mesh the values are first averaged over the ranks
+    for step k+1. Under CUDA graphs the metrics are copies of the graph's
+    (``make_train_step``), and the stream orders this copy before the next
+    replay, which writes the graph's own again. On a mesh the values are first averaged over the ranks
     (each rank's loss is the mean of its rows, so the average is the global
     batch's), every rank reading the same numbers."""
     names = list(metrics)

@@ -308,12 +308,18 @@ def main(args) -> dict:
         raise SystemExit("--equalize requires --quantization int8/int4")
     # an inference-only driver: parameters in the compute dtype (bf16), and
     # the decoder dropped before quantization, which never runs on it
-    tok = Tokenizer.from_checkpoint(
-        args.model, ckpt=args.model_ckpt or None, dtype=torch.bfloat16,
-        device=device, quantization=args.quantization, component="encoder",
-        equalize=args.equalize or None, patch_input=bool(args.patch_layout),
-        seed=args.seed, mesh=mesh,
-        **(json.loads(args.model_args) if args.model_args else {}))
+    try:
+        tok = Tokenizer.from_checkpoint(
+            args.model, ckpt=args.model_ckpt or None, dtype=torch.bfloat16,
+            device=device, quantization=args.quantization,
+            component="encoder", equalize=args.equalize or None,
+            patch_input=bool(args.patch_layout), seed=args.seed, mesh=mesh,
+            cuda_graphs=_common.cuda_graphs_flag(args),
+            **(json.loads(args.model_args) if args.model_args else {}))
+    except ValueError as e:
+        if "cuda_graphs" not in str(e):
+            raise
+        raise SystemExit(f"--cuda_graphs on: {e}") from e
     tok.backend = args.attn_backend
     if args.model_ckpt:
         print(f"Loaded checkpoint {args.model_ckpt}")
@@ -326,9 +332,9 @@ def main(args) -> dict:
     rank, ranks = data_rank(mesh)
     lockstep = is_sharded(tok.model)
     _common.print_decoder()
-    # the Tokenizer's default: graphs on one card, eager for an encoder that
-    # is sharded (a float encoder on --mesh_fsdp or --mesh_tensor above 1)
-    # and on the CPU
+    # --cuda_graphs auto, the Tokenizer's default: graphs on one card, eager
+    # for an encoder that is sharded (a float encoder on --mesh_fsdp or
+    # --mesh_tensor above 1) and on the CPU
     print(f"cuda graphs: {'on' if tok.cuda_graphs else 'off'}", flush=True)
     loader = make_encode_loader(args.data_path, args.input_size,
                                 args.deterministic, args.seed,

@@ -8,6 +8,10 @@ writes an originals / reconstructions grid. ``--resume`` loads a checkpoint
 ``ckpt/io.load_params``. The model holds fp32 parameters and computes in
 bf16 with the exact softmax, as the JAX driver does.
 
+On one card each batch's forward runs from a captured CUDA graph (the JAX
+driver's jitted eval function; every batch is padded to one shape):
+``--cuda_graphs {auto,on,off}``, the mode printed.
+
 Under ``torchrun`` the model is placed on the ``(data, fsdp, tensor)`` mesh; every
 rank reads the same batches and runs its rows of each, and each batch's mean
 is taken over the real rows of all ranks, so the loss is one process's.
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +35,7 @@ from tae_tpu_torch.cli import _common
 from tae_tpu_torch.data.loader import device_prefetch
 from tae_tpu_torch.data.transforms import IMAGENET_STD
 from tae_tpu_torch.parallel import batch_slice, is_main_process, shard_model
+from tae_tpu_torch.train.step import make_eval_fn
 from tae_tpu_torch.utils.dtypes import Policy
 from tae_tpu_torch.utils.image_grid import save_image
 
@@ -61,11 +67,18 @@ def per_sample_loss_and_pred(model, imgs: torch.Tensor, policy: Policy,
     target = model.patchify(imgs).float()
     sq = (pred.float() - target).square()
     per = sq.mean(dim=(1, 2))
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=imgs.device)
-    weights = (std * std).repeat(model.cfg.patch_size ** 2)
-    mse_px = (sq * weights).mean(dim=(1, 2))
+    mse_px = (sq * _psnr_weights(model.cfg.patch_size, imgs.device)).mean(
+        dim=(1, 2))
     psnr = -10.0 * torch.log10(mse_px.clamp_min(1e-12))
     return per, psnr, pred
+
+
+@functools.lru_cache(maxsize=None)
+def _psnr_weights(patch_size: int, device: torch.device) -> torch.Tensor:
+    """std_c² tiled p² times along a patch's (p, q, c) values, made once per
+    device (a host-to-device copy, which a CUDA graph may not hold)."""
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
+    return (std * std).repeat(patch_size ** 2)
 
 
 def main(args) -> float:
@@ -84,6 +97,13 @@ def main(args) -> float:
         load_params(args.resume, model)
         print(f"Loaded checkpoint {args.resume}")
     model = shard_model(model, mesh)
+    graphs = _common.graphs_mode(args, model)
+    # the per-sample values of a batch, from a graph per batch shape (every
+    # batch is padded to one)
+    per_sample = make_eval_fn(
+        lambda x: per_sample_loss_and_pred(model, x, policy,
+                                           args.attn_backend)[:2],
+        model, graphs)
 
     # the reference's batch 8192 default does not fit the big configs;
     # clamp by a footprint estimate instead of running out of memory
@@ -111,8 +131,7 @@ def main(args) -> float:
     with torch.no_grad():
         for imgs in device_prefetch(padded_batches(), device):
             n = real_counts.popleft()
-            per, psnr, _ = per_sample_loss_and_pred(
-                model, batch_slice(imgs, mesh), policy, args.attn_backend)
+            per, psnr = per_sample(batch_slice(imgs, mesh))
             losses.append(_common.real_rows_mean(per, n, mesh))
             psnrs.append(_common.real_rows_mean(psnr, n, mesh))
         eval_loss = float(np.mean(losses))

@@ -15,6 +15,13 @@ loss stops the run one step later than the reference's per-step
 ``loss.item()`` does, and before any eval or checkpoint that follows it (at
 an eval or the last iteration the step's own metrics are read first).
 
+On one card the steps and the eval pass run from captured CUDA graphs (the
+JAX driver's ``jax.jit`` of the step and of its eval function;
+``make_train_step(cuda_graphs=)``, ``make_eval_fn``): an eager first step,
+a capture on the second, replays after. ``--cuda_graphs off`` runs them
+eagerly, ``on`` raises where graphs cannot run (the CPU, a sharded model);
+the driver prints the mode.
+
 Checkpoints: ``{prefix}_checkpoint_latest`` is written at every eval (the
 newest state, for preemption), and promoted to ``{prefix}_checkpoint`` (the
 reference's best-eval contract, train.py:164-172) when the eval loss
@@ -49,7 +56,9 @@ from tae_tpu_torch.cli import _common
 from tae_tpu_torch.cli.evaluate import per_sample_loss_and_pred
 from tae_tpu_torch.data.loader import device_prefetch
 from tae_tpu_torch.parallel import batch_slice, is_main_process, shard_model
+from tae_tpu_torch.serving_graphs import GraphPool
 from tae_tpu_torch.train import TrainState, adamw, make_train_step, step_lr
+from tae_tpu_torch.train.step import make_eval_fn
 from tae_tpu_torch.utils.dtypes import Policy
 from tae_tpu_torch.utils.image_grid import save_image
 from tae_tpu_torch.utils.meters import MetricLogger, append_jsonl
@@ -110,6 +119,10 @@ def main(args) -> None:
         print(f"Resumed checkpoint {args.ckpt}")
     model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
+    graphs = _common.graphs_mode(args, model)
+    # one memory pool for the step's graphs and the eval pass's: their
+    # replays never overlap
+    pool = GraphPool()
 
     start_it = 0
     best_eval_loss = 100.0
@@ -140,7 +153,14 @@ def main(args) -> None:
 
     step = make_train_step(loss_fn, opt,
                            step_lr(args.max_lr, args.min_lr, args.switch_it),
-                           accum_iter=args.accum_iter)
+                           accum_iter=args.accum_iter, cuda_graphs=graphs,
+                           pool=pool)
+    # the eval pass's per-sample losses, from a graph per batch shape, in
+    # the step's memory pool
+    eval_losses = make_eval_fn(
+        lambda x: per_sample_loss_and_pred(model, x, policy,
+                                           args.attn_backend)[0],
+        model, graphs, pool=pool)
 
     _common.print_decoder()
     # this rank's rows from its own stream (the global batch over the ranks)
@@ -182,7 +202,7 @@ def main(args) -> None:
         if not evaluating:
             continue
         print(f"Iteration {it}, evaluating ...")
-        eval_loss = evaluate(model, args, device, policy, mesh)
+        eval_loss = evaluate(eval_losses, args, device, mesh)
 
         # the JSONL row first: the eval trajectory is the run's primary
         # artifact and must not wait behind a checkpoint save
@@ -232,12 +252,15 @@ def save_reconstructions(model, samples: torch.Tensor, policy: Policy,
     save_image(combined, path, nrow=8, padding=1)
 
 
-def evaluate(model, args, device: torch.device, policy: Policy,
-             mesh=None) -> float:
+def evaluate(per_sample, args, device: torch.device, mesh=None) -> float:
     """Full val pass; the mean of per-batch mean MSEs (reference
-    train.py:203-223, the unequal final batch included). Under a mesh every
-    rank reads the same batches and runs its rows; each batch's mean is
-    taken over the real rows of all ranks."""
+    train.py:203-223, the unequal final batch included). ``per_sample(x)``:
+    the per-sample MSEs of a normalized batch on the card (the model's
+    forward; from a CUDA graph where the run has them: every batch is
+    padded to one shape, and the count of its real rows is read on the
+    host, outside the graph). Under a mesh every rank reads the same
+    batches and runs its rows; each batch's mean is taken over the real
+    rows of all ranks."""
     eval_bs = 8 * args.batch_size_per_gpu
     loader = _common.imagefolder_val_loader(args.val_data_path, args.input_size,
                                             eval_bs, num_workers=args.num_workers)
@@ -252,8 +275,7 @@ def evaluate(model, args, device: torch.device, policy: Policy,
     losses = []
     with torch.no_grad():
         for imgs in device_prefetch(padded_batches(), device):
-            per, _, _ = per_sample_loss_and_pred(
-                model, batch_slice(imgs, mesh), policy, args.attn_backend)
+            per = per_sample(batch_slice(imgs, mesh))
             losses.append(_common.real_rows_mean(per, real_counts.popleft(),
                                                  mesh))
     eval_loss = float(np.mean(losses))

@@ -21,6 +21,10 @@ mesh, every rank reads the global batch (``--batch_size`` x
 ``tensor`` (an int8 encoder whole on every rank), and rank 0
 writes the checkpoints' files and the logs.
 
+On one card each step, the frozen encoder's forward included, runs from a
+captured CUDA graph (the JAX driver's jitted step); ``--cuda_graphs off``
+steps eagerly, ``on`` raises where graphs cannot run; the mode is printed.
+
 Run: ``python -m tae_tpu_torch.cli.train_recognition_in19k --model
 vit_recognition_numpatches256_vocab256_base --num_classes 19167 --encoder
 tae_patch16_vocab256_px256 --encoder_ckpt tae.pth --train_data_path
@@ -116,6 +120,7 @@ def main(args) -> None:
     opt = adamw(weight_decay=args.weight_decay)
     model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
+    graphs = _common.graphs_mode(args, model)
     if args.model_ckpt:
         _, restored, _ = load_train_state(args.model_ckpt, model, state.opt)
         print(f"Resumed classifier {args.model_ckpt}"
@@ -136,9 +141,10 @@ def main(args) -> None:
                    remat=args.remat)
         return cross_entropy(logits, targets), topk_accuracy(logits, targets)
 
+    # the frozen encoder's forward runs inside the step's graph
     step = make_train_step(loss_fn, opt,
                            step_lr(args.max_lr, args.min_lr, args.switch_it),
-                           accum_iter=args.accum_iter)
+                           accum_iter=args.accum_iter, cuda_graphs=graphs)
 
     batch_size = args.batch_size * args.accum_iter
     if from_latents:

@@ -15,6 +15,11 @@ every rank), every rank reads the same batches and keeps
 its rows, the eval's counts are summed over the ranks, and rank 0 writes
 the logs.
 
+On one card each step (mixup's soft targets a static input of its graph)
+and each eval batch run from captured CUDA graphs (the JAX driver's jitted
+step and eval step); ``--cuda_graphs off`` runs them eagerly, ``on`` raises
+where graphs cannot run; the mode is printed.
+
 Run: ``python -m tae_tpu_torch.cli.train_recognition_in1k --model
 vit_recognition_numpatches256_vocab256_base --model_ckpt in19k_checkpoint
 --encoder tae_patch16_vocab256_px256 --train_data_path train/
@@ -37,7 +42,9 @@ from tae_tpu_torch.data.mixup import mixup_cutmix_collate
 from tae_tpu_torch.data.randaugment import rand_augment
 from tae_tpu_torch.data.transforms import random_resized_crop_transform
 from tae_tpu_torch.parallel import is_main_process, shard_model
+from tae_tpu_torch.serving_graphs import GraphPool
 from tae_tpu_torch.train import TrainState, adamw, epoch_step_lr, make_train_step
+from tae_tpu_torch.train.step import make_eval_fn
 from tae_tpu_torch.train.losses import cross_entropy, topk_accuracy
 from tae_tpu_torch.utils.dtypes import Policy
 from tae_tpu_torch.utils.meters import MetricLogger, append_jsonl
@@ -105,6 +112,8 @@ def main(args) -> None:
     opt = adamw(weight_decay=args.weight_decay)
     model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
+    graphs = _common.graphs_mode(args, model)
+    pool = GraphPool()      # the step's graphs and the eval's share one
 
     def encode(imgs):
         with torch.no_grad():
@@ -118,13 +127,16 @@ def main(args) -> None:
         loss = cross_entropy(logits, soft_targets, label_smoothing=0.1)
         return loss, topk_accuracy(logits, soft_targets)
 
+    # mixup's soft targets are one of the step graph's static inputs
     step = make_train_step(loss_fn, opt, epoch_step_lr(args.lr, 90, 0.1),
-                           accum_iter=args.accum_iter)
+                           accum_iter=args.accum_iter, cuda_graphs=graphs,
+                           pool=pool)
 
-    @torch.no_grad()
-    def eval_step(imgs, targets):
+    def eval_logits(imgs, targets):
         logits = model(encode(imgs), policy=policy, backend=args.attn_backend)
         return cross_entropy(logits, targets), logits
+
+    eval_step = make_eval_fn(eval_logits, model, graphs, pool=pool)
 
     collate = mixup_cutmix_collate(args.num_classes, seed=args.seed)
     _common.print_decoder()

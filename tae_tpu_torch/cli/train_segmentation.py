@@ -16,6 +16,11 @@ every rank), every rank reads the same batches and keeps
 its rows, the eval's counts are summed over the ranks, and rank 0 writes
 the logs.
 
+On one card each step and each eval batch's prediction run from captured
+CUDA graphs (the JAX driver's jitted step and predict); ``--cuda_graphs
+off`` runs them eagerly, ``on`` raises where graphs cannot run; the mode is
+printed.
+
 Run: ``python -m tae_tpu_torch.cli.train_segmentation --dataset coco
 --data_path coco/ --model vit_segmentation_numpatches256_vocab256_base
 --encoder tae_patch16_vocab256_px256 --encoder_ckpt tae.pth ...``
@@ -37,7 +42,9 @@ from tae_tpu_torch.data.coco_seg import load_dataset
 from tae_tpu_torch.data.loader import BatchLoader, device_prefetch
 from tae_tpu_torch.data.seg_transforms import SegEvalTransform, SegTrainTransform
 from tae_tpu_torch.parallel import is_main_process, shard_model
+from tae_tpu_torch.serving_graphs import GraphPool
 from tae_tpu_torch.train import TrainState, adamw, epoch_step_lr, make_train_step
+from tae_tpu_torch.train.step import make_eval_fn
 from tae_tpu_torch.utils.confusion import ConfusionMatrix
 from tae_tpu_torch.utils.dtypes import Policy
 from tae_tpu_torch.utils.meters import MetricLogger, append_jsonl
@@ -123,6 +130,8 @@ def main(args) -> None:
     opt = adamw(weight_decay=args.weight_decay)
     model = shard_model(model, mesh)
     state = TrainState.create(model, opt)
+    graphs = _common.graphs_mode(args, model)
+    pool = GraphPool()      # the step's graphs and predict's share one
     start_epoch = args.start_epoch
     if args.resume:
         _, _, meta = load_train_state(args.resume, model, state.opt)
@@ -140,12 +149,14 @@ def main(args) -> None:
                 remat=args.remat, mesh=mesh)
         return criterion(out, target), {}
 
-    step = make_train_step(loss_fn, opt, epoch_step_lr(args.lr, 90, 0.1))
+    step = make_train_step(loss_fn, opt, epoch_step_lr(args.lr, 90, 0.1),
+                           cuda_graphs=graphs, pool=pool)
 
-    @torch.no_grad()
-    def predict(imgs):
+    def predict_classes(imgs):
         out = model(encode(imgs), policy=policy, backend=args.attn_backend)
         return out["out"].argmax(dim=1)
+
+    predict = make_eval_fn(predict_classes, model, graphs, pool=pool)
 
     out_dir = Path(args.output_dir)
     for epoch in range(start_epoch, args.epochs):

@@ -32,6 +32,13 @@ takes the same step on the unwrapped model, ``--moments fp32`` the fused
 
     python -m tae_tpu_torch.profile_training --recipe p128_fsdp --batch 64 \
         [--no_shard] [--moments fp32]
+
+``--cuda_graphs`` (``auto`` by default: on for a model on the card that is
+not sharded) takes the steps from captured CUDA graphs, as the drivers do
+(``make_train_step(cuda_graphs=)``); ``off`` runs them eagerly, so that a
+graphed step's trace reads against the eager one::
+
+    python -m tae_tpu_torch.profile_training --batch 64 --cuda_graphs off
 """
 
 from __future__ import annotations
@@ -63,10 +70,11 @@ def build_state(model_name: str, seed: int = 0, device="cuda", **overrides):
 
 
 def make_step(remat: bool = False, backend: str | None = None,
-              accum_iter: int = 1, policy=None):
+              accum_iter: int = 1, policy=None, cuda_graphs=None):
     """The step function of the bench recipe: bf16 compute (or ``policy``,
     for example ``utils.dtypes.FP32``), AdamW, ``step_lr(1e-4, 1e-5,
-    450_000)``. It works on any state of :func:`build_state`."""
+    450_000)``, from CUDA graphs by ``cuda_graphs`` (``make_train_step``'s
+    rule). It works on any state of :func:`build_state`."""
     from tae_tpu_torch.train import adamw, make_train_step, step_lr
     from tae_tpu_torch.utils.dtypes import Policy
 
@@ -76,7 +84,8 @@ def make_step(remat: bool = False, backend: str | None = None,
         return m(batch, policy=policy, backend=backend, remat=remat)[0], {}
 
     return make_train_step(loss_fn, adamw(weight_decay=WEIGHT_DECAY),
-                           step_lr(1e-4, 1e-5, 450_000), accum_iter=accum_iter)
+                           step_lr(1e-4, 1e-5, 450_000), accum_iter=accum_iter,
+                           cuda_graphs=cuda_graphs)
 
 
 REC19K_ENCODER = "tae_patch16_vocab256_px256"
@@ -84,10 +93,12 @@ REC19K_MODEL = "vit_recognition_numpatches256_vocab256_base"
 REC19K_CLASSES = 19167
 
 
-def build_rec19k(batch: int, remat: bool, backend: str | None, seed: int = 0):
+def build_rec19k(batch: int, remat: bool, backend: str | None, seed: int = 0,
+                 cuda_graphs=None, moment_dtype=None):
     """The rec19k recipe: ``(state, step, (images, labels))``, the frozen
     encoder built as the downstream drivers build it
-    (``cli._common.frozen_encoder``)."""
+    (``cli._common.frozen_encoder``) and run inside the step (its graph
+    too); ``moment_dtype`` as ``adamw`` takes it."""
     import types
 
     from tae_tpu_torch import models
@@ -111,8 +122,9 @@ def build_rec19k(batch: int, remat: bool, backend: str | None, seed: int = 0):
             z = encoder.forward_encoder(x, policy=enc_policy, backend=backend)
         return cross_entropy(m(z, backend=backend, remat=remat), y), {}
 
-    opt = adamw(weight_decay=0.0)
-    step = make_train_step(loss_fn, opt, step_lr(1e-4, 1e-5, 500_000))
+    opt = adamw(weight_decay=0.0, moment_dtype=moment_dtype)
+    step = make_train_step(loss_fn, opt, step_lr(1e-4, 1e-5, 500_000),
+                           cuda_graphs=cuda_graphs)
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = torch.randn((batch, 3, 256, 256), generator=gen, device="cuda")
     labels = torch.arange(batch, device="cuda") % REC19K_CLASSES
@@ -122,8 +134,11 @@ def build_rec19k(batch: int, remat: bool, backend: str | None, seed: int = 0):
 P128_FSDP_MODEL = "tae_patch128_vocab4096_px256"
 
 
-def build_p128_fsdp(batch: int, shard: bool, moments: str, seed: int = 0):
-    """The train_p128_fsdp recipe: ``(state, step, images)``."""
+def build_p128_fsdp(batch: int, shard: bool, moments: str, seed: int = 0,
+                    cuda_graphs=None):
+    """The train_p128_fsdp recipe: ``(state, step, images)``; under
+    ``fully_shard`` the steps run eagerly (``cuda_graphs`` None) or raise
+    (True)."""
     import socket
 
     from tae_tpu_torch import models
@@ -147,7 +162,8 @@ def build_p128_fsdp(batch: int, shard: bool, moments: str, seed: int = 0):
                 moment_dtype=torch.bfloat16 if moments == "bf16" else None)
     policy = Policy()
     step = make_train_step(lambda m, b: (m(b, policy=policy)[0], {}), opt,
-                           step_lr(1e-4, 1e-5, 450_000))
+                           step_lr(1e-4, 1e-5, 450_000),
+                           cuda_graphs=cuda_graphs)
     gen = torch.Generator(device="cuda").manual_seed(4)
     images = torch.randn((batch, 3, 256, 256), generator=gen, device="cuda")
     return TrainState.create(model, opt), step, images
@@ -172,7 +188,12 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cuda_graphs", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="the steps from captured CUDA graphs (auto: where "
+                         "make_train_step's rule allows), or eagerly")
     args = ap.parse_args(argv)
+    graphs = {"auto": None, "on": True, "off": False}[args.cuda_graphs]
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -180,16 +201,16 @@ def main(argv=None) -> int:
     print(card_line())
     if args.recipe == "rec19k":
         state, step, batch = build_rec19k(args.batch, args.remat, args.backend,
-                                          args.seed)
+                                          args.seed, graphs)
         title = f"rec19k ({REC19K_MODEL}, int8 {REC19K_ENCODER} encoder)"
     elif args.recipe == "p128_fsdp":
         state, step, batch = build_p128_fsdp(args.batch, not args.no_shard,
-                                             args.moments, args.seed)
+                                             args.moments, args.seed, graphs)
         placed = "unwrapped" if args.no_shard else "fully_shard (1, 1, 1)"
         title = f"{P128_FSDP_MODEL} {placed}, {args.moments} moments"
     else:
         state = build_state(args.model, args.seed)
-        step = make_step(args.remat, args.backend)
+        step = make_step(args.remat, args.backend, cuda_graphs=graphs)
         cfg = state.model.cfg
         gen = torch.Generator(device="cuda").manual_seed(1)
         batch = torch.randn((args.batch, cfg.in_chans, cfg.img_size,
@@ -218,8 +239,12 @@ def main(argv=None) -> int:
             if not k.startswith(("Optimizer.", "FSDP::"))}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     total = sum(ms for ms, _ in rows.values())
+    from tae_tpu_torch.train.step import step_graphs_mode
+
     mode = ("remat" if args.remat else "no remat") + (
-        f" backend={args.backend}" if args.backend else "")
+        f" backend={args.backend}" if args.backend else "") + (
+        ", cuda graphs " + ("on" if step_graphs_mode(graphs, state.model)
+                            else "off"))
     print(f"== {title} train step B={args.batch} {mode}: kernels "
           f"{total:.3f} ms, wall {wall:.3f} ms per step, busy share "
           f"{total / wall:.3f}, {args.batch / wall * 1e3:.1f} img/s, peak "

@@ -17,17 +17,22 @@ switches ``attn_q8`` / ``qkv_q8``) and serves a key in three steps:
 
 Every request returns a copy of the graph's output, as ``jit`` returns fresh
 arrays. The copy of a host input to the card stays outside the graph: the
-caller moves the input before it hands it over.
+caller moves the input before it hands it over. An input or an output may
+be one tensor or a tuple, list or dict of them (the drivers' eval passes
+take images and targets and return several per-sample values).
 
-**Memory.** All graphs of a cache share one memory pool (the first
-capture's). A graph keeps its static input (allocated outside the pool),
-its static output and, in the pool, the memory its work allocated and freed
+**Memory.** All graphs of a cache share one memory pool (a
+:class:`GraphPool`: the first capture's, or one the cache is given and
+shares with other graphs, as a driver's train step and eval pass share
+theirs). A graph keeps its static input (allocated outside the pool), its
+static output and, in the pool, the memory its work allocated and freed
 (the per-call workspaces of K4, K5, K13 and K14 included), until
 :meth:`GraphCache.reset` or the cache is dropped. Graphs of one pool may
-replay in any order here: a graph reads only its static input and the
-model's tensors, both allocated outside the pool, and its output is copied
-out right after its replay on the same stream, before another graph can
-reuse that memory.
+replay in any order here: a graph reads only its static input, the model's
+tensors and the tensors it keeps alive (its output, a train step's
+gradients), none of which another capture can take, and its output is
+copied out right after its replay on the same stream, before another graph
+can reuse the memory its work freed.
 
 **Capture mode.** ``capture_error_mode="thread_local"``: only the capturing
 thread's CUDA calls are checked, so a pinned allocation or a copy made by
@@ -58,6 +63,7 @@ next replay reads. Other changes of what the work does (a module's
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 
@@ -91,12 +97,73 @@ class CudaGraph:
         return self._graph.pool()
 
 
+class GraphPool:
+    """The memory pool of the graphs captured into it: made by the first
+    capture, and shared by the later ones for as long as one of the graphs
+    that hold it is alive (a pool whose graphs are all gone is not captured
+    into again; the next capture makes a new one)."""
+
+    def __init__(self):
+        self._handle = None
+        self._graphs: weakref.WeakSet = weakref.WeakSet()
+
+    def capture(self, graph, fn):
+        """``graph.capture(fn, pool)`` into this pool; ``fn()``'s output."""
+        handle = self._handle if len(self._graphs) else None
+        out = graph.capture(fn, handle)
+        self._handle = handle if handle is not None else graph.pool()
+        self._graphs.add(graph)
+        return out
+
+
 @dataclasses.dataclass
 class _Captured:
     graph: object
-    static_in: torch.Tensor
-    out: torch.Tensor
+    static_in: object       # a tensor, or a tuple / list / dict of them
+    out: object
     launches: list          # (wrapper, its launches a request)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of ``tree`` (a tensor, or tuples, lists and
+    dicts of them); other leaves as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree
+
+
+def tensors(tree) -> list:
+    """The tensors of ``tree``, in :func:`tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def signature(tree):
+    """What a graph of ``tree``'s consumer depends on: the structure, each
+    tensor's shape, dtype and device, and every other leaf's value."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, dict):
+        return tuple((k, signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, *(signature(v) for v in tree))
+    return tree
+
+
+def static_copy(tree):
+    """Buffers of ``tree``'s shapes and dtypes, filled with it."""
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device=x.device).copy_(x), tree)
+
+
+def copy_into(static, tree) -> None:
+    for dst, src in zip(tensors(static), tensors(tree)):
+        dst.copy_(src)
 
 
 def _snapshot(model: torch.nn.Module) -> list:
@@ -120,11 +187,13 @@ def _unchanged(snap: list) -> bool:
 
 class GraphCache:
     """Captured graphs of one model's serving entries, by key (see the
-    module's docstring). ``graph_cls`` makes a graph; tests pass one that
-    runs on the CPU."""
+    module's docstring). ``pool``: a :class:`GraphPool` shared with other
+    graphs (None: the cache's own). ``graph_cls`` makes a graph; tests pass
+    one that runs on the CPU."""
 
-    def __init__(self, graph_cls=CudaGraph):
+    def __init__(self, graph_cls=CudaGraph, pool: GraphPool | None = None):
         self.graph_cls = graph_cls
+        self.pool = pool if pool is not None else GraphPool()
         self.reset()
 
     def reset(self) -> None:
@@ -132,17 +201,17 @@ class GraphCache:
         eager request."""
         self._graphs: dict = {}
         self._seen: set = set()
-        self._pool = None
         self._model = None
         self._snap: list = []
 
     def __len__(self) -> int:
         return len(self._graphs)
 
-    def __call__(self, model: torch.nn.Module, key, fn, x: torch.Tensor):
+    def __call__(self, model: torch.nn.Module, key, fn, x):
         """``fn(x)`` for request ``key`` of ``model``: eager on the key's
         first request, else a replay of its graph (captured on the second);
-        a fresh tensor either way. ``x`` is on the card already."""
+        fresh tensors either way. ``x`` (a tensor or a tuple / list / dict
+        of them) is on the card already."""
         if self._graphs and (model is not self._model
                              or not _unchanged(self._snap)):
             self.reset()
@@ -153,32 +222,45 @@ class GraphCache:
                 return fn(x)
             captured = self._capture(model, fn, x)
             self._graphs[key] = captured
-        captured.static_in.copy_(x)
+        copy_into(captured.static_in, x)
         captured.graph.replay()
-        for wrapper, n in captured.launches:
-            wrapper.launches += n
-        return captured.out.clone()
+        add_launches(captured.launches)
+        return tree_map(torch.clone, captured.out)
 
-    def _capture(self, model, fn, x: torch.Tensor) -> _Captured:
-        from tae_tpu_torch.ops.cuda import counted
-
-        static_in = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        static_in.copy_(x)
-        wrappers = counted()
-        before = [w.launches for w in wrappers]
+    def _capture(self, model, fn, x) -> _Captured:
+        static_in = static_copy(x)
         graph = self.graph_cls()
-        try:
-            out = graph.capture(lambda: fn(static_in), self._pool)
-            launches = [(w, w.launches - b) for w, b in zip(wrappers, before)
-                        if w.launches != b]
-        finally:
-            for w, b in zip(wrappers, before):
-                w.launches = b
-        if self._pool is None:
-            self._pool = graph.pool()
+        out, launches = capture_counted(graph, lambda: fn(static_in),
+                                        self.pool)
         if self._model is None:
             self._model, self._snap = model, _snapshot(model)
         return _Captured(graph, static_in, out, launches)
+
+
+def capture_counted(graph, fn, pool: GraphPool):
+    """``pool.capture(graph, fn)``'s output and the launches the wrappers
+    counted while ``fn`` was captured, as ``(wrapper, launches)`` pairs;
+    the counters are left as they were before the capture (a capture runs
+    no kernel)."""
+    from tae_tpu_torch.ops.cuda import counted
+
+    wrappers = counted()
+    before = [w.launches for w in wrappers]
+    try:
+        out = pool.capture(graph, fn)
+        launches = [(w, w.launches - b) for w, b in zip(wrappers, before)
+                    if w.launches != b]
+    finally:
+        for w, b in zip(wrappers, before):
+            w.launches = b
+    return out, launches
+
+
+def add_launches(launches: list) -> None:
+    """A replay's launches, ``(wrapper, launches)`` pairs, added to the
+    wrappers' counters."""
+    for wrapper, n in launches:
+        wrapper.launches += n
 
 
 def graphs_mode(requested: bool | None, device: torch.device,

@@ -16,12 +16,28 @@ exempt), ``fused=True`` where the parameters lie on a CUDA device. With
 ``tae_tpu.train.adamw(moment_dtype=)`` keeps them) it is
 :class:`AdamWMoments`, whose step is one launch of the port's K18
 (:mod:`tae_tpu_torch.ops.cuda.adamw`). The learning rate is host data: a
-schedule is a plain function of the iteration and its value is written into
-the groups each step, with no device read.
+schedule is a plain function of the iteration, and its value is written
+where the update reads it before each step: into the groups, and into a
+0-dim fp32 tensor on the parameters' device (:func:`learning_rate`), which
+the fused update on CUDA reads in eager steps and graph replays alike.
 
 :func:`adamw` returns an :class:`Optimizer` pair as the JAX package does:
 ``init(model)`` makes the optimizer state, ``update(opt, lr)`` applies the
-gradients found in ``p.grad``.
+gradients found in ``p.grad``. The update also comes in its host and device
+parts, so that a CUDA graph of the train step can hold the device part while
+the host part runs before each replay (:mod:`tae_tpu_torch.train.step_graphs`):
+
+- ``bind(opt, plan=None) -> plan``: what the update touches, the gradients
+  present now; no device work. Given the plan of an earlier bind, the same
+  plan takes the gradients present now.
+- ``host(opt, lr, plan)``: ``lr`` and every scalar the update derives from
+  it and from the step count (``AdamWMoments``: the decay and the bias
+  corrections of each tensor, K18's table) written where the device part
+  reads them, by copies on the current stream, outside any graph.
+- ``apply(opt, plan)``: the device part, which a graph can hold.
+
+``update`` is the three in turn. Eager and replayed steps run the same
+device code on the same values, so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -37,8 +53,38 @@ from tae_tpu_torch.parallel.tensor import local_shard
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
+    """``init`` and the update's three parts (the module's docstring);
+    :meth:`update` runs them in turn."""
     init: Callable[[nn.Module], torch.optim.Optimizer]
-    update: Callable[[torch.optim.Optimizer, float], None]
+    bind: Callable
+    host: Callable
+    apply: Callable
+
+    def update(self, opt: torch.optim.Optimizer, lr: float) -> None:
+        plan = self.bind(opt)
+        self.host(opt, lr, plan)
+        self.apply(opt, plan)
+
+
+def _sharded(opt: torch.optim.Optimizer) -> bool:
+    """Whether ``opt``'s parameters are DTensors (FSDP2, the tensor split)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(opt.param_groups[0]["params"][0], DTensor)
+
+
+def learning_rate(opt: torch.optim.Optimizer) -> torch.Tensor:
+    """The 0-dim fp32 tensor that holds ``opt``'s learning rate on its
+    parameters' device, made at the first call (outside any graph: an
+    eager step comes first) and written by the update's host part."""
+    lr = getattr(opt, "_lr_tensor", None)
+    if lr is None:
+        device = opt.param_groups[0]["params"][0].device
+        lr = opt._lr_tensor = torch.zeros((), dtype=torch.float32,
+                                          device=device)
+    return lr
 
 
 def no_decay_mask(model: nn.Module) -> dict[str, bool]:
@@ -73,6 +119,9 @@ class AdamWMoments(torch.optim.Optimizer):
         super().__init__(groups, dict(lr=0.0, betas=betas, eps=eps,
                                       weight_decay=0.0))
         self.moment_dtype = moment_dtype
+        # K18's device tables, made by the first (eager) update and kept:
+        # a graph's update reads them, and they must lie outside its pool
+        self._tables: dict = {}
 
     def _state(self, p: torch.Tensor) -> dict:
         state = self.state[p]
@@ -84,38 +133,77 @@ class AdamWMoments(torch.optim.Optimizer):
                     memory_format=torch.preserve_format)
         return state
 
+    def bind(self, plan: list | None = None) -> list:
+        """The update's plan: K18's tables of the parameters that have a
+        gradient now, grouped by hyperparameters (and by device and dtypes
+        within), each row with its group and state. Given an earlier plan,
+        its tables take the gradients present now (the same parameters)."""
+        from tae_tpu_torch.ops.cuda.adamw import update_tables
+
+        if plan is not None:
+            for entries, tab in plan:
+                tab.rebind([local_shard(p.grad) for _, p, _ in entries])
+            return plan
+        by_hyper: dict[tuple, list] = {}
+        for group in self.param_groups:
+            (b1, b2), eps = group["betas"], group["eps"]
+            entries = by_hyper.setdefault((b1, b2, eps), [])
+            for p in group["params"]:
+                if p.grad is not None:
+                    entries.append((group, p, self._state(p)))
+        plan = []
+        for (b1, b2, eps), entries in by_hyper.items():
+            rows = [(local_shard(p), local_shard(p.grad),
+                     local_shard(st["exp_avg"]), local_shard(st["exp_avg_sq"]))
+                    for _, p, st in entries]
+            for idx, tab in update_tables(rows, b1=b1, b2=b2, eps=eps,
+                                          tables=self._tables):
+                plan.append(([entries[i] for i in idx], tab))
+        return plan
+
+    @torch.no_grad()
+    def count(self, plan: list) -> None:
+        """The host part: each planned tensor's step counted, and its
+        scalars (decay, lr, bias corrections: fp32 values from the step
+        count, as the JAX package forms them) written into its table on
+        the device."""
+        from tae_tpu_torch.ops.cuda.adamw import bias_corrections, decay_factor
+
+        corrections: dict[tuple, tuple[float, float]] = {}
+        by_group: dict[int, tuple[float, float]] = {}
+        for entries, tab in plan:
+            steps = [st["step"] for _, _, st in entries]
+            torch._foreach_add_(steps, 1.0)
+            counts = torch.stack(steps).tolist() if steps else []
+            scalars = []
+            for (group, _, _), n in zip(entries, counts):
+                key = (tab.b1, tab.b2, int(n))
+                if key not in corrections:
+                    corrections[key] = bias_corrections(*key)
+                hyper = by_group.get(id(group))
+                if hyper is None:
+                    lr = float(group["lr"])
+                    hyper = by_group[id(group)] = (
+                        decay_factor(lr, group["weight_decay"]), lr)
+                scalars.append((*hyper, *corrections[key]))
+            tab.write(scalars)
+
+    @staticmethod
+    def launch(plan: list) -> None:
+        """The device part: one K18 launch a table (its plain version on
+        the CPU)."""
+        for _, tab in plan:
+            tab.launch()
+
     @torch.no_grad()
     def step(self, closure=None):
-        from tae_tpu_torch.ops.cuda.adamw import (adamw_update,
-                                                  bias_corrections,
-                                                  decay_factor)
-
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        by_hyper: dict[tuple, list] = {}
-        corrections: dict[tuple, tuple[float, float]] = {}
-        for group in self.param_groups:
-            (b1, b2), eps = group["betas"], group["eps"]
-            lr = float(group["lr"])
-            decay = decay_factor(lr, group["weight_decay"])
-            rows = by_hyper.setdefault((b1, b2, eps), [])
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self._state(p)
-                state["step"] += 1
-                key = (b1, b2, int(state["step"]))
-                if key not in corrections:
-                    corrections[key] = bias_corrections(*key)
-                rows.append((local_shard(p), local_shard(p.grad),
-                             local_shard(state["exp_avg"]),
-                             local_shard(state["exp_avg_sq"]), decay, lr,
-                             *corrections[key]))
-        for (b1, b2, eps), rows in by_hyper.items():
-            if rows:
-                adamw_update(*map(list, zip(*rows)), b1=b1, b2=b2, eps=eps)
+        plan = self.bind()
+        self.count(plan)
+        self.launch(plan)
         return loss
 
     def load_state_dict(self, state_dict: dict) -> None:
@@ -163,12 +251,41 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps,
                                  fused=fused)
 
-    def update_fn(opt: torch.optim.Optimizer, lr: float) -> None:
+    def bind_fn(opt: torch.optim.Optimizer, plan=None):
+        return opt.bind(plan) if moment_dtype is not None else None
+
+    def host_fn(opt: torch.optim.Optimizer, lr: float, plan) -> None:
         for group in opt.param_groups:
             group["lr"] = float(lr)
-        opt.step()
+        learning_rate(opt).fill_(float(lr))
+        if moment_dtype is not None:
+            opt.count(plan)
 
-    return Optimizer(init=init_fn, update=update_fn)
+    def apply_fn(opt: torch.optim.Optimizer, plan) -> None:
+        if moment_dtype is not None:
+            opt.launch(plan)
+            return
+        lr = learning_rate(opt)
+        if not lr.is_cuda or _sharded(opt):
+            # the CPU, and FSDP2's DTensors (which run eagerly): the float
+            opt.step()
+            return
+        # on the card the update reads the learning rate from the device,
+        # so that a graph replays the value the host wrote before it; the
+        # groups keep the float (state_dict, checkpoints) outside the step
+        capturing = torch.cuda.is_current_stream_capturing()
+        saved = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+        for g in opt.param_groups:
+            g["lr"] = lr
+            g["capturable"] = capturing or not g.get("fused")
+        try:
+            opt.step()
+        finally:
+            for g, (value, capturable) in zip(opt.param_groups, saved):
+                g["lr"], g["capturable"] = value, capturable
+
+    return Optimizer(init=init_fn, bind=bind_fn, host=host_fn,
+                     apply=apply_fn)
 
 
 def set_adamw_state(opt: torch.optim.Optimizer, model: nn.Module, step: int,

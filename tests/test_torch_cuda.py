@@ -2122,3 +2122,123 @@ def test_tokenizer_graphs_discrete_equal_eager(gen, b):
         assert torch.equal(ids, ids_want)
         assert torch.equal(graph.decode_discrete(ids), rec_want)
     assert len(graph._graphs) == 2
+
+
+# --------------------------------------------- the train step's CUDA graphs
+
+def _train_state(moment_dtype, seed: int = 0):
+    from tae_tpu_torch import models
+    from tae_tpu_torch.train import TrainState, adamw
+
+    model = models.create(GRAPH_MODEL, device="cuda", trainable=True,
+                          **GRAPH_TINY)
+    model.init_weights_(torch.Generator(device="cuda").manual_seed(seed))
+    opt = adamw(weight_decay=0.05, moment_dtype=moment_dtype)
+    return TrainState.create(model, opt), opt
+
+
+def _tensors_of(state):
+    out = list(state.model.parameters())
+    for st in state.opt.state.values():
+        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("moment_dtype", [None, torch.bfloat16],
+                         ids=["fused_adamw", "k18_bf16"])
+def test_train_step_graphs_equal_eager(gen, moment_dtype, remat):
+    """A tiny TAE's steps from CUDA graphs (eager first step, capture,
+    replays; the learning rate switching at step 3) against the same steps
+    eagerly: each step's metrics, and every parameter, moment and step
+    count after six steps, bit for bit; each step counting the eager
+    step's launches; one graph held."""
+    from tae_tpu_torch.train import make_train_step, step_lr
+
+    def loss_fn(m, b):
+        return m(b, policy=Policy(), remat=remat)[0], {}
+
+    graph, opt = _train_state(moment_dtype)
+    eager, _ = _train_state(moment_dtype)
+    schedule = step_lr(1e-3, 1e-4, 3)
+    g_step = make_train_step(loss_fn, opt, schedule, clip_grad=1.0)
+    e_step = make_train_step(loss_fn, opt, schedule, clip_grad=1.0,
+                             cuda_graphs=False)
+    x = torch.randn((4, 3, 64, 64), generator=gen, device="cuda")
+    for it in range(6):
+        (_, want), n_want = _counted(e_step, eager, x + it, it)
+        (_, got), n = _counted(g_step, graph, x + it, it)
+        assert n == n_want and sum(n) > 0, it
+        for k in want:
+            assert torch.equal(got[k], want[k]), (k, it)
+    assert len(g_step.graphs) == 1
+    for a, b in zip(_tensors_of(graph), _tensors_of(eager)):
+        assert torch.equal(a, b)
+
+
+def test_eval_fn_graphs_equal_eager(gen):
+    """make_eval_fn on the card: graphs by default, tuples in and out, each
+    call bit-equal to the function run eagerly."""
+    from tae_tpu_torch.train.step import make_eval_fn
+
+    state, _ = _train_state(None)
+    model = state.model
+
+    def per_sample(x, t):
+        _, pred = model(x, policy=Policy())
+        return pred.float().mean(dim=(1, 2)) * t, pred
+
+    fn = make_eval_fn(per_sample, model)
+    assert fn.cuda_graphs
+    x = torch.randn((4, 3, 64, 64), generator=gen, device="cuda")
+    t = torch.arange(4.0, device="cuda")
+    for i in range(4):
+        with torch.no_grad():
+            want = per_sample(x + i, t)
+        got = fn(x + i, t)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(fn.graphs) == 1
+
+
+def test_step_and_eval_graphs_in_one_pool_equal_eager(gen):
+    """A driver's train step and eval pass from CUDA graphs in one
+    GraphPool, called in turns (an eval after every step), against both
+    run eagerly: each step's metrics, each eval's outputs and, after six
+    steps, every parameter and moment bit for bit; both capture into the
+    pool the step's first capture made."""
+    from tae_tpu_torch.serving_graphs import GraphPool
+    from tae_tpu_torch.train import make_train_step, step_lr
+    from tae_tpu_torch.train.step import make_eval_fn
+
+    def loss_fn(m, b):
+        return m(b, policy=Policy())[0], {}
+
+    graph, opt = _train_state(None)
+    eager, _ = _train_state(None)
+    pool = GraphPool()
+    schedule = step_lr(1e-3, 1e-4, 3)
+    g_step = make_train_step(loss_fn, opt, schedule, pool=pool)
+    e_step = make_train_step(loss_fn, opt, schedule, cuda_graphs=False)
+
+    def evaluation(model):
+        def fn(x):
+            _, pred = model(x, policy=Policy())
+            return pred.float().square().mean(dim=(1, 2))
+        return fn
+
+    g_eval = make_eval_fn(evaluation(graph.model), graph.model, pool=pool)
+    e_eval = make_eval_fn(evaluation(eager.model), eager.model, False)
+    x = torch.randn((4, 3, 64, 64), generator=gen, device="cuda")
+    v = torch.randn((16, 3, 64, 64), generator=gen, device="cuda")
+    for it in range(6):
+        _, got = g_step(graph, x + it, it)
+        _, want = e_step(eager, x + it, it)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (k, it)
+        assert torch.equal(g_eval(v + it), e_eval(v + it)), it
+    assert len(g_step.graphs) == 1 and len(g_eval.graphs) == 1
+    (step_graph,) = g_step.graphs._graphs.values()
+    (eval_graph,) = g_eval.graphs._graphs.values()
+    assert step_graph.graph.pool() == eval_graph.graph.pool()
+    for a, b in zip(_tensors_of(graph), _tensors_of(eager)):
+        assert torch.equal(a, b)

@@ -358,10 +358,12 @@ def test_device_flags_default_to_the_card(driver):
                                             (jseg, seg)])
 def test_flags_match_jax(jdriver, driver):
     """Flag for flag, with the JAX defaults; the device group's own
-    defaults aside (--device, --attn_backend's choices)."""
+    defaults aside (--device, --attn_backend's choices, --cuda_graphs: the
+    JAX drivers always jit)."""
     def flags(parser):
         return {a.dest: a.default for a in parser._actions
-                if a.dest not in ("help", "device", "attn_backend")}
+                if a.dest not in ("help", "device", "attn_backend",
+                                  "cuda_graphs")}
 
     assert flags(driver.get_args_parser()) == flags(jdriver.get_args_parser())
 
