@@ -118,7 +118,18 @@ Phases (each prints its lines; any failure exits non-zero):
    entries checked on every step, finite and decreasing losses; a checkpoint
    after step 4 loaded into a fresh model and optimizer, whose step 5 equals
    the running state's bit for bit; ``accum_iter = 2`` against 1; steps with
-   ``remat=True``; step time, images per second and peak memory for both.
+   ``remat=True``; step time, images per second and peak memory for both;
+   the selective remat policies (``train_policies``): from one saved state
+   one eager step in each of the four remat modes (``False``, ``True``,
+   ``"dots"``, ``"dots_no_batch"``), each bit-equal to ``remat=False``'s
+   (loss, gradient norm, parameters, moments), the policies at
+   ``remat=True``'s launches, the allocated peaks ordered ``True`` <
+   ``"dots"`` = ``"dots_no_batch"`` < ``False``, a traced step's cuBLAS
+   launches (the policies rerun none), then steps under each policy from
+   graphs, timed; ``scaler``: ``train.scaler.DynamicLossScale`` on the last
+   step's gradients eagerly and from a captured graph (a finite step, the
+   growing one, one with an ``inf``), bit-equal, the graph's nodes the eager
+   call's kernels, the host µs of both.
    ``p128_train``: one step of ``tae_patch128_vocab4096_px256`` at depth
    2 + 2 through the tiny-N attention entry, gradients against
    ``backend="reference"``. ``train_f32``: ``tae_patch16_vocab256_px256`` at
@@ -211,6 +222,7 @@ Phases (each prints its lines; any failure exits non-zero):
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import functools
@@ -437,6 +449,14 @@ ACCUM_NORM_RTOL = 1e-3
 TRAIN_BATCH = 64
 TRAIN_STEPS = 8
 REMAT_STEPS = 5
+# cuBLAS's kernels among a traced step's (nvjet on this card), not the port's
+GEMM_KERNEL = re.compile(r"nvjet|gemm|xmma|cutlass|cublas", re.IGNORECASE)
+# the dynamic loss scale on train_bf16's gradients: its first scale, the
+# finite steps after which it grows (the second step grows it), and the
+# host timings' repeats
+SCALER_INIT = 2.0 ** 16
+SCALER_GROWTH = 2
+SCALER_REPS = 20
 # The drivers phase: the user's entry points (calibration through
 # Tokenizer.from_checkpoint, cli.encode / evaluate / train) on the p16 model
 # at full width and depth, on a webdataset shard of 256 JPEGs and an
@@ -2647,8 +2667,6 @@ def library_names(names) -> "collections.Counter":
     """The library kernels among kernel ``names`` (demangled, as the
     profiler gives them, or mangled, as the driver does), by the name of
     their ``__global__`` function."""
-    import collections
-
     pattern = library_kernels()
     mangled = {f"{len(n)}{n}": n for n in kernel_names()}
     found = collections.Counter()
@@ -2706,7 +2724,8 @@ def graph_kernels(raw: int) -> list[str]:
 
 def traced(call, fns: dict) -> dict:
     """The trace of ``call()`` under ``torch.profiler``: the launches of
-    each library kernel (``kernels``, :func:`library_names`), the CUDA
+    each library kernel (``kernels``, :func:`library_names`), every
+    kernel, copy and fill on the card by its name (``names``), the CUDA
     graphs launched (``graph_launches``), the device time of every kernel,
     copy and fill summed (``device_ms``), the launches that the wrappers of
     ``fns`` counted in the call (``counted``), and the tries it took
@@ -2753,7 +2772,7 @@ def traced(call, fns: dict) -> dict:
                                    f"{TRACE_TRIES} sessions in a row")
     return dict(
         kernels=library_names(ev.name for ev in device), counted=counted,
-        tries=tries,
+        tries=tries, names=collections.Counter(ev.name for ev in device),
         graph_launches=sum(ev.name.startswith("cudaGraphLaunch")
                            for ev in events),
         device_ms=sum(ev.time_range.elapsed_us() for ev in device) / 1e3)
@@ -3366,10 +3385,235 @@ def phase_train(kres: dict) -> dict:
     report("remat=True", times, torch.cuda.max_memory_allocated() / 2 ** 30,
            remat_want)
     print(f"[{tag}] remat launches per step: {json.dumps(remat_want)}")
-    del state, step, remat_step
+    del step, remat_step
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 6. remat="dots" / "dots_no_batch"; 7. the dynamic loss scale on
+    #      the last step's gradients
+    timed(f"{tag} remat policies", train_policies, tag, state, batch,
+          TRAIN_STEPS + REMAT_STEPS + 1, report)
+    grads = [p.grad.detach().clone() for p in state.model.parameters()]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("scaler", phase_scaler, tag, grads)
     return totals
+
+
+def gemm_launches(names) -> int:
+    """cuBLAS's launches among the kernel ``names`` of a trace (a Counter,
+    :func:`traced`'s ``names``)."""
+    port = library_kernels()
+    return sum(n for name, n in names.items()
+               if GEMM_KERNEL.search(name) and not port.search(name))
+
+
+def train_policies(tag: str, state, batch, it: int, report) -> None:
+    """``remat="dots"`` and ``"dots_no_batch"`` on ``train_bf16``: from one
+    saved state (parameters, AdamW moments, step counts) one eager step in
+    each of the four remat modes, put back after each: loss, gradient norm
+    and the updated state bit-equal to ``remat=False``'s, the launches of
+    ``remat=True`` under both policies, the allocated peak over the state's
+    ordered ``True`` < ``"dots"`` = ``"dots_no_batch"`` < ``False``, and in
+    a traced step of each mode cuBLAS's launches: a policy's those of
+    ``remat=False``, ``remat=True``'s three a block more (the forward's
+    products but fc2's again). Then REMAT_STEPS steps under each policy,
+    from CUDA graphs as the main path's, launches checked, timed through
+    ``report``."""
+    import gc
+
+    import torch
+
+    from tae_tpu_torch.nn.vit import REMAT_POLICIES
+    from tae_tpu_torch.profile_training import make_step
+
+    cfg = state.model.cfg
+    fns = wrappers()
+    modes = (False, True, *REMAT_POLICIES)
+    first, peaks, gemms, walls = None, {}, {}, {}
+    for mode in modes:
+        eager = make_step(remat=mode, cuda_graphs=False)
+        want = train_launches(cfg, remat=mode is not False)
+        with preserved(state):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            m, walls[mode] = counted_step(tag, eager, state, batch, it, want,
+                                          {})
+            peaks[mode] = (
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                torch.cuda.max_memory_reserved() / 2 ** 30)
+            got = (float(m["loss"]), float(m["grad_norm"]))
+            now = [t for _, t in training_tensors(state)]
+            if first is None:
+                first = (got, [t.detach().clone() for t in now])
+            unequal = sum(not torch.equal(a, b) for a, b in zip(now, first[1]))
+            check(got == first[0] and unequal == 0,
+                  f"{tag} remat={mode!r}: (loss, grad_norm) {got} against "
+                  f"{first[0]} with remat=False, {unequal} of {len(now)} "
+                  "parameters, moments and step counts not bit-equal")
+        # the same step traced, put back after; its launches are a check's
+        saved = {n: f.launches for n, f in fns.items()}
+
+        def again(eager=eager):
+            with preserved(state):
+                eager(state, batch, it)
+
+        gemms[mode] = gemm_launches(traced(again, fns)["names"])
+        for n, f in fns.items():
+            f.launches = saved[n]
+    del first
+    blocks = cfg.depth + cfg.decoder_depth
+    label = {m: f"remat={m!r}" for m in modes}
+    print(f"[{tag}] one eager step in each remat mode from one saved state "
+          f"at B={TRAIN_BATCH}: loss, grad_norm and every parameter, moment "
+          "and step count bit-equal to remat=False's; " + "; ".join(
+              f"{label[m]} host wall {walls[m] * 1e3:.2f} ms (the first step "
+              "of its step function, eager), peak allocated over the "
+              f"state {peaks[m][0]:.3f} GiB, reserved {peaks[m][1]:.3f} GiB, "
+              f"{gemms[m]} cuBLAS launches" for m in modes))
+    alloc = {m: peaks[m][0] for m in modes}
+    check(alloc[True] < alloc["dots"] < alloc[False]
+          and alloc["dots_no_batch"] == alloc["dots"],
+          f"{tag}: the allocated peaks {alloc} are not ordered remat=True < "
+          "'dots' = 'dots_no_batch' < False")
+    # remat=True reruns qkv, proj and fc1 of each block; its recompute
+    # stops before fc2, whose output no backward formula reads
+    check(gemms["dots"] == gemms["dots_no_batch"] == gemms[False]
+          and gemms[True] == gemms[False] + 3 * blocks,
+          f"{tag}: cuBLAS launches a step {gemms}; expected remat=False's "
+          f"under the policies and {3 * blocks} more with remat=True")
+    print(f"[{tag}] cuBLAS launches a traced step: the policies rerun none "
+          f"({gemms['dots']} = {gemms[False]} without remat), remat=True "
+          f"reruns {3 * blocks} forward products, qkv, proj and fc1 of each "
+          f"block ({gemms[True]})")
+
+    want = train_launches(cfg, remat=True)
+    for name in REMAT_POLICIES:
+        step, totals, times, losses = make_step(remat=name), {}, [], []
+        gc.collect()
+        for k in range(REMAT_STEPS):
+            if k == 2:
+                # eager step, capture and its graph check are behind: the
+                # peaks from here are the replays' (the graph's pool held)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            m, dt = counted_step(tag, step, state, batch, it + k, want, totals)
+            losses.append(float(m["loss"]))
+            times.append(dt)
+        check(all(math.isfinite(x) for x in losses),
+              f"{tag} remat={name!r}: losses {losses}")
+        report(f"remat={name!r}", times,
+               torch.cuda.max_memory_allocated() / 2 ** 30, want)
+        print(f"[{tag}] remat={name!r} launches in {REMAT_STEPS} steps: "
+              f"{json.dumps({k: v for k, v in totals.items() if v})} (per "
+              f"step, as remat=True: {json.dumps(want)})")
+        del step
+        it += REMAT_STEPS
+
+
+def phase_scaler(tag: str, grads: list) -> None:
+    """``train.scaler.DynamicLossScale`` on ``tag``'s gradient list (one
+    fp32 tensor a parameter), as a scaled loss's gradients (times
+    SCALER_INIT): eagerly and from a captured CUDA graph, three steps from
+    one state, a finite one, the one that reaches ``growth_interval``
+    (SCALER_GROWTH) and one with an ``inf`` written into a gradient. The
+    graph's scale, tracker, ``finite`` and unscaled gradients bit-equal to
+    eager's at each step; the graph's kernel nodes those of the eager call
+    (:func:`hold_graph`; none is the port's, so by count as well); the host
+    µs of an eager call and of a replay, each to a synchronize."""
+    import torch
+
+    from tae_tpu_torch.serving_graphs import CudaGraph
+    from tae_tpu_torch.train.scaler import DynamicLossScale, ScalerState
+
+    scaler = DynamicLossScale(growth_interval=SCALER_GROWTH)
+    scaled = [g * SCALER_INIT for g in grads]
+    bad = [g.clone() for g in scaled]
+    bad[len(bad) // 2].view(-1)[0] = float("inf")
+    kinds = (("finite", scaled), ("growth", scaled), ("inf", bad))
+    state = ScalerState.create(SCALER_INIT, device="cuda")
+    eager = []
+    for _, g in kinds:
+        out, state, finite = scaler.unscale_and_update(state, g)
+        eager.append((out, finite.clone(), state.scale.clone(),
+                      state.growth_tracker.clone()))
+    got = [(bool(f), float(sc), int(tr)) for _, f, sc, tr in eager]
+    check(got == [(True, SCALER_INIT, 1), (True, 2 * SCALER_INIT, 0),
+                  (False, SCALER_INIT, 0)]
+          and not any(bool(t.any()) for t in eager[2][0]),
+          f"{tag} scaler: (finite, scale, tracker) {got}, or the inf step's "
+          "gradients not zeroed")
+
+    static = [g.clone() for g in scaled]
+    gstate = ScalerState.create(SCALER_INIT, device="cuda")
+
+    def start():
+        gstate.scale.fill_(SCALER_INIT)
+        gstate.growth_tracker.zero_()
+
+    scaler.unscale_and_update(gstate, static)      # an eager first call
+    start()
+    graph = CudaGraph()
+    gout, _, gfinite = graph.capture(
+        lambda: scaler.unscale_and_update(gstate, static), None)
+    for (kind, g), (out, finite, scale, tracker) in zip(kinds, eager):
+        for dst, src in zip(static, g):
+            dst.copy_(src)
+        graph.replay()
+        same = (torch.equal(gfinite, finite)
+                and torch.equal(gstate.scale, scale)
+                and torch.equal(gstate.growth_tracker, tracker)
+                and all(torch.equal(a, b) for a, b in zip(gout, out)))
+        check(same, f"{tag} scaler: the {kind} step's replay differs from "
+                    "the eager call")
+
+    twin = ScalerState.create(SCALER_INIT, device="cuda")
+
+    @contextlib.contextmanager
+    def kept():
+        was = [t.clone() for t in (*gstate, *twin)]
+        try:
+            yield
+        finally:
+            for t, w in zip((*gstate, *twin), was):
+                t.copy_(w)
+
+    held = hold_graph(f"{tag} scaler", graph.raw(),
+                      lambda: scaler.unscale_and_update(twin, static),
+                      graph.replay, around=kept)
+    kernels = sum(n for name, n in held["eager"]["names"].items()
+                  if not name.startswith(("Memcpy", "Memset")))
+    nodes = len(graph_kernels(graph.raw()))
+    check(nodes == kernels, f"{tag} scaler: {nodes} kernel nodes in the "
+                            f"graph, {kernels} kernels in the eager call")
+
+    def host_us(fn) -> float:
+        runs = []
+        with kept():
+            for _ in range(SCALER_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t) * 1e6)
+        return statistics.median(runs)
+
+    eager_us = host_us(lambda: scaler.unscale_and_update(twin, static))
+    replay_us = host_us(graph.replay)
+    print(f"[{tag} scaler] DynamicLossScale(growth_interval={SCALER_GROWTH})"
+          f" on {len(grads)} gradient tensors "
+          f"({sum(g.numel() for g in grads)} fp32 values) scaled by "
+          f"{SCALER_INIT:g}: a finite step (tracker 1), the step that grows "
+          "the scale (x2, tracker 0), a step with one inf (scale / 2, "
+          "gradients zeroed); a CUDA graph's replays bit-equal to eager "
+          f"(scale, tracker, finite, every gradient) at each; the graph's "
+          f"{nodes} kernel nodes are the eager call's kernels; host to a "
+          f"synchronize, median of {SCALER_REPS}: eager {eager_us:.1f} us, "
+          f"replay {replay_us:.1f} us")
 
 
 def phase_train_f32() -> dict:

@@ -198,7 +198,8 @@ class TAE(nn.Module):
                 backend: str | None = None, remat: bool | str = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full autoencode: returns (loss, pred), the training objective.
-        ``remat=True`` recomputes each block in the backward pass
+        ``remat=True`` recomputes each block in the backward pass,
+        ``"dots"`` / ``"dots_no_batch"`` all but its matrix products
         (:func:`tae_tpu_torch.nn.vit.blocks_apply`). With ``quantize=True``
         the latents pass through the VQ bottleneck and the loss gains the
         codebook and commitment terms."""

@@ -34,8 +34,11 @@ requires a gradient on every parameter.
 and the int8 kernels refuse tensors that require a gradient. ``remat=True`` on
 :func:`blocks_apply` recomputes each float block in the backward pass
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` around the
-block body). The JAX package's ``unroll`` and ``scan`` have no meaning for an
-eager forward and are dropped.
+block body); ``remat="dots"`` / ``"dots_no_batch"`` keep the matrix products'
+outputs and recompute the rest (selective activation checkpointing, the JAX
+package's ``checkpoint_dots`` / ``dots_with_no_batch_dims_saveable``). The JAX
+package's ``unroll`` and ``scan`` have no meaning for an eager forward and are
+dropped.
 
 A block split over the mesh's ``tensor`` axis
 (:mod:`tae_tpu_torch.parallel.tensor`) holds its share of qkv / fc1 rows
@@ -47,11 +50,14 @@ and proj / fc2 columns as ``DTensor`` parameters, read through
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from tae_tpu_torch.nn import init as tinit
 from tae_tpu_torch.ops import int4, int8
@@ -520,6 +526,32 @@ def blocks(cfg: BlockConfig, depth: int, device=None,
     return nn.ModuleList(Block(cfg, device, dtype) for _ in range(depth))
 
 
+_aten = torch.ops.aten
+#: ``remat=`` name -> the ATen products whose outputs a float block keeps
+#: for the backward pass; every other op of the block is recomputed there.
+#: The counterparts of ``jax.checkpoint_policies.checkpoint_dots`` and
+#: ``dots_with_no_batch_dims_saveable``: ``F.linear`` reaches ``mm`` /
+#: ``addmm``, the plain attention's ``torch.matmul`` ``bmm``.
+REMAT_POLICIES = {
+    "dots": frozenset({_aten.mm.default, _aten.addmm.default,
+                       _aten.bmm.default, _aten.baddbmm.default}),
+    "dots_no_batch": frozenset({_aten.mm.default, _aten.addmm.default}),
+}
+
+
+def remat_policy(saved: frozenset):
+    """The selective-checkpoint policy that keeps the outputs of ``saved``.
+    An op that runs with gradients off runs inside a kernel's
+    ``autograd.Function`` (its plain version on a CPU tensor): the kernel
+    is recomputed whatever it does inside, as a ``pallas_call`` is under
+    ``jax.checkpoint``."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in saved and torch.is_grad_enabled():
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
 def blocks_apply(stack: nn.ModuleList, x: torch.Tensor,
                  backend: str | None = None, serving: bool = False,
                  final_norm: LayerNorm | None = None,
@@ -534,15 +566,17 @@ def blocks_apply(stack: nn.ModuleList, x: torch.Tensor,
     ``remat=True`` keeps only each float block's input for the backward
     pass and recomputes the block there (``torch.utils.checkpoint``,
     non-reentrant): one more forward per block, about a block's worth of
-    activations in memory instead of every block's. The JAX package's
-    string policies (``"dots"``, ``"dots_no_batch"``) name what XLA saves
-    and have no counterpart; an int8 block is forward-only and has nothing
-    to rematerialize."""
-    if isinstance(remat, str):
-        raise NotImplementedError(
-            f"remat={remat!r} is a jax.checkpoint policy of XLA (which "
-            "matmul outputs it keeps); the port has remat=True (recompute "
-            "the whole block) or False")
+    activations in memory instead of every block's. ``remat="dots"`` or
+    ``"dots_no_batch"`` (:data:`REMAT_POLICIES`) keeps the matrix
+    products' outputs as well and recomputes the rest (LayerNorm,
+    attention kernels, GELU, casts): selective activation checkpointing,
+    the JAX package's policies of the same names. Another name raises
+    ``KeyError``. An int8 block is forward-only and has nothing to
+    rematerialize."""
+    context_fn = noop_context_fn
+    if remat and isinstance(remat, str):
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       remat_policy(REMAT_POLICIES[remat]))
     ln = None
     for i, blk in enumerate(stack):
         if remat and blk.is_int8:
@@ -552,7 +586,7 @@ def blocks_apply(stack: nn.ModuleList, x: torch.Tensor,
             if remat and torch.is_grad_enabled():
                 # a block draws no random numbers: nothing to save or restore
                 x = checkpoint(blk, x, backend, serving, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, context_fn=context_fn)
             else:
                 x = blk(x, backend, serving)
             ln = None

@@ -3,7 +3,7 @@
 Run on a machine with a CUDA card, from the repository root::
 
     python -m tae_tpu_torch.profile_training --batch 64
-    python -m tae_tpu_torch.profile_training --batch 64 --remat
+    python -m tae_tpu_torch.profile_training --batch 64 --remat [dots]
 
 Builds the named model (``--model``, any registered TAE config) at full size
 for training (fp32 parameters from a seeded generator, bf16 compute), takes
@@ -21,7 +21,8 @@ JAX bench's ``train_rec19k_int8enc_mb64`` recipe, ``chip_smoke.py``'s
 ``no_grad`` feeding ``vit_recognition_numpatches256_vocab256_base`` with the
 19167-class head, AdamW without weight decay::
 
-    python -m tae_tpu_torch.profile_training --recipe rec19k --batch 64 [--remat]
+    python -m tae_tpu_torch.profile_training --recipe rec19k --batch 64 \
+        [--remat [dots]]
 
 ``--recipe p128_fsdp`` profiles ``chip_smoke.py``'s ``train_p128_fsdp``
 step: the full ``tae_patch128_vocab4096_px256`` (22 + 22 blocks, width
@@ -49,6 +50,7 @@ import time
 
 import torch
 
+from tae_tpu_torch.nn.vit import REMAT_POLICIES
 from tae_tpu_torch.profile_serving import card_line, profile, short
 
 
@@ -69,7 +71,7 @@ def build_state(model_name: str, seed: int = 0, device="cuda", **overrides):
     return TrainState.create(model, adamw(weight_decay=WEIGHT_DECAY))
 
 
-def make_step(remat: bool = False, backend: str | None = None,
+def make_step(remat: bool | str = False, backend: str | None = None,
               accum_iter: int = 1, policy=None, cuda_graphs=None):
     """The step function of the bench recipe: bf16 compute (or ``policy``,
     for example ``utils.dtypes.FP32``), AdamW, ``step_lr(1e-4, 1e-5,
@@ -93,8 +95,8 @@ REC19K_MODEL = "vit_recognition_numpatches256_vocab256_base"
 REC19K_CLASSES = 19167
 
 
-def build_rec19k(batch: int, remat: bool, backend: str | None, seed: int = 0,
-                 cuda_graphs=None, moment_dtype=None):
+def build_rec19k(batch: int, remat: bool | str, backend: str | None,
+                 seed: int = 0, cuda_graphs=None, moment_dtype=None):
     """The rec19k recipe: ``(state, step, (images, labels))``, the frozen
     encoder built as the downstream drivers build it
     (``cli._common.frozen_encoder``) and run inside the step (its graph
@@ -169,7 +171,17 @@ def build_p128_fsdp(batch: int, shard: bool, moments: str, seed: int = 0,
     return TrainState.create(model, opt), step, images
 
 
-def main(argv=None) -> int:
+def remat_arg(value: str) -> str:
+    """``--remat``'s value: a name of ``nn.vit.REMAT_POLICIES`` (the bare
+    flag is True)."""
+    if value not in REMAT_POLICIES:
+        raise argparse.ArgumentTypeError(
+            f"{value!r}: expected one of {', '.join(REMAT_POLICIES)}, or "
+            "the bare flag")
+    return value
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="tae_patch16_vocab256_px256")
     ap.add_argument("--recipe", default="tae",
@@ -182,7 +194,11 @@ def main(argv=None) -> int:
     ap.add_argument("--moments", default="bf16", choices=["bf16", "fp32"],
                     help="p128_fsdp: the AdamW moments' type")
     ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--remat", nargs="?", const=True, default=False,
+                    type=remat_arg,
+                    help="recompute each block in the backward pass (bare), "
+                         "or all but its matrix products (dots, "
+                         "dots_no_batch)")
     ap.add_argument("--backend", default=None, choices=[None, "reference"],
                     help="reference: the plain PyTorch versions, to compare")
     ap.add_argument("--steps", type=int, default=3)
@@ -192,7 +208,11 @@ def main(argv=None) -> int:
                     choices=["auto", "on", "off"],
                     help="the steps from captured CUDA graphs (auto: where "
                          "make_train_step's rule allows), or eagerly")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     graphs = {"auto": None, "on": True, "off": False}[args.cuda_graphs]
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -241,7 +261,8 @@ def main(argv=None) -> int:
     total = sum(ms for ms, _ in rows.values())
     from tae_tpu_torch.train.step import step_graphs_mode
 
-    mode = ("remat" if args.remat else "no remat") + (
+    mode = ("no remat" if args.remat is False else
+            "remat" if args.remat is True else f"remat={args.remat}") + (
         f" backend={args.backend}" if args.backend else "") + (
         ", cuda graphs " + ("on" if step_graphs_mode(graphs, state.model)
                             else "off"))

@@ -5,7 +5,8 @@ training state back (a capture runs no kernel) and whose replay re-runs the
 captured function on the static buffers only: an eager first step, one
 capture per key, new keys for a new batch shape or ``accum_iter``, a
 learning rate that changes across ``step_lr``'s switch and reaches the
-replays, launches counted per replay, the graphs dropped by a replaced
+replays, a step under a selective remat policy against eager steps
+without remat, launches counted per replay, the graphs dropped by a replaced
 parameter or loaded optimizer state; K18's plain version through the
 optimizer's host / device split against one eager update; graphed steps of
 a tiny TAE against the JAX ``make_train_step``; the eval passes through
@@ -195,6 +196,28 @@ def test_graphs_equal_eager_across_the_lr_switch(pair, moment_dtype):
         assert torch.equal(a, b)
     # the groups keep the float outside the step (checkpoints)
     assert all(g["lr"] == 1e-4 for g in state.opt.param_groups)
+
+
+@pytest.mark.parametrize("remat", ["dots", "dots_no_batch"])
+def test_graphed_remat_policies_equal_eager_without_remat(pair, remat):
+    """A step under a selective remat policy, captured and replayed: every
+    step's metrics and then every parameter and moment equal eager steps
+    without remat bit for bit."""
+    state, opt = _state(pair)
+    twin, _ = _state(pair)
+    schedule = step_lr(1e-3, 1e-4, 2)
+    step = make_train_step(
+        lambda m, b: (m(b, policy=FP32, backend="kernel", remat=remat)[0],
+                      {}), opt, schedule)
+    eager = make_train_step(_loss_fn, opt, schedule, cuda_graphs=False)
+    graphs, fake = _graphed(step, state)
+    for it in range(4):
+        _, got = graphs(state, _imgs(seed=it), it)
+        _, want = eager(twin, _imgs(seed=it), it)
+        assert all(torch.equal(got[k], want[k]) for k in want), it
+    assert fake.captures == 1
+    for a, b in zip(_training_tensors(state), _training_tensors(twin)):
+        assert torch.equal(a, b)
 
 
 def test_one_capture_per_key(pair):

@@ -161,16 +161,16 @@ def test_remat_gradients_equal_plain(pair, backend):
 
 
 def test_remat_options_that_have_no_counterpart_raise(pair):
+    """An int8 block is forward-only: every remat option refuses it (the
+    selective policies are held in tests/test_torch_remat.py)."""
     jm, params = pair
     tm = _port(jm, params)
     imgs = torch.from_numpy(_imgs(2))
-    for policy in ("dots", "dots_no_batch"):
-        with pytest.raises(NotImplementedError, match="XLA"):
-            tm(imgs, policy=FP32, remat=policy)
     quantize_params_(tm)
     assert not any(p.requires_grad for p in tm.parameters())
-    with pytest.raises(ValueError, match="int8 block"):
-        tm(imgs, policy=FP32, remat=True)
+    for remat in (True, "dots", "dots_no_batch"):
+        with pytest.raises(ValueError, match="int8 block"):
+            tm(imgs, policy=FP32, remat=remat)
     # an int8 block with a gradient: the first quantizing entry refuses
     x = torch.randn(2, 16, 64, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
