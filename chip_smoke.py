@@ -165,7 +165,19 @@ Phases (each prints its lines; any failure exits non-zero):
    ``cli.train`` (with two evals, the second replaying the eval pass's
    graph) and ``cli.evaluate`` by default (from graphs) and with
    ``--cuda_graphs off``: the same step losses, eval losses and returned
-   loss, and the peak memory of both modes;
+   loss, and the peak memory of both modes. ``convergence``: the
+   convergence run's model (``tae_patch16_vocab16_px256``, 15 + 15, B = 64)
+   on a small structured corpus from ``data.fake`` (2 shards of 320 images,
+   128 val images, 288 px): ``cli.evaluate`` of the seeded weights, then
+   ``tae_tpu_torch.scripts.convergence``'s chunk loop through ``cli.train``
+   to 300 iterations in two chunks (``--resume_auto``), every launch
+   counted, every logged loss finite, the eval MSE at 300 at most half of
+   iteration 0's; then ``scripts.quant_accuracy``'s six modes on the
+   trained checkpoint through the JAX script's forward (the exact softmax;
+   launches counted, latent relative error ≤ 0.2 and MSE ≤ 3× bf16's), each
+   quantized tokenizer's encode and decode against ``backend="reference"``
+   at 4e-2, and the bf16 tokenizer's serving MSE ≤ 1.1× the exact bf16
+   row's;
 7. downstream: the recognition and segmentation trunks (ViT-Base, width
    768, 12 heads of 64, 256 tokens) on the frozen p16 encoder. The kernel
    phase holds K2 (exact and LSE forms) and K10 at 12 heads, and K1, its
@@ -574,6 +586,33 @@ GRAPH_STEPS, GRAPH_SWITCH, GRAPH_SNAPSHOT_REPS = 8, 4, 100
 # in1k's (eight steps, four eval batches)
 GRAPH_DRIVER_ITS, GRAPH_DRIVER_EVAL = 3, 1
 GRAPH_EVAL_BATCH = 32
+# convergence: the convergence run's model at full width and depth (15 +
+# 15, B = 64) on a small structured corpus made by data/fake (CONV_SHARDS
+# shards of CONV_SHARD_IMAGES and a val ImageFolder of CONV_VAL, 288 px),
+# trained through tae_tpu_torch.scripts.convergence in chunks of CONV_CHUNK
+# iterations (each resumed with --resume_auto) to CONV_ITS at accum_iter 1,
+# CONV_WORKERS loader workers (the card's machine decodes with PIL); then
+# quant_accuracy's six modes on the checkpoint, on CONV_QUANT_BATCHES eval
+# and CONV_CALIB_BATCHES calibration batches of CONV_QUANT_BATCH val images
+CONV_MODEL = "tae_patch16_vocab16_px256"
+CONV_SHARDS, CONV_SHARD_IMAGES, CONV_VAL, CONV_PX = 2, 320, 128, 288
+CONV_ITS, CONV_CHUNK, CONV_BATCH, CONV_WORKERS = 300, 150, 64, 4
+CONV_QUANT_BATCHES, CONV_CALIB_BATCHES, CONV_QUANT_BATCH = 2, 2, 32
+# the eval MSE after CONV_ITS iterations against the seeded weights': at
+# most this share of it (a run that learns nothing stays near 1)
+CONV_EVAL_DROP = 0.5
+# quant_accuracy's sanity bounds on the trained weights: each quantized
+# mode's latent relative error against bf16 at most CONV_QUANT_REL_ERR and
+# its reconstruction MSE at most CONV_QUANT_MSE_RATIO times bf16's (the
+# JAX package's run of this recipe: 0.068-0.072 and 2.26-2.38 times, at
+# 5000 iterations)
+CONV_QUANT_REL_ERR, CONV_QUANT_MSE_RATIO = 0.2, 3.0
+# the bf16 Tokenizer's serving path (encode / decode: the clamped softmax,
+# from CUDA graphs) on the trained weights: its reconstruction MSE at most
+# CONV_SERVING_MSE_RATIO times that of quant_accuracy's bf16 row on the same
+# images (the JAX script's forward, the exact softmax: the metric of
+# cli.evaluate)
+CONV_SERVING_MSE_RATIO = 1.1
 GRAPH_IN1K_BATCH = 16
 # tensor2: two gloo ranks on the one card on a (1, 1, 2) mesh, every block
 # split over tensor (8 heads a rank at p16, 16 at p128). The flagship at
@@ -4888,6 +4927,215 @@ def phase_drivers() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# convergence: the structured corpus, cli.train in chunks, quant_accuracy
+# ---------------------------------------------------------------------------
+
+def uncounted(fn, *a, **kw):
+    """fn(*a, **kw) with every wrapper's count put back after it: launches
+    made to compare with the plain versions are not the path's."""
+    import torch
+
+    fns = wrappers()
+    saved = {n: f.launches for n, f in fns.items()}
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    for n, f in fns.items():
+        f.launches = saved[n]
+    return out
+
+
+def convergence_train(tag: str, root: pathlib.Path, cfg, totals: dict
+                      ) -> dict:
+    """Eval MSE of the seeded weights (cli.evaluate), then cli.train to
+    CONV_ITS through the chunk loop; every train step's launches counted.
+    Returns the JSONL rows."""
+    import contextlib
+    import io
+    import math
+
+    from tae_tpu_torch.cli import evaluate
+    from tae_tpu_torch.scripts import convergence, convergence_report
+
+    data = root / "data"
+    args = evaluate.get_args_parser().parse_args([
+        "--model", CONV_MODEL, "--batch_size_per_gpu", str(CONV_BATCH),
+        "--val_data_path", str(data / "val"), "--num_workers", "0",
+        "--output_dir", str(root / "eval0"), "--save_prefix", "e0"])
+    eval0, got = driven(totals, evaluate.main, args)
+    want = times(float_launches(cfg), CONV_VAL // CONV_BATCH)
+    check(got == want, f"{tag} evaluate at iteration 0: launches {got}, "
+                       f"expected {want}")
+    argv = convergence.with_flags(
+        convergence.train_argv(root, CONV_ITS + 1, CONV_CHUNK, CONV_SHARDS),
+        accum_iter=1, num_workers=CONV_WORKERS)
+    ends = convergence.chunk_ends(CONV_ITS + 1, CONV_CHUNK)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        records, got = driven(totals, convergence.run, argv, ends,
+                              in_process=True)
+    wall = time.perf_counter() - t
+    text = buf.getvalue()
+    log = root / "run.log"
+    log.write_text(text)
+    rows = convergence_report.parse_jsonl(str(root / "out" / "conv_log.txt"))
+    points = convergence_report.parse_stdout(str(log))
+    for line in text.splitlines():
+        if line.startswith("[convergence]"):
+            print(line)
+        elif line.startswith(("it ", "Auto-resumed", "Current eval loss",
+                              "Input pipeline", "decoder:", "cuda graphs:")):
+            print(f"[{tag}] {line}")
+    # per step: the training entries of a remat step; per eval pass and
+    # grid: one float forward a batch (a val pass of one padded batch)
+    step = train_launches(cfg, remat=True)
+    evals = CONV_ITS // CONV_CHUNK
+    want = summed(times(step, CONV_ITS + 1), times(float_launches(cfg),
+                                                   2 * evals))
+    check(got == want, f"{tag} train: launches {got}, expected {want}")
+    check([r["end"] for r in records] == ends
+          and all(r["attempts"] == 1 for r in records),
+          f"{tag}: chunks {records}")
+    logged = [p[0] for p in points]
+    check(logged == [it for it in range(CONV_ITS + 1) if it % 50 == 0],
+          f"{tag}: logged iterations {logged}")
+    check(all(math.isfinite(v) for p in points for v in p[1:])
+          and all(math.isfinite(r[k]) for r in rows
+                  for k in ("train_loss", "eval_loss")),
+          f"{tag}: a non-finite loss in {points} / {rows}")
+    check([r["iteration"] for r in rows] == list(
+        range(CONV_CHUNK, CONV_ITS + 1, CONV_CHUNK)), f"{tag}: rows {rows}")
+    last = rows[-1]["eval_loss"]
+    print(f"[{tag}] eval MSE: {eval0:.6f} at iteration 0 (cli.evaluate on "
+          f"the seeded weights), "
+          + ", ".join(f"{r['eval_loss']:.6f} at {r['iteration']}"
+                      for r in rows)
+          + f"; at {CONV_ITS} {last / eval0:.4f} of iteration 0's (at most "
+          f"{CONV_EVAL_DROP}); train loss logged at {logged}: "
+          + ", ".join(f"{w:.4f}" for _, w, _ in points)
+          + f"; chunks " + ", ".join(f"to {r['end'] - 1}: {r['seconds']:.1f} s"
+                                     for r in records)
+          + f" ({wall:.1f} s in all)")
+    check(last <= CONV_EVAL_DROP * eval0,
+          f"{tag}: eval MSE {last:.6f} at {CONV_ITS} against {eval0:.6f} at 0")
+    return rows
+
+
+def convergence_quant(tag: str, root: pathlib.Path, cfg, totals: dict
+                      ) -> dict:
+    """quant_accuracy's six modes on the trained checkpoint (the JAX
+    script's forward, the exact softmax); each quantized tokenizer's encode
+    and decode held against backend="reference" on the trained weights, and
+    the bf16 tokenizer's serving MSE against quant_accuracy's bf16 row."""
+    import torch
+
+    from tae_tpu_torch.ckpt.io import checkpoint_step
+    from tae_tpu_torch.scripts import quant_accuracy
+    from tae_tpu_torch.tokenizer import Tokenizer
+
+    ckpt = root / "out" / "conv_checkpoint_latest"
+    check(checkpoint_step(ckpt) == CONV_ITS,
+          f"{tag}: checkpoint at {checkpoint_step(ckpt)}")
+    batches = quant_accuracy.load_batches(
+        str(root / "data" / "val"), cfg.img_size, CONV_QUANT_BATCH,
+        CONV_QUANT_BATCHES + CONV_CALIB_BATCHES)
+    evals, calib = (batches[:CONV_QUANT_BATCHES],
+                    batches[CONV_QUANT_BATCHES:])
+    xs = [torch.from_numpy(b).cuda() for b in evals]
+    x = xs[0]
+    tol = slice_tol(4e-2, cfg)
+    held, serving = {}, {}
+
+    def against_reference(name, tok):
+        if name == "bf16":
+            serving["mse"] = sum(float(torch.mean(torch.square(
+                tok.decode(tok.encode(b)).float() - b))) for b in xs) / len(xs)
+            return
+        ref = Tokenizer(model=tok.model, policy=tok.policy,
+                        backend="reference", cuda_graphs=False)
+        z = tok.encode(x)
+        ez = rel_err(z, ref.encode(x))
+        ex = rel_err(tok.decode(z), ref.decode(z))
+        held[name] = (ez, ex)
+        check(ez <= tol and ex <= tol,
+              f"{tag} {name}: latents {ez:.3g}, decode {ex:.3g} against "
+              f"backend='reference' (tolerance {tol:.3g})")
+
+    results, got = driven(
+        totals, quant_accuracy.evaluate_modes, CONV_MODEL, str(ckpt), evals,
+        calib, list(quant_accuracy.MODES), "cuda",
+        each=lambda name, tok: uncounted(against_reference, name, tok))
+    want = times(float_launches(cfg), CONV_CALIB_BATCHES)
+    for name, kw in quant_accuracy.MODES.items():
+        # the exact forward: no int8-output attention
+        per = expected_launches(cfg, kw.get("quantization"), attn_q8=False)
+        want = summed(want, times(per["encode"], CONV_QUANT_BATCHES),
+                      times(per["decode"], CONV_QUANT_BATCHES))
+    check(got == want, f"{tag} quant_accuracy: launches {got}, expected "
+                       f"{want}")
+    print(f"[{tag}] quant_accuracy on {ckpt.name} (step {CONV_ITS}), "
+          f"{CONV_QUANT_BATCHES} x {CONV_QUANT_BATCH} val images, calibration on "
+          f"{CONV_CALIB_BATCHES} more batches:")
+    for line in quant_accuracy.table(results).splitlines():
+        print(f"[{tag}] {line}")
+    for name, (ez, ex) in held.items():
+        print(f"[{tag}] {name} against backend='reference' on the trained "
+              f"weights: latents rel_err {ez:.3g}, decode rel_err {ex:.3g} "
+              f"(tolerance {tol:.3g})")
+    base = results["bf16"]["mse"]
+    ratio = serving["mse"] / base
+    print(f"[{tag}] bf16 Tokenizer encode / decode (serving softmax) on the "
+          f"trained weights: MSE {serving['mse']:.6f}, {ratio:.4f} x "
+          f"quant_accuracy's bf16 row {base:.6f} (the exact softmax; at most "
+          f"{CONV_SERVING_MSE_RATIO})")
+    check(ratio <= CONV_SERVING_MSE_RATIO,
+          f"{tag}: the bf16 Tokenizer's MSE {serving['mse']:.6f} against "
+          f"{base:.6f} through the exact forward")
+    for name, r in results.items():
+        if name == "bf16":
+            continue
+        check(r["rel_err"] <= CONV_QUANT_REL_ERR
+              and r["mse"] <= CONV_QUANT_MSE_RATIO * base,
+              f"{tag} {name}: latent rel err {r['rel_err']:.4g}, MSE "
+              f"{r['mse']:.6f} against bf16's {base:.6f}")
+    check(set(held) == set(results) - {"bf16"},
+          f"{tag}: held against the plain versions: {sorted(held)}")
+    return results
+
+
+def phase_convergence() -> dict:
+    """Path ``convergence``: the convergence run's corpus, model and driver
+    cut to CONV_ITS iterations of B = CONV_BATCH, then quant_accuracy on
+    what it trained. Returns the launch counts of the run."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from tae_tpu_torch.models import create
+    from tae_tpu_torch.scripts import convergence
+
+    tag, totals = "convergence", {}
+    cfg = create(CONV_MODEL, device="meta").cfg
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        convergence.fixture(root, CONV_SHARDS, CONV_SHARD_IMAGES, CONV_PX,
+                            CONV_VAL, workers=CONV_SHARDS + 1)
+        print(f"[{tag}] corpus: {CONV_SHARDS} shards of {CONV_SHARD_IMAGES} "
+              f"structured images and {CONV_VAL} val images, {CONV_PX} px, "
+              f"in {time.perf_counter() - t:.1f} s")
+        for part in (convergence_train, convergence_quant):
+            t = time.perf_counter()
+            part(tag, root, cfg, totals)
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[{tag}] ({time.perf_counter() - t:.1f} s)")
+    print(f"[{tag}] main path launches: {json.dumps(totals)}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # downstream: the recognition and segmentation trunks on the frozen encoder
 # ---------------------------------------------------------------------------
 
@@ -6909,6 +7157,7 @@ def main() -> int:
         timed("world2", phase_world2)
         launches["tensor2"] = timed("tensor2", phase_tensor2, label)
         launches["drivers"] = timed("drivers", phase_drivers)
+        launches["convergence"] = timed("convergence", phase_convergence)
         launches["drivers_mesh"] = timed("drivers_mesh", phase_drivers_mesh)
         launches["rec19k"] = timed("rec19k", phase_rec19k, label)
         launches["seg_p16"] = timed("seg_p16", phase_seg_p16, label)

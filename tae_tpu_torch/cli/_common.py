@@ -28,7 +28,8 @@ from tae_tpu_torch import models
 from tae_tpu_torch.data.loader import BatchLoader
 from tae_tpu_torch.data.tar_stream import (ShardSpec, WebDatasetReader,
                                            decode_jpg_cls)
-from tae_tpu_torch.data.transforms import (center_crop_transform,
+from tae_tpu_torch.data.transforms import (_sample_rrc_box,
+                                           center_crop_transform,
                                            random_resized_crop_transform)
 
 
@@ -279,8 +280,9 @@ def print_decoder() -> None:
 # ---------------------------------------------------------------------------
 
 def decode_threads(num_workers: int) -> int:
-    """Threads of the native decoder's pool in a loader of ``num_workers``
-    worker processes: each worker decodes on one core; the inline
+    """Threads of the train decoder's pool (native or PIL) in a loader of
+    ``num_workers`` worker processes: each worker decodes on one core; the
+    inline
     (0-worker) loader, and a single worker, fan the pool across all cores
     (0: as many threads as cores)."""
     return 0 if num_workers <= 1 else 1
@@ -291,17 +293,69 @@ def _sample_cls(sample: dict) -> int:
     return int(cls.decode()) if isinstance(cls, bytes) else int(cls)
 
 
-def _wds_train_iter(path: str, input_size: int, jitter_scale, jitter_ratio,
-                    seed: int, process_index: int, process_count: int,
-                    worker_id: int, num_workers: int):
-    """Per-sample PIL train path (the native decoder is not built)."""
+def _image_bytes(sample: dict) -> bytes:
+    """The encoded image :func:`decode_jpg_cls` decodes."""
+    for ext in ("jpg", "jpeg", "png", "ppm"):
+        if ext in sample:
+            return sample[ext]
+    raise KeyError("no image entry in sample")
+
+
+def _image_size(sample: dict) -> tuple[int, int]:
+    """(width, height) of a sample's image from its header alone."""
+    import io
+
+    from PIL import Image
+
+    return Image.open(io.BytesIO(_image_bytes(sample))).size
+
+
+def _skip_samples(it, rng: np.random.Generator, skip: int, size_of,
+                  scale, ratio) -> None:
+    """Take ``skip`` samples off ``it`` as the train transform would, with
+    the same draws from ``rng`` (the crop box, then the flip), without
+    decoding them: the samples a resumed run's saved iterations took. A
+    sample whose header ``size_of`` cannot read is passed over, as the
+    decode passes it over. A sample whose header reads but whose body does
+    not decode is counted as taken, where the live stream dropped it and
+    took one more: past each such sample the resumed stream starts one
+    sample later than the unbroken run (a corpus of ``data.fake`` has
+    none)."""
+    while skip > 0:
+        sample = next(it)
+        try:
+            w, h = size_of(sample)
+        except (ValueError, KeyError, OSError):
+            continue
+        _sample_rrc_box(rng, w, h, scale, ratio)
+        rng.random()
+        skip -= 1
+
+
+def _train_stream(path: str, seed: int, process_index: int,
+                  process_count: int, worker_id: int, num_workers: int):
+    """The train samples of worker ``worker_id`` of process
+    ``process_index``: its shard reader (resampled, a 10k shuffle, raw
+    bytes) and the generator of its crop and flip draws."""
     spec = ShardSpec.from_string(path, resampled=True,
                                  seed=seed + 1000 * process_index + worker_id)
     reader = WebDatasetReader(
         spec, decode=None, shuffle_buffer=10_000,
         shard_index=process_index * num_workers + worker_id,
         shard_count=process_count * num_workers)
-    rng = np.random.default_rng(seed + 7919 * (process_index * num_workers + worker_id))
+    rng = np.random.default_rng(
+        seed + 7919 * (process_index * num_workers + worker_id))
+    return reader, rng
+
+
+def _wds_train_iter(path: str, input_size: int, jitter_scale, jitter_ratio,
+                    seed: int, process_index: int, process_count: int,
+                    worker_id: int, num_workers: int):
+    """The JAX package's per-sample PIL train stream: what
+    :func:`_wds_train_iter_pil_batched` yields in batches, one sample at a
+    time (the reference its batches are held to)."""
+    reader, rng = _train_stream(path, seed, process_index, process_count,
+                                worker_id, num_workers)
     tf = random_resized_crop_transform(input_size, scale=tuple(jitter_scale),
                                        ratio=tuple(jitter_ratio))
     for sample in reader:
@@ -313,30 +367,108 @@ def _wds_train_iter(path: str, input_size: int, jitter_scale, jitter_ratio,
         yield arr, np.int32(_sample_cls(sample))
 
 
+def _pil_train_sample(data: bytes, box, flip: bool, size: int,
+                      u8: bool) -> np.ndarray:
+    """One image of the PIL train path, its draws given: (3, size, size)
+    uint8 pixels, or normalized float32 as the per-sample path gives."""
+    import io
+
+    from PIL import Image
+
+    from tae_tpu_torch.data.transforms import normalize, resized_crop, to_array
+
+    img = resized_crop(Image.open(io.BytesIO(data)).convert("RGB"), size,
+                       box, flip)
+    if u8:
+        return np.asarray(img, dtype=np.uint8).transpose(2, 0, 1)
+    return normalize(to_array(img))
+
+
+def _wds_train_iter_pil_batched(path: str, input_size: int, jitter_scale,
+                                jitter_ratio, seed: int, process_index: int,
+                                process_count: int, batch_size: int, u8: bool,
+                                worker_id: int, num_workers: int,
+                                skip: int = 0):
+    """Prebatched PIL train path (the native decoder is not built): the
+    stream, crop boxes and flips of :func:`_wds_train_iter`, drawn in stream
+    order from each image's header (the first ``skip`` samples drawn for
+    and passed over), then a batch's images decoded, cropped, flipped (and
+    normalized, unless ``u8``) by a pool of threads straight into the batch
+    buffer: every core with at most one worker process (PIL decodes and
+    resamples with the interpreter lock released), one a worker with more.
+    Float batches equal the per-sample stream's bit for bit. An
+    image whose header reads but whose body does not decode is dropped and
+    the batch topped up from the stream (the per-sample path would not have
+    drawn for it)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    scale, ratio = tuple(jitter_scale), tuple(jitter_ratio)
+    reader, rng = _train_stream(path, seed, process_index, process_count,
+                                worker_id, num_workers)
+    it = iter(reader)
+    _skip_samples(it, rng, skip, _image_size, scale, ratio)
+    threads = decode_threads(num_workers) or os.cpu_count() or 1
+    dtype = np.uint8 if u8 else np.float32
+    with ThreadPoolExecutor(threads) as pool:
+        while True:
+            imgs = np.empty((batch_size, 3, input_size, input_size), dtype)
+            cls = np.empty((batch_size,), np.int32)
+            filled = 0
+            while filled < batch_size:
+                jobs = []
+                while len(jobs) < batch_size - filled:
+                    sample = next(it)
+                    try:
+                        data = _image_bytes(sample)
+                        w, h = _image_size(sample)
+                    except (ValueError, KeyError, OSError):
+                        continue
+                    box = _sample_rrc_box(rng, w, h, scale, ratio)
+                    jobs.append((data, box, rng.random() < 0.5,
+                                 _sample_cls(sample)))
+
+                def work(i, job):
+                    try:
+                        imgs[filled + i] = _pil_train_sample(
+                            job[0], job[1], job[2], input_size, u8)
+                        return True
+                    except (ValueError, OSError):
+                        return False
+
+                ok = list(pool.map(work, range(len(jobs)), jobs))
+                keep = [i for i, good in enumerate(ok) if good]
+                if len(keep) < len(jobs):   # rare: close the gaps
+                    imgs[filled:filled + len(keep)] = imgs[filled + np.asarray(
+                        keep, dtype=np.int64)]
+                cls[filled:filled + len(keep)] = [jobs[i][3] for i in keep]
+                filled += len(keep)
+            yield imgs, cls
+
+
 def _wds_train_iter_batched(path: str, input_size: int, jitter_scale,
                             jitter_ratio, seed: int, process_index: int,
                             process_count: int, batch_size: int, u8: bool,
-                            worker_id: int, num_workers: int):
+                            worker_id: int, num_workers: int, skip: int = 0):
     """Prebatched native train path: raw tar bytes -> the fused C++
     ``decode_batch`` straight into the batch buffer (no per-sample arrays,
     no ``np.stack`` collate). The same stream as :func:`_wds_train_iter`
-    (resampled, shuffled, torchvision's crop boxes and flips); always yields
-    whole batches, topping up from the stream when an image fails to
-    decode."""
+    (resampled, shuffled, torchvision's crop boxes and flips, the first
+    ``skip`` samples taken without a decode); always yields whole batches,
+    topping up from the stream when an image fails to decode."""
     from tae_tpu_torch.data import native
-    from tae_tpu_torch.data.transforms import _sample_rrc_box
 
     scale, ratio = tuple(jitter_scale), tuple(jitter_ratio)
-    spec = ShardSpec.from_string(path, resampled=True,
-                                 seed=seed + 1000 * process_index + worker_id)
-    reader = WebDatasetReader(
-        spec, decode=None, shuffle_buffer=10_000,
-        shard_index=process_index * num_workers + worker_id,
-        shard_count=process_count * num_workers)
-    rng = np.random.default_rng(
-        seed + 7919 * (process_index * num_workers + worker_id))
+    reader, rng = _train_stream(path, seed, process_index, process_count,
+                                worker_id, num_workers)
     threads = decode_threads(num_workers)
     it = iter(reader)
+
+    def jpeg_size(sample):
+        if "jpg" not in sample:
+            raise KeyError("no jpg entry in sample")
+        return native.jpeg_size(bytes(sample["jpg"]))
+
+    _skip_samples(it, rng, skip, jpeg_size, scale, ratio)
     carry_imgs: list[np.ndarray] = []
     carry_cls: list[np.ndarray] = []
     carry_n = 0
@@ -385,11 +517,19 @@ def _wds_train_iter_batched(path: str, input_size: int, jitter_scale,
         yield out
 
 
-def wds_train_loader(args, batch_size: int, mesh=None) -> BatchLoader:
+def wds_train_loader(args, batch_size: int, mesh=None,
+                     skip_batches: int = 0) -> BatchLoader:
     """The reference train pipeline (train.py:84-85): a resampled infinite
     stream, a 10k shuffle, RandomResizedCrop / flip / normalize. The native
     prebatched decode where the decoder is built, else PIL per sample; says
     which.
+
+    ``skip_batches``: the stream starts past that many batches (a resumed
+    run's saved iterations), read and drawn for but not decoded. With at
+    most one worker, and no image in the skipped part whose body fails to
+    decode (:func:`_skip_samples`), the batches that follow are the ones an
+    unbroken run takes; the batches of several workers come in no fixed
+    order, so each worker skips an equal share.
 
     Each of the (data, fsdp) ranks of ``mesh`` streams its own shards with
     its own seeds, as each process of the JAX drivers does (its index and
@@ -405,6 +545,7 @@ def wds_train_loader(args, batch_size: int, mesh=None) -> BatchLoader:
         raise ValueError(f"global batch {batch_size} does not divide over "
                          f"{ranks} data x fsdp ranks")
     rows = batch_size // ranks
+    skip = -(-skip_batches // max(1, args.num_workers)) * rows
     u8 = bool(getattr(args, "device_normalize", False))
     scale = getattr(args, "jitter_scale", [0.2, 1.0])
     ratio = getattr(args, "jitter_ratio", [3 / 4, 4 / 3])
@@ -415,20 +556,19 @@ def wds_train_loader(args, batch_size: int, mesh=None) -> BatchLoader:
               flush=True)
         make_iter = functools.partial(
             _wds_train_iter_batched, args.train_data_path, args.input_size,
-            scale, ratio, args.seed, rank, ranks, rows, u8)
+            scale, ratio, args.seed, rank, ranks, rows, u8, skip=skip)
         return BatchLoader(make_iter, rows, num_workers=args.num_workers,
                            prebatched=True)
-    if u8:
-        print("WARNING: --device_normalize needs the native decoder "
-              "(native/taedata.cpp, built at first use); shipping "
-              "normalized f32 instead", flush=True)
-    print("WARNING: input pipeline on the per-sample PIL + np.stack "
-          "collate path (the native decoder needs g++ and libjpeg)",
-          flush=True)
+    threads = decode_threads(args.num_workers) or os.cpu_count()
+    print(f"Input pipeline: PIL prebatched decode ({args.num_workers} "
+          f"workers, {threads} threads each"
+          + (", uint8 H2D + on-device normalize" if u8 else "") + "; the "
+          "native decoder needs g++ and libjpeg)", flush=True)
     make_iter = functools.partial(
-        _wds_train_iter, args.train_data_path, args.input_size, scale, ratio,
-        args.seed, rank, ranks)
-    return BatchLoader(make_iter, rows, num_workers=args.num_workers)
+        _wds_train_iter_pil_batched, args.train_data_path, args.input_size,
+        scale, ratio, args.seed, rank, ranks, rows, u8, skip=skip)
+    return BatchLoader(make_iter, rows, num_workers=args.num_workers,
+                       prebatched=True)
 
 
 def _imagefolder_val_iter(root: str, input_size: int, use_native: bool,

@@ -26,7 +26,10 @@ Checkpoints: ``{prefix}_checkpoint_latest`` is written at every eval (the
 newest state, for preemption), and promoted to ``{prefix}_checkpoint`` (the
 reference's best-eval contract, train.py:164-172) when the eval loss
 improves. ``--resume_auto`` continues from the newer of the two at its step
-+ 1, with the optimizer state.
++ 1, with the optimizer state, and its train stream past the batches the
+saved iterations took (the JAX driver starts the stream again): with at most
+one loader worker a run cut at a checkpoint and resumed takes the batches,
+and so the steps, of an unbroken run.
 
 Under ``torchrun`` the model is placed on the ``(data, fsdp, tensor)`` mesh
 (``parallel.shard_model``). The global batch is ``--batch_size_per_gpu`` x
@@ -165,7 +168,8 @@ def main(args) -> None:
     _common.print_decoder()
     # this rank's rows from its own stream (the global batch over the ranks)
     train_loader = _common.wds_train_loader(
-        args, args.batch_size_per_gpu * args.accum_iter, mesh)
+        args, args.batch_size_per_gpu * args.accum_iter, mesh,
+        skip_batches=start_it)
 
     metric_logger = MetricLogger()
     display_samples = None

@@ -1,7 +1,8 @@
 """Synthetic data: fake webdataset shards, ImageFolder trees and COCO
-instance layouts in the on-disk formats the drivers read (counterpart of the
-generators of ``tae_tpu/data/fake.py`` that the tests and ``chip_smoke.py``
-use; the same seed gives the same bytes).
+instance layouts in the on-disk formats the drivers read (counterpart of
+``tae_tpu/data/fake.py``; the same seed gives the same bytes): pure noise for
+the drivers' plumbing, and the learnable corpora (structured, spectral and
+class-anchored images) that convergence runs train on.
 """
 
 from __future__ import annotations
@@ -101,8 +102,12 @@ def _structured_image(rng: np.random.Generator, size: int,
     """A natural-image-like synthetic composition: smooth gradient sky,
     colored soft-edged shapes at multiple scales, and low-pass texture.
 
-    Unlike pure noise (``_random_jpeg``), these images carry the spatial
-    correlation a segmentation head can learn from.
+    Pure noise (``_random_jpeg``) carries no learnable structure: an
+    autoencoder cannot compress it through a narrow bottleneck, so its MSE
+    plateaus at once. These images have the strong spatial correlation that
+    reconstruction training exploits, so loss trajectories on them are
+    convergence evidence (``tae_tpu_torch.scripts.convergence``), and a
+    segmentation head can learn from them.
 
     ``colors`` pins the gradient endpoint colors, ``top_ellipse_color``
     adds one large never-occluded center ellipse, and ``num_shapes``
@@ -143,6 +148,177 @@ def _structured_image(rng: np.random.Generator, size: int,
     tex = np.repeat(np.repeat(tex, -(-size // g), 0), -(-size // g), 1)
     img = img + tex[:size, :size]
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def make_structured_wds_shard(path: str | Path, num_samples: int = 1000,
+                              size: int = 288, num_classes: int = 1000,
+                              seed: int = 0, quality: int = 90) -> Path:
+    """Like :func:`make_fake_wds_shard` but with structured (learnable)
+    images — the convergence-run fixture."""
+    from PIL import Image
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with tarfile.open(path, "w") as tf:
+        for i in range(num_samples):
+            key = f"{i:06d}"
+            buf = io.BytesIO()
+            Image.fromarray(_structured_image(rng, size), "RGB").save(
+                buf, format="JPEG", quality=quality)
+            jpg = buf.getvalue()
+            cls = str(int(rng.integers(0, num_classes))).encode()
+            for ext, data in (("jpg", jpg), ("cls", cls)):
+                info = tarfile.TarInfo(f"{key}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return path
+
+
+def _spectral_image(rng: np.random.Generator, size: int,
+                    alpha: float = 1.0) -> np.ndarray:
+    """A power-law (1/f^alpha) random field — the high-information-rate
+    convergence fixture.
+
+    The structured corpus (:func:`_structured_image`) is *too* compressible
+    for bottleneck-width sweeps: 16 latent dims per 16x16 patch already
+    capture it, so tae_patch16_vocab{16,64,256} all track the same eval
+    curve (measured, docs/CONVERGENCE.md). These images carry a natural-
+    image-like power spectrum with substantial energy at mid/high spatial
+    frequencies, so per-patch intrinsic dimensionality is in the hundreds
+    and the reconstruction floor strictly improves with bottleneck width —
+    the regime where the reference's published eval-MSE-vs-vocab ordering
+    (reference outputs/, SURVEY.md §6) can emerge at short horizons.
+    Channels are mixed for realistic cross-channel correlation."""
+    fy = np.fft.fftfreq(size)[:, None]
+    fx = np.fft.rfftfreq(size)[None, :]
+    radius = np.sqrt(fx * fx + fy * fy)
+    filt = (radius + 1.0 / size) ** (-alpha)
+    spec = np.fft.rfft2(rng.standard_normal((3, size, size))) * filt
+    x = np.fft.irfft2(spec, s=(size, size))
+    mix = np.eye(3, dtype=np.float64) + 0.6 * rng.standard_normal((3, 3))
+    x = np.einsum("ij,jhw->ihw", mix, x)
+    x -= x.mean(axis=(1, 2), keepdims=True)
+    x /= x.std(axis=(1, 2), keepdims=True) + 1e-9
+    img = 127.0 + 52.0 * x
+    return np.clip(img, 0, 255).astype(np.uint8).transpose(1, 2, 0)
+
+
+def make_spectral_wds_shard(path: str | Path, num_samples: int = 1000,
+                            size: int = 288, num_classes: int = 1000,
+                            seed: int = 0, alpha: float = 1.0,
+                            quality: int = 95) -> Path:
+    """wds shard of :func:`_spectral_image` samples (quality 95: the point
+    is high-frequency content; don't let JPEG eat it)."""
+    from PIL import Image
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with tarfile.open(path, "w") as tf:
+        for i in range(num_samples):
+            key = f"{i:06d}"
+            buf = io.BytesIO()
+            Image.fromarray(_spectral_image(rng, size, alpha), "RGB").save(
+                buf, format="JPEG", quality=quality)
+            jpg = buf.getvalue()
+            cls = str(int(rng.integers(0, num_classes))).encode()
+            for ext, data in (("jpg", jpg), ("cls", cls)):
+                info = tarfile.TarInfo(f"{key}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return path
+
+
+def make_spectral_imagefolder(root: str | Path, num_images: int = 512,
+                              size: int = 288, seed: int = 10_000,
+                              alpha: float = 1.0) -> Path:
+    """Spectral-image val set (single class dir; eval only needs images)."""
+    from PIL import Image
+
+    root = Path(root)
+    d = root / "class_000"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(num_images):
+        Image.fromarray(_spectral_image(rng, size, alpha), "RGB").save(
+            d / f"img_{i:05d}.jpg", quality=95)
+    return root
+
+
+def make_classification_wds_shard(path: str | Path, num_samples: int = 500,
+                                  size: int = 288, num_classes: int = 20,
+                                  seed: int = 0, quality: int = 90) -> Path:
+    """Structured wds shard with LEARNABLE ``cls`` labels.
+
+    ``make_structured_wds_shard`` draws labels independently of pixels
+    (reconstruction training ignores them); here the class id
+    deterministically anchors the background-gradient color pair and the
+    color of one large always-on-top center ellipse (small per-instance
+    jitter), while shape layout and texture stay random. Any reasonable
+    frozen encoder preserves color statistics, so a downstream classifier
+    separates these well above chance — the on-chip downstream-convergence
+    fixture (docs/CONVERGENCE.md). Mirrors the (jpg, cls) sample layout the
+    reference's recognition stream consumes
+    (recognition/train_recognition_in19k.py:76-88)."""
+    from PIL import Image
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with tarfile.open(path, "w") as tf:
+        for i in range(num_samples):
+            cls = int(rng.integers(0, num_classes))
+            anchor = np.random.default_rng(1000 + cls)
+            c0, c1, dom = (anchor.uniform(30, 225, 3).astype(np.float32)
+                           for _ in range(3))
+            jit = rng.uniform(-12, 12, (3, 3)).astype(np.float32)
+            # fewer random distractor shapes than the reconstruction
+            # fixture: they occlude the class-anchored colors (measured in
+            # tests: between-class mean-color distance vs within-class
+            # spread needs >2x for a clean learnability margin)
+            img = _structured_image(rng, size,
+                                    colors=(c0 + jit[0], c1 + jit[1]),
+                                    top_ellipse_color=dom + jit[2],
+                                    num_shapes=int(rng.integers(2, 5)))
+            buf = io.BytesIO()
+            Image.fromarray(img, "RGB").save(buf, format="JPEG",
+                                             quality=quality)
+            jpg = buf.getvalue()
+            for ext, data in (("jpg", jpg), ("cls", str(cls).encode())):
+                info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return path
+
+
+def make_classification_imagefolder(root: str | Path, num_images: int = 400,
+                                    size: int = 288, num_classes: int = 20,
+                                    seed: int = 0) -> Path:
+    """ImageFolder counterpart of :func:`make_classification_wds_shard` —
+    same class-anchored colors (class ``c`` uses anchor rng ``1000 + c``,
+    so features learned on the wds fixture transfer), ``class_%03d/``
+    subdirectories in torchvision ImageFolder layout. Drives the in1k
+    fine-tune trainer (reference recognition/train_recognition_in1k.py:96-101
+    builds ImageFolder('train'/'val') datasets)."""
+    from PIL import Image
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for i in range(num_images):
+        cls = i % num_classes
+        anchor = np.random.default_rng(1000 + cls)
+        c0, c1, dom = (anchor.uniform(30, 225, 3).astype(np.float32)
+                       for _ in range(3))
+        jit = rng.uniform(-12, 12, (3, 3)).astype(np.float32)
+        img = _structured_image(rng, size,
+                                colors=(c0 + jit[0], c1 + jit[1]),
+                                top_ellipse_color=dom + jit[2],
+                                num_shapes=int(rng.integers(2, 5)))
+        d = root / f"class_{cls:03d}"
+        d.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img, "RGB").save(d / f"img_{i:06d}.jpg", quality=90)
+    return root
 
 
 def make_structured_coco(root: str | Path, n_train: int = 64, n_val: int = 16,
@@ -209,4 +385,19 @@ def make_structured_coco(root: str | Path, n_train: int = 64, n_val: int = 16,
             json.dumps({"images": images, "annotations": annotations,
                         "categories": [{"id": c, "name": str(c)}
                                        for c in range(1, 91)]}))
+    return root
+
+
+def make_structured_imagefolder(root: str | Path, num_images: int = 512,
+                                size: int = 288, seed: int = 10_000) -> Path:
+    """Structured-image val set (single class dir; eval only needs images)."""
+    from PIL import Image
+
+    root = Path(root)
+    d = root / "class_000"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(num_images):
+        Image.fromarray(_structured_image(rng, size), "RGB").save(
+            d / f"img_{i:05d}.jpg", quality=90)
     return root

@@ -4,7 +4,8 @@
   * ``BatchLoader`` runs the sample pipeline inline or across N spawned
     worker processes (workers never touch the card: numpy, PIL and the
     native decoder), each assembling whole batches from its own shard
-    subset, consumed round-robin; copied from the JAX package as it is;
+    subset, consumed round-robin; copied from the JAX package, except that
+    a worker's batch arrays reach the consumer in shared memory;
   * ``device_prefetch`` keeps ``depth`` batches in flight to the card:
     pinned host tensors, ``non_blocking`` copies on a side CUDA stream, and
     the consuming stream waits on each batch's event, so the copy of batch
@@ -16,6 +17,7 @@ from __future__ import annotations
 import collections
 import itertools
 import multiprocessing as mp
+import multiprocessing.connection  # noqa: F401 - mp.connection.wait
 import queue as queue_mod
 from typing import Any, Callable, Iterable, Iterator
 
@@ -27,6 +29,8 @@ _REBATCH_CHUNK = 256
 # the consumer looks at its workers this often while it waits, and gives up
 # after this long without a batch
 _POLL_S, _STALL_S = 5.0, 600.0
+# a worker's batch arrays from this size cross in shared memory
+_SHARED_BYTES = 1 << 20
 
 
 def default_collate(samples: list[Any]) -> Any:
@@ -52,6 +56,23 @@ def batched(it: Iterable[Any], batch_size: int, drop_last: bool = False,
         yield collate(buf)
 
 
+def _shared(a):
+    """A worker's batch array as it crosses to the consumer: one of
+    ``_SHARED_BYTES`` or more as a tensor, which the queue moves through
+    shared memory (torch's reductions: the pages, not a pickled copy down
+    the pipe, which some hosts carry at under 100 MB/s); a smaller one as
+    it is."""
+    if isinstance(a, np.ndarray) and a.nbytes >= _SHARED_BYTES:
+        import torch.multiprocessing  # noqa: F401 - registers the reductions
+
+        return torch.from_numpy(np.ascontiguousarray(a))
+    return a
+
+
+def _unshared(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else a
+
+
 def _worker_main(make_iter, worker_id: int, num_workers: int, batch_size: int,
                  drop_last: bool, prebatched: bool, rebatch: bool,
                  q: mp.Queue) -> None:
@@ -70,8 +91,12 @@ def _worker_main(make_iter, worker_id: int, num_workers: int, batch_size: int,
             if not prebatched:
                 it = batched(it, batch_size, drop_last)
             for batch in it:
-                q.put(("batch", batch))
+                q.put(("batch", _tree_map(_shared, batch)))
         q.put(("end", worker_id))
+        # batches cross as file descriptors that this process hands out as
+        # the consumer unpickles them: stay until the consumer ends the
+        # workers (or dies)
+        mp.connection.wait([mp.parent_process().sentinel])
     except KeyboardInterrupt:  # pragma: no cover
         pass
     except Exception as e:  # pragma: no cover - surfaced to the consumer
@@ -152,7 +177,7 @@ class BatchLoader:
                     continue
                 waited = 0.0
                 if kind == "batch":
-                    yield payload
+                    yield _tree_map(_unshared, payload)
                 elif kind == "chunk":
                     buf.extend(payload)
                     while len(buf) >= self.batch_size:

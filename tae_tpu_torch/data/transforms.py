@@ -97,18 +97,29 @@ def random_resized_crop_transform(size: int, scale=(0.2, 1.0),
     ``post``: optional PIL-level hook applied after crop + flip."""
 
     def apply(img, rng: np.random.Generator) -> np.ndarray:
-        from PIL import Image
-
-        top, left, h, w = _sample_rrc_box(rng, img.width, img.height, scale, ratio)
-        img = img.resize((size, size), _resample(interpolation),
-                         box=(left, top, left + w, top + h))
-        if hflip and rng.random() < 0.5:
-            img = img.transpose(Image.Transpose.FLIP_LEFT_RIGHT)
+        box = _sample_rrc_box(rng, img.width, img.height, scale, ratio)
+        img = resized_crop(img, size, box, hflip and rng.random() < 0.5,
+                           interpolation)
         if post is not None:
             img = post(img, rng)
         return normalize(to_array(img), mean, std)
 
     return apply
+
+
+def resized_crop(img, size: int, box: tuple[int, int, int, int], flip: bool,
+                 interpolation: str = "bicubic"):
+    """The train transform's PIL half, its draws given: the crop ``box``
+    (top, left, h, w) resized to ``size`` x ``size`` by one
+    ``resize(box=...)``, then flipped left to right if ``flip``."""
+    from PIL import Image
+
+    top, left, h, w = box
+    img = img.resize((size, size), _resample(interpolation),
+                     box=(left, top, left + w, top + h))
+    if flip:
+        img = img.transpose(Image.Transpose.FLIP_LEFT_RIGHT)
+    return img
 
 
 def resize_shorter(img, size: int, interpolation: str = "bicubic"):

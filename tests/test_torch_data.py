@@ -110,6 +110,62 @@ def test_fake_generators_write_the_jax_bytes(tmp_path):
             tmp_path / "fa")).read_bytes()
 
 
+def _tar_members(path):
+    import tarfile
+
+    with tarfile.open(path) as tf:
+        return [(m.name, tf.extractfile(m).read()) for m in tf.getmembers()]
+
+
+# the learnable corpora (convergence runs, downstream fixtures) at a few
+# small images: (generator, what it writes, its arguments)
+LEARNABLE = [
+    ("make_structured_wds_shard", "tar",
+     dict(num_samples=3, size=24, num_classes=5, seed=3)),
+    ("make_spectral_wds_shard", "tar",
+     dict(num_samples=3, size=24, num_classes=5, seed=4, alpha=1.3)),
+    ("make_classification_wds_shard", "tar",
+     dict(num_samples=4, size=24, num_classes=3, seed=5)),
+    ("make_structured_imagefolder", "folder",
+     dict(num_images=3, size=24, seed=6)),
+    ("make_spectral_imagefolder", "folder",
+     dict(num_images=3, size=24, seed=7, alpha=0.8)),
+    ("make_classification_imagefolder", "folder",
+     dict(num_images=5, size=24, num_classes=3, seed=8)),
+    ("_spectral_image", "array", dict(size=30, alpha=1.2)),
+]
+
+
+@pytest.mark.parametrize("name, kind, kw", LEARNABLE,
+                         ids=[g[0] for g in LEARNABLE])
+def test_learnable_corpora_write_the_jax_bytes(tmp_path, name, kind, kw):
+    """The same seed gives the JAX package's bytes: tar member names and
+    every member's bytes, file names and bytes, arrays exactly."""
+    ours, theirs = getattr(fake, name), getattr(jfake, name)
+    if kind == "array":
+        for seed in (0, 9):
+            np.testing.assert_array_equal(
+                ours(np.random.default_rng(seed), **kw),
+                theirs(np.random.default_rng(seed), **kw))
+        return
+    a, b = tmp_path / "a", tmp_path / "b"
+    if kind == "tar":
+        ours(a / "s.tar", **kw)
+        theirs(b / "s.tar", **kw)
+        got, want = _tar_members(a / "s.tar"), _tar_members(b / "s.tar")
+        assert [n for n, _ in got] == [n for n, _ in want]
+        assert len(got) == 2 * kw["num_samples"]
+        assert got == want
+        return
+    ours(a, **kw)
+    theirs(b, **kw)
+    got = sorted(p.relative_to(a) for p in a.rglob("*.jpg"))
+    assert got == sorted(p.relative_to(b) for p in b.rglob("*.jpg"))
+    assert len(got) == kw["num_images"]
+    for rel in got:
+        assert (a / rel).read_bytes() == (b / rel).read_bytes()
+
+
 def test_expand_shards_matches_jax(shards):
     for spec in (str(shards / "s-{000000..000002}.tar"),
                  str(shards / "s-*.tar"), [str(shards / "s-000001.tar")],
@@ -233,6 +289,26 @@ def folder23(tmp_path_factory):
     root = tmp_path_factory.mktemp("folder23")
     fake.make_fake_imagefolder(root, num_classes=1, per_class=23, size=8)
     return root
+
+
+def test_batch_loader_workers_hand_batches_over_in_shared_memory(tmp_path):
+    """Worker batches of a MiB or more cross as tensors in shared memory
+    and arrive as the numpy arrays the inline loader gives (the workers
+    interleave whole batches)."""
+    fake.make_fake_imagefolder(tmp_path, num_classes=1, per_class=8, size=300)
+    make = imagefolder.ImageFolder(tmp_path, transform=tf.to_array).iter_samples
+    inline = list(loader.BatchLoader(make, 4))
+    spread = list(loader.BatchLoader(make, 4, num_workers=2))
+    assert inline[0][0].nbytes >= loader._SHARED_BYTES
+    assert all(type(x) is np.ndarray and type(t) is np.ndarray
+               for x, t in spread)
+
+    def rows(batches):
+        x = np.concatenate([b[0] for b in batches])
+        return x[np.lexsort(x.reshape(len(x), -1).T)]
+
+    np.testing.assert_array_equal(rows(spread), rows(inline))
+    assert sorted(len(t) for _, t in spread) == [4, 4]
 
 
 @pytest.mark.parametrize("num_workers", [0, 2])

@@ -115,8 +115,8 @@ def test_train_two_ranks_match_one(data, tmp_path, monkeypatch):
         "--val_data_path", str(data / "val"), "--save_prefix", "tr"]
     rank_loader, data_rank = _common.wds_train_loader, sharding.data_rank
 
-    def both_rank_streams(args, batch_size, mesh=None):
-        assert mesh is None
+    def both_rank_streams(args, batch_size, mesh=None, skip_batches=0):
+        assert mesh is None and skip_batches == 0
         streams = [rank_loader(args, batch_size, _RankOfTwo(rank))
                    for rank in range(2)]
         for parts in zip(*streams):

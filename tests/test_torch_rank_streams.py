@@ -2,8 +2,10 @@
 .wds_train_loader``, the loader of the train and in19k drivers) against the
 JAX package's stream of a process (``tae_tpu.cli._common._wds_train_iter``
 with ``process_index`` and ``process_count``): the same shard subset, seeds
-and images, bit for bit; the ranks' shards disjoint; and each rank's loader
-yielding its own rows of the global batch. Both sides decode with PIL.
+and images, bit for bit, per sample and in the prebatched PIL path the
+drivers run (``_wds_train_iter_pil_batched``, its batches laid end to end);
+the ranks' shards disjoint; and each rank's loader yielding its own rows of
+the global batch. Both sides decode with PIL.
 """
 
 import argparse
@@ -38,10 +40,12 @@ def pil(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
 
 
-def _stream(module, monkeypatch, path, rank, ranks, worker, workers):
+def _stream(module, monkeypatch, path, rank, ranks, worker, workers,
+            batched=False):
     """The first TAKE samples of ``module``'s per-sample train stream of
-    process ``rank`` of ``ranks``, worker ``worker`` of ``workers``, and
-    what its shard reader was given."""
+    process ``rank`` of ``ranks``, worker ``worker`` of ``workers`` (with
+    ``batched``, of the port's prebatched PIL stream in batches of TAKE / 2,
+    laid end to end), and what its shard reader was given."""
     seen = {}
 
     class Recording(module.WebDatasetReader):
@@ -51,21 +55,39 @@ def _stream(module, monkeypatch, path, rank, ranks, worker, workers):
                         shard_count=kw["shard_count"], urls=list(self.urls))
 
     monkeypatch.setattr(module, "WebDatasetReader", Recording)
+    if batched:
+        batches = itertools.islice(module._wds_train_iter_pil_batched(
+            path, SIZE, SCALE, RATIO, SEED, rank, ranks, TAKE // 2, False,
+            worker, workers), 2)
+        items = [(x, t) for imgs, cls in batches for x, t in zip(imgs, cls)]
+        return items, seen
     items = list(itertools.islice(module._wds_train_iter(
         path, SIZE, SCALE, RATIO, SEED, rank, ranks, worker, workers), TAKE))
     return items, seen
 
 
-@pytest.mark.parametrize("workers", [1, 2])
-@pytest.mark.parametrize("ranks", [1, 2, 3])
-def test_rank_stream_matches_jax_process_stream(path, monkeypatch, ranks,
-                                                workers):
+_JAX_STREAMS: dict = {}
+
+
+def _jax_stream(monkeypatch, path, rank, ranks, worker, workers):
+    """:func:`_stream` of the JAX package, read once for both forms."""
+    key = (path, rank, ranks, worker, workers)
+    if key not in _JAX_STREAMS:
+        items, seen = _stream(jcommon, monkeypatch, path, rank, ranks, worker,
+                              workers)
+        # a copy: a later _stream's recording reader, a subclass of this
+        # one, writes into this one's dict too
+        _JAX_STREAMS[key] = items, dict(seen)
+    return _JAX_STREAMS[key]
+
+
+def _check_rank_streams(path, monkeypatch, ranks, workers, batched):
     for rank in range(ranks):
         for worker in range(workers):
             got, got_reader = _stream(_common, monkeypatch, path, rank, ranks,
-                                      worker, workers)
-            want, want_reader = _stream(jcommon, monkeypatch, path, rank,
-                                        ranks, worker, workers)
+                                      worker, workers, batched)
+            want, want_reader = _jax_stream(monkeypatch, path, rank, ranks,
+                                            worker, workers)
             assert got_reader == want_reader
             assert got_reader["shard_index"] == rank * workers + worker
             assert got_reader["shard_count"] == ranks * workers
@@ -75,6 +97,22 @@ def test_rank_stream_matches_jax_process_stream(path, monkeypatch, ranks,
                 assert x.dtype == y.dtype == np.float32
                 np.testing.assert_array_equal(x, y)
                 assert t == u
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("ranks", [1, 2, 3])
+def test_rank_stream_matches_jax_process_stream(path, monkeypatch, ranks,
+                                                workers):
+    _check_rank_streams(path, monkeypatch, ranks, workers, batched=False)
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("ranks", [1, 2, 3])
+def test_batched_rank_stream_matches_jax_process_stream(path, monkeypatch,
+                                                        ranks, workers):
+    """The prebatched PIL stream, the one the drivers run, of every rank and
+    worker: the JAX process stream's samples in order."""
+    _check_rank_streams(path, monkeypatch, ranks, workers, batched=True)
 
 
 @pytest.mark.parametrize("ranks", [2, 3])
